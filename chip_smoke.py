@@ -22,9 +22,14 @@ Phases, each of which fails the script (non-zero exit) on any error:
    ``engine="jnp"`` byte for byte, and the kernel's launch count must have
    grown on the kernel routes.  Then each query runs 5 more times and the
    median of each phase is printed;
-4. time the kernel, its plain version and ``torch.bincount`` at the
-   inputs Q2 hands the kernel (CUDA events, L2 flushed between launches,
-   median of 25) and print one ``{"kernels": [...]}`` line.
+4. at the inputs Q2 hands the kernel, hold the kernel against its plain
+   version (exactly equal: the sums are of integers), time the kernel,
+   its plain version and ``torch.bincount`` (CUDA events, L2 flushed
+   between launches, median of 25; launches queued ahead so the events
+   bracket device time only where the function does not synchronise,
+   ``wrapper_ms`` the kernel one launch at a time with the wrapper's
+   host time) and
+   print one ``{"kernels": [...]}`` line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, the script
@@ -46,8 +51,9 @@ N_MAIN = 2 ** 23
 OPS = ("ge", "gt", "le", "lt", "eq", "ne")
 TIMING_REPS = 25
 LATENCY_REPS = 5
-#: where phases 2-4 run; "cuda" on the card (the CPU only for rehearsals)
-DEVICE = "cuda"
+#: card cycles to hold the stream while the host queues the timed
+#: launches (about 25 ms at the H100's clock), so host time is hidden
+QUEUE_CYCLES = 50_000_000
 
 #: device memory rate by card, bytes/s (NVIDIA data sheets)
 MEMORY_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
@@ -70,12 +76,6 @@ Q3 = ("SELECT pickup_location_id, dropoff_location_id, COUNT(*) AS counts "
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
-
-
-def sync(torch) -> None:
-    """Bring a fault during a kernel's run to light where it happened."""
-    if DEVICE == "cuda":
-        torch.cuda.synchronize()
 
 
 def memory_rate(name: str) -> float:
@@ -102,7 +102,7 @@ def build_kernels(ops):
 # --------------------------------------------------------------- phase 2
 def kernel_vs_plain(torch, ops, ref):
     worst = 0.0
-    dev = torch.device(DEVICE)
+    dev = torch.device("cuda")
     for n in (N_MAIN, N_MAIN + 1000):
         gen = torch.Generator(device=dev).manual_seed(SEED)
         for G in (64, 265, 1024):
@@ -116,7 +116,7 @@ def kernel_vs_plain(torch, ops, ref):
                 kw = dict(op=op, threshold=42.0, num_groups=G)
                 # integer values, int32 filter: exact against plain and int64
                 s_k, c_k = ops.fused_filter_agg(keys, vals_i, filt_i, **kw)
-                sync(torch)
+                torch.cuda.synchronize()
                 s_p, c_p = ref.fused_filter_agg_ref(keys, vals_i, filt_i, **kw)
                 keep = ref._mask(filt_i, op, 42.0) & (keys >= 0) & (keys < G)
                 idx = keys[keep].long()
@@ -130,7 +130,7 @@ def kernel_vs_plain(torch, ops, ref):
                 # float values, float32 filter: tolerance + bitwise repeatability
                 s_k, c_k = ops.fused_filter_agg(keys, vals_f, filt_f, **kw)
                 s_k2, _ = ops.fused_filter_agg(keys, vals_f, filt_f, **kw)
-                sync(torch)
+                torch.cuda.synchronize()
                 s_p, c_p = ref.fused_filter_agg_ref(keys, vals_f, filt_f, **kw)
                 f64 = torch.zeros(G, dtype=torch.float64, device=dev).index_add_(
                     0, idx, vals_f[keep].double())
@@ -142,7 +142,7 @@ def kernel_vs_plain(torch, ops, ref):
                       f"repeat launch not bitwise equal n={n} G={G} {op}")
                 check(torch.equal(c_k, c_p), f"float-run counts n={n} G={G} {op}")
                 worst = max(worst, float((s_k - s_p).abs().max()))
-                sync(torch)
+                torch.cuda.synchronize()
     print(f"kernel vs plain: 72 cases pass (2 sizes x 3 group counts x 6 ops x "
           f"int/float); max |kernel - plain| float sum {worst!r}")
     return worst
@@ -215,9 +215,8 @@ def query_path(np, torch, ops):
 
         bus = EventBus()
         sub = bus.subscribe(maxlen=65536)
-        # the default device is cuda; only a rehearsal passes another
-        runner = Runner(catalog, fmt, bus=bus, device=None if DEVICE == "cuda" else DEVICE)
-        check(runner.device.type == DEVICE, f"runner on {runner.device}")
+        runner = Runner(catalog, fmt, bus=bus)  # the default device: cuda
+        check(runner.device.type == "cuda", f"runner on {runner.device}")
 
         def run(name, sql, engine, want_path):
             before = ops.LAUNCHES
@@ -272,7 +271,7 @@ def query_path(np, torch, ops):
     # Q2's kernel inputs: the scan keeps rows with pickup_at >= April 1 (in
     # storage order); the OR residual feeds the kernel as a float mask
     m = data["pickup_at"] >= APRIL_1
-    dev = torch.device(DEVICE)
+    dev = torch.device("cuda")
     keys = torch.tensor(data["pickup_location_id"][m], device=dev)
     vals = torch.tensor(data["passenger_count"][m], device=dev)
     filt = torch.tensor(((data["passenger_count"][m] > 35)
@@ -281,21 +280,36 @@ def query_path(np, torch, ops):
 
 
 # --------------------------------------------------------------- phase 4
-def time_ms(torch, fn, flush) -> float:
+def time_ms(torch, fn, flush, queued=True):
+    """Median time of ``fn`` over TIMING_REPS launches, each between its
+    own pair of CUDA events, with the 50 MB L2 flushed before each.
+
+    ``queued``: a sleep kernel holds the stream while the host queues every
+    launch, so each pair of events brackets device work only.  Returns
+    ``(ms, ahead)``; ``ahead`` says the host had queued everything before
+    the card left the sleep.  A function that synchronises inside (the
+    plain version's boolean-mask compaction) cannot get ahead, so its time
+    includes the host's share.  Without ``queued`` each launch waits for
+    the last, so the time includes the wrapper's own host time."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(TIMING_REPS):
-        flush.zero_()  # evict the 50 MB L2 outside the timed window
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(TIMING_REPS)]
+    gate = torch.cuda.Event()
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
+    gate.record()
+    for start, end in pairs:
+        flush.zero_()
         start.record()
         fn()
         end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        if not queued:
+            end.synchronize()
+    ahead = queued and not gate.query()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs), ahead
 
 
 def measure(torch, ops, ref, launches, inputs, card):
@@ -306,14 +320,22 @@ def measure(torch, ops, ref, launches, inputs, card):
     s_k, c_k = ops.fused_filter_agg(keys, vals, filt, **kw)
     s_p, c_p = ref.fused_filter_agg_ref(keys, vals, filt, **kw)
     torch.cuda.synchronize()
+    # integer values with group sums below 2^24: the f32 sums are exact
+    check(torch.equal(s_k, s_p) and torch.equal(c_k, c_p),
+          f"kernel vs plain at Q2's inputs (n={n}, G={G})")
     max_err = max(float((s_k - s_p).abs().max()), float((c_k - c_p).abs().max()))
     keep = filt >= 0.5
     mkeys, mvals = keys[keep], vals[keep].to(torch.float32)
     before = ops.LAUNCHES
-    kernel_ms = time_ms(torch, lambda: ops.fused_filter_agg(keys, vals, filt, **kw), flush)
-    plain_ms = time_ms(torch, lambda: ref.fused_filter_agg_ref(keys, vals, filt, **kw), flush)
-    library_ms = time_ms(
+    kernel = lambda: ops.fused_filter_agg(keys, vals, filt, **kw)  # noqa: E731
+    kernel_ms, ahead = time_ms(torch, kernel, flush)
+    check(ahead, "the host fell behind the card while queuing the kernel's launches")
+    wrapper_ms, _ = time_ms(torch, kernel, flush, queued=False)
+    plain_ms, _ = time_ms(torch, lambda: ref.fused_filter_agg_ref(keys, vals, filt, **kw), flush)
+    library_ms, library_ahead = time_ms(
         torch, lambda: torch.bincount(mkeys, weights=mvals, minlength=G), flush)
+    print(f"timing: kernel device-only {ahead}, bincount device-only {library_ahead}, "
+          f"plain device-only False (it synchronises)")
     ops.LAUNCHES = before  # timing launches are not main-path launches
     nbytes = n * (4 + 4 + 4) + 2 * G * 4
     bytes_ms = nbytes / memory_rate(card) * 1e3
@@ -325,13 +347,12 @@ def measure(torch, ops, ref, launches, inputs, card):
         "replaces": "src/repro/kernels/fused_filter_agg/kernel.py:81",
         "launches": launches,
         "max_abs_err": max_err,
-        "max_err": max_err,
         "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
+        "wrapper_ms": wrapper_ms,
         "n": n,
         "num_groups": G,
     }

@@ -55,9 +55,8 @@ FUSED_AGGS = frozenset({"count", "sum", "mean"})
 #: counts must stay below this for kernel/jnp byte-identity
 EXACT_BOUND = 2 ** 24
 
-#: default cap on the kernel's dense group axis: one CUDA block keeps its
-#: partial sums and counts for every group in shared memory, 2·G·4 B =
-#: 8 KB at G = 1024
+#: default cap on the kernel's dense group axis: one thread of a CUDA
+#: block owns each group, so G is capped at a block's 1024 threads
 DEFAULT_MAX_GROUPS = 1024
 
 _PRED_TO_KERNEL_OP = {"<": "lt", "<=": "le", ">": "gt", ">=": "ge", "==": "eq", "!=": "ne"}

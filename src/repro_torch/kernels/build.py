@@ -2,7 +2,7 @@
 
 Each kernel's ``csrc/*.cu`` has a plain C interface, so ``nvcc`` compiles
 it in seconds (no PyTorch headers) into ``build/kernels/`` at the root of
-the checkout (``REPRO_TORCH_BUILD_DIR`` overrides that).  The library's
+the checkout.  The library's
 name carries a hash of the source and the flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is.  The wrapper binds it
 with ``ctypes``.  Nothing here runs when a module is imported: the build
@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 #: ptxas's report (registers, shared memory, spills) and the build time
 #: of each library built in this process, by source stem
@@ -35,11 +35,6 @@ BUILD_SECONDS: Dict[str, float] = {}
 
 _lock = threading.Lock()
 _loaded: Dict[Path, ctypes.CDLL] = {}
-
-
-def build_dir() -> Path:
-    override = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    return Path(override) if override else _REPO_ROOT / "build" / "kernels"
 
 
 def nvcc() -> str:
@@ -65,7 +60,7 @@ def load_library(source: Path) -> ctypes.CDLL:
         digest = hashlib.sha256(
             source.read_bytes() + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
-        out = build_dir() / f"{source.stem}-{digest}.so"
+        out = BUILD_DIR / f"{source.stem}-{digest}.so"
         if not out.exists():
             out.parent.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
