@@ -15,6 +15,16 @@ back to the CPU.  Slice 1 covers the interactive query path::
     from repro_torch.core import Runner
     runner = Runner(catalog, fmt)             # device defaults to cuda
     runner.query("SELECT ... GROUP BY ...")   # dict of numpy arrays
+
+Slice 2 serves the dense attention LMs (Yi-6B, H2O-Danube3-4B, Qwen3-32B,
+Granite-34B) through the flash and decode attention kernels::
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+    model = LM(get_config("yi-6b")).init(torch.Generator("cuda").manual_seed(0))
+    engine = ServeEngine(model, None, ServeConfig(max_batch=4, max_len=4096))
+    engine.generate([Request(prompt=tokens, max_new_tokens=16)])
 """
 
 __version__ = "0.3.0"

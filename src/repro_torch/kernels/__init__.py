@@ -17,4 +17,14 @@ Each kernel is a ``<name>/`` subpackage with:
    replaces ``repro/kernels/fused_filter_agg/kernel.py:
    fused_filter_agg_kernel``.  ``engine/route.py`` decides when a query
    takes it (see its module docstring).
+2. ``flash_attention`` — causal, non-causal or sliding-window GQA
+   attention over a whole sequence with an online softmax in float32.
+   It replaces ``repro/kernels/flash_attention/kernel.py:
+   flash_attention_kernel``; ``models/attention.py`` calls it from
+   ``attend_train`` and ``prefill`` when ``use_flash_kernel`` is set.
+3. ``decode_attention`` — one query token per sequence over a KV cache,
+   ragged lengths, GQA.  It replaces ``repro/kernels/decode_attention/
+   kernel.py:decode_attention_kernel``; ``models/attention.py`` calls it
+   from ``decode_step`` when ``use_flash_kernel`` is set, so every step
+   of ``serve.ServeEngine`` runs it once a layer.
 """

@@ -2,9 +2,9 @@
 
 Each kernel's ``csrc/*.cu`` has a plain C interface, so ``nvcc`` compiles
 it in seconds (no PyTorch headers) into ``build/kernels/`` at the root of
-the checkout.  The library's
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  The wrapper binds it
+the checkout; two sources build in parallel from two threads.  The
+library's name carries a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.  The wrapper binds it
 with ``ctypes``.  Nothing here runs when a module is imported: the build
 happens at a kernel's first launch, or when a caller asks for it.
 """
@@ -33,7 +33,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 BUILD_LOG: Dict[str, str] = {}
 BUILD_SECONDS: Dict[str, float] = {}
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: Dict[Path, threading.Lock] = {}  # one per source: builds run in parallel
 _loaded: Dict[Path, ctypes.CDLL] = {}
 
 
@@ -54,6 +55,8 @@ def load_library(source: Path) -> ctypes.CDLL:
     """Compile ``source`` (once per content) and load it."""
     source = Path(source).resolve()
     with _lock:
+        lock = _locks.setdefault(source, threading.Lock())
+    with lock:
         lib = _loaded.get(source)
         if lib is not None:
             return lib

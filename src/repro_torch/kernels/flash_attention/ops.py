@@ -1,0 +1,110 @@
+"""Public wrapper: checks, allocation and launch around the CUDA kernel."""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.build import load_library
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
+
+#: the JAX wrapper's block sizes; they fix the ``S % block`` contract only,
+#: since the CUDA kernel tiles by its own 64 x 32 (the result does not
+#: depend on the block: masked keys contribute exactly 0)
+DEFAULT_BLOCK_Q = 512
+DEFAULT_BLOCK_K = 512
+
+#: head widths the kernel is instantiated for
+HEAD_DIMS = (32, 64, 128)
+
+#: kernel launches made through this wrapper (CUDA tensors only)
+LAUNCHES = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
+
+
+def load() -> ctypes.CDLL:
+    """Build (at first use) and bind the kernel library."""
+    global _lib
+    if _lib is None:
+        lib = load_library(SOURCE)
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_launch.argtypes = [
+            i32, i32, i32, vp, vp, vp, vp, i32, i32, i32, i32,
+            ctypes.c_float, i32, vp,
+        ]
+        lib.flash_attention_launch.restype = i32
+        lib.flash_attention_error_string.argtypes = [i32]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check_cuda(q, k, v, window) -> None:
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be positive, got {window}")
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,  # (B, Hkv, S, D)
+    v: torch.Tensor,  # (B, Hkv, S, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    block_q: int = DEFAULT_BLOCK_Q,
+    block_k: int = DEFAULT_BLOCK_K,
+) -> torch.Tensor:
+    """Causal, non-causal or sliding-window GQA attention; (B, H, S, D)
+    in q's dtype.  CUDA tensors launch the kernel on the current stream
+    without synchronising; CPU tensors take the plain version."""
+    global LAUNCHES
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    if h % hkv:
+        raise AssertionError(f"GQA needs H({h}) % Hkv({hkv}) == 0")
+    bq, bk = min(block_q, s), min(block_k, s)
+    if s % bq or s % bk:
+        raise AssertionError((s, bq, bk))
+    scale = scale if scale is not None else 1.0 / (d**0.5)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_cuda(q, k, v, window)
+    lib = load()
+    qf = q.reshape(b * h, s, d).contiguous()
+    kf = k.reshape(b * hkv, s, d).contiguous()
+    vf = v.reshape(b * hkv, s, d).contiguous()
+    if any(t.data_ptr() % 16 for t in (qf, kf, vf)):
+        raise ValueError("q, k and v must start on a 16-byte boundary")
+    out = torch.empty_like(qf)
+    dev = q.device
+    code = lib.flash_attention_launch(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        _DTYPES[q.dtype], d, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+        out.data_ptr(), b * h, s, h // hkv, int(causal), float(scale),
+        window or 0, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if code != 0:
+        msg = lib.flash_attention_error_string(code).decode()
+        raise RuntimeError(f"flash_attention launch failed: {msg} ({code})")
+    LAUNCHES += 1
+    return out.reshape(b, h, s, d)

@@ -1,0 +1,144 @@
+"""Shared model components: norms, projections, RoPE, MLPs.
+
+Conventions (as the JAX package's ``models/common.py``):
+
+* params are nested dicts of tensors (or the ``ModuleDict`` /
+  ``ParameterDict`` tree :func:`as_module` makes of them, which indexes
+  the same way);
+* every ``init_*`` draws from a ``torch.Generator`` (one stream, drawn
+  in order, where JAX splits keys) on the device the tensors go to; with
+  ``generator=None`` it makes the same shapes on the ``meta`` device (no
+  memory), which :class:`repro_torch.models.lm.LM` uses to build its
+  structure before the weights arrive;
+* computation dtype and parameter dtype are separate (bf16 compute,
+  float32 params by default).
+
+``linear`` casts both operands to the compute dtype before the product,
+as the JAX package does; a weight already held in that dtype (the LM
+stores its matmul weights so, see ``lm.py``) costs no cast.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Params = Dict[str, Any]
+
+
+# ----------------------------------------------------------------- inits
+def device_of(generator: Optional[torch.Generator]) -> torch.device:
+    """Where an init puts its tensors: the generator's device, or ``meta``."""
+    return torch.device("meta") if generator is None else generator.device
+
+
+def _normal(generator: Optional[torch.Generator], shape, scale: float, dtype) -> torch.Tensor:
+    if generator is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    x = torch.randn(shape, generator=generator, device=generator.device)
+    return (x * scale).to(dtype)
+
+
+def init_linear(
+    generator, d_in: int, d_out: int, *, dtype=torch.float32, scale: Optional[float] = None
+) -> Params:
+    scale = scale if scale is not None else d_in**-0.5
+    return {"w": _normal(generator, (d_in, d_out), scale, dtype)}
+
+
+def linear(p: Params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    return x.to(compute_dtype) @ p["w"].to(compute_dtype)
+
+
+def init_embedding(generator, vocab: int, d: int, *, dtype=torch.float32) -> Params:
+    # d**-0.5 keeps the TIED readout (h @ table.T) at unit-scale logits
+    return {"table": _normal(generator, (vocab, d), d**-0.5, dtype)}
+
+
+def embed(p: Params, ids: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    return p["table"][ids].to(compute_dtype)
+
+
+def init_rmsnorm(d: int, *, dtype=torch.float32, device="meta") -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
+    return out.to(dtype)
+
+
+# ------------------------------------------------------------------- RoPE
+def rope_frequencies(d_head: int, *, theta: float = 10000.0, device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head
+    return 1.0 / (theta**exps)
+
+
+def apply_rope(
+    x: torch.Tensor,          # (B, H, S, D)
+    positions: torch.Tensor,  # (S,) shared, or (B, S) per-sequence (decode)
+    *,
+    theta: float = 10000.0,
+) -> torch.Tensor:
+    """Rotates the first half of the head dim against the second half
+    (``x[..., :D/2]`` with ``x[..., D/2:]``), as the JAX code does."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta=theta, device=x.device)  # (D/2,)
+    angles = positions[..., :, None].to(torch.float32) * freqs  # (..., S, D/2)
+    if angles.dim() == 3:  # (B, S, D/2) → broadcast over the head axis
+        angles = angles[:, None]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1 = x[..., : d // 2].to(torch.float32)
+    x2 = x[..., d // 2:].to(torch.float32)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------- MLPs
+def init_swiglu(generator, d: int, d_ff: int, *, dtype=torch.float32) -> Params:
+    return {
+        "gate": init_linear(generator, d, d_ff, dtype=dtype),
+        "up": init_linear(generator, d, d_ff, dtype=dtype),
+        "down": init_linear(generator, d_ff, d, dtype=dtype, scale=d_ff**-0.5),
+    }
+
+
+def swiglu(p: Params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    g = linear(p["gate"], x, compute_dtype=compute_dtype)
+    u = linear(p["up"], x, compute_dtype=compute_dtype)
+    return linear(p["down"], F.silu(g) * u, compute_dtype=compute_dtype)
+
+
+def init_geglu(generator, d: int, d_ff: int, *, dtype=torch.float32) -> Params:
+    return init_swiglu(generator, d, d_ff, dtype=dtype)
+
+
+def geglu(p: Params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    g = linear(p["gate"], x, compute_dtype=compute_dtype)
+    u = linear(p["up"], x, compute_dtype=compute_dtype)
+    # jax.nn.gelu defaults to the tanh approximation
+    return linear(p["down"], F.gelu(g, approximate="tanh") * u, compute_dtype=compute_dtype)
+
+
+# ------------------------------------------------------------------ readout
+def logits_head(embedding: Params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Tied-embedding readout (transpose of the input table)."""
+    table = embedding["table"].to(compute_dtype)
+    return x.to(compute_dtype) @ table.T
+
+
+# ------------------------------------------------------------------ modules
+def as_module(tree: Params) -> nn.Module:
+    """A nested dict of tensors as ``ModuleDict``s of ``ParameterDict``s,
+    so ``p["wq"]["w"]`` indexes it as it indexes the dict.  Parameters
+    take no gradient: the port serves, it does not train yet."""
+    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        return nn.ParameterDict(
+            {k: nn.Parameter(v, requires_grad=False) for k, v in tree.items()}
+        )
+    return nn.ModuleDict({k: as_module(v) for k, v in tree.items()})

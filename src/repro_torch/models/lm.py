@@ -1,0 +1,285 @@
+"""The decoder LM, for the dense attention-only architectures.
+
+The JAX package's ``models/lm.py`` assembles all ten assigned
+architectures as *segments*, each ``count`` repetitions of a *unit* (a
+tuple of block kinds), and scans over stacked per-layer params.  The
+port keeps ``LMConfig`` whole and the segment layout at its public face,
+and serves block kinds ``attn`` (attention + SwiGLU) and ``attn_geglu``
+(attention + GeGLU); the other kinds (MoE, MLA, xLSTM, RG-LRU) come with
+later slices of the port (``ROADMAP.md`` §1, the ML stack).
+
+``LM`` is an ``nn.Module``: a ``ModuleList`` of blocks, one per layer in
+order, looped over where JAX scans.  Its parameters keep the JAX tree's
+names (``blocks.3.attn.wq.w`` is ``seg0/b0/attn/wq/w`` of layer 3).
+Weights that every use casts to ``compute_dtype`` first (the ``w`` of
+every linear and the embedding ``table``) are stored already cast, after
+rounding through ``param_dtype``: the values are the ones JAX computes
+with, and Yi-6B's matmul weights take 12 GB instead of 24.  Norm scales
+stay in ``param_dtype``.
+
+The decode state keeps the JAX layout: ``state["seg0"]["b0"]["k"]`` is
+(layers, batch, kv heads, max_len, d_head).  ``decode_step`` updates it
+in place and returns it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.common import (
+    Params,
+    as_module,
+    device_of,
+    embed,
+    geglu,
+    init_embedding,
+    init_geglu,
+    init_linear,
+    init_rmsnorm,
+    init_swiglu,
+    linear,
+    logits_head,
+    rmsnorm,
+    swiglu,
+)
+
+#: block kinds this port serves
+BLOCK_KINDS = ("attn", "attn_geglu")
+
+
+class ModelFamily(str, enum.Enum):
+    DENSE = "dense"
+    MOE = "moe"
+    SSM = "ssm"
+    HYBRID = "hybrid"
+    VLM = "vlm"
+    AUDIO = "audio"
+
+
+Segments = Tuple[Tuple[Tuple[str, ...], int], ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    family: ModelFamily
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    segments: Segments
+    d_head: Optional[int] = None  # default d_model // n_heads
+    # attention options
+    qk_norm: bool = False
+    window: Optional[int] = None
+    rope_theta: float = 10000.0
+    attn_logit_soft_cap: Optional[float] = None
+    # MoE options
+    num_experts: int = 0
+    top_k: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0
+    dense_d_ff: int = 0  # FFN width of dense layers in hybrid-MoE stacks
+    # extras
+    mtp: bool = False  # DeepSeek multi-token prediction head
+    mtp_loss_weight: float = 0.1
+    n_codebooks: int = 1  # musicgen: parallel EnCodec codebooks
+    num_patches: int = 0  # vlm: prepended image patch embeddings
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-6
+    # execution
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.bfloat16
+    use_flash_kernel: bool = False
+    remat: str = "none"  # "none" | "full" | "dots"
+    # serving
+    max_decode_len: int = 4096
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    def attention_config(self, *, window_override=-1) -> attn_mod.AttentionConfig:
+        return attn_mod.AttentionConfig(
+            d_model=self.d_model,
+            n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads,
+            d_head=self.head_dim,
+            rope_theta=self.rope_theta,
+            qk_norm=self.qk_norm,
+            window=self.window if window_override == -1 else window_override,
+            use_flash_kernel=self.use_flash_kernel,
+            compute_dtype=self.compute_dtype,
+        )
+
+
+def layer_plan(cfg: LMConfig) -> List[Tuple[int, int, int, str]]:
+    """(segment, position in unit, repetition, kind) of every layer, in
+    order: layer ``n`` reads ``seg{segment}/b{position}[repetition]`` of
+    the JAX tree and of the decode state."""
+    return [
+        (si, i, r, kind)
+        for si, (unit, count) in enumerate(cfg.segments)
+        for r in range(count)
+        for i, kind in enumerate(unit)
+    ]
+
+
+class LM(nn.Module):
+    """(init, forward, init_decode_state, decode_step) over an LMConfig.
+
+    ``LM(cfg)`` holds the structure on the ``meta`` device; ``init``
+    draws the weights, or ``load_state_dict(..., assign=True)`` (and
+    :func:`repro_torch.models.weights.params_from_numpy`) brings them.
+    """
+
+    def __init__(self, cfg: LMConfig):
+        super().__init__()
+        total = sum(len(unit) * count for unit, count in cfg.segments)
+        if total != cfg.n_layers:
+            raise ValueError(
+                f"{cfg.name}: segments sum to {total} layers, expected {cfg.n_layers}"
+            )
+        unported = sorted({k for *_, k in layer_plan(cfg)} - set(BLOCK_KINDS))
+        if unported or cfg.n_codebooks > 1 or cfg.num_patches or cfg.mtp:
+            raise NotImplementedError(
+                f"{cfg.name}: the port serves dense attention blocks {BLOCK_KINDS} "
+                f"with one codebook, no patches and no MTP head (found kinds "
+                f"{unported}); they come with the slice 'the rest of the ML "
+                f"stack', ROADMAP.md §1"
+            )
+        self.cfg = cfg
+        self._adopt(self._param_tree(None))
+
+    # -------------------------------------------------------------- params
+    def _param_tree(self, generator: Optional[torch.Generator]) -> Params:
+        """The JAX tree's shapes and scales, one dict per layer, drawn from
+        ``generator`` (or on the meta device when it is None)."""
+        cfg = self.cfg
+        dt = cfg.param_dtype
+        dev = device_of(generator)
+        tree: Params = {
+            "embed": init_embedding(generator, cfg.vocab, cfg.d_model, dtype=dt),
+            "blocks": [],
+        }
+        for *_, kind in layer_plan(cfg):
+            mlp = init_swiglu if kind == "attn" else init_geglu
+            tree["blocks"].append({
+                "norm1": init_rmsnorm(cfg.d_model, dtype=dt, device=dev),
+                "attn": attn_mod.init_attention(generator, cfg.attention_config(), dtype=dt),
+                "norm2": init_rmsnorm(cfg.d_model, dtype=dt, device=dev),
+                "mlp": mlp(generator, cfg.d_model, cfg.d_ff, dtype=dt),
+            })
+        tree["final_norm"] = init_rmsnorm(cfg.d_model, dtype=dt, device=dev)
+        if not cfg.tie_embeddings:
+            tree["lm_head"] = init_linear(generator, cfg.d_model, cfg.vocab, dtype=dt)
+        return tree
+
+    def _adopt(self, tree: Params) -> None:
+        """Take ``tree`` (the port's layout) as the module's parameters,
+        with matmul weights and the embedding table cast to compute_dtype."""
+        cd = self.cfg.compute_dtype
+
+        def cast(node):
+            return {
+                k: cast(v) if isinstance(v, dict)
+                else (v.to(cd) if k in ("w", "table") else v)
+                for k, v in node.items()
+            }
+
+        self.embed = as_module(cast(tree["embed"]))
+        self.blocks = nn.ModuleList(as_module(cast(b)) for b in tree["blocks"])
+        self.final_norm = as_module(cast(tree["final_norm"]))
+        if "lm_head" in tree:
+            self.lm_head = as_module(cast(tree["lm_head"]))
+
+    def init(self, generator: torch.Generator) -> "LM":
+        """Draw every weight from ``generator``, on its device.  Same
+        shapes and scales as the JAX ``LM.init``; not the same numbers
+        (torch's and JAX's generators differ)."""
+        self._adopt(self._param_tree(generator))
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        return self.final_norm["scale"].device
+
+    # ----------------------------------------------------------- pieces
+    def _embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        return embed(self.embed, tokens, compute_dtype=self.cfg.compute_dtype)
+
+    def _read_out(self, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            return logits_head(self.embed, h, compute_dtype=cfg.compute_dtype)
+        return linear(self.lm_head, h, compute_dtype=cfg.compute_dtype)
+
+    def _mlp(self, kind: str, p, y: torch.Tensor) -> torch.Tensor:
+        fn = swiglu if kind == "attn" else geglu
+        return fn(p["mlp"], y, compute_dtype=self.cfg.compute_dtype)
+
+    # ---------------------------------------------------------- forward
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Full-sequence logits (B, S, V) for tokens (B, S)."""
+        cfg = self.cfg
+        acfg = cfg.attention_config()
+        h = self._embed_tokens(tokens)
+        positions = torch.arange(h.shape[1], device=h.device)
+        for (*_, kind), p in zip(layer_plan(cfg), self.blocks):
+            x = rmsnorm(p["norm1"], h, eps=cfg.norm_eps)
+            h = h + attn_mod.attend_train(p["attn"], acfg, x, positions)
+            y = rmsnorm(p["norm2"], h, eps=cfg.norm_eps)
+            h = h + self._mlp(kind, p, y)
+        h = rmsnorm(self.final_norm, h, eps=cfg.norm_eps)
+        return self._read_out(h)
+
+    # ---------------------------------------------------------- serving
+    def init_decode_state(self, batch: int, max_len: Optional[int] = None) -> Params:
+        """Zeroed KV caches on the model's device, in compute_dtype:
+        ``state[f"seg{i}"][f"b{j}"]["k"|"v"]`` of shape
+        (count, batch, n_kv_heads, max_len, d_head)."""
+        cfg = self.cfg
+        max_len = max_len or cfg.max_decode_len
+        shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+        state: Params = {}
+        for si, (unit, count) in enumerate(cfg.segments):
+            state[f"seg{si}"] = {
+                f"b{i}": {
+                    name: torch.zeros((count, *shape), dtype=cfg.compute_dtype,
+                                      device=self.device)
+                    for name in ("k", "v")
+                }
+                for i in range(len(unit))
+            }
+        return state
+
+    @torch.no_grad()
+    def decode_step(
+        self,
+        state: Params,
+        tokens: torch.Tensor,   # (B, 1)
+        lengths: torch.Tensor,  # (B,)
+    ) -> Tuple[torch.Tensor, Params]:
+        """One decoding step. Returns (logits (B, 1, V), state), the state
+        updated in place."""
+        cfg = self.cfg
+        acfg = cfg.attention_config()
+        h = self._embed_tokens(tokens)
+        for (si, i, r, kind), p in zip(layer_plan(cfg), self.blocks):
+            stacked = state[f"seg{si}"][f"b{i}"]
+            cache = {"k": stacked["k"][r], "v": stacked["v"][r]}
+            x = rmsnorm(p["norm1"], h, eps=cfg.norm_eps)
+            out, _ = attn_mod.decode_step(p["attn"], acfg, x, cache, lengths)
+            h = h + out
+            y = rmsnorm(p["norm2"], h, eps=cfg.norm_eps)
+            h = h + self._mlp(kind, p, y)
+        h = rmsnorm(self.final_norm, h, eps=cfg.norm_eps)
+        return self._read_out(h), state

@@ -108,6 +108,26 @@ def test_columnar_default_device_raises_without_cuda(no_cuda):
     assert Columnar.from_numpy(cols, device="cpu").device.type == "cpu"
 
 
+def test_serve_engine_default_device_raises_without_cuda(no_cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import LM
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    model = LM(get_smoke_config("yi-6b")).init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(model, None, ServeConfig(max_batch=1, max_len=8))
+    engine = ServeEngine(model, None, ServeConfig(max_batch=1, max_len=8), device="cpu")
+    assert engine.device.type == "cpu"
+
+
+def test_params_from_numpy_default_device_raises_without_cuda(no_cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import params_from_numpy
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy({}, get_smoke_config("yi-6b"))
+
+
 def test_chip_smoke_refuses_to_run_without_cuda(no_cuda):
     proc = subprocess.run(
         [sys.executable, str(ROOT / "chip_smoke.py")],
