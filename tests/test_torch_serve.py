@@ -10,6 +10,9 @@ plain versions (CPU tensors) against the JAX Pallas kernels in interpret
 mode.
 """
 import dataclasses
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -102,3 +105,18 @@ def test_engine_takes_params_as_a_state_dict(served):
     r = Request(prompt=np.array([2, 3], np.int32), max_new_tokens=3)
     engine.generate([r])
     assert r.generated == run_both(served, [[2, 3]], max_batch=1, max_len=16, new=3)[0][0]
+
+
+def test_serve_launcher_runs_on_the_cpu():
+    """``python -m repro_torch.launch.serve --smoke --device cpu``."""
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "yi-6b", "--smoke",
+         "--device", "cpu", "--prompts", "2", "--new-tokens", "3"],
+        capture_output=True, text=True, cwd=root, timeout=300,
+        env={"PYTHONPATH": str(root / "src"), "PATH": "/usr/bin:/bin"},
+    )
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert [line.split(":")[0] for line in lines] == ["req0", "req1"]
+    assert all(len(line.split("->")[1].strip().strip("[]").split(",")) == 3 for line in lines)
