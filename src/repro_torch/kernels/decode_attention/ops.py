@@ -75,12 +75,9 @@ def decode_attention(
 ) -> torch.Tensor:
     """One query token per sequence over its first ``lengths[b]`` cache
     rows; (B, H, D) in q's dtype.  CUDA tensors launch the kernel on the
-    current stream without synchronising (float32 output, then cast);
-    CPU tensors take the plain version.
-
-    The Pallas wrapper broadcasts ``lengths`` to every q head; here one
-    block serves all q heads of a (sequence, kv head), which share
-    ``lengths[b]``, so the kernel reads the (B,) lengths as they are."""
+    current stream without synchronising, with ``lengths`` broadcast to
+    every q head as the Pallas wrapper does and a float32 output cast to
+    q's dtype; CPU tensors take the plain version."""
     global LAUNCHES
     b, h, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
@@ -102,7 +99,7 @@ def decode_attention(
                          f"{lib.decode_attention_max_group(d)} at head dim {d}")
     qf = q.contiguous()
     kf, vf = k_cache.contiguous(), v_cache.contiguous()
-    lens = lengths.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32)[:, None].expand(b, h).reshape(b * h)
     if any(t.data_ptr() % 16 for t in (qf, kf, vf)):
         raise ValueError("q and the caches must start on a 16-byte boundary")
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
