@@ -4,10 +4,10 @@
 // Replaces repro/kernels/decode_attention/kernel.py:decode_attention_kernel,
 // the Pallas TPU kernel.  q is (B*H, D), the caches are (B*Hkv, S, D), all
 // float32 or all bfloat16; lengths is (B*H,) int32, one per q head as the
-// Pallas wrapper broadcasts it.  For q head i: scores = (q * scale) . k_t
-// in float32 for every cache row t, rows at or past lengths[i] set to
-// -1e30, a float32 online softmax, and out = acc / max(l, 1e-30) written
-// as float32 (the wrapper casts to q's dtype).
+// Pallas wrapper broadcasts it from one per sequence.  For q head i:
+// scores = (q * scale) . k_t in float32 for every cache row t, rows at or
+// past lengths[i] set to -1e30, a float32 online softmax, and out =
+// acc / max(l, 1e-30) written as float32 (the wrapper casts to q's dtype).
 //
 // What bounds it: memory.  Every valid cache row is read once, D elements
 // of k and D of v: at B=4, Hkv=4, S=4096, D=128 in bf16 that is 16.8 MB a
@@ -24,11 +24,12 @@
 // 64-row tile of k and v is staged in shared memory as float32 with 16-byte
 // loads; then a thread per (q head, row) takes the score, a warp per q head
 // does the softmax update, and a thread per (q head, column) updates the
-// accumulator, in float32.  The loop stops at the group's longest length:
-// a masked row adds exp(-1e30 - m) = 0 once a valid row has set m, and row
-// 0 is valid.  Length 0 is the exception the port keeps: every score is
-// then -1e30, every p is 1, and the TPU kernel returns the mean of all S
-// cache rows, so a group with a length-0 head runs over all S.  With B * Hkv blocks (16 at B=4, Hkv=4) most of
+// accumulator, in float32.  The group's q heads belong to one sequence, so
+// they share its length, read from the group's first head.  The loop stops
+// at that length: a masked row adds exp(-1e30 - m) = 0 once a valid row has
+// set m, and row 0 is valid.  Length 0 is the exception the port keeps:
+// every score is then -1e30, every p is 1, and the TPU kernel returns the
+// mean of all S cache rows, so the loop runs over all S.  With B * Hkv blocks (16 at B=4, Hkv=4) most of
 // the card's 132 SMs sit idle; splitting S across blocks with a second
 // combine pass is the later work that closes the gap to the bound.
 
@@ -81,7 +82,7 @@ template <int D>
 size_t smem_bytes(int group) {
   return sizeof(float) *
          ((size_t)kTS * (D + 1) + (size_t)kTS * D + (size_t)group * D * 2 +
-          (size_t)group * kTS + 4 * (size_t)group);
+          (size_t)group * kTS + 3 * (size_t)group);
 }
 
 template <typename T, int D>
@@ -100,15 +101,10 @@ __global__ void __launch_bounds__(kThreads)
   float* sM = sP + group * kTS;    // group: running max
   float* sL = sM + group;          // group: running denominator
   float* sC = sL + group;          // group: this tile's correction
-  int* sLen = reinterpret_cast<int*>(sC + group);  // group: each head's length
 
   const int bk = blockIdx.x;  // b * n_kv_heads + kv head
-  // rows to walk: the longest of the group's lengths, all S for length 0
-  int n = 0;
-  for (int h = 0; h < group; ++h) {
-    const int len = lengths[bk * group + h];
-    n = max(n, len > 0 ? min(len, seq_len) : seq_len);
-  }
+  const int len = lengths[bk * group];  // the sequence's, for every q head
+  const int n = len > 0 ? min(len, seq_len) : seq_len;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const T* kp = k_cache + (size_t)bk * seq_len * D;
   const T* vp = v_cache + (size_t)bk * seq_len * D;
@@ -119,7 +115,6 @@ __global__ void __launch_bounds__(kThreads)
   for (int h = threadIdx.x; h < group; h += blockDim.x) {
     sM[h] = kNegInf;
     sL[h] = 0.0f;
-    sLen[h] = lengths[bk * group + h];
   }
 
   for (int t0 = 0; t0 < n; t0 += kTS) {
@@ -130,7 +125,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     // scores: rows past the loop bound are -inf and add nothing; rows past
-    // the head's length are -1e30, as the TPU kernel masks
+    // the length (only when it is 0) are -1e30, as the TPU kernel masks
     for (int i = threadIdx.x; i < group * kTS; i += blockDim.x) {
       const int h = i / kTS, t = i % kTS;
       float s = -INFINITY;
@@ -140,7 +135,7 @@ __global__ void __launch_bounds__(kThreads)
         s = 0.0f;
 #pragma unroll 8
         for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-        if (t0 + t >= sLen[h]) s = kNegInf;
+        if (t0 + t >= len) s = kNegInf;
       }
       sP[i] = s;
     }

@@ -99,7 +99,8 @@ def decode_attention(
                          f"{lib.decode_attention_max_group(d)} at head dim {d}")
     qf = q.contiguous()
     kf, vf = k_cache.contiguous(), v_cache.contiguous()
-    lens = lengths.to(torch.int32).repeat_interleave(h)  # (B*H,), a fresh copy
+    # (B*H,): one per q head, as the Pallas wrapper passes them
+    lens = lengths.to(torch.int32)[:, None].expand(b, h).contiguous().view(b * h)
     if any(t.data_ptr() % 16 for t in (qf, kf, vf)):
         raise ValueError("q and the caches must start on a 16-byte boundary")
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
