@@ -18,7 +18,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
+
+import torch
 
 #: Hopper only: keep the "a" so wgmma/setmaxnreg stay available
 NVCC_FLAGS = (
@@ -38,6 +40,16 @@ _locks: Dict[Path, threading.Lock] = {}  # one per source: builds run in paralle
 _loaded: Dict[Path, ctypes.CDLL] = {}
 
 
+def device_and_stream(t) -> Tuple[int, int]:
+    """The index of the CUDA device ``t`` lies on and the raw handle of
+    its current stream, for a launch through ctypes."""
+    index = t.get_device()
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return index, raw(index)
+    return index, torch.cuda.current_stream(index).cuda_stream
+
+
 def nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME")
     if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
@@ -51,6 +63,15 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def built_path(source: Path) -> Path:
+    """Where the library of ``source``, as it is now, is built."""
+    source = Path(source).resolve()
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"{source.stem}-{digest}.so"
+
+
 def load_library(source: Path) -> ctypes.CDLL:
     """Compile ``source`` (once per content) and load it."""
     source = Path(source).resolve()
@@ -60,10 +81,7 @@ def load_library(source: Path) -> ctypes.CDLL:
         lib = _loaded.get(source)
         if lib is not None:
             return lib
-        digest = hashlib.sha256(
-            source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        out = BUILD_DIR / f"{source.stem}-{digest}.so"
+        out = built_path(source)
         if not out.exists():
             out.parent.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")

@@ -3,11 +3,11 @@
 //
 // Replaces repro/kernels/decode_attention/kernel.py:decode_attention_kernel,
 // the Pallas TPU kernel.  q is (B*H, D), the caches are (B*Hkv, S, D), all
-// float32 or all bfloat16; lengths is (B*H,) int32, one per q head as the
-// Pallas wrapper broadcasts it from one per sequence.  For q head i:
-// scores = (q * scale) . k_t in float32 for every cache row t, rows at or
-// past lengths[i] set to -1e30, a float32 online softmax, and out =
-// acc / max(l, 1e-30) written as float32 (the wrapper casts to q's dtype).
+// float32 or all bfloat16; lengths is (B,) int32, one per sequence (the
+// Pallas wrapper broadcasts it to one per q head, all equal).  For q head
+// i: scores = q . k_t * scale in float32 for every cache row t, rows at or
+// past the length set to -1e30, a float32 softmax, and out = acc /
+// max(l, 1e-30) written in q's dtype.
 //
 // What bounds it: memory.  Every valid cache row is read once, D elements
 // of k and D of v: at B=4, Hkv=4, S=4096, D=128 in bf16 that is 16.8 MB a
@@ -15,209 +15,421 @@
 // arithmetic is 4 flops per cache element a q head, 0.27 GFLOP there, far
 // below the card's rate.
 //
-// Design.  The TPU kernel carries (m, l, acc) across a sequential grid axis
-// over S in revisited output blocks (kernel.py:44-82).  CUDA blocks run in
-// no order, so the carry becomes a loop over S inside one block: one block
-// of 256 threads per (sequence, kv head) serves the `group` q heads that
-// share that kv head, so each k/v row is read from device memory once per
-// group and not once per q head (the GQA point of kernel.py:109-110).  Each
-// 64-row tile of k and v is staged in shared memory as float32 with 16-byte
-// loads; then a thread per (q head, row) takes the score, a warp per q head
-// does the softmax update, and a thread per (q head, column) updates the
-// accumulator, in float32.  The group's q heads belong to one sequence, so
-// they share its length, read from the group's first head.  The loop stops
-// at that length: a masked row adds exp(-1e30 - m) = 0 once a valid row has
-// set m, and row 0 is valid.  Length 0 is the exception the port keeps:
-// every score is then -1e30, every p is 1, and the TPU kernel returns the
-// mean of all S cache rows, so the loop runs over all S.  With B * Hkv blocks (16 at B=4, Hkv=4) most of
-// the card's 132 SMs sit idle; splitting S across blocks with a second
-// combine pass is the later work that closes the gap to the bound.
+// Design: split-S.  The TPU kernel carries (m, l, acc) across a sequential
+// grid axis over S (kernel.py:44-82).  Here the cache axis is cut into
+// `n_splits` chunks of `chunk` rows, chosen on the host from S, B and Hkv
+// only (reading the lengths would synchronise), so that about two blocks
+// per SM stream the cache.  decode_split: one block of 256 threads per
+// (sequence, kv head, chunk) serves the `group` q heads of its kv head, so
+// each cache row is read from device memory once per group.  Its 8 warps
+// take steps of 8 cache rows in turn, each warp on its own with its own
+// online-softmax state (no block barrier inside the walk): a warp streams
+// its steps' k and v rows as they are stored (bf16, no float32 staging)
+// through its own two-stage cp.async buffer in shared memory.  Scores: 4
+// lanes a row, each holding a quarter of the row's k in registers and
+// multiplying it with the float32 q of up to 8 heads; the 4 sums meet by
+// shuffles and the scale is applied to the float32 score.  p.v: a lane
+// owns D/32 columns of every head and does float32 FMAs, so the output
+// keeps float32 accuracy.  At the chunk's end the warps' (m, l, acc) merge
+// in shared memory.  Groups above 8 heads walk the chunk again for each 8
+// (from L2).  A chunk that starts at or past the sequence's length writes
+// an empty partial (m = -inf, l = 0) and exits.  Length 0 keeps the
+// Pallas result, the mean of all S rows: every chunk then runs over its
+// rows with scores -1e30.
+//
+// decode_combine merges the chunks' float32 (m, l, acc) and writes q's
+// dtype; with a single chunk, decode_split writes the output itself and
+// there is no second launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kTS = 64;        // cache rows per shared-memory tile
-constexpr int kThreads = 256;  // 8 warps
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxGroup = 64;  // q heads per kv head
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);  // round to nearest even, as torch's .to()
+}
 
-template <typename T>
-struct Vec16 {  // elements of T in one 16-byte load
-  static constexpr int N = 16 / sizeof(T);
+template <typename T, int D>
+struct Geo {
+  static constexpr int kRows = 8;                 // cache rows a warp step
+  static constexpr int CPR = D * sizeof(T) / 16;  // 16-byte chunks a row
+  static constexpr int E = 16 / sizeof(T);        // elements a chunk
+  static constexpr int NC = CPR / 4;              // k chunks a lane (FMA path)
+  static constexpr int CW = D / 32;               // p.v columns a lane
+  static constexpr int KK = D / 16;               // mma k-steps over D
+  static constexpr int kRowBytes = D * sizeof(T);
+  static constexpr int kStepBytes = 2 * kRows * kRowBytes;  // k, then v
+  static constexpr int kWarpBytes = 2 * kStepBytes;          // two stages
+  static constexpr bool kMma = sizeof(T) == 2;  // bf16: q.k on the tensor cores
+  static_assert(CPR % 4 == 0, "four lanes share a row");
 };
 
-// Copy `rows` x D elements of a row-major (., D) array into shared memory
-// as float32 times `mul`, with a row stride of `stride` floats; rows at or
-// past `avail` are zero.  16-byte loads, neighbouring threads on
-// neighbouring addresses.
-template <typename T, int D>
-__device__ __forceinline__ void stage(const T* __restrict__ src, int rows,
-                                      int avail, float mul, float* dst,
-                                      int stride) {
-  constexpr int N = Vec16<T>::N;
-  constexpr int kPerRow = D / N;
-  for (int i = threadIdx.x; i < rows * kPerRow; i += blockDim.x) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * N;
-    float* out = dst + r * stride + c;
-    if (r < avail) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int u = 0; u < N; ++u) out[u] = to_f32(e[u]) * mul;
-    } else {
-#pragma unroll
-      for (int u = 0; u < N; ++u) out[u] = 0.0f;
-    }
-  }
+// Byte offset of 16-byte chunk c of k row r (0..7) in a step.  bf16: chunks
+// XOR the row, so the eight rows an mma fragment load touches sit in
+// different banks; float32: odd rows swap the 64-byte halves of each 128
+// bytes, for the FMA path's four lanes a row.
+template <typename T, int CPR>
+__device__ __forceinline__ int k_offset(int r, int c) {
+  if (sizeof(T) == 2) return (c ^ (r & (CPR >= 8 ? 7 : CPR - 1))) * 16;
+  return CPR >= 8 ? (c ^ ((r & 1) << 2)) * 16 : c * 16;
 }
 
-template <int D>
+template <typename T, int D>
 size_t smem_bytes(int group) {
-  return sizeof(float) *
-         ((size_t)kTS * (D + 1) + (size_t)kTS * D + (size_t)group * D * 2 +
-          (size_t)group * kTS + 3 * (size_t)group);
+  using G = Geo<T, D>;
+  const size_t stage = (size_t)kWarps * G::kWarpBytes;   // k/v stages
+  const size_t merge = (size_t)kWarps * 8 * (D + 2) * 4;  // warps' states
+  return (size_t)group * D * 4                            // q, float32
+         + (size_t)kWarps * (2 * G::kRows * 8 + 8) * 4    // s, p, corr
+         + (stage > merge ? stage : merge);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// d = a . b + d, m16n8k16, bf16 operands, float32 accumulators.
+__device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0,
+                                          uint32_t a2, uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    decode_fwd(const T* __restrict__ q, const T* __restrict__ k_cache,
-               const T* __restrict__ v_cache, const int* __restrict__ lengths,
-               float* __restrict__ out, int n_kv_heads, int group,
-               int seq_len, float scale) {
-  constexpr int KS = D + 1;  // padded row stride of the k tile
-  extern __shared__ float smem[];
-  float* sK = smem;                // kTS x KS
-  float* sV = sK + kTS * KS;       // kTS x D
-  float* sQ = sV + kTS * D;        // group x D, q * scale
-  float* sAcc = sQ + group * D;    // group x D
-  float* sP = sAcc + group * D;    // group x kTS: scores, then p
-  float* sM = sP + group * kTS;    // group: running max
-  float* sL = sM + group;          // group: running denominator
-  float* sC = sL + group;          // group: this tile's correction
+__global__ void __launch_bounds__(kThreads, 2)
+    decode_split(const T* __restrict__ q, const T* __restrict__ k_cache,
+                 const T* __restrict__ v_cache, const int* __restrict__ lengths,
+                 T* __restrict__ out, float* __restrict__ part_acc,
+                 float* __restrict__ part_ml, int n_kv_heads, int group,
+                 int seq_len, int chunk, float scale) {
+  using G = Geo<T, D>;
+  constexpr int R = G::kRows;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* sQ = reinterpret_cast<float*>(smem);  // group x D
+  float* sW = sQ + group * D;  // per warp: s [R][8], p [R][8], corr [8]
+  uint8_t* sBuf = reinterpret_cast<uint8_t*>(sW + kWarps * (2 * R * 8 + 8));
+  float* sMerge = reinterpret_cast<float*>(sBuf);  // reuses the stages
 
   const int bk = blockIdx.x;  // b * n_kv_heads + kv head
-  const int len = lengths[bk * group];  // the sequence's, for every q head
-  const int n = len > 0 ? min(len, seq_len) : seq_len;
+  const int split = blockIdx.y, n_splits = gridDim.y;
+  const int len = lengths[bk / n_kv_heads];
+  const int n = len > 0 ? min(len, seq_len) : seq_len;  // rows to walk
+  const int c0 = split * chunk;
+  const int c1 = min(c0 + chunk, n);
+  const int head0 = bk * group;  // first q head (row of q) of this block
+
+  if (c0 >= n) {  // nothing of this sequence here: an empty partial
+    for (int h = threadIdx.x; h < group; h += kThreads) {
+      part_ml[((size_t)(head0 + h) * n_splits + split) * 2] = -INFINITY;
+      part_ml[((size_t)(head0 + h) * n_splits + split) * 2 + 1] = 0.0f;
+    }
+    return;
+  }
+
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // after the scores a lane holds head g's scores of step rows 2t, 2t + 1
+  const int g = lane / 4, t = lane % 4;
   const T* kp = k_cache + (size_t)bk * seq_len * D;
   const T* vp = v_cache + (size_t)bk * seq_len * D;
+  uint8_t* wbuf = sBuf + warp * G::kWarpBytes;
+  const uint32_t wbuf_s = static_cast<uint32_t>(__cvta_generic_to_shared(wbuf));
+  float* wS = sW + warp * (2 * R * 8 + 8);  // [R rows][8 heads]
+  float* wP = wS + R * 8;                   // [R rows][8 heads]
+  float* wC = wP + R * 8;                   // [8 heads]
+  const int n_steps = (c1 - c0 + R - 1) / R;
 
-  // the group's q heads are rows bk*group .. bk*group + group-1 of q
-  stage<T, D>(q + (size_t)bk * group * D, group, group, scale, sQ, D);
-  for (int i = threadIdx.x; i < group * D; i += blockDim.x) sAcc[i] = 0.0f;
-  for (int h = threadIdx.x; h < group; h += blockDim.x) {
-    sM[h] = kNegInf;
-    sL[h] = 0.0f;
-  }
-
-  for (int t0 = 0; t0 < n; t0 += kTS) {
-    const int rows = min(kTS, n - t0);
-    __syncthreads();  // the last tile's sK, sV and sP are no longer read
-    stage<T, D>(kp + (size_t)t0 * D, kTS, rows, 1.0f, sK, KS);
-    stage<T, D>(vp + (size_t)t0 * D, kTS, rows, 1.0f, sV, D);
-    __syncthreads();
-
-    // scores: rows past the loop bound are -inf and add nothing; rows past
-    // the length (only when it is 0) are -1e30, as the TPU kernel masks
-    for (int i = threadIdx.x; i < group * kTS; i += blockDim.x) {
-      const int h = i / kTS, t = i % kTS;
-      float s = -INFINITY;
-      if (t < rows) {
-        const float* qr = sQ + h * D;
-        const float* kr = sK + t * KS;
-        s = 0.0f;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-        if (t0 + t >= len) s = kNegInf;
-      }
-      sP[i] = s;
+  // k and v rows of step `s` into stage `st`; rows at or past c1 are zero
+  auto load_step = [&](int s, int st) {
+    const uint32_t dk = wbuf_s + st * G::kStepBytes;
+    const uint32_t dv = dk + R * G::kRowBytes;
+    const int t0 = c0 + s * R;
+#pragma unroll
+    for (int i = lane; i < R * G::CPR; i += 32) {
+      const int rr = i / G::CPR, c = i % G::CPR;
+      const bool valid = t0 + rr < c1;
+      const size_t src = (size_t)(valid ? t0 + rr : c0) * D + c * G::E;
+      cp_async16(dk + rr * G::kRowBytes + k_offset<T, G::CPR>(rr, c), kp + src, valid);
+      cp_async16(dv + rr * G::kRowBytes + c * 16, vp + src, valid);
     }
-    __syncthreads();
+  };
 
-    // softmax update, a warp per q head (kTS = 64: two scores a lane)
-    for (int h = warp; h < group; h += kThreads / 32) {
-      float* ph = sP + h * kTS;
-      const float a = ph[lane], b = ph[lane + 32];
-      float mt = fmaxf(a, b);
+  // heads in batches of 8; each batch walks the chunk once (from L2 after
+  // the first)
+  for (int hb = 0; hb < group; hb += 8) {
+    const int hn = min(8, group - hb);
+    if (hb > 0) __syncthreads();  // the merge area (over the stages) is free
+    if (warp < n_steps) load_step(warp, 0);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    if (hb == 0)
+      for (int i = threadIdx.x; i < group * D; i += kThreads)
+        sQ[i] = to_f32(q[(size_t)head0 * D + i]);
+    __syncthreads();  // q is in
+
+    // bf16: this batch's q as mma A fragments (rows = heads; 8..15 zero)
+    uint32_t qa[G::kMma ? G::KK : 1][2];
+    if (G::kMma) {
+      const float* qg = sQ + (hb + g) * D;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
-      const float m_old = sM[h];
-      const float m_new = fmaxf(m_old, mt);
-      const float pa = expf(a - m_new), pb = expf(b - m_new);
-      float sum = pa + pb;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      ph[lane] = pa;
-      ph[lane + 32] = pb;
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        sL[h] = sL[h] * corr + sum;
-        sM[h] = m_new;
-        sC[h] = corr;
+      for (int kk = 0; kk < (G::kMma ? G::KK : 1); ++kk) {
+        const int d = 16 * kk + 2 * t;
+        qa[kk][0] = g < hn ? pack_bf16(qg[d], qg[d + 1]) : 0u;
+        qa[kk][1] = g < hn ? pack_bf16(qg[d + 8], qg[d + 9]) : 0u;
       }
     }
-    __syncthreads();
 
-    // acc = acc * corr + p . v, a thread per (q head, column)
-    for (int i = threadIdx.x; i < group * D; i += blockDim.x) {
+    float m = -INFINITY, l = 0.0f;  // head g's, over this warp's rows
+    float acc[8][G::CW];            // heads x this lane's columns
+#pragma unroll
+    for (int h = 0; h < 8; ++h)
+#pragma unroll
+      for (int j = 0; j < G::CW; ++j) acc[h][j] = 0.0f;
+
+    for (int s = warp, it = 0; s < n_steps; s += kWarps, ++it) {
+      const int st = it & 1;
+      if (s + kWarps < n_steps) load_step(s + kWarps, st ^ 1);
+      asm volatile("cp.async.commit_group;" ::: "memory");
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+      __syncwarp();
+      const uint8_t* tK = wbuf + st * G::kStepBytes;
+      const uint8_t* tV = tK + R * G::kRowBytes;
+
+      // raw scores of head g at step rows 2t, 2t + 1
+      float s2[2];
+      if (G::kMma) {
+        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        const uint8_t* krow = tK + g * G::kRowBytes + 4 * t;  // row g of the step
+#pragma unroll
+        for (int kk = 0; kk < (G::kMma ? G::KK : 1); ++kk) {
+          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(
+              krow + k_offset<T, G::CPR>(g, 2 * kk));
+          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(
+              krow + k_offset<T, G::CPR>(g, 2 * kk + 1));
+          mma_16816(d, qa[kk][0], qa[kk][1], b0, b1);
+        }
+        s2[0] = d[0];
+        s2[1] = d[1];
+      } else {
+        // float32: 4 lanes a row (r, part), each a quarter of k times q
+        const int r = lane / 4, part = lane % 4;
+        float kf[G::NC * G::E];
+#pragma unroll
+        for (int u = 0; u < G::NC; ++u) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(
+              tK + r * G::kRowBytes + k_offset<T, G::CPR>(r, 4 * u + part));
+          const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+          for (int x = 0; x < G::E; ++x) kf[u * G::E + x] = to_f32(e[x]);
+        }
+#pragma unroll
+        for (int h = 0; h < 8; ++h) {
+          float dot = 0.0f;
+          if (h < hn) {
+            const float* qh = sQ + (hb + h) * D;
+#pragma unroll
+            for (int u = 0; u < G::NC; ++u)
+#pragma unroll
+              for (int x = 0; x < G::E; ++x)
+                dot = fmaf(qh[(4 * u + part) * G::E + x], kf[u * G::E + x], dot);
+          }
+          dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+          dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+          if (part == 0) wS[r * 8 + h] = dot;
+        }
+        __syncwarp();
+        s2[0] = wS[(2 * t) * 8 + g];
+        s2[1] = wS[(2 * t + 1) * 8 + g];
+      }
+
+      // online softmax of head g over the step's 8 rows (4 lanes a head)
+      const int row = c0 + s * R + 2 * t;
+      float mt = -INFINITY;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s2[e] = row + e >= c1 ? -INFINITY
+                : row + e >= len ? kNegInf  // only at length 0
+                                 : s2[e] * scale;
+        mt = fmaxf(mt, s2[e]);
+      }
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      float corr = 1.0f, p0 = 0.0f, p1 = 0.0f;
+      if (g < hn) {  // the batch's last heads may be padding
+        const float m_new = fmaxf(m, mt);
+        corr = expf(m - m_new);
+        p0 = expf(s2[0] - m_new);
+        p1 = expf(s2[1] - m_new);
+        m = m_new;
+        l = l * corr + p0 + p1;  // this lane's share; summed at the end
+      }
+      wP[(2 * t) * 8 + g] = p0;
+      wP[(2 * t + 1) * 8 + g] = p1;
+      if (t == 0) wC[g] = corr;
+      __syncwarp();
+
+      // acc = acc * corr + p . v in float32: this lane's CW columns
+      {
+        const float4 ca = *reinterpret_cast<const float4*>(wC);
+        const float4 cb = *reinterpret_cast<const float4*>(wC + 4);
+        const float cr[8] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
+#pragma unroll
+        for (int h = 0; h < 8; ++h)
+#pragma unroll
+          for (int j = 0; j < G::CW; ++j) acc[h][j] *= cr[h];
+      }
+      struct alignas(G::CW * sizeof(T)) Cols { T v[G::CW]; };
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        const Cols cv = *reinterpret_cast<const Cols*>(
+            tV + rr * G::kRowBytes + lane * G::CW * sizeof(T));
+        const float4 pa = *reinterpret_cast<const float4*>(wP + rr * 8);
+        const float4 pb = *reinterpret_cast<const float4*>(wP + rr * 8 + 4);
+        const float pr[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+        for (int j = 0; j < G::CW; ++j) {
+          const float vj = to_f32(cv.v[j]);
+#pragma unroll
+          for (int h = 0; h < 8; ++h) acc[h][j] = fmaf(pr[h], vj, acc[h][j]);
+        }
+      }
+      __syncwarp();  // the stage, wS, wP and wC are free for the next step
+    }
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();  // every warp is done with the stages
+
+    // merge the warps' (m, l, acc): [warp][head] of (m, l) then acc
+    float* mMl = sMerge;                    // kWarps x 8 x 2
+    float* mAcc = sMerge + kWarps * 8 * 2;  // kWarps x 8 x D
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (t == 0) {
+      mMl[(warp * 8 + g) * 2] = m;
+      mMl[(warp * 8 + g) * 2 + 1] = l;
+    }
+#pragma unroll
+    for (int h = 0; h < 8; ++h)
+#pragma unroll
+      for (int j = 0; j < G::CW; ++j)
+        mAcc[(warp * 8 + h) * D + lane * G::CW + j] = acc[h][j];
+    __syncthreads();
+    for (int i = threadIdx.x; i < hn * D; i += kThreads) {
       const int h = i / D, d = i % D;
-      const float* ph = sP + h * kTS;
-      float a = sAcc[i] * sC[h];
-      for (int t = 0; t < rows; ++t) a = fmaf(ph[t], sV[t * D + d], a);
-      sAcc[i] = a;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, mMl[(w * 8 + h) * 2]);
+      float num = 0.0f, den = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float mw = mMl[(w * 8 + h) * 2];
+        if (mw == -INFINITY) continue;  // a warp with no rows
+        const float wgt = expf(mw - mx);
+        den = fmaf(wgt, mMl[(w * 8 + h) * 2 + 1], den);
+        num = fmaf(wgt, mAcc[(w * 8 + h) * D + d], num);
+      }
+      const size_t qh = (size_t)(head0 + hb + h);
+      if (n_splits == 1) {
+        store(out + qh * D + d, num / fmaxf(den, 1e-30f));
+      } else {
+        part_acc[(qh * n_splits + split) * D + d] = num;
+        if (d == 0) {
+          part_ml[(qh * n_splits + split) * 2] = mx;
+          part_ml[(qh * n_splits + split) * 2 + 1] = den;
+        }
+      }
     }
   }
-  __syncthreads();
-  float* op = out + (size_t)bk * group * D;
-  for (int i = threadIdx.x; i < group * D; i += blockDim.x)
-    op[i] = sAcc[i] / fmaxf(sL[i / D], 1e-30f);
+}
+
+// Merge the chunks' (m, l, acc) of each q head: one block per q head, a
+// thread per column.  Empty partials (m = -inf) are skipped.
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+    decode_combine(const float* __restrict__ part_acc,
+                   const float* __restrict__ part_ml, T* __restrict__ out,
+                   int n_splits) {
+  const size_t qh = blockIdx.x;
+  const float* ml = part_ml + qh * n_splits * 2;
+  float m = -INFINITY;
+  for (int s = 0; s < n_splits; ++s) m = fmaxf(m, ml[2 * s]);
+  float num = 0.0f, den = 0.0f;
+  for (int s = 0; s < n_splits; ++s) {
+    const float ms = ml[2 * s];
+    if (ms == -INFINITY) continue;
+    const float w = expf(ms - m);
+    den = fmaf(w, ml[2 * s + 1], den);
+    num = fmaf(w, part_acc[(qh * n_splits + s) * D + threadIdx.x], num);
+  }
+  store(out + qh * D + threadIdx.x, num / fmaxf(den, 1e-30f));
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* lengths, float* out, int n_seqs,
-                   int n_kv_heads, int group, int seq_len, float scale,
+                   const int* lengths, void* out, float* part_acc,
+                   float* part_ml, int n_seqs, int n_kv_heads, int group,
+                   int seq_len, int n_splits, int chunk, float scale,
                    cudaStream_t stream) {
-  const size_t bytes = smem_bytes<D>(group);
-  static size_t allowed = 48 * 1024;  // the attribute is per function
-  if (bytes > allowed) {
+  static bool configured = false;  // the attribute is per function
+  if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        decode_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        decode_split<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes<T, D>(kMaxGroup));
     if (err != cudaSuccess) return err;
-    allowed = bytes;
+    configured = true;
   }
-  decode_fwd<T, D><<<n_seqs * n_kv_heads, kThreads, bytes, stream>>>(
+  const dim3 grid(n_seqs * n_kv_heads, n_splits);
+  decode_split<T, D><<<grid, kThreads, smem_bytes<T, D>(group), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, out, n_kv_heads, group, seq_len,
-      scale);
+      static_cast<const T*>(v), lengths, static_cast<T*>(out), part_acc,
+      part_ml, n_kv_heads, group, seq_len, chunk, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_splits == 1) return err;
+  decode_combine<T, D><<<n_seqs * n_kv_heads * group, D, 0, stream>>>(
+      part_acc, part_ml, static_cast<T*>(out), n_splits);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(int head_dim, const void* q, const void* k,
-                     const void* v, const int* lengths, float* out,
-                     int n_seqs, int n_kv_heads, int group, int seq_len,
-                     float scale, cudaStream_t stream) {
+                     const void* v, const int* lengths, void* out,
+                     float* part_acc, float* part_ml, int n_seqs,
+                     int n_kv_heads, int group, int seq_len, int n_splits,
+                     int chunk, float scale, cudaStream_t stream) {
   switch (head_dim) {
     case 32:
-      return launch<T, 32>(q, k, v, lengths, out, n_seqs, n_kv_heads, group,
-                           seq_len, scale, stream);
+      return launch<T, 32>(q, k, v, lengths, out, part_acc, part_ml, n_seqs,
+                           n_kv_heads, group, seq_len, n_splits, chunk, scale,
+                           stream);
     case 64:
-      return launch<T, 64>(q, k, v, lengths, out, n_seqs, n_kv_heads, group,
-                           seq_len, scale, stream);
+      return launch<T, 64>(q, k, v, lengths, out, part_acc, part_ml, n_seqs,
+                           n_kv_heads, group, seq_len, n_splits, chunk, scale,
+                           stream);
     case 128:
-      return launch<T, 128>(q, k, v, lengths, out, n_seqs, n_kv_heads, group,
-                            seq_len, scale, stream);
+      return launch<T, 128>(q, k, v, lengths, out, part_acc, part_ml, n_seqs,
+                            n_kv_heads, group, seq_len, n_splits, chunk,
+                            scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -225,47 +437,47 @@ cudaError_t launch_d(int head_dim, const void* q, const void* k,
 
 }  // namespace
 
-// Largest `group` (q heads per kv head) the kernel's shared memory takes at
-// head_dim, or 0 for a head_dim it is not built for.
+// Largest `group` (q heads per kv head) the kernel takes at head_dim, or 0
+// for a head_dim it is not built for.
 extern "C" int decode_attention_max_group(int head_dim) {
-  constexpr size_t kLimit = 227 * 1024;
-  int g = 0;
-  while (g < 1024) {
-    size_t bytes = head_dim == 32    ? smem_bytes<32>(g + 1)
-                   : head_dim == 64  ? smem_bytes<64>(g + 1)
-                   : head_dim == 128 ? smem_bytes<128>(g + 1)
-                                     : kLimit + 1;
-    if (bytes > kLimit) break;
-    ++g;
-  }
-  return g;
+  return head_dim == 32 || head_dim == 64 || head_dim == 128 ? kMaxGroup : 0;
 }
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 on
-// success).  Does not synchronise.  dtype: 0 float32, 1 bfloat16.
-// head_dim: 32, 64 or 128.  q holds n_seqs * n_kv_heads * group rows of
-// head_dim and lengths one int32 per q row, the caches n_seqs * n_kv_heads
-// * seq_len rows; out is float32 shaped like q.
+// Launches the kernels on `stream` (decode_split, then decode_combine when
+// n_splits > 1) and returns cudaGetLastError() (0 on success).  Does not
+// synchronise.  dtype: 0 float32, 1 bfloat16.  head_dim: 32, 64 or 128.  q
+// and out hold n_seqs * n_kv_heads * group rows of head_dim, lengths one
+// int32 per sequence, the caches n_seqs * n_kv_heads * seq_len rows.
+// part_acc holds q's rows * n_splits * head_dim floats and part_ml q's rows
+// * n_splits * 2; chunk is a multiple of 64 with n_splits * chunk >= seq_len.
 extern "C" int decode_attention_launch(int device, int dtype, int head_dim,
                                        const void* q, const void* k_cache,
                                        const void* v_cache,
                                        const void* lengths, void* out,
+                                       void* part_acc, void* part_ml,
                                        int n_seqs, int n_kv_heads, int group,
-                                       int seq_len, float scale,
-                                       void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+                                       int seq_len, int n_splits, int chunk,
+                                       float scale, void* stream) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaGetLastError();  // clear a stale error from an earlier call
+  if (group < 1 || group > kMaxGroup || chunk % 64 != 0 ||
+      (long long)n_splits * chunk < seq_len)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
-  float* o = static_cast<float*>(out);
+  float* pa = static_cast<float*>(part_acc);
+  float* pm = static_cast<float*>(part_ml);
   if (dtype == 0)
-    err = launch_d<float>(head_dim, q, k_cache, v_cache, len, o, n_seqs,
-                          n_kv_heads, group, seq_len, scale, s);
+    err = launch_d<float>(head_dim, q, k_cache, v_cache, len, out, pa, pm,
+                          n_seqs, n_kv_heads, group, seq_len, n_splits, chunk,
+                          scale, s);
   else
-    err = launch_d<__nv_bfloat16>(head_dim, q, k_cache, v_cache, len, o,
-                                  n_seqs, n_kv_heads, group, seq_len, scale,
-                                  s);
+    err = launch_d<__nv_bfloat16>(head_dim, q, k_cache, v_cache, len, out, pa,
+                                  pm, n_seqs, n_kv_heads, group, seq_len,
+                                  n_splits, chunk, scale, s);
   return (int)err;
 }
 

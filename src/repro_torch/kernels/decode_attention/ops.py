@@ -3,27 +3,34 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import device_and_stream, load_library
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "decode_attention.cu"
 
 #: the JAX wrapper's cache block; it fixes the ``S % block`` contract only,
-#: since the CUDA kernel walks the cache in its own 64-row tiles
+#: since the CUDA kernel splits the cache by its own plan (``split_plan``)
 DEFAULT_BLOCK_S = 1024
 
 #: head widths the kernel is instantiated for
 HEAD_DIMS = (32, 64, 128)
 
-#: kernel launches made through this wrapper (CUDA tensors only)
+#: cache rows a chunk is a multiple of (the kernel's bf16 tile)
+CHUNK_ALIGN = 64
+
+#: kernel calls made through this wrapper (CUDA tensors only); one a call,
+#: though a call with more than one chunk launches a combine kernel too
 LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+_max_group: Dict[int, int] = {}  # by head dim
+_sms: Dict[int, int] = {}  # SMs by device index
+_plans: Dict[tuple, tuple] = {}  # split plan and partials by shape and stream
 
 
 def load() -> ctypes.CDLL:
@@ -33,7 +40,7 @@ def load() -> ctypes.CDLL:
         lib = load_library(SOURCE)
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.decode_attention_launch.argtypes = [
-            i32, i32, i32, vp, vp, vp, vp, vp, i32, i32, i32, i32,
+            i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
             ctypes.c_float, vp,
         ]
         lib.decode_attention_launch.restype = i32
@@ -45,39 +52,80 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def split_plan(s: int, n_blocks: int, sms: int) -> Tuple[int, int]:
+    """``(n_splits, chunk)`` for a cache of ``s`` rows read by ``n_blocks``
+    = B * Hkv (sequence, kv head) pairs on a card of ``sms`` SMs: about two
+    blocks an SM, chunks a multiple of CHUNK_ALIGN rows, no chunk empty at
+    full length.  From shapes only: the lengths stay on the card."""
+    want = min(max(1, -(-2 * sms // n_blocks)), -(-s // CHUNK_ALIGN))
+    chunk = -(-s // want)
+    chunk = -(-chunk // CHUNK_ALIGN) * CHUNK_ALIGN
+    return -(-s // chunk), chunk
+
+
 def _check_cuda(q, k_cache, v_cache, lengths) -> None:
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache), ("lengths", lengths)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
-    if k_cache.shape != v_cache.shape or k_cache.shape[0] != q.shape[0] \
-            or k_cache.shape[3] != q.shape[2]:
+    dev, dt = q.device, q.dtype
+    if k_cache.device != dev or v_cache.device != dev or lengths.device != dev:
+        raise ValueError(f"q on {dev}, caches on {k_cache.device} and {v_cache.device}, "
+                         f"lengths on {lengths.device}")
+    if k_cache.dtype != dt or v_cache.dtype != dt:
+        raise TypeError(f"q is {dt}, caches {k_cache.dtype} and {v_cache.dtype}")
+    if dt not in _DTYPES:
+        raise TypeError(f"the kernel takes float32 or bfloat16, got {dt}")
+    b, _, d = q.shape
+    if k_cache.shape != v_cache.shape or k_cache.shape[0] != b or k_cache.shape[3] != d:
         raise ValueError(f"shapes q {tuple(q.shape)}, caches {tuple(k_cache.shape)}, "
                          f"{tuple(v_cache.shape)}")
-    if lengths.shape != (q.shape[0],):
-        raise ValueError(f"lengths must be ({q.shape[0]},), got {tuple(lengths.shape)}")
-    if q.shape[2] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[2]} not in {HEAD_DIMS}")
+    if lengths.shape != (b,):
+        raise ValueError(f"lengths must be ({b},), got {tuple(lengths.shape)}")
+    if lengths.dtype != torch.int32:
+        raise TypeError(f"lengths must be int32, got {lengths.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+
+
+def _launch(lib, q, k_cache, v_cache, lengths, scale, *, device, stream, sms):
+    """Allocate the output (and, at the first call of a shape on a stream,
+    the float32 partials), and launch.  ``q``, the caches and ``lengths``
+    go to the kernel as they are."""
+    b, h, d = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    key = (device, stream, b, h, hkv, s, d, sms)
+    plan = _plans.get(key)
+    if plan is None:
+        n_splits, chunk = split_plan(s, b * hkv, sms)
+        # per q head and chunk: acc (D floats), then (m, l); none for one
+        # chunk.  Calls on one stream run in order, so they share it.
+        rows = b * h * n_splits if n_splits > 1 else 0
+        parts = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
+        plan = _plans[key] = (n_splits, chunk, parts.data_ptr(),
+                              parts.data_ptr() + rows * d * 4, parts)
+    n_splits, chunk, acc, ml, _ = plan
+    out = torch.empty_like(q)
+    code = lib.decode_attention_launch(
+        device, _DTYPES[q.dtype], d, q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), acc, ml,
+        b, hkv, h // hkv, s, n_splits, chunk, scale, stream,
+    )
+    if code != 0:
+        msg = lib.decode_attention_error_string(code).decode()
+        raise RuntimeError(f"decode_attention launch failed: {msg} ({code})")
+    return out
 
 
 def decode_attention(
     q: torch.Tensor,        # (B, H, D)
     k_cache: torch.Tensor,  # (B, Hkv, S, D)
     v_cache: torch.Tensor,  # (B, Hkv, S, D)
-    lengths: torch.Tensor,  # (B,) int
+    lengths: torch.Tensor,  # (B,) int32
     *,
     scale: Optional[float] = None,
     block_s: int = DEFAULT_BLOCK_S,
 ) -> torch.Tensor:
     """One query token per sequence over its first ``lengths[b]`` cache
-    rows; (B, H, D) in q's dtype.  CUDA tensors launch the kernel on the
-    current stream without synchronising, with ``lengths`` broadcast to
-    every q head as the Pallas wrapper does and a float32 output cast to
-    q's dtype; CPU tensors take the plain version."""
+    rows; (B, H, D) in q's dtype.  CUDA tensors launch the kernels on the
+    current stream without synchronising (the split kernel, and a combine
+    when the cache is split); CPU tensors take the plain version."""
     global LAUNCHES
     b, h, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
@@ -93,26 +141,18 @@ def decode_attention(
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda(q, k_cache, v_cache, lengths)
     lib = load()
-    group = h // hkv
-    if group > lib.decode_attention_max_group(d):
-        raise ValueError(f"{group} q heads per kv head exceed the kernel's "
-                         f"{lib.decode_attention_max_group(d)} at head dim {d}")
-    qf = q.contiguous()
-    kf, vf = k_cache.contiguous(), v_cache.contiguous()
-    # (B*H,): one per q head, as the Pallas wrapper passes them
-    lens = lengths.to(torch.int32)[:, None].expand(b, h).contiguous().view(b * h)
-    if any(t.data_ptr() % 16 for t in (qf, kf, vf)):
+    if d not in _max_group:
+        _max_group[d] = lib.decode_attention_max_group(d)
+    if h // hkv > _max_group[d]:
+        raise ValueError(f"{h // hkv} q heads per kv head exceed the kernel's "
+                         f"{_max_group[d]} at head dim {d}")
+    qf, kf, vf = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
+    if (qf.data_ptr() | kf.data_ptr() | vf.data_ptr()) % 16:
         raise ValueError("q and the caches must start on a 16-byte boundary")
-    out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
-    dev = q.device
-    code = lib.decode_attention_launch(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        _DTYPES[q.dtype], d, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), b, hkv, group, s, float(scale),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if code != 0:
-        msg = lib.decode_attention_error_string(code).decode()
-        raise RuntimeError(f"decode_attention launch failed: {msg} ({code})")
+    dev, stream = device_and_stream(q)
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = _launch(lib, qf, kf, vf, lengths.contiguous(), float(scale), device=dev,
+                  stream=stream, sms=_sms[dev])
     LAUNCHES += 1
-    return out.to(q.dtype)
+    return out

@@ -3,7 +3,7 @@
 // Replaces repro/kernels/flash_attention/kernel.py:flash_attention_kernel,
 // the Pallas TPU kernel.  q is (B*H, S, D), k and v are (B*Hkv, S, D), all
 // float32 or all bfloat16; q head i reads kv head i / group.  For each
-// query row: scores = (q * scale) . k in float32, keys outside the causal
+// query row: scores = q . k * scale in float32, keys outside the causal
 // and window masks set to -1e30, an online softmax with a float32 running
 // max, denominator and accumulator, and out = acc / max(l, 1e-30) written
 // in q's dtype.  Whole key tiles outside a q tile's [lo, hi) are skipped,
@@ -11,36 +11,71 @@
 //
 // What bounds it: operations.  A causal pass does 2 * 2 * S^2/2 * D flops a
 // head (q.k and p.v); at B=1, H=32, S=2048, D=128 that is 34.4 GFLOP,
-// 0.035 ms at the H100's 989 TFLOP/s bf16 tensor-core rate, against 37.7 MB
+// 0.0347 ms at the H100's 989 TFLOP/s bf16 tensor-core rate, against 37.7 MB
 // of q, k, v and out (0.011 ms at 3.35 TB/s).  Each k/v tile is read once
-// per q tile, so the traffic grows as S^2/64, well inside L2 at these sizes.
+// per q tile, and the q heads of one kv head run side by side, so the
+// repeated reads hit L2.
 //
-// Design.  Right and simple first: one block of 256 threads per
-// (batch-head, 64-row q tile); key tiles of 32 rows are staged through
-// shared memory as float32, and every product is a float32 FMA on the CUDA
-// cores, as the TPU kernel multiplies in float32 (kernel.py:49, 66-67).  A
-// thread owns a 4-row x 2-column micro-tile of the scores and a 4-row x
-// D/16-column micro-tile of the output, so a row's max, sum and rescale
-// stay within 16 lanes of one warp (shuffles, no shared-memory reduction).
-// Rows of q and k in shared memory are padded to D+1 floats, so the column
-// walks of the score loop hit 32 distinct banks.  The float32 FMA path
-// runs at about 1/15 of the bf16 tensor-core rate; moving the two products
-// to wgmma, with TMA loads of k/v tiles, is the later work that closes it.
+// Two kernels, chosen by dtype and head dim in flash_attention_launch:
+//
+// * flash_wgmma: bfloat16 at D = 128, the main path (Yi-6B computes in
+//   bf16).  One block of 384 threads per (batch-head, 128-row q tile): two
+//   consumer warpgroups of 64 q rows each and a producer warpgroup, which
+//   hands its registers to the consumers (setmaxnreg 24 / 240).  One
+//   producer thread loads the q tile once by TMA and streams 128-key k and
+//   v tiles through a ring of two stages (cp.async.bulk.tensor; mbarriers
+//   "k landed", "v landed" and "both read" a stage, so q.k^T starts before
+//   v is in).  Each tile lands in shared memory as two
+//   64-column halves in the 128-byte swizzle that wgmma's descriptors
+//   expect.  A consumer warpgroup computes q.k^T with wgmma m64n128k16 (A =
+//   q, B = k, both K-major in shared memory, bf16 operands, float32
+//   accumulators in registers), scales the float32 scores by
+//   scale * log2(e), masks them (only on tiles that cross the causal
+//   diagonal, the window edge or the ragged end), runs the online softmax
+//   with exp2f, converts p to bf16 in registers and feeds it as the A
+//   operand of a second wgmma (m64n128k16, B = v, MN-major).  q tiles are
+//   issued longest first (causal work grows with the tile index), and the
+//   `group` q heads of one kv head are neighbours in the grid, so their k/v
+//   tiles are read from device memory about once.
+//
+//   Rounding: q and k enter q.k^T as they are (bf16, exact products,
+//   float32 sums); p is rounded to bf16 before p.v, and the denominator sums
+//   the float32 p.  That is what the JAX package's own chunked route,
+//   repro/models/attention.py:_sdpa_chunked (the port's copy is
+//   repro_torch/models/attention.py:_sdpa_chunked), computes with bf16
+//   operands, except that it also rounds q * scale to bf16.  So this kernel
+//   is held to that route, not to a one-ulp match with the float32 plain
+//   version.
+//
+// * flash_fwd: float32 at every head dim, and bfloat16 at D = 32 and 64.
+//   One block of 256 threads per (batch-head, 64-row q tile); key tiles of
+//   32 rows are staged through shared memory as float32 and every product
+//   is a float32 FMA on the CUDA cores, as the TPU kernel multiplies in
+//   float32 (kernel.py:49, 66-67), so float32 output is exact to 1e-5.  A
+//   thread owns a 4-row x 2-column micro-tile of the scores and a 4-row x
+//   D/16-column micro-tile of the output; rows of q and k in shared memory
+//   are padded to D+1 floats.  It runs at about 1/15 of the bf16
+//   tensor-core rate.
 //
 // Masked keys contribute exactly 0 once a row has seen a valid key (exp of
 // -1e30 minus a finite max), and causal and windowed rows always see one,
 // so the result does not depend on the tile sizes; keys at or past S (the
 // ragged last tile) are -inf and contribute nothing at all.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
 
 namespace {
 
+constexpr float kNegInf = -1e30f;
+
+// ------------------------------------------------ flash_fwd (CUDA cores)
 constexpr int kBQ = 64;        // q rows per block
 constexpr int kBK = 32;        // key rows per shared-memory tile
 constexpr int kThreads = 256;  // 16 x 16: ty owns 4 rows, tx columns
-constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -250,12 +285,413 @@ cudaError_t launch_d(int head_dim, const void* q, const void* k,
   }
 }
 
+// ---------------------------------------------- flash_wgmma (tensor cores)
+constexpr int kWD = 128;                 // head dim
+constexpr int kWBQ = 128;                // q rows per block
+constexpr int kWBK = 128;                // keys per k/v tile
+constexpr int kHalf = 64;                // columns in one 128-byte swizzle span
+constexpr int kHalfBytes = kWBK * kHalf * 2;  // 16 KB: 128 rows x 128 B
+constexpr int kTileBytes = kWBK * kWD * 2;    // 32 KB: one q, k or v tile
+constexpr int kStages = 2;
+constexpr int kConsumers = 2;            // warpgroups of 64 q rows
+constexpr int kWThreads = (kConsumers + 1) * 128;  // + a producer warpgroup
+constexpr int kWSmem = 1024                      // slack to align to 1 KB
+                       + kTileBytes              // q
+                       + 2 * kStages * kTileBytes  // k and v rings
+                       + 8 * (1 + 3 * kStages);  // mbarriers
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`.  A
+// wait that never ends (a load that never lands) traps, so it surfaces as
+// a launch error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  uint32_t tries = 0;
+  do {
+    if (++tries == (1u << 28)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA box of a 3-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle.  K-major operands
+// (q, k): rows of 128 B, 8-row groups 1024 B apart (SBO); LBO unused.
+// MN-major operand (v): 8-key groups 1024 B apart (SBO), the two 64-column
+// halves kHalfBytes apart (LBO).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Keep the compiler from reading accumulators before the wait.
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D64                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "            \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "       \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "     \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "     \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "     \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "     \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "     \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define R8(i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define R64 R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56)
+
+// d (+)= A . B^T, m64n128k16, A and B K-major bf16 in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : R64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A . B, m64n128k16, A in registers (bf16 pairs), B MN-major bf16 in
+// shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : R64
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// One consumer warpgroup: q rows q0 + 64 wg .. + 63 against key tiles lo ..
+// lo + n_iter - 1; writes those rows of `op`.
+__device__ __forceinline__ void consume(
+    uint32_t sQ, uint32_t sK, uint32_t sV, uint32_t bar_q, uint32_t bar_k,
+    uint32_t bar_v, uint32_t bar_empty, int wg, int q0, int lo, int n_iter,
+    __nv_bfloat16* __restrict__ op, int seq_len, int causal, float scale_log2,
+    int window) {
+  // consumer warpgroup wg: q rows q0 + 64 wg .. + 63.  Accumulator layout
+  // of m64nN: d[4j + e] is (row r, column 8j + 2c + e), d[4j + 2 + e] is
+  // (row r + 8, the same column), r = 16 warp + lane / 4, c = lane % 4.
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int c2 = 2 * (lane % 4);
+  const int wrow = q0 + 64 * wg;  // first q row of this warpgroup
+  const int row0 = wrow + 16 * warp + lane / 4, row1 = row0 + 8;
+
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.0f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
+
+  mbar_wait(bar_q, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % kStages;
+    const uint32_t phase = (it / kStages) & 1;
+    mbar_wait(bar_k + 8 * s, phase);
+    const uint32_t tK = sK + s * kTileBytes, tV = sV + s * kTileBytes;
+
+    // scores = q . k^T over D = 128: 8 steps of 16, two per 64-column half
+    float sc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.0f;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWD / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
+      wgmma_ss(sc, sw128_desc(sQ + off + wg * 64 * 128, 16, 1024),
+               sw128_desc(tK + off, 16, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(sc);
+
+    const int k0 = (lo + it) * kWBK;
+    const bool edge = k0 + kWBK > seq_len ||
+                      (causal && k0 + kWBK - 1 > wrow) ||
+                      (window > 0 && k0 <= wrow + 63 - window);
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float a = sc[4 * j + e] * scale_log2, b = sc[4 * j + 2 + e] * scale_log2;
+        if (edge) {
+          const int col = k0 + 8 * j + c2 + e;
+          bool keep0 = true, keep1 = true;
+          if (causal) {
+            keep0 &= col <= row0;
+            keep1 &= col <= row1;
+          }
+          if (window > 0) {
+            keep0 &= col > row0 - window;
+            keep1 &= col > row1 - window;
+          }
+          a = col >= seq_len ? -INFINITY : (keep0 ? a : kNegInf);
+          b = col >= seq_len ? -INFINITY : (keep1 ? b : kNegInf);
+        }
+        sc[4 * j + e] = a;
+        sc[4 * j + 2 + e] = b;
+        mx0 = fmaxf(mx0, a);
+        mx1 = fmaxf(mx1, b);
+      }
+    }
+    // the four lanes of a row hold its 128 scores
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float corr0 = exp2f(m0 - mn0), corr1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ls0 = 0.0f, ls1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p0 = exp2f(sc[4 * j + e] - mn0);
+        const float p1 = exp2f(sc[4 * j + 2 + e] - mn1);
+        sc[4 * j + e] = p0;
+        sc[4 * j + 2 + e] = p1;
+        ls0 += p0;
+        ls1 += p1;
+      }
+      o[4 * j] *= corr0;
+      o[4 * j + 1] *= corr0;
+      o[4 * j + 2] *= corr1;
+      o[4 * j + 3] *= corr1;
+    }
+    l0 = l0 * corr0 + ls0;  // this thread's share; the quad sums at the end
+    l1 = l1 * corr1 + ls1;
+
+    // o += p . v: p (bf16) is the A operand straight from the accumulator
+    // layout, 16 keys a step
+    uint32_t pa[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+      asm volatile("" : "+r"(pa[i])::"memory");
+    }
+    mbar_wait(bar_v + 8 * s, phase);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWBK / 16; ++kk)
+      wgmma_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+               sw128_desc(tV + kk * 16 * 128, kHalfBytes, 1024));
+    wg_commit();
+    wg_wait_all();
+    fence_regs(o);
+    mbar_arrive(bar_empty + 8 * s);
+  }
+
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 8 * j + c2;
+    if (row0 < seq_len)
+      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row0 * kWD + col) =
+          __floats2bfloat162_rn(o[4 * j] / d0, o[4 * j + 1] / d0);
+    if (row1 < seq_len)
+      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row1 * kWD + col) =
+          __floats2bfloat162_rn(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+  }
+}
+
+__global__ void __launch_bounds__(kWThreads, 1)
+    flash_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                __nv_bfloat16* __restrict__ out, int seq_len, int group,
+                int causal, float scale_log2, int window) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + kTileBytes;
+  const uint32_t sV = sK + kStages * kTileBytes;
+  const uint32_t bar_q = sV + kStages * kTileBytes;
+  const uint32_t bar_k = bar_q + 8;                // k landed, a stage each
+  const uint32_t bar_v = bar_k + 8 * kStages;      // v landed
+  const uint32_t bar_empty = bar_v + 8 * kStages;  // both read
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal tiles first
+  const int q0 = qt * kWBQ;
+  // key tiles this q tile can see (kernel.py:54-62, with equal q and k
+  // tiles); a negative lo is clamped to 0
+  const int n_kt = (seq_len + kWBK - 1) / kWBK;
+  const int hi = causal ? min(qt + 1, n_kt) : n_kt;
+  const int lo = window > 0 ? max((q0 - window + 1) / kWBK, 0) : 0;
+  const int n_iter = hi - lo;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // producer warpgroup: gives its registers to the consumers; one thread
+    // issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (threadIdx.x == kConsumers * 128) {
+      const int kvh = bh / group;
+      mbar_expect_tx(bar_q, kTileBytes);
+      for (int h = 0; h < 2; ++h)
+        tma_load(sQ + h * kHalfBytes, &tm_q, bar_q, h * kHalf, q0, bh);
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % kStages;
+        mbar_wait(bar_empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        const int k0 = (lo + it) * kWBK;
+        mbar_expect_tx(bar_k + 8 * s, kTileBytes);
+        for (int h = 0; h < 2; ++h)
+          tma_load(sK + s * kTileBytes + h * kHalfBytes, &tm_k, bar_k + 8 * s,
+                   h * kHalf, k0, kvh);
+        mbar_expect_tx(bar_v + 8 * s, kTileBytes);
+        for (int h = 0; h < 2; ++h)
+          tma_load(sV + s * kTileBytes + h * kHalfBytes, &tm_v, bar_v + 8 * s,
+                   h * kHalf, k0, kvh);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    consume(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, wg, q0, lo, n_iter,
+            out + (size_t)bh * seq_len * kWD, seq_len, causal, scale_log2,
+            window);
+  }
+}
+
+// A (rows, S, 128) bf16 array as a 3-D tensor map with 64 x 128 boxes in
+// the 128-byte swizzle; rows past S read as zeros.
+CUresult make_map(CUtensorMap* map, const void* ptr, int rows, int seq_len) {
+  const cuuint64_t dims[3] = {(cuuint64_t)kWD, (cuuint64_t)seq_len,
+                              (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {(cuuint64_t)kWD * 2,
+                                 (cuuint64_t)seq_len * kWD * 2};
+  const cuuint32_t box[3] = {kHalf, kWBK, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  // libcuda's encoder, looked up at run time: nothing links against libcuda
+  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                             void*, const cuuint64_t*, const cuuint64_t*,
+                             const cuuint32_t*, const cuuint32_t*,
+                             CUtensorMapInterleave, CUtensorMapSwizzle,
+                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr)
+      encode = reinterpret_cast<Encode>(dlsym(lib, "cuTensorMapEncodeTiled"));
+    if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  }
+  return encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                         int bh, int seq_len, int group, int causal,
+                         float scale, int window, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  CUtensorMap tq, tk, tv;
+  if (make_map(&tq, q, bh, seq_len) != CUDA_SUCCESS ||
+      make_map(&tk, k, bh / group, seq_len) != CUDA_SUCCESS ||
+      make_map(&tv, v, bh / group, seq_len) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  const dim3 grid(bh, (seq_len + kWBQ - 1) / kWBQ);
+  flash_wgmma<<<grid, kWThreads, kWSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), seq_len, group, causal,
+      scale * kLog2e, window);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
 // success).  Does not synchronise.  dtype: 0 float32, 1 bfloat16.
 // head_dim: 32, 64 or 128.  window <= 0 means no window.  q and out hold
 // bh * seq_len * head_dim elements, k and v bh / group times that.
+// bfloat16 at head_dim 128 runs flash_wgmma; everything else flash_fwd.
 extern "C" int flash_attention_launch(int device, int dtype, int head_dim,
                                       const void* q, const void* k,
                                       const void* v, void* out, int bh,
@@ -268,6 +704,9 @@ extern "C" int flash_attention_launch(int device, int dtype, int head_dim,
   if (dtype == 0)
     err = launch_d<float>(head_dim, q, k, v, out, bh, seq_len, group, causal,
                           scale, window, s);
+  else if (head_dim == kWD)
+    err = launch_wgmma(q, k, v, out, bh, seq_len, group, causal, scale,
+                       window, s);
   else
     err = launch_d<__nv_bfloat16>(head_dim, q, k, v, out, bh, seq_len, group,
                                   causal, scale, window, s);

@@ -7,14 +7,15 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import device_and_stream, load_library
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 
 #: the JAX wrapper's block sizes; they fix the ``S % block`` contract only,
-#: since the CUDA kernel tiles by its own 64 x 32 (the result does not
-#: depend on the block: masked keys contribute exactly 0)
+#: since the CUDA kernels tile by their own (128 x 128 for bf16 at head dim
+#: 128, 64 x 32 otherwise; the result does not depend on the block: masked
+#: keys contribute exactly 0)
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
 
@@ -93,15 +94,14 @@ def flash_attention(
     qf = q.reshape(b * h, s, d).contiguous()
     kf = k.reshape(b * hkv, s, d).contiguous()
     vf = v.reshape(b * hkv, s, d).contiguous()
-    if any(t.data_ptr() % 16 for t in (qf, kf, vf)):
+    if (qf.data_ptr() | kf.data_ptr() | vf.data_ptr()) % 16:
         raise ValueError("q, k and v must start on a 16-byte boundary")
     out = torch.empty_like(qf)
-    dev = q.device
+    dev, stream = device_and_stream(q)
     code = lib.flash_attention_launch(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        _DTYPES[q.dtype], d, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+        dev, _DTYPES[q.dtype], d, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
         out.data_ptr(), b * h, s, h // hkv, int(causal), float(scale),
-        window or 0, torch.cuda.current_stream(dev).cuda_stream,
+        window or 0, stream,
     )
     if code != 0:
         msg = lib.flash_attention_error_string(code).decode()

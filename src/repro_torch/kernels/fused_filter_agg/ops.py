@@ -7,7 +7,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import device_and_stream, load_library
 from repro_torch.kernels.fused_filter_agg.ref import _OPS, fused_filter_agg_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "fused_filter_agg.cu"
@@ -115,14 +115,13 @@ def fused_filter_agg(
     part_counts = torch.empty(blocks * num_groups, dtype=torch.int32, device=dev)
     sums = torch.empty(num_groups, dtype=torch.float32, device=dev)
     counts = torch.empty(num_groups, dtype=torch.float32, device=dev)
+    index, stream = device_and_stream(keys)
     code = lib.fused_filter_agg_launch(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        keys.data_ptr(), values.data_ptr(), int(values.dtype == torch.int32),
+        index, keys.data_ptr(), values.data_ptr(), int(values.dtype == torch.int32),
         filter_vals.data_ptr(), int(filter_vals.dtype == torch.int32),
         n, _OPS.index(op), float(threshold), num_groups, blocks,
         rows_per_block, part_sums.data_ptr(), part_counts.data_ptr(),
-        sums.data_ptr(), counts.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        sums.data_ptr(), counts.data_ptr(), stream,
     )
     if code != 0:
         msg = lib.fused_filter_agg_error_string(code).decode()
