@@ -30,13 +30,16 @@ Phases, each of which fails the script (non-zero exit) on any error:
    versions: decode at B in {1, 4}, H/Hkv in {32/4, 48/1}, S in {1024,
    4096}, lengths 1, S-1, S, 0 and the split's chunk - 1, chunk and
    chunk + 1; flash at S in {512, 2048} (and a ragged 200), causal,
-   non-causal and window 256, GQA 32/4, plus mask probes (``mask_probe``:
+   non-causal and window 256, GQA 32/4, at head dim 128, and at S = 512
+   causal, with and without window 256, at head dims 32 and 64 (the
+   CUDA-core kernel in both dtypes), plus mask probes (``mask_probe``:
    keys past the diagonal or outside the window carry large scores and v
    = +-64, so a leak moves outputs by whole units) at S in {512, 2048};
    float32 and bfloat16.  Decode and float32 flash within 1e-5 + 1e-5
-   |plain| (sums in another order), bfloat16 decode within one bf16 ulp
-   of the output (both round once from float32) plus that 1e-5; bf16
-   flash by ``flash_bf16_close``: its largest and mean |kernel - plain|
+   |plain| (sums in another order), bfloat16 decode and bfloat16 flash
+   at head dims 32 and 64 within one bf16 ulp of the output (both round
+   once from float32) plus that 1e-5; bf16 flash at head dim 128 by
+   ``flash_bf16_close``: its largest and mean |kernel - plain|
    at most twice those of the reference's chunked bf16 route
    (``flash_yardstick``) plus 1e-5, since the kernel's tensor-core
    products round p to bf16 as that route does.  Two launches bitwise
@@ -557,6 +560,17 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                           lambda: flash_ref.attention_ref(q, k, v, **kw),
                           (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
                 worst[("flash", dtype)] = max(worst.get(("flash", dtype), 0.0), err)
+                n += 1
+        # head dims 32 and 64 run flash_fwd in both dtypes (float32 sums)
+        for d in (32, 64):
+            q = randn(1, 32, 512, d, dtype=dtype)
+            k, v = randn(1, 4, 512, d, dtype=dtype), randn(1, 4, 512, d, dtype=dtype)
+            for window in (None, 256):
+                kw = dict(causal=True, window=window)
+                err = one(f"flash {dtype} D={d} S=512 {kw}",
+                          lambda: flash_ops.flash_attention(q, k, v, **kw),
+                          lambda: flash_ref.attention_ref(q, k, v, **kw))
+                worst[("flash D<128", dtype)] = max(worst.get(("flash D<128", dtype), 0.0), err)
                 n += 1
         for s in (512, 2048):
             for window in (None, 256):

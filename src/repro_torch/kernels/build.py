@@ -42,12 +42,10 @@ _loaded: Dict[Path, ctypes.CDLL] = {}
 
 def device_and_stream(t) -> Tuple[int, int]:
     """The index of the CUDA device ``t`` lies on and the raw handle of
-    its current stream, for a launch through ctypes."""
+    its current stream, for a launch through ctypes (the call PyTorch's own
+    generated kernels make; it builds no Stream object)."""
     index = t.get_device()
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:
-        return index, raw(index)
-    return index, torch.cuda.current_stream(index).cuda_stream
+    return index, torch._C._cuda_getCurrentRawStream(index)
 
 
 def nvcc() -> str:

@@ -49,7 +49,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGroup = 64;  // q heads per kv head
+constexpr int kMaxGroup = 64;  // q heads per kv head (ops.py MAX_GROUP)
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -436,12 +436,6 @@ cudaError_t launch_d(int head_dim, const void* q, const void* k,
 }
 
 }  // namespace
-
-// Largest `group` (q heads per kv head) the kernel takes at head_dim, or 0
-// for a head_dim it is not built for.
-extern "C" int decode_attention_max_group(int head_dim) {
-  return head_dim == 32 || head_dim == 64 || head_dim == 128 ? kMaxGroup : 0;
-}
 
 // Launches the kernels on `stream` (decode_split, then decode_combine when
 // n_splits > 1) and returns cudaGetLastError() (0 on success).  Does not

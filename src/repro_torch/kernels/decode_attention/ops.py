@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,15 +22,15 @@ HEAD_DIMS = (32, 64, 128)
 #: cache rows a chunk is a multiple of (the kernel's bf16 tile)
 CHUNK_ALIGN = 64
 
+#: most q heads per kv head a block serves (the kernel's kMaxGroup)
+MAX_GROUP = 64
+
 #: kernel calls made through this wrapper (CUDA tensors only); one a call,
 #: though a call with more than one chunk launches a combine kernel too
 LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
-_max_group: Dict[int, int] = {}  # by head dim
-_sms: Dict[int, int] = {}  # SMs by device index
-_plans: Dict[tuple, tuple] = {}  # split plan and partials by shape and stream
 
 
 def load() -> ctypes.CDLL:
@@ -44,8 +44,6 @@ def load() -> ctypes.CDLL:
             ctypes.c_float, vp,
         ]
         lib.decode_attention_launch.restype = i32
-        lib.decode_attention_max_group.argtypes = [i32]
-        lib.decode_attention_max_group.restype = i32
         lib.decode_attention_error_string.argtypes = [i32]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -78,33 +76,27 @@ def _check_cuda(q, k_cache, v_cache, lengths) -> None:
                          f"{tuple(v_cache.shape)}")
     if lengths.shape != (b,):
         raise ValueError(f"lengths must be ({b},), got {tuple(lengths.shape)}")
-    if lengths.dtype != torch.int32:
-        raise TypeError(f"lengths must be int32, got {lengths.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if q.shape[1] // k_cache.shape[1] > MAX_GROUP:
+        raise ValueError(f"{q.shape[1] // k_cache.shape[1]} q heads per kv head exceed "
+                         f"the kernel's {MAX_GROUP}")
 
 
 def _launch(lib, q, k_cache, v_cache, lengths, scale, *, device, stream, sms):
-    """Allocate the output (and, at the first call of a shape on a stream,
-    the float32 partials), and launch.  ``q``, the caches and ``lengths``
-    go to the kernel as they are."""
+    """Allocate the output and the float32 partials, and launch.  ``q``,
+    the caches and ``lengths`` go to the kernel as they are."""
     b, h, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
-    key = (device, stream, b, h, hkv, s, d, sms)
-    plan = _plans.get(key)
-    if plan is None:
-        n_splits, chunk = split_plan(s, b * hkv, sms)
-        # per q head and chunk: acc (D floats), then (m, l); none for one
-        # chunk.  Calls on one stream run in order, so they share it.
-        rows = b * h * n_splits if n_splits > 1 else 0
-        parts = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
-        plan = _plans[key] = (n_splits, chunk, parts.data_ptr(),
-                              parts.data_ptr() + rows * d * 4, parts)
-    n_splits, chunk, acc, ml, _ = plan
+    n_splits, chunk = split_plan(s, b * hkv, sms)
+    # per q head and chunk: acc (D floats), then (m, l); none for one chunk
+    rows = b * h * n_splits if n_splits > 1 else 0
+    parts = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
+    acc = parts.data_ptr()
     out = torch.empty_like(q)
     code = lib.decode_attention_launch(
         device, _DTYPES[q.dtype], d, q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), acc, ml,
+        v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), acc, acc + rows * d * 4,
         b, hkv, h // hkv, s, n_splits, chunk, scale, stream,
     )
     if code != 0:
@@ -117,7 +109,7 @@ def decode_attention(
     q: torch.Tensor,        # (B, H, D)
     k_cache: torch.Tensor,  # (B, Hkv, S, D)
     v_cache: torch.Tensor,  # (B, Hkv, S, D)
-    lengths: torch.Tensor,  # (B,) int32
+    lengths: torch.Tensor,  # (B,) integer
     *,
     scale: Optional[float] = None,
     block_s: int = DEFAULT_BLOCK_S,
@@ -141,18 +133,13 @@ def decode_attention(
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda(q, k_cache, v_cache, lengths)
     lib = load()
-    if d not in _max_group:
-        _max_group[d] = lib.decode_attention_max_group(d)
-    if h // hkv > _max_group[d]:
-        raise ValueError(f"{h // hkv} q heads per kv head exceed the kernel's "
-                         f"{_max_group[d]} at head dim {d}")
     qf, kf, vf = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
     if (qf.data_ptr() | kf.data_ptr() | vf.data_ptr()) % 16:
         raise ValueError("q and the caches must start on a 16-byte boundary")
     dev, stream = device_and_stream(q)
-    if dev not in _sms:
-        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    out = _launch(lib, qf, kf, vf, lengths.contiguous(), float(scale), device=dev,
-                  stream=stream, sms=_sms[dev])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # int32 and contiguous (B,) lengths pass as they are; others are copied
+    lens = lengths.to(torch.int32).contiguous()
+    out = _launch(lib, qf, kf, vf, lens, float(scale), device=dev, stream=stream, sms=sms)
     LAUNCHES += 1
     return out

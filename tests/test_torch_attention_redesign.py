@@ -227,27 +227,40 @@ def test_decode_wrapper_passes_lengths_unchanged(s):
 
 
 def test_decode_wrapper_rejects_per_head_or_wide_lengths():
+    """Lengths are one per sequence: (B * H,) per-head copies and 2-D
+    tensors are refused; any integer dtype of shape (B,) is taken."""
     q = torch.zeros((2, 8, 32))
     k = torch.zeros((2, 2, 64, 32))
     with pytest.raises(ValueError):
         decode_ops._check_cuda(q, k, k, torch.zeros((16,), dtype=torch.int32))
-    with pytest.raises(TypeError):
-        decode_ops._check_cuda(q, k, k, torch.zeros((2,), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        decode_ops._check_cuda(q, k, k, torch.zeros((2, 4), dtype=torch.int32))
+    decode_ops._check_cuda(q, k, k, torch.zeros((2,), dtype=torch.int64))
 
 
-def test_decode_partials_are_kept_per_stream_and_shape():
-    """The float32 partials are allocated at a shape's first call on a
-    stream and reused by later calls there (they run in order); another
-    stream gets its own."""
+@pytest.mark.parametrize("group,ok", [(1, True), (48, True), (decode_ops.MAX_GROUP, True),
+                                      (decode_ops.MAX_GROUP * 2, False)])
+def test_decode_wrapper_group_limit(group, ok):
+    q = torch.zeros((1, group, 32))
+    k = torch.zeros((1, 1, 64, 32))
+    lengths = torch.ones((1,), dtype=torch.int32)
+    if ok:
+        decode_ops._check_cuda(q, k, k, lengths)
+    else:
+        with pytest.raises(ValueError, match="q heads per kv head"):
+            decode_ops._check_cuda(q, k, k, lengths)
+
+
+def test_decode_partials_hold_acc_then_ml():
+    """A split call passes float32 partials: acc (B * H * n_splits rows of
+    D) and, right after it, (m, l) of each of those rows."""
     b, h, hkv, s, d = 2, 8, 2, 4096, 64
     q = torch.zeros((b, h, d), dtype=torch.bfloat16)
     k = torch.zeros((b, hkv, s, d), dtype=torch.bfloat16)
     lengths = torch.tensor([5, 4096], dtype=torch.int32)
     lib = FakeLib()
-    for stream in (11, 11, 12):
-        decode_ops._launch(lib, q, k, k, lengths, 0.125, device=0, stream=stream,
-                           sms=H100_SMS)
-    first, again, other = (call[8] for call in lib.calls)
-    assert first == again != other and first != 0
+    decode_ops._launch(lib, q, k, k, lengths, 0.125, device=0, stream=0, sms=H100_SMS)
+    args = lib.calls[0]
     n_splits = decode_ops.split_plan(s, b * hkv, H100_SMS)[0]
-    assert lib.calls[0][9] - first == b * h * n_splits * d * 4  # (m, l) after acc
+    assert n_splits > 1 and args[8] != 0
+    assert args[9] - args[8] == b * h * n_splits * d * 4
