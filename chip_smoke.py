@@ -11,11 +11,15 @@ Phases, each of which fails the script (non-zero exit) on any error:
    three CUDA kernels from ``src/`` (one nvcc each, all started together),
    print each build time and ptxas's report, and count the wgmma (HGMMA)
    instructions in the flash library's SASS (there must be some);
-2. hold ``fused_filter_agg`` against its plain PyTorch version at n =
-   2^23 and 2^23 + 1000 rows, for 64, 265 and 1024 groups and all six
-   predicate ops: counts and integer-valued sums exactly equal, float
-   sums within 1e-5 * sum|v| of a float64 oracle, two launches on the
-   same float input bitwise equal;
+2. hold ``fused_filter_agg`` against its plain PyTorch version at n in
+   {0, 1, 4095, 2^23, 2^23 + 3, 2^23 + 1000} rows, for 1, 63, 64, 65,
+   265 and 1024 groups and all six predicate ops, on views that start 1,
+   2 or 3 elements past a 16-byte boundary (also each column on its own
+   offset), and on columns whose every row has one key: counts and
+   integer-valued sums exactly equal, float sums within 1e-5 * sum|v| of
+   a float64 oracle, two launches on the same float input bitwise equal,
+   an offset view bitwise equal to its rows copied to aligned memory, and
+   8 launches on two streams at once bitwise equal;
 3. the interactive query path at full size: write 2^23 rows of
    ``make_taxi_data`` (seed 0) into a temporary lake through the port and
    run Q1-Q3 through ``Runner.query`` on ``cuda``.  Each must equal a
@@ -32,12 +36,15 @@ Phases, each of which fails the script (non-zero exit) on any error:
    chunk + 1; flash at S in {512, 2048} (and a ragged 200), causal,
    non-causal and window 256, GQA 32/4, at head dim 128, and at S = 512
    causal, with and without window 256, at head dims 32 and 64 (the
-   CUDA-core kernel in both dtypes), plus mask probes (``mask_probe``:
+   CUDA-core kernel in both dtypes); at head dims 80 (64/8 heads) and 120
+   (32/8), decode at B = 4, S = 4096 with lengths 1, S-1, S, 0 and the
+   chunk edges, flash at S in {512, 200} causal, non-causal and window
+   256, and mask probes at S in {512, 2048}; plus mask probes (``mask_probe``:
    keys past the diagonal or outside the window carry large scores and v
    = +-64, so a leak moves outputs by whole units) at S in {512, 2048};
    float32 and bfloat16.  Decode and float32 flash within 1e-5 + 1e-5
    |plain| (sums in another order), bfloat16 decode and bfloat16 flash
-   at head dims 32 and 64 within one bf16 ulp of the output (both round
+   at head dims 32, 64, 80 and 120 within one bf16 ulp of the output (both round
    once from float32) plus that 1e-5; bf16 flash at head dim 128 by
    ``flash_bf16_close``: its largest and mean |kernel - plain|
    at most twice those of the reference's chunked bf16 route
@@ -57,8 +64,13 @@ Phases, each of which fails the script (non-zero exit) on any error:
    within LOGIT_TOL), and the kernel route's decode logits equal its
    forward logits within LOGIT_TOL.  Latencies, step times, tokens/s,
    peak memory and a profile of PROFILE_STEPS decode steps are printed;
-7. time the two attention kernels at the main path's shapes like phase 4
-   and print one ``{"kernels": [...]}`` line for all three kernels.
+6b. the same for h2o-danube-3-4b (head dim 120) and qwen3-32b (head dim
+   80) at full width and CUT_LAYERS layers (``serve_cut``): requests
+   through ``ServeEngine`` and a forward on both routes, launch counts
+   of CUT_LAYERS a step and a forward, logits within the same limits;
+7. time the two attention kernels at the main path's shapes like phase 4,
+   and at phase 6b's shapes, and print one ``{"kernels": [...]}`` line
+   for all three kernels, each row with the card and its power limit.
 
 Timing (phases 4 and 7): CUDA events, L2 flushed between launches,
 median of 25; ``ms`` has the launches queued behind a sleep kernel so
@@ -117,6 +129,11 @@ LOGIT_TOL = 0.25
 LOGIT_MEAN_TOL = 0.03125
 #: decode steps in the profiled window
 PROFILE_STEPS = 4
+#: phase 6b: h2o-danube-3-4b and qwen3-32b at full width, depth cut
+CUT_ARCHS = ("h2o-danube-3-4b", "qwen3-32b")
+CUT_LAYERS = 2
+CUT_REQUESTS = 4
+CUT_NEW_TOKENS = 8
 
 Q1 = ("SELECT pickup_location_id, COUNT(*) AS n FROM taxi_table "
       "WHERE pickup_at >= '2019-04-01' GROUP BY pickup_location_id "
@@ -171,51 +188,125 @@ def flash_source(mods):
 
 
 # --------------------------------------------------------------- phase 2
+def bitwise_equal(torch, a, b) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def kernel_vs_plain(torch, ops, ref):
+    """Every case: integer values with an int32 filter exactly equal to
+    the plain version and to an int64 oracle; float values with a float32
+    filter within 1e-5 * sum|v| of a float64 oracle, counts equal to the
+    plain version's, two launches bitwise equal."""
     worst = 0.0
     dev = torch.device("cuda")
-    for n in (N_MAIN, N_MAIN + 1000):
+    cases = 0
+
+    def case(keys, vals_i, vals_f, filt_i, filt_f, G, op, name):
+        nonlocal worst, cases
+        kw = dict(op=op, threshold=42.0, num_groups=G)
+        name = f"{name} G={G} {op}"
+        # integer values, int32 filter: exact against plain and int64
+        s_k, c_k = ops.fused_filter_agg(keys, vals_i, filt_i, **kw)
+        torch.cuda.synchronize()
+        s_p, c_p = ref.fused_filter_agg_ref(keys, vals_i, filt_i, **kw)
+        keep = ref._mask(filt_i, op, 42.0) & (keys >= 0) & (keys < G)
+        idx = keys[keep].long()
+        s64 = torch.zeros(G, dtype=torch.int64, device=dev).index_add_(
+            0, idx, vals_i[keep].long())
+        c64 = torch.bincount(idx, minlength=G)
+        check(torch.equal(c_k, c_p), f"counts vs plain {name}")
+        check(torch.equal(c_k.long(), c64), f"counts vs int64 {name}")
+        check(torch.equal(s_k, s_p), f"int sums vs plain {name}")
+        check(torch.equal(s_k.long(), s64), f"int sums vs int64 {name}")
+        # float values, float32 filter: tolerance + bitwise repeatability
+        s_k, c_k = ops.fused_filter_agg(keys, vals_f, filt_f, **kw)
+        s_k2, _ = ops.fused_filter_agg(keys, vals_f, filt_f, **kw)
+        torch.cuda.synchronize()
+        s_p, c_p = ref.fused_filter_agg_ref(keys, vals_f, filt_f, **kw)
+        f64 = torch.zeros(G, dtype=torch.float64, device=dev).index_add_(
+            0, idx, vals_f[keep].double())
+        a64 = torch.zeros(G, dtype=torch.float64, device=dev).index_add_(
+            0, idx, vals_f[keep].double().abs())
+        err = (s_k.double() - f64).abs()
+        check(bool((err <= 1e-5 * a64).all()), f"float sums vs f64 {name}")
+        check(bitwise_equal(torch, s_k, s_k2), f"repeat launch not bitwise equal {name}")
+        check(torch.equal(c_k, c_p), f"float-run counts {name}")
+        worst = max(worst, float((s_k - s_p).abs().max()))
+        cases += 1
+        return s_k
+
+    def columns(n, G, gen, pad=0):
+        """keys over [-1, G] (-1 and G must be dropped), int and float
+        values, an int filter and its float copy; ``pad`` extra leading
+        rows, for views that start off a 16-byte boundary."""
+        m = n + pad
+        keys = torch.randint(-1, G + 1, (m,), generator=gen, device=dev, dtype=torch.int32)
+        vals_i = torch.randint(-50, 51, (m,), generator=gen, device=dev, dtype=torch.int32)
+        vals_f = torch.randn(m, generator=gen, device=dev)
+        filt_i = torch.randint(0, 100, (m,), generator=gen, device=dev, dtype=torch.int32)
+        return keys, vals_i, vals_f, filt_i, filt_i.to(torch.float32)
+
+    sizes = (0, 1, 4095, N_MAIN, N_MAIN + 3, N_MAIN + 1000)
+    groups = (1, 63, 64, 65, 265, 1024)
+    for n in sizes:
         gen = torch.Generator(device=dev).manual_seed(SEED)
-        for G in (64, 265, 1024):
-            # keys span [-1, G]: -1 and G must be dropped
-            keys = torch.randint(-1, G + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
-            vals_i = torch.randint(-50, 51, (n,), generator=gen, device=dev, dtype=torch.int32)
-            vals_f = torch.randn(n, generator=gen, device=dev)
-            filt_i = torch.randint(0, 100, (n,), generator=gen, device=dev, dtype=torch.int32)
-            filt_f = filt_i.to(torch.float32)
+        for G in groups:
+            cols = columns(n, G, gen)
             for op in OPS:
-                kw = dict(op=op, threshold=42.0, num_groups=G)
-                # integer values, int32 filter: exact against plain and int64
-                s_k, c_k = ops.fused_filter_agg(keys, vals_i, filt_i, **kw)
-                torch.cuda.synchronize()
-                s_p, c_p = ref.fused_filter_agg_ref(keys, vals_i, filt_i, **kw)
-                keep = ref._mask(filt_i, op, 42.0) & (keys >= 0) & (keys < G)
-                idx = keys[keep].long()
-                s64 = torch.zeros(G, dtype=torch.int64, device=dev).index_add_(
-                    0, idx, vals_i[keep].long())
-                c64 = torch.bincount(idx, minlength=G)
-                check(torch.equal(c_k, c_p), f"counts vs plain n={n} G={G} {op}")
-                check(torch.equal(c_k.long(), c64), f"counts vs int64 n={n} G={G} {op}")
-                check(torch.equal(s_k, s_p), f"int sums vs plain n={n} G={G} {op}")
-                check(torch.equal(s_k.long(), s64), f"int sums vs int64 n={n} G={G} {op}")
-                # float values, float32 filter: tolerance + bitwise repeatability
-                s_k, c_k = ops.fused_filter_agg(keys, vals_f, filt_f, **kw)
-                s_k2, _ = ops.fused_filter_agg(keys, vals_f, filt_f, **kw)
-                torch.cuda.synchronize()
-                s_p, c_p = ref.fused_filter_agg_ref(keys, vals_f, filt_f, **kw)
-                f64 = torch.zeros(G, dtype=torch.float64, device=dev).index_add_(
-                    0, idx, vals_f[keep].double())
-                a64 = torch.zeros(G, dtype=torch.float64, device=dev).index_add_(
-                    0, idx, vals_f[keep].double().abs())
-                err = (s_k.double() - f64).abs()
-                check(bool((err <= 1e-5 * a64).all()), f"float sums vs f64 n={n} G={G} {op}")
-                check(torch.equal(s_k.view(torch.int32), s_k2.view(torch.int32)),
-                      f"repeat launch not bitwise equal n={n} G={G} {op}")
-                check(torch.equal(c_k, c_p), f"float-run counts n={n} G={G} {op}")
-                worst = max(worst, float((s_k - s_p).abs().max()))
-                torch.cuda.synchronize()
-    print(f"kernel vs plain: 72 cases pass (2 sizes x 3 group counts x 6 ops x "
-          f"int/float); max |kernel - plain| float sum {worst!r}")
+                case(*cols, G, op, f"n={n}")
+    grid_cases = cases
+
+    # views that start 1, 2 or 3 elements past a 16-byte boundary, each
+    # column on its own offset too: equal to the plain version, and
+    # bitwise equal to the same rows copied to aligned memory (the rows a
+    # thread owns do not depend on alignment)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for n in (4095, N_MAIN + 3):
+        for G in (64, 1024):
+            keys, vals_i, vals_f, filt_i, filt_f = columns(n, G, gen, pad=3)
+            for offs in ((1, 1, 1), (2, 2, 2), (3, 3, 3), (1, 2, 3), (3, 0, 2)):
+                ok, ov, of = offs
+                view = (keys[ok:ok + n], vals_i[ov:ov + n], vals_f[ov:ov + n],
+                        filt_i[of:of + n], filt_f[of:of + n])
+                check(all(t.data_ptr() % 16 for t, o in zip(view, (ok, ov, ov, of, of)) if o),
+                      f"offset views {offs} start on a 16-byte boundary")
+                for op in ("ge", "ne"):
+                    got = case(*view, G, op, f"n={n} offsets {offs}")
+                    aligned = [t.clone() for t in view]
+                    want, _ = ops.fused_filter_agg(aligned[0], aligned[2], aligned[4],
+                                                   op=op, threshold=42.0, num_groups=G)
+                    torch.cuda.synchronize()
+                    check(bitwise_equal(torch, got, want),
+                          f"offset view vs aligned copy n={n} G={G} {offs} {op}")
+
+    # every row on one key: the largest __match_any_sync group, every step
+    n = N_MAIN + 3
+    _, vals_i, vals_f, filt_i, filt_f = columns(n, 64, gen)
+    for G, key in ((1, 0), (64, 5), (1024, 1023)):
+        keys = torch.full((n,), key, dtype=torch.int32, device=dev)
+        for op in ("ge", "lt"):
+            case(keys, vals_i, vals_f, filt_i, filt_f, G, op, f"n={n} all rows on key {key}")
+
+    # concurrent launches on two streams: bitwise equal to each other and
+    # to the launch on the current stream
+    keys, vals_i, vals_f, filt_i, filt_f = columns(N_MAIN + 1000, 265, gen)
+    kw = dict(op="ge", threshold=42.0, num_groups=265)
+    want, want_c = ops.fused_filter_agg(keys, vals_f, filt_f, **kw)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    outs = []
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for _ in range(4):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(ops.fused_filter_agg(keys, vals_f, filt_f, **kw))
+    torch.cuda.synchronize()
+    for s_k, c_k in outs:
+        check(bitwise_equal(torch, s_k, want) and torch.equal(c_k, want_c),
+              "launches on two streams differ")
+    print(f"kernel vs plain: {cases} cases pass ({grid_cases} of n in {sizes} x G in {groups} "
+          f"x 6 ops, each int and float; offset views, one-key columns); {len(outs)} "
+          f"launches on two streams bitwise equal; max |kernel - plain| float sum {worst!r}")
     return worst
 
 
@@ -407,6 +498,13 @@ def measure(torch, ops, ref, launches, inputs, card):
         torch, lambda: torch.bincount(mkeys, weights=mvals, minlength=G), flush)
     print(f"timing: kernel device-only {ahead}, bincount device-only {library_ahead}, "
           f"plain device-only False (it synchronises)")
+    # the kernel's time against the rows: its first 2048 rows (one block),
+    # a quarter, all, and the rows four times over
+    by_rows = {}
+    for rows in (2048, n // 4, n, 4 * n):
+        k, v, f = (t[:rows] if rows <= n else t.repeat(rows // n) for t in (keys, vals, filt))
+        by_rows[rows] = time_ms(torch, lambda: ops.fused_filter_agg(k, v, f, **kw), flush)[0]
+    print(f"fused_filter_agg device ms against rows: {by_rows!r}")
     ops.LAUNCHES = before  # timing launches are not main-path launches
     nbytes = n * (4 + 4 + 4) + 2 * G * 4
     bytes_ms = nbytes / memory_rate(card) * 1e3
@@ -426,6 +524,7 @@ def measure(torch, ops, ref, launches, inputs, card):
         "wrapper_ms": wrapper_ms,
         "n": n,
         "num_groups": G,
+        "ms_by_rows": by_rows,
     }
     return row
 
@@ -510,8 +609,10 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    def one(name, kernel, plain, yard=None):
-        """yard: the bf16 flash rule's yardstick, else close_enough."""
+    def one(kind, name, kernel, plain, yard=None):
+        """One case; its largest |kernel - plain| counts under (kind,
+        dtype).  yard: the bf16 flash rule's yardstick, else close_enough."""
+        nonlocal n
         out, out2 = kernel(), kernel()
         torch.cuda.synchronize()
         want = plain()
@@ -527,7 +628,8 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                       f"the chunked route's {stats[2:]!r} + 1e-5")
             key = ("flash chunked route", out.dtype)
             worst[key] = max(worst.get(key, 0.0), stats[2])
-        return diff
+        worst[(kind, out.dtype)] = max(worst.get((kind, out.dtype), 0.0), diff)
+        n += 1
 
     worst = {}
     n = 0
@@ -543,48 +645,71 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                             else [[1], [s - 1], [s], [0]] + [[x] for x in edges])
                     for lens in sets:
                         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-                        err = one(f"decode {dtype} B={b} H={h}/{hkv} S={s} chunk={chunk} "
-                                  f"lengths={lens}",
-                                  lambda: decode_ops.decode_attention(q, k, v, lengths),
-                                  lambda: decode_ref.decode_attention_ref(q, k, v, lengths))
-                        worst[("decode", dtype)] = max(worst.get(("decode", dtype), 0.0), err)
-                        n += 1
+                        one("decode", f"decode {dtype} B={b} H={h}/{hkv} S={s} chunk={chunk} "
+                            f"lengths={lens}",
+                            lambda: decode_ops.decode_attention(q, k, v, lengths),
+                            lambda: decode_ref.decode_attention_ref(q, k, v, lengths))
         bf16 = dtype == torch.bfloat16
         for s in (512, 2048, 200):
             q = randn(1, 32, s, 128, dtype=dtype)
             k, v = randn(1, 4, s, 128, dtype=dtype), randn(1, 4, s, 128, dtype=dtype)
             for causal, window in ((True, None), (False, None), (True, 256)):
                 kw = dict(causal=causal, window=window)
-                err = one(f"flash {dtype} S={s} {kw}",
-                          lambda: flash_ops.flash_attention(q, k, v, **kw),
-                          lambda: flash_ref.attention_ref(q, k, v, **kw),
-                          (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
-                worst[("flash", dtype)] = max(worst.get(("flash", dtype), 0.0), err)
-                n += 1
+                one("flash", f"flash {dtype} S={s} {kw}",
+                    lambda: flash_ops.flash_attention(q, k, v, **kw),
+                    lambda: flash_ref.attention_ref(q, k, v, **kw),
+                    (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
         # head dims 32 and 64 run flash_fwd in both dtypes (float32 sums)
         for d in (32, 64):
             q = randn(1, 32, 512, d, dtype=dtype)
             k, v = randn(1, 4, 512, d, dtype=dtype), randn(1, 4, 512, d, dtype=dtype)
             for window in (None, 256):
                 kw = dict(causal=True, window=window)
-                err = one(f"flash {dtype} D={d} S=512 {kw}",
-                          lambda: flash_ops.flash_attention(q, k, v, **kw),
-                          lambda: flash_ref.attention_ref(q, k, v, **kw))
-                worst[("flash D<128", dtype)] = max(worst.get(("flash D<128", dtype), 0.0), err)
-                n += 1
+                one("flash D<128", f"flash {dtype} D={d} S=512 {kw}",
+                    lambda: flash_ops.flash_attention(q, k, v, **kw),
+                    lambda: flash_ref.attention_ref(q, k, v, **kw))
         for s in (512, 2048):
             for window in (None, 256):
                 q, k, v = mask_probe(torch, s, window=window, dtype=dtype, generator=gen)
                 kw = dict(causal=True, window=window)
-                err = one(f"flash mask probe {dtype} S={s} {kw}",
-                          lambda: flash_ops.flash_attention(q, k, v, **kw),
-                          lambda: flash_ref.attention_ref(q, k, v, **kw),
-                          (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
-                worst[("flash probe", dtype)] = max(worst.get(("flash probe", dtype), 0.0), err)
-                n += 1
+                one("flash probe", f"flash mask probe {dtype} S={s} {kw}",
+                    lambda: flash_ops.flash_attention(q, k, v, **kw),
+                    lambda: flash_ref.attention_ref(q, k, v, **kw),
+                    (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
+        # head dims 80 (qwen3-32b, 64/8 heads) and 120 (h2o-danube-3-4b,
+        # 32/8): decode on its padded width, flash on flash_fwd in both
+        # dtypes, both under the one-ulp rule of head dims 32 and 64
+        for d, h, hkv in ((80, 64, 8), (120, 32, 8)):
+            s = 4096
+            q = randn(4, h, d, dtype=dtype)
+            k, v = randn(4, hkv, s, d, dtype=dtype), randn(4, hkv, s, d, dtype=dtype)
+            _, chunk = decode_ops.split_plan(s, 4 * hkv, sms)
+            for lens in ([1, s - 1, s, 0], [chunk - 1, chunk, chunk + 1, s]):
+                lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+                one("decode D=80/120", f"decode {dtype} D={d} B=4 H={h}/{hkv} S={s} chunk={chunk} "
+                    f"lengths={lens}",
+                    lambda: decode_ops.decode_attention(q, k, v, lengths),
+                    lambda: decode_ref.decode_attention_ref(q, k, v, lengths))
+            for s in (512, 200):
+                q = randn(1, h, s, d, dtype=dtype)
+                k, v = randn(1, hkv, s, d, dtype=dtype), randn(1, hkv, s, d, dtype=dtype)
+                for causal, window in ((True, None), (False, None), (True, 256)):
+                    kw = dict(causal=causal, window=window)
+                    one("flash D=80/120", f"flash {dtype} D={d} H={h}/{hkv} S={s} {kw}",
+                        lambda: flash_ops.flash_attention(q, k, v, **kw),
+                        lambda: flash_ref.attention_ref(q, k, v, **kw))
+            for s in (512, 2048):
+                for window in (None, 256):
+                    q, k, v = mask_probe(torch, s, window=window, h=h, hkv=hkv, d=d,
+                                         dtype=dtype, generator=gen)
+                    kw = dict(causal=True, window=window)
+                    one("flash probe D=80/120", f"flash mask probe {dtype} D={d} S={s} {kw}",
+                        lambda: flash_ops.flash_attention(q, k, v, **kw),
+                        lambda: flash_ref.attention_ref(q, k, v, **kw))
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # comparisons are not the main path
     print(f"attention kernels vs plain: {n} cases pass (decode and float32 flash within "
-          f"1e-5 + 1e-5|plain| or 1e-5 + one bf16 ulp; bf16 flash within twice the chunked "
+          f"1e-5 + 1e-5|plain|, and bf16 decode and bf16 flash at head dims 32/64/80/120 within "
+          f"1e-5 + one bf16 ulp; bf16 flash at head dim 128 within twice the chunked "
           f"route's max and mean + 1e-5; repeat launches bitwise equal); max |kernel - plain|: "
           + ", ".join(f"{k} {str(dt).split('.')[-1]} {v!r}" for (k, dt), v in worst.items()))
 
@@ -624,10 +749,78 @@ def profile_decode(torch, model, lengths, max_len):
               f"{e.count // PROFILE_STEPS}x {e.key[:90]}")
 
 
+def serve_requests(torch, m, p, scfg, prompts, new_tokens):
+    """generate() on one request a prompt; per-step host times and each
+    request's latency from the start, by wrapping two engine methods."""
+    from repro_torch.serve import Request, ServeEngine
+
+    engine = ServeEngine(m, p, scfg)  # the default device: cuda
+    check(engine.device.type == "cuda", f"engine on {engine.device}")
+    steps, done_at = [], {}
+    decode, step = engine._decode, engine.step
+
+    def timed_decode(*args):
+        t = time.perf_counter()
+        out = decode(*args)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t)
+        return out
+
+    def tracked_step(live, rng):
+        step(live, rng)
+        for r in live:
+            if r.done:
+                done_at.setdefault(id(r), time.perf_counter())
+
+    engine._decode, engine.step = timed_decode, tracked_step
+    reqs = [Request(prompt=pr, max_new_tokens=new_tokens) for pr in prompts]
+    t = time.perf_counter()
+    engine.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return engine, reqs, steps, [done_at[id(r)] - t for r in reqs], wall
+
+
+def padded_sequences(np, torch, reqs):
+    """Each request's prompt and generated tokens as rows of one (n, T)
+    int32 tensor on the card, and the (n, T) mask of real positions."""
+    seqs = [np.concatenate([r.prompt, np.array(r.generated, np.int32)]) for r in reqs]
+    n, T = len(seqs), max(len(x) for x in seqs)
+    toks = np.zeros((n, T), np.int32)
+    for i, x in enumerate(seqs):
+        toks[i, :len(x)] = x
+    valid = np.arange(T)[None, :] < np.array([len(x) for x in seqs])[:, None]
+    return (torch.tensor(toks, device="cuda"), torch.tensor(valid, device="cuda"), seqs)
+
+
+def teacher_forced(torch, m, toks, max_len, vocab):
+    """Decode logits (float32) of every position of ``toks``, fed one
+    column a step to all rows at once."""
+    n, T = toks.shape
+    state = m.init_decode_state(n, max_len=max_len)
+    out = torch.empty((n, T, vocab), dtype=torch.float32, device=toks.device)
+    for t in range(T):
+        lengths = torch.full((n,), t, dtype=torch.int32, device=toks.device)
+        logits, state = m.decode_step(state, toks[:, t:t + 1], lengths)
+        out[:, t] = logits[:, 0].float()
+    return out
+
+
+def check_logits(torch, what, got, want):
+    """The kernel route against the reference route: the largest |diff|
+    within LOGIT_TOL, the mean within LOGIT_MEAN_TOL."""
+    diff = (got - want).abs()
+    print(f"{what} kernel vs reference: max |diff| {float(diff.max())!r}, "
+          f"mean {float(diff.mean())!r} (limits {LOGIT_TOL}, {LOGIT_MEAN_TOL}); "
+          f"max |logit| {float(want.abs().max())!r}")
+    check(float(diff.max()) <= LOGIT_TOL and float(diff.mean()) <= LOGIT_MEAN_TOL,
+          f"{what} logits: kernel vs reference route")
+
+
 def serve_yi(np, torch, flash_ops, decode_ops):
     from repro_torch.configs import get_config
     from repro_torch.models import LM
-    from repro_torch.serve import Request, ServeConfig, ServeEngine
+    from repro_torch.serve import ServeConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -656,33 +849,7 @@ def serve_yi(np, torch, flash_ops, decode_ops):
     scfg = ServeConfig(max_batch=4, max_len=4096)
 
     def serve(m, p):
-        """generate() on the requests; per-step host times and each
-        request's latency from the start, by wrapping two engine methods."""
-        engine = ServeEngine(m, p, scfg)  # the default device: cuda
-        check(engine.device.type == "cuda", f"engine on {engine.device}")
-        steps, done_at = [], {}
-        decode, step = engine._decode, engine.step
-
-        def timed_decode(*args):
-            t = time.perf_counter()
-            out = decode(*args)
-            torch.cuda.synchronize()
-            steps.append(time.perf_counter() - t)
-            return out
-
-        def tracked_step(live, rng):
-            step(live, rng)
-            for r in live:
-                if r.done:
-                    done_at.setdefault(id(r), time.perf_counter())
-
-        engine._decode, engine.step = timed_decode, tracked_step
-        reqs = [Request(prompt=pr, max_new_tokens=NEW_TOKENS) for pr in prompts]
-        t = time.perf_counter()
-        engine.generate(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        return engine, reqs, steps, [done_at[id(r)] - t for r in reqs], wall
+        return serve_requests(torch, m, p, scfg, prompts, NEW_TOKENS)
 
     def forward(m):
         t = time.perf_counter()
@@ -737,44 +904,19 @@ def serve_yi(np, torch, flash_ops, decode_ops):
     for name, lg in (("kernel", logits_k), ("reference", logits_r)):
         check(tuple(lg.shape) == shape and bool(torch.isfinite(lg.float()).all()),
               f"{name} forward logits {tuple(lg.shape)} not finite of shape {shape}")
-    fdiff = (logits_k.float() - logits_r.float()).abs()
-    print(f"forward kernel vs reference: max |diff| {float(fdiff.max())!r}, "
-          f"mean {float(fdiff.mean())!r} (limits {LOGIT_TOL}, {LOGIT_MEAN_TOL}); "
-          f"max |logit| {float(logits_r.float().abs().max())!r}")
-    check(float(fdiff.max()) <= LOGIT_TOL and float(fdiff.mean()) <= LOGIT_MEAN_TOL,
-          "forward logits: kernel vs reference route")
-    del logits_k, logits_r, fdiff
+    check_logits(torch, "forward", logits_k.float(), logits_r.float())
+    del logits_k, logits_r
 
     # decode: both routes teacher-forced on the kernel route's sequences
-    seqs = [np.concatenate([r.prompt, np.array(r.generated, np.int32)]) for r in reqs_k]
-    n, T = len(seqs), max(len(x) for x in seqs)
-    toks = np.zeros((n, T), np.int32)
-    for i, x in enumerate(seqs):
-        toks[i, :len(x)] = x
-    toks = torch.tensor(toks, device=dev)
-
-    def teacher_forced(m):
-        state = m.init_decode_state(n, max_len=scfg.max_len)
-        out = torch.empty((n, T, base.vocab), dtype=torch.float32, device=dev)
-        for t in range(T):
-            lengths = torch.full((n,), t, dtype=torch.int32, device=dev)
-            logits, state = m.decode_step(state, toks[:, t:t + 1], lengths)
-            out[:, t] = logits[:, 0].float()
-        return out
-
+    toks, valid, seqs = padded_sequences(np, torch, reqs_k)
     counts = flash_ops.LAUNCHES, decode_ops.LAUNCHES
-    tf_k, tf_r = teacher_forced(model), teacher_forced(ref_model)
+    tf_k = teacher_forced(torch, model, toks, scfg.max_len, base.vocab)
+    tf_r = teacher_forced(torch, ref_model, toks, scfg.max_len, base.vocab)
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = counts  # a comparison, not the main path
-    valid = torch.tensor([[t < len(x) for t in range(T)] for x in seqs], device=dev)
     check(bool(torch.isfinite(tf_k[valid]).all() and torch.isfinite(tf_r[valid]).all()),
           "teacher-forced logits not finite")
-    ddiff = (tf_k - tf_r).abs()[valid]
-    print(f"decode kernel vs reference, teacher-forced on {int(valid.sum())} positions: "
-          f"max |diff| {float(ddiff.max())!r}, mean {float(ddiff.mean())!r} "
-          f"(limits {LOGIT_TOL}, {LOGIT_MEAN_TOL}); max |logit| "
-          f"{float(tf_r[valid].abs().max())!r}")
-    check(float(ddiff.max()) <= LOGIT_TOL and float(ddiff.mean()) <= LOGIT_MEAN_TOL,
-          "decode logits: kernel vs reference route")
+    check_logits(torch, f"decode, teacher-forced on {int(valid.sum())} positions,",
+                 tf_k[valid], tf_r[valid])
 
     # greedy tokens: equal up to each request's first near tie
     same = 0
@@ -803,8 +945,88 @@ def serve_yi(np, torch, flash_ops, decode_ops):
             "final_lengths": final_lengths}
 
 
+# -------------------------------------------------------------- phase 6b
+def serve_cut(np, torch, flash_ops, decode_ops, arch):
+    """``arch`` (h2o-danube-3-4b: head dim 120, window 4096; qwen3-32b:
+    head dim 80, qk-norm) at full width — d_model, every head, d_ff and
+    the full vocabulary as published — but CUT_LAYERS layers, with random
+    weights from a seeded generator.  Depth is cut so the phase stays
+    within the run's time limit: 24 and 64 layers would add nothing the
+    kernels see, since every layer calls them at the same shapes.
+
+    CUT_REQUESTS requests of CUT_NEW_TOKENS new tokens through
+    ``ServeEngine`` on 4 slots of 4096 positions, then ``LM.forward`` on
+    one FORWARD_LEN-token prompt, on the kernel route with the launch
+    counts set to 0 just before: decode_attention must launch CUT_LAYERS
+    times a decode step and flash_attention CUT_LAYERS times a forward.
+    The reference route then serves the same weights, and the two agree
+    on the forward logits and on the decode logits teacher-forced on the
+    kernel route's sequences within LOGIT_TOL and LOGIT_MEAN_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.serve import ServeConfig
+
+    base = get_config(arch)
+    cut = dataclasses.replace(base, n_layers=CUT_LAYERS,
+                              segments=((base.segments[0][0], CUT_LAYERS),))
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = LM(dataclasses.replace(cut, use_flash_kernel=True)).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    print(f"{arch}: d_model {cut.d_model}, {cut.n_heads}/{cut.n_kv_heads} heads of "
+          f"{cut.head_dim}, d_ff {cut.d_ff}, vocab {cut.vocab}, window {cut.window}, "
+          f"{cut.n_layers} of {base.n_layers} layers, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, init in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cut.vocab, int(rng.integers(8, 33))).astype(np.int32)
+               for _ in range(CUT_REQUESTS)]
+    prompt = torch.tensor(rng.integers(0, cut.vocab, (1, FORWARD_LEN)).astype(np.int32),
+                          device=dev)
+    scfg = ServeConfig(max_batch=4, max_len=4096)
+
+    # the main path of this config: the counts start at 0 here
+    flash_ops.LAUNCHES = decode_ops.LAUNCHES = 0
+    engine, reqs_k, steps, _, wall = serve_requests(torch, model, None, scfg, prompts,
+                                                    CUT_NEW_TOKENS)
+    del engine
+    check(decode_ops.LAUNCHES == CUT_LAYERS * len(steps),
+          f"{arch}: decode_attention launched {decode_ops.LAUNCHES} times in "
+          f"{len(steps)} steps")
+    check(flash_ops.LAUNCHES == 0, f"{arch}: generate launched flash_attention")
+    logits_k = model(prompt).float()
+    torch.cuda.synchronize()
+    check(flash_ops.LAUNCHES == CUT_LAYERS,
+          f"{arch}: flash_attention launched {flash_ops.LAUNCHES} times in one forward")
+    launches = {"decode_launches": decode_ops.LAUNCHES, "flash_launches": flash_ops.LAUNCHES,
+                "decode_steps": len(steps)}
+    print(f"{arch} main path: decode_attention launches {launches['decode_launches']} "
+          f"({CUT_LAYERS} x {len(steps)} steps), flash_attention launches "
+          f"{launches['flash_launches']}; {sum(len(r.generated) for r in reqs_k)} tokens in "
+          f"{wall!r} s, decode step median {statistics.median(steps)!r} s")
+
+    ref_model = LM(dataclasses.replace(cut, use_flash_kernel=False))
+    ref_model.load_state_dict(model.state_dict(), assign=True)
+    logits_r = ref_model(prompt).float()
+    toks, valid, _ = padded_sequences(np, torch, reqs_k)
+    tf_k = teacher_forced(torch, model, toks, scfg.max_len, cut.vocab)
+    tf_r = teacher_forced(torch, ref_model, toks, scfg.max_len, cut.vocab)
+    torch.cuda.synchronize()
+    for name, lg in (("kernel", logits_k), ("reference", logits_r)):
+        check(tuple(lg.shape) == (1, FORWARD_LEN, cut.vocab) and bool(torch.isfinite(lg).all()),
+              f"{arch}: {name} forward logits {tuple(lg.shape)} not finite or misshapen")
+    check(bool(torch.isfinite(tf_k[valid]).all() and torch.isfinite(tf_r[valid]).all()),
+          f"{arch}: teacher-forced logits not finite")
+    check_logits(torch, f"{arch} forward", logits_k, logits_r)
+    check_logits(torch, f"{arch} decode, teacher-forced on {int(valid.sum())} positions,",
+                 tf_k[valid], tf_r[valid])
+    return launches
+
+
 # --------------------------------------------------------------- phase 7
-def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served, card):
+def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served, cut_served,
+                      card):
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -839,11 +1061,9 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
             "library_ms": time_ms(torch, library, flush)[0],
         }
 
-    # decode at the main path's shape: 4 slots, 32/4 heads, 4096 positions
-    b, h, hkv, s, d = 4, 32, 4, 4096, 128
-    q, k, v = randn(b, h, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
-
-    def decode_case(lens):
+    def decode_case(h, hkv, d, lens, s=4096):
+        b = len(lens)
+        q, k, v = randn(b, h, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         mask = (torch.arange(s, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
         rows = sum(min(int(x), s) if x > 0 else s for x in lens)  # rows the function reads
@@ -856,20 +1076,39 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
             flops=4 * rows * h * d,  # q.k and p.v per valid row, every q head
         )
 
+    def flash_case(h, hkv, d, window=None, fs=FORWARD_LEN):
+        """One fs-token prompt, causal; a window of fs or more masks
+        nothing more, so SDPA's causal call computes the same function."""
+        check(window is None or window >= fs, "flash timing takes no narrower window")
+        fq, fk, fv = randn(1, h, fs, d), randn(1, hkv, fs, d), randn(1, hkv, fs, d)
+        return timed(
+            lambda: flash_ops.flash_attention(fq, fk, fv, causal=True, window=window),
+            lambda: flash_ref.attention_ref(fq, fk, fv, causal=True, window=window),
+            lambda: F.scaled_dot_product_attention(fq, fk, fv, is_causal=True, enable_gqa=True),
+            nbytes=(2 * fq.numel() + fk.numel() + fv.numel()) * 2,
+            flops=2 * h * fs * fs * d,  # q.k and p.v over the causal half
+            yard=(lambda: flash_yardstick(fq, fk, fv, causal=True, window=window))
+            if d == 128 else None,
+        )
+
+    # the main path's shapes: decode over 4 slots of 4096 positions, 32/4
+    # heads; flash on one 2048-token prompt
+    b, h, hkv, s, d = 4, 32, 4, 4096, 128
     final = [int(x) for x in served["final_lengths"]]
-    dec = decode_case(final)
-    dec_full = decode_case([s] * b)
-    # flash at the main path's forward: one 2048-token prompt, causal
-    fs = FORWARD_LEN
-    fq, fk, fv = randn(1, h, fs, d), randn(1, hkv, fs, d), randn(1, hkv, fs, d)
-    fl = timed(
-        lambda: flash_ops.flash_attention(fq, fk, fv, causal=True),
-        lambda: flash_ref.attention_ref(fq, fk, fv, causal=True),
-        lambda: F.scaled_dot_product_attention(fq, fk, fv, is_causal=True, enable_gqa=True),
-        nbytes=(2 * fq.numel() + fk.numel() + fv.numel()) * 2,
-        flops=2 * h * fs * fs * d,  # q.k and p.v over the causal half
-        yard=lambda: flash_yardstick(fq, fk, fv, causal=True, window=None),
-    )
+    dec = decode_case(h, hkv, d, final)
+    dec_full = decode_case(h, hkv, d, [s] * b)
+    fl = flash_case(h, hkv, d)
+    # phase 6b's shapes, at full length
+    flash_cut, decode_cut = {}, {}
+    for arch, (ch, chkv, cd, window) in (("h2o-danube-3-4b", (32, 8, 120, 4096)),
+                                         ("qwen3-32b", (64, 8, 80, None))):
+        flash_cut[arch] = {**flash_case(ch, chkv, cd, window),
+                           "launches": cut_served[arch]["flash_launches"],
+                           "shape": f"B=1 H={ch} Hkv={chkv} S={FORWARD_LEN} D={cd} bf16 "
+                                    f"causal window={window}"}
+        decode_cut[arch] = {**decode_case(ch, chkv, cd, [s] * b),
+                            "launches": cut_served[arch]["decode_launches"],
+                            "shape": f"B={b} H={ch} Hkv={chkv} S={s} D={cd} bf16 full length"}
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # timing is not the main path
     print("timing: kernels device-only (queued behind a sleep kernel); plain versions and "
           "SDPA queued the same way")
@@ -878,13 +1117,14 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
          "launches": served["flash_launches"], **fl,
-         "shape": f"B=1 H={h} Hkv={hkv} S={fs} D={d} bf16 causal"},
+         "shape": f"B=1 H={h} Hkv={hkv} S={FORWARD_LEN} D={d} bf16 causal",
+         "by_config": flash_cut},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:85",
          "launches": served["decode_launches"], **dec,
          "shape": f"B={b} H={h} Hkv={hkv} S={s} D={d} bf16 lengths={final}",
-         "at_full_length": dec_full},
+         "at_full_length": dec_full, "by_config": decode_cut},
     ]
     return rows
 
@@ -920,8 +1160,10 @@ def main() -> int:
     ffa_row = measure(torch, ops, ref, launches, inputs, card)
     attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref)
     served = serve_yi(np, torch, flash_ops, decode_ops)
-    rows = measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served, card)
-    print(json.dumps({"kernels": [ffa_row, *rows]}))
+    cut_served = {arch: serve_cut(np, torch, flash_ops, decode_ops, arch) for arch in CUT_ARCHS}
+    rows = measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served,
+                             cut_served, card)
+    print(json.dumps({"kernels": [{**row, "card": smi} for row in (ffa_row, *rows)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count(),

@@ -55,8 +55,9 @@ FUSED_AGGS = frozenset({"count", "sum", "mean"})
 #: counts must stay below this for kernel/jnp byte-identity
 EXACT_BOUND = 2 ** 24
 
-#: default cap on the kernel's dense group axis: one thread of a CUDA
-#: block owns each group, so G is capped at a block's 1024 threads
+#: default cap on the kernel's dense group axis, equal to the JAX route's
+#: so both route alike: each of a CUDA block's 8 warps keeps a (sum, count)
+#: bin a group in shared memory, 64 KB at 1024 groups
 DEFAULT_MAX_GROUPS = 1024
 
 _PRED_TO_KERNEL_OP = {"<": "lt", "<=": "le", ">": "gt", ">=": "ge", "==": "eq", "!=": "ne"}

@@ -29,7 +29,7 @@
 // lanes a row, each holding a quarter of the row's k in registers and
 // multiplying it with the float32 q of up to 8 heads; the 4 sums meet by
 // shuffles and the scale is applied to the float32 score.  p.v: a lane
-// owns D/32 columns of every head and does float32 FMAs, so the output
+// owns DP/32 columns of every head and does float32 FMAs, so the output
 // keeps float32 accuracy.  At the chunk's end the warps' (m, l, acc) merge
 // in shared memory.  Groups above 8 heads walk the chunk again for each 8
 // (from L2).  A chunk that starts at or past the sequence's length writes
@@ -40,6 +40,19 @@
 // decode_combine merges the chunks' float32 (m, l, acc) and writes q's
 // dtype; with a single chunk, decode_split writes the output itself and
 // there is no second launch.
+//
+// Head dims that are not a multiple of 32 (80 for qwen3-32b, 120 for
+// h2o-danube-3-4b) run on a padded width DP, D rounded up to 32 (96 and
+// 128): a lane's p.v columns, the mma k-steps and the four lanes of a row
+// all divide DP.  The chunks of a row past D are loaded by cp.async with
+// src-size 0, so they land as zeros; q's columns past D are zero too, so
+// q.k gains exactly 0 from them, and acc's columns past D are never
+// written out.  A cache row in global memory stays D elements.  In shared
+// memory a row takes SC chunks, DP's chunks rounded up to a multiple of 8
+// (bf16 at D = 80: 12 -> 16, 256 B): the k swizzle XORs a chunk index
+// inside its aligned group of 8, so it stays inside the row for any chunk
+// count, and rows a multiple of 128 B apart keep the mma loads free of
+// bank conflicts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,23 +76,31 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 
 template <typename T, int D>
 struct Geo {
-  static constexpr int kRows = 8;                 // cache rows a warp step
-  static constexpr int CPR = D * sizeof(T) / 16;  // 16-byte chunks a row
-  static constexpr int E = 16 / sizeof(T);        // elements a chunk
-  static constexpr int NC = CPR / 4;              // k chunks a lane (FMA path)
-  static constexpr int CW = D / 32;               // p.v columns a lane
-  static constexpr int KK = D / 16;               // mma k-steps over D
-  static constexpr int kRowBytes = D * sizeof(T);
+  static constexpr int kRows = 8;                  // cache rows a warp step
+  static constexpr int DP = (D + 31) / 32 * 32;    // padded width
+  static constexpr int CPR = DP * sizeof(T) / 16;  // 16-byte chunks a padded row
+  static constexpr int CD = D * sizeof(T) / 16;    // of them, chunks with data
+  static constexpr int SC = CPR < 8 ? CPR : (CPR + 7) / 8 * 8;  // in shared memory
+  static constexpr int E = 16 / sizeof(T);         // elements a chunk
+  static constexpr int NC = CPR / 4;               // k chunks a lane (FMA path)
+  static constexpr int CW = DP / 32;               // p.v columns a lane
+  static constexpr int KK = DP / 16;               // mma k-steps over DP
+  static constexpr int kColBytes = CW * sizeof(T);  // a lane's p.v columns
+  static constexpr int kColAlign = kColBytes & -kColBytes;
+  static constexpr int kRowBytes = SC * 16;        // a row in shared memory
   static constexpr int kStepBytes = 2 * kRows * kRowBytes;  // k, then v
   static constexpr int kWarpBytes = 2 * kStepBytes;          // two stages
   static constexpr bool kMma = sizeof(T) == 2;  // bf16: q.k on the tensor cores
+  static_assert(D * sizeof(T) % 16 == 0, "a cache row is whole 16-byte chunks");
   static_assert(CPR % 4 == 0, "four lanes share a row");
 };
 
 // Byte offset of 16-byte chunk c of k row r (0..7) in a step.  bf16: chunks
 // XOR the row, so the eight rows an mma fragment load touches sit in
 // different banks; float32: odd rows swap the 64-byte halves of each 128
-// bytes, for the FMA path's four lanes a row.
+// bytes, for the FMA path's four lanes a row.  Either XOR stays inside the
+// chunk's aligned group of 8 (of 4 at CPR = 4), and a row holds SC chunks,
+// a multiple of that group, so the offset never leaves the row.
 template <typename T, int CPR>
 __device__ __forceinline__ int k_offset(int r, int c) {
   if (sizeof(T) == 2) return (c ^ (r & (CPR >= 8 ? 7 : CPR - 1))) * 16;
@@ -89,9 +110,9 @@ __device__ __forceinline__ int k_offset(int r, int c) {
 template <typename T, int D>
 size_t smem_bytes(int group) {
   using G = Geo<T, D>;
-  const size_t stage = (size_t)kWarps * G::kWarpBytes;   // k/v stages
-  const size_t merge = (size_t)kWarps * 8 * (D + 2) * 4;  // warps' states
-  return (size_t)group * D * 4                            // q, float32
+  const size_t stage = (size_t)kWarps * G::kWarpBytes;      // k/v stages
+  const size_t merge = (size_t)kWarps * 8 * (G::DP + 2) * 4;  // warps' states
+  return (size_t)group * G::DP * 4                           // q, float32
          + (size_t)kWarps * (2 * G::kRows * 8 + 8) * 4    // s, p, corr
          + (stage > merge ? stage : merge);
 }
@@ -129,8 +150,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   using G = Geo<T, D>;
   constexpr int R = G::kRows;
   extern __shared__ __align__(16) uint8_t smem[];
-  float* sQ = reinterpret_cast<float*>(smem);  // group x D
-  float* sW = sQ + group * D;  // per warp: s [R][8], p [R][8], corr [8]
+  float* sQ = reinterpret_cast<float*>(smem);  // group x DP, zero past D
+  float* sW = sQ + group * G::DP;  // per warp: s [R][8], p [R][8], corr [8]
   uint8_t* sBuf = reinterpret_cast<uint8_t*>(sW + kWarps * (2 * R * 8 + 8));
   float* sMerge = reinterpret_cast<float*>(sBuf);  // reuses the stages
 
@@ -162,7 +183,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* wC = wP + R * 8;                   // [8 heads]
   const int n_steps = (c1 - c0 + R - 1) / R;
 
-  // k and v rows of step `s` into stage `st`; rows at or past c1 are zero
+  // k and v rows of step `s` into stage `st`; rows at or past c1, and the
+  // chunks of a row past D, are zero
   auto load_step = [&](int s, int st) {
     const uint32_t dk = wbuf_s + st * G::kStepBytes;
     const uint32_t dv = dk + R * G::kRowBytes;
@@ -170,8 +192,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int i = lane; i < R * G::CPR; i += 32) {
       const int rr = i / G::CPR, c = i % G::CPR;
-      const bool valid = t0 + rr < c1;
-      const size_t src = (size_t)(valid ? t0 + rr : c0) * D + c * G::E;
+      const bool valid = t0 + rr < c1 && c < G::CD;
+      const size_t src = valid ? (size_t)(t0 + rr) * D + c * G::E : (size_t)c0 * D;
       cp_async16(dk + rr * G::kRowBytes + k_offset<T, G::CPR>(rr, c), kp + src, valid);
       cp_async16(dv + rr * G::kRowBytes + c * 16, vp + src, valid);
     }
@@ -185,14 +207,16 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (warp < n_steps) load_step(warp, 0);
     asm volatile("cp.async.commit_group;" ::: "memory");
     if (hb == 0)
-      for (int i = threadIdx.x; i < group * D; i += kThreads)
-        sQ[i] = to_f32(q[(size_t)head0 * D + i]);
+      for (int i = threadIdx.x; i < group * G::DP; i += kThreads) {
+        const int h = i / G::DP, d = i % G::DP;
+        sQ[i] = d < D ? to_f32(q[(size_t)(head0 + h) * D + d]) : 0.0f;
+      }
     __syncthreads();  // q is in
 
     // bf16: this batch's q as mma A fragments (rows = heads; 8..15 zero)
     uint32_t qa[G::kMma ? G::KK : 1][2];
     if (G::kMma) {
-      const float* qg = sQ + (hb + g) * D;
+      const float* qg = sQ + (hb + g) * G::DP;
 #pragma unroll
       for (int kk = 0; kk < (G::kMma ? G::KK : 1); ++kk) {
         const int d = 16 * kk + 2 * t;
@@ -248,7 +272,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int h = 0; h < 8; ++h) {
           float dot = 0.0f;
           if (h < hn) {
-            const float* qh = sQ + (hb + h) * D;
+            const float* qh = sQ + (hb + h) * G::DP;
 #pragma unroll
             for (int u = 0; u < G::NC; ++u)
 #pragma unroll
@@ -300,11 +324,11 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
           for (int j = 0; j < G::CW; ++j) acc[h][j] *= cr[h];
       }
-      struct alignas(G::CW * sizeof(T)) Cols { T v[G::CW]; };
+      struct alignas(G::kColAlign) Cols { T v[G::CW]; };
 #pragma unroll
       for (int rr = 0; rr < R; ++rr) {
         const Cols cv = *reinterpret_cast<const Cols*>(
-            tV + rr * G::kRowBytes + lane * G::CW * sizeof(T));
+            tV + rr * G::kRowBytes + lane * G::kColBytes);
         const float4 pa = *reinterpret_cast<const float4*>(wP + rr * 8);
         const float4 pb = *reinterpret_cast<const float4*>(wP + rr * 8 + 4);
         const float pr[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
@@ -322,7 +346,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
     // merge the warps' (m, l, acc): [warp][head] of (m, l) then acc
     float* mMl = sMerge;                    // kWarps x 8 x 2
-    float* mAcc = sMerge + kWarps * 8 * 2;  // kWarps x 8 x D
+    float* mAcc = sMerge + kWarps * 8 * 2;  // kWarps x 8 x DP
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     if (t == 0) {
@@ -333,7 +357,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int h = 0; h < 8; ++h)
 #pragma unroll
       for (int j = 0; j < G::CW; ++j)
-        mAcc[(warp * 8 + h) * D + lane * G::CW + j] = acc[h][j];
+        mAcc[(warp * 8 + h) * G::DP + lane * G::CW + j] = acc[h][j];
     __syncthreads();
     for (int i = threadIdx.x; i < hn * D; i += kThreads) {
       const int h = i / D, d = i % D;
@@ -347,7 +371,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         if (mw == -INFINITY) continue;  // a warp with no rows
         const float wgt = expf(mw - mx);
         den = fmaf(wgt, mMl[(w * 8 + h) * 2 + 1], den);
-        num = fmaf(wgt, mAcc[(w * 8 + h) * D + d], num);
+        num = fmaf(wgt, mAcc[(w * 8 + h) * G::DP + d], num);
       }
       const size_t qh = (size_t)(head0 + hb + h);
       if (n_splits == 1) {
@@ -426,6 +450,14 @@ cudaError_t launch_d(int head_dim, const void* q, const void* k,
       return launch<T, 64>(q, k, v, lengths, out, part_acc, part_ml, n_seqs,
                            n_kv_heads, group, seq_len, n_splits, chunk, scale,
                            stream);
+    case 80:
+      return launch<T, 80>(q, k, v, lengths, out, part_acc, part_ml, n_seqs,
+                           n_kv_heads, group, seq_len, n_splits, chunk, scale,
+                           stream);
+    case 120:
+      return launch<T, 120>(q, k, v, lengths, out, part_acc, part_ml, n_seqs,
+                            n_kv_heads, group, seq_len, n_splits, chunk,
+                            scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, lengths, out, part_acc, part_ml, n_seqs,
                             n_kv_heads, group, seq_len, n_splits, chunk,
@@ -439,7 +471,8 @@ cudaError_t launch_d(int head_dim, const void* q, const void* k,
 
 // Launches the kernels on `stream` (decode_split, then decode_combine when
 // n_splits > 1) and returns cudaGetLastError() (0 on success).  Does not
-// synchronise.  dtype: 0 float32, 1 bfloat16.  head_dim: 32, 64 or 128.  q
+// synchronise.  dtype: 0 float32, 1 bfloat16.  head_dim: 32, 64, 80, 120
+// or 128.  q
 // and out hold n_seqs * n_kv_heads * group rows of head_dim, lengths one
 // int32 per sequence, the caches n_seqs * n_kv_heads * seq_len rows.
 // part_acc holds q's rows * n_splits * head_dim floats and part_ml q's rows

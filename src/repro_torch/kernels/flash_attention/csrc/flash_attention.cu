@@ -47,15 +47,18 @@
 //   is held to that route, not to a one-ulp match with the float32 plain
 //   version.
 //
-// * flash_fwd: float32 at every head dim, and bfloat16 at D = 32 and 64.
-//   One block of 256 threads per (batch-head, 64-row q tile); key tiles of
-//   32 rows are staged through shared memory as float32 and every product
-//   is a float32 FMA on the CUDA cores, as the TPU kernel multiplies in
-//   float32 (kernel.py:49, 66-67), so float32 output is exact to 1e-5.  A
+// * flash_fwd: float32 at every head dim, and bfloat16 at D = 32, 64, 80
+//   and 120.  One block of 256 threads per (batch-head, 64-row q tile); key
+//   tiles of 32 rows are staged through shared memory as float32 and every
+//   product is a float32 FMA on the CUDA cores, as the TPU kernel multiplies
+//   in float32 (kernel.py:49, 66-67), so float32 output is exact to 1e-5.  A
 //   thread owns a 4-row x 2-column micro-tile of the scores and a 4-row x
-//   D/16-column micro-tile of the output; rows of q and k in shared memory
-//   are padded to D+1 floats.  It runs at about 1/15 of the bf16
-//   tensor-core rate.
+//   ceil(D/16)-column micro-tile of the output (columns tx + 16 j; at D =
+//   120 the last column of lanes 8-15 lies past D and is neither read nor
+//   written); rows of q and k in shared memory are padded to D+1 floats.
+//   A row is D * sizeof(T) bytes, a multiple of 16 at every instantiated D,
+//   so rows are staged in 16-byte pieces.  It runs at about 1/15 of the
+//   bf16 tensor-core rate.
 //
 // Masked keys contribute exactly 0 once a row has seen a valid key (exp of
 // -1e30 minus a finite max), and causal and windowed rows always see one,
@@ -140,7 +143,8 @@ __global__ void __launch_bounds__(kThreads)
               int group, int causal, float scale, int window) {
   constexpr int QS = D + 1;   // padded row stride of q and k tiles
   constexpr int PS = kBK + 1; // padded row stride of the p tile
-  constexpr int CD = D / 16;  // output columns a thread owns
+  constexpr int CD = (D + 15) / 16;  // output columns a thread owns
+  static_assert(D % Vec16<T>::N == 0, "rows are staged in 16-byte pieces");
   extern __shared__ float smem[];
   float* sQ = smem;             // kBQ x QS, q * scale
   float* sK = sQ + kBQ * QS;    // kBK x QS
@@ -222,7 +226,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int t = 0; t < kBK; ++t) {
       float vv[CD];
 #pragma unroll
-      for (int j = 0; j < CD; ++j) vv[j] = sV[t * D + tx + 16 * j];
+      for (int j = 0; j < CD; ++j)
+        vv[j] = (D % 16 == 0 || tx + 16 * j < D) ? sV[t * D + tx + 16 * j] : 0.0f;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = prow[i * PS + t];
@@ -240,7 +245,8 @@ __global__ void __launch_bounds__(kThreads)
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < CD; ++j)
-      store(op + (size_t)row * D + tx + 16 * j, acc[i][j] / denom);
+      if (D % 16 == 0 || tx + 16 * j < D)
+        store(op + (size_t)row * D + tx + 16 * j, acc[i][j] / denom);
   }
 }
 
@@ -277,6 +283,12 @@ cudaError_t launch_d(int head_dim, const void* q, const void* k,
     case 64:
       return launch<T, 64>(q, k, v, out, bh, seq_len, group, causal, scale,
                            window, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, out, bh, seq_len, group, causal, scale,
+                           window, stream);
+    case 120:
+      return launch<T, 120>(q, k, v, out, bh, seq_len, group, causal, scale,
+                            window, stream);
     case 128:
       return launch<T, 128>(q, k, v, out, bh, seq_len, group, causal, scale,
                             window, stream);
@@ -689,7 +701,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
 // success).  Does not synchronise.  dtype: 0 float32, 1 bfloat16.
-// head_dim: 32, 64 or 128.  window <= 0 means no window.  q and out hold
+// head_dim: 32, 64, 80, 120 or 128.  window <= 0 means no window.  q and out hold
 // bh * seq_len * head_dim elements, k and v bh / group times that.
 // bfloat16 at head_dim 128 runs flash_wgmma; everything else flash_fwd.
 extern "C" int flash_attention_launch(int device, int dtype, int head_dim,

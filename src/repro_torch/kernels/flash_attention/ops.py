@@ -19,8 +19,9 @@ SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
 
-#: head widths the kernel is instantiated for
-HEAD_DIMS = (32, 64, 128)
+#: head widths the kernel is instantiated for: the ported configs' (yi-6b
+#: and granite-34b 128, qwen3-32b 80, h2o-danube-3-4b 120), and 32 and 64
+HEAD_DIMS = (32, 64, 80, 120, 128)
 
 #: kernel launches made through this wrapper (CUDA tensors only)
 LAUNCHES = 0

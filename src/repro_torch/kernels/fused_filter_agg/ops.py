@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -12,19 +12,23 @@ from repro_torch.kernels.fused_filter_agg.ref import _OPS, fused_filter_agg_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "fused_filter_agg.cu"
 
-#: one thread of a block owns each group, so a launch takes at most a
-#: block's 1024 threads' worth of groups (engine/route.py caps at this)
+#: each of a block's 8 warps keeps a (sum, count) bin a group in shared
+#: memory, 64 KB at 1024 groups; engine/route.py caps G at this
 MAX_GROUPS = 1024
 
-#: rows a pass-1 block covers, before the cap on the number of blocks
+#: rows a block covers, before the cap on the number of blocks; the cap
+#: bounds the partials the last block adds (P x G)
 ROWS_PER_BLOCK = 8192
-MAX_BLOCKS = 4096
+MAX_BLOCKS = 1024
 
 #: kernel launches made through this wrapper (CUDA tensors only)
 LAUNCHES = 0
 
 _VALUE_DTYPES = (torch.int32, torch.float32)
 _lib = None
+#: the completion counter of each (device, stream): 0 between calls, since
+#: the kernel's last block puts it back; made once, with one memset
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def load() -> ctypes.CDLL:
@@ -35,7 +39,7 @@ def load() -> ctypes.CDLL:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.fused_filter_agg_launch.argtypes = [
             i32, vp, vp, i32, vp, i32, i64, i32, ctypes.c_float,
-            i32, i32, i64, vp, vp, vp, vp, vp,
+            i32, i32, i64, i32, vp, vp, vp, vp, vp, vp,
         ]
         lib.fused_filter_agg_launch.restype = i32
         lib.fused_filter_agg_error_string.argtypes = [i32]
@@ -47,11 +51,34 @@ def load() -> ctypes.CDLL:
 
 def grid(n: int, tile_rows: int) -> Tuple[int, int]:
     """``(blocks, rows_per_block)`` for ``n`` rows: a function of ``n``
-    alone, so float sums are the same on every run and every card."""
+    alone, so float sums are the same on every run and every card; rows a
+    multiple of the kernel's tile, so every block starts on a 16-byte
+    boundary of an aligned column."""
     blocks = max(1, min(MAX_BLOCKS, -(-n // ROWS_PER_BLOCK)))
     rows = -(-max(n, 1) // blocks)
     rows = -(-rows // tile_rows) * tile_rows
     return max(1, -(-n // rows)), rows
+
+
+def smem_bytes(num_groups: int) -> int:
+    """Shared memory a block of the kernel takes: dynamic, 8 warps' bins
+    (a float32 sum and an int32 count a group) and 32 lane values each;
+    static, the last block's 256 float32 and 256 int64 slice totals and a
+    flag."""
+    return 8 * num_groups * 8 + 8 * 32 * 4 + 256 * (4 + 8) + 1
+
+
+def _ticket(index: int, stream: int, device: torch.device) -> torch.Tensor:
+    ticket = _tickets.get((index, stream))
+    if ticket is None:
+        ticket = _tickets[(index, stream)] = torch.zeros(1, dtype=torch.int32, device=device)
+    return ticket
+
+
+def _aligned(*tensors: torch.Tensor) -> int:
+    """Bit i set: tensor i starts on a 16-byte boundary (the kernel's
+    16-byte loads); others are read 4 bytes at a time."""
+    return sum(1 << i for i, t in enumerate(tensors) if t.data_ptr() % 16 == 0)
 
 
 def _check(keys, values, filter_vals, op: str, num_groups: int) -> None:
@@ -78,6 +105,29 @@ def _check(keys, values, filter_vals, op: str, num_groups: int) -> None:
         raise ValueError(f"num_groups must be positive, got {num_groups}")
 
 
+def _launch(lib, keys, values, filter_vals, op, threshold, num_groups, *, index, stream):
+    """Allocate the blocks' partials and the outputs, and launch once on
+    ``stream``.  The tensors go to the kernel as they are."""
+    n = keys.shape[0]
+    blocks, rows_per_block = grid(n, lib.fused_filter_agg_tile_rows())
+    dev = keys.device
+    # the blocks' float32 sums, then their int32 counts; then the outputs
+    parts = torch.empty(2 * blocks * num_groups, dtype=torch.int32, device=dev)
+    out = torch.empty((2, num_groups), dtype=torch.float32, device=dev)
+    code = lib.fused_filter_agg_launch(
+        index, keys.data_ptr(), values.data_ptr(), int(values.dtype == torch.int32),
+        filter_vals.data_ptr(), int(filter_vals.dtype == torch.int32),
+        n, _OPS.index(op), float(threshold), num_groups, blocks, rows_per_block,
+        _aligned(keys, values, filter_vals), parts.data_ptr(),
+        parts.data_ptr() + blocks * num_groups * 4, _ticket(index, stream, dev).data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), stream,
+    )
+    if code != 0:
+        msg = lib.fused_filter_agg_error_string(code).decode()
+        raise RuntimeError(f"fused_filter_agg launch failed: {msg} ({code})")
+    return out[0], out[1]
+
+
 def fused_filter_agg(
     keys: torch.Tensor,         # int32[n]
     values: torch.Tensor,       # int32|float32[n]
@@ -91,8 +141,9 @@ def fused_filter_agg(
 
     Returns ``(sums f32[num_groups], counts f32[num_groups])``.  Rows whose
     key lies outside ``[0, num_groups)`` contribute nothing.  CUDA tensors
-    launch the kernel on the current stream without synchronising; CPU
-    tensors take the plain version.
+    launch the kernel once on the current stream without synchronising
+    (views that do not start on a 16-byte boundary included); CPU tensors
+    take the plain version.
     """
     global LAUNCHES
     _check(keys, values, filter_vals, op, num_groups)
@@ -107,24 +158,8 @@ def fused_filter_agg(
         raise ValueError(
             f"num_groups={num_groups} exceeds the kernel's {MAX_GROUPS}"
         )
-    lib = load()
-    n = keys.shape[0]
-    blocks, rows_per_block = grid(n, lib.fused_filter_agg_tile_rows())
-    dev = keys.device
-    part_sums = torch.empty(blocks * num_groups, dtype=torch.float32, device=dev)
-    part_counts = torch.empty(blocks * num_groups, dtype=torch.int32, device=dev)
-    sums = torch.empty(num_groups, dtype=torch.float32, device=dev)
-    counts = torch.empty(num_groups, dtype=torch.float32, device=dev)
     index, stream = device_and_stream(keys)
-    code = lib.fused_filter_agg_launch(
-        index, keys.data_ptr(), values.data_ptr(), int(values.dtype == torch.int32),
-        filter_vals.data_ptr(), int(filter_vals.dtype == torch.int32),
-        n, _OPS.index(op), float(threshold), num_groups, blocks,
-        rows_per_block, part_sums.data_ptr(), part_counts.data_ptr(),
-        sums.data_ptr(), counts.data_ptr(), stream,
-    )
-    if code != 0:
-        msg = lib.fused_filter_agg_error_string(code).decode()
-        raise RuntimeError(f"fused_filter_agg launch failed: {msg} ({code})")
+    out = _launch(load(), keys, values, filter_vals, op, threshold, num_groups,
+                  index=index, stream=stream)
     LAUNCHES += 1
-    return sums, counts
+    return out

@@ -203,3 +203,183 @@ def test_launch_grid_covers_rows_and_depends_on_n_only(n):
     assert blocks * rows >= n
     assert (blocks - 1) * rows < max(n, 1)  # no block starts past the end
     assert ops.grid(n, tile) == (blocks, rows)
+
+
+# ------------------------------------------------- the one-launch kernel
+class FakeLib:
+    """Records the wrapper's call into the kernel library."""
+
+    def __init__(self):
+        self.calls = []
+
+    def fused_filter_agg_tile_rows(self):
+        return 2048
+
+    def fused_filter_agg_launch(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def fake_launch(keys, vals, filt, num_groups, stream=0, op="ge"):
+    lib = FakeLib()
+    out = ops._launch(lib, keys, vals, filt, op, 1.5, num_groups, index=0, stream=stream)
+    return lib.calls[0], out
+
+
+@pytest.mark.parametrize("n", [0, 1, 4095, 2_796_308, 2**23 + 3])
+def test_plan_is_a_function_of_n_alone(n):
+    """The grid the wrapper launches is grid(n): the same for every G,
+    every value dtype and every card (no SM count enters it)."""
+    keys = torch.zeros(n, dtype=torch.int32)
+    plans = set()
+    for G in (1, 64, 1024):
+        for vals in (torch.zeros(n, dtype=torch.int32), torch.zeros(n)):
+            args, _ = fake_launch(keys, vals, torch.zeros(n), G)
+            plans.add((args[10], args[11]))
+            assert args[9] == G and args[6] == n
+    assert plans == {ops.grid(n, 2048)}
+
+
+def test_shared_memory_fits_the_card_for_every_group_count():
+    """8 warps x G x (sum, count) of bins, the lane values and the last
+    block's slices: within the 227 KB a block may use at every G <= 1024,
+    above the 48 KB that needs the opt-in only at large G."""
+    for G in range(1, ops.MAX_GROUPS + 1):
+        assert ops.smem_bytes(G) <= 232_448
+    assert ops.smem_bytes(64) < 48 * 1024 < ops.smem_bytes(ops.MAX_GROUPS)
+    assert ops.MAX_GROUPS == 1024
+
+
+def test_route_cap_is_the_kernel_cap_and_the_jax_routes():
+    from repro.engine.route import DEFAULT_MAX_GROUPS as JAX_MAX_GROUPS
+    from repro_torch.engine.route import DEFAULT_MAX_GROUPS
+
+    assert DEFAULT_MAX_GROUPS == JAX_MAX_GROUPS == ops.MAX_GROUPS
+
+
+def test_launch_passes_one_ticket_per_stream_and_partials_of_the_plan():
+    n, G = 9000, 65
+    keys, vals, filt = torch.zeros(n, dtype=torch.int32), torch.zeros(n), torch.zeros(n)
+    a, (sums, counts) = fake_launch(keys, vals, filt, G, stream=11)
+    b, _ = fake_launch(keys, vals, filt, G, stream=11)
+    c, _ = fake_launch(keys, vals, filt, G, stream=12)
+    blocks = ops.grid(n, 2048)[0]
+    ticket = ops._tickets[(0, 11)]
+    assert a[15] == b[15] == ticket.data_ptr() and c[15] != a[15]  # per stream, kept
+    assert int(ticket.item()) == 0 and ticket.dtype == torch.int32
+    assert a[14] - a[13] == blocks * G * 4  # float32 sums, then int32 counts
+    assert sums.shape == counts.shape == (G,) and sums.dtype == counts.dtype == torch.float32
+    assert (a[16], a[17]) == (sums.data_ptr(), counts.data_ptr())
+    assert a[12] == 0b111  # all three columns start on a 16-byte boundary
+
+
+@pytest.mark.parametrize("offs", [(1, 1, 1), (2, 2, 2), (3, 3, 3), (1, 2, 3), (0, 3, 0)])
+def test_misaligned_views_go_through_the_wrapper(offs, rng):
+    """Views that start 1-3 elements past a 16-byte boundary: the launch
+    says which columns are aligned, and on the CPU the wrapper's result
+    equals the Pallas kernel's on the same rows."""
+    n, G = 5000, 64
+    keys, vals, filt = make_inputs(n + 3, G, rng)
+    base = [torch.from_numpy(a) for a in (keys, vals, filt)]
+    view = [t[o:o + n] for t, o in zip(base, offs)]
+    args, _ = fake_launch(*view, G)
+    assert args[12] == sum(1 << i for i, o in enumerate(offs) if o == 0)
+    got_s, got_c = fused_filter_agg(*view, op="ge", threshold=50.0, num_groups=G)
+    exp_s, exp_c = jax_ffa(*(jnp.asarray(t.numpy()) for t in view), op="ge", threshold=50.0,
+                           num_groups=G, interpret=True)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(exp_s), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(exp_c))
+
+
+@pytest.mark.parametrize("case,match", [
+    ("int64-keys", "keys must be int32"),
+    ("float64-values", "values must be int32 or float32"),
+    ("bool-filter", "filter_vals must be int32 or float32"),
+    ("2d", "must be 1-D"),
+    ("non-contiguous", "must be contiguous"),
+    ("ragged", "has 15 rows"),
+    ("bad-op", "op must be one of"),
+    ("no-groups", "num_groups must be positive"),
+    ("numpy", "must be a torch.Tensor"),
+])
+def test_wrapper_error_messages(case, match):
+    args, kw = _bad_inputs(case)
+    with pytest.raises((TypeError, ValueError), match=match):
+        fused_filter_agg(*args, **kw)
+
+
+def emulate_kernel(keys, vals, filt, op, threshold, G, tile=2048, threads=256):
+    """The kernel's order of float additions, in numpy float32: block b
+    of grid(n) walks its tiles; in each, quad qd, row j of the quad, warp
+    w, its 32 lanes' rows; the lanes of one key add in ascending lane
+    order into the warp's bin; the warps' bins add in warp order into the
+    block's partial; the last block adds the partials in block order, in
+    max(1, 256 // G) slices of blocks, then the slices in order."""
+    n = len(keys)
+    keep = np.asarray(ref_mask(filt, op, threshold)) & (keys >= 0) & (keys < G)
+    key = np.where(keep, keys, -1)
+    v = vals.astype(np.float32)
+    blocks, rows = ops.grid(n, tile)
+    part_s = np.zeros((blocks, G), np.float32)
+    part_c = np.zeros((blocks, G), np.int64)
+    lanes = np.arange(32)
+    for b in range(blocks):
+        bin_s = np.zeros((8, G), np.float32)
+        bin_c = np.zeros((8, G), np.int64)
+        end = min(n, (b + 1) * rows)
+        for base in range(b * rows, end, tile):
+            for qd in range(2):
+                for j in range(4):
+                    for w in range(8):
+                        r = base + (qd * threads + w * 32 + lanes) * 4 + j
+                        k = np.where(r < end, key[np.minimum(r, max(n - 1, 0))], -1)
+                        for g in sorted(set(k[k >= 0].tolist())):
+                            s = np.float32(0)
+                            for lane in lanes[k == g]:
+                                s = np.float32(s + v[r[lane]])
+                            bin_s[w, g] = np.float32(bin_s[w, g] + s)
+                            bin_c[w, g] += int((k == g).sum())
+        for w in range(8):
+            part_s[b] = (part_s[b] + bin_s[w]).astype(np.float32)
+            part_c[b] += bin_c[w]
+    slices = max(1, threads // G)
+    sums = np.zeros(G, np.float32)
+    counts = np.zeros(G, np.int64)
+    for sl in range(slices):
+        s = np.zeros(G, np.float32)
+        for p in range(blocks * sl // slices, blocks * (sl + 1) // slices):
+            s = (s + part_s[p]).astype(np.float32)
+            counts += part_c[p]
+        sums = (sums + s).astype(np.float32)
+    return sums, counts.astype(np.float32)
+
+
+def ref_mask(filt, op, threshold):
+    from repro_torch.kernels.fused_filter_agg.ref import _mask
+
+    return _mask(torch.from_numpy(filt), op, threshold).numpy()
+
+
+@pytest.mark.parametrize("n,G", [(0, 64), (1, 1), (4095, 63), (9000, 65), (9000, 300),
+                                 (20000, 1), (6000, 1024)])
+def test_kernel_order_of_sums_matches_pallas(n, G, rng):
+    """The one-launch kernel's algorithm (``emulate_kernel``) on the CPU:
+    counts exact and float sums within 1e-5 of the Pallas kernel; with
+    integer values the sums are exact too.  No rows (the Pallas kernel
+    takes none) give zeros, as the plain version does."""
+    keys = rng.integers(-1, G + 1, n).astype(np.int32)
+    filt = (rng.random(n) * 100).astype(np.float32)
+    for vals in (rng.standard_normal(n).astype(np.float32),
+                 rng.integers(-50, 51, n).astype(np.float32)):
+        got_s, got_c = emulate_kernel(keys, vals, filt, "ge", 30.0, G)
+        if n == 0:
+            exp_s, exp_c = fused_filter_agg_ref(
+                *(torch.from_numpy(a) for a in (keys, vals, filt)),
+                op="ge", threshold=30.0, num_groups=G)
+            exp_s, exp_c = exp_s.numpy(), exp_c.numpy()
+        else:
+            exp_s, exp_c = jax_ffa(jnp.asarray(keys), jnp.asarray(vals), jnp.asarray(filt),
+                                   op="ge", threshold=30.0, num_groups=G, interpret=True)
+        np.testing.assert_array_equal(got_c, np.asarray(exp_c))
+        np.testing.assert_allclose(got_s, np.asarray(exp_s), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got_s, np.asarray(exp_s))  # integer values: exact
