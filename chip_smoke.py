@@ -27,6 +27,23 @@ Phases, each of which fails the script (non-zero exit) on any error:
    ``engine="jnp"`` byte for byte, and the kernel's launch count must have
    grown on the kernel routes.  Then each query runs 5 more times and the
    median of each phase is printed;
+3b. the pipeline run on the same lake: ``Runner.run`` of the Appendix
+   pipeline (trips -> trips_expectation -> pickups) plus ``zone_riders``
+   (Q1's SQL, the node the route sends to ``fused_filter_agg``) on
+   ``cuda`` through a ``ServerlessExecutor`` (stages on its worker
+   threads), with the launch counts set to 0 just before: the run must
+   merge with the audit passing, route zone_riders to the kernel, launch
+   it, and write pickups and zone_riders equal to the numpy oracles of Q3
+   and Q1.  Then, each on a fresh lake with the cache off, parallelism 1
+   in stage-id order without streaming, parallelism 8 critical-path-first
+   with streaming, fusion off, and ``sql_engine="jnp"`` must give the
+   same manifest keys, outputs and verdicts; a warm re-run must execute
+   0 nodes, ``replay`` must give the cold run's artifacts, and a run whose
+   audit fails must roll back.  The median wall time of cold and warm
+   runs, each stage's exec_s and queue_s, the scans' share, the kernel's
+   launches, peak device memory and the device's busy share over one
+   cold run (``torch.profiler``) are printed with the card's name and
+   power limit;
 4. at the inputs Q2 hands the kernel, hold the kernel against its plain
    version (exactly equal: the sums are of integers) and time the kernel,
    its plain version and ``torch.bincount``;
@@ -86,6 +103,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -355,80 +373,85 @@ def same_bytes(a, b) -> bool:
     )
 
 
-def query_path(np, torch, ops):
+def write_lake(root, data):
+    """A new lake at ``root`` holding ``data`` as ``taxi_table`` on main,
+    in 65,536-row shards."""
     from repro_torch.catalog import Catalog
-    from repro_torch.core import Runner
-    from repro_torch.examples_data import APRIL_1, TAXI_SCHEMA, make_taxi_data
+    from repro_torch.examples_data import TAXI_SCHEMA
     from repro_torch.io import ObjectStore
     from repro_torch.table import TableFormat
+
+    t0 = time.perf_counter()
+    store = ObjectStore(root)
+    fmt = TableFormat(store)
+    catalog = Catalog(store)
+    snap = fmt.write("taxi_table", TAXI_SCHEMA, data)
+    catalog.commit("main", {"taxi_table": fmt.manifest_key(snap)},
+                   message="write_table taxi_table")
+    print(f"lake: {snap.num_rows} rows in {len(snap.shards)} shards "
+          f"written in {time.perf_counter() - t0:.2f} s")
+    return catalog, fmt
+
+
+def query_path(np, torch, ops, catalog, fmt, data):
+    from repro_torch.core import Runner
+    from repro_torch.examples_data import APRIL_1
     from repro_torch.telemetry import EventBus
 
-    data = make_taxi_data(N_MAIN, np.random.default_rng(SEED))
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        store = ObjectStore(Path(tmp) / "lake")
-        fmt = TableFormat(store)
-        catalog = Catalog(store)
-        snap = fmt.write("taxi_table", TAXI_SCHEMA, data)
-        catalog.commit("main", {"taxi_table": fmt.manifest_key(snap)},
-                       message="write_table taxi_table")
-        print(f"lake: {snap.num_rows} rows in {len(snap.shards)} shards "
-              f"written in {time.perf_counter() - t0:.2f} s")
+    bus = EventBus()
+    sub = bus.subscribe(maxlen=65536)
+    runner = Runner(catalog, fmt, bus=bus)  # the default device: cuda
+    check(runner.device.type == "cuda", f"runner on {runner.device}")
 
-        bus = EventBus()
-        sub = bus.subscribe(maxlen=65536)
-        runner = Runner(catalog, fmt, bus=bus)  # the default device: cuda
-        check(runner.device.type == "cuda", f"runner on {runner.device}")
+    def run(name, sql, engine, want_path):
+        before = ops.LAUNCHES
+        out = runner.query(sql, engine=engine)
+        ev = [e for e in sub.drain() if type(e).__name__ == "QueryExecuted"][-1]
+        launched = ops.LAUNCHES - before
+        check(ev.engine_path == want_path,
+              f"{name} engine={engine} routed {ev.engine_path}, want {want_path}")
+        if want_path == "kernel":
+            check(launched > 0, f"{name} routed kernel but launched nothing")
+        else:
+            check(launched == 0, f"{name} on {want_path} launched the kernel")
+        print(f"{name} engine={engine}: path={ev.engine_path} rows={ev.rows_out} "
+              f"shards={ev.shards_read} launches={launched} parse_s={ev.parse_s!r} "
+              f"plan_s={ev.plan_s!r} scan_s={ev.scan_s!r} exec_s={ev.exec_s!r} "
+              f"wall_s={ev.wall_s!r}")
+        return out
 
-        def run(name, sql, engine, want_path):
-            before = ops.LAUNCHES
-            out = runner.query(sql, engine=engine)
-            ev = [e for e in sub.drain() if type(e).__name__ == "QueryExecuted"][-1]
-            launched = ops.LAUNCHES - before
-            check(ev.engine_path == want_path,
-                  f"{name} engine={engine} routed {ev.engine_path}, want {want_path}")
-            if want_path == "kernel":
-                check(launched > 0, f"{name} routed kernel but launched nothing")
-            else:
-                check(launched == 0, f"{name} on {want_path} launched the kernel")
-            print(f"{name} engine={engine}: path={ev.engine_path} rows={ev.rows_out} "
-                  f"shards={ev.shards_read} launches={launched} parse_s={ev.parse_s!r} "
-                  f"plan_s={ev.plan_s!r} scan_s={ev.scan_s!r} exec_s={ev.exec_s!r} "
-                  f"wall_s={ev.wall_s!r}")
-            return out
+    # the main path: every launch count starts at 0 here
+    ops.LAUNCHES = 0
+    q1 = run("Q1", Q1, "auto", "kernel")
+    q2 = run("Q2", Q2, "kernel", "kernel")
+    q3 = run("Q3", Q3, "auto", "jnp")
+    q1_ref = run("Q1", Q1, "jnp", "jnp")
+    q2_ref = run("Q2", Q2, "jnp", "jnp")
+    launches = ops.LAUNCHES
+    check(launches > 0, "the main path never launched fused_filter_agg")
 
-        # the main path: every launch count starts at 0 here
-        ops.LAUNCHES = 0
-        q1 = run("Q1", Q1, "auto", "kernel")
-        q2 = run("Q2", Q2, "kernel", "kernel")
-        q3 = run("Q3", Q3, "auto", "jnp")
-        q1_ref = run("Q1", Q1, "jnp", "jnp")
-        q2_ref = run("Q2", Q2, "jnp", "jnp")
-        launches = ops.LAUNCHES
-        check(launches > 0, "the main path never launched fused_filter_agg")
+    for name, got, want in (("Q1", q1, oracle_q1(data, APRIL_1, np)),
+                            ("Q2", q2, oracle_q2(data, APRIL_1, np)),
+                            ("Q3", q3, oracle_q3(data, APRIL_1, np))):
+        check(same_bytes(got, want), f"{name} differs from the numpy oracle")
+    check(same_bytes(q1, q1_ref), "Q1 kernel route differs from engine='jnp'")
+    check(same_bytes(q2, q2_ref), "Q2 kernel route differs from engine='jnp'")
+    print(f"query path: Q1-Q3 equal the numpy oracle; Q1, Q2 byte-identical "
+          f"to engine='jnp'; fused_filter_agg launches on the main path: {launches}")
 
-        for name, got, want in (("Q1", q1, oracle_q1(data, APRIL_1, np)),
-                                ("Q2", q2, oracle_q2(data, APRIL_1, np)),
-                                ("Q3", q3, oracle_q3(data, APRIL_1, np))):
-            check(same_bytes(got, want), f"{name} differs from the numpy oracle")
-        check(same_bytes(q1, q1_ref), "Q1 kernel route differs from engine='jnp'")
-        check(same_bytes(q2, q2_ref), "Q2 kernel route differs from engine='jnp'")
-        print(f"query path: Q1-Q3 equal the numpy oracle; Q1, Q2 byte-identical "
-              f"to engine='jnp'; fused_filter_agg launches on the main path: {launches}")
-
-        # steady state: the runs above include first-use costs (lazy
-        # module loads, allocator growth), so time each query again
-        phases = ("parse_s", "plan_s", "scan_s", "exec_s", "wall_s")
-        for name, sql, engine in (("Q1", Q1, "auto"), ("Q2", Q2, "kernel"),
-                                  ("Q3", Q3, "auto"), ("Q1", Q1, "jnp"),
-                                  ("Q2", Q2, "jnp")):
-            evs = []
-            for _ in range(LATENCY_REPS):
-                runner.query(sql, engine=engine)
-                evs.append([e for e in sub.drain()
-                            if type(e).__name__ == "QueryExecuted"][-1])
-            print(f"{name} engine={engine} median of {LATENCY_REPS}: " + " ".join(
-                f"{p}={statistics.median(getattr(e, p) for e in evs)!r}" for p in phases))
+    # steady state: the runs above include first-use costs (lazy
+    # module loads, allocator growth), so time each query again
+    phases = ("parse_s", "plan_s", "scan_s", "exec_s", "wall_s")
+    for name, sql, engine in (("Q1", Q1, "auto"), ("Q2", Q2, "kernel"),
+                              ("Q3", Q3, "auto"), ("Q1", Q1, "jnp"),
+                              ("Q2", Q2, "jnp")):
+        evs = []
+        for _ in range(LATENCY_REPS):
+            runner.query(sql, engine=engine)
+            evs.append([e for e in sub.drain()
+                        if type(e).__name__ == "QueryExecuted"][-1])
+        print(f"{name} engine={engine} median of {LATENCY_REPS}: " + " ".join(
+            f"{p}={statistics.median(getattr(e, p) for e in evs)!r}" for p in phases))
 
     # Q2's kernel inputs: the scan keeps rows with pickup_at >= April 1 (in
     # storage order); the OR residual feeds the kernel as a float mask
@@ -439,6 +462,191 @@ def query_path(np, torch, ops):
     filt = torch.tensor(((data["passenger_count"][m] > 35)
                          | (data["dropoff_location_id"][m] < 8)).astype(np.float32), device=dev)
     return launches, (keys, vals, filt)
+
+
+# -------------------------------------------------------------- phase 3b
+def taxi_pipeline_with_zone_riders(threshold=10.0):
+    """The Appendix pipeline (trips -> trips_expectation -> pickups) plus
+    ``zone_riders``, Q1's SQL over taxi_table: the one node of the
+    pipeline that the route sends to fused_filter_agg (pickups groups by
+    two keys over the node-sourced trips, which has no shard statistics)."""
+    from repro_torch.examples_data import build_taxi_pipeline
+
+    p = build_taxi_pipeline(threshold)
+    p.sql("zone_riders", Q1)
+    return p
+
+
+def scan_span(events, run_id):
+    """Wall seconds of each stage's host shard reads in one run: from the
+    first read's start to the last read's end (reads overlap on the pool)."""
+    spans = {}
+    for e in events:
+        if type(e).__name__ == "ScanShardRead" and e.run_id == run_id:
+            lo, hi = spans.get(e.stage_id, (e.ts, e.ts + e.dur_s))
+            spans[e.stage_id] = (min(lo, e.ts), max(hi, e.ts + e.dur_s))
+    return {sid: hi - lo for sid, (lo, hi) in spans.items()}
+
+
+def profile_run(torch, runner, smi):
+    """torch.profiler over one cold run: wall time, device busy time (sum
+    of the device's kernel and copy times; every stage issues its work on
+    the default stream) and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        res = runner.run(taxi_pipeline_with_zone_riders(), branch="profiled", cache=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    check(res.ok, "the profiled run did not merge")
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    if not kernels:
+        print(f"pipeline profile: cold run wall {wall!r} s; the profiler recorded no device "
+              f"time (device busy share not measured) [{smi}]")
+        return
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    print(f"pipeline profile, one cold run: wall {wall!r} s, device busy {busy!r} s "
+          f"({busy / wall:.4f} of wall, idle {1 - busy / wall:.4f}), "
+          f"{sum(e.count for e in kernels)} device operations [{smi}]")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:.3f} ms {e.count}x {e.key[:90]}")
+
+
+def pipeline_path(np, torch, ops, catalog, fmt, data, tmp, smi):
+    """``Runner.run`` on the card over phase 3's lake: the Appendix
+    pipeline plus zone_riders, through a ServerlessExecutor, the stages
+    on its worker threads.  Returns fused_filter_agg's launches in the
+    main run."""
+    from repro_torch.core import ExpectationFailed, PlannerConfig, Runner
+    from repro_torch.examples_data import APRIL_1
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.runtime import ExecutorConfig, ServerlessExecutor
+    from repro_torch.telemetry import EventBus
+
+    want = {"pickups": oracle_q3(data, APRIL_1, np), "zone_riders": oracle_q1(data, APRIL_1, np)}
+    auto = PlannerConfig(sql_engine="auto")
+
+    def check_run(label, res, fmt, engine_path):
+        check(res.ok, f"{label}: the run did not merge")
+        check(res.checks == {"trips_expectation": True}, f"{label}: checks {res.checks}")
+        routes = {n: r.engine_path for s in res.plan.stages for n, r in s.sql_routes.items()}
+        check(routes.get("zone_riders", engine_path) == engine_path,
+              f"{label}: zone_riders routed {routes.get('zone_riders')}, want {engine_path}")
+        out = {name: fmt.read(fmt.load_snapshot(key)) for name, key in res.artifacts.items()}
+        for name, w in want.items():
+            check(same_bytes(out[name], w), f"{label}: {name} differs from the numpy oracle")
+        return out
+
+    with ServerlessExecutor(ExecutorConfig(max_workers=8, max_concurrent_stages=8)) as ex:
+        bus = EventBus()
+        sub = bus.subscribe(maxlen=1 << 20)
+        runner = Runner(catalog, fmt, ex, bus=bus)  # the default device: cuda
+        check(runner.device.type == "cuda", f"runner on {runner.device}")
+
+        # the main path: every launch count starts at 0 here
+        ops.LAUNCHES = flash_ops.LAUNCHES = decode_ops.LAUNCHES = 0
+        cold = runner.run(taxi_pipeline_with_zone_riders(), branch="pipe", planner_config=auto)
+        launches = ops.LAUNCHES
+        check(launches > 0, "the pipeline run never launched fused_filter_agg")
+        check(flash_ops.LAUNCHES == decode_ops.LAUNCHES == 0,
+              "the pipeline run launched an attention kernel")
+        main_out = check_run("main run", cold, fmt, "kernel")
+        print(f"pipeline main run: {len(cold.plan.stages)} stages "
+              f"{[list(s.node_names) for s in cold.plan.stages]}, routes "
+              f"{ {n: r.engine_path for s in cold.plan.stages for n, r in s.sql_routes.items()} }, "
+              f"checks {cold.checks}, fused_filter_agg launches {launches}; pickups and "
+              f"zone_riders equal the numpy oracle")
+
+        # the same artifacts and verdicts at other schedules, fusion and
+        # engine, each on a fresh lake with the cache off
+        configs = (
+            ("parallelism 1, stage_id, no streaming",
+             dict(parallelism=1, schedule="stage_id", streaming=False), "kernel"),
+            ("parallelism 8, critical_path, streaming",
+             dict(parallelism=8, schedule="critical_path", streaming=True), "kernel"),
+            ("fusion off", dict(planner_config=PlannerConfig(fusion=False)), "kernel"),
+            ("sql_engine jnp", dict(planner_config=PlannerConfig(sql_engine="jnp")), "jnp"),
+        )
+        for i, (label, kw, path) in enumerate(configs):
+            c2, f2 = write_lake(tmp / f"fresh{i}", data)
+            before = ops.LAUNCHES
+            res = Runner(c2, f2, ex).run(taxi_pipeline_with_zone_riders(), branch="pipe",
+                                         cache=False, **kw)
+            launched = ops.LAUNCHES - before
+            out = check_run(label, res, f2, path)
+            check((launched > 0) == (path == "kernel"), f"{label}: {launched} launches")
+            common = {k: v for k, v in res.artifacts.items() if k in cold.artifacts}
+            check(common == cold.artifacts, f"{label}: manifest keys differ from the main run")
+            for name in cold.artifacts:
+                check(same_bytes(out[name], main_out[name]), f"{label}: {name} differs")
+            extra = sorted(set(res.artifacts) - set(cold.artifacts))
+            print(f"pipeline {label}: artifacts and checks byte-identical to the main run "
+                  f"(extra materialized: {extra}), launches {launched}")
+            shutil.rmtree(tmp / f"fresh{i}")
+        ops.LAUNCHES = launches  # comparisons are not the main path
+
+        # the differential cache, replay, and an audit that fails
+        warm = runner.run(taxi_pipeline_with_zone_riders(), branch="pipe_warm")
+        check(warm.stats["cache"]["nodes_executed"] == 0,
+              f"warm re-run executed {warm.stats['cache']['nodes_executed']} nodes")
+        check(warm.artifacts == cold.artifacts, "warm re-run artifacts differ")
+        again = runner.replay(taxi_pipeline_with_zone_riders(), cold.run_id)
+        check(again.artifacts == cold.artifacts, "replay artifacts differ from the cold run")
+        main_head = catalog.head("main").commit_id
+        try:
+            runner.run(taxi_pipeline_with_zone_riders(threshold=1000.0), branch="audit")
+            check(False, "the failing audit merged")
+        except ExpectationFailed as e:
+            check(e.failed == ["trips_expectation"], f"failed checks {e.failed}")
+        check(catalog.tables(branch="audit") == catalog.tables(branch="main"),
+              "the failed run left tables on its branch")
+        check(catalog.head("main").commit_id == main_head, "the failed run moved main")
+        check(not [b for b in catalog.branches() if b.startswith("run_")],
+              "the failed run left an ephemeral branch")
+        ops.LAUNCHES = launches
+        print(f"pipeline: warm re-run executed 0 nodes ({warm.stats['cache']['hits']} hits); "
+              f"replay equals the cold run; the failing audit rolled back")
+
+        # timing: cold runs (cache off) and warm runs, after the first
+        sub.drain()
+        torch.cuda.reset_peak_memory_stats()
+        colds, warms, stage_times, spans = [], [], {}, []
+        for _ in range(LATENCY_REPS + 1):
+            t0 = time.perf_counter()
+            res = runner.run(taxi_pipeline_with_zone_riders(), branch="timed", cache=False)
+            colds.append(time.perf_counter() - t0)
+            for sid, t in res.stats["stage_timings"].items():
+                stage_times.setdefault(sid, []).append(t)
+            span = scan_span(sub.drain(), res.run_id)
+            spans.append((sum(span.values()), sum(t["exec_s"] for t in res.stats["stage_timings"].values())))
+        peak = torch.cuda.max_memory_allocated()
+        for _ in range(LATENCY_REPS + 1):
+            t0 = time.perf_counter()
+            res = runner.run(taxi_pipeline_with_zone_riders(), branch="timed")
+            warms.append(time.perf_counter() - t0)
+            check(res.stats["cache"]["nodes_executed"] == 0, "a warm timing run executed nodes")
+        ops.LAUNCHES = launches
+        print(f"pipeline cold run (cache off) median of {LATENCY_REPS} after the first: "
+              f"{statistics.median(colds[1:])!r} s (first {colds[0]!r} s); warm run median "
+              f"{statistics.median(warms[1:])!r} s (first {warms[0]!r} s) [{smi}]")
+        for sid, ts in sorted(stage_times.items()):
+            nodes = list(cold.plan.stages[int(sid)].node_names)
+            print(f"pipeline stage {sid} {nodes}: median exec_s "
+                  f"{statistics.median(t['exec_s'] for t in ts[1:])!r} queue_s "
+                  f"{statistics.median(t['queue_s'] for t in ts[1:])!r} commit_s "
+                  f"{statistics.median(t['commit_s'] for t in ts[1:])!r} [{smi}]")
+        scan_s = statistics.median(a for a, _ in spans[1:])
+        exec_s = statistics.median(b for _, b in spans[1:])
+        print(f"pipeline scan share: host shard reads {scan_s!r} s of {exec_s!r} s of stage "
+              f"exec_s summed over stages ({scan_s / exec_s:.3f}); fused_filter_agg launches "
+              f"in one run: {launches}; peak device memory over the cold runs {peak} B "
+              f"({peak / 2**30:.2f} GiB) [{smi}]")
+        profile_run(torch, runner, smi)
+        ops.LAUNCHES = launches
+    return launches
 
 
 # --------------------------------------------------------------- phase 4
@@ -514,7 +722,8 @@ def measure(torch, ops, ref, launches, inputs, card):
         "route": "cuda",
         "source": "src/repro_torch/kernels/fused_filter_agg/csrc/fused_filter_agg.cu",
         "replaces": "src/repro/kernels/fused_filter_agg/kernel.py:81",
-        "launches": launches,
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -1156,7 +1365,14 @@ def main() -> int:
 
     build_kernels((ops, flash_ops, decode_ops))
     kernel_vs_plain(torch, ops, ref)
-    launches, inputs = query_path(np, torch, ops)
+    from repro_torch.examples_data import make_taxi_data
+
+    data = make_taxi_data(N_MAIN, np.random.default_rng(SEED))
+    with tempfile.TemporaryDirectory() as tmp:
+        catalog, fmt = write_lake(Path(tmp) / "lake", data)
+        query_launches, inputs = query_path(np, torch, ops, catalog, fmt, data)
+        run_launches = pipeline_path(np, torch, ops, catalog, fmt, data, Path(tmp), smi)
+    launches = {"Runner.query": query_launches, "Runner.run": run_launches}
     ffa_row = measure(torch, ops, ref, launches, inputs, card)
     attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref)
     served = serve_yi(np, torch, flash_ops, decode_ops)

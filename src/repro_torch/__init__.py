@@ -1,4 +1,4 @@
-"""repro_torch — the lakehouse's query path on PyTorch and CUDA.
+"""repro_torch — the lakehouse on PyTorch and CUDA, slice by slice.
 
 A port of the ``repro`` package (JAX on a TPU) to PyTorch on an NVIDIA
 Hopper card.  The module tree and names mirror ``repro``'s, so the
@@ -15,6 +15,14 @@ back to the CPU.  Slice 1 covers the interactive query path::
     from repro_torch.core import Runner
     runner = Runner(catalog, fmt)             # device defaults to cuda
     runner.query("SELECT ... GROUP BY ...")   # dict of numpy arrays
+
+Slice 5 runs pipelines (transform → audit → write over an ephemeral
+branch, fused stages, the differential cache) through a serverless
+executor whose worker threads run the stages on the card::
+
+    from repro_torch.runtime import ServerlessExecutor
+    with ServerlessExecutor() as ex:
+        Runner(catalog, fmt, ex).run(pipeline, branch="feat")
 
 Slice 2 serves the dense attention LMs (Yi-6B, H2O-Danube3-4B, Qwen3-32B,
 Granite-34B) through the flash and decode attention kernels::

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -32,6 +33,14 @@ LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+#: guards the launch count: launches may come from several threads
+_lock = threading.Lock()
+
+
+def _count_launch() -> None:
+    global LAUNCHES
+    with _lock:
+        LAUNCHES += 1
 
 
 def load() -> ctypes.CDLL:
@@ -119,7 +128,6 @@ def decode_attention(
     rows; (B, H, D) in q's dtype.  CUDA tensors launch the kernels on the
     current stream without synchronising (the split kernel, and a combine
     when the cache is split); CPU tensors take the plain version."""
-    global LAUNCHES
     b, h, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     if h % hkv:
@@ -142,5 +150,5 @@ def decode_attention(
     # int32 and contiguous (B,) lengths pass as they are; others are copied
     lens = lengths.to(torch.int32).contiguous()
     out = _launch(lib, qf, kf, vf, lens, float(scale), device=dev, stream=stream, sms=sms)
-    LAUNCHES += 1
+    _count_launch()
     return out

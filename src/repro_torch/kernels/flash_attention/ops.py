@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -28,6 +29,14 @@ LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+#: guards the launch count: launches may come from several threads
+_lock = threading.Lock()
+
+
+def _count_launch() -> None:
+    global LAUNCHES
+    with _lock:
+        LAUNCHES += 1
 
 
 def load() -> ctypes.CDLL:
@@ -77,7 +86,6 @@ def flash_attention(
     """Causal, non-causal or sliding-window GQA attention; (B, H, S, D)
     in q's dtype.  CUDA tensors launch the kernel on the current stream
     without synchronising; CPU tensors take the plain version."""
-    global LAUNCHES
     b, h, s, d = q.shape
     hkv = k.shape[1]
     if h % hkv:
@@ -107,5 +115,5 @@ def flash_attention(
     if code != 0:
         msg = lib.flash_attention_error_string(code).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({code})")
-    LAUNCHES += 1
+    _count_launch()
     return out.reshape(b, h, s, d)

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -21,7 +22,8 @@ MAX_GROUPS = 1024
 ROWS_PER_BLOCK = 8192
 MAX_BLOCKS = 1024
 
-#: kernel launches made through this wrapper (CUDA tensors only)
+#: kernel launches made through this wrapper (CUDA tensors only), counted
+#: under ``_lock``: pipeline stages launch from executor threads
 LAUNCHES = 0
 
 _VALUE_DTYPES = (torch.int32, torch.float32)
@@ -29,6 +31,8 @@ _lib = None
 #: the completion counter of each (device, stream): 0 between calls, since
 #: the kernel's last block puts it back; made once, with one memset
 _tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+#: guards the making of a ticket and the launch count
+_lock = threading.Lock()
 
 
 def load() -> ctypes.CDLL:
@@ -71,8 +75,19 @@ def smem_bytes(num_groups: int) -> int:
 def _ticket(index: int, stream: int, device: torch.device) -> torch.Tensor:
     ticket = _tickets.get((index, stream))
     if ticket is None:
-        ticket = _tickets[(index, stream)] = torch.zeros(1, dtype=torch.int32, device=device)
+        # threads that share a stream (the default stream is every
+        # thread's) must share its ticket: one is made, under the lock
+        with _lock:
+            ticket = _tickets.setdefault(
+                (index, stream), torch.zeros(1, dtype=torch.int32, device=device)
+            )
     return ticket
+
+
+def _count_launch() -> None:
+    global LAUNCHES
+    with _lock:
+        LAUNCHES += 1
 
 
 def _aligned(*tensors: torch.Tensor) -> int:
@@ -145,7 +160,6 @@ def fused_filter_agg(
     (views that do not start on a 16-byte boundary included); CPU tensors
     take the plain version.
     """
-    global LAUNCHES
     _check(keys, values, filter_vals, op, num_groups)
     if keys.device.type == "cpu":
         return fused_filter_agg_ref(
@@ -161,5 +175,5 @@ def fused_filter_agg(
     index, stream = device_and_stream(keys)
     out = _launch(load(), keys, values, filter_vals, op, threshold, num_groups,
                   index=index, stream=stream)
-    LAUNCHES += 1
+    _count_launch()
     return out

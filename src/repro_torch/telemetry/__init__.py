@@ -4,7 +4,9 @@
   monotonic sequence numbers (``QueryExecuted`` carries the interactive
   path's parse/plan/scan/exec breakdown);
 * ``repro_torch.telemetry.bus``    — in-process multi-consumer bus with
-  bounded per-subscriber buffers, drop accounting, and an on-disk spool.
+  bounded per-subscriber buffers, drop accounting, and an on-disk spool;
+* ``repro_torch.telemetry.runlog`` — a run's events persisted to the lake
+  as a GC-able artifact under the ``runlog`` namespace.
 """
 from repro_torch.telemetry.bus import EventBus, Subscription, follow_spool, read_spool
 from repro_torch.telemetry.events import (
@@ -14,6 +16,7 @@ from repro_torch.telemetry.events import (
     ScanShardRead,
     event_from_json_dict,
 )
+from repro_torch.telemetry.runlog import RUNLOG_NS, RunLogStore
 
 __all__ = [
     "EventBus",
@@ -25,4 +28,6 @@ __all__ = [
     "event_from_json_dict",
     "QueryExecuted",
     "ScanShardRead",
+    "RunLogStore",
+    "RUNLOG_NS",
 ]

@@ -273,6 +273,52 @@ def test_launch_passes_one_ticket_per_stream_and_partials_of_the_plan():
     assert a[12] == 0b111  # all three columns start on a 16-byte boundary
 
 
+def test_tickets_and_launch_count_under_threads(monkeypatch):
+    """Pipeline stages launch from executor threads: many threads at once
+    asking for the tickets of many streams get one tensor per (device,
+    stream), and no launch count is lost.  The switch interval is cut and
+    the ticket's allocation yields, so an unguarded check-then-create
+    would be interleaved."""
+    import sys
+    import threading
+    import time
+    from types import SimpleNamespace
+
+    def yielding_zeros(*a, **kw):
+        time.sleep(1e-4)  # let another thread in between check and store
+        return torch.zeros(*a, **kw)
+
+    monkeypatch.setattr(ops, "torch", SimpleNamespace(zeros=yielding_zeros, int32=torch.int32))
+    keys = [(5, s) for s in range(1000, 1100)]  # each made once, by a race
+    n_threads, per_thread = 32, 100
+    got = {k: set() for k in keys}
+    barrier = threading.Barrier(n_threads)
+    before, interval = ops.LAUNCHES, sys.getswitchinterval()
+
+    def work():
+        barrier.wait(timeout=60)
+        for k in keys[:per_thread]:
+            got[k].add(id(ops._ticket(*k, torch.device("cpu"))))
+            ops._count_launch()
+
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+        launched = ops.LAUNCHES - before
+        ops.LAUNCHES = before
+        for k in keys:
+            ops._tickets.pop(k, None)
+    assert launched == n_threads * per_thread
+    assert all(len(ids) == 1 for ids in got.values()), got
+
+
 @pytest.mark.parametrize("offs", [(1, 1, 1), (2, 2, 2), (3, 3, 3), (1, 2, 3), (0, 3, 0)])
 def test_misaligned_views_go_through_the_wrapper(offs, rng):
     """Views that start 1-3 elements past a 16-byte boundary: the launch

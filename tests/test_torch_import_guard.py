@@ -97,6 +97,29 @@ def test_runner_default_device_raises_without_cuda(no_cuda, tmp_path):
     assert Runner(Catalog(store), TableFormat(store), device="cpu").device.type == "cpu"
 
 
+def test_pipeline_run_default_device_raises_without_cuda(no_cuda, tmp_path):
+    """``Runner(catalog, fmt, ServerlessExecutor(...))`` — the entry point
+    of a pipeline run — raises at the default device instead of running
+    the pipeline on the CPU; with ``device="cpu"`` the run goes through."""
+    from repro_torch.catalog import Catalog
+    from repro_torch.core import Runner
+    from repro_torch.examples_data import TAXI_SCHEMA, build_taxi_pipeline, make_taxi_data
+    from repro_torch.io import ObjectStore
+    from repro_torch.runtime import ExecutorConfig, ServerlessExecutor
+    from repro_torch.table import TableFormat
+
+    store = ObjectStore(tmp_path / "lake")
+    fmt, catalog = TableFormat(store, shard_rows=128), Catalog(store)
+    snap = fmt.write("taxi_table", TAXI_SCHEMA, make_taxi_data(256, np.random.default_rng(0)))
+    catalog.commit("main", {"taxi_table": fmt.manifest_key(snap)})
+    with ServerlessExecutor(ExecutorConfig(max_workers=1)) as ex:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Runner(catalog, fmt, ex).run(build_taxi_pipeline(), cache=False)
+        assert catalog.branches() == ["main"]  # nothing was started
+        result = Runner(catalog, fmt, ex, device="cpu").run(build_taxi_pipeline(), cache=False)
+        assert result.ok and result.checks == {"trips_expectation": True}
+
+
 def test_columnar_default_device_raises_without_cuda(no_cuda):
     from repro_torch.engine import Columnar
 
