@@ -56,16 +56,17 @@ Phases, each of which fails the script (non-zero exit) on any error:
    CUDA-core kernel in both dtypes); at head dims 80 (64/8 heads) and 120
    (32/8), decode at B = 4, S = 4096 with lengths 1, S-1, S, 0 and the
    chunk edges, flash at S in {512, 200} causal, non-causal and window
-   256, and mask probes at S in {512, 2048}; plus mask probes (``mask_probe``:
-   keys past the diagonal or outside the window carry large scores and v
-   = +-64, so a leak moves outputs by whole units) at S in {512, 2048};
-   float32 and bfloat16.  Decode and float32 flash within 1e-5 + 1e-5
-   |plain| (sums in another order), bfloat16 decode and bfloat16 flash
-   at head dims 32, 64, 80 and 120 within one bf16 ulp of the output (both round
-   once from float32) plus that 1e-5; bf16 flash at head dim 128 by
-   ``flash_bf16_close``: its largest and mean |kernel - plain|
-   at most twice those of the reference's chunked bf16 route
-   (``flash_yardstick``) plus 1e-5, since the kernel's tensor-core
+   256 and at S = 200 with window 64, and mask probes at S in {512,
+   2048}; plus mask probes (``mask_probe``: keys past the
+   diagonal or outside the window carry large scores and v = +-64, so a
+   leak moves outputs by whole units) at S in {512, 2048}; float32 and
+   bfloat16.  Decode and float32 flash within 1e-5 + 1e-5 |plain| (sums
+   in another order); bfloat16 decode and bfloat16 flash at head dims 32
+   and 64 (``flash_fwd``) within one bf16 ulp of the output (both round
+   once from float32) plus that 1e-5; bf16 flash at head dims 80, 120 and
+   128 (``flash_wgmma``) by ``flash_bf16_close``: its largest and mean
+   |kernel - plain| at most twice those of the reference's chunked bf16
+   route (``flash_yardstick``) plus 1e-5, since the kernel's tensor-core
    products round p to bf16 as that route does.  Two launches bitwise
    equal;
 6. serve Yi-6B at full width and depth on ``cuda`` (random weights from
@@ -85,9 +86,15 @@ Phases, each of which fails the script (non-zero exit) on any error:
    80) at full width and CUT_LAYERS layers (``serve_cut``): requests
    through ``ServeEngine`` and a forward on both routes, launch counts
    of CUT_LAYERS a step and a forward, logits within the same limits;
+6c. the same two configs at full width and full depth (24 and 64 layers,
+   ``forward_full``) on the kernel route: init time and peak memory, one
+   2048-token ``LM.forward`` with flash_attention launched once a layer
+   and finite logits, its time (median of FORWARD_REPS) and peak memory;
 7. time the two attention kernels at the main path's shapes like phase 4,
    and at phase 6b's shapes, and print one ``{"kernels": [...]}`` line
-   for all three kernels, each row with the card and its power limit.
+   for all three kernels, each row with the card and its power limit and
+   each flash row with the kernel that ran (``flash_wgmma`` or
+   ``flash_fwd``) and, for the two configs, phase 6c's forward time.
 
 Timing (phases 4 and 7): CUDA events, L2 flushed between launches,
 median of 25; ``ms`` has the launches queued behind a sleep kernel so
@@ -102,6 +109,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import shutil
 import statistics
@@ -152,6 +160,10 @@ CUT_ARCHS = ("h2o-danube-3-4b", "qwen3-32b")
 CUT_LAYERS = 2
 CUT_REQUESTS = 4
 CUT_NEW_TOKENS = 8
+#: phase 6c: the same two configs at full depth, forwards timed
+FORWARD_REPS = 3
+#: phase 5: (causal, window) of the random flash cases
+FLASH_MASKS = ((True, None), (False, None), (True, 256))
 
 Q1 = ("SELECT pickup_location_id, COUNT(*) AS n FROM taxi_table "
       "WHERE pickup_at >= '2019-04-01' GROUP BY pickup_location_id "
@@ -862,7 +874,7 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
         for s in (512, 2048, 200):
             q = randn(1, 32, s, 128, dtype=dtype)
             k, v = randn(1, 4, s, 128, dtype=dtype), randn(1, 4, s, 128, dtype=dtype)
-            for causal, window in ((True, None), (False, None), (True, 256)):
+            for causal, window in FLASH_MASKS:
                 kw = dict(causal=causal, window=window)
                 one("flash", f"flash {dtype} S={s} {kw}",
                     lambda: flash_ops.flash_attention(q, k, v, **kw),
@@ -886,8 +898,9 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                     lambda: flash_ref.attention_ref(q, k, v, **kw),
                     (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
         # head dims 80 (qwen3-32b, 64/8 heads) and 120 (h2o-danube-3-4b,
-        # 32/8): decode on its padded width, flash on flash_fwd in both
-        # dtypes, both under the one-ulp rule of head dims 32 and 64
+        # 32/8): decode on its padded width under the one-ulp rule; bf16
+        # flash on flash_wgmma under the bf16 flash rule, float32 flash on
+        # flash_fwd under 1e-5
         for d, h, hkv in ((80, 64, 8), (120, 32, 8)):
             s = 4096
             q = randn(4, h, d, dtype=dtype)
@@ -899,14 +912,17 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                     f"lengths={lens}",
                     lambda: decode_ops.decode_attention(q, k, v, lengths),
                     lambda: decode_ref.decode_attention_ref(q, k, v, lengths))
-            for s in (512, 200):
+            # and at the ragged S = 200 (one tile of 128 rows and one of
+            # 72) with a window that masks inside both tiles
+            for s, cases in ((512, FLASH_MASKS), (200, FLASH_MASKS + ((True, 64),))):
                 q = randn(1, h, s, d, dtype=dtype)
                 k, v = randn(1, hkv, s, d, dtype=dtype), randn(1, hkv, s, d, dtype=dtype)
-                for causal, window in ((True, None), (False, None), (True, 256)):
+                for causal, window in cases:
                     kw = dict(causal=causal, window=window)
                     one("flash D=80/120", f"flash {dtype} D={d} H={h}/{hkv} S={s} {kw}",
                         lambda: flash_ops.flash_attention(q, k, v, **kw),
-                        lambda: flash_ref.attention_ref(q, k, v, **kw))
+                        lambda: flash_ref.attention_ref(q, k, v, **kw),
+                        (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
             for s in (512, 2048):
                 for window in (None, 256):
                     q, k, v = mask_probe(torch, s, window=window, h=h, hkv=hkv, d=d,
@@ -914,12 +930,15 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                     kw = dict(causal=True, window=window)
                     one("flash probe D=80/120", f"flash mask probe {dtype} D={d} S={s} {kw}",
                         lambda: flash_ops.flash_attention(q, k, v, **kw),
-                        lambda: flash_ref.attention_ref(q, k, v, **kw))
+                        lambda: flash_ref.attention_ref(q, k, v, **kw),
+                        (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # comparisons are not the main path
-    print(f"attention kernels vs plain: {n} cases pass (decode and float32 flash within "
-          f"1e-5 + 1e-5|plain|, and bf16 decode and bf16 flash at head dims 32/64/80/120 within "
-          f"1e-5 + one bf16 ulp; bf16 flash at head dim 128 within twice the chunked "
-          f"route's max and mean + 1e-5; repeat launches bitwise equal); max |kernel - plain|: "
+    print(f"attention kernels vs plain: {n} cases pass (decode in both dtypes and float32 "
+          f"flash at every head dim within 1e-5 + 1e-5|plain| (bf16 decode: + one bf16 ulp); "
+          f"bf16 flash at head dims 32/64 (flash_fwd) within 1e-5 + one bf16 ulp; bf16 flash at "
+          f"head dims {'/'.join(map(str, flash_ops.WGMMA_HEAD_DIMS))} (flash_wgmma) within "
+          f"twice the chunked route's max and mean + 1e-5; repeat launches bitwise equal); "
+          f"max |kernel - plain|: "
           + ", ".join(f"{k} {str(dt).split('.')[-1]} {v!r}" for (k, dt), v in worst.items()))
 
 
@@ -1159,9 +1178,10 @@ def serve_cut(np, torch, flash_ops, decode_ops, arch):
     """``arch`` (h2o-danube-3-4b: head dim 120, window 4096; qwen3-32b:
     head dim 80, qk-norm) at full width — d_model, every head, d_ff and
     the full vocabulary as published — but CUT_LAYERS layers, with random
-    weights from a seeded generator.  Depth is cut so the phase stays
-    within the run's time limit: 24 and 64 layers would add nothing the
-    kernels see, since every layer calls them at the same shapes.
+    weights from a seeded generator.  Depth is cut so that the two routes
+    (and two models) fit the card at once and the decode comparison stays
+    short: every layer calls the kernels at the same shapes.  Phase 6c
+    runs the kernel route at full depth.
 
     CUT_REQUESTS requests of CUT_NEW_TOKENS new tokens through
     ``ServeEngine`` on 4 slots of 4096 positions, then ``LM.forward`` on
@@ -1233,9 +1253,79 @@ def serve_cut(np, torch, flash_ops, decode_ops, arch):
     return launches
 
 
+# -------------------------------------------------------------- phase 6c
+def forward_full(np, torch, flash_ops, arch, smi):
+    """``arch`` at full width and full depth (h2o-danube-3-4b: 24 layers;
+    qwen3-32b: 64, 30.5 B parameters, 61 GB of bf16 weights) on the kernel
+    route, with random weights from a seeded generator: the init's time
+    and peak device memory (``LM.init`` draws and casts one piece at a
+    time, so the peak is the bf16 weights plus one piece in float32), then
+    one FORWARD_LEN-token ``LM.forward`` with the flash launch count set to
+    0 just before (it must grow by exactly n_layers, and the logits must be
+    finite of shape (1, FORWARD_LEN, vocab)), then the forward's time
+    (host clock, synchronised, median of FORWARD_REPS after one warm-up)
+    and peak device memory.  No decode steps: the forward is what runs
+    flash_attention.  The model is freed before the function returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    cfg = dataclasses.replace(get_config(arch), use_flash_kernel=True)
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - held
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"{arch} full depth: {cfg.n_layers} layers, {n_params} parameters, {weights} B of "
+          f"weights; init on the card in {init_s!r} s, init peak {init_peak} B "
+          f"({init_peak / 2**30:.2f} GiB; weights + {(init_peak - weights) / 2**30:.2f} GiB) "
+          f"[{smi}]")
+    rng = np.random.default_rng(SEED)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab, (1, FORWARD_LEN)).astype(np.int32),
+                          device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    # the main path of this config: the count starts at 0 here
+    flash_ops.LAUNCHES = 0
+    logits = model(prompt)
+    torch.cuda.synchronize()
+    launches = flash_ops.LAUNCHES
+    check(launches == cfg.n_layers,
+          f"{arch}: flash_attention launched {launches} times in a {cfg.n_layers}-layer forward")
+    check(tuple(logits.shape) == (1, FORWARD_LEN, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{arch}: forward logits {tuple(logits.shape)} not finite of shape "
+          f"(1, {FORWARD_LEN}, {cfg.vocab})")
+    del logits
+    times = []
+    for _ in range(FORWARD_REPS):
+        t = time.perf_counter()
+        model(prompt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    fwd_peak = torch.cuda.max_memory_allocated() - held
+    flash_ops.LAUNCHES = launches  # the timed forwards are not the main path
+    fwd_s = statistics.median(times)
+    print(f"{arch} full depth: forward of {FORWARD_LEN} tokens, flash_attention launches "
+          f"{launches} (= {cfg.n_layers} layers), logits finite of shape "
+          f"(1, {FORWARD_LEN}, {cfg.vocab}); median of {FORWARD_REPS} after a warm-up "
+          f"{fwd_s!r} s (each {times!r}); peak device memory {fwd_peak} B "
+          f"({fwd_peak / 2**30:.2f} GiB) [{smi}]")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"n_layers": cfg.n_layers, "flash_launches": launches, "init_s": init_s,
+            "init_peak_bytes": init_peak, "forward_s": fwd_s, "forward_peak_bytes": fwd_peak}
+
+
 # --------------------------------------------------------------- phase 7
 def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served, cut_served,
-                      card):
+                      full_served, card):
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -1297,7 +1387,7 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
             nbytes=(2 * fq.numel() + fk.numel() + fv.numel()) * 2,
             flops=2 * h * fs * fs * d,  # q.k and p.v over the causal half
             yard=(lambda: flash_yardstick(fq, fk, fv, causal=True, window=window))
-            if d == 128 else None,
+            if flash_ops.kernel_name(torch.bfloat16, d) == "flash_wgmma" else None,
         )
 
     # the main path's shapes: decode over 4 slots of 4096 positions, 32/4
@@ -1311,8 +1401,13 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
     flash_cut, decode_cut = {}, {}
     for arch, (ch, chkv, cd, window) in (("h2o-danube-3-4b", (32, 8, 120, 4096)),
                                          ("qwen3-32b", (64, 8, 80, None))):
+        full = full_served[arch]
         flash_cut[arch] = {**flash_case(ch, chkv, cd, window),
+                           "kernel": flash_ops.kernel_name(torch.bfloat16, cd),
                            "launches": cut_served[arch]["flash_launches"],
+                           "full_depth_launches": full["flash_launches"],
+                           "full_depth_forward_s": full["forward_s"],
+                           "full_depth_layers": full["n_layers"],
                            "shape": f"B=1 H={ch} Hkv={chkv} S={FORWARD_LEN} D={cd} bf16 "
                                     f"causal window={window}"}
         decode_cut[arch] = {**decode_case(ch, chkv, cd, [s] * b),
@@ -1326,6 +1421,7 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
          "launches": served["flash_launches"], **fl,
+         "kernel": flash_ops.kernel_name(torch.bfloat16, d),
          "shape": f"B=1 H={h} Hkv={hkv} S={FORWARD_LEN} D={d} bf16 causal",
          "by_config": flash_cut},
         {"name": "decode_attention", "route": "cuda",
@@ -1377,8 +1473,9 @@ def main() -> int:
     attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref)
     served = serve_yi(np, torch, flash_ops, decode_ops)
     cut_served = {arch: serve_cut(np, torch, flash_ops, decode_ops, arch) for arch in CUT_ARCHS}
+    full_served = {arch: forward_full(np, torch, flash_ops, arch, smi) for arch in CUT_ARCHS}
     rows = measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served,
-                             cut_served, card)
+                             cut_served, full_served, card)
     print(json.dumps({"kernels": [{**row, "card": smi} for row in (ffa_row, *rows)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

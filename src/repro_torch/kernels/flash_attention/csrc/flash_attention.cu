@@ -18,25 +18,33 @@
 //
 // Two kernels, chosen by dtype and head dim in flash_attention_launch:
 //
-// * flash_wgmma: bfloat16 at D = 128, the main path (Yi-6B computes in
-//   bf16).  One block of 384 threads per (batch-head, 128-row q tile): two
-//   consumer warpgroups of 64 q rows each and a producer warpgroup, which
-//   hands its registers to the consumers (setmaxnreg 24 / 240).  One
-//   producer thread loads the q tile once by TMA and streams 128-key k and
-//   v tiles through a ring of two stages (cp.async.bulk.tensor; mbarriers
-//   "k landed", "v landed" and "both read" a stage, so q.k^T starts before
-//   v is in).  Each tile lands in shared memory as two
-//   64-column halves in the 128-byte swizzle that wgmma's descriptors
-//   expect.  A consumer warpgroup computes q.k^T with wgmma m64n128k16 (A =
-//   q, B = k, both K-major in shared memory, bf16 operands, float32
-//   accumulators in registers), scales the float32 scores by
-//   scale * log2(e), masks them (only on tiles that cross the causal
-//   diagonal, the window edge or the ragged end), runs the online softmax
-//   with exp2f, converts p to bf16 in registers and feeds it as the A
-//   operand of a second wgmma (m64n128k16, B = v, MN-major).  q tiles are
-//   issued longest first (causal work grows with the tile index), and the
-//   `group` q heads of one kv head are neighbours in the grid, so their k/v
-//   tiles are read from device memory about once.
+// * flash_wgmma<D>: bfloat16 at D = 80, 120 and 128 (qwen3-32b,
+//   h2o-danube-3-4b and Yi-6B compute in bf16).  One block of 384 threads
+//   per (batch-head, 128-row q tile): two consumer warpgroups of 64 q rows
+//   each and a producer warpgroup, which hands its registers to the
+//   consumers (setmaxnreg 24 / 240).  One producer thread loads the q tile
+//   once by TMA and streams 128-key k and v tiles through a ring of two
+//   stages (cp.async.bulk.tensor; mbarriers "k landed", "v landed" and
+//   "both read" a stage, so q.k^T starts before v is in).  Every tile is
+//   128 rows x 128 columns in shared memory whatever D is: two 64-column
+//   halves in the 128-byte swizzle that wgmma's descriptors expect.  The
+//   tensor map's rows are D elements long (160, 240 or 256 bytes, each a
+//   multiple of 16 as TMA requires) and its boxes 64 x 128, so columns D ..
+//   127 of the second half land as TMA's zero fill; the transaction count
+//   is the full box, as it is for rows past S.  A consumer warpgroup
+//   computes q.k^T with ceil(D/16) steps of wgmma m64n128k16 (5 at D = 80,
+//   8 at 120 and 128; the zero columns add exact zeros), with A = q, B = k,
+//   both K-major in shared memory, bf16 operands, float32 accumulators in
+//   registers; it scales the float32 scores by scale * log2(e), masks them
+//   (only on tiles that cross the causal diagonal, the window edge or the
+//   ragged end), runs the online softmax with exp2f, converts p to bf16 in
+//   registers and feeds it as the A operand of a second wgmma (B = v,
+//   MN-major): m64n80k16 at D = 80, which reads the first half and 16
+//   columns of the second, and m64n128k16 over the padded tile at 120 and
+//   128 (output columns 120 .. 127 are zeros, neither stored nor read).
+//   q tiles are issued longest first (causal work grows with the tile
+//   index), and the `group` q heads of one kv head are neighbours in the
+//   grid, so their k/v tiles are read from device memory about once.
 //
 //   Rounding: q and k enter q.k^T as they are (bf16, exact products,
 //   float32 sums); p is rounded to bf16 before p.v, and the denominator sums
@@ -47,18 +55,18 @@
 //   is held to that route, not to a one-ulp match with the float32 plain
 //   version.
 //
-// * flash_fwd: float32 at every head dim, and bfloat16 at D = 32, 64, 80
-//   and 120.  One block of 256 threads per (batch-head, 64-row q tile); key
-//   tiles of 32 rows are staged through shared memory as float32 and every
-//   product is a float32 FMA on the CUDA cores, as the TPU kernel multiplies
-//   in float32 (kernel.py:49, 66-67), so float32 output is exact to 1e-5.  A
-//   thread owns a 4-row x 2-column micro-tile of the scores and a 4-row x
-//   ceil(D/16)-column micro-tile of the output (columns tx + 16 j; at D =
-//   120 the last column of lanes 8-15 lies past D and is neither read nor
-//   written); rows of q and k in shared memory are padded to D+1 floats.
-//   A row is D * sizeof(T) bytes, a multiple of 16 at every instantiated D,
-//   so rows are staged in 16-byte pieces.  It runs at about 1/15 of the
-//   bf16 tensor-core rate.
+// * flash_fwd: float32 at every head dim, and bfloat16 at D = 32 and 64
+//   (no ported config computes at those in bf16).  One block of 256 threads
+//   per (batch-head, 64-row q tile); key tiles of 32 rows are staged through
+//   shared memory as float32 and every product is a float32 FMA on the CUDA
+//   cores, as the TPU kernel multiplies in float32 (kernel.py:49, 66-67), so
+//   float32 output is exact to 1e-5.  A thread owns a 4-row x 2-column
+//   micro-tile of the scores and a 4-row x ceil(D/16)-column micro-tile of
+//   the output (columns tx + 16 j; at D = 120 the last column of lanes 8-15
+//   lies past D and is neither read nor written); rows of q and k in shared
+//   memory are padded to D+1 floats.  A row is D * sizeof(T) bytes, a
+//   multiple of 16 at every instantiated D, so rows are staged in 16-byte
+//   pieces.  It runs at about 1/15 of the bf16 tensor-core rate.
 //
 // Masked keys contribute exactly 0 once a row has seen a valid key (exp of
 // -1e30 minus a finite max), and causal and windowed rows always see one,
@@ -271,11 +279,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int head_dim, const void* q, const void* k,
-                     const void* v, void* out, int bh, int seq_len, int group,
-                     int causal, float scale, int window,
-                     cudaStream_t stream) {
+// float32 at every head dim: flash_fwd
+cudaError_t launch_f32(int head_dim, const void* q, const void* k,
+                       const void* v, void* out, int bh, int seq_len,
+                       int group, int causal, float scale, int window,
+                       cudaStream_t stream) {
+  using T = float;
   switch (head_dim) {
     case 32:
       return launch<T, 32>(q, k, v, out, bh, seq_len, group, causal, scale,
@@ -298,12 +307,12 @@ cudaError_t launch_d(int head_dim, const void* q, const void* k,
 }
 
 // ---------------------------------------------- flash_wgmma (tensor cores)
-constexpr int kWD = 128;                 // head dim
 constexpr int kWBQ = 128;                // q rows per block
 constexpr int kWBK = 128;                // keys per k/v tile
+constexpr int kWCols = 128;              // columns of a tile in shared memory
 constexpr int kHalf = 64;                // columns in one 128-byte swizzle span
 constexpr int kHalfBytes = kWBK * kHalf * 2;  // 16 KB: 128 rows x 128 B
-constexpr int kTileBytes = kWBK * kWD * 2;    // 32 KB: one q, k or v tile
+constexpr int kTileBytes = kWBK * kWCols * 2; // 32 KB: one q, k or v tile
 constexpr int kStages = 2;
 constexpr int kConsumers = 2;            // warpgroups of 64 q rows
 constexpr int kWThreads = (kConsumers + 1) * 128;  // + a producer warpgroup
@@ -312,6 +321,14 @@ constexpr int kWSmem = 1024                      // slack to align to 1 KB
                        + 2 * kStages * kTileBytes  // k and v rings
                        + 8 * (1 + 3 * kStages);  // mbarriers
 constexpr float kLog2e = 1.4426950408889634f;
+
+// Output columns p.v computes at head dim D: 80 up to D = 80 (m64n80k16:
+// the first half and 16 columns of the second), else the whole padded tile
+// (m64n128k16; at D = 120 its last 8 columns are zeros).
+template <int D>
+__host__ __device__ constexpr int pv_cols() {
+  return D <= 80 ? 80 : kWCols;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -382,9 +399,10 @@ __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
 // Keep the compiler from reading accumulators before the wait.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define WG_D64                                   \
@@ -431,13 +449,38 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+#define WG_D40                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "            \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "       \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "     \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "     \
+  "%32, %33, %34, %35, %36, %37, %38, %39}"
+#define R40 R8(0), R8(8), R8(16), R8(24), R8(32)
+
+// d += A . B, m64n80k16: the same over B's first 80 columns, 64 in the
+// first half and 16 in the second (LBO apart).
+__device__ __forceinline__ void wgmma_rs(float (&d)[40], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 " WG_D40
+      ", {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n"
+      "}\n"
+      : R40
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // One consumer warpgroup: q rows q0 + 64 wg .. + 63 against key tiles lo ..
-// lo + n_iter - 1; writes those rows of `op`.
+// lo + n_iter - 1; writes those rows of `op` (rows of D elements).
+template <int D>
 __device__ __forceinline__ void consume(
     uint32_t sQ, uint32_t sK, uint32_t sV, uint32_t bar_q, uint32_t bar_k,
     uint32_t bar_v, uint32_t bar_empty, int wg, int q0, int lo, int n_iter,
@@ -452,9 +495,10 @@ __device__ __forceinline__ void consume(
   const int wrow = q0 + 64 * wg;  // first q row of this warpgroup
   const int row0 = wrow + 16 * warp + lane / 4, row1 = row0 + 8;
 
-  float o[64];
+  constexpr int NV = pv_cols<D>();  // output columns p.v computes
+  float o[NV / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.0f;
+  for (int i = 0; i < NV / 2; ++i) o[i] = 0.0f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
 
   mbar_wait(bar_q, 0);
@@ -464,13 +508,14 @@ __device__ __forceinline__ void consume(
     mbar_wait(bar_k + 8 * s, phase);
     const uint32_t tK = sK + s * kTileBytes, tV = sV + s * kTileBytes;
 
-    // scores = q . k^T over D = 128: 8 steps of 16, two per 64-column half
+    // scores = q . k^T over D: ceil(D/16) steps of 16, four per 64-column
+    // half (columns past D are zeros in both tiles)
     float sc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) sc[i] = 0.0f;
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kWD / 16; ++kk) {
+    for (int kk = 0; kk < (D + 15) / 16; ++kk) {
       const uint32_t off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
       wgmma_ss(sc, sw128_desc(sQ + off + wg * 64 * 128, 16, 1024),
                sw128_desc(tK + off, 16, 1024), kk > 0);
@@ -531,6 +576,9 @@ __device__ __forceinline__ void consume(
         ls0 += p0;
         ls1 += p1;
       }
+    }
+#pragma unroll
+    for (int j = 0; j < NV / 8; ++j) {
       o[4 * j] *= corr0;
       o[4 * j + 1] *= corr0;
       o[4 * j + 2] *= corr1;
@@ -540,7 +588,8 @@ __device__ __forceinline__ void consume(
     l1 = l1 * corr1 + ls1;
 
     // o += p . v: p (bf16) is the A operand straight from the accumulator
-    // layout, 16 keys a step
+    // layout, 16 keys a step; all 128 columns of the v tile, those past D
+    // zeros
     uint32_t pa[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -565,18 +614,21 @@ __device__ __forceinline__ void consume(
     l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
   }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  // D is even and col is even: a pair never straddles column D
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < NV / 8; ++j) {
     const int col = 8 * j + c2;
+    if (col >= D) continue;
     if (row0 < seq_len)
-      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row0 * kWD + col) =
+      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row0 * D + col) =
           __floats2bfloat162_rn(o[4 * j] / d0, o[4 * j + 1] / d0);
     if (row1 < seq_len)
-      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row1 * kWD + col) =
+      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row1 * D + col) =
           __floats2bfloat162_rn(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(kWThreads, 1)
     flash_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
@@ -640,19 +692,21 @@ __global__ void __launch_bounds__(kWThreads, 1)
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
-    consume(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, wg, q0, lo, n_iter,
-            out + (size_t)bh * seq_len * kWD, seq_len, causal, scale_log2,
-            window);
+    consume<D>(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, wg, q0, lo, n_iter,
+               out + (size_t)bh * seq_len * D, seq_len, causal, scale_log2,
+               window);
   }
 }
 
-// A (rows, S, 128) bf16 array as a 3-D tensor map with 64 x 128 boxes in
-// the 128-byte swizzle; rows past S read as zeros.
-CUresult make_map(CUtensorMap* map, const void* ptr, int rows, int seq_len) {
-  const cuuint64_t dims[3] = {(cuuint64_t)kWD, (cuuint64_t)seq_len,
+// A (rows, S, D) bf16 array as a 3-D tensor map with 64 x 128 boxes in
+// the 128-byte swizzle; rows past S and columns past D read as zeros.  The
+// row stride, D * 2 bytes, must be a multiple of 16 (D = 80, 120, 128).
+CUresult make_map(CUtensorMap* map, const void* ptr, int rows, int seq_len,
+                  int d) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)seq_len,
                               (cuuint64_t)rows};
-  const cuuint64_t strides[2] = {(cuuint64_t)kWD * 2,
-                                 (cuuint64_t)seq_len * kWD * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)seq_len * d * 2};
   const cuuint32_t box[3] = {kHalf, kWBK, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   // libcuda's encoder, looked up at run time: nothing links against libcuda
@@ -675,35 +729,67 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int rows, int seq_len) {
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
                          int bh, int seq_len, int group, int causal,
                          float scale, int window, cudaStream_t stream) {
-  static bool configured = false;
+  static_assert(D % 8 == 0 && D > kHalf && D <= kWCols,
+                "rows of 16-byte multiples that reach the second half");
+  static bool configured = false;  // the attribute is per function
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem);
+        flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   CUtensorMap tq, tk, tv;
-  if (make_map(&tq, q, bh, seq_len) != CUDA_SUCCESS ||
-      make_map(&tk, k, bh / group, seq_len) != CUDA_SUCCESS ||
-      make_map(&tv, v, bh / group, seq_len) != CUDA_SUCCESS)
+  if (make_map(&tq, q, bh, seq_len, D) != CUDA_SUCCESS ||
+      make_map(&tk, k, bh / group, seq_len, D) != CUDA_SUCCESS ||
+      make_map(&tv, v, bh / group, seq_len, D) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   const dim3 grid(bh, (seq_len + kWBQ - 1) / kWBQ);
-  flash_wgmma<<<grid, kWThreads, kWSmem, stream>>>(
+  flash_wgmma<D><<<grid, kWThreads, kWSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), seq_len, group, causal,
       scale * kLog2e, window);
   return cudaGetLastError();
+}
+
+// bfloat16: flash_wgmma at the ported configs' head dims, flash_fwd at the
+// two narrower ones
+cudaError_t launch_bf16(int head_dim, const void* q, const void* k,
+                        const void* v, void* out, int bh, int seq_len,
+                        int group, int causal, float scale, int window,
+                        cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  switch (head_dim) {
+    case 32:
+      return launch<T, 32>(q, k, v, out, bh, seq_len, group, causal, scale,
+                           window, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, out, bh, seq_len, group, causal, scale,
+                           window, stream);
+    case 80:
+      return launch_wgmma<80>(q, k, v, out, bh, seq_len, group, causal, scale,
+                              window, stream);
+    case 120:
+      return launch_wgmma<120>(q, k, v, out, bh, seq_len, group, causal,
+                               scale, window, stream);
+    case 128:
+      return launch_wgmma<128>(q, k, v, out, bh, seq_len, group, causal,
+                               scale, window, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
 // success).  Does not synchronise.  dtype: 0 float32, 1 bfloat16.
-// head_dim: 32, 64, 80, 120 or 128.  window <= 0 means no window.  q and out hold
-// bh * seq_len * head_dim elements, k and v bh / group times that.
-// bfloat16 at head_dim 128 runs flash_wgmma; everything else flash_fwd.
+// head_dim: 32, 64, 80, 120 or 128.  window <= 0 means no window.  q and
+// out hold bh * seq_len * head_dim elements, k and v bh / group times that.
+// bfloat16 at head_dim 80, 120 and 128 runs flash_wgmma; float32, and
+// bfloat16 at 32 and 64, run flash_fwd.
 extern "C" int flash_attention_launch(int device, int dtype, int head_dim,
                                       const void* q, const void* k,
                                       const void* v, void* out, int bh,
@@ -713,15 +799,10 @@ extern "C" int flash_attention_launch(int device, int dtype, int head_dim,
   if (err != cudaSuccess) return (int)err;
   cudaGetLastError();  // clear a stale error from an earlier call
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    err = launch_d<float>(head_dim, q, k, v, out, bh, seq_len, group, causal,
-                          scale, window, s);
-  else if (head_dim == kWD)
-    err = launch_wgmma(q, k, v, out, bh, seq_len, group, causal, scale,
-                       window, s);
-  else
-    err = launch_d<__nv_bfloat16>(head_dim, q, k, v, out, bh, seq_len, group,
-                                  causal, scale, window, s);
+  err = dtype == 0 ? launch_f32(head_dim, q, k, v, out, bh, seq_len, group,
+                                causal, scale, window, s)
+                   : launch_bf16(head_dim, q, k, v, out, bh, seq_len, group,
+                                 causal, scale, window, s);
   return (int)err;
 }
 

@@ -14,15 +14,20 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 
 #: the JAX wrapper's block sizes; they fix the ``S % block`` contract only,
-#: since the CUDA kernels tile by their own (128 x 128 for bf16 at head dim
-#: 128, 64 x 32 otherwise; the result does not depend on the block: masked
-#: keys contribute exactly 0)
+#: since the CUDA kernels tile by their own (128 x 128 for bf16 at head dims
+#: 80, 120 and 128, 64 x 32 otherwise; the result does not depend on the
+#: block: masked keys contribute exactly 0)
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
 
 #: head widths the kernel is instantiated for: the ported configs' (yi-6b
 #: and granite-34b 128, qwen3-32b 80, h2o-danube-3-4b 120), and 32 and 64
 HEAD_DIMS = (32, 64, 80, 120, 128)
+
+#: bfloat16 head dims that run ``flash_wgmma`` (wgmma + TMA); float32 at
+#: every head dim and bfloat16 at the others run ``flash_fwd`` (CUDA
+#: cores).  ``launch_bf16`` in the source dispatches the same way.
+WGMMA_HEAD_DIMS = (80, 120, 128)
 
 #: kernel launches made through this wrapper (CUDA tensors only)
 LAUNCHES = 0
@@ -54,6 +59,13 @@ def load() -> ctypes.CDLL:
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def kernel_name(dtype: torch.dtype, head_dim: int) -> str:
+    """The CUDA kernel a launch at ``dtype`` and ``head_dim`` runs."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "flash_wgmma"
+    return "flash_fwd"
 
 
 def _check_cuda(q, k, v, window) -> None:

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any, List, Optional, Tuple
+from typing import Any, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -156,35 +156,41 @@ class LM(nn.Module):
                 f"stack', ROADMAP.md §1"
             )
         self.cfg = cfg
-        self._adopt(self._param_tree(None))
+        # placeholders, so the state dict keeps the tree's order
+        self.embed = nn.Module()
+        self.blocks = nn.ModuleList(nn.Module() for _ in range(cfg.n_layers))
+        for name, piece in self._pieces(None):
+            self._adopt(name, piece)
 
     # -------------------------------------------------------------- params
-    def _param_tree(self, generator: Optional[torch.Generator]) -> Params:
-        """The JAX tree's shapes and scales, one dict per layer, drawn from
-        ``generator`` (or on the meta device when it is None)."""
+    def _pieces(self, generator: Optional[torch.Generator]) -> Iterator[Tuple[str, Params]]:
+        """The JAX tree's shapes and scales as ``(name, params)`` pieces,
+        drawn from ``generator`` (or on the meta device when it is None) in
+        the tree's order: ``embed``, ``blocks.<i>`` in ``layer_plan`` order,
+        ``final_norm``, ``lm_head``.  A piece is drawn only when the one
+        before it has been taken, and the generator keeps no reference to
+        it: a caller that drops a piece before asking for the next holds at
+        most one piece in ``param_dtype`` at a time."""
         cfg = self.cfg
         dt = cfg.param_dtype
         dev = device_of(generator)
-        tree: Params = {
-            "embed": init_embedding(generator, cfg.vocab, cfg.d_model, dtype=dt),
-            "blocks": [],
-        }
-        for *_, kind in layer_plan(cfg):
+        yield "embed", init_embedding(generator, cfg.vocab, cfg.d_model, dtype=dt)
+        for i, (*_, kind) in enumerate(layer_plan(cfg)):
             mlp = init_swiglu if kind == "attn" else init_geglu
-            tree["blocks"].append({
+            yield f"blocks.{i}", {
                 "norm1": init_rmsnorm(cfg.d_model, dtype=dt, device=dev),
                 "attn": attn_mod.init_attention(generator, cfg.attention_config(), dtype=dt),
                 "norm2": init_rmsnorm(cfg.d_model, dtype=dt, device=dev),
                 "mlp": mlp(generator, cfg.d_model, cfg.d_ff, dtype=dt),
-            })
-        tree["final_norm"] = init_rmsnorm(cfg.d_model, dtype=dt, device=dev)
+            }
+        yield "final_norm", init_rmsnorm(cfg.d_model, dtype=dt, device=dev)
         if not cfg.tie_embeddings:
-            tree["lm_head"] = init_linear(generator, cfg.d_model, cfg.vocab, dtype=dt)
-        return tree
+            yield "lm_head", init_linear(generator, cfg.d_model, cfg.vocab, dtype=dt)
 
-    def _adopt(self, tree: Params) -> None:
-        """Take ``tree`` (the port's layout) as the module's parameters,
-        with matmul weights and the embedding table cast to compute_dtype."""
+    def _adopt(self, name: str, piece: Params) -> None:
+        """Take ``piece`` (the port's layout) as the module's parameters
+        under ``name``, with matmul weights and the embedding table cast
+        to compute_dtype."""
         cd = self.cfg.compute_dtype
 
         def cast(node):
@@ -194,17 +200,22 @@ class LM(nn.Module):
                 for k, v in node.items()
             }
 
-        self.embed = as_module(cast(tree["embed"]))
-        self.blocks = nn.ModuleList(as_module(cast(b)) for b in tree["blocks"])
-        self.final_norm = as_module(cast(tree["final_norm"]))
-        if "lm_head" in tree:
-            self.lm_head = as_module(cast(tree["lm_head"]))
+        module = as_module(cast(piece))
+        if name.startswith("blocks."):
+            self.blocks[int(name.split(".")[1])] = module
+        else:
+            setattr(self, name, module)
 
     def init(self, generator: torch.Generator) -> "LM":
         """Draw every weight from ``generator``, on its device.  Same
         shapes and scales as the JAX ``LM.init``; not the same numbers
-        (torch's and JAX's generators differ)."""
-        self._adopt(self._param_tree(generator))
+        (torch's and JAX's generators differ).  Each piece (the embedding,
+        a block, the final norm, the head) is drawn, cast and adopted
+        before the next is drawn, so the float32 draws never add more than
+        one piece to the compute_dtype weights."""
+        for name, piece in self._pieces(generator):
+            self._adopt(name, piece)
+            del piece  # the float32 draws go before the next piece's
         return self
 
     @property

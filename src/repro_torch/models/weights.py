@@ -34,17 +34,12 @@ def params_from_numpy(tree: Dict[str, Any], cfg: LMConfig, device: DeviceLike = 
     """The port's LM for ``cfg`` with the weights of the JAX ``tree``
     (numpy leaves).  ``device=None`` means the card."""
     dev = resolve_device(device)
-    port: Dict[str, Any] = {
-        "embed": _map(tree["embed"], lambda x: _tensor(x, dev)),
-        "final_norm": _map(tree["final_norm"], lambda x: _tensor(x, dev)),
-        "blocks": [],
-    }
-    if "lm_head" in tree:
-        port["lm_head"] = _map(tree["lm_head"], lambda x: _tensor(x, dev))
-    for si, i, r, _ in layer_plan(cfg):
-        port["blocks"].append(
-            _map(tree[f"seg{si}"][f"b{i}"], lambda x, r=r: _tensor(x[r], dev))
-        )
     model = LM(cfg)
-    model._adopt(port)
+    model._adopt("embed", _map(tree["embed"], lambda x: _tensor(x, dev)))
+    for n, (si, i, r, _) in enumerate(layer_plan(cfg)):
+        model._adopt(f"blocks.{n}",
+                     _map(tree[f"seg{si}"][f"b{i}"], lambda x, r=r: _tensor(x[r], dev)))
+    model._adopt("final_norm", _map(tree["final_norm"], lambda x: _tensor(x, dev)))
+    if "lm_head" in tree:
+        model._adopt("lm_head", _map(tree["lm_head"], lambda x: _tensor(x, dev)))
     return model

@@ -5,7 +5,9 @@
   bf16 route): a torch emulation of the kernel's rounding (bf16 q and k,
   float32 scores, p rounded to bf16) passes it, and the same emulation
   with its causal mask shifted by one key, or its window off by one,
-  fails it at the mask-probe inputs.
+  fails it at the mask-probe inputs; at D = 128, and at each head layout
+  whose bf16 flash runs on the tensor cores (Yi-6B 32/4 at D = 128,
+  qwen3-32b 64/8 at 80, h2o-danube-3-4b 32/8 at 120).
 * The decode kernel's split-S plan: a torch emulation of the split and
   combine (``split_combine`` below, which mirrors decode_split and
   decode_combine) equals ``decode_attention_ref`` within 1e-6 and the
@@ -112,6 +114,60 @@ def test_mask_probes_make_masked_keys_dominant():
     masked = attention_ref(q, k, v, causal=True).float()
     unmasked = attention_ref(q, k, v, causal=False).float()
     assert float((masked - unmasked).abs().max()) >= 64
+
+
+#: (D, H, Hkv) of each config whose bf16 flash runs flash_wgmma: Yi-6B,
+#: qwen3-32b, h2o-danube-3-4b
+WGMMA_CONFIGS = [(128, 32, 4), (80, 64, 8), (120, 32, 8)]
+#: a small S for the configs' head counts; the probes' tile edges still
+#: fall inside (0, 63, 64, 127, 128, 129, 255)
+SMALL_S = 256
+
+
+def probe_at(d, h, hkv, window, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return chip_smoke.mask_probe(torch, SMALL_S, window=window, h=h, hkv=hkv, d=d,
+                                 dtype=torch.bfloat16, generator=gen)
+
+
+@pytest.mark.parametrize("d,h,hkv", WGMMA_CONFIGS)
+@pytest.mark.parametrize("s,causal,window", [(SMALL_S, True, None), (SMALL_S, False, None),
+                                             (200, True, 64)])
+def test_flash_rule_accepts_the_kernels_rounding_at_each_head_dim(d, h, hkv, s, causal,
+                                                                  window):
+    rng = np.random.default_rng(d + s)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(torch.bfloat16) for shape in ((1, h, s, d), (1, hkv, s, d),
+                                                 (1, hkv, s, d)))
+    ok, stats = rule(q, k, v, emulate_kernel(q, k, v, causal=causal, window=window),
+                     causal=causal, window=window)
+    assert ok, stats
+
+
+@pytest.mark.parametrize("d,h,hkv", WGMMA_CONFIGS)
+@pytest.mark.parametrize("window", [None, 128])
+def test_flash_rule_accepts_the_kernels_rounding_at_the_probes_at_each_head_dim(
+        d, h, hkv, window):
+    q, k, v = probe_at(d, h, hkv, window)
+    ok, stats = rule(q, k, v, emulate_kernel(q, k, v, causal=True, window=window),
+                     causal=True, window=window)
+    assert ok, stats
+
+
+@pytest.mark.parametrize("d,h,hkv", WGMMA_CONFIGS)
+def test_flash_rule_rejects_a_shifted_causal_mask_at_each_head_dim(d, h, hkv):
+    q, k, v = probe_at(d, h, hkv, None)
+    ok, stats = rule(q, k, v, emulate_kernel(q, k, v, causal=True, window=None, shift=1),
+                     causal=True, window=None)
+    assert not ok and stats[0] >= 32, stats
+
+
+@pytest.mark.parametrize("d,h,hkv", WGMMA_CONFIGS)
+def test_flash_rule_rejects_a_window_off_by_one_at_each_head_dim(d, h, hkv):
+    q, k, v = probe_at(d, h, hkv, 128)
+    ok, stats = rule(q, k, v, emulate_kernel(q, k, v, causal=True, window=128, widen=1),
+                     causal=True, window=128)
+    assert not ok and stats[0] >= 32, stats
 
 
 # ---------------------------------------------------------- decode split

@@ -16,6 +16,7 @@ attention kernels, checked on the CPU.
   the 1e-4 of tests/test_torch_models.py in float32.
 """
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -189,6 +190,94 @@ def test_decode_shared_memory_rows_hold_every_chunk_once(d, elem):
         for c in range(cpr):
             quads = {(r * sc * 16 + k_offset(r, c, cpr, elem)) // 16 % 8 for r in range(8)}
             assert len(quads) == 8
+
+
+# -------------------------------------------------- flash_wgmma geometry
+FLASH_CU = flash_ops.SOURCE.read_text()
+#: shared memory a block may use on the H100 (232,448 of the SM's 256 KB)
+SMEM_LIMIT = 232_448
+
+
+def cu_consts():
+    """Every ``constexpr int`` of flash_attention.cu that does not depend
+    on a template parameter, evaluated in order."""
+    env = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = (.*?);", FLASH_CU, re.S):
+        expr = re.sub(r"//[^\n]*", "", expr)
+        try:
+            env[name] = int(eval(f"({expr})", {}, dict(env)))  # noqa: S307 - the repo's own source
+        except (NameError, SyntaxError):
+            pass  # a template-dependent constant
+    return env
+
+
+def cu_function(name: str) -> str:
+    """The body of a function of flash_attention.cu at namespace level."""
+    return re.search(rf"\n\S[^\n]* {name}\(.*?\n}}\n", FLASH_CU, re.S).group(0)
+
+
+def route_dims(body: str, kernel: str):
+    return {int(d) for d in re.findall(rf"{kernel}<(?:T, )?(\d+)>", body)}
+
+
+def test_flash_route_table_is_the_sources():
+    """(dtype, D) -> kernel in ops.kernel_name, as launch_f32 and
+    launch_bf16 of flash_attention.cu dispatch."""
+    f32, bf16 = cu_function("launch_f32"), cu_function("launch_bf16")
+    assert route_dims(f32, "launch") == set(flash_ops.HEAD_DIMS)
+    assert route_dims(f32, "launch_wgmma") == set()
+    assert route_dims(bf16, "launch_wgmma") == set(flash_ops.WGMMA_HEAD_DIMS)
+    assert route_dims(bf16, "launch") == set(flash_ops.HEAD_DIMS) - set(flash_ops.WGMMA_HEAD_DIMS)
+    for d in flash_ops.HEAD_DIMS:
+        assert flash_ops.kernel_name(torch.float32, d) == "flash_fwd"
+        want = "flash_wgmma" if d in flash_ops.WGMMA_HEAD_DIMS else "flash_fwd"
+        assert flash_ops.kernel_name(torch.bfloat16, d) == want
+    # every ported config computes in bf16 on the tensor cores
+    for arch in PORTED:
+        cfg = get_config(arch)
+        assert cfg.compute_dtype == torch.bfloat16
+        assert flash_ops.kernel_name(cfg.compute_dtype, cfg.head_dim) == "flash_wgmma"
+
+
+@pytest.mark.parametrize("d", flash_ops.WGMMA_HEAD_DIMS)
+def test_flash_wgmma_geometry(d):
+    """flash_wgmma<D>'s tiles, tensor maps, k-steps, shared memory and
+    stores, from the constants in flash_attention.cu."""
+    c = cu_consts()
+    half, cols, bq, bk = c["kHalf"], c["kWCols"], c["kWBQ"], c["kWBK"]
+    assert (bq, bk, cols, half) == (128, 128, 128, 64)
+    # tensor map: rows of D elements, a multiple of 16 bytes as TMA needs,
+    # and so is a head's stride at any S
+    assert (d * 2) % 16 == 0
+    assert all((s * d * 2) % 16 == 0 for s in (1, 200, 2048))
+    # boxes of 64 x 128: the inner extent is the 128-byte swizzle span, and
+    # two boxes reach past D (the second starts inside the row)
+    assert half * 2 == 128 and half < d <= 2 * half == cols
+    # expect_tx counts both boxes whole: columns past D are TMA's zero fill
+    assert c["kTileBytes"] == 2 * half * bk * 2 == 2 * c["kHalfBytes"]
+    # q.k^T: ceil(D/16) steps of k16, each inside one 64-column half
+    steps = -(-d // 16)
+    assert "kk < (D + 15) / 16" in FLASH_CU
+    assert steps == {80: 5, 120: 8, 128: 8}[d] and steps * 16 <= cols
+    offsets = [(kk // 4) * c["kHalfBytes"] + (kk % 4) * 32 for kk in range(steps)]
+    assert all(o % c["kHalfBytes"] + 32 <= 128 for o in offsets)  # within a 128-byte row
+    covered = [16 * kk + j for kk in range(steps) for j in range(16)]
+    assert covered[:d] == list(range(d)) and all(col >= d for col in covered[d:])
+    # shared memory: q, the two-stage k and v rings, barriers, 1 KB slack
+    assert c["kWSmem"] == (1024 + c["kTileBytes"] * (1 + 2 * c["kStages"])
+                           + 8 * (1 + 3 * c["kStages"]))
+    assert c["kWSmem"] <= SMEM_LIMIT
+    assert c["kWThreads"] == (c["kConsumers"] + 1) * 128
+    # p.v: m64n80k16 up to D = 80 (64 columns of the first half, 16 of the
+    # second, a legal wgmma width), else m64n128k16 over the padded tile
+    assert "return D <= 80 ? 80 : kWCols;" in FLASH_CU and "m64n80k16" in FLASH_CU
+    pv = 80 if d <= 80 else cols
+    assert d <= pv <= cols and pv % 8 == 0 and pv - half <= half
+    # stores: column 8j + 2(lane % 4) + e of the m64nPV accumulator, pairs
+    # kept under col < D: every output column written exactly once
+    written = [8 * j + c2 + e for j in range(pv // 8) for c2 in (0, 2, 4, 6)
+               if 8 * j + c2 < d for e in (0, 1)]
+    assert sorted(written) == list(range(d))
 
 
 # ------------------------------------------------------------------ LM
