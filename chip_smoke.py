@@ -44,6 +44,29 @@ Phases, each of which fails the script (non-zero exit) on any error:
    launches, peak device memory and the device's busy share over one
    cold run (``torch.profiler``) are printed with the card's name and
    power limit;
+3c. the SDK and the CLI on a fresh lake of the same 2^23 rows, written
+   by ``Client(root, shard_rows=65536).write_table`` on the card (the
+   default device), with the launch counts set to 0 just before:
+   ``client.query`` of Q1-Q3 equal to the numpy oracles, and
+   ``client.explain``'s verdicts equal to the routes the queries ran
+   (kernel, kernel, jnp); ``with client.branch("feat") as b:
+   b.run(path)`` of a pipeline file (the Appendix pipeline plus
+   zone_riders, registered with ``repro_torch.project`` / ``.sql`` /
+   ``.expectation``) must succeed and merge, and a warm re-run, before
+   and after ``client.compact`` (16 shards into 1), execute 0 nodes;
+   ``client.gc`` must reclaim the compacted shards with Q1-Q3 unchanged;
+   a run whose audit fails is an ``AUDIT_FAILED`` handle that leaves no
+   branch; two ``run_async`` runs on two branches at once both merge,
+   launching the kernel; the run's trace holds run, stage and node spans
+   and a critical path; a second ``Client`` estimates from the persisted
+   latency history (``src=latency``); and ``python -m repro_torch.cli``
+   runs ``query``, ``run``, ``trace``, ``explain --json``, ``gc
+   --dry-run`` and ``cache stats`` as processes, each exiting 0, the
+   query printing what ``client.query`` returned.  The Client's query
+   time beside its ``Runner.query`` on the same lake and phase 3's, the
+   cold and warm branch runs, compact and gc, the async runs and each
+   CLI process are timed and printed with the card's name and power
+   limit;
 4. at the inputs Q2 hands the kernel, hold the kernel against its plain
    version (exactly equal: the sums are of integers) and time the kernel,
    its plain version and ``torch.bincount``;
@@ -454,6 +477,7 @@ def query_path(np, torch, ops, catalog, fmt, data):
     # steady state: the runs above include first-use costs (lazy
     # module loads, allocator growth), so time each query again
     phases = ("parse_s", "plan_s", "scan_s", "exec_s", "wall_s")
+    walls = {}
     for name, sql, engine in (("Q1", Q1, "auto"), ("Q2", Q2, "kernel"),
                               ("Q3", Q3, "auto"), ("Q1", Q1, "jnp"),
                               ("Q2", Q2, "jnp")):
@@ -464,6 +488,7 @@ def query_path(np, torch, ops, catalog, fmt, data):
                         if type(e).__name__ == "QueryExecuted"][-1])
         print(f"{name} engine={engine} median of {LATENCY_REPS}: " + " ".join(
             f"{p}={statistics.median(getattr(e, p) for e in evs)!r}" for p in phases))
+        walls.setdefault(name, statistics.median(e.wall_s for e in evs))
 
     # Q2's kernel inputs: the scan keeps rows with pickup_at >= April 1 (in
     # storage order); the OR residual feeds the kernel as a float mask
@@ -473,7 +498,7 @@ def query_path(np, torch, ops, catalog, fmt, data):
     vals = torch.tensor(data["passenger_count"][m], device=dev)
     filt = torch.tensor(((data["passenger_count"][m] > 35)
                          | (data["dropoff_location_id"][m] < 8)).astype(np.float32), device=dev)
-    return launches, (keys, vals, filt)
+    return launches, (keys, vals, filt), walls
 
 
 # -------------------------------------------------------------- phase 3b
@@ -658,6 +683,252 @@ def pipeline_path(np, torch, ops, catalog, fmt, data, tmp, smi):
               f"({peak / 2**30:.2f} GiB) [{smi}]")
         profile_run(torch, runner, smi)
         ops.LAUNCHES = launches
+    return launches
+
+
+# -------------------------------------------------------------- phase 3c
+#: the Appendix pipeline plus zone_riders as a user writes it for the SDK:
+#: a file of decorator registrations, discovered by ``Client.run(path)``
+PIPELINE_FILE = """\
+import repro_torch
+
+PROJECT = repro_torch.project({project!r})
+
+repro_torch.sql(
+    "trips",
+    "SELECT pickup_location_id, passenger_count as count, dropoff_location_id "
+    "FROM taxi_table WHERE pickup_at >= '2019-04-01'",
+    project=PROJECT,
+)
+
+
+@repro_torch.expectation(project=PROJECT)
+def trips_expectation(ctx, trips):
+    return trips.mean("count") > {threshold!r}
+
+
+repro_torch.sql(
+    "pickups",
+    "SELECT pickup_location_id, dropoff_location_id, COUNT(*) AS counts "
+    "FROM trips GROUP BY pickup_location_id, dropoff_location_id "
+    "ORDER BY counts DESC",
+    project=PROJECT,
+)
+repro_torch.sql("zone_riders", {zone_riders!r}, project=PROJECT)
+"""
+
+
+def write_pipeline_file(directory, name, threshold):
+    path = directory / f"{name}.py"
+    path.write_text(PIPELINE_FILE.format(project=name, threshold=threshold, zone_riders=Q1))
+    return path
+
+
+def cli_process(args, smi):
+    """``python -m repro_torch.cli`` as a user runs it, on the card (its
+    default device): (stdout, seconds)."""
+    import os
+
+    argv = [sys.executable, "-m", "repro_torch.cli"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv + [str(a) for a in args], capture_output=True, text=True,
+                          cwd=ROOT, env=env, timeout=300)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"cli {args[2:4]} exited {proc.returncode}: {proc.stderr.strip()[-2000:]}")
+    print(f"client cli {' '.join(str(a) for a in args[2:3])}: exit 0 in {wall!r} s [{smi}]")
+    return proc.stdout, wall
+
+
+def client_path(np, torch, ops, data, tmp, smi, runner_walls):
+    """The SDK and the CLI over a fresh 2^23-row lake: ``Client.query`` and
+    ``Client.explain``, a branch run of a discovered pipeline file, compact
+    and gc, a failing audit, two async runs at once, the latency history
+    in a second Client, the run's trace, and the CLI as six processes,
+    all on the card (the default device).  Returns fused_filter_agg's launches in
+    the Client's main path (this process only)."""
+    import contextlib
+    import io
+
+    import repro_torch
+    from repro_torch.cli import _print_table
+    from repro_torch.examples_data import APRIL_1, TAXI_SCHEMA
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    oracles = {"Q1": oracle_q1(data, APRIL_1, np), "Q2": oracle_q2(data, APRIL_1, np),
+               "Q3": oracle_q3(data, APRIL_1, np)}
+    queries = (("Q1", Q1, "auto", "kernel"), ("Q2", Q2, "kernel", "kernel"),
+               ("Q3", Q3, "auto", "jnp"))
+    root = tmp / "client_lake"
+    files = tmp / "client_pipelines"
+    files.mkdir()
+    good = write_pipeline_file(files, "taxi_sdk", 10.0)
+    failing = write_pipeline_file(files, "taxi_sdk_failing", 1000.0)
+
+    client = repro_torch.Client(root, shard_rows=65536)
+    check(client.device.type == "cuda", f"client on {client.device}")
+    t0 = time.perf_counter()
+    client.write_table("taxi_table", data, schema=TAXI_SCHEMA)
+    print(f"client lake: {len(data['pickup_at'])} rows written by Client.write_table in "
+          f"{time.perf_counter() - t0!r} s")
+    sub = client.events(follow=True, buffer=1 << 20)
+
+    # the main path: every launch count starts at 0 here
+    ops.LAUNCHES = flash_ops.LAUNCHES = decode_ops.LAUNCHES = 0
+
+    # 1. queries, and explain's verdicts against the runtime routes
+    answers = {}
+    for name, sql, engine, path in queries:
+        out = answers[name] = client.query(sql, engine=engine)
+        ran = [e for e in sub.drain() if type(e).__name__ == "QueryExecuted"][-1].engine_path
+        check(same_bytes(out, oracles[name]), f"client {name} differs from the numpy oracle")
+        verdict = client.explain(sql, engine=engine).engine_path
+        check(ran == path and verdict == ran,
+              f"client {name}: explain says {verdict}, the query ran {ran}, want {path}")
+    q2_auto = client.explain(Q2).engine_path
+    print("client queries: Q1-Q3 equal the numpy oracle; explain's verdicts equal the runtime "
+          f"routes (kernel, kernel, jnp); Q2 at engine=auto explains as {q2_auto}")
+    launches = ops.LAUNCHES
+    for name, sql, engine, _ in queries:
+        facade, direct = [], []
+        for _ in range(LATENCY_REPS):
+            t0 = time.perf_counter()
+            client.query(sql, engine=engine)
+            facade.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            client.runner.query(sql, engine=engine)
+            direct.append(time.perf_counter() - t0)
+        walls = [e.wall_s for e in sub.drain() if type(e).__name__ == "QueryExecuted"]
+        print(f"client {name} engine={engine} median of {LATENCY_REPS}: Client.query "
+              f"{statistics.median(facade)!r} s, its Runner.query on the same lake "
+              f"{statistics.median(direct)!r} s, overhead "
+              f"{statistics.median(facade) - statistics.median(direct)!r} s; QueryExecuted "
+              f"wall_s {statistics.median(walls)!r} s; phase 3 Runner.query wall_s "
+              f"{runner_walls[name]!r} s [{smi}]")
+    ops.LAUNCHES = launches  # timing launches are not main-path launches
+
+    # 2. the branch run of the discovered file, then a warm re-run
+    t0 = time.perf_counter()
+    with client.branch("feat") as b:
+        cold = b.run(good)
+    cold_s = time.perf_counter() - t0
+    check(cold.state is repro_torch.RunState.SUCCESS, f"branch run {cold.state}: {cold.error}")
+    check("feat" not in client.branches(), "the branch did not merge and close")
+    check(client.tables()["pickups"] == cold.artifacts["pickups"], "pickups not on main")
+    check(same_bytes(cold.artifact("pickups"), oracles["Q3"]), "pickups differs from the oracle")
+    check(same_bytes(cold.artifact("zone_riders"), oracles["Q1"]),
+          "zone_riders differs from the oracle")
+    routes = {n: r.engine_path for s in cold.plan.stages for n, r in s.sql_routes.items()}
+    check(routes.get("zone_riders") == "kernel", f"zone_riders routed {routes}")
+    t0 = time.perf_counter()
+    with client.branch("feat_warm") as b:
+        warm = b.run(good)
+    warm_s = time.perf_counter() - t0
+    check(warm.cache["nodes_executed"] == 0, f"warm run executed {warm.cache['nodes_executed']}")
+    check(warm.artifacts == cold.artifacts, "warm run artifacts differ")
+    print(f"client branch run: {cold.state} merged, {cold.cache['nodes_executed']} nodes "
+          f"executed, routes {routes}; cold {cold_s!r} s (run wall_s {cold.stats['wall_s']!r}), "
+          f"warm {warm_s!r} s (0 executed, {warm.cache['hits']} hits) [{smi}]")
+
+    # 3. compaction (16 shards to 1) and gc; queries give the same bytes
+    t0 = time.perf_counter()
+    (compacted,) = client.compact("taxi_table", target_rows=1 << 20)
+    compact_s = time.perf_counter() - t0
+    check(compacted.shards_merged > 0, f"compact merged {compacted.shards_merged} shards")
+    with client.branch("after_compact") as b:
+        after = b.run(good)
+    check(after.cache["nodes_executed"] == 0,
+          f"warm run after compact executed {after.cache['nodes_executed']}")
+    t0 = time.perf_counter()
+    swept = client.gc(history=1, grace_s=0.0)
+    gc_s = time.perf_counter() - t0
+    check(swept.swept_objects > 0, "gc reclaimed nothing after the compaction")
+    for name, sql, engine, _ in queries:
+        check(same_bytes(client.query(sql, engine=engine), oracles[name]),
+              f"client {name} differs after compact and gc")
+    print(f"client maintenance: {compacted.describe()} in {compact_s!r} s; warm run after it "
+          f"executed 0 nodes; {swept.describe()} in {gc_s!r} s; Q1-Q3 unchanged [{smi}]")
+
+    # 4. a failing audit is a handle and leaves nothing behind
+    head = client.catalog.head("main").commit_id
+    bad = client.run(failing)
+    check(bad.state is repro_torch.RunState.AUDIT_FAILED, f"failing audit ended {bad.state}")
+    check(client.catalog.head("main").commit_id == head, "the failing audit moved main")
+    check(not [b for b in client.branches() if b.startswith("run_")],
+          "the failing audit left a run_* branch")
+    print(f"client failing audit: {bad.state}, failed checks {bad.failed_checks}, no branch "
+          f"left")
+
+    # 5. two async runs on different branches at once, each launching
+    before = ops.LAUNCHES
+    t0 = time.perf_counter()
+    with client.branch("left") as left, client.branch("right") as right:
+        handles = [left.run_async(good, cache=False), right.run_async(good, cache=False)]
+        results = [h.result(timeout=600) for h in handles]
+    async_s = time.perf_counter() - t0
+    launched = ops.LAUNCHES - before
+    for r in results:
+        check(r.state is repro_torch.RunState.SUCCESS, f"async run {r.state}: {r.error}")
+        check(r.artifacts == cold.artifacts, "an async run's artifacts differ")
+    check({"left", "right"}.isdisjoint(client.branches()), "an async branch did not merge")
+    check(launched >= 2, f"two async runs launched fused_filter_agg {launched} times")
+    print(f"client async: two runs merged in {async_s!r} s, fused_filter_agg launches "
+          f"{launched} [{smi}]")
+    launches = ops.LAUNCHES
+    check(launches > 0, "the Client never launched fused_filter_agg")
+    check(flash_ops.LAUNCHES == decode_ops.LAUNCHES == 0, "the Client launched attention")
+
+    # 6. the run's trace: run -> stage -> node spans and a critical path
+    trace = client.trace(cold.run_id)
+    kinds = {s.kind for s in trace.root.walk()}
+    check(trace.root.kind == "run" and {"queue", "exec", "node"} <= kinds,
+          f"trace span kinds {sorted(kinds)}")
+    cp = trace.critical_path()
+    check(bool(cp), "the trace has no critical path")
+    phases = {s.name: s.dur for s in trace.root.walk() if s.kind == "phase"}
+    print(f"client trace of run {cold.run_id}: {len(trace.root.walk())} spans, kinds "
+          f"{sorted(kinds)}, critical path {cp}, coverage {trace.coverage()!r}, phases "
+          f"{phases!r}, stage exec_s "
+          f"{ {sid: sp['exec'].dur for sid, sp in trace.stage_spans.items()}!r}")
+    sub.close()
+    client.close()
+
+    # 7. a second Client on the lake estimates from the persisted history
+    with repro_torch.Client(root) as second:
+        lat = second.run(good, branch="latency", cache=False)
+    sources = {s["source"] for s in lat.stats["scheduler"]["stages"].values()}
+    check(lat.state is repro_torch.RunState.SUCCESS and sources == {"latency"},
+          f"second client: {lat.state}, cost sources {sources}")
+    print(f"client latency history: a second Client's scheduler estimated from {sources}")
+    ops.LAUNCHES = launches  # the second Client is not the main path
+
+    # 8. the CLI, one process per verb: the readers and the run at once,
+    # then the maintenance verbs, which read what the run wrote
+    lake = ["--lake", root]
+    explained = tmp / "explain_q2.json"
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
+        query, run, traced, _ = [f.result()[0] for f in [pool.submit(cli_process, lake + args, smi) for args in (
+            ["query", "-q", Q1], ["run", good, "-b", "cli"], ["trace", cold.run_id],
+            ["explain", "-q", Q2, "--json", explained])]]
+    with ThreadPoolExecutor(2) as pool:
+        swept, stats = [f.result()[0] for f in [pool.submit(cli_process, lake + args, smi) for args in (
+            ["gc", "--dry-run"], ["cache", "stats"])]]
+    print(f"client cli: six processes in {time.perf_counter() - t0!r} s [{smi}]")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _print_table(answers["Q1"])
+    check(query == buf.getvalue(), "the CLI's Q1 differs from client.query's")
+    check("merged to 'cli'" in run and run.split()[:2] == ["run", str(int(run.split()[1]))],
+          f"cli run: {run}")
+    check(f"run {cold.run_id}" in traced and "critical path" in traced, f"cli trace: {traced}")
+    verdict = json.loads(explained.read_text())["engine_path"]
+    check(verdict == q2_auto, f"cli explain says {verdict}, Client.explain said {q2_auto}")
+    check("would reclaim" in swept, f"cli gc: {swept}")
+    check("entries" in stats, f"cli cache stats: {stats}")
+    print(f"client phase: fused_filter_agg launches on the Client's main path {launches}")
     return launches
 
 
@@ -1466,9 +1737,11 @@ def main() -> int:
     data = make_taxi_data(N_MAIN, np.random.default_rng(SEED))
     with tempfile.TemporaryDirectory() as tmp:
         catalog, fmt = write_lake(Path(tmp) / "lake", data)
-        query_launches, inputs = query_path(np, torch, ops, catalog, fmt, data)
+        query_launches, inputs, walls = query_path(np, torch, ops, catalog, fmt, data)
         run_launches = pipeline_path(np, torch, ops, catalog, fmt, data, Path(tmp), smi)
-    launches = {"Runner.query": query_launches, "Runner.run": run_launches}
+        client_launches = client_path(np, torch, ops, data, Path(tmp), smi, walls)
+    launches = {"Runner.query": query_launches, "Runner.run": run_launches,
+                "Client": client_launches}
     ffa_row = measure(torch, ops, ref, launches, inputs, card)
     attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref)
     served = serve_yi(np, torch, flash_ops, decode_ops)

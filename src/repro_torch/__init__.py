@@ -10,7 +10,28 @@ lake the other wrote.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with the default device and no CUDA device they raise instead of falling
-back to the CPU.  Slice 1 covers the interactive query path::
+back to the CPU.
+
+The public SDK is the JAX package's: one client, three decorators, typed
+handles.  Its names resolve lazily (PEP 562), so ``import repro_torch``
+stays cheap::
+
+    import repro_torch
+
+    client = repro_torch.Client("/path/to/lake")   # device defaults to cuda
+    repro_torch.sql("zone_riders", "SELECT ... GROUP BY ...")
+
+    @repro_torch.expectation()
+    def riders_seen(ctx, zone_riders):
+        return zone_riders.sum("n") > 0            # a 0-d bool tensor
+
+    with client.branch("feat_1") as branch:        # merge on success
+        handle = branch.run("pipeline.py")
+        assert handle.state == repro_torch.RunState.SUCCESS
+
+``python -m repro_torch.cli --lake ... {query,run,trace,gc,...}`` is the
+same surface on the command line.  Underneath, the engine room stays
+importable; the interactive query path::
 
     from repro_torch.core import Runner
     runner = Runner(catalog, fmt)             # device defaults to cuda
@@ -34,5 +55,62 @@ Granite-34B) through the flash and decode attention kernels::
     engine = ServeEngine(model, None, ServeConfig(max_batch=4, max_len=4096))
     engine.generate([Request(prompt=tokens, max_new_tokens=16)])
 """
+from typing import Any
 
 __version__ = "0.3.0"
+
+#: public name -> (module, attribute) — resolved on first access
+_EXPORTS = {
+    "Client": ("repro_torch.api", "Client"),
+    "BranchHandle": ("repro_torch.api", "BranchHandle"),
+    "AsyncRunHandle": ("repro_torch.api", "AsyncRunHandle"),
+    "RunHandle": ("repro_torch.api", "RunHandle"),
+    "RunState": ("repro_torch.api", "RunState"),
+    "RunFailed": ("repro_torch.api", "RunFailed"),
+    "Project": ("repro_torch.api", "Project"),
+    "project": ("repro_torch.api", "project"),
+    "model": ("repro_torch.api", "model"),
+    "expectation": ("repro_torch.api", "expectation"),
+    "sql": ("repro_torch.api", "sql"),
+    "requirements": ("repro_torch.api", "requirements"),
+    "discover": ("repro_torch.api", "discover"),
+    "Pipeline": ("repro_torch.core", "Pipeline"),
+    "Schema": ("repro_torch.table", "Schema"),
+    "LintReport": ("repro_torch.analysis", "LintReport"),
+    "Finding": ("repro_torch.analysis", "Finding"),
+    "Severity": ("repro_torch.analysis", "Severity"),
+    "LintFailed": ("repro_torch.analysis", "LintFailed"),
+    "lint_pipeline": ("repro_torch.analysis", "lint_pipeline"),
+}
+
+__all__ = ["__version__", *sorted(_EXPORTS)]
+
+
+def __getattr__(name: str) -> Any:
+    if name in _EXPORTS:
+        import importlib
+
+        module, attr = _EXPORTS[name]
+        value = getattr(importlib.import_module(module), attr)
+        globals()[name] = value  # cache: resolve once
+        return value
+    if name == "Runner":
+        # thin deprecation shim: the engine stays importable, the facade
+        # is the supported construction path
+        import warnings
+
+        warnings.warn(
+            "repro_torch.Runner is deprecated — construct the platform "
+            "through repro_torch.Client (the engine remains at "
+            "repro_torch.core.Runner)",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        from repro_torch.core import Runner
+
+        return Runner
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")
+
+
+def __dir__() -> list:
+    return sorted(set(globals()) | set(_EXPORTS) | {"Runner"})

@@ -1,22 +1,44 @@
-"""repro_torch.telemetry — the typed event schema and the event bus.
+"""repro_torch.telemetry — event bus, run tracing, and the metrics plane.
 
-* ``repro_torch.telemetry.events`` — the typed event schema with per-run
+* ``repro_torch.telemetry.events``  — the typed event schema (Run/Stage/
+  NodeCache/Speculation/Scan/Query/Gc/Compaction kinds) with per-run
   monotonic sequence numbers (``QueryExecuted`` carries the interactive
   path's parse/plan/scan/exec breakdown);
-* ``repro_torch.telemetry.bus``    — in-process multi-consumer bus with
-  bounded per-subscriber buffers, drop accounting, and an on-disk spool;
-* ``repro_torch.telemetry.runlog`` — a run's events persisted to the lake
+* ``repro_torch.telemetry.bus``     — in-process multi-consumer bus with
+  bounded per-subscriber buffers, drop accounting, and an on-disk spool
+  for cross-process tailing (``events --follow``);
+* ``repro_torch.telemetry.tracing`` — span assembly (run→stage→node→scan),
+  critical-path analysis, Chrome trace export (``trace``);
+* ``repro_torch.telemetry.metrics`` — counters/gauges/histograms behind one
+  registry (absorbs ``StoreStats`` bumps + executor latencies);
+* ``repro_torch.telemetry.runlog``  — a run's events persisted to the lake
   as a GC-able artifact under the ``runlog`` namespace.
 """
 from repro_torch.telemetry.bus import EventBus, Subscription, follow_spool, read_spool
 from repro_torch.telemetry.events import (
     EVENT_TYPES,
+    CompactionApplied,
     Event,
+    GcSweep,
+    NodeCacheHit,
+    NodeCacheMiss,
+    NodeCacheRehydrated,
     QueryExecuted,
+    RunFinished,
+    RunStarted,
     ScanShardRead,
+    SpeculationArmed,
+    SpeculationFired,
+    SpeculationWon,
+    StageCommitted,
+    StageFinished,
+    StageQueued,
+    StageStarted,
     event_from_json_dict,
 )
+from repro_torch.telemetry.metrics import Counter, Gauge, Histogram, MetricsRegistry
 from repro_torch.telemetry.runlog import RUNLOG_NS, RunLogStore
+from repro_torch.telemetry.tracing import RunTrace, Span
 
 __all__ = [
     "EventBus",
@@ -26,8 +48,28 @@ __all__ = [
     "Event",
     "EVENT_TYPES",
     "event_from_json_dict",
-    "QueryExecuted",
+    "RunStarted",
+    "RunFinished",
+    "StageQueued",
+    "StageStarted",
+    "StageFinished",
+    "StageCommitted",
+    "NodeCacheHit",
+    "NodeCacheMiss",
+    "NodeCacheRehydrated",
+    "SpeculationArmed",
+    "SpeculationFired",
+    "SpeculationWon",
     "ScanShardRead",
+    "QueryExecuted",
+    "GcSweep",
+    "CompactionApplied",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
     "RunLogStore",
     "RUNLOG_NS",
+    "RunTrace",
+    "Span",
 ]

@@ -158,3 +158,48 @@ def test_chip_smoke_refuses_to_run_without_cuda(no_cuda):
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_client_default_device_raises_without_cuda(no_cuda, tmp_path):
+    """``Client(path)`` — the SDK's one construction path — raises at the
+    default device before it touches the lake; ``device="cpu"`` goes
+    through and runs queries and pipelines on the CPU."""
+    import repro_torch
+    from repro_torch.examples_data import TAXI_SCHEMA, make_taxi_data
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.Client(tmp_path / "lake")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.Client.ephemeral()
+    assert not (tmp_path / "lake").exists()
+    with repro_torch.Client(tmp_path / "lake", shard_rows=128, device="cpu") as client:
+        client.write_table("taxi_table", make_taxi_data(256, np.random.default_rng(0)),
+                           schema=TAXI_SCHEMA)
+        assert client.query("SELECT COUNT(*) AS n FROM taxi_table")["n"][0] == 256
+        assert client.runner.device.type == "cpu"
+
+
+def test_cli_default_device_exits_nonzero_without_cuda(no_cuda, tmp_path):
+    from repro_torch.examples_data import TAXI_SCHEMA, make_taxi_data
+    from repro_torch.api import Client
+
+    lake = tmp_path / "lake"
+    with Client(lake, device="cpu") as client:
+        client.write_table("taxi_table", make_taxi_data(100, np.random.default_rng(0)),
+                           schema=TAXI_SCHEMA)
+
+    def cli(*argv):
+        return subprocess.run(
+            [sys.executable, "-m", "repro_torch.cli", *argv],
+            capture_output=True, text=True, cwd=tmp_path, timeout=300,
+            env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        )
+
+    query = ["query", "-q", "SELECT COUNT(*) AS n FROM taxi_table"]
+    refused = cli("--lake", str(lake), *query)
+    assert refused.returncode != 0
+    assert "no CUDA device" in refused.stderr and "--device cpu" in refused.stderr
+    assert refused.stdout == ""
+    ran = cli("--device", "cpu", "--lake", str(lake), *query)
+    assert ran.returncode == 0, ran.stderr
+    assert "100" in ran.stdout
