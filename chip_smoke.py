@@ -113,11 +113,28 @@ Phases, each of which fails the script (non-zero exit) on any error:
    ``forward_full``) on the kernel route: init time and peak memory, one
    2048-token ``LM.forward`` with flash_attention launched once a layer
    and finite logits, its time (median of FORWARD_REPS) and peak memory;
+6d. train -> commit -> check out -> serve (``train_serve``): Yi-6B at
+   full width and TRAIN_LAYERS layers trains through
+   ``repro_torch.train.TrainLoop`` on the card (reference attention,
+   deterministic algorithms), batches drawn by step from a synthetic Zipf
+   token table in a temporary lake, checkpoints committed to catalog
+   branches: an uninterrupted run A of TRAIN_STEPS steps, a run B that
+   stops at CRASH_AT, and a run C that resumes it must end on the same
+   leaf keys (content addresses); the loss must fall and the audit pass;
+   the checkpoint is promoted to main, its params checked out, and the
+   serving ``LM`` (``params_from_numpy``) served like phase 6 on both
+   routes under phase 6's limits, the launch counts set to 0 just
+   before (TRAIN_LAYERS a decode step and a forward).  Step time,
+   tokens/s, peak memory, the device's busy share over
+   TRAIN_PROFILE_STEPS profiled steps, each checkpoint's bytes and save,
+   async-save and restore seconds, and the phase's seconds are printed
+   with the card's name and power limit;
 7. time the two attention kernels at the main path's shapes like phase 4,
    and at phase 6b's shapes, and print one ``{"kernels": [...]}`` line
    for all three kernels, each row with the card and its power limit and
    each flash row with the kernel that ran (``flash_wgmma`` or
-   ``flash_fwd``) and, for the two configs, phase 6c's forward time.
+   ``flash_fwd``) and, for the two configs, phase 6c's forward time; the
+   Yi-6B rows count the launches of phases 6 and 6d, path by path.
 
 Timing (phases 4 and 7): CUDA events, L2 flushed between launches,
 median of 25; ``ms`` has the launches queued behind a sleep kernel so
@@ -134,6 +151,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -185,6 +203,16 @@ CUT_REQUESTS = 4
 CUT_NEW_TOKENS = 8
 #: phase 6c: the same two configs at full depth, forwards timed
 FORWARD_REPS = 3
+#: phase 6d: train -> commit -> check out -> serve, Yi-6B at full width
+TRAIN_LAYERS = 4
+TRAIN_BATCH = 4
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 12
+CRASH_AT = 6
+TRAIN_CORPUS = 2_000_000
+#: steps profiled in run A (0-based first index), left out of the median
+TRAIN_PROFILE_FIRST = 3
+TRAIN_PROFILE_STEPS = 3
 #: phase 5: (causal, window) of the random flash cases
 FLASH_MASKS = ((True, None), (False, None), (True, 256))
 
@@ -1316,10 +1344,20 @@ def check_logits(torch, what, got, want):
           f"{what} logits: kernel vs reference route")
 
 
+def yi_requests(np, torch, vocab):
+    """Phase 6's requests, from SEED: N_REQUESTS prompts of 8 to 32
+    tokens, and one FORWARD_LEN-token prompt on the card."""
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, vocab, int(rng.integers(8, 33))).astype(np.int32)
+               for _ in range(N_REQUESTS)]
+    long_prompt = torch.tensor(rng.integers(0, vocab, (1, FORWARD_LEN)).astype(np.int32),
+                               device="cuda")
+    return prompts, long_prompt
+
+
 def serve_yi(np, torch, flash_ops, decode_ops):
     from repro_torch.configs import get_config
     from repro_torch.models import LM
-    from repro_torch.serve import ServeConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1327,7 +1365,6 @@ def serve_yi(np, torch, flash_ops, decode_ops):
           "torch.backends.cudnn.allow_tf32 = False")
     base = get_config("yi-6b")
     kcfg = dataclasses.replace(base, use_flash_kernel=True)
-    rcfg = dataclasses.replace(base, use_flash_kernel=False)
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1339,12 +1376,26 @@ def serve_yi(np, torch, flash_ops, decode_ops):
           f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated()} B held, "
           f"init peak {torch.cuda.max_memory_allocated()} B")
     torch.cuda.reset_peak_memory_stats()
+    prompts, long_prompt = yi_requests(np, torch, base.vocab)
+    return serve_both_routes(np, torch, flash_ops, decode_ops, model, prompts, long_prompt,
+                             what="", profile=True)
+
+
+def serve_both_routes(np, torch, flash_ops, decode_ops, model, prompts, long_prompt, *, what,
+                      profile):
+    """Serve ``model`` (``use_flash_kernel=True``) on its kernel route,
+    then the same weights on the reference route, and hold the two to
+    each other (phase 6's checks and limits).  The launch counts start at
+    0 just before the kernel route's requests: decode_attention must
+    launch n_layers times a decode step, flash_attention n_layers times
+    in one forward.  ``what`` prefixes the printed lines; ``profile``
+    adds a profile of PROFILE_STEPS decode steps."""
+    from repro_torch.models import LM
+    from repro_torch.serve import ServeConfig
+
+    cfg = model.cfg
+    dev = torch.device("cuda")
     params = model.state_dict()
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, base.vocab, int(rng.integers(8, 33))).astype(np.int32)
-               for _ in range(N_REQUESTS)]
-    long_prompt = torch.tensor(rng.integers(0, base.vocab, (1, FORWARD_LEN)).astype(np.int32),
-                               device=dev)
     scfg = ServeConfig(max_batch=4, max_len=4096)
 
     def serve(m, p):
@@ -1358,63 +1409,65 @@ def serve_yi(np, torch, flash_ops, decode_ops):
 
     def report(route, reqs, steps, latency, wall, fwd_s):
         toks = sum(len(r.generated) for r in reqs)
-        print(f"serve {route}: {len(reqs)} requests, {len(steps)} decode steps, {toks} tokens "
-              f"in {wall!r} s ({toks / wall!r} tokens/s); decode step median "
+        print(f"{what}serve {route}: {len(reqs)} requests, {len(steps)} decode steps, {toks} "
+              f"tokens in {wall!r} s ({toks / wall!r} tokens/s); decode step median "
               f"{statistics.median(steps)!r} s (min {min(steps)!r}, max {max(steps)!r}); "
               f"forward of {FORWARD_LEN} tokens {fwd_s!r} s")
-        print(f"serve {route}: per-request latency from submission (s): {latency!r}")
+        print(f"{what}serve {route}: per-request latency from submission (s): {latency!r}")
 
     # the main path: the counts start at 0 here
     flash_ops.LAUNCHES = decode_ops.LAUNCHES = 0
     engine, reqs_k, steps_k, lat_k, wall_k = serve(model, None)
     decode_launches = decode_ops.LAUNCHES
-    check(decode_launches == base.n_layers * len(steps_k),
-          f"decode_attention launched {decode_launches} times in {len(steps_k)} steps")
-    check(flash_ops.LAUNCHES == 0, "generate launched flash_attention")
+    check(decode_launches == cfg.n_layers * len(steps_k),
+          f"{what}decode_attention launched {decode_launches} times in {len(steps_k)} steps")
+    check(flash_ops.LAUNCHES == 0, f"{what}generate launched flash_attention")
     final_lengths = engine.lengths.copy()
     del engine
     logits_k, fwd_k = forward(model)
     flash_launches = flash_ops.LAUNCHES
-    check(flash_launches == base.n_layers, f"flash_attention launched {flash_launches} times")
-    check(decode_ops.LAUNCHES == decode_launches, "forward launched decode_attention")
-    print(f"main path: decode_attention launches {decode_launches} "
-          f"({base.n_layers} x {len(steps_k)} steps), flash_attention launches {flash_launches}")
+    check(flash_launches == cfg.n_layers,
+          f"{what}flash_attention launched {flash_launches} times")
+    check(decode_ops.LAUNCHES == decode_launches, f"{what}forward launched decode_attention")
+    print(f"{what}main path: decode_attention launches {decode_launches} "
+          f"({cfg.n_layers} x {len(steps_k)} steps), flash_attention launches {flash_launches}")
     _, fwd_k2 = forward(model)
-    profile_decode(torch, model, final_lengths, scfg.max_len)
+    if profile:
+        profile_decode(torch, model, final_lengths, scfg.max_len)
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = flash_launches, decode_launches
     report("kernel route", reqs_k, steps_k, lat_k, wall_k, fwd_k)
-    print(f"serve kernel route: second forward {fwd_k2!r} s; final slot lengths "
+    print(f"{what}serve kernel route: second forward {fwd_k2!r} s; final slot lengths "
           f"{final_lengths.tolist()}")
 
     # the reference route, on the same weights (assigned, not copied)
-    ref_model = LM(rcfg)
+    ref_model = LM(dataclasses.replace(cfg, use_flash_kernel=False))
     counts = flash_ops.LAUNCHES, decode_ops.LAUNCHES
     engine, reqs_r, steps_r, lat_r, wall_r = serve(ref_model, params)
     del engine
     logits_r, fwd_r = forward(ref_model)
     check((flash_ops.LAUNCHES, decode_ops.LAUNCHES) == counts,
-          "the reference route launched a kernel")
+          f"{what}the reference route launched a kernel")
     report("reference route", reqs_r, steps_r, lat_r, wall_r, fwd_r)
     peak = torch.cuda.max_memory_allocated()
-    print(f"serve: peak device memory after init {peak} B ({peak / 2**30:.2f} GiB)")
+    print(f"{what}serve: peak device memory after init {peak} B ({peak / 2**30:.2f} GiB)")
 
     # forward: flash vs the chunked reference (2048 > chunk 1024)
-    shape = (1, FORWARD_LEN, base.vocab)
+    shape = (1, FORWARD_LEN, cfg.vocab)
     for name, lg in (("kernel", logits_k), ("reference", logits_r)):
         check(tuple(lg.shape) == shape and bool(torch.isfinite(lg.float()).all()),
-              f"{name} forward logits {tuple(lg.shape)} not finite of shape {shape}")
-    check_logits(torch, "forward", logits_k.float(), logits_r.float())
+              f"{what}{name} forward logits {tuple(lg.shape)} not finite of shape {shape}")
+    check_logits(torch, f"{what}forward", logits_k.float(), logits_r.float())
     del logits_k, logits_r
 
     # decode: both routes teacher-forced on the kernel route's sequences
     toks, valid, seqs = padded_sequences(np, torch, reqs_k)
     counts = flash_ops.LAUNCHES, decode_ops.LAUNCHES
-    tf_k = teacher_forced(torch, model, toks, scfg.max_len, base.vocab)
-    tf_r = teacher_forced(torch, ref_model, toks, scfg.max_len, base.vocab)
+    tf_k = teacher_forced(torch, model, toks, scfg.max_len, cfg.vocab)
+    tf_r = teacher_forced(torch, ref_model, toks, scfg.max_len, cfg.vocab)
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = counts  # a comparison, not the main path
     check(bool(torch.isfinite(tf_k[valid]).all() and torch.isfinite(tf_r[valid]).all()),
-          "teacher-forced logits not finite")
-    check_logits(torch, f"decode, teacher-forced on {int(valid.sum())} positions,",
+          f"{what}teacher-forced logits not finite")
+    check_logits(torch, f"{what}decode, teacher-forced on {int(valid.sum())} positions,",
                  tf_k[valid], tf_r[valid])
 
     # greedy tokens: equal up to each request's first near tie
@@ -1425,12 +1478,12 @@ def serve_yi(np, torch, flash_ops, decode_ops):
             if a != b:
                 top2 = torch.topk(tf_r[i, p_len + j - 1], 2).values
                 margin = float(top2[0] - top2[1])
-                print(f"request {i}: routes part at new token {j} ({a} vs {b}), "
+                print(f"{what}request {i}: routes part at new token {j} ({a} vs {b}), "
                       f"reference top-2 margin {margin!r}")
-                check(margin <= LOGIT_TOL, f"request {i}: tokens differ at margin {margin}")
+                check(margin <= LOGIT_TOL, f"{what}request {i}: tokens differ at margin {margin}")
                 break
             same += 1
-    print(f"greedy tokens: {same} of {sum(len(r.generated) for r in reqs_k)} equal "
+    print(f"{what}greedy tokens: {same} of {sum(len(r.generated) for r in reqs_k)} equal "
           f"between the routes before any near tie")
 
     # the repo's own check: decode logits equal forward logits (kernel route)
@@ -1438,10 +1491,12 @@ def serve_yi(np, torch, flash_ops, decode_ops):
     full = model(torch.tensor(x[None], device=dev))[0].float()
     cdiff = float((full - tf_k[0, :len(x)]).abs().max())
     flash_ops.LAUNCHES = flash_launches
-    print(f"kernel route decode vs forward on request 0 ({len(x)} tokens): max |diff| {cdiff!r}")
-    check(cdiff <= LOGIT_TOL, "decode logits differ from forward logits")
+    print(f"{what}kernel route decode vs forward on request 0 ({len(x)} tokens): max |diff| "
+          f"{cdiff!r}")
+    check(cdiff <= LOGIT_TOL, f"{what}decode logits differ from forward logits")
     return {"decode_launches": decode_launches, "flash_launches": flash_launches,
-            "final_lengths": final_lengths}
+            "final_lengths": final_lengths, "decode_step_s": statistics.median(steps_k),
+            "latency_s": lat_k}
 
 
 # -------------------------------------------------------------- phase 6b
@@ -1594,9 +1649,250 @@ def forward_full(np, torch, flash_ops, arch, smi):
             "init_peak_bytes": init_peak, "forward_s": fwd_s, "forward_peak_bytes": fwd_peak}
 
 
+# -------------------------------------------------------------- phase 6d
+def synth_corpus(np, rng, n, vocab):
+    """examples/train_lm.py's synthetic corpus: Zipf(1.3) token ids with a
+    64-token phrase repeated at random places (something to learn)."""
+    base = rng.zipf(1.3, n).clip(1, vocab - 1)
+    phrase = rng.integers(1, vocab, 64)
+    for start in range(0, n - 64, 997):
+        if rng.random() < 0.3:
+            base[start:start + 64] = phrase
+    return base.astype(np.int32)
+
+
+def instrument_loop(torch, loop, record, prof=None, prof_first=None):
+    """Wrap a TrainLoop's step and checkpoint calls to record, in
+    ``record``: each step's synchronised host time, each sync save's,
+    async save's (the caller's wait: the copy to the host) and restore's
+    seconds, and each checkpoint write's seconds (the async save's
+    background part).  ``prof`` is started before step ``prof_first`` and
+    stopped after TRAIN_PROFILE_STEPS steps."""
+    step, ckpt = loop._train_step, loop.ckpt
+    save, save_async, restore, write = ckpt.save, ckpt.save_async, ckpt.restore, ckpt._write
+
+    def timed(name, fn, sync=True):
+        def run(*args, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            record.setdefault(name, []).append(time.perf_counter() - t)
+            return out
+        return run
+
+    timed_step = timed("step_s", step)
+
+    def profiled_step(*args):
+        i = len(record.get("step_s", []))
+        if prof is not None and i == prof_first:
+            prof.start()
+        out = timed_step(*args)
+        if prof is not None and i == prof_first + TRAIN_PROFILE_STEPS - 1:
+            prof.stop()
+        return out
+
+    loop._train_step = profiled_step
+    ckpt.save, ckpt.save_async = timed("save_s", save), timed("async_save_s", save_async)
+    # the write runs on the save's thread (the async save's in the background)
+    ckpt.restore, ckpt._write = timed("restore_s", restore), timed("write_s", write, sync=False)
+
+
+def train_serve(np, torch, flash_ops, decode_ops, smi):
+    """Train -> commit -> check out -> serve: ``examples/train_lm.py`` and
+    ``examples/serve_lm.py`` through the port, on the card, at full width.
+
+    Config: Yi-6B (``configs/yi_6b.py``, arXiv:2403.04652) at full width —
+    d_model 4096, 32/4 heads of 128, d_ff 11008, vocab 64000, untied head,
+    remat "full", AdamW — with the depth cut to TRAIN_LAYERS layers
+    (``n_layers`` and ``segments`` replaced): 1.216 B parameters, whose
+    float32 masters, gradients and two moments take 19.5 GB.  At full
+    depth AdamW's state alone is 16 B a parameter, 97 GB, more than the
+    card; and each checkpoint (params, m, v in float32) is 14.6 GB to
+    copy, hash and write, so 4 layers, not more.
+
+    Data: a synthetic Zipf corpus of TRAIN_CORPUS tokens from SEED,
+    written with ``write_token_table`` into a temporary lake; batches of
+    TRAIN_BATCH x TRAIN_SEQ tokens drawn by step.  Training runs the
+    reference attention (the flash kernel has no backward), under
+    ``torch.use_deterministic_algorithms(True)``: the embedding's
+    backward accumulates, and the restart check below is bitwise.
+
+    Restart-exactness: run A trains TRAIN_STEPS steps uninterrupted and
+    saves only its final checkpoint; run B "crashes" after CRASH_AT steps
+    (an async save, then its final save); run C, a new ``TrainLoop``,
+    resumes from B's checkpoint to TRAIN_STEPS.  Every leaf key of C's
+    final manifest must equal A's (content addresses: equal keys, equal
+    bytes; the store then holds the two once).  Audit: the loss finite
+    and the mean of its last 5 steps below the first step's (and below
+    ln(vocab), the loop's ``max_final_loss``); ``promote("main")``.
+
+    Check-out: params alone restored from main on the host, the serving
+    ``LM`` built with ``params_from_numpy`` on the card, then phase 6's
+    requests and 2048-token forward on both routes under phase 6's
+    checks and limits (``serve_both_routes``), the launch counts set to 0
+    just before: decode_attention TRAIN_LAYERS a decode step,
+    flash_attention TRAIN_LAYERS a forward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.catalog import Catalog
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset, write_token_table
+    from repro_torch.io import ObjectStore
+    from repro_torch.models import LM, params_from_numpy
+    from repro_torch.table import TableFormat
+    from repro_torch.train import CheckpointManager, TrainLoop, TrainLoopConfig, TrainStepConfig
+    from repro_torch.utils.tree import tree_param_count, tree_size_bytes
+
+    t_phase = time.perf_counter()
+    base = get_config("yi-6b")
+    cfg = dataclasses.replace(base, n_layers=TRAIN_LAYERS,
+                              segments=((base.segments[0][0], TRAIN_LAYERS),))
+    check(cfg.remat == "full" and not cfg.tie_embeddings and not cfg.use_flash_kernel,
+          "yi-6b's config: remat full, untied head, reference attention")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        store = ObjectStore(Path(tmp) / "lake")
+        catalog, fmt = Catalog(store), TableFormat(store)
+        corpus = synth_corpus(np, np.random.default_rng(SEED), TRAIN_CORPUS, cfg.vocab)
+        key = write_token_table(fmt, catalog, "corpus", corpus)
+        ds = TokenDataset(fmt, key, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=SEED)
+        step_cfg = TrainStepConfig(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+
+        def loop(branch, total, every):
+            return TrainLoop(LM(cfg), ds, catalog, branch=branch, config=TrainLoopConfig(
+                total_steps=total, checkpoint_every=every, log_every=TRAIN_STEPS,
+                async_checkpoint=True, max_final_loss=float(np.log(cfg.vocab)), step=step_cfg))
+
+        def leaf_keys(branch):
+            art = f"models/{cfg.name}/checkpoint"
+            return json.loads(store.get(catalog.table_key(art, branch=branch)))["leaves"]
+
+        torch.use_deterministic_algorithms(True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        try:
+            # run A: uninterrupted, only the final checkpoint
+            rec_a = {}
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            run_a = loop("train_a", TRAIN_STEPS, every=10 ** 9)
+            instrument_loop(torch, run_a, rec_a, prof, prof_first=TRAIN_PROFILE_FIRST)
+            torch.cuda.reset_peak_memory_stats()
+            out_a = run_a.run(init_key=SEED)
+            peak = torch.cuda.max_memory_allocated()
+            ckpt_bytes = tree_size_bytes((out_a["params"], out_a["state"]))
+            n_params = tree_param_count(out_a["params"])
+            losses_a = out_a["losses"]
+            del out_a
+            # run B crashes after CRASH_AT steps; run C resumes it
+            rec_b, rec_c = {}, {}
+            run_b = loop("train", CRASH_AT, every=CRASH_AT)
+            instrument_loop(torch, run_b, rec_b)
+            out_b = run_b.run(init_key=SEED)
+            del out_b["params"], out_b["state"]
+            run_c = loop("train", TRAIN_STEPS, every=10 ** 9)
+            instrument_loop(torch, run_c, rec_c)
+            out_c = run_c.run(init_key=SEED)
+            del out_c["params"], out_c["state"]
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = True
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # restart-exact: every leaf's content key of C's final manifest is A's
+        keys_a, keys_c = leaf_keys("train_a"), leaf_keys("train")
+        same = sum(keys_c.get(k) == v for k, v in keys_a.items())
+        print(f"train: restart check: {same} of {len(keys_a)} leaf keys of the resumed run's "
+              f"final manifest equal the uninterrupted run's (C ran {out_c['steps_run']} steps "
+              f"from B's step {CRASH_AT})")
+        check(out_c["steps_run"] == TRAIN_STEPS - CRASH_AT, "run C did not resume at CRASH_AT")
+        check(keys_c == keys_a, "resumed run's checkpoint differs from the uninterrupted run's")
+        check(out_b["losses"] + out_c["losses"] == losses_a,
+              "the resumed run's losses differ from the uninterrupted run's")
+
+        # audit and promote
+        first, last5 = losses_a[0], float(np.mean(losses_a[-5:]))
+        print(f"train: losses {losses_a!r}; first {first!r}, mean of the last 5 {last5!r} "
+              f"(ln vocab {float(np.log(cfg.vocab))!r}); audit_ok {out_c['audit_ok']}")
+        check(all(np.isfinite(losses_a)) and last5 < first, "the loss did not fall")
+        check(out_c["audit_ok"], "the audit failed")
+        run_c.promote("main")
+        check(catalog.table_key(f"models/{cfg.name}/checkpoint", branch="main")
+              == catalog.table_key(f"models/{cfg.name}/checkpoint", branch="train"),
+              "promote did not bring the checkpoint to main")
+
+        steps = rec_a["step_s"]
+        timed_steps = [t for i, t in enumerate(steps) if i > 0 and not (
+            TRAIN_PROFILE_FIRST <= i < TRAIN_PROFILE_FIRST + TRAIN_PROFILE_STEPS)]
+        step_s = statistics.median(timed_steps)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        print(f"train: yi-6b at full width, {TRAIN_LAYERS} of {base.n_layers} layers, {n_params} "
+              f"parameters, AdamW, remat full, batch {TRAIN_BATCH} x {TRAIN_SEQ} = {tokens} "
+              f"tokens a step [{smi}]")
+        print(f"train: step time median {step_s!r} s over steps 2-{TRAIN_STEPS} less the "
+              f"profiled ones (first step {steps[0]!r} s; all {steps!r}); {tokens / step_s!r} "
+              f"tokens/s; peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
+        wall = sum(steps[TRAIN_PROFILE_FIRST:TRAIN_PROFILE_FIRST + TRAIN_PROFILE_STEPS])
+        kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        if kernels:
+            busy = sum(e.self_device_time_total for e in kernels) / 1e6
+            print(f"train: profile of steps {TRAIN_PROFILE_FIRST + 1}-"
+                  f"{TRAIN_PROFILE_FIRST + TRAIN_PROFILE_STEPS}: wall {wall!r} s, device busy "
+                  f"{busy!r} s ({busy / wall:.3f} of wall, idle {1 - busy / wall:.3f}), "
+                  f"{sum(e.count for e in kernels) / TRAIN_PROFILE_STEPS} kernel launches a step")
+            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+                print(f"  {e.self_device_time_total / 1e3 / TRAIN_PROFILE_STEPS:.3f} ms/step "
+                      f"{e.count // TRAIN_PROFILE_STEPS}x {e.key[:90]}")
+        else:
+            print(f"train: profile wall {wall!r} s; the profiler recorded no device time "
+                  f"(device busy share not measured)")
+        print(f"train: checkpoint of (params, state) {ckpt_bytes} B "
+              f"({len(keys_a)} leaves): A's final save {rec_a['save_s']!r} s; B's async save "
+              f"{rec_b['async_save_s']!r} s to return (host copy), its write "
+              f"{rec_b['write_s'][0]!r} s in the background, then its final save "
+              f"{rec_b['save_s']!r} s (the same blobs); C's restore {rec_c['restore_s']!r} s, "
+              f"its final save {rec_c['save_s']!r} s (deduplicated onto A's blobs)")
+
+        # check the model out of main and serve it on the kernels
+        t = time.perf_counter()
+        mgr = CheckpointManager(catalog, prefix=f"models/{cfg.name}")
+        (params,), at_step = mgr.restore((LM(cfg).init_params(None),), branch="main",
+                                         device="cpu")
+        restore_s = time.perf_counter() - t
+        check(at_step == TRAIN_STEPS, f"checked out step {at_step}")
+        t = time.perf_counter()
+        model = params_from_numpy(params, dataclasses.replace(cfg, use_flash_kernel=True))
+        torch.cuda.synchronize()
+        print(f"check-out: params of step {at_step} restored from main to the host in "
+              f"{restore_s!r} s ({tree_size_bytes(params)} B), the serving LM built on the card "
+              f"in {time.perf_counter() - t!r} s")
+        del params
+    prompts, long_prompt = yi_requests(np, torch, cfg.vocab)
+    served = serve_both_routes(np, torch, flash_ops, decode_ops, model, prompts, long_prompt,
+                               what="trained yi-6b: ", profile=False)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"train -> serve phase: {seconds!r} s [{smi}]")
+    return {**served, "step_s": step_s, "tokens_per_s": tokens / step_s, "peak_bytes": peak,
+            "checkpoint_bytes": ckpt_bytes, "phase_s": seconds}
+
+
 # --------------------------------------------------------------- phase 7
+def path_launches(served, trained, key):
+    """A Yi-6B kernel row's launches: phase 6's serve and phase 6d's
+    trained model, each path's count read just after it ran."""
+    by_path = {"phase 6 serve (yi-6b, 32 layers)": served[key],
+               "phase 6d train -> serve (yi-6b, 4 layers)": trained[key]}
+    return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+
 def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served, cut_served,
-                      full_served, card):
+                      full_served, trained, card):
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -1691,14 +1987,14 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
-         "launches": served["flash_launches"], **fl,
+         **fl, **path_launches(served, trained, "flash_launches"),
          "kernel": flash_ops.kernel_name(torch.bfloat16, d),
          "shape": f"B=1 H={h} Hkv={hkv} S={FORWARD_LEN} D={d} bf16 causal",
          "by_config": flash_cut},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:85",
-         "launches": served["decode_launches"], **dec,
+         **dec, **path_launches(served, trained, "decode_launches"),
          "shape": f"B={b} H={h} Hkv={hkv} S={s} D={d} bf16 lengths={final}",
          "at_full_length": dec_full, "by_config": decode_cut},
     ]
@@ -1710,6 +2006,9 @@ def main() -> int:
         print("chip_smoke.py: src/repro_torch not found beside the script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # cuBLAS's deterministic workspace, for phase 6d's deterministic training
+    # (read when the first cuBLAS handle is made)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
 
@@ -1747,8 +2046,9 @@ def main() -> int:
     served = serve_yi(np, torch, flash_ops, decode_ops)
     cut_served = {arch: serve_cut(np, torch, flash_ops, decode_ops, arch) for arch in CUT_ARCHS}
     full_served = {arch: forward_full(np, torch, flash_ops, arch, smi) for arch in CUT_ARCHS}
+    trained = train_serve(np, torch, flash_ops, decode_ops, smi)
     rows = measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served,
-                             cut_served, full_served, card)
+                             cut_served, full_served, trained, card)
     print(json.dumps({"kernels": [{**row, "card": smi} for row in (ffa_row, *rows)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,2 @@
-"""Command-line launchers of the port (``python -m repro_torch.launch.serve``)."""
+"""Command-line launchers of the port (``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.train``)."""

@@ -6,6 +6,6 @@ attention with the flash and decode kernels behind ``use_flash_kernel``),
 package's params carried across).
 """
 from repro_torch.models.lm import LM, LMConfig, ModelFamily
-from repro_torch.models.weights import params_from_numpy
+from repro_torch.models.weights import params_from_numpy, params_to_numpy
 
-__all__ = ["LM", "LMConfig", "ModelFamily", "params_from_numpy"]
+__all__ = ["LM", "LMConfig", "ModelFamily", "params_from_numpy", "params_to_numpy"]

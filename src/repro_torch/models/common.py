@@ -1,4 +1,4 @@
-"""Shared model components: norms, projections, RoPE, MLPs.
+"""Shared model components: norms, projections, RoPE, MLPs, the loss.
 
 Conventions (as the JAX package's ``models/common.py``):
 
@@ -58,7 +58,10 @@ def init_embedding(generator, vocab: int, d: int, *, dtype=torch.float32) -> Par
 
 
 def embed(p: Params, ids: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    return p["table"][ids].to(compute_dtype)
+    # cast, then gather, as the JAX code does: under autograd the table's
+    # gradient is then accumulated in compute_dtype, as JAX accumulates it
+    # (the serving LM holds the table cast already, so the cast is free)
+    return p["table"].to(compute_dtype)[ids]
 
 
 def init_rmsnorm(d: int, *, dtype=torch.float32, device="meta") -> Params:
@@ -125,6 +128,26 @@ def geglu(p: Params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.
     return linear(p["down"], F.gelu(g, approximate="tanh") * u, compute_dtype=compute_dtype)
 
 
+# ------------------------------------------------------------------ losses
+def cross_entropy(
+    logits: torch.Tensor,  # (..., V) — any leading dims
+    labels: torch.Tensor,  # (...)
+    *,
+    mask: Optional[torch.Tensor] = None,  # (...) 1.0 = count this token
+) -> torch.Tensor:
+    """Mean next-token negative log-likelihood in float32: logsumexp less
+    the gold logit, averaged over the positions ``mask`` keeps (at least
+    one)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
 # ------------------------------------------------------------------ readout
 def logits_head(embedding: Params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Tied-embedding readout (transpose of the input table)."""
@@ -136,7 +159,9 @@ def logits_head(embedding: Params, x: torch.Tensor, *, compute_dtype=torch.bfloa
 def as_module(tree: Params) -> nn.Module:
     """A nested dict of tensors as ``ModuleDict``s of ``ParameterDict``s,
     so ``p["wq"]["w"]`` indexes it as it indexes the dict.  Parameters
-    take no gradient: the port serves, it does not train yet."""
+    take no gradient: the module is what the port serves.  Training holds
+    its float32 masters as the JAX package's tree of plain tensors
+    instead (``LM.init_params``, ``LM.loss``, ``repro_torch.train``)."""
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
         return nn.ParameterDict(
             {k: nn.Parameter(v, requires_grad=False) for k, v in tree.items()}

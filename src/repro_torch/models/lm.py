@@ -20,20 +20,32 @@ stay in ``param_dtype``.
 The decode state keeps the JAX layout: ``state["seg0"]["b0"]["k"]`` is
 (layers, batch, kv heads, max_len, d_head).  ``decode_step`` updates it
 in place and returns it.
+
+Training does not go through the module's parameters.  It holds float32
+masters as the JAX package's own tree (``init_params``: nested dicts,
+block leaves stacked per segment) and differentiates :meth:`LM.loss`,
+which reads that tree; ``repro_torch.train`` owns the optimizer state
+and the checkpoints in the same layout.  The serving module stays as it
+is, cast and without gradients, so serving neither slows down nor grows;
+a trained tree becomes a served model through
+``models.weights.params_from_numpy``.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any, Iterator, List, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import (
     Params,
     as_module,
+    cross_entropy,
     device_of,
     embed,
     geglu,
@@ -47,6 +59,7 @@ from repro_torch.models.common import (
     rmsnorm,
     swiglu,
 )
+from repro_torch.utils.tree import flatten_with_paths, tree_map, unflatten_like
 
 #: block kinds this port serves
 BLOCK_KINDS = ("attn", "attn_geglu")
@@ -118,6 +131,40 @@ class LMConfig:
             use_flash_kernel=self.use_flash_kernel,
             compute_dtype=self.compute_dtype,
         )
+
+
+def _unstack(tree: Params, count: int) -> List[Params]:
+    """A tree of stacked leaves as ``count`` trees of one layer each."""
+    parts = {k: torch.unbind(v, 0) for k, v in flatten_with_paths(tree).items()}
+    return [unflatten_like(tree, {k: v[r] for k, v in parts.items()}) for r in range(count)]
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for remat "dots": keep the
+    products with no batch dims (``aten.mm``: activations times a weight),
+    recompute the rest (attention's batched products included), as
+    ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims`` does."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(mode: str, fn: Callable, h: torch.Tensor, layer: Params) -> torch.Tensor:
+    """``fn(h, layer)`` under the JAX package's remat modes: "none" keeps
+    every activation, "full" keeps the layer's inputs and recomputes the
+    rest in the backward, "dots" also keeps the matmul outputs.  None of
+    them changes a number."""
+    if mode == "none":
+        return fn(h, layer)
+    if mode == "full":
+        return ckpt.checkpoint(fn, h, layer, use_reentrant=False)
+    if mode == "dots":
+        return ckpt.checkpoint(
+            fn, h, layer, use_reentrant=False,
+            context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                         _save_matmuls),
+        )
+    raise ValueError(f"unknown remat mode {mode!r}")
 
 
 def layer_plan(cfg: LMConfig) -> List[Tuple[int, int, int, str]]:
@@ -236,21 +283,98 @@ class LM(nn.Module):
         fn = swiglu if kind == "attn" else geglu
         return fn(p["mlp"], y, compute_dtype=self.cfg.compute_dtype)
 
+    def _apply_block(self, kind: str, p, h: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+        """One block over the full sequence; ``p`` is a block of the
+        module or of a params tree (they index alike)."""
+        cfg = self.cfg
+        x = rmsnorm(p["norm1"], h, eps=cfg.norm_eps)
+        h = h + attn_mod.attend_train(p["attn"], cfg.attention_config(), x, positions)
+        y = rmsnorm(p["norm2"], h, eps=cfg.norm_eps)
+        return h + self._mlp(kind, p, y)
+
     # ---------------------------------------------------------- forward
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Full-sequence logits (B, S, V) for tokens (B, S)."""
         cfg = self.cfg
-        acfg = cfg.attention_config()
         h = self._embed_tokens(tokens)
         positions = torch.arange(h.shape[1], device=h.device)
         for (*_, kind), p in zip(layer_plan(cfg), self.blocks):
-            x = rmsnorm(p["norm1"], h, eps=cfg.norm_eps)
-            h = h + attn_mod.attend_train(p["attn"], acfg, x, positions)
-            y = rmsnorm(p["norm2"], h, eps=cfg.norm_eps)
-            h = h + self._mlp(kind, p, y)
+            h = self._apply_block(kind, p, h, positions)
         h = rmsnorm(self.final_norm, h, eps=cfg.norm_eps)
         return self._read_out(h)
+
+    # --------------------------------------------------------- training
+    def init_params(self, generator: Optional[torch.Generator]) -> Params:
+        """The JAX package's params tree in ``param_dtype``, drawn from
+        ``generator`` on its device (meta tensors, no memory, when it is
+        None): ``embed``, then ``seg{i}`` whose block leaves are stacked on
+        a leading layer axis (``seg0/b0/attn/wq/w`` is (count, d_in,
+        d_out)), ``final_norm`` and ``lm_head``.  The draws are
+        :meth:`init`'s, in the same order, before any cast."""
+        plan = layer_plan(self.cfg)
+        tree: Params = {}
+        for name, piece in self._pieces(generator):
+            if not name.startswith("blocks."):
+                tree[name] = piece
+                continue
+            si, i, r, _ = plan[int(name.split(".")[1])]
+            seg = tree.setdefault(f"seg{si}", {})
+            if r == 0:
+                count = self.cfg.segments[si][1]
+                seg[f"b{i}"] = tree_map(lambda x: x.new_empty((count, *x.shape)), piece)
+            tree_map(lambda stack, x: stack[r].copy_(x), seg[f"b{i}"], piece)
+        return tree
+
+    def _stack(self, params: Params, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """Every segment of a params tree over ``h``, a layer at a time,
+        each layer's leaves cut from the stacks by ``torch.unbind`` (whose
+        backward stacks the layers' gradients once), under the config's
+        remat mode (``_remat``)."""
+        for si, (unit, count) in enumerate(self.cfg.segments):
+
+            def unit_fn(h, layer, _unit=unit):
+                for i, kind in enumerate(_unit):
+                    h = self._apply_block(kind, layer[f"b{i}"], h, positions)
+                return h
+
+            for layer in _unstack(params[f"seg{si}"], count):
+                h = _remat(self.cfg.remat, unit_fn, h, layer)
+        return h
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The next-token objective on a params tree (the JAX package's
+        ``LM.loss``): batch ``tokens`` (B, S) int, optional ``loss_mask``
+        (B, S).  Returns ``(total, {"ce", "aux", "loss"})``; ``aux`` is 0
+        for the block kinds the port has.
+
+        With gradients enabled it refuses ``use_flash_kernel``: the CUDA
+        flash kernel has no backward (nor has the JAX package's Pallas
+        kernel a VJP), so q, k and v would get no gradient."""
+        cfg = self.cfg
+        if cfg.use_flash_kernel and torch.is_grad_enabled():
+            raise NotImplementedError(
+                f"{cfg.name}: training with use_flash_kernel=True — the flash "
+                f"attention kernel has no backward; train with use_flash_kernel="
+                f"False (the reference attention) and serve on the kernels"
+            )
+        cd = cfg.compute_dtype
+        tokens = batch["tokens"]
+        h = embed(params["embed"], tokens, compute_dtype=cd)
+        h = self._stack(params, h, torch.arange(h.shape[1], device=h.device))
+        h = rmsnorm(params["final_norm"], h, eps=cfg.norm_eps)
+        inputs_h = h[:, :-1]
+        if cfg.tie_embeddings:
+            logits = logits_head(params["embed"], inputs_h, compute_dtype=cd)
+        else:
+            logits = linear(params["lm_head"], inputs_h, compute_dtype=cd)
+        mask = batch.get("loss_mask")
+        ce = cross_entropy(logits, tokens[:, 1:], mask=None if mask is None else mask[:, 1:])
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        total = ce + aux
+        return total, {"ce": ce, "aux": aux, "loss": total}
 
     # ---------------------------------------------------------- serving
     def init_decode_state(self, batch: int, max_len: Optional[int] = None) -> Params:

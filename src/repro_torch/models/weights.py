@@ -1,12 +1,14 @@
-"""Carry the JAX package's LM params into the port.
+"""Carry params between the JAX package's tree and the port's serving LM.
 
 The JAX ``LM.init`` returns a tree of nested dicts whose per-layer leaves
 are stacked on a leading layer axis (``seg0/b0/attn/wq/w`` is
-``(count, d_model, n_heads * d_head)``).  :func:`params_from_numpy` takes
-that tree with every leaf already a numpy array (the caller applies
-``np.asarray`` to each leaf, so this module never imports jax), unstacks
-the layers in order and returns the port's :class:`LM` on ``device``
-holding those weights, so both packages compute with the same numbers.
+``(count, d_model, n_heads * d_head)``); the port trains on the same tree
+(``LM.init_params``) and checkpoints it.  :func:`params_from_numpy` takes
+such a tree, its leaves numpy arrays (the caller applies ``np.asarray``
+to JAX's, so this module never imports jax) or tensors (a tree the port
+trained or restored), unstacks the layers in order and returns the
+port's :class:`LM` on ``device`` holding those weights, so both packages
+compute with the same numbers.  :func:`params_to_numpy` is its inverse.
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ from repro_torch.models.lm import LM, LMConfig, layer_plan
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 
-def _tensor(x: np.ndarray, device: torch.device) -> torch.Tensor:
+def _tensor(x, device: torch.device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):  # a copy: the serving LM shares nothing
+        return x.detach().to(device=device, copy=True)
     x = np.array(x)  # a writable, contiguous copy
     if x.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: reinterpret the bits
         return torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16).to(device)
@@ -31,8 +35,9 @@ def _map(tree: Dict[str, Any], fn) -> Dict[str, Any]:
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: LMConfig, device: DeviceLike = None) -> LM:
-    """The port's LM for ``cfg`` with the weights of the JAX ``tree``
-    (numpy leaves).  ``device=None`` means the card."""
+    """The port's LM for ``cfg`` with the weights of the JAX-layout
+    ``tree`` (numpy or tensor leaves, copied).  ``device=None`` means the
+    card."""
     dev = resolve_device(device)
     model = LM(cfg)
     model._adopt("embed", _map(tree["embed"], lambda x: _tensor(x, dev)))
@@ -43,3 +48,38 @@ def params_from_numpy(tree: Dict[str, Any], cfg: LMConfig, device: DeviceLike = 
     if "lm_head" in tree:
         model._adopt("lm_head", _map(tree["lm_head"], lambda x: _tensor(x, dev)))
     return model
+
+
+def params_to_numpy(model: LM) -> Dict[str, Any]:
+    """The JAX-layout tree of ``model``'s weights, numpy leaves on the
+    host, the layers stacked again per segment.  Weights the serving LM
+    holds cast to bfloat16 come back widened to float32 (exactly; numpy
+    has no bfloat16 without ``ml_dtypes``), so
+    ``params_from_numpy(params_to_numpy(m), m.cfg)`` serves ``m``'s
+    numbers."""
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+    def plain(module) -> Dict[str, Any]:
+        return {k: plain(v) if isinstance(v, torch.nn.Module) else host(v)
+                for k, v in module.items()}
+
+    tree: Dict[str, Any] = {"embed": plain(model.embed)}
+    for (si, i, _, _), block in zip(layer_plan(model.cfg), model.blocks):
+        tree.setdefault(f"seg{si}", {}).setdefault(f"b{i}", []).append(plain(block))
+    for seg in (v for k, v in tree.items() if k.startswith("seg")):
+        for name, layers in seg.items():
+            seg[name] = _stack_layers(layers)
+    tree["final_norm"] = plain(model.final_norm)
+    if not model.cfg.tie_embeddings:
+        tree["lm_head"] = plain(model.lm_head)
+    return tree
+
+
+def _stack_layers(layers):
+    """Layer trees (in repetition order) as one tree of stacked leaves."""
+    first = layers[0]
+    return {k: _stack_layers([l[k] for l in layers]) if isinstance(v, dict)
+            else np.stack([l[k] for l in layers]) for k, v in first.items()}

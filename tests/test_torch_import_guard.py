@@ -1,9 +1,10 @@
 """The port stands alone: no jax, nothing of ``repro``, no silent CPU.
 
 * every ``repro_torch`` module imports in a fresh interpreter in which
-  importing ``jax`` or ``repro`` raises;
-* no source file of the port, and not ``chip_smoke.py``, names ``jax`` or
-  ``repro`` in an import statement (``repro_torch`` excepted);
+  importing ``jax``, ``ml_dtypes`` or ``repro`` raises;
+* no source file of the port, and not ``chip_smoke.py``, names ``jax``,
+  ``ml_dtypes`` or ``repro`` in an import statement (``repro_torch``
+  excepted);
 * the entry points, left at their default device, raise when no CUDA
   device exists instead of running on the CPU.
 """
@@ -26,7 +27,7 @@ import importlib, pkgutil, sys
 class Blocker:
     def find_spec(self, name, path=None, target=None):
         root = name.split(".")[0]
-        if root in ("jax", "jaxlib", "repro"):
+        if root in ("jax", "jaxlib", "ml_dtypes", "repro"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -35,9 +36,10 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 '''
 
 
@@ -49,7 +51,11 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 30
+    names = set(proc.stdout.split())
+    assert len(names) >= 30
+    assert {"repro_torch.train.step", "repro_torch.train.checkpoint", "repro_torch.train.loop",
+            "repro_torch.data.tokens", "repro_torch.distribution.compression",
+            "repro_torch.utils.tree", "repro_torch.launch.train"} <= names
 
 
 def _forbidden_imports(path):
@@ -63,7 +69,7 @@ def _forbidden_imports(path):
         else:
             continue
         for name in names:
-            if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            if name.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"):
                 bad.append(f"{path.name}:{node.lineno}: {name}")
     return bad
 
@@ -75,8 +81,9 @@ def test_source_imports_neither_jax_nor_repro(path):
 
 def test_scan_catches_a_forbidden_import(tmp_path):
     probe = tmp_path / "probe.py"
-    probe.write_text("import repro.engine\nfrom jax import numpy\nimport repro_torch\n")
-    assert len(_forbidden_imports(probe)) == 2
+    probe.write_text("import repro.engine\nfrom jax import numpy\nimport repro_torch\n"
+                     "import ml_dtypes\n")
+    assert len(_forbidden_imports(probe)) == 3
 
 
 @pytest.fixture
@@ -203,3 +210,58 @@ def test_cli_default_device_exits_nonzero_without_cuda(no_cuda, tmp_path):
     ran = cli("--device", "cpu", "--lake", str(lake), *query)
     assert ran.returncode == 0, ran.stderr
     assert "100" in ran.stdout
+
+
+def _train_loop(root, device_kw):
+    from repro_torch.catalog import Catalog
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import TokenDataset, write_token_table
+    from repro_torch.io import ObjectStore
+    from repro_torch.models import LM
+    from repro_torch.table import TableFormat
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+
+    store = ObjectStore(root)
+    catalog, fmt = Catalog(store), TableFormat(store, shard_rows=128)
+    key = write_token_table(fmt, catalog, "corpus", np.arange(400) % 64)
+    ds = TokenDataset(fmt, key, batch_size=2, seq_len=8)
+    return TrainLoop(LM(get_smoke_config("yi-6b")), ds, catalog, branch="train",
+                     config=TrainLoopConfig(total_steps=2, checkpoint_every=10), **device_kw)
+
+
+def test_train_loop_default_device_raises_without_cuda(no_cuda, tmp_path):
+    """``TrainLoop`` at the default device raises before it trains or
+    touches a branch; with ``device="cpu"`` it trains and commits."""
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _train_loop(tmp_path / "a", {})
+    loop = _train_loop(tmp_path / "b", {"device": "cpu"})
+    assert loop.run()["steps_run"] == 2
+    assert loop.ckpt.latest_step(branch="train") == 2
+
+
+def test_checkpoint_restore_default_device_raises_without_cuda(no_cuda, tmp_path):
+    import torch as _torch
+
+    from repro_torch.catalog import Catalog
+    from repro_torch.io import ObjectStore
+    from repro_torch.train import CheckpointManager
+
+    mgr = CheckpointManager(Catalog(ObjectStore(tmp_path)))
+    mgr.save({"w": _torch.ones(3)}, branch="main", step=1)
+    like = {"w": _torch.empty(3, device="meta")}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mgr.restore(like, branch="main")
+    restored, step = mgr.restore(like, branch="main", device="cpu")
+    assert step == 1 and restored["w"].device.type == "cpu"
+
+
+def test_launch_train_default_device_exits_nonzero_without_cuda(no_cuda, tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "yi-6b", "--smoke",
+         "--steps", "2", "--lake", str(tmp_path / "lake")],
+        capture_output=True, text=True, cwd=tmp_path, timeout=300,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+    )
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "device='cpu'" in proc.stderr
+    assert not (tmp_path / "lake").exists()

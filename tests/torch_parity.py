@@ -1,5 +1,8 @@
-"""Helpers for the SDK-level parity tests (``tests/test_torch_{client,cli,
-maintenance,analysis,tracing}.py``): one namespace per package, so a
+"""Helpers for the parity tests of the SDK (``tests/test_torch_{client,
+cli,maintenance,analysis,tracing}.py``) and of training
+(``tests/test_torch_{train,checkpoint,train_loop}.py``).
+
+For the SDK: one namespace per package, so a
 scenario written once runs against the JAX package (``repro``, on the
 CPU) and the port (``repro_torch``, ``device="cpu"``) on lakes of their
 own, and the two results are compared.
@@ -228,3 +231,40 @@ def _widener(pkg, i):
             return {"stat": trips.column("count").astype(jnp.float32) + i}
     fn.__name__ = f"w{i}"
     return fn
+
+
+# ----------------------------------------------------------------- training
+#: float32 in both packages: sums in other orders, a few ulps of the
+#: largest compared value
+F32 = 1e-5
+
+
+def to_torch(tree):
+    """A tree of numpy arrays (a JAX tree after ``to_numpy``) as CPU tensors."""
+    from repro_torch.utils.tree import tree_map
+
+    return tree_map(lambda x: torch.from_numpy(np.array(x)), tree)
+
+
+def to_numpy(tree):
+    """A JAX tree's leaves as numpy arrays."""
+    import jax
+
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def assert_mostly_close(got, want, *, rtol, atol, bound, key):
+    """Within ``rtol``/``atol`` everywhere but on at most 0.1% of the
+    elements, and each of those within ``bound``.
+
+    After steps on each package's own gradients, a few elements turn on a
+    last-place difference upstream, and each rule below bounds how far
+    that can carry: a gradient within float32 rounding of 0 (|g| about
+    1e-9), whose AdamW step ``g / (|g| + 1e-8)`` is a different fraction
+    of +-lr, or the opposite sign, in each package (at most 2 lr a step);
+    a value on a rounding tie of the int8 compression (one quantum); a
+    bf16 rounding of Adafactor's ``m`` the other way."""
+    diff = np.abs(got - want)
+    loose = diff > atol + rtol * np.abs(want)
+    assert loose.sum() <= max(1, 1e-3 * got.size), (key, int(loose.sum()), got.size)
+    assert diff.max() <= bound, (key, diff.max(), bound)
