@@ -80,7 +80,11 @@ Phases, each of which fails the script (non-zero exit) on any error:
    (32/8), decode at B = 4, S = 4096 with lengths 1, S-1, S, 0 and the
    chunk edges, flash at S in {512, 200} causal, non-causal and window
    256 and at S = 200 with window 64, and mask probes at S in {512,
-   2048}; plus mask probes (``mask_probe``: keys past the
+   2048}; at phase 6e's head layouts (MHA 16/16 and GQA 16/8 at head dim
+   128, MHA 24/24 at head dim 64), decode at B = 4, S = 4096 with lengths
+   1, S-1, S, 0 and the chunk edges, flash at S in {512, 2048} (2048
+   alone at 24/24) causal and non-causal, and a mask probe at S = 2048;
+   plus mask probes (``mask_probe``: keys past the
    diagonal or outside the window carry large scores and v = +-64, so a
    leak moves outputs by whole units) at S in {512, 2048}; float32 and
    bfloat16.  Decode and float32 flash within 1e-5 + 1e-5 |plain| (sums
@@ -129,12 +133,22 @@ Phases, each of which fails the script (non-zero exit) on any error:
    TRAIN_PROFILE_STEPS profiled steps, each checkpoint's bytes and save,
    async-save and restore seconds, and the phase's seconds are printed
    with the card's name and power limit;
+6e. the MoE, vision-language and audio families (``serve_families``):
+   qwen2-moe-a2.7b, internvl2-2b and musicgen-medium at full width and
+   full depth, one at a time, on both routes: requests through
+   ``ServeEngine`` (musicgen-medium: refused, as the JAX engine refuses
+   it; teacher-forced ``decode_step`` over 4 codebooks instead) and a
+   2048-position ``LM.forward`` (internvl2-2b: 256 patch embeddings and
+   1792 tokens), launch counts n_layers a decode step and a forward,
+   logits under phase 6's limits with the MoE rule of the function's
+   docstring; init, forward, decode step, tokens/s and busy share printed;
 7. time the two attention kernels at the main path's shapes like phase 4,
-   and at phase 6b's shapes, and print one ``{"kernels": [...]}`` line
-   for all three kernels, each row with the card and its power limit and
-   each flash row with the kernel that ran (``flash_wgmma`` or
-   ``flash_fwd``) and, for the two configs, phase 6c's forward time; the
-   Yi-6B rows count the launches of phases 6 and 6d, path by path.
+   and at phase 6b's and phase 6e's shapes, and print one ``{"kernels":
+   [...]}`` line for all three kernels, each row with the card and its
+   power limit and each flash row with the kernel that ran
+   (``flash_wgmma`` or ``flash_fwd``) and, for the configs, phase 6c's or
+   6e's forward time; the rows count the launches of phases 6, 6d and
+   6e, path by path.
 
 Timing (phases 4 and 7): CUDA events, L2 flushed between launches,
 median of 25; ``ms`` has the launches queued behind a sleep kernel so
@@ -148,9 +162,11 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -213,6 +229,14 @@ TRAIN_CORPUS = 2_000_000
 #: steps profiled in run A (0-based first index), left out of the median
 TRAIN_PROFILE_FIRST = 3
 TRAIN_PROFILE_STEPS = 3
+#: phase 6e: the MoE, vision-language and audio families at full size
+FAMILY_ARCHS = ("qwen2-moe-a2.7b", "internvl2-2b", "musicgen-medium")
+#: their attention layouts (heads, kv heads, head dim): qwen2-moe, internvl2,
+#: musicgen
+FAMILY_LAYOUTS = ((16, 16, 128), (16, 8, 128), (24, 24, 64))
+#: musicgen-medium's teacher-forced decode: rows of 4 codebook tokens, steps
+CODEBOOK_ROWS = 4
+CODEBOOK_STEPS = 64
 #: phase 5: (causal, window) of the random flash cases
 FLASH_MASKS = ((True, None), (False, None), (True, 256))
 
@@ -1231,6 +1255,36 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                         lambda: flash_ops.flash_attention(q, k, v, **kw),
                         lambda: flash_ref.attention_ref(q, k, v, **kw),
                         (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
+        # phase 6e's head layouts: MHA (group 1) at 24/24 (D = 64, flash_fwd
+        # in bf16 too) and 16/16 (D = 128), GQA group 2 at 16/8 (D = 128)
+        for h, hkv, d in FAMILY_LAYOUTS:
+            s = 4096
+            q = randn(4, h, d, dtype=dtype)
+            k, v = randn(4, hkv, s, d, dtype=dtype), randn(4, hkv, s, d, dtype=dtype)
+            _, chunk = decode_ops.split_plan(s, 4 * hkv, sms)
+            for lens in ([1, s - 1, s, 0], [chunk - 1, chunk, chunk + 1, s]):
+                lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+                one("decode families", f"decode {dtype} D={d} B=4 H={h}/{hkv} S={s} "
+                    f"chunk={chunk} lengths={lens}",
+                    lambda: decode_ops.decode_attention(q, k, v, lengths),
+                    lambda: decode_ref.decode_attention_ref(q, k, v, lengths))
+            wgmma = flash_ops.kernel_name(dtype, d) == "flash_wgmma"
+            for s in ((2048,) if d == 64 else (512, 2048)):
+                q = randn(1, h, s, d, dtype=dtype)
+                k, v = randn(1, hkv, s, d, dtype=dtype), randn(1, hkv, s, d, dtype=dtype)
+                for causal in (True, False):
+                    kw = dict(causal=causal, window=None)
+                    one("flash families", f"flash {dtype} D={d} H={h}/{hkv} S={s} {kw}",
+                        lambda: flash_ops.flash_attention(q, k, v, **kw),
+                        lambda: flash_ref.attention_ref(q, k, v, **kw),
+                        (lambda: flash_yardstick(q, k, v, **kw)) if wgmma else None)
+            q, k, v = mask_probe(torch, 2048, window=None, h=h, hkv=hkv, d=d, dtype=dtype,
+                                 generator=gen)
+            kw = dict(causal=True, window=None)
+            one("flash probe families", f"flash mask probe {dtype} D={d} H={h}/{hkv} S=2048",
+                lambda: flash_ops.flash_attention(q, k, v, **kw),
+                lambda: flash_ref.attention_ref(q, k, v, **kw),
+                (lambda: flash_yardstick(q, k, v, **kw)) if wgmma else None)
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # comparisons are not the main path
     print(f"attention kernels vs plain: {n} cases pass (decode in both dtypes and float32 "
           f"flash at every head dim within 1e-5 + 1e-5|plain| (bf16 decode: + one bf16 ulp); "
@@ -1242,15 +1296,19 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
 
 
 # --------------------------------------------------------------- phase 6
-def profile_decode(torch, model, lengths, max_len):
-    """torch.profiler over PROFILE_STEPS decode steps of 4 slots at the
-    serve's final lengths: wall time, device busy time (sum of kernel
-    times) and the kernels that take most of it, per step."""
+def profile_decode(torch, model, lengths, max_len, what=""):
+    """torch.profiler over PROFILE_STEPS decode steps of len(lengths)
+    slots at the given lengths: wall time, device busy time (sum of kernel
+    times) and the kernels that take most of it, per step.  Returns the
+    device's busy share of the wall time (None when the profiler recorded
+    no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
     state = model.init_decode_state(len(lengths), max_len=max_len)
-    toks = torch.zeros((len(lengths), 1), dtype=torch.int32, device=dev)
+    k = model.cfg.n_codebooks
+    toks = torch.zeros((len(lengths), 1, k) if k > 1 else (len(lengths), 1),
+                       dtype=torch.int32, device=dev)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     for _ in range(2):
         model.decode_step(state, toks, lens)
@@ -1265,15 +1323,42 @@ def profile_decode(torch, model, lengths, max_len):
     busy = sum(e.self_device_time_total for e in kernels) / 1e6 / PROFILE_STEPS
     launches = sum(e.count for e in kernels) / PROFILE_STEPS
     if not kernels:
-        print(f"profile: decode step wall {wall!r} s; the profiler recorded no device "
+        print(f"{what}profile: decode step wall {wall!r} s; the profiler recorded no device "
               f"time (device busy share not measured)")
-        return
-    print(f"profile, kernel route decode step (4 slots, lengths {[int(x) for x in lengths]}): "
-          f"wall {wall!r} s, device busy {busy!r} s ({busy / wall:.3f} of wall, idle "
-          f"{1 - busy / wall:.3f}), {launches} kernel launches a step")
+        return None
+    print(f"{what}profile, kernel route decode step ({len(lengths)} slots, lengths "
+          f"{[int(x) for x in lengths]}): wall {wall!r} s, device busy {busy!r} s "
+          f"({busy / wall:.3f} of wall, idle {1 - busy / wall:.3f}), {launches} kernel "
+          f"launches a step")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"  {e.self_device_time_total / 1e3 / PROFILE_STEPS:.3f} ms/step "
               f"{e.count // PROFILE_STEPS}x {e.key[:90]}")
+    return busy / wall
+
+
+def profile_forward(torch, model, tokens, patches, what):
+    """torch.profiler over one forward: wall time, device busy time (sum
+    of kernel times) and the kernels that take most of it.  Returns the
+    busy share of the wall time (None when no device time was recorded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        model(tokens, patch_embeds=patches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    if not kernels:
+        print(f"{what}profile: forward wall {wall!r} s; the profiler recorded no device time "
+              f"(device busy share not measured)")
+        return None
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    print(f"{what}profile, kernel route forward: wall {wall!r} s, device busy {busy!r} s "
+          f"({busy / wall:.3f} of wall, idle {1 - busy / wall:.3f}), "
+          f"{sum(e.count for e in kernels)} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:.3f} ms {e.count}x {e.key[:90]}")
+    return busy / wall
 
 
 def serve_requests(torch, m, p, scfg, prompts, new_tokens):
@@ -1320,27 +1405,37 @@ def padded_sequences(np, torch, reqs):
     return (torch.tensor(toks, device="cuda"), torch.tensor(valid, device="cuda"), seqs)
 
 
-def teacher_forced(torch, m, toks, max_len, vocab):
-    """Decode logits (float32) of every position of ``toks``, fed one
-    column a step to all rows at once."""
-    n, T = toks.shape
-    state = m.init_decode_state(n, max_len=max_len)
-    out = torch.empty((n, T, vocab), dtype=torch.float32, device=toks.device)
-    for t in range(T):
-        lengths = torch.full((n,), t, dtype=torch.int32, device=toks.device)
-        logits, state = m.decode_step(state, toks[:, t:t + 1], lengths)
-        out[:, t] = logits[:, 0].float()
-    return out
+def teacher_forced(torch, m, toks, max_len, rows=None):
+    """Decode logits (float32) of every position of ``toks`` ((n, T), or
+    (n, T, K) with codebooks), fed one column a step to ``rows`` rows at
+    once (all n when None); (n, T, V) or (n, T, K, V)."""
+    n, T = toks.shape[:2]
+    rows = rows or n
+    parts = []
+    for r0 in range(0, n, rows):
+        chunk = toks[r0:r0 + rows]
+        state = m.init_decode_state(chunk.shape[0], max_len=max_len)
+        out = None
+        for t in range(T):
+            lengths = torch.full((chunk.shape[0],), t, dtype=torch.int32, device=toks.device)
+            logits, state = m.decode_step(state, chunk[:, t:t + 1], lengths)
+            if out is None:
+                out = torch.empty((chunk.shape[0], T, *logits.shape[2:]), dtype=torch.float32,
+                                  device=toks.device)
+            out[:, t] = logits[:, 0].float()
+        parts.append(out)
+        del state
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
-def check_logits(torch, what, got, want):
+def check_logits(torch, what, got, want, tol=LOGIT_TOL, mean_tol=LOGIT_MEAN_TOL):
     """The kernel route against the reference route: the largest |diff|
-    within LOGIT_TOL, the mean within LOGIT_MEAN_TOL."""
+    within ``tol``, the mean within ``mean_tol``."""
     diff = (got - want).abs()
     print(f"{what} kernel vs reference: max |diff| {float(diff.max())!r}, "
-          f"mean {float(diff.mean())!r} (limits {LOGIT_TOL}, {LOGIT_MEAN_TOL}); "
+          f"mean {float(diff.mean())!r} (limits {tol}, {mean_tol}); "
           f"max |logit| {float(want.abs().max())!r}")
-    check(float(diff.max()) <= LOGIT_TOL and float(diff.mean()) <= LOGIT_MEAN_TOL,
+    check(float(diff.max()) <= tol and float(diff.mean()) <= mean_tol,
           f"{what} logits: kernel vs reference route")
 
 
@@ -1462,8 +1557,8 @@ def serve_both_routes(np, torch, flash_ops, decode_ops, model, prompts, long_pro
     # decode: both routes teacher-forced on the kernel route's sequences
     toks, valid, seqs = padded_sequences(np, torch, reqs_k)
     counts = flash_ops.LAUNCHES, decode_ops.LAUNCHES
-    tf_k = teacher_forced(torch, model, toks, scfg.max_len, cfg.vocab)
-    tf_r = teacher_forced(torch, ref_model, toks, scfg.max_len, cfg.vocab)
+    tf_k = teacher_forced(torch, model, toks, scfg.max_len)
+    tf_r = teacher_forced(torch, ref_model, toks, scfg.max_len)
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = counts  # a comparison, not the main path
     check(bool(torch.isfinite(tf_k[valid]).all() and torch.isfinite(tf_r[valid]).all()),
           f"{what}teacher-forced logits not finite")
@@ -1565,8 +1660,8 @@ def serve_cut(np, torch, flash_ops, decode_ops, arch):
     ref_model.load_state_dict(model.state_dict(), assign=True)
     logits_r = ref_model(prompt).float()
     toks, valid, _ = padded_sequences(np, torch, reqs_k)
-    tf_k = teacher_forced(torch, model, toks, scfg.max_len, cut.vocab)
-    tf_r = teacher_forced(torch, ref_model, toks, scfg.max_len, cut.vocab)
+    tf_k = teacher_forced(torch, model, toks, scfg.max_len)
+    tf_r = teacher_forced(torch, ref_model, toks, scfg.max_len)
     torch.cuda.synchronize()
     for name, lg in (("kernel", logits_k), ("reference", logits_r)):
         check(tuple(lg.shape) == (1, FORWARD_LEN, cut.vocab) and bool(torch.isfinite(lg).all()),
@@ -1882,17 +1977,452 @@ def train_serve(np, torch, flash_ops, decode_ops, smi):
             "checkpoint_bytes": ckpt_bytes, "phase_s": seconds}
 
 
+# -------------------------------------------------------------- phase 6e
+def family_limits(max_logit):
+    """Phase 6's limits in its own terms for logits whose largest
+    magnitude is ``max_logit``: 8 bf16 ulps of it (the max) and one ulp
+    (the mean).  Logits in [4, 8), as Yi-6B's 5.5 and these random-weight
+    configs' (about 5-6, from N(0, 1) logits over 1e7-3e8 draws), give
+    LOGIT_TOL and LOGIT_MEAN_TOL themselves."""
+    ulp = 2.0 ** (math.floor(math.log2(max_logit)) - 7)
+    return 8 * ulp, ulp
+
+
+class RouterRecord:
+    """While active, wraps the port's ``moe.route`` and
+    ``moe.dispatch_plan`` (``moe_apply`` looks both up at each call) and
+    keeps, for every MoE call in order, its float32 router logits (B, S,
+    E), its top-k expert ids and the mask of the experts each token was
+    dispatched to (its top-k less what capacity dropped).  With ``force``
+    (another run's records, call for call), each call's top-k expert ids
+    are that run's and the probs this call's own, renormalised, so both
+    runs dispatch every token alike.  Comparison only: nothing here is on
+    a path the script counts launches of."""
+
+    def __init__(self, torch, moe, force=None):
+        self.torch, self.moe, self.force = torch, moe, force
+        self.calls = []
+
+    def __enter__(self):
+        torch, moe = self.torch, self.moe
+        route, plan = moe.route, moe.dispatch_plan
+        forced = None if self.force is None else iter(self.force)
+
+        def recorded_route(p, cfg, x):
+            logits, probs, top_p, top_e = route(p, cfg, x)
+            if forced is not None:
+                top_e = next(forced)["top_e"]
+                top_p = torch.gather(probs, -1, top_e)
+                if cfg.norm_topk:
+                    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+            self.calls.append({"logits": logits.detach().clone(), "top_e": top_e})
+            return logits, probs, top_p, top_e
+
+        def recorded_plan(top_e, num_experts, cap):
+            keep, buf_pos = plan(top_e, num_experts, cap)
+            b, s, k = top_e.shape
+            mask = torch.zeros((b, s, num_experts), dtype=torch.bool, device=top_e.device)
+            self.calls[-1]["dispatched"] = mask.scatter_(-1, top_e, keep.reshape(b, s, k))
+            return keep, buf_pos
+
+        self._saved = route, plan
+        moe.route, moe.dispatch_plan = recorded_route, recorded_plan
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.moe.dispatch_plan = self._saved
+
+    def by_position(self, layers, steps=None, rows=None):
+        """(router logits, dispatched) as (positions, layers, E).  A
+        forward's calls are one a layer over (1, S, E); a teacher-forced
+        decode's are one a layer a step over each chunk of ``rows`` rows
+        (the batch folded into one group), chunk after chunk: positions
+        are then (row, step) in row order."""
+        torch = self.torch
+        out = []
+        for key in ("logits", "dispatched"):
+            xs = [c[key] for c in self.calls]
+            if steps is None:  # (L, 1, S, E) -> (S, L, E)
+                out.append(torch.stack(xs)[:, 0].transpose(0, 1))
+                continue
+            parts, per_chunk = [], steps * layers
+            for c0 in range(0, len(xs), per_chunk):
+                t = torch.stack(xs[c0:c0 + per_chunk])  # (T*L, 1, r, E)
+                t = t[:, 0].reshape(steps, layers, t.shape[2], t.shape[3])
+                parts.append(t.permute(2, 0, 1, 3))  # (r, T, L, E)
+            out.append(torch.cat(parts).reshape(-1, layers, xs[0].shape[-1]))
+        return out
+
+
+def route_vs_route(torch, what, got, want, rec_k, rec_r, layers, steps=None, rows=None,
+                   valid=None):
+    """qwen2-moe's kernel route against its reference route, each routing
+    by its own router (the rule written before the first run, phase 6e's
+    docstring).  ``got``/``want``: logits (P..., V) over the same
+    positions as the records; ``valid`` selects real positions.  Returns
+    the (P,) mask of positions exempted from the max limit."""
+    lk, dk = rec_k.by_position(layers, steps, rows)
+    lr, dr = rec_r.by_position(layers, steps, rows)
+    vocab = got.shape[-1]
+    got, want = got.reshape(-1, vocab), want.reshape(-1, vocab)
+    if valid is not None:
+        keep = valid.reshape(-1)
+        got, want, lk, dk, lr, dr = (x[keep] for x in (got, want, lk, dk, lr, dr))
+    agree_layer = (dk == dr).all(-1)  # (P, L)
+    agree = agree_layer.all(-1)
+    first = torch.where(agree, layers, (~agree_layer).int().argmax(-1))
+    upto = torch.arange(layers, device=got.device)[None, :] <= first[:, None]
+    rdiff = (lk - lr).abs()[upto]
+    rtol, rmean_tol = family_limits(float(lr.abs().max()))
+    print(f"{what} router logits up to each position's first tipped layer: max |diff| "
+          f"{float(rdiff.max())!r}, mean {float(rdiff.mean())!r} (limits {rtol}, {rmean_tol}); "
+          f"max |router logit| {float(lr.abs().max())!r}")
+    check(float(rdiff.max()) <= rtol and float(rdiff.mean()) <= rmean_tol,
+          f"{what} router logits: kernel vs reference route")
+    diff = (got - want).abs()
+    tol, mean_tol = family_limits(float(want.abs().max()))
+    n, exempt = int(agree.numel()), int((~agree).sum())
+    print(f"{what} kernel vs reference, each route on its own router: {exempt} of {n} "
+          f"positions ({exempt / n!r}) dispatched otherwise in at least one of {layers} layers "
+          f"(exempted from the max limit); at the other {n - exempt}: max |diff| "
+          f"{float(diff[agree].max())!r}, mean {float(diff[agree].mean())!r} (limits {tol}, "
+          f"{mean_tol}); over all positions: max {float(diff.max())!r}, mean "
+          f"{float(diff.mean())!r}; max |logit| {float(want.abs().max())!r}")
+    check(exempt < n, f"{what}: every position tipped")
+    check(float(diff[agree].max()) <= tol and float(diff[agree].mean()) <= mean_tol,
+          f"{what} logits at positions dispatched alike: kernel vs reference route")
+    return ~agree
+
+
+def family_inputs(np, torch, cfg):
+    """Phase 6e's inputs, from SEED: the forward's batch (``make_batch``:
+    FORWARD_LEN positions, a VLM's patches among them), the requests'
+    prompts (single-codebook configs), and the codebook config's
+    teacher-forced tokens."""
+    from repro_torch.configs.shapes import make_batch
+
+    rng = np.random.default_rng(SEED)
+    batch = make_batch(cfg, batch=1, seq=FORWARD_LEN - cfg.num_patches, rng=rng)
+    if cfg.n_codebooks > 1:
+        forced = torch.tensor(rng.integers(0, cfg.vocab, (CODEBOOK_ROWS, CODEBOOK_STEPS,
+                                                          cfg.n_codebooks)).astype(np.int32),
+                              device="cuda")
+        return batch, None, forced
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(8, 33))).astype(np.int32)
+               for _ in range(N_REQUESTS)]
+    return batch, prompts, None
+
+
+def serve_family(np, torch, flash_ops, decode_ops, moe_mod, arch, smi):
+    """One config of phase 6e at full width and depth; see
+    ``serve_families``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    t_arch = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), use_flash_kernel=True)
+    moe = cfg.num_experts > 0
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - held
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    kernel = flash_ops.kernel_name(cfg.compute_dtype, cfg.head_dim)
+    print(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads of {cfg.head_dim} ({kernel}), vocab {cfg.vocab}, experts {cfg.num_experts} "
+          f"top {cfg.top_k} + {cfg.num_shared_experts} shared, patches {cfg.num_patches}, "
+          f"codebooks {cfg.n_codebooks}; {n_params} parameters, {weights} B of weights; init "
+          f"on the card in {init_s!r} s, init peak {init_peak} B ({init_peak / 2**30:.2f} GiB; "
+          f"weights + {(init_peak - weights) / 2**30:.2f} GiB) [{smi}]")
+    batch, prompts, forced_toks = family_inputs(np, torch, cfg)
+    tokens, patches = batch["tokens"], batch.get("patch_embeds")
+    scfg = ServeConfig(max_batch=4, max_len=4096)
+    text = cfg.vocab
+
+    # the main path of this config: the counts start at 0 here
+    flash_ops.LAUNCHES = decode_ops.LAUNCHES = 0
+    if cfg.n_codebooks == 1:
+        engine, reqs_k, steps, lat_k, wall = serve_requests(torch, model, None, scfg, prompts,
+                                                            NEW_TOKENS)
+        final_lengths = engine.lengths.copy()
+        del engine
+        n_tokens = sum(len(r.generated) for r in reqs_k)
+    else:
+        try:
+            ServeEngine(model, None, scfg)
+        except NotImplementedError as e:
+            print(f"{arch}: ServeEngine refuses it, as the JAX engine does: {e}")
+        else:
+            check(False, f"{arch}: ServeEngine served a codebook LM")
+        steps = []
+        state = model.init_decode_state(CODEBOOK_ROWS, max_len=scfg.max_len)
+        tf_k = torch.empty((CODEBOOK_ROWS, CODEBOOK_STEPS, cfg.n_codebooks, cfg.vocab),
+                           dtype=torch.float32, device=dev)
+        for t in range(CODEBOOK_STEPS):
+            lengths = torch.full((CODEBOOK_ROWS,), t, dtype=torch.int32, device=dev)
+            t1 = time.perf_counter()
+            logits, state = model.decode_step(state, forced_toks[:, t:t + 1], lengths)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t1)
+            tf_k[:, t] = logits[:, 0].float()
+        del state, logits
+        final_lengths = np.full((CODEBOOK_ROWS,), CODEBOOK_STEPS, np.int32)
+        wall, n_tokens = sum(steps), CODEBOOK_ROWS * CODEBOOK_STEPS
+    decode_launches = decode_ops.LAUNCHES
+    check(decode_launches == cfg.n_layers * len(steps),
+          f"{arch}: decode_attention launched {decode_launches} times in {len(steps)} steps")
+    check(flash_ops.LAUNCHES == 0, f"{arch}: the decode steps launched flash_attention")
+    rec_k = RouterRecord(torch, moe_mod) if moe else contextlib.nullcontext()
+    with rec_k:
+        logits_k = model(tokens, patch_embeds=patches)
+        torch.cuda.synchronize()
+    flash_launches = flash_ops.LAUNCHES
+    check(flash_launches == cfg.n_layers,
+          f"{arch}: flash_attention launched {flash_launches} times in one forward")
+    check(decode_ops.LAUNCHES == decode_launches, f"{arch}: the forward launched decode_attention")
+    shape = (1, tokens.shape[1], *((cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()), cfg.vocab)
+    check(tuple(logits_k.shape) == shape and bool(torch.isfinite(logits_k.float()).all()),
+          f"{arch}: forward logits {tuple(logits_k.shape)} not finite of shape {shape}")
+    print(f"{arch} main path: decode_attention launches {decode_launches} ({cfg.n_layers} x "
+          f"{len(steps)} steps), flash_attention launches {flash_launches} (one forward of "
+          f"{FORWARD_LEN} positions{', ' + str(cfg.num_patches) + ' of them patches' if patches is not None else ''})")
+    if moe:
+        sent = sum(int(c["dispatched"].sum()) for c in rec_k.calls)
+        routed = len(rec_k.calls) * tokens.shape[1] * cfg.top_k
+        from repro_torch.models.moe import capacity
+
+        print(f"{arch}: the forward drops {routed - sent} of {routed} routed assignments at "
+              f"capacity ({(routed - sent) / routed!r}; {capacity(cfg.moe_config(), FORWARD_LEN)} "
+              f"slots an expert for a mean of {FORWARD_LEN * cfg.top_k / cfg.num_experts!r})")
+
+    # timing: forwards (median of FORWARD_REPS after a warm-up), a profile
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(FORWARD_REPS + 1):
+        t1 = time.perf_counter()
+        model(tokens, patch_embeds=patches)
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t1)
+    fwd_peak = torch.cuda.max_memory_allocated() - held
+    fwd_s = statistics.median(times)
+    fwd_busy = profile_forward(torch, model, tokens, patches, what=f"{arch} ")
+    busy = profile_decode(torch, model, final_lengths, scfg.max_len, what=f"{arch} ")
+    flash_ops.LAUNCHES, decode_ops.LAUNCHES = flash_launches, decode_launches
+    step_s = statistics.median(steps)
+    print(f"{arch}: forward of {FORWARD_LEN} positions median of {FORWARD_REPS} after a warm-up "
+          f"{fwd_s!r} s (each {times!r}), peak device memory {fwd_peak} B "
+          f"({fwd_peak / 2**30:.2f} GiB); decode step median {step_s!r} s over {len(steps)} "
+          f"steps, {n_tokens / wall!r} {'tokens' if cfg.n_codebooks == 1 else 'frames (4 codebook tokens each)'}/s; "
+          f"busy share over {PROFILE_STEPS} profiled steps {busy!r} [{smi}]")
+
+    # the reference route, on the same weights (assigned, not copied)
+    ref_model = LM(dataclasses.replace(cfg, use_flash_kernel=False))
+    ref_model.load_state_dict(model.state_dict(), assign=True)
+    counts = flash_ops.LAUNCHES, decode_ops.LAUNCHES
+    rec_r = RouterRecord(torch, moe_mod) if moe else contextlib.nullcontext()
+    with rec_r:
+        logits_r = ref_model(tokens, patch_embeds=patches)
+    if cfg.n_codebooks == 1:
+        engine, reqs_r, steps_r, _, wall_r = serve_requests(torch, ref_model, None, scfg,
+                                                            prompts, NEW_TOKENS)
+        del engine
+        print(f"{arch} reference route: decode step median {statistics.median(steps_r)!r} s, "
+              f"{sum(len(r.generated) for r in reqs_r) / wall_r!r} tokens/s")
+    check((flash_ops.LAUNCHES, decode_ops.LAUNCHES) == counts,
+          f"{arch}: the reference route launched a kernel")
+
+    if moe:
+        # each route on its own router, then the reference on the kernel
+        # route's dispatch
+        route_vs_route(torch, f"{arch} forward", logits_k[0].float(), logits_r[0].float(),
+                       rec_k, rec_r, cfg.n_layers)
+        with RouterRecord(torch, moe_mod, force=rec_k.calls):
+            logits_f = ref_model(tokens, patch_embeds=patches)
+        check_logits(torch, f"{arch} forward, the reference on the kernel route's dispatch,",
+                     logits_k.float(), logits_f.float(),
+                     *family_limits(float(logits_f.float().abs().max())))
+        del logits_f
+    else:
+        check_logits(torch, f"{arch} forward" + (" (with the patch prefix)" if patches is not None else ""),
+                     logits_k.float(), logits_r.float(),
+                     *family_limits(float(logits_r.float().abs().max())))
+    del logits_k, logits_r
+
+    exempt_rows = None
+    if cfg.n_codebooks == 1:
+        toks, valid, seqs = padded_sequences(np, torch, reqs_k)
+        counts = flash_ops.LAUNCHES, decode_ops.LAUNCHES
+        what = f"{arch} decode, teacher-forced on {int(valid.sum())} positions,"
+        if moe:  # chunks of the engine's 4 slots: the same capacity as the serve's steps
+            with RouterRecord(torch, moe_mod) as tk:
+                tf_k = teacher_forced(torch, model, toks, scfg.max_len, rows=scfg.max_batch)
+            with RouterRecord(torch, moe_mod) as tr:
+                tf_r = teacher_forced(torch, ref_model, toks, scfg.max_len, rows=scfg.max_batch)
+            exempt = route_vs_route(torch, what, tf_k, tf_r, tk, tr, cfg.n_layers,
+                                    steps=toks.shape[1], rows=scfg.max_batch, valid=valid)
+            exempt_rows = torch.zeros(valid.shape, dtype=torch.bool, device=dev)
+            exempt_rows[valid] = exempt
+            with RouterRecord(torch, moe_mod, force=tk.calls):
+                tf_f = teacher_forced(torch, ref_model, toks, scfg.max_len, rows=scfg.max_batch)
+            check_logits(torch, f"{what} the reference on the kernel route's dispatch,",
+                         tf_k[valid], tf_f[valid], *family_limits(float(tf_f[valid].abs().max())))
+            del tf_f
+        else:
+            tf_k = teacher_forced(torch, model, toks, scfg.max_len)
+            tf_r = teacher_forced(torch, ref_model, toks, scfg.max_len)
+            check_logits(torch, what, tf_k[valid], tf_r[valid],
+                         *family_limits(float(tf_r[valid].abs().max())))
+        flash_ops.LAUNCHES, decode_ops.LAUNCHES = counts  # a comparison, not the main path
+        tol = family_limits(float(tf_r[valid].abs().max()))[0]
+        same = 0
+        for i, (rk, rr) in enumerate(zip(reqs_k, reqs_r)):
+            p_len = len(rk.prompt)
+            for j, (a, b) in enumerate(zip(rk.generated, rr.generated)):
+                if a != b:
+                    pos = p_len + j - 1
+                    top2 = torch.topk(tf_r[i, pos], 2).values
+                    margin = float(top2[0] - top2[1])
+                    tipped = exempt_rows is not None and bool(exempt_rows[i, :pos + 1].any())
+                    print(f"{arch} request {i}: routes part at new token {j} ({a} vs {b}), "
+                          f"reference top-2 margin {margin!r}"
+                          + (", a router tipped at or before it" if tipped else ""))
+                    check(margin <= tol or tipped,
+                          f"{arch} request {i}: tokens differ at margin {margin}")
+                    break
+                same += 1
+        print(f"{arch} greedy tokens: {same} of {sum(len(r.generated) for r in reqs_k)} equal "
+              f"between the routes before any near tie" + (" or tipped router" if moe else ""))
+        if not moe:  # the repo's own check: decode equals forward (kernel route)
+            x = seqs[0]
+            full = model(torch.tensor(x[None], device=dev))[0].float()
+            cdiff = float((full - tf_k[0, :len(x)]).abs().max())
+            print(f"{arch} kernel route decode vs forward on request 0 ({len(x)} tokens): max "
+                  f"|diff| {cdiff!r}")
+            check(cdiff <= tol, f"{arch}: decode logits differ from forward logits")
+        del tf_k, tf_r
+    else:
+        counts = flash_ops.LAUNCHES, decode_ops.LAUNCHES
+        tf_r = teacher_forced(torch, ref_model, forced_toks, scfg.max_len)
+        check(bool(torch.isfinite(tf_k).all() and torch.isfinite(tf_r).all()),
+              f"{arch}: teacher-forced logits not finite")
+        limits = family_limits(float(tf_r.abs().max()))
+        check_logits(torch, f"{arch} decode, teacher-forced on {CODEBOOK_ROWS} x "
+                     f"{CODEBOOK_STEPS} positions of {cfg.n_codebooks} codebooks,",
+                     tf_k, tf_r, *limits)
+        full = model(forced_toks).float()
+        cdiff = float((full - tf_k).abs().max())
+        print(f"{arch} kernel route decode vs forward on the {CODEBOOK_ROWS} x {CODEBOOK_STEPS} "
+              f"teacher-forced positions: max |diff| {cdiff!r} (limit {limits[0]})")
+        check(cdiff <= limits[0], f"{arch}: decode logits differ from forward logits")
+        flash_ops.LAUNCHES, decode_ops.LAUNCHES = counts  # a comparison, not the main path
+        del tf_k, tf_r, full
+    del model, ref_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_arch
+    print(f"{arch}: {seconds!r} s [{smi}]")
+    return {"decode_launches": decode_launches, "flash_launches": flash_launches,
+            "decode_steps": len(steps), "n_layers": cfg.n_layers, "init_s": init_s,
+            "init_peak_bytes": init_peak, "forward_s": fwd_s, "forward_peak_bytes": fwd_peak,
+            "decode_step_s": step_s, "busy_share": busy, "forward_busy_share": fwd_busy,
+            "seconds": seconds,
+            "heads": (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)}
+
+
+def serve_families(np, torch, flash_ops, decode_ops, smi):
+    """Phase 6e: the MoE, vision-language and audio families
+    (qwen2-moe-a2.7b, internvl2-2b, musicgen-medium) at full width and
+    full depth on ``cuda``, one at a time, random weights from a seeded
+    generator, TF32 off (phase 6 set it).  For each: the init's time and
+    peak, then the main path with the launch counts set to 0 just before
+    it —
+
+    * qwen2-moe-a2.7b (24 ``moe_attn`` layers, 16/16 heads of 128 on
+      ``flash_wgmma<128>``): ``ServeEngine.generate`` on N_REQUESTS
+      requests of NEW_TOKENS over 4 slots of 4096, decode_attention 24
+      launches a step; then one FORWARD_LEN-token ``LM.forward``,
+      flash_attention 24 launches, and the share of routed assignments
+      dropped at capacity (int(2048 * 4 / 60 * 1.25) = 170 slots an
+      expert for a mean of 136.5);
+    * internvl2-2b (24 layers, 16/8 heads of 128): the same requests,
+      text only, as the JAX engine serves it; the forward on 256 seeded
+      patch embeddings (bf16, ``make_batch``) and 1792 text tokens;
+    * musicgen-medium (48 layers, 24/24 heads of 64 on ``flash_fwd`` in
+      bf16): ``ServeEngine`` must raise NotImplementedError, as the JAX
+      engine does; ``LM.decode_step`` teacher-forced over
+      (CODEBOOK_ROWS, 1, 4) tokens for CODEBOOK_STEPS steps,
+      decode_attention 48 launches a step; the forward on (1, 2048, 4)
+      tokens, flash_attention 48 launches.
+
+    Then the forward's time (median of FORWARD_REPS after a warm-up),
+    peak and a profile of one forward, the median decode step, tokens/s
+    and the busy share over PROFILE_STEPS profiled steps, all printed
+    with the card's name and power limit, and the reference route on the
+    same weights.
+
+    Limits (written before the first run): phase 6's, in its terms
+    (``family_limits``: 8 bf16 ulps of the largest |logit|, mean one
+    ulp; the configs' random-weight logits reach about 5-6, where these
+    are LOGIT_TOL and LOGIT_MEAN_TOL); greedy tokens equal up to the
+    first near tie.  internvl2-2b and musicgen-medium: forward and
+    teacher-forced decode logits of the two routes within them, and the
+    kernel route's decode logits equal its forward logits within the max.
+
+    qwen2-moe-a2.7b, two properties of the reference that are not the
+    port's to assert: its decode and forward differ wherever the forward
+    drops at capacity (the JAX package's own test leaves MoE out of
+    decode-vs-forward), so the routes are compared forward with forward
+    and decode with decode only; and a route's attention rounding tips
+    near ties among the router's top 4.  By the reference's own numbers
+    (Yi-6B's routes differ by a mean 0.016 in logits after 32 layers in
+    phase 6 on an H100) the routes' router logits differ by about 0.005
+    to 0.02, while a random 60-expert router's 4th and 5th logits are about
+    0.18 apart, so an estimated 20-50 % of 2048 positions tip in at least
+    one of 24 layers: a share limit of 1 % would fail on the reference's
+    own arithmetic.  The rule, each comparison (forward; teacher-forced
+    decode, in chunks of the engine's 4 slots so capacity is the serve's):
+    (1) each route on its own router: the router logits within the limits
+    (in the same terms) at every position up to and including the layer
+    where its dispatch first differs (a fault in the kernels moves them by
+    whole units from the first layer), the output logits within the max
+    and the mean at every position whose dispatched experts agree in every
+    layer, and the number of exempted positions printed; (2) the reference
+    run again on the kernel route's dispatch (``RouterRecord(force=...)``):
+    the output logits within the max and the mean at every position.
+    Greedy tokens may part at a near tie or after a tipped router."""
+    t_phase = time.perf_counter()
+    from repro_torch.models import moe as moe_mod
+
+    out = {arch: serve_family(np, torch, flash_ops, decode_ops, moe_mod, arch, smi)
+           for arch in FAMILY_ARCHS}
+    seconds = time.perf_counter() - t_phase
+    print(f"families phase: {seconds!r} s [{smi}]")
+    return out
+
+
 # --------------------------------------------------------------- phase 7
-def path_launches(served, trained, key):
-    """A Yi-6B kernel row's launches: phase 6's serve and phase 6d's
-    trained model, each path's count read just after it ran."""
+def path_launches(served, trained, families, key):
+    """A kernel row's launches: phase 6's serve and phase 6d's trained
+    model (Yi-6B) and phase 6e's three configs, each path's count read
+    just after it ran."""
     by_path = {"phase 6 serve (yi-6b, 32 layers)": served[key],
                "phase 6d train -> serve (yi-6b, 4 layers)": trained[key]}
+    for arch, fam in families.items():
+        by_path[f"phase 6e {arch} ({fam['n_layers']} layers)"] = fam[key]
     return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
 
 def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served, cut_served,
-                      full_served, trained, card):
+                      full_served, trained, families, card):
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -1980,6 +2510,22 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
         decode_cut[arch] = {**decode_case(ch, chkv, cd, [s] * b),
                             "launches": cut_served[arch]["decode_launches"],
                             "shape": f"B={b} H={ch} Hkv={chkv} S={s} D={cd} bf16 full length"}
+    # phase 6e's shapes: MHA 16/16 and GQA 16/8 at D = 128 (flash_wgmma),
+    # MHA 24/24 at D = 64 (flash_fwd in bf16)
+    for arch, (fh, fhkv, fd) in zip(FAMILY_ARCHS, FAMILY_LAYOUTS):
+        fam = families[arch]
+        path = f"phase 6e {arch} ({fam['n_layers']} layers)"
+        flash_cut[arch] = {**flash_case(fh, fhkv, fd),
+                           "kernel": flash_ops.kernel_name(torch.bfloat16, fd),
+                           "launches": fam["flash_launches"],
+                           "launches_by_path": {path: fam["flash_launches"]},
+                           "full_depth_forward_s": fam["forward_s"],
+                           "full_depth_layers": fam["n_layers"],
+                           "shape": f"B=1 H={fh} Hkv={fhkv} S={FORWARD_LEN} D={fd} bf16 causal"}
+        decode_cut[arch] = {**decode_case(fh, fhkv, fd, [s] * b),
+                            "launches": fam["decode_launches"],
+                            "launches_by_path": {path: fam["decode_launches"]},
+                            "shape": f"B={b} H={fh} Hkv={fhkv} S={s} D={fd} bf16 full length"}
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # timing is not the main path
     print("timing: kernels device-only (queued behind a sleep kernel); plain versions and "
           "SDPA queued the same way")
@@ -1987,14 +2533,14 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
-         **fl, **path_launches(served, trained, "flash_launches"),
+         **fl, **path_launches(served, trained, families, "flash_launches"),
          "kernel": flash_ops.kernel_name(torch.bfloat16, d),
          "shape": f"B=1 H={h} Hkv={hkv} S={FORWARD_LEN} D={d} bf16 causal",
          "by_config": flash_cut},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:85",
-         **dec, **path_launches(served, trained, "decode_launches"),
+         **dec, **path_launches(served, trained, families, "decode_launches"),
          "shape": f"B={b} H={h} Hkv={hkv} S={s} D={d} bf16 lengths={final}",
          "at_full_length": dec_full, "by_config": decode_cut},
     ]
@@ -2047,8 +2593,9 @@ def main() -> int:
     cut_served = {arch: serve_cut(np, torch, flash_ops, decode_ops, arch) for arch in CUT_ARCHS}
     full_served = {arch: forward_full(np, torch, flash_ops, arch, smi) for arch in CUT_ARCHS}
     trained = train_serve(np, torch, flash_ops, decode_ops, smi)
+    families = serve_families(np, torch, flash_ops, decode_ops, smi)
     rows = measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served,
-                             cut_served, full_served, trained, card)
+                             cut_served, full_served, trained, families, card)
     print(json.dumps({"kernels": [{**row, "card": smi} for row in (ffa_row, *rows)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

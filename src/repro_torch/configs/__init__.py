@@ -2,8 +2,10 @@
 
 One module per ported architecture, with the exact published config as
 the JAX package's ``repro/configs`` has it: ``CONFIG`` (full size) and
-``smoke_config()`` (reduced, same family).  The port serves the four
-dense attention-only architectures; the other six are named so that
+``smoke_config()`` (reduced, same family); ``shapes`` holds the
+workload shapes and the batches made for them.  The port serves the
+seven architectures whose blocks are attention (four dense, the MoE, the
+vision-language and the audio one); the other three are named so that
 asking for one says which slice of the port brings it.
 """
 from __future__ import annotations
@@ -26,8 +28,10 @@ ARCH_IDS: List[str] = [
     "recurrentgemma_9b",
 ]
 
-#: the architectures this port serves (dense, attention blocks only)
-PORTED = ("h2o_danube_3_4b", "granite_34b", "yi_6b", "qwen3_32b")
+#: the architectures this port serves (attention blocks: dense, MoE,
+#: patches before the text, parallel codebooks)
+PORTED = ("h2o_danube_3_4b", "granite_34b", "yi_6b", "qwen3_32b",
+          "qwen2_moe_a2_7b", "internvl2_2b", "musicgen_medium")
 
 #: accepted spellings (CLI uses dashes)
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
@@ -39,9 +43,9 @@ def resolve(arch: str) -> str:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCH_IDS)}")
     if arch not in PORTED:
         raise NotImplementedError(
-            f"{arch} needs blocks the port does not have yet (MoE, MLA, "
-            f"xLSTM, RG-LRU, codebooks or patches); they come with the slice "
-            f"'the rest of the ML stack', ROADMAP.md §1. Ported: {list(PORTED)}"
+            f"{arch} needs blocks the port does not have yet (MLA and the MTP "
+            f"head, xLSTM, RG-LRU); they come with the slice 'the rest of the "
+            f"ML stack', ROADMAP.md §1. Ported: {list(PORTED)}"
         )
     return arch
 

@@ -5,6 +5,8 @@
 
 The weights are random, drawn from a seeded ``torch.Generator`` on the
 device.  Without ``--device`` it runs on the card and fails without one.
+Like the JAX launcher it refuses codebook LMs (musicgen), which the
+engine does not serve, and gives recurrent archs one slot.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 from repro_torch.configs import PORTED, get_config, get_smoke_config
 from repro_torch.models import LM
 from repro_torch.serve import Request, ServeConfig, ServeEngine
+from repro_torch.serve.engine import RECURRENT_KINDS
 from repro_torch.utils.device import resolve_device
 
 
@@ -30,11 +33,15 @@ def main() -> None:
     ap.add_argument("--device", default=None, help="default: cuda")
     args = ap.parse_args()
 
-    device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.n_codebooks > 1:
+        raise SystemExit("codebook serving demo not wired; see tests")
+    device = resolve_device(args.device)
     model = LM(cfg).init(torch.Generator(device=device).manual_seed(0))
+    recurrent = RECURRENT_KINDS & {k for unit, _ in cfg.segments for k in unit}
+    max_batch = 1 if recurrent else args.max_batch
     engine = ServeEngine(
-        model, None, ServeConfig(max_batch=args.max_batch, max_len=64), device=device
+        model, None, ServeConfig(max_batch=max_batch, max_len=64), device=device
     )
     rng = np.random.default_rng(0)
     reqs = [

@@ -6,7 +6,9 @@
 The corpus is synthetic (Zipf, drawn from seed 0) and written into a
 token table of a lake (``--lake``, default a temporary directory);
 checkpoints commit to ``--branch`` in the JAX package's format.  Without
-``--device`` it runs on the card and fails without one.
+``--device`` it runs on the card and fails without one.  Like the JAX
+launcher it refuses the multimodal configs (codebooks, patches): the
+token table holds one stream of text tokens.
 """
 from __future__ import annotations
 
@@ -39,8 +41,14 @@ def main() -> None:
     ap.add_argument("--device", default=None, help="default: cuda")
     args = ap.parse_args()
 
-    device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.n_codebooks > 1 or cfg.num_patches:
+        raise SystemExit(
+            f"{cfg.name}: the token-table trainer drives LM-token archs; "
+            "multimodal frontends are stubs (examples/ runs the "
+            "end-to-end LM flow)"
+        )
+    device = resolve_device(args.device)
     model = LM(cfg)
 
     store = ObjectStore(args.lake or tempfile.mkdtemp())

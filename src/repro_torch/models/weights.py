@@ -9,6 +9,11 @@ to JAX's, so this module never imports jax) or tensors (a tree the port
 trained or restored), unstacks the layers in order and returns the
 port's :class:`LM` on ``device`` holding those weights, so both packages
 compute with the same numbers.  :func:`params_to_numpy` is its inverse.
+Every top-level entry the JAX init makes for the ported families is
+carried: ``embed`` (one table, or ``cb{i}`` a codebook), ``seg{i}``
+(attention, SwiGLU or GeGLU, and the MoE's ``router``,
+``experts/{gate,up,down}`` and ``shared``), ``final_norm``, ``lm_head``
+and ``heads`` (``cb{i}`` a codebook).
 """
 from __future__ import annotations
 
@@ -44,9 +49,9 @@ def params_from_numpy(tree: Dict[str, Any], cfg: LMConfig, device: DeviceLike = 
     for n, (si, i, r, _) in enumerate(layer_plan(cfg)):
         model._adopt(f"blocks.{n}",
                      _map(tree[f"seg{si}"][f"b{i}"], lambda x, r=r: _tensor(x[r], dev)))
-    model._adopt("final_norm", _map(tree["final_norm"], lambda x: _tensor(x, dev)))
-    if "lm_head" in tree:
-        model._adopt("lm_head", _map(tree["lm_head"], lambda x: _tensor(x, dev)))
+    for name in ("final_norm", "lm_head", "heads"):
+        if name in tree:
+            model._adopt(name, _map(tree[name], lambda x: _tensor(x, dev)))
     return model
 
 
@@ -72,9 +77,9 @@ def params_to_numpy(model: LM) -> Dict[str, Any]:
     for seg in (v for k, v in tree.items() if k.startswith("seg")):
         for name, layers in seg.items():
             seg[name] = _stack_layers(layers)
-    tree["final_norm"] = plain(model.final_norm)
-    if not model.cfg.tie_embeddings:
-        tree["lm_head"] = plain(model.lm_head)
+    for name in ("final_norm", "lm_head", "heads"):
+        if hasattr(model, name):
+            tree[name] = plain(getattr(model, name))
     return tree
 
 

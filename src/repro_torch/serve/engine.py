@@ -30,6 +30,9 @@ import torch
 from repro_torch.models.lm import LM
 from repro_torch.utils.device import DeviceLike, resolve_device
 
+#: block kinds that carry a recurrent state instead of a KV cache
+RECURRENT_KINDS = frozenset({"mlstm", "slstm", "rec"})
+
 
 @dataclasses.dataclass
 class ServeConfig:
@@ -54,11 +57,20 @@ class ServeEngine:
     ``LM.state_dict()`` names them; they are assigned into ``model``
     without a copy.  With None the model serves the weights it holds.
 
-    Recurrent architectures never get here: the port's ``LM`` refuses
-    their block kinds when it is built."""
+    It refuses what the JAX engine refuses, on the same conditions: a
+    model with parallel codebooks (the slot table holds one token a
+    slot), and recurrent block kinds with ``max_batch != 1`` (their state
+    updates are not gated by ``lengths``, so slots would leak into each
+    other; the port's ``LM`` has no such kinds yet)."""
 
     def __init__(self, model: LM, params: Optional[Mapping[str, torch.Tensor]],
                  cfg: ServeConfig, device: DeviceLike = None):
+        if model.cfg.n_codebooks > 1:
+            raise NotImplementedError("the reference engine serves single-codebook LMs")
+        kinds = {k for unit, _ in model.cfg.segments for k in unit}
+        if kinds & RECURRENT_KINDS and cfg.max_batch != 1:
+            raise NotImplementedError(
+                "recurrent-state archs: use max_batch=1 in the reference engine")
         self.device = resolve_device(device)
         if params is not None:
             model.load_state_dict(params, assign=True)

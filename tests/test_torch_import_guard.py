@@ -55,7 +55,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert len(names) >= 30
     assert {"repro_torch.train.step", "repro_torch.train.checkpoint", "repro_torch.train.loop",
             "repro_torch.data.tokens", "repro_torch.distribution.compression",
-            "repro_torch.utils.tree", "repro_torch.launch.train"} <= names
+            "repro_torch.utils.tree", "repro_torch.launch.train",
+            "repro_torch.models.moe", "repro_torch.configs.shapes",
+            "repro_torch.configs.qwen2_moe_a2_7b", "repro_torch.configs.internvl2_2b",
+            "repro_torch.configs.musicgen_medium"} <= names
 
 
 def _forbidden_imports(path):

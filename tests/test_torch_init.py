@@ -3,8 +3,10 @@
 * On the smoke configs of every ported arch, the per-piece ``LM.init``
   gives parameters bitwise equal, in the same order, to the algorithm it
   replaced (``whole_tree_then_cast`` below, a copy kept here: draw the
-  whole tree in ``param_dtype``, then cast the matmul weights and the
-  embedding table to ``compute_dtype``), from the same seeded generator.
+  whole tree in ``param_dtype``, then cast the matmul weights, the MoE's
+  expert stacks and the embedding tables to ``compute_dtype``; extended
+  to the MoE blocks, codebooks and codebook heads as they were ported),
+  from the same seeded generator.
 * A spy on the draws (``common._normal``) watches which float32 draws are
   still alive when the next one is made: under ``LM.init`` only the
   current piece's, and none once init returns; under the old algorithm
@@ -19,6 +21,7 @@ from repro_torch.configs import PORTED, get_smoke_config
 from repro_torch.models import LM
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.lm import layer_plan
 
 torch.set_num_threads(1)  # tiny tensors: extra threads only contend
@@ -30,36 +33,49 @@ def whole_tree_then_cast(cfg, generator):
     """The algorithm ``LM.init`` replaced: the whole tree in param_dtype
     first, then the cast; returned as a flat ``state_dict``-style dict."""
     dt, dev = cfg.param_dtype, generator.device
-    tree = {
-        "embed": common.init_embedding(generator, cfg.vocab, cfg.d_model, dtype=dt),
-        "blocks": [],
-    }
+    codebooks = range(cfg.n_codebooks) if cfg.n_codebooks > 1 else ()
+    if codebooks:
+        embed = {f"cb{i}": common.init_embedding(generator, cfg.vocab, cfg.d_model, dtype=dt)
+                 for i in codebooks}
+    else:
+        embed = common.init_embedding(generator, cfg.vocab, cfg.d_model, dtype=dt)
+    tree = {"embed": embed, "blocks": []}
     for *_, kind in layer_plan(cfg):
-        mlp = common.init_swiglu if kind == "attn" else common.init_geglu
-        tree["blocks"].append({
+        block = {
             "norm1": common.init_rmsnorm(cfg.d_model, dtype=dt, device=dev),
             "attn": attn_mod.init_attention(generator, cfg.attention_config(), dtype=dt),
             "norm2": common.init_rmsnorm(cfg.d_model, dtype=dt, device=dev),
-            "mlp": mlp(generator, cfg.d_model, cfg.d_ff, dtype=dt),
-        })
+        }
+        if kind == "moe_attn":
+            block["moe"] = moe_mod.init_moe(generator, cfg.moe_config(), dtype=dt)
+        else:
+            mlp = common.init_swiglu if kind == "attn" else common.init_geglu
+            block["mlp"] = mlp(generator, cfg.d_model, cfg.d_ff, dtype=dt)
+        tree["blocks"].append(block)
     tree["final_norm"] = common.init_rmsnorm(cfg.d_model, dtype=dt, device=dev)
     if not cfg.tie_embeddings:
         tree["lm_head"] = common.init_linear(generator, cfg.d_model, cfg.vocab, dtype=dt)
+    if codebooks:
+        tree["heads"] = {f"cb{i}": common.init_linear(generator, cfg.d_model, cfg.vocab, dtype=dt)
+                         for i in codebooks}
     flat = {}
 
-    def walk(prefix, node):
-        for k, v in node.items():
+    def walk(prefix, node, experts=False):
+        leaves = all(isinstance(v, torch.Tensor) for v in node.values())
+        # a dict of leaves becomes a ParameterDict, which sorts its keys
+        for k, v in sorted(node.items()) if leaves else node.items():
             if isinstance(v, dict):
-                walk(f"{prefix}{k}.", v)
+                walk(f"{prefix}{k}.", v, k == "experts")
             else:
-                flat[prefix + k] = v.to(cfg.compute_dtype) if k in ("w", "table") else v
+                cast = experts or k in ("w", "table")
+                flat[prefix + k] = v.to(cfg.compute_dtype) if cast else v
 
     walk("embed.", tree["embed"])
     for i, block in enumerate(tree["blocks"]):
         walk(f"blocks.{i}.", block)
-    walk("final_norm.", tree["final_norm"])
-    if "lm_head" in tree:
-        walk("lm_head.", tree["lm_head"])
+    for name in ("final_norm", "lm_head", "heads"):
+        if name in tree:
+            walk(f"{name}.", tree[name])
     return flat
 
 
@@ -79,7 +95,10 @@ def test_per_piece_init_is_bitwise_the_whole_tree_algorithm(arch):
         assert bitwise_equal(got[name], want[name]), name
     # matmul weights and the table in compute_dtype, norm scales in param_dtype
     assert got["blocks.0.attn.wq.w"].dtype == cfg.compute_dtype
-    assert got["embed.table"].dtype == cfg.compute_dtype
+    table = "embed.cb0.table" if cfg.n_codebooks > 1 else "embed.table"
+    assert got[table].dtype == cfg.compute_dtype
+    if cfg.num_experts:
+        assert got["blocks.0.moe.experts.down"].dtype == cfg.compute_dtype
     assert got["final_norm.scale"].dtype == cfg.param_dtype
 
 
@@ -150,7 +169,8 @@ def test_init_holds_at_most_one_piece_in_float32(arch, monkeypatch):
     assert spy.stale == []
     assert spy.peak <= max(by_piece.values()) < sum(by_piece.values())
     assert spy.alive() == []  # every float32 draw is gone once init returns
-    assert model.blocks[0]["mlp"]["up"]["w"].dtype == cfg.compute_dtype
+    ffn = model.blocks[0]["moe"]["shared"] if cfg.num_experts else model.blocks[0]["mlp"]
+    assert ffn["up"]["w"].dtype == cfg.compute_dtype
 
 
 @pytest.mark.parametrize("arch", PORTED)

@@ -29,6 +29,7 @@ from repro.models import attention as jax_attn
 from repro.models import common as jax_common
 from repro_torch.configs import PORTED, get_config, get_smoke_config
 from repro_torch.configs import resolve
+from repro_torch.configs.shapes import make_batch
 from repro_torch.models import LM, params_from_numpy
 from repro_torch.models import attention as port_attn
 from repro_torch.models import common as port_common
@@ -181,11 +182,16 @@ CASES = [(a, flag, "f32") for a in PORTED for flag in (False, True)] + [
 
 @pytest.mark.parametrize("arch,flag,dtype", CASES)
 def test_lm_forward_and_decode_match_jax(arch, flag, dtype):
+    """Tokens (and a VLM's patch embeddings) from ``make_batch``: (2, 24),
+    or (2, 24, K) with codebooks."""
     jmodel, params, port, f32 = lm_pair(arch, flag, dtype)
-    rng = np.random.default_rng(1)
-    tokens = torch.from_numpy(rng.integers(0, jmodel.cfg.vocab, (2, 24)).astype(np.int32))
-    close_lm(port(tokens), jax.jit(jmodel.forward)(params, jnp.asarray(tokens.numpy())),
-             None if f32 is None else f32(tokens))
+    batch = make_batch(port.cfg, batch=2, seq=24, rng=np.random.default_rng(1), device="cpu")
+    tokens, patches = batch["tokens"], batch.get("patch_embeds")
+    close_lm(port(tokens, patch_embeds=patches),
+             jax.jit(jmodel.forward)(params, jnp.asarray(tokens.numpy()),
+                                     patch_embeds=None if patches is None
+                                     else jnp.asarray(patches.float().numpy(), jnp.bfloat16)),
+             None if f32 is None else f32(tokens, patch_embeds=patches))
 
     state_j = jmodel.init_decode_state(2, max_len=32)
     state_p = port.init_decode_state(2, max_len=32)
@@ -244,7 +250,7 @@ def test_configs_match_the_jax_package_and_refuse_the_rest():
                 if f.name not in ("param_dtype", "compute_dtype", "family"):
                     assert getattr(port_cfg, f.name) == getattr(jax_cfg, f.name), (arch, f.name)
             assert port_cfg.family.value == jax_cfg.family.value
-    for arch in ("xlstm-350m", "deepseek_v3_671b", "musicgen_medium"):
+    for arch in ("recurrentgemma_9b", "xlstm-350m", "deepseek_v3_671b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch)
     with pytest.raises(KeyError):
