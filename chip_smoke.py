@@ -75,27 +75,31 @@ Phases, each of which fails the script (non-zero exit) on any error:
    4096}, lengths 1, S-1, S, 0 and the split's chunk - 1, chunk and
    chunk + 1; flash at S in {512, 2048} (and a ragged 200), causal,
    non-causal and window 256, GQA 32/4, at head dim 128, and at S = 512
-   causal, with and without window 256, at head dims 32 and 64 (the
-   CUDA-core kernel in both dtypes); at head dims 80 (64/8 heads) and 120
+   causal, with and without window 256, at head dim 32 (the CUDA-core
+   kernel in both dtypes); at head dim 64, GQA 32/4 and MHA 24/24
+   (musicgen-medium), flash at S in {512, 2048, 200} causal, non-causal
+   and window 256, at S = 200 with window 64, and mask probes at S in
+   {512, 2048}, and ``flash_wgmma<64>``'s serial schedule (timed in phase
+   7) at 24/24 on four of those cases; at head dims 80 (64/8 heads) and 120
    (32/8), decode at B = 4, S = 4096 with lengths 1, S-1, S, 0 and the
    chunk edges, flash at S in {512, 200} causal, non-causal and window
    256 and at S = 200 with window 64, and mask probes at S in {512,
    2048}; at phase 6e's head layouts (MHA 16/16 and GQA 16/8 at head dim
    128, MHA 24/24 at head dim 64), decode at B = 4, S = 4096 with lengths
-   1, S-1, S, 0 and the chunk edges, flash at S in {512, 2048} (2048
-   alone at 24/24) causal and non-causal, and a mask probe at S = 2048;
+   1, S-1, S, 0 and the chunk edges, flash at S in {512, 2048} causal
+   and non-causal, and a mask probe at S = 2048;
    plus mask probes (``mask_probe``: keys past the
    diagonal or outside the window carry large scores and v = +-64, so a
    leak moves outputs by whole units) at S in {512, 2048}; float32 and
    bfloat16.  Decode and float32 flash within 1e-5 + 1e-5 |plain| (sums
-   in another order); bfloat16 decode and bfloat16 flash at head dims 32
-   and 64 (``flash_fwd``) within one bf16 ulp of the output (both round
-   once from float32) plus that 1e-5; bf16 flash at head dims 80, 120 and
+   in another order); bfloat16 decode and bfloat16 flash at head dim 32
+   (``flash_fwd``) within one bf16 ulp of the output (both round once
+   from float32) plus that 1e-5; bf16 flash at head dims 64, 80, 120 and
    128 (``flash_wgmma``) by ``flash_bf16_close``: its largest and mean
    |kernel - plain| at most twice those of the reference's chunked bf16
    route (``flash_yardstick``) plus 1e-5, since the kernel's tensor-core
-   products round p to bf16 as that route does.  Two launches bitwise
-   equal;
+   products round p to bf16 as that route does.  The rule each (dtype,
+   head dim) was held to is printed.  Two launches bitwise equal;
 6. serve Yi-6B at full width and depth on ``cuda`` (random weights from
    a seeded generator, TF32 off): ``ServeEngine.generate`` on 6 requests
    over 4 slots of 4096 positions, 16 new tokens each, through the
@@ -148,7 +152,10 @@ Phases, each of which fails the script (non-zero exit) on any error:
    power limit and each flash row with the kernel that ran
    (``flash_wgmma`` or ``flash_fwd``) and, for the configs, phase 6c's or
    6e's forward time; the rows count the launches of phases 6, 6d and
-   6e, path by path.
+   6e, path by path.  musicgen-medium's row also times
+   ``flash_wgmma<64>``'s overlapped schedule (the port's) and its serial
+   one in turns, and a line before it gives phase 6e's musicgen-medium
+   forward time, flash launches and the forward profile's flash time.
 
 Timing (phases 4 and 7): CUDA events, L2 flushed between launches,
 median of 25; ``ms`` has the launches queued behind a sleep kernel so
@@ -278,7 +285,7 @@ def build_kernels(mods):
         stem = m.SOURCE.stem
         print(f"build: {m.SOURCE.name} (nvcc {build.BUILD_SECONDS.get(stem, 0.0):.2f} s)")
         for line in build.BUILD_LOG.get(stem, "").splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "registers" in line or "spill" in line or "smem" in line or "warning" in line:
                 print(f"  ptxas: {line.strip()}")
     lib = build.built_path(flash_source(mods))
     sass = subprocess.run([str(Path(build.nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
@@ -1144,6 +1151,39 @@ def mask_probe(torch, s, *, window, h=32, hkv=4, d=128, dtype, generator):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
+def serial_schedule(torch, flash_ops):
+    """flash_wgmma<64> on the serial schedule of the wider head dims
+    (``flash_wgmma64_serial_launch`` of the flash library), to check and
+    time beside the overlapped schedule the port runs at D = 64.  Takes
+    contiguous bf16 (B, H, S, 64) tensors on the card; launches count
+    nowhere."""
+    import ctypes
+
+    from repro_torch.kernels.build import device_and_stream
+
+    lib = flash_ops.load()
+    fn = lib.flash_wgmma64_serial_launch
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [i32, vp, vp, vp, vp, i32, i32, i32, i32, ctypes.c_float, i32, vp]
+    fn.restype = i32
+
+    def run(q, k, v, *, causal=True, window=None):
+        b, h, s, d = q.shape
+        check(q.dtype == torch.bfloat16 and d == 64 and k.shape == v.shape
+              and all(t.is_contiguous() and t.is_cuda for t in (q, k, v)),
+              "the serial schedule takes contiguous bf16 tensors of head dim 64 on the card")
+        out = torch.empty_like(q)
+        dev, stream = device_and_stream(q)
+        code = fn(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, s,
+                  h // k.shape[1], int(causal), float(d ** -0.5), window or 0, stream)
+        if code != 0:
+            msg = lib.flash_attention_error_string(code).decode()
+            raise RuntimeError(f"flash_wgmma64_serial_launch failed: {msg} ({code})")
+        return out
+
+    return run
+
+
 def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1164,6 +1204,11 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
         check(out.dtype == want.dtype and out.shape == want.shape, f"{name}: dtype/shape")
         check(bool(torch.isfinite(out).all()), f"{name}: not finite")
         diff = float((out.float() - want.float()).abs().max())
+        if kind.startswith("flash"):
+            rules[(out.dtype, out.shape[-1])] = (
+                "the bf16 flash rule" if yard is not None
+                else "1e-5 + 1e-5|plain|" if out.dtype == torch.float32
+                else "1e-5 + one bf16 ulp")
         if yard is None:
             check(close_enough(torch, out, want), f"{name}: kernel vs plain max |diff| {diff!r}")
         else:
@@ -1175,7 +1220,7 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
         worst[(kind, out.dtype)] = max(worst.get((kind, out.dtype), 0.0), diff)
         n += 1
 
-    worst = {}
+    worst, rules = {}, {}
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         for b in (1, 4):
@@ -1203,15 +1248,38 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                     lambda: flash_ops.flash_attention(q, k, v, **kw),
                     lambda: flash_ref.attention_ref(q, k, v, **kw),
                     (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
-        # head dims 32 and 64 run flash_fwd in both dtypes (float32 sums)
-        for d in (32, 64):
-            q = randn(1, 32, 512, d, dtype=dtype)
-            k, v = randn(1, 4, 512, d, dtype=dtype), randn(1, 4, 512, d, dtype=dtype)
-            for window in (None, 256):
-                kw = dict(causal=True, window=window)
-                one("flash D<128", f"flash {dtype} D={d} S=512 {kw}",
-                    lambda: flash_ops.flash_attention(q, k, v, **kw),
-                    lambda: flash_ref.attention_ref(q, k, v, **kw))
+        # head dim 32 runs flash_fwd in both dtypes (float32 sums)
+        q = randn(1, 32, 512, 32, dtype=dtype)
+        k, v = randn(1, 4, 512, 32, dtype=dtype), randn(1, 4, 512, 32, dtype=dtype)
+        for window in (None, 256):
+            kw = dict(causal=True, window=window)
+            one("flash D=32", f"flash {dtype} D=32 S=512 {kw}",
+                lambda: flash_ops.flash_attention(q, k, v, **kw),
+                lambda: flash_ref.attention_ref(q, k, v, **kw))
+        # head dim 64 at musicgen-medium's 24/24 and at 32/4: bf16 on
+        # flash_wgmma's overlapped schedule under the bf16 flash rule,
+        # float32 on flash_fwd under 1e-5; S = 512, 2048 and the ragged 200
+        # (a window of 64 masks inside both of its tiles), and mask probes
+        for h, hkv in ((32, 4), (24, 24)):
+            for s, cases in ((512, FLASH_MASKS), (2048, FLASH_MASKS),
+                             (200, FLASH_MASKS + ((True, 64),))):
+                q = randn(1, h, s, 64, dtype=dtype)
+                k, v = randn(1, hkv, s, 64, dtype=dtype), randn(1, hkv, s, 64, dtype=dtype)
+                for causal, window in cases:
+                    kw = dict(causal=causal, window=window)
+                    one("flash D=64", f"flash {dtype} D=64 H={h}/{hkv} S={s} {kw}",
+                        lambda: flash_ops.flash_attention(q, k, v, **kw),
+                        lambda: flash_ref.attention_ref(q, k, v, **kw),
+                        (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
+            for s in (512, 2048):
+                for window in (None, 256):
+                    q, k, v = mask_probe(torch, s, window=window, h=h, hkv=hkv, d=64,
+                                         dtype=dtype, generator=gen)
+                    kw = dict(causal=True, window=window)
+                    one("flash probe D=64", f"flash mask probe {dtype} D=64 H={h}/{hkv} S={s} {kw}",
+                        lambda: flash_ops.flash_attention(q, k, v, **kw),
+                        lambda: flash_ref.attention_ref(q, k, v, **kw),
+                        (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
         for s in (512, 2048):
             for window in (None, 256):
                 q, k, v = mask_probe(torch, s, window=window, dtype=dtype, generator=gen)
@@ -1255,8 +1323,8 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                         lambda: flash_ops.flash_attention(q, k, v, **kw),
                         lambda: flash_ref.attention_ref(q, k, v, **kw),
                         (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
-        # phase 6e's head layouts: MHA (group 1) at 24/24 (D = 64, flash_fwd
-        # in bf16 too) and 16/16 (D = 128), GQA group 2 at 16/8 (D = 128)
+        # phase 6e's head layouts: MHA (group 1) at 24/24 (D = 64) and 16/16
+        # (D = 128), GQA group 2 at 16/8 (D = 128)
         for h, hkv, d in FAMILY_LAYOUTS:
             s = 4096
             q = randn(4, h, d, dtype=dtype)
@@ -1269,7 +1337,7 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                     lambda: decode_ops.decode_attention(q, k, v, lengths),
                     lambda: decode_ref.decode_attention_ref(q, k, v, lengths))
             wgmma = flash_ops.kernel_name(dtype, d) == "flash_wgmma"
-            for s in ((2048,) if d == 64 else (512, 2048)):
+            for s in (512, 2048):
                 q = randn(1, h, s, d, dtype=dtype)
                 k, v = randn(1, hkv, s, d, dtype=dtype), randn(1, hkv, s, d, dtype=dtype)
                 for causal in (True, False):
@@ -1285,13 +1353,30 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                 lambda: flash_ops.flash_attention(q, k, v, **kw),
                 lambda: flash_ref.attention_ref(q, k, v, **kw),
                 (lambda: flash_yardstick(q, k, v, **kw)) if wgmma else None)
+    # flash_wgmma<64> on the serial schedule of the wider head dims (phase
+    # 7 times it beside the overlapped one): the bf16 flash rule at
+    # musicgen-medium's layout, the ragged S with a window, and a probe
+    serial = serial_schedule(torch, flash_ops)
+    for s, causal, window in ((2048, True, None), (2048, False, None), (200, True, 64)):
+        q = randn(1, 24, s, 64, dtype=torch.bfloat16)
+        k, v = randn(1, 24, s, 64, dtype=torch.bfloat16), randn(1, 24, s, 64, dtype=torch.bfloat16)
+        kw = dict(causal=causal, window=window)
+        one("flash D=64 serial schedule", f"flash serial schedule D=64 24/24 S={s} {kw}",
+            lambda: serial(q, k, v, **kw), lambda: flash_ref.attention_ref(q, k, v, **kw),
+            lambda: flash_yardstick(q, k, v, **kw))
+    q, k, v = mask_probe(torch, 2048, window=None, h=24, hkv=24, d=64, dtype=torch.bfloat16,
+                         generator=gen)
+    one("flash D=64 serial schedule", "flash serial schedule mask probe D=64 24/24 S=2048",
+        lambda: serial(q, k, v), lambda: flash_ref.attention_ref(q, k, v, causal=True),
+        lambda: flash_yardstick(q, k, v, causal=True, window=None))
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # comparisons are not the main path
-    print(f"attention kernels vs plain: {n} cases pass (decode in both dtypes and float32 "
-          f"flash at every head dim within 1e-5 + 1e-5|plain| (bf16 decode: + one bf16 ulp); "
-          f"bf16 flash at head dims 32/64 (flash_fwd) within 1e-5 + one bf16 ulp; bf16 flash at "
-          f"head dims {'/'.join(map(str, flash_ops.WGMMA_HEAD_DIMS))} (flash_wgmma) within "
-          f"twice the chunked route's max and mean + 1e-5; repeat launches bitwise equal); "
-          f"max |kernel - plain|: "
+    by_rule = "; ".join(
+        f"{str(dt).split('.')[-1]} D={d} ({flash_ops.kernel_name(dt, d)}) {rule}"
+        for (dt, d), rule in sorted(rules.items(), key=lambda x: (str(x[0][0]), x[0][1])))
+    print(f"attention kernels vs plain: {n} cases pass; flash by (dtype, head dim): {by_rule} "
+          f"(the bf16 flash rule: max and mean |kernel - plain| within twice the chunked "
+          f"route's + 1e-5); decode in both dtypes within 1e-5 + 1e-5|plain| (bf16: + one bf16 "
+          f"ulp); repeat launches bitwise equal; max |kernel - plain|: "
           + ", ".join(f"{k} {str(dt).split('.')[-1]} {v!r}" for (k, dt), v in worst.items()))
 
 
@@ -1339,7 +1424,9 @@ def profile_decode(torch, model, lengths, max_len, what=""):
 def profile_forward(torch, model, tokens, patches, what):
     """torch.profiler over one forward: wall time, device busy time (sum
     of kernel times) and the kernels that take most of it.  Returns the
-    busy share of the wall time (None when no device time was recorded)."""
+    busy share of the wall time and the flash kernels' device ms and
+    launches in that forward (None, None, 0 when no device time was
+    recorded)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1351,14 +1438,16 @@ def profile_forward(torch, model, tokens, patches, what):
     if not kernels:
         print(f"{what}profile: forward wall {wall!r} s; the profiler recorded no device time "
               f"(device busy share not measured)")
-        return None
+        return None, None, 0
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     print(f"{what}profile, kernel route forward: wall {wall!r} s, device busy {busy!r} s "
           f"({busy / wall:.3f} of wall, idle {1 - busy / wall:.3f}), "
           f"{sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:.3f} ms {e.count}x {e.key[:90]}")
-    return busy / wall
+    flash = [e for e in kernels if "flash_wgmma" in e.key or "flash_fwd" in e.key]
+    return (busy / wall, sum(e.self_device_time_total for e in flash) / 1e3,
+            sum(e.count for e in flash))
 
 
 def serve_requests(torch, m, p, scfg, prompts, new_tokens):
@@ -2214,7 +2303,8 @@ def serve_family(np, torch, flash_ops, decode_ops, moe_mod, arch, smi):
             times.append(time.perf_counter() - t1)
     fwd_peak = torch.cuda.max_memory_allocated() - held
     fwd_s = statistics.median(times)
-    fwd_busy = profile_forward(torch, model, tokens, patches, what=f"{arch} ")
+    fwd_busy, fwd_flash_ms, fwd_flash_n = profile_forward(torch, model, tokens, patches,
+                                                          what=f"{arch} ")
     busy = profile_decode(torch, model, final_lengths, scfg.max_len, what=f"{arch} ")
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = flash_launches, decode_launches
     step_s = statistics.median(steps)
@@ -2334,6 +2424,7 @@ def serve_family(np, torch, flash_ops, decode_ops, moe_mod, arch, smi):
             "decode_steps": len(steps), "n_layers": cfg.n_layers, "init_s": init_s,
             "init_peak_bytes": init_peak, "forward_s": fwd_s, "forward_peak_bytes": fwd_peak,
             "decode_step_s": step_s, "busy_share": busy, "forward_busy_share": fwd_busy,
+            "forward_profile_flash_ms": fwd_flash_ms, "forward_profile_flash_launches": fwd_flash_n,
             "seconds": seconds,
             "heads": (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)}
 
@@ -2356,8 +2447,8 @@ def serve_families(np, torch, flash_ops, decode_ops, smi):
     * internvl2-2b (24 layers, 16/8 heads of 128): the same requests,
       text only, as the JAX engine serves it; the forward on 256 seeded
       patch embeddings (bf16, ``make_batch``) and 1792 text tokens;
-    * musicgen-medium (48 layers, 24/24 heads of 64 on ``flash_fwd`` in
-      bf16): ``ServeEngine`` must raise NotImplementedError, as the JAX
+    * musicgen-medium (48 layers, 24/24 heads of 64 on ``flash_wgmma<64>``):
+      ``ServeEngine`` must raise NotImplementedError, as the JAX
       engine does; ``LM.decode_step`` teacher-forced over
       (CODEBOOK_ROWS, 1, 4) tokens for CODEBOOK_STEPS steps,
       decode_attention 48 launches a step; the forward on (1, 2048, 4)
@@ -2487,6 +2578,34 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
             if flash_ops.kernel_name(torch.bfloat16, d) == "flash_wgmma" else None,
         )
 
+    def schedules(h, hkv, d, fs=FORWARD_LEN):
+        """flash_wgmma<64>'s overlapped schedule (the port's) and the serial
+        one of the wider head dims on the same causal prompt, each held to
+        the bf16 flash rule, then timed in turns: overlapped, serial,
+        serial, overlapped."""
+        serial = serial_schedule(torch, flash_ops)
+        fq, fk, fv = randn(1, h, fs, d), randn(1, hkv, fs, d), randn(1, hkv, fs, d)
+        runs = {"overlapped": lambda: flash_ops.flash_attention(fq, fk, fv, causal=True),
+                "serial": lambda: serial(fq, fk, fv, causal=True)}
+        want = flash_ref.attention_ref(fq, fk, fv, causal=True)
+        yard = flash_yardstick(fq, fk, fv, causal=True, window=None)
+        out = {}
+        for name, fn in runs.items():
+            got = fn()
+            torch.cuda.synchronize()
+            ok, stats = flash_bf16_close(torch, got, want, yard)
+            check(ok, f"the {name} schedule at the timed inputs (bf16 flash rule): {stats!r}")
+            out[f"{name}_max_abs_err"] = stats[0]
+            out[f"{name}_ms"] = []
+        for name in ("overlapped", "serial", "serial", "overlapped"):
+            ms, ahead = time_ms(torch, runs[name], flush)
+            check(ahead, "the host fell behind the card while queuing the kernel's launches")
+            out[f"{name}_ms"].append(ms)
+        print(f"flash_wgmma<64> schedules at B=1 H={h} Hkv={hkv} S={fs} causal: overlapped "
+              f"{out['overlapped_ms']!r} ms, serial {out['serial_ms']!r} ms (in turns: "
+              f"overlapped, serial, serial, overlapped)")
+        return out
+
     # the main path's shapes: decode over 4 slots of 4096 positions, 32/4
     # heads; flash on one 2048-token prompt
     b, h, hkv, s, d = 4, 32, 4, 4096, 128
@@ -2510,8 +2629,8 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
         decode_cut[arch] = {**decode_case(ch, chkv, cd, [s] * b),
                             "launches": cut_served[arch]["decode_launches"],
                             "shape": f"B={b} H={ch} Hkv={chkv} S={s} D={cd} bf16 full length"}
-    # phase 6e's shapes: MHA 16/16 and GQA 16/8 at D = 128 (flash_wgmma),
-    # MHA 24/24 at D = 64 (flash_fwd in bf16)
+    # phase 6e's shapes: MHA 16/16 and GQA 16/8 at D = 128, MHA 24/24 at
+    # D = 64 (flash_wgmma, with its two schedules compared at 64)
     for arch, (fh, fhkv, fd) in zip(FAMILY_ARCHS, FAMILY_LAYOUTS):
         fam = families[arch]
         path = f"phase 6e {arch} ({fam['n_layers']} layers)"
@@ -2522,6 +2641,8 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
                            "full_depth_forward_s": fam["forward_s"],
                            "full_depth_layers": fam["n_layers"],
                            "shape": f"B=1 H={fh} Hkv={fhkv} S={FORWARD_LEN} D={fd} bf16 causal"}
+        if fd == 64:
+            flash_cut[arch]["schedules"] = schedules(fh, fhkv, fd)
         decode_cut[arch] = {**decode_case(fh, fhkv, fd, [s] * b),
                             "launches": fam["decode_launches"],
                             "launches_by_path": {path: fam["decode_launches"]},
@@ -2596,6 +2717,12 @@ def main() -> int:
     families = serve_families(np, torch, flash_ops, decode_ops, smi)
     rows = measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served,
                              cut_served, full_served, trained, families, card)
+    music = families["musicgen-medium"]
+    print(f"musicgen-medium (phase 6e): forward of {FORWARD_LEN} positions "
+          f"{music['forward_s']!r} s, flash_attention launches {music['flash_launches']} a "
+          f"forward ({flash_ops.kernel_name(torch.bfloat16, 64)}), flash kernels in the "
+          f"forward profile {music['forward_profile_flash_ms']!r} ms in "
+          f"{music['forward_profile_flash_launches']} launches [{smi}]")
     print(json.dumps({"kernels": [{**row, "card": smi} for row in (ffa_row, *rows)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,39 +12,55 @@
 // What bounds it: operations.  A causal pass does 2 * 2 * S^2/2 * D flops a
 // head (q.k and p.v); at B=1, H=32, S=2048, D=128 that is 34.4 GFLOP,
 // 0.0347 ms at the H100's 989 TFLOP/s bf16 tensor-core rate, against 37.7 MB
-// of q, k, v and out (0.011 ms at 3.35 TB/s).  Each k/v tile is read once
+// of q, k, v and out (0.011 ms at 3.35 TB/s); at musicgen-medium's 24 heads
+// of 64, 12.9 GFLOP, 0.0130 ms, and S^2/2 * H = 50.3 M exponentials, about
+// as long again on the SMs' 16 MUFU lanes each.  Each k/v tile is read once
 // per q tile, and the q heads of one kv head run side by side, so the
 // repeated reads hit L2.
 //
 // Two kernels, chosen by dtype and head dim in flash_attention_launch:
 //
-// * flash_wgmma<D>: bfloat16 at D = 80, 120 and 128 (qwen3-32b,
-//   h2o-danube-3-4b and Yi-6B compute in bf16).  One block of 384 threads
-//   per (batch-head, 128-row q tile): two consumer warpgroups of 64 q rows
-//   each and a producer warpgroup, which hands its registers to the
-//   consumers (setmaxnreg 24 / 240).  One producer thread loads the q tile
-//   once by TMA and streams 128-key k and v tiles through a ring of two
-//   stages (cp.async.bulk.tensor; mbarriers "k landed", "v landed" and
-//   "both read" a stage, so q.k^T starts before v is in).  Every tile is
-//   128 rows x 128 columns in shared memory whatever D is: two 64-column
-//   halves in the 128-byte swizzle that wgmma's descriptors expect.  The
-//   tensor map's rows are D elements long (160, 240 or 256 bytes, each a
-//   multiple of 16 as TMA requires) and its boxes 64 x 128, so columns D ..
-//   127 of the second half land as TMA's zero fill; the transaction count
-//   is the full box, as it is for rows past S.  A consumer warpgroup
-//   computes q.k^T with ceil(D/16) steps of wgmma m64n128k16 (5 at D = 80,
-//   8 at 120 and 128; the zero columns add exact zeros), with A = q, B = k,
-//   both K-major in shared memory, bf16 operands, float32 accumulators in
-//   registers; it scales the float32 scores by scale * log2(e), masks them
-//   (only on tiles that cross the causal diagonal, the window edge or the
-//   ragged end), runs the online softmax with exp2f, converts p to bf16 in
+// * flash_wgmma<D>: bfloat16 at D = 64, 80, 120 and 128 (musicgen-medium,
+//   qwen3-32b, h2o-danube-3-4b and Yi-6B compute in bf16).  One block of
+//   384 threads per (batch-head, 128-row q tile): two consumer warpgroups
+//   of 64 q rows each and a producer warpgroup, which hands its registers
+//   to the consumers (setmaxnreg 24 / 240).  One producer thread loads the
+//   q tile once by TMA and streams 128-key k and v tiles through a ring
+//   (cp.async.bulk.tensor; mbarriers "k landed", "v landed" and "both read"
+//   a stage, so q.k^T starts before v is in).  Tiles are 128 rows in the
+//   128-byte swizzle that wgmma's descriptors expect, in 64-column spans
+//   of 16 KB (WGeo): at D = 80, 120 and 128 two spans (128 columns) and a
+//   ring of two stages; at D = 64 one span, a row of the tensor map exactly,
+//   and a ring of four stages (q 16 KB + 4 x 32 KB of k and v).  The tensor
+//   map's rows are D elements long (128, 160, 240 or 256 bytes, each a
+//   multiple of 16 as TMA requires) and its boxes 64 x 128, one box per
+//   span, so at 80 and 120 columns D .. 127 of the second span land as
+//   TMA's zero fill; the transaction count is the full box, as it is for
+//   rows past S.  A consumer warpgroup computes q.k^T with ceil(D/16)
+//   steps of wgmma m64n128k16 (4 at D = 64, 5 at 80, 8 at 120 and 128; the
+//   zero columns add exact zeros), with A = q, B = k, both K-major in
+//   shared memory, bf16 operands, float32 accumulators in registers; it
+//   scales the float32 scores by scale * log2(e), masks them (only on
+//   tiles that cross the causal diagonal, the window edge or the ragged
+//   end), runs the online softmax with exp2, converts p to bf16 in
 //   registers and feeds it as the A operand of a second wgmma (B = v,
-//   MN-major): m64n80k16 at D = 80, which reads the first half and 16
-//   columns of the second, and m64n128k16 over the padded tile at 120 and
-//   128 (output columns 120 .. 127 are zeros, neither stored nor read).
-//   q tiles are issued longest first (causal work grows with the tile
-//   index), and the `group` q heads of one kv head are neighbours in the
-//   grid, so their k/v tiles are read from device memory about once.
+//   MN-major): m64n64k16 at D = 64, m64n80k16 at D = 80, which reads the
+//   first span and 16 columns of the second, and m64n128k16 over the
+//   padded tile at 120 and 128 (output columns 120 .. 127 are zeros,
+//   neither stored nor read).  q tiles are scheduled longest first (causal
+//   work grows with the tile index), and the `group` q heads of one kv head
+//   are neighbours in the grid, so their k/v tiles are read from device
+//   memory about once.
+//
+//   Schedules (consume).  At D = 80, 120 and 128 each warpgroup runs q.k^T,
+//   its softmax and p.v in turn.  At D = 64 a tile's 8,192 exponentials a
+//   warpgroup take the SM's 16 MUFU lanes as long as its two products take
+//   the tensor cores, so that schedule would leave the tensor cores idle
+//   half the time: there the two warpgroups take turns issuing their
+//   products (named barriers), one's softmax runs while the other's
+//   products do, and q.k^T of tile j starts together with p.v of tile j - 1.
+//   The D = 64 softmax also spends fewer instructions an element (one FMA
+//   and one ex2.approx.ftz; online_softmax_fma).
 //
 //   Rounding: q and k enter q.k^T as they are (bf16, exact products,
 //   float32 sums); p is rounded to bf16 before p.v, and the denominator sums
@@ -55,9 +71,9 @@
 //   is held to that route, not to a one-ulp match with the float32 plain
 //   version.
 //
-// * flash_fwd: float32 at every head dim, and bfloat16 at D = 32 and 64
-//   (no ported config computes at those in bf16).  One block of 256 threads
-//   per (batch-head, 64-row q tile); key tiles of 32 rows are staged through
+// * flash_fwd: float32 at every head dim, and bfloat16 at D = 32 (no
+//   ported config computes at either).  One block of 256 threads per
+//   (batch-head, 64-row q tile); key tiles of 32 rows are staged through
 //   shared memory as float32 and every product is a float32 FMA on the CUDA
 //   cores, as the TPU kernel multiplies in float32 (kernel.py:49, 66-67), so
 //   float32 output is exact to 1e-5.  A thread owns a 4-row x 2-column
@@ -71,7 +87,8 @@
 // Masked keys contribute exactly 0 once a row has seen a valid key (exp of
 // -1e30 minus a finite max), and causal and windowed rows always see one,
 // so the result does not depend on the tile sizes; keys at or past S (the
-// ragged last tile) are -inf and contribute nothing at all.
+// ragged last tile) are -inf and contribute nothing at all.  flash_wgmma<64>
+// masks with -inf throughout, which for such rows is the same function.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -320,14 +337,29 @@ constexpr int kWSmem = 1024                      // slack to align to 1 KB
                        + kTileBytes              // q
                        + 2 * kStages * kTileBytes  // k and v rings
                        + 8 * (1 + 3 * kStages);  // mbarriers
+// D = 64: a tile is one span (kHalfBytes), so the ring can be deeper
+constexpr int kNarrowStages = 4;
+constexpr int kNarrowSmem = 1024 + kHalfBytes + 2 * kNarrowStages * kHalfBytes +
+                            8 * (1 + 3 * kNarrowStages);
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Output columns p.v computes at head dim D: 80 up to D = 80 (m64n80k16:
-// the first half and 16 columns of the second), else the whole padded tile
-// (m64n128k16; at D = 120 its last 8 columns are zeros).
+// flash_wgmma<D>'s shared-memory geometry: 64-column TMA boxes a tile row,
+// bytes a q, k or v tile, stages in the k/v ring, dynamic shared memory.
+template <int D>
+struct WGeo {
+  static constexpr int boxes = D <= kHalf ? 1 : 2;
+  static constexpr int tile = boxes * kHalfBytes;
+  static constexpr int ring = D <= kHalf ? kNarrowStages : kStages;
+  static constexpr int smem = D <= kHalf ? kNarrowSmem : kWSmem;
+};
+
+// Output columns p.v computes at head dim D: 64 at D = 64 (m64n64k16, one
+// span), 80 up to D = 80 (m64n80k16: the first half and 16 columns of the
+// second), else the whole padded tile (m64n128k16; at D = 120 its last 8
+// columns are zeros).
 template <int D>
 __host__ __device__ constexpr int pv_cols() {
-  return D <= 80 ? 80 : kWCols;
+  return D <= kHalf ? kHalf : D <= 80 ? 80 : kWCols;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -397,6 +429,17 @@ __device__ __forceinline__ void wg_commit() {
 }
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Wait until at most one committed group is still running.
+__device__ __forceinline__ void wg_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
+// Named barriers over the two consumer warpgroups (id 0 is __syncthreads).
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(kConsumers * 128) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(kConsumers * 128) : "memory");
 }
 // Keep the compiler from reading accumulators before the wait.
 template <int N>
@@ -473,19 +516,46 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[40], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+#define WG_D32                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "            \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "       \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "     \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
+#define R32 R8(0), R8(8), R8(16), R8(24)
+
+// d += A . B, m64n64k16: B is one 64-column span (LBO unused).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : R32
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// One consumer warpgroup: q rows q0 + 64 wg .. + 63 against key tiles lo ..
-// lo + n_iter - 1; writes those rows of `op` (rows of D elements).
+// One consumer warpgroup on the serial schedule (D = 80, 120, 128, and 64
+// in flash_wgmma64_serial_launch): q rows q0 + 64 wg .. + 63 against key
+// tiles lo .. lo + n_iter - 1, per tile q.k^T, wait, softmax, p.v, wait;
+// writes those rows of `op` (rows of D elements).  Only the warp
+// schedulers' interleaving of the two consumer warpgroups overlaps one's
+// softmax with the other's products.
 template <int D>
 __device__ __forceinline__ void consume(
     uint32_t sQ, uint32_t sK, uint32_t sV, uint32_t bar_q, uint32_t bar_k,
     uint32_t bar_v, uint32_t bar_empty, int wg, int q0, int lo, int n_iter,
     __nv_bfloat16* __restrict__ op, int seq_len, int causal, float scale_log2,
     int window) {
+  constexpr int R = WGeo<D>::ring, T = WGeo<D>::tile;
   // consumer warpgroup wg: q rows q0 + 64 wg .. + 63.  Accumulator layout
   // of m64nN: d[4j + e] is (row r, column 8j + 2c + e), d[4j + 2 + e] is
   // (row r + 8, the same column), r = 16 warp + lane / 4, c = lane % 4.
@@ -503,10 +573,10 @@ __device__ __forceinline__ void consume(
 
   mbar_wait(bar_q, 0);
   for (int it = 0; it < n_iter; ++it) {
-    const int s = it % kStages;
-    const uint32_t phase = (it / kStages) & 1;
+    const int s = it % R;
+    const uint32_t phase = (it / R) & 1;
     mbar_wait(bar_k + 8 * s, phase);
-    const uint32_t tK = sK + s * kTileBytes, tV = sV + s * kTileBytes;
+    const uint32_t tK = sK + s * T, tV = sV + s * T;
 
     // scores = q . k^T over D: ceil(D/16) steps of 16, four per 64-column
     // half (columns past D are zeros in both tiles)
@@ -628,22 +698,273 @@ __device__ __forceinline__ void consume(
   }
 }
 
+__device__ __forceinline__ float ex2(float x) {  // 2^x, subnormals flushed
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The overlapped schedule's online softmax over one warpgroup's 64 x 128
+// score tile, in place (the accumulator layout of m64n128: sc[4j + e] is
+// (row0, column k0 + 8j + c2 + e), sc[4j + 2 + e] is (row1, the same
+// column)).  It updates the running maxima m0, m1 and this thread's share
+// of the denominators l0, l1, and returns in corr0, corr1 the factors that
+// bring o over the earlier tiles to the new maxima.  The exponentials are
+// on the critical path here, so it spends fewer instructions an element
+// than the serial schedule's softmax (consume): masked keys are -inf (a row
+// always sees a valid key, and the keys before it contribute exactly 0
+// either way, so this is the same function as -1e30), the maxima are over
+// the unscaled scores (scale > 0), each exponent is one FMA, s * scale_log2
+// - m * scale_log2, into ex2.approx.ftz, and the maxima and sums are trees
+// of four chains.
+__device__ __forceinline__ void online_softmax_fma(
+    float (&sc)[64], int k0, int wrow, int row0, int row1, int c2, int seq_len,
+    int causal, int window, float scale_log2, float& m0, float& m1, float& l0,
+    float& l1, float& corr0, float& corr1) {
+  const bool edge = k0 + kWBK > seq_len ||
+                    (causal && k0 + kWBK - 1 > wrow) ||
+                    (window > 0 && k0 <= wrow + 63 - window);
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + 8 * j + c2 + e;
+        bool keep0 = col < seq_len, keep1 = col < seq_len;
+        if (causal) {
+          keep0 &= col <= row0;
+          keep1 &= col <= row1;
+        }
+        if (window > 0) {
+          keep0 &= col > row0 - window;
+          keep1 &= col > row1 - window;
+        }
+        if (!keep0) sc[4 * j + e] = -INFINITY;
+        if (!keep1) sc[4 * j + 2 + e] = -INFINITY;
+      }
+    }
+  }
+  float x0[4], x1[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    x0[t] = fmaxf(sc[t % 2 + 4 * (t / 2)], sc[t % 2 + 4 * (t / 2) + 8]);
+    x1[t] = fmaxf(sc[2 + t % 2 + 4 * (t / 2)], sc[2 + t % 2 + 4 * (t / 2) + 8]);
+  }
+#pragma unroll
+  for (int j = 4; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int t = 2 * (j % 2) + e;
+      x0[t] = fmaxf(x0[t], sc[4 * j + e]);
+      x1[t] = fmaxf(x1[t], sc[4 * j + 2 + e]);
+    }
+  }
+  float mx0 = fmaxf(fmaxf(x0[0], x0[1]), fmaxf(x0[2], x0[3]));
+  float mx1 = fmaxf(fmaxf(x1[0], x1[1]), fmaxf(x1[2], x1[3]));
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  corr0 = ex2((m0 - mn0) * scale_log2);
+  corr1 = ex2((m1 - mn1) * scale_log2);
+  m0 = mn0;
+  m1 = mn1;
+  const float b0 = -mn0 * scale_log2, b1 = -mn1 * scale_log2;
+  float s0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int t = 2 * (j % 2) + e;
+      const float p0 = ex2(fmaf(sc[4 * j + e], scale_log2, b0));
+      const float p1 = ex2(fmaf(sc[4 * j + 2 + e], scale_log2, b1));
+      sc[4 * j + e] = p0;
+      sc[4 * j + 2 + e] = p1;
+      s0[t] += p0;
+      s1[t] += p1;
+    }
+  }
+  l0 = l0 * corr0 + ((s0[0] + s0[1]) + (s0[2] + s0[3]));
+  l1 = l1 * corr1 + ((s1[0] + s1[1]) + (s1[2] + s1[3]));
+}
+
+// o *= corr by row (accumulator layout of m64nN, N = 8 * (NO / 4)).
+template <int NO>
+__device__ __forceinline__ void rescale(float (&o)[NO], float corr0, float corr1) {
+#pragma unroll
+  for (int j = 0; j < NO / 4; ++j) {
+    o[4 * j] *= corr0;
+    o[4 * j + 1] *= corr0;
+    o[4 * j + 2] *= corr1;
+    o[4 * j + 3] *= corr1;
+  }
+}
+
+// p (float, the accumulator layout) as bf16 pairs in the A-operand layout
+// of the p.v wgmma: registers 4kk .. 4kk + 3 hold keys 16kk .. 16kk + 15.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[32], const float (&sc)[64]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+    asm volatile("" : "+r"(pa[i])::"memory");
+  }
+}
+
+// q.k^T of this warpgroup's 64 rows against k tile tK: ceil(D/16) steps of
+// 16, four per 64-column span (columns past D are zeros in both tiles).
 template <int D>
+__device__ __forceinline__ void mma_qk(float (&sc)[64], uint32_t sQ,
+                                         uint32_t tK, int wg) {
+#pragma unroll
+  for (int kk = 0; kk < (D + 15) / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
+    wgmma_ss(sc, sw128_desc(sQ + off + wg * 64 * 128, 16, 1024),
+             sw128_desc(tK + off, 16, 1024), kk > 0);
+  }
+}
+
+// o += p . v: p (bf16) is the A operand from registers, 16 keys a step; v
+// MN-major, the spans kHalfBytes apart.
+template <int NO>
+__device__ __forceinline__ void mma_pv(float (&o)[NO], const uint32_t (&pa)[32],
+                                         uint32_t tV) {
+#pragma unroll
+  for (int kk = 0; kk < kWBK / 16; ++kk)
+    wgmma_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+             sw128_desc(tV + kk * 16 * 128, kHalfBytes, 1024));
+}
+
+// out = o / l for rows row0 and row1 of this thread; D is even and col is
+// even, so a pair never straddles column D.
+template <int D, int NO>
+__device__ __forceinline__ void store_rows(const float (&o)[NO], float l0, float l1,
+                                           int row0, int row1, int c2,
+                                           __nv_bfloat16* __restrict__ op,
+                                           int seq_len) {
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < NO / 4; ++j) {
+    const int col = 8 * j + c2;
+    if (col >= D) continue;
+    if (row0 < seq_len)
+      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row0 * D + col) =
+          __floats2bfloat162_rn(o[4 * j] / d0, o[4 * j + 1] / d0);
+    if (row1 < seq_len)
+      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row1 * D + col) =
+          __floats2bfloat162_rn(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+  }
+}
+
+// One consumer warpgroup on the overlapped schedule (D = 64, where a tile's
+// exponentials take as long as its products): the two warpgroups take turns
+// at the tensor cores (named barriers 1 and 2: a warpgroup starts its
+// products only after the other has started its own, so one's softmax runs
+// while the other's products do), and within a warpgroup q.k^T of tile j
+// starts together with p.v of tile j - 1, so the softmax of tile j runs while
+// p.v of tile j - 1 is on the tensor cores (wait_group 1, then 0).  o is
+// therefore rescaled after p.v of tile j - 1 lands instead of before it:
+// o = (o + p v) * corr where the serial schedule computes o * corr + p v.
+template <int D>
+__device__ __forceinline__ void consume_overlap(
+    uint32_t sQ, uint32_t sK, uint32_t sV, uint32_t bar_q, uint32_t bar_k,
+    uint32_t bar_v, uint32_t bar_empty, int wg, int q0, int lo, int n_iter,
+    __nv_bfloat16* __restrict__ op, int seq_len, int causal, float scale_log2,
+    int window) {
+  constexpr int R = WGeo<D>::ring, T = WGeo<D>::tile;
+  // accumulator rows: r = 16 warp + lane / 4 and r + 8; columns 8j + c2 + e
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int c2 = 2 * (lane % 4);
+  const int wrow = q0 + 64 * wg;  // first q row of this warpgroup
+  const int row0 = wrow + 16 * warp + lane / 4, row1 = row0 + 8;
+
+  float o[pv_cols<D>() / 2];
+#pragma unroll
+  for (int i = 0; i < pv_cols<D>() / 2; ++i) o[i] = 0.0f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f, corr0, corr1;
+  float sc[64];
+  uint32_t pa[32];
+
+  static_assert(WGeo<D>::boxes == 1, "the overlapped schedule takes one span");
+  static_assert(R >= 3, "a turn polls the next tile before releasing the last");
+  mbar_wait(bar_q, 0);
+  const int mine = 1 + wg, other = 2 - wg;  // named barriers: whose turn
+  if (wg == 1) bar_arrive(other);           // warpgroup 0 goes first
+  // tile 0: q.k^T and its softmax
+  mbar_wait(bar_k, 0);
+  bar_sync(mine);
+  wg_fence();
+  mma_qk<D>(sc, sQ, sK, wg);
+  wg_commit();
+  bar_arrive(other);
+  // the next turn's operands are polled while q.k^T runs (the ring is deep
+  // enough: tile it + 1 only needs tile it + 1 - R released)
+  if (n_iter > 1) mbar_wait(bar_k + 8 * (1 % R), (1 / R) & 1);
+  mbar_wait(bar_v, 0);
+  wg_wait_all();
+  fence_regs(sc);
+  online_softmax_fma(sc, lo * kWBK, wrow, row0, row1, c2, seq_len, causal,
+                     window, scale_log2, m0, m1, l0, l1, corr0, corr1);
+  pack_p(pa, sc);  // o is 0: nothing to rescale
+  for (int it = 1; it < n_iter; ++it) {
+    const int s = it % R, sp = (it - 1) % R;
+    bar_sync(mine);
+    wg_fence();
+    mma_qk<D>(sc, sQ, sK + s * T, wg);
+    wg_commit();
+    mma_pv(o, pa, sV + sp * T);
+    wg_commit();
+    bar_arrive(other);
+    if (it + 1 < n_iter) mbar_wait(bar_k + 8 * ((it + 1) % R), ((it + 1) / R) & 1);
+    mbar_wait(bar_v + 8 * s, (it / R) & 1);
+    wg_wait_one();  // q.k^T of tile it
+    fence_regs(sc);
+    online_softmax_fma(sc, (lo + it) * kWBK, wrow, row0, row1, c2, seq_len,
+                       causal, window, scale_log2, m0, m1, l0, l1, corr0, corr1);
+    wg_wait_all();  // p.v of tile it - 1
+    fence_regs(o);
+    mbar_arrive(bar_empty + 8 * sp);
+    rescale(o, corr0, corr1);
+    pack_p(pa, sc);
+  }
+  // p.v of the last tile.  Each warpgroup takes n_iter + 1 turns, so
+  // warpgroup 1's last arrive would be one more than warpgroup 0 waits for.
+  const int s = (n_iter - 1) % R;
+  bar_sync(mine);
+  wg_fence();
+  mma_pv(o, pa, sV + s * T);
+  wg_commit();
+  if (wg == 0) bar_arrive(other);
+  wg_wait_all();
+  fence_regs(o);
+  mbar_arrive(bar_empty + 8 * s);
+  store_rows<D>(o, l0, l1, row0, row1, c2, op, seq_len);
+}
+
+template <int D, bool kOverlap>
 __global__ void __launch_bounds__(kWThreads, 1)
     flash_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
                 __nv_bfloat16* __restrict__ out, int seq_len, int group,
                 int causal, float scale_log2, int window) {
+  constexpr int B = WGeo<D>::boxes, T = WGeo<D>::tile, R = WGeo<D>::ring;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
-  const uint32_t sK = sQ + kTileBytes;
-  const uint32_t sV = sK + kStages * kTileBytes;
-  const uint32_t bar_q = sV + kStages * kTileBytes;
-  const uint32_t bar_k = bar_q + 8;                // k landed, a stage each
-  const uint32_t bar_v = bar_k + 8 * kStages;      // v landed
-  const uint32_t bar_empty = bar_v + 8 * kStages;  // both read
+  const uint32_t sK = sQ + T;
+  const uint32_t sV = sK + R * T;
+  const uint32_t bar_q = sV + R * T;
+  const uint32_t bar_k = bar_q + 8;          // k landed, a stage each
+  const uint32_t bar_v = bar_k + 8 * R;      // v landed
+  const uint32_t bar_empty = bar_v + 8 * R;  // both read
 
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal tiles first
@@ -657,7 +978,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < R; ++s) {
       mbar_init(bar_k + 8 * s, 1);
       mbar_init(bar_v + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, kConsumers * 128);
@@ -669,38 +990,42 @@ __global__ void __launch_bounds__(kWThreads, 1)
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     // producer warpgroup: gives its registers to the consumers; one thread
-    // issues every load
+    // starts every load, B boxes of 64 columns a tile
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
     if (threadIdx.x == kConsumers * 128) {
       const int kvh = bh / group;
-      mbar_expect_tx(bar_q, kTileBytes);
-      for (int h = 0; h < 2; ++h)
+      mbar_expect_tx(bar_q, T);
+      for (int h = 0; h < B; ++h)
         tma_load(sQ + h * kHalfBytes, &tm_q, bar_q, h * kHalf, q0, bh);
       for (int it = 0; it < n_iter; ++it) {
-        const int s = it % kStages;
-        mbar_wait(bar_empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        const int s = it % R;
+        mbar_wait(bar_empty + 8 * s, ((it / R) & 1) ^ 1);
         const int k0 = (lo + it) * kWBK;
-        mbar_expect_tx(bar_k + 8 * s, kTileBytes);
-        for (int h = 0; h < 2; ++h)
-          tma_load(sK + s * kTileBytes + h * kHalfBytes, &tm_k, bar_k + 8 * s,
+        mbar_expect_tx(bar_k + 8 * s, T);
+        for (int h = 0; h < B; ++h)
+          tma_load(sK + s * T + h * kHalfBytes, &tm_k, bar_k + 8 * s,
                    h * kHalf, k0, kvh);
-        mbar_expect_tx(bar_v + 8 * s, kTileBytes);
-        for (int h = 0; h < 2; ++h)
-          tma_load(sV + s * kTileBytes + h * kHalfBytes, &tm_v, bar_v + 8 * s,
+        mbar_expect_tx(bar_v + 8 * s, T);
+        for (int h = 0; h < B; ++h)
+          tma_load(sV + s * T + h * kHalfBytes, &tm_v, bar_v + 8 * s,
                    h * kHalf, k0, kvh);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
-    consume<D>(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, wg, q0, lo, n_iter,
-               out + (size_t)bh * seq_len * D, seq_len, causal, scale_log2,
-               window);
+    __nv_bfloat16* op = out + (size_t)bh * seq_len * D;
+    if constexpr (kOverlap)
+      consume_overlap<D>(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, wg, q0, lo,
+                         n_iter, op, seq_len, causal, scale_log2, window);
+    else
+      consume<D>(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, wg, q0, lo, n_iter,
+                 op, seq_len, causal, scale_log2, window);
   }
 }
 
 // A (rows, S, D) bf16 array as a 3-D tensor map with 64 x 128 boxes in
 // the 128-byte swizzle; rows past S and columns past D read as zeros.  The
-// row stride, D * 2 bytes, must be a multiple of 16 (D = 80, 120, 128).
+// row stride, D * 2 bytes, must be a multiple of 16 (D = 64, 80, 120, 128).
 CUresult make_map(CUtensorMap* map, const void* ptr, int rows, int seq_len,
                   int d) {
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)seq_len,
@@ -729,16 +1054,19 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int rows, int seq_len,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int D>
+// flash_wgmma<D> on the overlapped schedule at D = 64, the serial one at
+// the wider head dims (see consume).
+template <int D, bool kOverlap = (D == kHalf)>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
                          int bh, int seq_len, int group, int causal,
                          float scale, int window, cudaStream_t stream) {
-  static_assert(D % 8 == 0 && D > kHalf && D <= kWCols,
-                "rows of 16-byte multiples that reach the second half");
+  static_assert(D % 8 == 0 && D >= kHalf && D <= kWCols,
+                "rows of 16-byte multiples that fill at least one span");
   static bool configured = false;  // the attribute is per function
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem);
+        flash_wgmma<D, kOverlap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        WGeo<D>::smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
@@ -748,14 +1076,13 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
       make_map(&tv, v, bh / group, seq_len, D) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   const dim3 grid(bh, (seq_len + kWBQ - 1) / kWBQ);
-  flash_wgmma<D><<<grid, kWThreads, kWSmem, stream>>>(
+  flash_wgmma<D, kOverlap><<<grid, kWThreads, WGeo<D>::smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), seq_len, group, causal,
       scale * kLog2e, window);
   return cudaGetLastError();
 }
 
-// bfloat16: flash_wgmma at the ported configs' head dims, flash_fwd at the
-// two narrower ones
+// bfloat16: flash_wgmma at the ported configs' head dims, flash_fwd at 32
 cudaError_t launch_bf16(int head_dim, const void* q, const void* k,
                         const void* v, void* out, int bh, int seq_len,
                         int group, int causal, float scale, int window,
@@ -766,8 +1093,8 @@ cudaError_t launch_bf16(int head_dim, const void* q, const void* k,
       return launch<T, 32>(q, k, v, out, bh, seq_len, group, causal, scale,
                            window, stream);
     case 64:
-      return launch<T, 64>(q, k, v, out, bh, seq_len, group, causal, scale,
-                           window, stream);
+      return launch_wgmma<64>(q, k, v, out, bh, seq_len, group, causal, scale,
+                              window, stream);
     case 80:
       return launch_wgmma<80>(q, k, v, out, bh, seq_len, group, causal, scale,
                               window, stream);
@@ -788,8 +1115,8 @@ cudaError_t launch_bf16(int head_dim, const void* q, const void* k,
 // success).  Does not synchronise.  dtype: 0 float32, 1 bfloat16.
 // head_dim: 32, 64, 80, 120 or 128.  window <= 0 means no window.  q and
 // out hold bh * seq_len * head_dim elements, k and v bh / group times that.
-// bfloat16 at head_dim 80, 120 and 128 runs flash_wgmma; float32, and
-// bfloat16 at 32 and 64, run flash_fwd.
+// bfloat16 at head_dim 64, 80, 120 and 128 runs flash_wgmma; float32, and
+// bfloat16 at 32, run flash_fwd.
 extern "C" int flash_attention_launch(int device, int dtype, int head_dim,
                                       const void* q, const void* k,
                                       const void* v, void* out, int bh,
@@ -803,6 +1130,23 @@ extern "C" int flash_attention_launch(int device, int dtype, int head_dim,
                                 causal, scale, window, s)
                    : launch_bf16(head_dim, q, k, v, out, bh, seq_len, group,
                                  causal, scale, window, s);
+  return (int)err;
+}
+
+// bfloat16 at head_dim 64 on flash_wgmma's serial schedule, the one of the
+// wider head dims, with the arguments of flash_attention_launch: chip_smoke.py
+// times it beside the overlapped schedule that flash_attention_launch runs.
+// Nothing in the port calls it.
+extern "C" int flash_wgmma64_serial_launch(int device, const void* q,
+                                           const void* k, const void* v,
+                                           void* out, int bh, int seq_len,
+                                           int group, int causal, float scale,
+                                           int window, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaGetLastError();
+  err = launch_wgmma<64, false>(q, k, v, out, bh, seq_len, group, causal, scale,
+                                window, static_cast<cudaStream_t>(stream));
   return (int)err;
 }
 

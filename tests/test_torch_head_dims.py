@@ -232,17 +232,24 @@ def test_flash_route_table_is_the_sources():
         assert flash_ops.kernel_name(torch.float32, d) == "flash_fwd"
         want = "flash_wgmma" if d in flash_ops.WGMMA_HEAD_DIMS else "flash_fwd"
         assert flash_ops.kernel_name(torch.bfloat16, d) == want
-    # every ported config computes in bf16, on the tensor cores but for
-    # musicgen-medium, whose head dim 64 runs flash_fwd
+    # bf16 at 64 (musicgen-medium) is on the tensor cores; bf16 at 32 and
+    # float32 at every head dim stay on the CUDA cores
+    assert flash_ops.kernel_name(torch.bfloat16, 64) == "flash_wgmma"
+    assert "launch_wgmma<64>(" in bf16 and "launch<T, 64>(" not in bf16
+    assert flash_ops.kernel_name(torch.bfloat16, 32) == "flash_fwd"
+    # every ported config computes in bf16, on the tensor cores
     for arch in PORTED:
         cfg = get_config(arch)
         assert cfg.compute_dtype == torch.bfloat16
-        want = "flash_fwd" if arch == "musicgen_medium" else "flash_wgmma"
-        assert flash_ops.kernel_name(cfg.compute_dtype, cfg.head_dim) == want, arch
+        assert flash_ops.kernel_name(cfg.compute_dtype, cfg.head_dim) == "flash_wgmma", arch
     assert get_config("musicgen_medium").head_dim == 64
 
 
-@pytest.mark.parametrize("d", flash_ops.WGMMA_HEAD_DIMS)
+#: flash_wgmma's head dims whose tiles are two 64-column spans
+WIDE_DIMS = tuple(d for d in flash_ops.WGMMA_HEAD_DIMS if d > 64)
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
 def test_flash_wgmma_geometry(d):
     """flash_wgmma<D>'s tiles, tensor maps, k-steps, shared memory and
     stores, from the constants in flash_attention.cu."""
@@ -273,7 +280,8 @@ def test_flash_wgmma_geometry(d):
     assert c["kWThreads"] == (c["kConsumers"] + 1) * 128
     # p.v: m64n80k16 up to D = 80 (64 columns of the first half, 16 of the
     # second, a legal wgmma width), else m64n128k16 over the padded tile
-    assert "return D <= 80 ? 80 : kWCols;" in FLASH_CU and "m64n80k16" in FLASH_CU
+    assert "return D <= kHalf ? kHalf : D <= 80 ? 80 : kWCols;" in FLASH_CU
+    assert "m64n80k16" in FLASH_CU
     pv = 80 if d <= 80 else cols
     assert d <= pv <= cols and pv % 8 == 0 and pv - half <= half
     # stores: column 8j + 2(lane % 4) + e of the m64nPV accumulator, pairs
@@ -281,6 +289,101 @@ def test_flash_wgmma_geometry(d):
     written = [8 * j + c2 + e for j in range(pv // 8) for c2 in (0, 2, 4, 6)
                if 8 * j + c2 < d for e in (0, 1)]
     assert sorted(written) == list(range(d))
+
+
+def test_flash_wgmma_geometry_at_64():
+    """flash_wgmma<64> (musicgen-medium): one 64-column span a tile, from
+    the constants and WGeo of flash_attention.cu."""
+    c = cu_consts()
+    d, half, bk = 64, c["kHalf"], c["kWBK"]
+    # a row of the tensor map is one 128-byte swizzle span and one box
+    assert d * 2 == half * 2 == 128
+    assert "static constexpr int boxes = D <= kHalf ? 1 : 2;" in FLASH_CU
+    assert "static constexpr int tile = boxes * kHalfBytes;" in FLASH_CU
+    boxes = 1 if d <= half else 2
+    tile = boxes * c["kHalfBytes"]
+    assert boxes == 1 and tile == 16 * 1024
+    # the producer loads `boxes` boxes a tile and expects the bytes they
+    # deliver (a full 64 x 128 box each, rows past S as zero fill)
+    assert FLASH_CU.count("for (int h = 0; h < B; ++h)") == 3
+    assert "mbar_expect_tx(bar_q, T);" in FLASH_CU
+    assert FLASH_CU.count("mbar_expect_tx(bar_k + 8 * s, T);") == 1
+    assert tile == boxes * half * bk * 2
+    # no box starts past column 0 or reaches past column 64
+    box_columns = [(h * half, h * half + half) for h in range(boxes)]
+    assert box_columns == [(0, 64)] and all(end <= d for _, end in box_columns)
+    # q.k^T: four k-steps of 16, all inside the one 128-byte row
+    steps = -(-d // 16)
+    offsets = [(kk // 4) * c["kHalfBytes"] + (kk % 4) * 32 for kk in range(steps)]
+    assert steps == 4 and offsets == [0, 32, 64, 96]
+    assert all(o + 32 <= 128 for o in offsets)
+    # p.v at m64n64k16 writes every output column below 64 exactly once
+    assert "return D <= kHalf ? kHalf : D <= 80 ? 80 : kWCols;" in FLASH_CU
+    assert "m64n64k16" in FLASH_CU
+    pv = half
+    written = [8 * j + c2 + e for j in range(pv // 8) for c2 in (0, 2, 4, 6)
+               if 8 * j + c2 < d for e in (0, 1)]
+    assert sorted(written) == list(range(d))
+    # the ring: four stages of k and v, q, barriers and 1 KB slack within
+    # the block's shared memory
+    assert c["kNarrowStages"] == 4
+    assert c["kNarrowSmem"] == (1024 + c["kHalfBytes"] * (1 + 2 * c["kNarrowStages"])
+                                + 8 * (1 + 3 * c["kNarrowStages"]))
+    assert c["kNarrowSmem"] <= SMEM_LIMIT
+    assert "static constexpr int smem = D <= kHalf ? kNarrowSmem : kWSmem;" in FLASH_CU
+    # registers a consumer thread holds across the overlapped loop: the
+    # scores (64), o (pv / 2) and the bf16 p of the last tile (32), under
+    # the 240 that setmaxnreg gives a consumer
+    assert 64 + pv // 2 + 32 < 240 and "setmaxnreg.inc.sync.aligned.u32 240;" in FLASH_CU
+
+
+def overlapped_turns(n_iter):
+    """The named-barrier turns of consume<64, true>, played out: each
+    warpgroup's program as a list of ("sync", own barrier) / ("arrive",
+    the other's) steps, run in whatever order can proceed.  Returns each
+    barrier's arrivals left over at the end, or None on a deadlock."""
+    def program(wg):
+        mine, other = 1 + wg, 2 - wg
+        steps = [("arrive", other)] if wg == 1 else []  # warpgroup 0 first
+        steps += [("sync", mine), ("arrive", other)]  # tile 0: q.k^T
+        steps += [("sync", mine), ("arrive", other)] * (n_iter - 1)  # q.k^T, p.v
+        steps += [("sync", mine)] + ([("arrive", other)] if wg == 0 else [])  # last p.v
+        return steps
+
+    progs, pcs = [program(0), program(1)], [0, 0]
+    pending = {1: 0, 2: 0}  # warpgroups arrived and not yet released
+    waiting = {1: False, 2: False}
+    while pcs[0] < len(progs[0]) or pcs[1] < len(progs[1]):
+        moved = False
+        for wg in (0, 1):
+            if pcs[wg] == len(progs[wg]):
+                continue
+            kind, bar = progs[wg][pcs[wg]]
+            if kind == "arrive":
+                pending[bar] += 1
+                pcs[wg] += 1
+                moved = True
+            elif not waiting[bar]:
+                waiting[bar] = True
+                pending[bar] += 1
+                moved = True
+            if kind == "sync" and waiting[bar] and pending[bar] == 2:
+                pending[bar], waiting[bar] = 0, False  # 256 threads: released
+                pcs[wg] += 1
+                moved = True
+        if not moved:
+            return None
+    return pending
+
+
+@pytest.mark.parametrize("n_iter", [1, 2, 3, 16])
+def test_overlapped_schedule_turns_balance(n_iter):
+    """The two consumer warpgroups' turns at the tensor cores never
+    deadlock and leave no arrival behind, for every tile count (a block
+    sees 1 to S/128 key tiles)."""
+    assert overlapped_turns(n_iter) == {1: 0, 2: 0}
+    assert "if (wg == 1) bar_arrive(other);" in FLASH_CU
+    assert "if (wg == 0) bar_arrive(other);" in FLASH_CU
 
 
 # ------------------------------------------------------------------ LM

@@ -15,6 +15,7 @@ Mirrored: all of ``test_maintenance.py`` and
 """
 import dataclasses
 import os
+import time
 
 import numpy as np
 import pytest
@@ -120,6 +121,17 @@ def gc(lake, **kw):
     report = lake.m.collect_garbage(lake.store, lake.catalog, lake.fmt, **kw)
     after = lake.keys()
     return report_dict(report), sorted(before - after), sorted(after)
+
+
+def prune_all(lake):
+    """Evict every node-cache entry: a byte budget of 0 and every entry
+    past a TTL of 0.  The budget alone stops once the bytes fit, and keeps
+    whichever 0-byte entry (an expectation node's) a run touched last,
+    which depends on which of its stages finished last."""
+    report = lake.m.prune_cache(lake.registry(), lake.m.EvictionPolicy(max_bytes=0, ttl_s=0.0),
+                                now=time.time() + 1.0)
+    assert lake.registry().entries() == {}
+    return report
 
 
 def lake_case(fn):
@@ -309,7 +321,7 @@ def _unmerged_deleted_branch(lake):
     assert young[0]["swept_commits"] == 0
     dry = report_dict(lake.m.collect_garbage(lake.store, lake.catalog, lake.fmt, dry_run=True))
     assert dry["swept_objects"] == 0  # the cache still roots the artifacts
-    lake.m.prune_cache(lake.registry(), lake.m.EvictionPolicy(max_bytes=0))
+    prune_all(lake)
     out = gc(lake, grace_s=0.0)
     assert out[0]["swept_objects"] > 0 and out[0]["swept_commits"] > 0
     assert not lake.store.exists(res.artifacts["trips"])
@@ -404,7 +416,7 @@ def _lru_clock_and_release(lake):
     res = lake.run(lake.dated("2019-03-01"), branch="scratch")
     lake.catalog.delete_branch("scratch")
     assert lake.m.collect_garbage(lake.store, lake.catalog, lake.fmt, dry_run=True).swept_objects == 0
-    pruned = lake.m.prune_cache(reg, lake.m.EvictionPolicy(max_bytes=0))
+    pruned = prune_all(lake)
     out = gc(lake)
     assert out[0]["swept_objects"] > 0 and not lake.store.exists(res.artifacts["trips"])
     return sorted(before), pruned.entries_evicted, pruned.bytes_released, out
@@ -424,7 +436,7 @@ def _content_memos(lake):
     lake.catalog.commit("main", {"taxi_table": lake.fmt.manifest_key(s2)})
     lake.run(lake.taxi())
     assert set(lake.store.list_refs("contenthash")) == {s1.snapshot_id, s2.snapshot_id}
-    lake.m.prune_cache(lake.registry(), lake.m.EvictionPolicy(max_bytes=0))
+    prune_all(lake)
     out = gc(lake, history=1, grace_s=0.0)
     assert out[0]["swept_content_refs"] == 1
     assert set(lake.store.list_refs("contenthash")) == {s2.snapshot_id}

@@ -18,7 +18,9 @@ import json
 import pytest
 import torch
 
-from tests.torch_parity import BOTH, PORT, fanout_pipeline, handle_summary, parity
+from repro.core.physical import critical_path_ids as ref_critical_path_ids
+from repro_torch.core.physical import critical_path_ids as port_critical_path_ids
+from tests.torch_parity import BOTH, PORT, both, fanout_pipeline, handle_summary, parity
 
 torch.set_num_threads(1)
 
@@ -211,18 +213,37 @@ def test_trace_spans_nest_and_have_the_reference_structure(tmp_path):
 
 
 def _chain_critical_path(pkg, path):
-    """An unfused Appendix pipeline is a chain: its critical path is
-    fixed by the DAG, so both packages must name the same stages."""
+    """The unfused Appendix pipeline: stage 0 (trips) feeds two leaves,
+    the expectation (1) and pickups (2).  Which leaf takes longer is the
+    host's timing, so the scenario returns each stage's observed latency
+    beside the critical path."""
     with _client(pkg) as client:
         _write_taxi(pkg, client)
         h = client.run(pkg.build_taxi_pipeline(), fusion=False, pushdown=False).raise_for_state()
         trace = client.trace(h.run_id)
         assert "critical path" in trace.describe()
-        return trace_structure(trace), trace.critical_path(), handle_summary(h)
+        latencies = {sid: trace.stage_latency(sid) for sid in trace.stage_spans}
+        return trace_structure(trace), trace.critical_path(), latencies, handle_summary(h)
 
 
 def test_chain_critical_path_equals_the_reference(tmp_path):
-    parity(_chain_critical_path, tmp_path)
+    """Structures and handles equal; each package's critical path is the
+    reference's longest path over that package's own latencies, and the
+    port's longest path equals the reference's on the reference's
+    latencies and with either leaf made the longer one."""
+    (js, jcp, jlat, jh), (ts, tcp, tlat, th) = both(_chain_critical_path, tmp_path)
+    assert (ts, th) == (js, jh)
+    assert sorted(jlat) == sorted(tlat) == [0, 1, 2]
+    parents = {sid: tuple(p for p in js["stage_parents"].get(sid, []) if p in jlat)
+               for sid in jlat}
+    assert parents == {0: (), 1: (0,), 2: (0,)}
+    assert jcp == ref_critical_path_ids(jlat, parents)
+    assert tcp == ref_critical_path_ids(tlat, parents)
+    assert port_critical_path_ids(jlat, parents) == jcp
+    for leaf in (1, 2):
+        slower = {**jlat, leaf: max(jlat.values()) + 1.0}
+        assert (port_critical_path_ids(slower, parents) == ref_critical_path_ids(slower, parents)
+                == [0, leaf])
 
 
 def _warm_rehydrate(pkg, path):
