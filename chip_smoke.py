@@ -79,8 +79,7 @@ Phases, each of which fails the script (non-zero exit) on any error:
    kernel in both dtypes); at head dim 64, GQA 32/4 and MHA 24/24
    (musicgen-medium), flash at S in {512, 2048, 200} causal, non-causal
    and window 256, at S = 200 with window 64, and mask probes at S in
-   {512, 2048}, and ``flash_wgmma<64>``'s serial schedule (timed in phase
-   7) at 24/24 on four of those cases; at head dims 80 (64/8 heads) and 120
+   {512, 2048}; at head dims 80 (64/8 heads) and 120
    (32/8), decode at B = 4, S = 4096 with lengths 1, S-1, S, 0 and the
    chunk edges, flash at S in {512, 200} causal, non-causal and window
    256 and at S = 200 with window 64, and mask probes at S in {512,
@@ -152,9 +151,7 @@ Phases, each of which fails the script (non-zero exit) on any error:
    power limit and each flash row with the kernel that ran
    (``flash_wgmma`` or ``flash_fwd``) and, for the configs, phase 6c's or
    6e's forward time; the rows count the launches of phases 6, 6d and
-   6e, path by path.  musicgen-medium's row also times
-   ``flash_wgmma<64>``'s overlapped schedule (the port's) and its serial
-   one in turns, and a line before it gives phase 6e's musicgen-medium
+   6e, path by path.  A line before it gives phase 6e's musicgen-medium
    forward time, flash launches and the forward profile's flash time.
 
 Timing (phases 4 and 7): CUDA events, L2 flushed between launches,
@@ -1151,39 +1148,6 @@ def mask_probe(torch, s, *, window, h=32, hkv=4, d=128, dtype, generator):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-def serial_schedule(torch, flash_ops):
-    """flash_wgmma<64> on the serial schedule of the wider head dims
-    (``flash_wgmma64_serial_launch`` of the flash library), to check and
-    time beside the overlapped schedule the port runs at D = 64.  Takes
-    contiguous bf16 (B, H, S, 64) tensors on the card; launches count
-    nowhere."""
-    import ctypes
-
-    from repro_torch.kernels.build import device_and_stream
-
-    lib = flash_ops.load()
-    fn = lib.flash_wgmma64_serial_launch
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i32, vp, vp, vp, vp, i32, i32, i32, i32, ctypes.c_float, i32, vp]
-    fn.restype = i32
-
-    def run(q, k, v, *, causal=True, window=None):
-        b, h, s, d = q.shape
-        check(q.dtype == torch.bfloat16 and d == 64 and k.shape == v.shape
-              and all(t.is_contiguous() and t.is_cuda for t in (q, k, v)),
-              "the serial schedule takes contiguous bf16 tensors of head dim 64 on the card")
-        out = torch.empty_like(q)
-        dev, stream = device_and_stream(q)
-        code = fn(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, s,
-                  h // k.shape[1], int(causal), float(d ** -0.5), window or 0, stream)
-        if code != 0:
-            msg = lib.flash_attention_error_string(code).decode()
-            raise RuntimeError(f"flash_wgmma64_serial_launch failed: {msg} ({code})")
-        return out
-
-    return run
-
-
 def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1353,22 +1317,6 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                 lambda: flash_ops.flash_attention(q, k, v, **kw),
                 lambda: flash_ref.attention_ref(q, k, v, **kw),
                 (lambda: flash_yardstick(q, k, v, **kw)) if wgmma else None)
-    # flash_wgmma<64> on the serial schedule of the wider head dims (phase
-    # 7 times it beside the overlapped one): the bf16 flash rule at
-    # musicgen-medium's layout, the ragged S with a window, and a probe
-    serial = serial_schedule(torch, flash_ops)
-    for s, causal, window in ((2048, True, None), (2048, False, None), (200, True, 64)):
-        q = randn(1, 24, s, 64, dtype=torch.bfloat16)
-        k, v = randn(1, 24, s, 64, dtype=torch.bfloat16), randn(1, 24, s, 64, dtype=torch.bfloat16)
-        kw = dict(causal=causal, window=window)
-        one("flash D=64 serial schedule", f"flash serial schedule D=64 24/24 S={s} {kw}",
-            lambda: serial(q, k, v, **kw), lambda: flash_ref.attention_ref(q, k, v, **kw),
-            lambda: flash_yardstick(q, k, v, **kw))
-    q, k, v = mask_probe(torch, 2048, window=None, h=24, hkv=24, d=64, dtype=torch.bfloat16,
-                         generator=gen)
-    one("flash D=64 serial schedule", "flash serial schedule mask probe D=64 24/24 S=2048",
-        lambda: serial(q, k, v), lambda: flash_ref.attention_ref(q, k, v, causal=True),
-        lambda: flash_yardstick(q, k, v, causal=True, window=None))
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # comparisons are not the main path
     by_rule = "; ".join(
         f"{str(dt).split('.')[-1]} D={d} ({flash_ops.kernel_name(dt, d)}) {rule}"
@@ -2578,34 +2526,6 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
             if flash_ops.kernel_name(torch.bfloat16, d) == "flash_wgmma" else None,
         )
 
-    def schedules(h, hkv, d, fs=FORWARD_LEN):
-        """flash_wgmma<64>'s overlapped schedule (the port's) and the serial
-        one of the wider head dims on the same causal prompt, each held to
-        the bf16 flash rule, then timed in turns: overlapped, serial,
-        serial, overlapped."""
-        serial = serial_schedule(torch, flash_ops)
-        fq, fk, fv = randn(1, h, fs, d), randn(1, hkv, fs, d), randn(1, hkv, fs, d)
-        runs = {"overlapped": lambda: flash_ops.flash_attention(fq, fk, fv, causal=True),
-                "serial": lambda: serial(fq, fk, fv, causal=True)}
-        want = flash_ref.attention_ref(fq, fk, fv, causal=True)
-        yard = flash_yardstick(fq, fk, fv, causal=True, window=None)
-        out = {}
-        for name, fn in runs.items():
-            got = fn()
-            torch.cuda.synchronize()
-            ok, stats = flash_bf16_close(torch, got, want, yard)
-            check(ok, f"the {name} schedule at the timed inputs (bf16 flash rule): {stats!r}")
-            out[f"{name}_max_abs_err"] = stats[0]
-            out[f"{name}_ms"] = []
-        for name in ("overlapped", "serial", "serial", "overlapped"):
-            ms, ahead = time_ms(torch, runs[name], flush)
-            check(ahead, "the host fell behind the card while queuing the kernel's launches")
-            out[f"{name}_ms"].append(ms)
-        print(f"flash_wgmma<64> schedules at B=1 H={h} Hkv={hkv} S={fs} causal: overlapped "
-              f"{out['overlapped_ms']!r} ms, serial {out['serial_ms']!r} ms (in turns: "
-              f"overlapped, serial, serial, overlapped)")
-        return out
-
     # the main path's shapes: decode over 4 slots of 4096 positions, 32/4
     # heads; flash on one 2048-token prompt
     b, h, hkv, s, d = 4, 32, 4, 4096, 128
@@ -2630,7 +2550,7 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
                             "launches": cut_served[arch]["decode_launches"],
                             "shape": f"B={b} H={ch} Hkv={chkv} S={s} D={cd} bf16 full length"}
     # phase 6e's shapes: MHA 16/16 and GQA 16/8 at D = 128, MHA 24/24 at
-    # D = 64 (flash_wgmma, with its two schedules compared at 64)
+    # D = 64 (flash_wgmma)
     for arch, (fh, fhkv, fd) in zip(FAMILY_ARCHS, FAMILY_LAYOUTS):
         fam = families[arch]
         path = f"phase 6e {arch} ({fam['n_layers']} layers)"
@@ -2641,8 +2561,6 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
                            "full_depth_forward_s": fam["forward_s"],
                            "full_depth_layers": fam["n_layers"],
                            "shape": f"B=1 H={fh} Hkv={fhkv} S={FORWARD_LEN} D={fd} bf16 causal"}
-        if fd == 64:
-            flash_cut[arch]["schedules"] = schedules(fh, fhkv, fd)
         decode_cut[arch] = {**decode_case(fh, fhkv, fd, [s] * b),
                             "launches": fam["decode_launches"],
                             "launches_by_path": {path: fam["decode_launches"]},

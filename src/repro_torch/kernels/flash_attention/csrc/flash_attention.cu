@@ -543,8 +543,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// One consumer warpgroup on the serial schedule (D = 80, 120, 128, and 64
-// in flash_wgmma64_serial_launch): q rows q0 + 64 wg .. + 63 against key
+// One consumer warpgroup on the serial schedule (D = 80, 120 and 128):
+// q rows q0 + 64 wg .. + 63 against key
 // tiles lo .. lo + n_iter - 1, per tile q.k^T, wait, softmax, p.v, wait;
 // writes those rows of `op` (rows of D elements).  Only the warp
 // schedulers' interleaving of the two consumer warpgroups overlaps one's
@@ -948,7 +948,7 @@ __device__ __forceinline__ void consume_overlap(
   store_rows<D>(o, l0, l1, row0, row1, c2, op, seq_len);
 }
 
-template <int D, bool kOverlap>
+template <int D>
 __global__ void __launch_bounds__(kWThreads, 1)
     flash_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
@@ -1014,7 +1014,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
     __nv_bfloat16* op = out + (size_t)bh * seq_len * D;
-    if constexpr (kOverlap)
+    if constexpr (D == kHalf)
       consume_overlap<D>(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, wg, q0, lo,
                          n_iter, op, seq_len, causal, scale_log2, window);
     else
@@ -1054,18 +1054,22 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int rows, int seq_len,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// flash_wgmma<D> on the overlapped schedule at D = 64, the serial one at
-// the wider head dims (see consume).
-template <int D, bool kOverlap = (D == kHalf)>
+// flash_wgmma<D>: the overlapped schedule at D = 64, the serial one at the
+// wider head dims (see consume).  The overlapped schedule's softmax takes
+// its maxima over the unscaled scores, which is right only for scale > 0,
+// so at D = 64 any other scale (NaN included) is refused.
+template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
                          int bh, int seq_len, int group, int causal,
                          float scale, int window, cudaStream_t stream) {
   static_assert(D % 8 == 0 && D >= kHalf && D <= kWCols,
                 "rows of 16-byte multiples that fill at least one span");
+  if constexpr (D == kHalf)
+    if (!(scale > 0.0f)) return cudaErrorInvalidValue;
   static bool configured = false;  // the attribute is per function
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_wgmma<D, kOverlap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         WGeo<D>::smem);
     if (err != cudaSuccess) return err;
     configured = true;
@@ -1076,7 +1080,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
       make_map(&tv, v, bh / group, seq_len, D) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   const dim3 grid(bh, (seq_len + kWBQ - 1) / kWBQ);
-  flash_wgmma<D, kOverlap><<<grid, kWThreads, WGeo<D>::smem, stream>>>(
+  flash_wgmma<D><<<grid, kWThreads, WGeo<D>::smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), seq_len, group, causal,
       scale * kLog2e, window);
   return cudaGetLastError();
@@ -1116,7 +1120,8 @@ cudaError_t launch_bf16(int head_dim, const void* q, const void* k,
 // head_dim: 32, 64, 80, 120 or 128.  window <= 0 means no window.  q and
 // out hold bh * seq_len * head_dim elements, k and v bh / group times that.
 // bfloat16 at head_dim 64, 80, 120 and 128 runs flash_wgmma; float32, and
-// bfloat16 at 32, run flash_fwd.
+// bfloat16 at 32, run flash_fwd.  bfloat16 at 64 takes only scale > 0
+// (cudaErrorInvalidValue otherwise).
 extern "C" int flash_attention_launch(int device, int dtype, int head_dim,
                                       const void* q, const void* k,
                                       const void* v, void* out, int bh,
@@ -1130,23 +1135,6 @@ extern "C" int flash_attention_launch(int device, int dtype, int head_dim,
                                 causal, scale, window, s)
                    : launch_bf16(head_dim, q, k, v, out, bh, seq_len, group,
                                  causal, scale, window, s);
-  return (int)err;
-}
-
-// bfloat16 at head_dim 64 on flash_wgmma's serial schedule, the one of the
-// wider head dims, with the arguments of flash_attention_launch: chip_smoke.py
-// times it beside the overlapped schedule that flash_attention_launch runs.
-// Nothing in the port calls it.
-extern "C" int flash_wgmma64_serial_launch(int device, const void* q,
-                                           const void* k, const void* v,
-                                           void* out, int bh, int seq_len,
-                                           int group, int causal, float scale,
-                                           int window, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaGetLastError();
-  err = launch_wgmma<64, false>(q, k, v, out, bh, seq_len, group, causal, scale,
-                                window, static_cast<cudaStream_t>(stream));
   return (int)err;
 }
 

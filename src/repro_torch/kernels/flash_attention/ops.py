@@ -70,7 +70,7 @@ def kernel_name(dtype: torch.dtype, head_dim: int) -> str:
     return "flash_fwd"
 
 
-def _check_cuda(q, k, v, window) -> None:
+def _check_cuda(q, k, v, window, scale=None) -> None:
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -84,6 +84,10 @@ def _check_cuda(q, k, v, window) -> None:
         raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
+    # flash_wgmma<64>'s softmax takes its maxima over the unscaled scores
+    if (scale is not None and kernel_name(q.dtype, q.shape[-1]) == "flash_wgmma"
+            and q.shape[-1] == 64 and not scale > 0):
+        raise ValueError(f"bfloat16 at head dim 64 takes a positive scale, got {scale}")
 
 
 def flash_attention(
@@ -112,7 +116,7 @@ def flash_attention(
         return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check_cuda(q, k, v, window)
+    _check_cuda(q, k, v, window, scale)
     lib = load()
     qf = q.reshape(b * h, s, d).contiguous()
     kf = k.reshape(b * hkv, s, d).contiguous()

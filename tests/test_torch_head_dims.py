@@ -95,6 +95,21 @@ def test_a_head_dim_no_config_needs_is_refused(d):
         decode_ops._check_cuda(q[:, :, 0], q, q, torch.ones((1,), dtype=torch.int32))
 
 
+@pytest.mark.parametrize("scale", [0.0, -0.125, float("nan")])
+def test_a_non_positive_scale_is_refused_at_bf16_64(scale):
+    """flash_wgmma<64> takes its softmax maxima over the unscaled scores,
+    right only for scale > 0: the wrapper and the launcher refuse any other
+    scale there, and every other (dtype, head dim) still takes it."""
+    q = torch.zeros((1, 2, 4, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="positive scale"):
+        flash_ops._check_cuda(q, q, q, None, scale)
+    flash_ops._check_cuda(q, q, q, None, 0.125)
+    assert "if (!(scale > 0.0f)) return cudaErrorInvalidValue;" in FLASH_CU
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 32), (torch.bfloat16, 128)):
+        q = torch.zeros((1, 2, 4, d), dtype=dtype)
+        flash_ops._check_cuda(q, q, q, None, scale)
+
+
 # ------------------------------------------------------------ vs Pallas
 @pytest.mark.parametrize("d", NEW_DIMS)
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 48),
@@ -338,7 +353,7 @@ def test_flash_wgmma_geometry_at_64():
 
 
 def overlapped_turns(n_iter):
-    """The named-barrier turns of consume<64, true>, played out: each
+    """The named-barrier turns of consume_overlap<64>, played out: each
     warpgroup's program as a list of ("sync", own barrier) / ("arrive",
     the other's) steps, run in whatever order can proceed.  Returns each
     barrier's arrivals left over at the end, or None on a deadlock."""
