@@ -86,7 +86,14 @@ Phases, each of which fails the script (non-zero exit) on any error:
    2048}; at phase 6e's head layouts (MHA 16/16 and GQA 16/8 at head dim
    128, MHA 24/24 at head dim 64), decode at B = 4, S = 4096 with lengths
    1, S-1, S, 0 and the chunk edges, flash at S in {512, 2048} causal
-   and non-causal, and a mask probe at S = 2048;
+   and non-causal, and a mask probe at S = 2048; at head dim 64 in bf16,
+   the scales -0.125 and 0 (``D64_SCALES``, which flash_wgmma<64> computes
+   through the wrapper's ``positive_scale``) at 32/4 and 24/24, S = 512,
+   causal, non-causal and window 256; at head dim 256 (recurrentgemma-9b,
+   MQA 16/1, and GQA 16/4), flash at S in {512, 2048, 4096, 200} causal,
+   non-causal and windows 2048 and 64, mask probes at S in {512, 2048},
+   and decode at MQA groups 16 and 64, B = 4, S = 4096 with lengths 1,
+   S-1, S, 0 and the chunk edges, and B = 1 at lengths 1 and S;
    plus mask probes (``mask_probe``: keys past the
    diagonal or outside the window carry large scores and v = +-64, so a
    leak moves outputs by whole units) at S in {512, 2048}; float32 and
@@ -112,11 +119,13 @@ Phases, each of which fails the script (non-zero exit) on any error:
    within LOGIT_TOL), and the kernel route's decode logits equal its
    forward logits within LOGIT_TOL.  Latencies, step times, tokens/s,
    peak memory and a profile of PROFILE_STEPS decode steps are printed;
-6b. the same for h2o-danube-3-4b (head dim 120) and qwen3-32b (head dim
-   80) at full width and CUT_LAYERS layers (``serve_cut``): requests
-   through ``ServeEngine`` and a forward on both routes, launch counts
-   of CUT_LAYERS a step and a forward, logits within the same limits;
-6c. the same two configs at full width and full depth (24 and 64 layers,
+6b. the same for h2o-danube-3-4b (head dim 120), qwen3-32b (head dim
+   80) and granite-34b (MQA 48/1 at head dim 128: 88 layers, 93.9 GB of
+   bf16 weights, do not fit the card) at full width and CUT_LAYERS layers
+   (``serve_cut``): requests through ``ServeEngine`` and a forward on
+   both routes, launch counts of CUT_LAYERS a step and a forward, logits
+   within the same limits;
+6c. danube and qwen3 at full width and full depth (24 and 64 layers,
    ``forward_full``) on the kernel route: init time and peak memory, one
    2048-token ``LM.forward`` with flash_attention launched once a layer
    and finite logits, its time (median of FORWARD_REPS) and peak memory;
@@ -145,14 +154,26 @@ Phases, each of which fails the script (non-zero exit) on any error:
    1792 tokens), launch counts n_layers a decode step and a forward,
    logits under phase 6's limits with the MoE rule of the function's
    docstring; init, forward, decode step, tokens/s and busy share printed;
+6f. recurrentgemma-9b (``serve_recurrentgemma``) at full width and full
+   depth (38 layers: 26 RG-LRU, 12 local attention at 16/1 x 256, window
+   2048; 9.40 B parameters, nothing cut) on both routes: 4 requests of 16
+   prompt and 32 new tokens through ``ServeEngine`` on one slot,
+   decode_attention 12 launches a step, then a 4096-position
+   ``LM.forward`` (where the window masks), flash_attention 12 launches;
+   logits under phase 6's limits; init, forward, decode step, tokens/s,
+   busy shares, launches a step and the phase's seconds printed;
 7. time the two attention kernels at the main path's shapes like phase 4,
-   and at phase 6b's and phase 6e's shapes, and print one ``{"kernels":
+   and at phase 6b's, 6e's and 6f's shapes (recurrentgemma-9b's flash at
+   S = 4096 with its window, where SDPA takes the window as a boolean
+   mask, and at S = 2048; its decode at the serve's lengths and at full
+   length; the backend SDPA ran is named), and print one ``{"kernels":
    [...]}`` line for all three kernels, each row with the card and its
    power limit and each flash row with the kernel that ran
-   (``flash_wgmma`` or ``flash_fwd``) and, for the configs, phase 6c's or
-   6e's forward time; the rows count the launches of phases 6, 6d and
-   6e, path by path.  A line before it gives phase 6e's musicgen-medium
-   forward time, flash launches and the forward profile's flash time.
+   (``flash_wgmma`` or ``flash_fwd``) and, for the configs, phase 6c's,
+   6e's or 6f's forward time; the rows count the launches of phases 6,
+   6d, 6e and 6f, path by path.  Lines before it give phase 6e's
+   musicgen-medium and phase 6f's recurrentgemma-9b forward time and the
+   forward profile's flash time, and the script's seconds.
 
 Timing (phases 4 and 7): CUDA events, L2 flushed between launches,
 median of 25; ``ms`` has the launches queued behind a sleep kernel so
@@ -216,8 +237,11 @@ LOGIT_TOL = 0.25
 LOGIT_MEAN_TOL = 0.03125
 #: decode steps in the profiled window
 PROFILE_STEPS = 4
-#: phase 6b: h2o-danube-3-4b and qwen3-32b at full width, depth cut
-CUT_ARCHS = ("h2o-danube-3-4b", "qwen3-32b")
+#: phase 6b: h2o-danube-3-4b, qwen3-32b and granite-34b (MQA 48/1; its
+#: 93.9 GB of bf16 weights do not fit the card) at full width, depth cut
+CUT_ARCHS = ("h2o-danube-3-4b", "qwen3-32b", "granite-34b")
+#: phase 6c: the configs that fit the card at full depth
+FULL_ARCHS = ("h2o-danube-3-4b", "qwen3-32b")
 CUT_LAYERS = 2
 CUT_REQUESTS = 4
 CUT_NEW_TOKENS = 8
@@ -243,6 +267,21 @@ CODEBOOK_ROWS = 4
 CODEBOOK_STEPS = 64
 #: phase 5: (causal, window) of the random flash cases
 FLASH_MASKS = ((True, None), (False, None), (True, 256))
+#: phase 5 at head dim 256: recurrentgemma-9b's window of 2048, and 64
+D256_MASKS = ((True, None), (False, None), (True, 2048), (True, 64))
+#: bf16 D = 64 scales that flash_wgmma<64> computes through the wrapper's
+#: rewrite (ops.positive_scale)
+D64_SCALES = (-0.125, 0.0)
+#: phase 6f: recurrentgemma-9b at full width and depth (38 layers, 9.40 B
+#: parameters), both routes: requests of PROMPT_LEN prompt tokens and
+#: HYBRID_NEW_TOKENS new ones on one slot (the engine gives recurrent
+#: kinds one), and a forward of HYBRID_FORWARD_LEN positions, where the
+#: window of 2048 masks keys
+HYBRID_ARCH = "recurrentgemma-9b"
+HYBRID_REQUESTS = 4
+HYBRID_PROMPT_LEN = 16
+HYBRID_NEW_TOKENS = 32
+HYBRID_FORWARD_LEN = 4096
 
 Q1 = ("SELECT pickup_location_id, COUNT(*) AS n FROM taxi_table "
       "WHERE pickup_at >= '2019-04-01' GROUP BY pickup_location_id "
@@ -1317,6 +1356,69 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                 lambda: flash_ops.flash_attention(q, k, v, **kw),
                 lambda: flash_ref.attention_ref(q, k, v, **kw),
                 (lambda: flash_yardstick(q, k, v, **kw)) if wgmma else None)
+        # bf16 at D = 64 at every finite scale: flash_wgmma<64> computes a
+        # negative scale and 0 through the wrapper's rewrite; the yardstick
+        # is the chunked route at the rewritten (q, default scale), which
+        # gives the same scores
+        if bf16:
+            for h, hkv in ((32, 4), (24, 24)):
+                q = randn(1, h, 512, 64, dtype=dtype)
+                k, v = randn(1, hkv, 512, 64, dtype=dtype), randn(1, hkv, 512, 64, dtype=dtype)
+                for scale in D64_SCALES:
+                    qy, sy = flash_ops.positive_scale(q, scale)
+                    check(sy == 64 ** -0.5 or not bool(qy.any()),
+                          "the yardstick runs at the default scale")
+                    for causal, window in FLASH_MASKS:
+                        kw = dict(causal=causal, window=window)
+                        one("flash D=64 scale", f"flash {dtype} D=64 H={h}/{hkv} S=512 "
+                            f"scale={scale} {kw}",
+                            lambda: flash_ops.flash_attention(q, k, v, scale=scale, **kw),
+                            lambda: flash_ref.attention_ref(q, k, v, scale=scale, **kw),
+                            lambda: flash_yardstick(qy, k, v, **kw))
+        # head dim 256 (recurrentgemma-9b: MQA 16/1, window 2048; and GQA
+        # 16/4): bf16 on flash_wgmma<256> (64-key tiles) under the bf16 flash
+        # rule, float32 on flash_fwd under 1e-5; S = 4096 is where the window
+        # of 2048 masks, 200 the ragged end
+        for h, hkv in ((16, 1), (16, 4)):
+            for s in (512, 2048, 4096, 200):
+                q = randn(1, h, s, 256, dtype=dtype)
+                k, v = randn(1, hkv, s, 256, dtype=dtype), randn(1, hkv, s, 256, dtype=dtype)
+                for causal, window in D256_MASKS:
+                    kw = dict(causal=causal, window=window)
+                    one("flash D=256", f"flash {dtype} D=256 H={h}/{hkv} S={s} {kw}",
+                        lambda: flash_ops.flash_attention(q, k, v, **kw),
+                        lambda: flash_ref.attention_ref(q, k, v, **kw),
+                        (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
+                del q, k, v
+            for s in (512, 2048):
+                for window in (None, 256):
+                    q, k, v = mask_probe(torch, s, window=window, h=h, hkv=hkv, d=256,
+                                         dtype=dtype, generator=gen)
+                    kw = dict(causal=True, window=window)
+                    one("flash probe D=256", f"flash mask probe {dtype} D=256 H={h}/{hkv} "
+                        f"S={s} {kw}",
+                        lambda: flash_ops.flash_attention(q, k, v, **kw),
+                        lambda: flash_ref.attention_ref(q, k, v, **kw),
+                        (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
+        # decode at D = 256: MQA groups 16 (recurrentgemma-9b) and 64 (the
+        # kernel's largest), ragged lengths, and one sequence at 1 and S
+        for h in (16, 64):
+            s = 4096
+            q = randn(4, h, 256, dtype=dtype)
+            k, v = randn(4, 1, s, 256, dtype=dtype), randn(4, 1, s, 256, dtype=dtype)
+            _, chunk = decode_ops.split_plan(s, 4, sms)
+            for lens in ([1, s - 1, s, 0], [chunk - 1, chunk, chunk + 1, s]):
+                lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+                one("decode D=256", f"decode {dtype} D=256 B=4 H={h}/1 S={s} chunk={chunk} "
+                    f"lengths={lens}",
+                    lambda: decode_ops.decode_attention(q, k, v, lengths),
+                    lambda: decode_ref.decode_attention_ref(q, k, v, lengths))
+            q1, k1, v1 = q[:1], k[:1], v[:1]
+            for lens in ([1], [s]):
+                lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+                one("decode D=256", f"decode {dtype} D=256 B=1 H={h}/1 S={s} lengths={lens}",
+                    lambda: decode_ops.decode_attention(q1, k1, v1, lengths),
+                    lambda: decode_ref.decode_attention_ref(q1, k1, v1, lengths))
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # comparisons are not the main path
     by_rule = "; ".join(
         f"{str(dt).split('.')[-1]} D={d} ({flash_ops.kernel_name(dt, d)}) {rule}"
@@ -2448,20 +2550,213 @@ def serve_families(np, torch, flash_ops, decode_ops, smi):
     return out
 
 
+# -------------------------------------------------------------- phase 6f
+def serve_recurrentgemma(np, torch, flash_ops, decode_ops, smi):
+    """Phase 6f: recurrentgemma-9b (``(rec, rec, attn_geglu) x 12 + (rec,
+    rec)``: 26 RG-LRU blocks and 12 local-attention blocks of 16/1 heads
+    of 256, window 2048) at full width and full depth on ``cuda``, random
+    weights from a seeded generator, TF32 off (phase 6 set it): 9.40 B
+    parameters, nothing cut.  The init's time and peak, then the main path
+    with the launch counts set to 0 just before it: ``ServeEngine.generate``
+    on HYBRID_REQUESTS requests of HYBRID_PROMPT_LEN prompt tokens and
+    HYBRID_NEW_TOKENS new ones over one slot of 4096 positions (the engine
+    refuses more slots for recurrent kinds, as the JAX engine does),
+    decode_attention exactly 12 launches a step and flash_attention none;
+    then one ``LM.forward`` of HYBRID_FORWARD_LEN positions, where the
+    window masks keys, flash_attention exactly 12 launches.  The forward's
+    time (median of FORWARD_REPS after the first), its peak, a profile of
+    one forward (device busy time, flash time) and of PROFILE_STEPS decode
+    steps (busy share, launches a step), the median decode step and
+    tokens/s are printed with the card's name and power limit.
+
+    The reference route serves the same weights and the two routes are
+    held to phase 6's limits (LOGIT_TOL, LOGIT_MEAN_TOL): forward logits at
+    all 4096 positions, and decode logits teacher-forced on the kernel
+    route's sequences.  The served lengths stay below the window, so the
+    decode kernel branch (which has no window, as in the JAX package)
+    computes the reference branch's function; greedy tokens are equal up
+    to a request's first near tie.  Decode against forward: the
+    reference's own arithmetic parts them (the forward rounds each rec
+    block's conv output to bf16, decode does not), so the kernel route's
+    gap must be within the reference route's plus LOGIT_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.serve import ServeConfig
+
+    t_phase = time.perf_counter()
+    arch = HYBRID_ARCH
+    cfg = dataclasses.replace(get_config(arch), use_flash_kernel=True)
+    n_attn = sum(kind == "attn_geglu" for unit, count in cfg.segments for kind in unit * count)
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - held
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    check(n_params == 9_396_088_832, f"{arch}: {n_params} parameters")
+    kernel = flash_ops.kernel_name(cfg.compute_dtype, cfg.head_dim)
+    print(f"{arch}: {cfg.n_layers} layers ({n_attn} attention), d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim} ({kernel}), window "
+          f"{cfg.window}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters, {weights} B "
+          f"of weights; init on the card in {init_s!r} s, init peak {init_peak} B "
+          f"({init_peak / 2**30:.2f} GiB; weights + {(init_peak - weights) / 2**30:.2f} GiB) "
+          f"[{smi}]")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, HYBRID_PROMPT_LEN).astype(np.int32)
+               for _ in range(HYBRID_REQUESTS)]
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, (1, HYBRID_FORWARD_LEN)).astype(np.int32),
+                          device=dev)
+    scfg = ServeConfig(max_batch=1, max_len=4096)
+
+    # the main path of this config: the counts start at 0 here
+    flash_ops.LAUNCHES = decode_ops.LAUNCHES = 0
+    engine, reqs_k, steps, lat_k, wall = serve_requests(torch, model, None, scfg, prompts,
+                                                        HYBRID_NEW_TOKENS)
+    final_lengths = engine.lengths.copy()
+    del engine
+    decode_launches = decode_ops.LAUNCHES
+    check(decode_launches == n_attn * len(steps),
+          f"{arch}: decode_attention launched {decode_launches} times in {len(steps)} steps")
+    check(flash_ops.LAUNCHES == 0, f"{arch}: generate launched flash_attention")
+    check(int(final_lengths.max()) < cfg.window, f"{arch}: served past the window")
+    torch.cuda.reset_peak_memory_stats()
+    logits_k = model(tokens)
+    torch.cuda.synchronize()
+    flash_launches = flash_ops.LAUNCHES
+    check(flash_launches == n_attn,
+          f"{arch}: flash_attention launched {flash_launches} times in one forward")
+    check(decode_ops.LAUNCHES == decode_launches, f"{arch}: the forward launched decode_attention")
+    check(tuple(logits_k.shape) == (1, HYBRID_FORWARD_LEN, cfg.vocab)
+          and bool(torch.isfinite(logits_k).all()),
+          f"{arch}: forward logits {tuple(logits_k.shape)} not finite of shape "
+          f"(1, {HYBRID_FORWARD_LEN}, {cfg.vocab})")
+    n_tokens = sum(len(r.generated) for r in reqs_k)
+    print(f"{arch} main path: decode_attention launches {decode_launches} ({n_attn} x "
+          f"{len(steps)} steps), flash_attention launches {flash_launches} (one forward of "
+          f"{HYBRID_FORWARD_LEN} positions, window {cfg.window})")
+
+    # timing: forwards (median of FORWARD_REPS after the first), profiles
+    times = []
+    for _ in range(FORWARD_REPS):
+        t1 = time.perf_counter()
+        model(tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    fwd_peak = torch.cuda.max_memory_allocated() - held
+    fwd_s = statistics.median(times)
+    fwd_busy, fwd_flash_ms, fwd_flash_n = profile_forward(torch, model, tokens, None,
+                                                          what=f"{arch} ")
+    busy = profile_decode(torch, model, final_lengths, scfg.max_len, what=f"{arch} ")
+    flash_ops.LAUNCHES, decode_ops.LAUNCHES = flash_launches, decode_launches
+    step_s = statistics.median(steps)
+    print(f"{arch}: forward of {HYBRID_FORWARD_LEN} positions median of {FORWARD_REPS} after "
+          f"the first {fwd_s!r} s (each {times!r}), peak device memory {fwd_peak} B "
+          f"({fwd_peak / 2**30:.2f} GiB); {HYBRID_REQUESTS} requests, {len(steps)} decode steps, "
+          f"{n_tokens} tokens in {wall!r} s ({n_tokens / wall!r} tokens/s), decode step median "
+          f"{step_s!r} s (min {min(steps)!r}, max {max(steps)!r}); busy share over "
+          f"{PROFILE_STEPS} profiled steps {busy!r}; per-request latency from submission (s) "
+          f"{lat_k!r} [{smi}]")
+
+    # the reference route, on the same weights (assigned, not copied)
+    ref_model = LM(dataclasses.replace(cfg, use_flash_kernel=False))
+    ref_model.load_state_dict(model.state_dict(), assign=True)
+    counts = flash_ops.LAUNCHES, decode_ops.LAUNCHES
+    logits_r = ref_model(tokens)
+    engine, reqs_r, steps_r, _, wall_r = serve_requests(torch, ref_model, None, scfg, prompts,
+                                                        HYBRID_NEW_TOKENS)
+    del engine
+    check((flash_ops.LAUNCHES, decode_ops.LAUNCHES) == counts,
+          f"{arch}: the reference route launched a kernel")
+    print(f"{arch} reference route: decode step median {statistics.median(steps_r)!r} s, "
+          f"{sum(len(r.generated) for r in reqs_r) / wall_r!r} tokens/s")
+    check(bool(torch.isfinite(logits_r).all()), f"{arch}: reference forward logits not finite")
+    check_logits(torch, f"{arch} forward of {HYBRID_FORWARD_LEN} positions", logits_k.float(),
+                 logits_r.float())
+    del logits_k, logits_r
+
+    toks, valid, seqs = padded_sequences(np, torch, reqs_k)
+    counts = flash_ops.LAUNCHES, decode_ops.LAUNCHES
+    tf_k = teacher_forced(torch, model, toks, scfg.max_len)
+    tf_r = teacher_forced(torch, ref_model, toks, scfg.max_len)
+    check(bool(torch.isfinite(tf_k[valid]).all() and torch.isfinite(tf_r[valid]).all()),
+          f"{arch}: teacher-forced logits not finite")
+    check_logits(torch, f"{arch} decode, teacher-forced on {int(valid.sum())} positions,",
+                 tf_k[valid], tf_r[valid])
+    same = 0
+    for i, (rk, rr) in enumerate(zip(reqs_k, reqs_r)):
+        p_len = len(rk.prompt)
+        for j, (a, b) in enumerate(zip(rk.generated, rr.generated)):
+            if a != b:
+                top2 = torch.topk(tf_r[i, p_len + j - 1], 2).values
+                margin = float(top2[0] - top2[1])
+                print(f"{arch} request {i}: routes part at new token {j} ({a} vs {b}), "
+                      f"reference top-2 margin {margin!r}")
+                check(margin <= LOGIT_TOL, f"{arch} request {i}: tokens differ at margin {margin}")
+                break
+            same += 1
+    print(f"{arch} greedy tokens: {same} of {n_tokens} equal between the routes before any "
+          f"near tie")
+    # decode against forward, on each route: a rec block's forward rounds
+    # its conv output to bf16 and its decode step does not, and the scan
+    # and the step add in other orders (as in the JAX package, whose own
+    # test holds this config's decode to its forward at 5x the tolerance of
+    # the attention configs), so the reference route's own gap is the
+    # yardstick: the kernel route's within it plus LOGIT_TOL
+    x = seqs[0]
+    xt = torch.tensor(x[None], device=dev)
+    full = model(xt)[0].float()
+    cdiff = float((full - tf_k[0, :len(x)]).abs().max())
+    rdiff = float((ref_model(xt)[0].float() - tf_r[0, :len(x)]).abs().max())
+    flash_ops.LAUNCHES, decode_ops.LAUNCHES = counts  # comparisons, not the main path
+    print(f"{arch} decode vs forward on request 0 ({len(x)} tokens): max |diff| kernel route "
+          f"{cdiff!r}, reference route {rdiff!r} (limit: the reference's + {LOGIT_TOL})")
+    check(cdiff <= rdiff + LOGIT_TOL,
+          f"{arch}: the kernel route's decode logits differ from its forward logits by more "
+          f"than the reference route's")
+    del model, ref_model, tf_k, tf_r, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 6f ({arch}): {seconds!r} s [{smi}]")
+    return {"decode_launches": decode_launches, "flash_launches": flash_launches,
+            "decode_steps": len(steps), "n_layers": cfg.n_layers, "n_attention_layers": n_attn,
+            "final_lengths": final_lengths, "init_s": init_s, "init_peak_bytes": init_peak,
+            "forward_s": fwd_s, "forward_peak_bytes": fwd_peak, "decode_step_s": step_s,
+            "tokens_per_s": n_tokens / wall, "busy_share": busy, "forward_busy_share": fwd_busy,
+            "forward_profile_flash_ms": fwd_flash_ms,
+            "forward_profile_flash_launches": fwd_flash_n, "seconds": seconds}
+
+
 # --------------------------------------------------------------- phase 7
-def path_launches(served, trained, families, key):
+def path_launches(served, trained, families, hybrid, key):
     """A kernel row's launches: phase 6's serve and phase 6d's trained
-    model (Yi-6B) and phase 6e's three configs, each path's count read
-    just after it ran."""
+    model (Yi-6B), phase 6e's three configs and phase 6f's
+    recurrentgemma-9b, each path's count read just after it ran."""
     by_path = {"phase 6 serve (yi-6b, 32 layers)": served[key],
                "phase 6d train -> serve (yi-6b, 4 layers)": trained[key]}
     for arch, fam in families.items():
         by_path[f"phase 6e {arch} ({fam['n_layers']} layers)"] = fam[key]
+    by_path[f"phase 6f {HYBRID_ARCH} ({hybrid['n_layers']} layers)"] = hybrid[key]
     return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
 
+def sdpa_backend(torch, *args, **kwargs):
+    """The SDPA backend that ``scaled_dot_product_attention(*args,
+    **kwargs)`` runs: the choice PyTorch makes for these arguments
+    (``torch._fused_sdp_choice``)."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(*args, **kwargs)).name
+
+
 def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served, cut_served,
-                      full_served, trained, families, card):
+                      full_served, trained, families, hybrid, card):
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -2502,29 +2797,41 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         mask = (torch.arange(s, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
         rows = sum(min(int(x), s) if x > 0 else s for x in lens)  # rows the function reads
-        return timed(
+        sdpa = (q[:, :, None], k, v), dict(attn_mask=mask, enable_gqa=True)
+        row = timed(
             lambda: decode_ops.decode_attention(q, k, v, lengths),
             lambda: decode_ref.decode_attention_ref(q, k, v, lengths),
-            lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
-                                                   enable_gqa=True),
+            lambda: F.scaled_dot_product_attention(*sdpa[0], **sdpa[1]),
             nbytes=rows * hkv * d * 2 * 2 + 2 * q.numel() * 2 + b * 4,
             flops=4 * rows * h * d,  # q.k and p.v per valid row, every q head
         )
+        return {**row, "sdpa_backend": sdpa_backend(torch, *sdpa[0], **sdpa[1])}
 
     def flash_case(h, hkv, d, window=None, fs=FORWARD_LEN):
-        """One fs-token prompt, causal; a window of fs or more masks
-        nothing more, so SDPA's causal call computes the same function."""
-        check(window is None or window >= fs, "flash timing takes no narrower window")
+        """One fs-token prompt, causal.  A window of fs or more masks
+        nothing more, so SDPA's causal call computes the same function;
+        a narrower one goes to SDPA as an explicit boolean mask, and the
+        bound counts the (query, key) pairs it leaves."""
         fq, fk, fv = randn(1, h, fs, d), randn(1, hkv, fs, d), randn(1, hkv, fs, d)
-        return timed(
+        if window is None or window >= fs:
+            sdpa = dict(is_causal=True, enable_gqa=True)
+            flops = 2 * h * fs * fs * d  # q.k and p.v over the causal half
+        else:
+            pos = torch.arange(fs, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            sdpa = dict(attn_mask=mask, enable_gqa=True)
+            pairs = sum(min(i + 1, window) for i in range(fs))
+            flops = 4 * h * d * pairs  # q.k and p.v over the visible pairs
+        row = timed(
             lambda: flash_ops.flash_attention(fq, fk, fv, causal=True, window=window),
             lambda: flash_ref.attention_ref(fq, fk, fv, causal=True, window=window),
-            lambda: F.scaled_dot_product_attention(fq, fk, fv, is_causal=True, enable_gqa=True),
+            lambda: F.scaled_dot_product_attention(fq, fk, fv, **sdpa),
             nbytes=(2 * fq.numel() + fk.numel() + fv.numel()) * 2,
-            flops=2 * h * fs * fs * d,  # q.k and p.v over the causal half
+            flops=flops,
             yard=(lambda: flash_yardstick(fq, fk, fv, causal=True, window=window))
             if flash_ops.kernel_name(torch.bfloat16, d) == "flash_wgmma" else None,
         )
+        return {**row, "sdpa_backend": sdpa_backend(torch, fq, fk, fv, **sdpa)}
 
     # the main path's shapes: decode over 4 slots of 4096 positions, 32/4
     # heads; flash on one 2048-token prompt
@@ -2565,6 +2872,44 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
                             "launches": fam["decode_launches"],
                             "launches_by_path": {path: fam["decode_launches"]},
                             "shape": f"B={b} H={fh} Hkv={fhkv} S={s} D={fd} bf16 full length"}
+    # phase 6b's granite-34b: MQA 48/1 at D = 128
+    gran = cut_served["granite-34b"]
+    flash_cut["granite-34b"] = {
+        **flash_case(48, 1, 128),
+        "kernel": flash_ops.kernel_name(torch.bfloat16, 128),
+        "launches": gran["flash_launches"],
+        "launches_by_path": {f"phase 6b granite-34b ({CUT_LAYERS} layers)": gran["flash_launches"]},
+        "shape": f"B=1 H=48 Hkv=1 S={FORWARD_LEN} D=128 bf16 causal"}
+    decode_cut["granite-34b"] = {
+        **decode_case(48, 1, 128, [s] * b),
+        "launches": gran["decode_launches"],
+        "launches_by_path": {f"phase 6b granite-34b ({CUT_LAYERS} layers)": gran["decode_launches"]},
+        "shape": f"B={b} H=48 Hkv=1 S={s} D=128 bf16 full length"}
+    # phase 6f's recurrentgemma-9b: MQA 16/1 at D = 256, window 2048
+    hpath = f"phase 6f {HYBRID_ARCH} ({hybrid['n_layers']} layers)"
+    flash_by_path = {hpath: hybrid["flash_launches"]}
+    decode_by_path = {hpath: hybrid["decode_launches"]}
+    flash_cut[f"{HYBRID_ARCH}, S={HYBRID_FORWARD_LEN} window 2048"] = {
+        **flash_case(16, 1, 256, window=2048, fs=HYBRID_FORWARD_LEN),
+        "kernel": flash_ops.kernel_name(torch.bfloat16, 256),
+        "launches": hybrid["flash_launches"], "launches_by_path": flash_by_path,
+        "full_depth_forward_s": hybrid["forward_s"], "full_depth_layers": hybrid["n_layers"],
+        "shape": f"B=1 H=16 Hkv=1 S={HYBRID_FORWARD_LEN} D=256 bf16 causal window=2048"}
+    flash_cut[f"{HYBRID_ARCH}, S={FORWARD_LEN} causal"] = {
+        **flash_case(16, 1, 256, window=2048),
+        "kernel": flash_ops.kernel_name(torch.bfloat16, 256),
+        "launches": hybrid["flash_launches"], "launches_by_path": flash_by_path,
+        "shape": f"B=1 H=16 Hkv=1 S={FORWARD_LEN} D=256 bf16 causal window=2048 "
+                 f"(masks nothing at this S)"}
+    hfinal = [int(x) for x in hybrid["final_lengths"]]
+    decode_cut[f"{HYBRID_ARCH}, the serve's lengths"] = {
+        **decode_case(16, 1, 256, hfinal),
+        "launches": hybrid["decode_launches"], "launches_by_path": decode_by_path,
+        "shape": f"B=1 H=16 Hkv=1 S={s} D=256 bf16 lengths={hfinal}"}
+    decode_cut[f"{HYBRID_ARCH}, full length"] = {
+        **decode_case(16, 1, 256, [s]),
+        "launches": hybrid["decode_launches"], "launches_by_path": decode_by_path,
+        "shape": f"B=1 H=16 Hkv=1 S={s} D=256 bf16 full length"}
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # timing is not the main path
     print("timing: kernels device-only (queued behind a sleep kernel); plain versions and "
           "SDPA queued the same way")
@@ -2572,14 +2917,14 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
-         **fl, **path_launches(served, trained, families, "flash_launches"),
+         **fl, **path_launches(served, trained, families, hybrid, "flash_launches"),
          "kernel": flash_ops.kernel_name(torch.bfloat16, d),
          "shape": f"B=1 H={h} Hkv={hkv} S={FORWARD_LEN} D={d} bf16 causal",
          "by_config": flash_cut},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:85",
-         **dec, **path_launches(served, trained, families, "decode_launches"),
+         **dec, **path_launches(served, trained, families, hybrid, "decode_launches"),
          "shape": f"B={b} H={h} Hkv={hkv} S={s} D={d} bf16 lengths={final}",
          "at_full_length": dec_full, "by_config": decode_cut},
     ]
@@ -2587,6 +2932,7 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside the script", file=sys.stderr)
         return 2
@@ -2630,17 +2976,24 @@ def main() -> int:
     attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref)
     served = serve_yi(np, torch, flash_ops, decode_ops)
     cut_served = {arch: serve_cut(np, torch, flash_ops, decode_ops, arch) for arch in CUT_ARCHS}
-    full_served = {arch: forward_full(np, torch, flash_ops, arch, smi) for arch in CUT_ARCHS}
+    full_served = {arch: forward_full(np, torch, flash_ops, arch, smi) for arch in FULL_ARCHS}
     trained = train_serve(np, torch, flash_ops, decode_ops, smi)
     families = serve_families(np, torch, flash_ops, decode_ops, smi)
+    hybrid = serve_recurrentgemma(np, torch, flash_ops, decode_ops, smi)
     rows = measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served,
-                             cut_served, full_served, trained, families, card)
+                             cut_served, full_served, trained, families, hybrid, card)
     music = families["musicgen-medium"]
     print(f"musicgen-medium (phase 6e): forward of {FORWARD_LEN} positions "
           f"{music['forward_s']!r} s, flash_attention launches {music['flash_launches']} a "
           f"forward ({flash_ops.kernel_name(torch.bfloat16, 64)}), flash kernels in the "
           f"forward profile {music['forward_profile_flash_ms']!r} ms in "
           f"{music['forward_profile_flash_launches']} launches [{smi}]")
+    print(f"{HYBRID_ARCH} (phase 6f): forward of {HYBRID_FORWARD_LEN} positions "
+          f"{hybrid['forward_s']!r} s, busy share {hybrid['forward_busy_share']!r}, flash "
+          f"kernels in the forward profile {hybrid['forward_profile_flash_ms']!r} ms in "
+          f"{hybrid['forward_profile_flash_launches']} launches; decode step "
+          f"{hybrid['decode_step_s']!r} s, busy share {hybrid['busy_share']!r} [{smi}]")
+    print(f"chip_smoke.py: {time.perf_counter() - t_start!r} s in all [{smi}]")
     print(json.dumps({"kernels": [{**row, "card": smi} for row in (ffa_row, *rows)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ the JAX package's ``repro/configs`` has it: ``CONFIG`` (full size) and
 ``smoke_config()`` (reduced, same family); ``shapes`` holds the
 workload shapes and the batches made for them.  The port serves the
 seven architectures whose blocks are attention (four dense, the MoE, the
-vision-language and the audio one); the other three are named so that
-asking for one says which slice of the port brings it.
+vision-language and the audio one) and the hybrid recurrentgemma-9b
+(RG-LRU and local attention); the other two are named so that asking
+for one says which slice of the port brings it.
 """
 from __future__ import annotations
 
@@ -29,9 +30,9 @@ ARCH_IDS: List[str] = [
 ]
 
 #: the architectures this port serves (attention blocks: dense, MoE,
-#: patches before the text, parallel codebooks)
+#: patches before the text, parallel codebooks; RG-LRU blocks)
 PORTED = ("h2o_danube_3_4b", "granite_34b", "yi_6b", "qwen3_32b",
-          "qwen2_moe_a2_7b", "internvl2_2b", "musicgen_medium")
+          "qwen2_moe_a2_7b", "internvl2_2b", "musicgen_medium", "recurrentgemma_9b")
 
 #: accepted spellings (CLI uses dashes)
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
@@ -43,9 +44,9 @@ def resolve(arch: str) -> str:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCH_IDS)}")
     if arch not in PORTED:
         raise NotImplementedError(
-            f"{arch} needs blocks the port does not have yet (MLA and the MTP "
-            f"head, xLSTM, RG-LRU); they come with the slice 'the rest of the "
-            f"ML stack', ROADMAP.md §1. Ported: {list(PORTED)}"
+            f"{arch} needs blocks the port does not have yet (xLSTM's mlstm "
+            f"and slstm; MLA and the MTP head); they come with later slices, "
+            f"ROADMAP.md §1. Ported: {list(PORTED)}"
         )
     return arch
 

@@ -13,7 +13,9 @@
 // of k and D of v: at B=4, Hkv=4, S=4096, D=128 in bf16 that is 16.8 MB a
 // cache, 33.6 MB in all, 0.0100 ms at the H100 SXM's 3.35 TB/s.  The
 // arithmetic is 4 flops per cache element a q head, 0.27 GFLOP there, far
-// below the card's rate.
+// below the card's rate.  At recurrentgemma-9b's B=1, Hkv=1, S=4096, D=256
+// the caches are 4.19 MB, 0.00125 ms: there a launch's fixed cost is most
+// of the time.
 //
 // Design: split-S.  The TPU kernel carries (m, l, acc) across a sequential
 // grid axis over S (kernel.py:44-82).  Here the cache axis is cut into
@@ -53,6 +55,15 @@
 // inside its aligned group of 8, so it stays inside the row for any chunk
 // count, and rows a multiple of 128 B apart keep the mma loads free of
 // bank conflicts.
+//
+// Head dim 256 (recurrentgemma-9b, MQA group 16): a bf16 row is 512 B, so a
+// warp's two stages take 16 KB and the block 200,960 B at kMaxGroup (one
+// block an SM; the register limit is then that of one block, so the 64
+// float32 accumulators and 16 q fragments a lane stay in registers).
+// float32 rows are 1 KB, and two stages would be 262,144 B alone: float32
+// at 256 streams through a single stage a warp (Geo::kStages = 1; each step
+// waits for its own rows, loaded after the step before was read), 131,072
+// B of stages, the same as bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,7 +100,12 @@ struct Geo {
   static constexpr int kColAlign = kColBytes & -kColBytes;
   static constexpr int kRowBytes = SC * 16;        // a row in shared memory
   static constexpr int kStepBytes = 2 * kRows * kRowBytes;  // k, then v
-  static constexpr int kWarpBytes = 2 * kStepBytes;          // two stages
+  // stages a warp: two, but one for float32 at D = 256 (see above)
+  static constexpr int kStages = sizeof(T) == 4 && D > 128 ? 1 : 2;
+  static constexpr int kWarpBytes = kStages * kStepBytes;
+  // blocks an SM the registers are budgeted for: one at D = 256, where the
+  // shared memory allows no second
+  static constexpr int kMinBlocks = D > 128 ? 1 : 2;
   static constexpr bool kMma = sizeof(T) == 2;  // bf16: q.k on the tensor cores
   static_assert(D * sizeof(T) % 16 == 0, "a cache row is whole 16-byte chunks");
   static_assert(CPR % 4 == 0, "four lanes share a row");
@@ -141,7 +157,7 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, (Geo<T, D>::kMinBlocks))
     decode_split(const T* __restrict__ q, const T* __restrict__ k_cache,
                  const T* __restrict__ v_cache, const int* __restrict__ lengths,
                  T* __restrict__ out, float* __restrict__ part_acc,
@@ -233,10 +249,14 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int j = 0; j < G::CW; ++j) acc[h][j] = 0.0f;
 
     for (int s = warp, it = 0; s < n_steps; s += kWarps, ++it) {
-      const int st = it & 1;
-      if (s + kWarps < n_steps) load_step(s + kWarps, st ^ 1);
-      asm volatile("cp.async.commit_group;" ::: "memory");
-      asm volatile("cp.async.wait_group 1;" ::: "memory");
+      const int st = G::kStages == 2 ? it & 1 : 0;
+      if (G::kStages == 2) {  // the next step's rows load while this one runs
+        if (s + kWarps < n_steps) load_step(s + kWarps, st ^ 1);
+        asm volatile("cp.async.commit_group;" ::: "memory");
+        asm volatile("cp.async.wait_group 1;" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+      }
       __syncwarp();
       const uint8_t* tK = wbuf + st * G::kStepBytes;
       const uint8_t* tV = tK + R * G::kRowBytes;
@@ -340,6 +360,10 @@ __global__ void __launch_bounds__(kThreads, 2)
         }
       }
       __syncwarp();  // the stage, wS, wP and wC are free for the next step
+      if (G::kStages == 1 && s + kWarps < n_steps) {
+        load_step(s + kWarps, 0);
+        asm volatile("cp.async.commit_group;" ::: "memory");
+      }
     }
     asm volatile("cp.async.wait_group 0;" ::: "memory");
     __syncthreads();  // every warp is done with the stages
@@ -462,6 +486,10 @@ cudaError_t launch_d(int head_dim, const void* q, const void* k,
       return launch<T, 128>(q, k, v, lengths, out, part_acc, part_ml, n_seqs,
                             n_kv_heads, group, seq_len, n_splits, chunk,
                             scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, lengths, out, part_acc, part_ml, n_seqs,
+                            n_kv_heads, group, seq_len, n_splits, chunk,
+                            scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -471,10 +499,10 @@ cudaError_t launch_d(int head_dim, const void* q, const void* k,
 
 // Launches the kernels on `stream` (decode_split, then decode_combine when
 // n_splits > 1) and returns cudaGetLastError() (0 on success).  Does not
-// synchronise.  dtype: 0 float32, 1 bfloat16.  head_dim: 32, 64, 80, 120
-// or 128.  q
-// and out hold n_seqs * n_kv_heads * group rows of head_dim, lengths one
-// int32 per sequence, the caches n_seqs * n_kv_heads * seq_len rows.
+// synchronise.  dtype: 0 float32, 1 bfloat16.  head_dim: 32, 64, 80, 120,
+// 128 or 256.  q and out hold n_seqs * n_kv_heads * group rows of
+// head_dim, lengths one int32 per sequence, the caches n_seqs * n_kv_heads
+// * seq_len rows.
 // part_acc holds q's rows * n_splits * head_dim floats and part_ml q's rows
 // * n_splits * 2; chunk is a multiple of 64 with n_splits * chunk >= seq_len.
 extern "C" int decode_attention_launch(int device, int dtype, int head_dim,

@@ -18,8 +18,9 @@ SOURCE = Path(__file__).parent / "csrc" / "decode_attention.cu"
 DEFAULT_BLOCK_S = 1024
 
 #: head widths the kernel is instantiated for: the ported configs' (yi-6b
-#: and granite-34b 128, qwen3-32b 80, h2o-danube-3-4b 120), and 32 and 64
-HEAD_DIMS = (32, 64, 80, 120, 128)
+#: and granite-34b 128, qwen3-32b 80, h2o-danube-3-4b 120, musicgen-medium
+#: 64, recurrentgemma-9b 256), and 32
+HEAD_DIMS = (32, 64, 80, 120, 128, 256)
 
 #: cache rows a chunk is a multiple of (the kernel's bf16 tile)
 CHUNK_ALIGN = 64

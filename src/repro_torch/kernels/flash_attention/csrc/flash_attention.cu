@@ -14,14 +14,17 @@
 // 0.0347 ms at the H100's 989 TFLOP/s bf16 tensor-core rate, against 37.7 MB
 // of q, k, v and out (0.011 ms at 3.35 TB/s); at musicgen-medium's 24 heads
 // of 64, 12.9 GFLOP, 0.0130 ms, and S^2/2 * H = 50.3 M exponentials, about
-// as long again on the SMs' 16 MUFU lanes each.  Each k/v tile is read once
+// as long again on the SMs' 16 MUFU lanes each; at recurrentgemma-9b's 16
+// heads of 256, S = 4096 with a window of 2048 (6,292,480 visible pairs a
+// head), 103.1 GFLOP, 0.1042 ms.  Each k/v tile is read once
 // per q tile, and the q heads of one kv head run side by side, so the
 // repeated reads hit L2.
 //
 // Two kernels, chosen by dtype and head dim in flash_attention_launch:
 //
-// * flash_wgmma<D>: bfloat16 at D = 64, 80, 120 and 128 (musicgen-medium,
-//   qwen3-32b, h2o-danube-3-4b and Yi-6B compute in bf16).  One block of
+// * flash_wgmma<D>: bfloat16 at D = 64, 80, 120, 128 and 256
+//   (musicgen-medium, qwen3-32b, h2o-danube-3-4b, Yi-6B and
+//   recurrentgemma-9b compute in bf16).  One block of
 //   384 threads per (batch-head, 128-row q tile): two consumer warpgroups
 //   of 64 q rows each and a producer warpgroup, which hands its registers
 //   to the consumers (setmaxnreg 24 / 240).  One producer thread loads the
@@ -31,8 +34,13 @@
 //   128-byte swizzle that wgmma's descriptors expect, in 64-column spans
 //   of 16 KB (WGeo): at D = 80, 120 and 128 two spans (128 columns) and a
 //   ring of two stages; at D = 64 one span, a row of the tensor map exactly,
-//   and a ring of four stages (q 16 KB + 4 x 32 KB of k and v).  The tensor
-//   map's rows are D elements long (128, 160, 240 or 256 bytes, each a
+//   and a ring of four stages (q 16 KB + 4 x 32 KB of k and v).  At D = 256
+//   a row is four spans, and 128-key tiles would not fit (q 64 KB + 2
+//   stages x 2 x 64 KB = 320 KB): k and v tiles hold 64 keys (four spans of
+//   64 rows, 32 KB; boxes 64 x 64), two stages, 197 KB in all; q.k^T is
+//   m64n64k16 and p.v one m64n256k16 a k-step (o is 128 float registers a
+//   thread).  The tensor
+//   map's rows are D elements long (128, 160, 240, 256 or 512 bytes, each a
 //   multiple of 16 as TMA requires) and its boxes 64 x 128, one box per
 //   span, so at 80 and 120 columns D .. 127 of the second span land as
 //   TMA's zero fill; the transaction count is the full box, as it is for
@@ -52,7 +60,7 @@
 //   are neighbours in the grid, so their k/v tiles are read from device
 //   memory about once.
 //
-//   Schedules (consume).  At D = 80, 120 and 128 each warpgroup runs q.k^T,
+//   Schedules (consume).  At D = 80, 120, 128 and 256 each warpgroup runs q.k^T,
 //   its softmax and p.v in turn.  At D = 64 a tile's 8,192 exponentials a
 //   warpgroup take the SM's 16 MUFU lanes as long as its two products take
 //   the tensor cores, so that schedule would leave the tensor cores idle
@@ -318,6 +326,9 @@ cudaError_t launch_f32(int head_dim, const void* q, const void* k,
     case 128:
       return launch<T, 128>(q, k, v, out, bh, seq_len, group, causal, scale,
                             window, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, out, bh, seq_len, group, causal, scale,
+                            window, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -341,25 +352,41 @@ constexpr int kWSmem = 1024                      // slack to align to 1 KB
 constexpr int kNarrowStages = 4;
 constexpr int kNarrowSmem = 1024 + kHalfBytes + 2 * kNarrowStages * kHalfBytes +
                             8 * (1 + 3 * kNarrowStages);
+// D = 256: four spans a row.  A 128-key tile would be 64 KB, and q plus two
+// stages of k and v 320 KB, so k and v tiles hold 64 keys (32 KB; four spans
+// of 64 rows x 128 B) and the ring has two stages (three would be 256 KB)
+constexpr int kWideCols = 256;
+constexpr int kWideKeys = 64;
+constexpr int kWideSpanBytes = kWideKeys * kHalf * 2;          // 8 KB
+constexpr int kWideTileBytes = (kWideCols / kHalf) * kWideSpanBytes;  // 32 KB
+constexpr int kWideQBytes = (kWideCols / kHalf) * kHalfBytes;  // 64 KB
+constexpr int kWideStages = 2;
+constexpr int kWideSmem = 1024 + kWideQBytes + 2 * kWideStages * kWideTileBytes +
+                          8 * (1 + 3 * kWideStages);
 constexpr float kLog2e = 1.4426950408889634f;
 
 // flash_wgmma<D>'s shared-memory geometry: 64-column TMA boxes a tile row,
-// bytes a q, k or v tile, stages in the k/v ring, dynamic shared memory.
+// keys a k or v tile, bytes of a k/v tile's 64-column span and of the whole
+// tile, bytes of the 128-row q tile, stages in the k/v ring, dynamic shared
+// memory.
 template <int D>
 struct WGeo {
-  static constexpr int boxes = D <= kHalf ? 1 : 2;
-  static constexpr int tile = boxes * kHalfBytes;
-  static constexpr int ring = D <= kHalf ? kNarrowStages : kStages;
-  static constexpr int smem = D <= kHalf ? kNarrowSmem : kWSmem;
+  static constexpr int boxes = (D + kHalf - 1) / kHalf;
+  static constexpr int keys = D > kWCols ? kWideKeys : kWBK;
+  static constexpr int span = keys * kHalf * 2;
+  static constexpr int tile = boxes * span;
+  static constexpr int qtile = boxes * kHalfBytes;
+  static constexpr int ring = D <= kHalf ? kNarrowStages : D > kWCols ? kWideStages : kStages;
+  static constexpr int smem = D <= kHalf ? kNarrowSmem : D > kWCols ? kWideSmem : kWSmem;
 };
 
 // Output columns p.v computes at head dim D: 64 at D = 64 (m64n64k16, one
 // span), 80 up to D = 80 (m64n80k16: the first half and 16 columns of the
-// second), else the whole padded tile (m64n128k16; at D = 120 its last 8
-// columns are zeros).
+// second), the whole padded tile up to D = 128 (m64n128k16; at D = 120 its
+// last 8 columns are zeros), and all 256 at D = 256 (m64n256k16).
 template <int D>
 __host__ __device__ constexpr int pv_cols() {
-  return D <= kHalf ? kHalf : D <= 80 ? 80 : kWCols;
+  return D <= kHalf ? kHalf : D <= 80 ? 80 : D <= kWCols ? kWCols : D;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -476,6 +503,27 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+#define WG_D32                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "            \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "       \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "     \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
+#define R32 R8(0), R8(8), R8(16), R8(24)
+
+// d (+)= A . B^T, m64n64k16 (64-key tiles at D = 256).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : R32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d += A . B, m64n128k16, A in registers (bf16 pairs), B MN-major bf16 in
 // shared memory.
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
@@ -516,13 +564,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[40], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
-#define WG_D32                                   \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, "            \
-  "%8, %9, %10, %11, %12, %13, %14, %15, "       \
-  "%16, %17, %18, %19, %20, %21, %22, %23, "     \
-  "%24, %25, %26, %27, %28, %29, %30, %31}"
-#define R32 R8(0), R8(8), R8(16), R8(24)
-
 // d += A . B, m64n64k16: B is one 64-column span (LBO unused).
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
                                          uint32_t a1, uint32_t a2, uint32_t a3,
@@ -538,15 +579,51 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+#define WG_D128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, " \
+  "%88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, " \
+  "%104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, " \
+  "%120, %121, %122, %123, %124, %125, %126, %127}"
+#define R128                                                            \
+  R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56), R8(64), \
+      R8(72), R8(80), R8(88), R8(96), R8(104), R8(112), R8(120)
+
+// d += A . B, m64n256k16: B's four 64-column spans, LBO apart (D = 256).
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WG_D128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : R128
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// One consumer warpgroup on the serial schedule (D = 80, 120 and 128):
-// q rows q0 + 64 wg .. + 63 against key
-// tiles lo .. lo + n_iter - 1, per tile q.k^T, wait, softmax, p.v, wait;
-// writes those rows of `op` (rows of D elements).  Only the warp
+// One consumer warpgroup on the serial schedule (D = 80, 120, 128 and
+// 256): q rows q0 + 64 wg .. + 63 against key tiles lo .. lo + n_iter - 1
+// of KB keys (128, or 64 at D = 256), per tile q.k^T, wait, softmax, p.v,
+// wait; writes those rows of `op` (rows of D elements).  Only the warp
 // schedulers' interleaving of the two consumer warpgroups overlaps one's
 // softmax with the other's products.
 template <int D>
@@ -555,7 +632,7 @@ __device__ __forceinline__ void consume(
     uint32_t bar_v, uint32_t bar_empty, int wg, int q0, int lo, int n_iter,
     __nv_bfloat16* __restrict__ op, int seq_len, int causal, float scale_log2,
     int window) {
-  constexpr int R = WGeo<D>::ring, T = WGeo<D>::tile;
+  constexpr int R = WGeo<D>::ring, T = WGeo<D>::tile, KB = WGeo<D>::keys;
   // consumer warpgroup wg: q rows q0 + 64 wg .. + 63.  Accumulator layout
   // of m64nN: d[4j + e] is (row r, column 8j + 2c + e), d[4j + 2 + e] is
   // (row r + 8, the same column), r = 16 warp + lane / 4, c = lane % 4.
@@ -579,28 +656,29 @@ __device__ __forceinline__ void consume(
     const uint32_t tK = sK + s * T, tV = sV + s * T;
 
     // scores = q . k^T over D: ceil(D/16) steps of 16, four per 64-column
-    // half (columns past D are zeros in both tiles)
-    float sc[64];
+    // span (columns past D are zeros in both tiles); a q span is 128 rows,
+    // a k span KB rows
+    float sc[KB / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] = 0.0f;
+    for (int i = 0; i < KB / 2; ++i) sc[i] = 0.0f;
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < (D + 15) / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
-      wgmma_ss(sc, sw128_desc(sQ + off + wg * 64 * 128, 16, 1024),
-               sw128_desc(tK + off, 16, 1024), kk > 0);
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss(sc, sw128_desc(sQ + (kk / 4) * kHalfBytes + off + wg * 64 * 128, 16, 1024),
+               sw128_desc(tK + (kk / 4) * WGeo<D>::span + off, 16, 1024), kk > 0);
     }
     wg_commit();
     wg_wait_all();
     fence_regs(sc);
 
-    const int k0 = (lo + it) * kWBK;
-    const bool edge = k0 + kWBK > seq_len ||
-                      (causal && k0 + kWBK - 1 > wrow) ||
+    const int k0 = (lo + it) * KB;
+    const bool edge = k0 + KB > seq_len ||
+                      (causal && k0 + KB - 1 > wrow) ||
                       (window > 0 && k0 <= wrow + 63 - window);
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < KB / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float a = sc[4 * j + e] * scale_log2, b = sc[4 * j + 2 + e] * scale_log2;
@@ -624,7 +702,7 @@ __device__ __forceinline__ void consume(
         mx1 = fmaxf(mx1, b);
       }
     }
-    // the four lanes of a row hold its 128 scores
+    // the four lanes of a row hold its KB scores
 #pragma unroll
     for (int o_ = 1; o_ < 4; o_ <<= 1) {
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
@@ -636,7 +714,7 @@ __device__ __forceinline__ void consume(
     m1 = mn1;
     float ls0 = 0.0f, ls1 = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < KB / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float p0 = exp2f(sc[4 * j + e] - mn0);
@@ -658,20 +736,20 @@ __device__ __forceinline__ void consume(
     l1 = l1 * corr1 + ls1;
 
     // o += p . v: p (bf16) is the A operand straight from the accumulator
-    // layout, 16 keys a step; all 128 columns of the v tile, those past D
-    // zeros
-    uint32_t pa[32];
+    // layout, 16 keys a step; all NV columns of the v tile (past D zeros),
+    // its spans WGeo<D>::span apart
+    uint32_t pa[KB / 4];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < KB / 4; ++i) {
       pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
       asm volatile("" : "+r"(pa[i])::"memory");
     }
     mbar_wait(bar_v + 8 * s, phase);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kWBK / 16; ++kk)
+    for (int kk = 0; kk < KB / 16; ++kk)
       wgmma_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-               sw128_desc(tV + kk * 16 * 128, kHalfBytes, 1024));
+               sw128_desc(tV + kk * 16 * 128, WGeo<D>::span, 1024));
     wg_commit();
     wg_wait_all();
     fence_regs(o);
@@ -956,10 +1034,11 @@ __global__ void __launch_bounds__(kWThreads, 1)
                 __nv_bfloat16* __restrict__ out, int seq_len, int group,
                 int causal, float scale_log2, int window) {
   constexpr int B = WGeo<D>::boxes, T = WGeo<D>::tile, R = WGeo<D>::ring;
+  constexpr int QT = WGeo<D>::qtile, KB = WGeo<D>::keys, SP = WGeo<D>::span;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
-  const uint32_t sK = sQ + T;
+  const uint32_t sK = sQ + QT;
   const uint32_t sV = sK + R * T;
   const uint32_t bar_q = sV + R * T;
   const uint32_t bar_k = bar_q + 8;          // k landed, a stage each
@@ -969,11 +1048,11 @@ __global__ void __launch_bounds__(kWThreads, 1)
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal tiles first
   const int q0 = qt * kWBQ;
-  // key tiles this q tile can see (kernel.py:54-62, with equal q and k
-  // tiles); a negative lo is clamped to 0
-  const int n_kt = (seq_len + kWBK - 1) / kWBK;
-  const int hi = causal ? min(qt + 1, n_kt) : n_kt;
-  const int lo = window > 0 ? max((q0 - window + 1) / kWBK, 0) : 0;
+  // key tiles of KB keys this q tile can see (kernel.py:54-62); a negative
+  // lo is clamped to 0
+  const int n_kt = (seq_len + KB - 1) / KB;
+  const int hi = causal ? min((q0 + kWBQ - 1) / KB + 1, n_kt) : n_kt;
+  const int lo = window > 0 ? max((q0 - window + 1) / KB, 0) : 0;
   const int n_iter = hi - lo;
 
   if (threadIdx.x == 0) {
@@ -994,21 +1073,19 @@ __global__ void __launch_bounds__(kWThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
     if (threadIdx.x == kConsumers * 128) {
       const int kvh = bh / group;
-      mbar_expect_tx(bar_q, T);
+      mbar_expect_tx(bar_q, QT);
       for (int h = 0; h < B; ++h)
         tma_load(sQ + h * kHalfBytes, &tm_q, bar_q, h * kHalf, q0, bh);
       for (int it = 0; it < n_iter; ++it) {
         const int s = it % R;
         mbar_wait(bar_empty + 8 * s, ((it / R) & 1) ^ 1);
-        const int k0 = (lo + it) * kWBK;
+        const int k0 = (lo + it) * KB;
         mbar_expect_tx(bar_k + 8 * s, T);
         for (int h = 0; h < B; ++h)
-          tma_load(sK + s * T + h * kHalfBytes, &tm_k, bar_k + 8 * s,
-                   h * kHalf, k0, kvh);
+          tma_load(sK + s * T + h * SP, &tm_k, bar_k + 8 * s, h * kHalf, k0, kvh);
         mbar_expect_tx(bar_v + 8 * s, T);
         for (int h = 0; h < B; ++h)
-          tma_load(sV + s * T + h * kHalfBytes, &tm_v, bar_v + 8 * s,
-                   h * kHalf, k0, kvh);
+          tma_load(sV + s * T + h * SP, &tm_v, bar_v + 8 * s, h * kHalf, k0, kvh);
       }
     }
   } else {
@@ -1023,16 +1100,17 @@ __global__ void __launch_bounds__(kWThreads, 1)
   }
 }
 
-// A (rows, S, D) bf16 array as a 3-D tensor map with 64 x 128 boxes in
-// the 128-byte swizzle; rows past S and columns past D read as zeros.  The
-// row stride, D * 2 bytes, must be a multiple of 16 (D = 64, 80, 120, 128).
+// A (rows, S, D) bf16 array as a 3-D tensor map with boxes of 64 columns x
+// box_rows in the 128-byte swizzle; rows past S and columns past D read as
+// zeros.  The row stride, D * 2 bytes, must be a multiple of 16 (D = 64, 80,
+// 120, 128, 256).
 CUresult make_map(CUtensorMap* map, const void* ptr, int rows, int seq_len,
-                  int d) {
+                  int d, int box_rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)seq_len,
                               (cuuint64_t)rows};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
                                  (cuuint64_t)seq_len * d * 2};
-  const cuuint32_t box[3] = {kHalf, kWBK, 1};
+  const cuuint32_t box[3] = {kHalf, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   // libcuda's encoder, looked up at run time: nothing links against libcuda
   typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1056,13 +1134,16 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int rows, int seq_len,
 
 // flash_wgmma<D>: the overlapped schedule at D = 64, the serial one at the
 // wider head dims (see consume).  The overlapped schedule's softmax takes
-// its maxima over the unscaled scores, which is right only for scale > 0,
-// so at D = 64 any other scale (NaN included) is refused.
+// its maxima over the unscaled scores, so at D = 64 it computes only scale
+// > 0 and refuses any other scale here (NaN included).  The wrapper
+// handles the sign (flash_attention/ops.py, positive_scale): it launches
+// a negative scale as -q with |scale|, and scale 0 as a zero q with scale
+// 1, which give the same scaled scores.
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
                          int bh, int seq_len, int group, int causal,
                          float scale, int window, cudaStream_t stream) {
-  static_assert(D % 8 == 0 && D >= kHalf && D <= kWCols,
+  static_assert(D % 8 == 0 && D >= kHalf && (D <= kWCols || D == kWideCols),
                 "rows of 16-byte multiples that fill at least one span");
   if constexpr (D == kHalf)
     if (!(scale > 0.0f)) return cudaErrorInvalidValue;
@@ -1075,9 +1156,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
     configured = true;
   }
   CUtensorMap tq, tk, tv;
-  if (make_map(&tq, q, bh, seq_len, D) != CUDA_SUCCESS ||
-      make_map(&tk, k, bh / group, seq_len, D) != CUDA_SUCCESS ||
-      make_map(&tv, v, bh / group, seq_len, D) != CUDA_SUCCESS)
+  if (make_map(&tq, q, bh, seq_len, D, kWBQ) != CUDA_SUCCESS ||
+      make_map(&tk, k, bh / group, seq_len, D, WGeo<D>::keys) != CUDA_SUCCESS ||
+      make_map(&tv, v, bh / group, seq_len, D, WGeo<D>::keys) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   const dim3 grid(bh, (seq_len + kWBQ - 1) / kWBQ);
   flash_wgmma<D><<<grid, kWThreads, WGeo<D>::smem, stream>>>(
@@ -1108,6 +1189,9 @@ cudaError_t launch_bf16(int head_dim, const void* q, const void* k,
     case 128:
       return launch_wgmma<128>(q, k, v, out, bh, seq_len, group, causal,
                                scale, window, stream);
+    case 256:
+      return launch_wgmma<256>(q, k, v, out, bh, seq_len, group, causal,
+                               scale, window, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1117,11 +1201,12 @@ cudaError_t launch_bf16(int head_dim, const void* q, const void* k,
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
 // success).  Does not synchronise.  dtype: 0 float32, 1 bfloat16.
-// head_dim: 32, 64, 80, 120 or 128.  window <= 0 means no window.  q and
-// out hold bh * seq_len * head_dim elements, k and v bh / group times that.
-// bfloat16 at head_dim 64, 80, 120 and 128 runs flash_wgmma; float32, and
-// bfloat16 at 32, run flash_fwd.  bfloat16 at 64 takes only scale > 0
-// (cudaErrorInvalidValue otherwise).
+// head_dim: 32, 64, 80, 120, 128 or 256.  window <= 0 means no window.  q
+// and out hold bh * seq_len * head_dim elements, k and v bh / group times
+// that.  bfloat16 at head_dim 64, 80, 120, 128 and 256 runs flash_wgmma;
+// float32, and bfloat16 at 32, run flash_fwd.  bfloat16 at 64 takes only
+// scale > 0 (cudaErrorInvalidValue otherwise; the wrapper rewrites the
+// others).
 extern "C" int flash_attention_launch(int device, int dtype, int head_dim,
                                       const void* q, const void* k,
                                       const void* v, void* out, int bh,

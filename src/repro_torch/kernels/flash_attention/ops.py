@@ -2,9 +2,10 @@
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -15,21 +16,21 @@ SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 
 #: the JAX wrapper's block sizes; they fix the ``S % block`` contract only,
 #: since the CUDA kernels tile by their own (128 x 128 for bf16 at head dims
-#: 64, 80, 120 and 128, 64 x 32 otherwise; the result does not depend on the
-#: block: masked keys contribute exactly 0)
+#: 64, 80, 120 and 128, 128 x 64 at 256, 64 x 32 otherwise; the result does
+#: not depend on the block: masked keys contribute exactly 0)
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
 
 #: head widths the kernel is instantiated for: the ported configs' (yi-6b
 #: and granite-34b 128, qwen3-32b 80, h2o-danube-3-4b 120, musicgen-medium
-#: 64), and 32
-HEAD_DIMS = (32, 64, 80, 120, 128)
+#: 64, recurrentgemma-9b 256), and 32
+HEAD_DIMS = (32, 64, 80, 120, 128, 256)
 
 #: bfloat16 head dims that run ``flash_wgmma`` (wgmma + TMA; at 64 the
-#: softmax overlaps the tensor cores); float32 at every head dim and
-#: bfloat16 at 32 run ``flash_fwd`` (CUDA cores).  ``launch_bf16`` in the
-#: source dispatches the same way.
-WGMMA_HEAD_DIMS = (64, 80, 120, 128)
+#: softmax overlaps the tensor cores, at 256 the key tiles are 64 rows);
+#: float32 at every head dim and bfloat16 at 32 run ``flash_fwd`` (CUDA
+#: cores).  ``launch_bf16`` in the source dispatches the same way.
+WGMMA_HEAD_DIMS = (64, 80, 120, 128, 256)
 
 #: kernel launches made through this wrapper (CUDA tensors only)
 LAUNCHES = 0
@@ -70,7 +71,23 @@ def kernel_name(dtype: torch.dtype, head_dim: int) -> str:
     return "flash_fwd"
 
 
-def _check_cuda(q, k, v, window, scale=None) -> None:
+def positive_scale(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
+    """``(q', scale')`` with ``scale' > 0`` whose scaled scores ``q' . k *
+    scale'`` equal ``q . k * scale`` for every k, for ``flash_wgmma<64>``,
+    whose softmax takes its maxima over the unscaled scores: a negative
+    scale as ``-q`` and ``|scale|`` (negation is exact in bf16), scale 0
+    as a zero q and scale 1 (every score exactly 0, as the reference's
+    ``(q * 0) . k``).  NaN is refused."""
+    if math.isnan(scale):
+        raise ValueError(f"bfloat16 at head dim 64 takes a finite scale, got {scale}")
+    if scale > 0:
+        return q, scale
+    if scale < 0:
+        return -q, -scale
+    return torch.zeros_like(q), 1.0
+
+
+def _check_cuda(q, k, v, window) -> None:
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -84,10 +101,6 @@ def _check_cuda(q, k, v, window, scale=None) -> None:
         raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
-    # flash_wgmma<64>'s softmax takes its maxima over the unscaled scores
-    if (scale is not None and kernel_name(q.dtype, q.shape[-1]) == "flash_wgmma"
-            and q.shape[-1] == 64 and not scale > 0):
-        raise ValueError(f"bfloat16 at head dim 64 takes a positive scale, got {scale}")
 
 
 def flash_attention(
@@ -116,7 +129,9 @@ def flash_attention(
         return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check_cuda(q, k, v, window, scale)
+    _check_cuda(q, k, v, window)
+    if kernel_name(q.dtype, d) == "flash_wgmma" and d == 64:
+        q, scale = positive_scale(q, float(scale))
     lib = load()
     qf = q.reshape(b * h, s, d).contiguous()
     kf = k.reshape(b * hkv, s, d).contiguous()

@@ -166,4 +166,33 @@ def as_module(tree: Params) -> nn.Module:
         return nn.ParameterDict(
             {k: nn.Parameter(v, requires_grad=False) for k, v in tree.items()}
         )
+    if any(isinstance(v, torch.Tensor) for v in tree.values()):
+        return MixedNode(tree)
     return nn.ModuleDict({k: as_module(v) for k, v in tree.items()})
+
+
+class MixedNode(nn.Module):
+    """A node that holds both tensors and sub-trees (the RG-LRU's ``mix``:
+    ``conv`` and ``lam`` beside ``w_in/w`` ...), indexed like the dict it
+    was made from, its keys in the dict's order."""
+
+    def __init__(self, tree: Params):
+        super().__init__()
+        self._keys = list(tree)
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+            else:
+                self.add_module(k, as_module(v))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._keys
+
+    def keys(self):
+        return list(self._keys)
+
+    def items(self):
+        return [(k, self[k]) for k in self._keys]

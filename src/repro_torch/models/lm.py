@@ -1,17 +1,19 @@
-"""The decoder LM, for the architectures whose blocks are attention.
+"""The decoder LM, for the architectures whose blocks are attention or
+the RG-LRU.
 
 The JAX package's ``models/lm.py`` assembles all ten assigned
 architectures as *segments*, each ``count`` repetitions of a *unit* (a
 tuple of block kinds), and scans over stacked per-layer params.  The
 port keeps ``LMConfig`` whole and the segment layout at its public face,
 and serves block kinds ``attn`` (attention + SwiGLU), ``attn_geglu``
-(attention + GeGLU) and ``moe_attn`` (attention + the MoE FFN of
-``models/moe.py``), with the JAX model's extras for these families:
-parallel codebooks (musicgen: summed embeddings in, one head per
-codebook out, logits (B, S, K, V)) and a prefix of image patch
-embeddings (internvl2: prepended to the text, cut off before the
-read-out).  The other kinds (MLA, xLSTM, RG-LRU) and the MTP head come
-with later slices of the port (``ROADMAP.md`` §1, the ML stack).
+(attention + GeGLU), ``moe_attn`` (attention + the MoE FFN of
+``models/moe.py``) and ``rec`` (the RG-LRU of ``models/rglru.py`` +
+GeGLU), with the JAX model's extras for these families: parallel
+codebooks (musicgen: summed embeddings in, one head per codebook out,
+logits (B, S, K, V)) and a prefix of image patch embeddings (internvl2:
+prepended to the text, cut off before the read-out).  The other kinds
+(MLA, xLSTM) and the MTP head come with later slices of the port
+(``ROADMAP.md`` §1).
 
 ``LM`` is an ``nn.Module``: a ``ModuleList`` of blocks, one per layer in
 order, looped over where JAX scans.  Its parameters keep the JAX tree's
@@ -21,11 +23,15 @@ every linear and the embedding ``table``) are stored already cast, after
 rounding through ``param_dtype``: the values are the ones JAX computes
 with, and Yi-6B's matmul weights take 12 GB instead of 24.  The MoE's
 expert stacks (``moe.experts.{gate,up,down}``) are cast at every use
-too, and so stored cast.  Norm scales stay in ``param_dtype``.
+too, and so stored cast.  Norm scales stay in ``param_dtype``, and so do
+the RG-LRU's ``conv``, ``lam`` and the weights of its float32 gate
+projections (``rglru.FLOAT32_LINEARS``), which JAX reads as float32.
 
 The decode state keeps the JAX layout: ``state["seg0"]["b0"]["k"]`` is
-(layers, batch, kv heads, max_len, d_head).  ``decode_step`` updates it
-in place and returns it.
+(layers, batch, kv heads, max_len, d_head), and a ``rec`` block's
+``state[...]["h"]`` is (layers, batch, d_rnn) and ``["conv"]`` (layers,
+batch, width - 1, d_rnn), both float32.  ``decode_step`` updates it in
+place and returns it.
 
 Training does not go through the module's parameters.  It holds float32
 masters as the JAX package's own tree (``init_params``: nested dicts,
@@ -49,6 +55,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.common import (
     Params,
     as_module,
@@ -69,7 +76,7 @@ from repro_torch.models.common import (
 from repro_torch.utils.tree import flatten_with_paths, tree_map, unflatten_like
 
 #: block kinds this port serves
-BLOCK_KINDS = ("attn", "attn_geglu", "moe_attn")
+BLOCK_KINDS = ("attn", "attn_geglu", "moe_attn", "rec")
 
 
 class ModelFamily(str, enum.Enum):
@@ -149,6 +156,13 @@ class LMConfig:
             compute_dtype=self.compute_dtype,
         )
 
+    def rglru_config(self) -> rglru_mod.RGLRUConfig:
+        return rglru_mod.RGLRUConfig(
+            d_model=self.d_model,
+            d_rnn=self.d_model,
+            compute_dtype=self.compute_dtype,
+        )
+
 
 def _unstack(tree: Params, count: int) -> List[Params]:
     """A tree of stacked leaves as ``count`` trees of one layer each."""
@@ -214,10 +228,10 @@ class LM(nn.Module):
         unported = sorted({k for *_, k in layer_plan(cfg)} - set(BLOCK_KINDS))
         if unported or cfg.mtp:
             raise NotImplementedError(
-                f"{cfg.name}: the port serves attention blocks {BLOCK_KINDS} "
-                f"without an MTP head (found kinds {unported}); MLA, the MTP "
-                f"head, xLSTM and RG-LRU come with the slice 'the rest of the "
-                f"ML stack', ROADMAP.md §1"
+                f"{cfg.name}: the port serves block kinds {BLOCK_KINDS} without "
+                f"an MTP head (found kinds {unported}); mlstm, slstm, the MLA "
+                f"kinds (mla_dense, mla_moe) and the MTP head come with later "
+                f"slices, ROADMAP.md §1"
             )
         self.cfg = cfg
         # placeholders, so the state dict keeps the tree's order
@@ -232,11 +246,12 @@ class LM(nn.Module):
         cfg = self.cfg
         dt = cfg.param_dtype
         dev = device_of(generator)
-        p: Params = {
-            "norm1": init_rmsnorm(cfg.d_model, dtype=dt, device=dev),
-            "attn": attn_mod.init_attention(generator, cfg.attention_config(), dtype=dt),
-            "norm2": init_rmsnorm(cfg.d_model, dtype=dt, device=dev),
-        }
+        p: Params = {"norm1": init_rmsnorm(cfg.d_model, dtype=dt, device=dev)}
+        if kind == "rec":
+            p["mix"] = rglru_mod.init_rglru(generator, cfg.rglru_config(), dtype=dt)
+        else:
+            p["attn"] = attn_mod.init_attention(generator, cfg.attention_config(), dtype=dt)
+        p["norm2"] = init_rmsnorm(cfg.d_model, dtype=dt, device=dev)
         if kind == "moe_attn":
             p["moe"] = moe_mod.init_moe(generator, cfg.moe_config(), dtype=dt)
         else:
@@ -273,14 +288,16 @@ class LM(nn.Module):
 
     def _adopt(self, name: str, piece: Params) -> None:
         """Take ``piece`` (the port's layout) as the module's parameters
-        under ``name``, with matmul weights (every ``w``, the MoE's expert
-        stacks) and the embedding tables cast to compute_dtype."""
+        under ``name``, with matmul weights (every ``w`` but those of the
+        RG-LRU's float32 linears, the MoE's expert stacks) and the embedding
+        tables cast to compute_dtype."""
         cd = self.cfg.compute_dtype
 
-        def cast(node, experts=False):
+        def cast(node, experts=False, f32=False):
             return {
-                k: cast(v, k == "experts") if isinstance(v, dict)
-                else (v.to(cd) if experts or k in ("w", "table") else v)
+                k: cast(v, k == "experts", k in rglru_mod.FLOAT32_LINEARS)
+                if isinstance(v, dict)
+                else (v.to(cd) if experts or (k in ("w", "table") and not f32) else v)
                 for k, v in node.items()
             }
 
@@ -338,7 +355,7 @@ class LM(nn.Module):
         if kind == "moe_attn":
             out, aux = moe_mod.moe_apply(p["moe"], cfg.moe_config(), y, losses=losses)
             return out, (aux["balance_loss"] + aux["z_loss"]) if losses else None
-        fn = swiglu if kind == "attn" else geglu
+        fn = swiglu if kind == "attn" else geglu  # attn_geglu and rec: GeGLU
         return fn(p["mlp"], y, compute_dtype=cfg.compute_dtype), None
 
     def _apply_block(self, kind: str, p, h: torch.Tensor, positions: torch.Tensor,
@@ -348,7 +365,10 @@ class LM(nn.Module):
         block's aux loss or None)."""
         cfg = self.cfg
         x = rmsnorm(p["norm1"], h, eps=cfg.norm_eps)
-        h = h + attn_mod.attend_train(p["attn"], cfg.attention_config(), x, positions)
+        if kind == "rec":
+            h = h + rglru_mod.rglru_block(p["mix"], cfg.rglru_config(), x)
+        else:
+            h = h + attn_mod.attend_train(p["attn"], cfg.attention_config(), x, positions)
         y = rmsnorm(p["norm2"], h, eps=cfg.norm_eps)
         out, aux = self._ffn(kind, p, y, losses=losses)
         return h + out, aux
@@ -459,24 +479,31 @@ class LM(nn.Module):
         return total, {"ce": ce, "aux": aux, "loss": total}
 
     # ---------------------------------------------------------- serving
+    def _block_state(self, kind: str, count: int, batch: int, max_len: int) -> Params:
+        """One block's decode state, stacked over the ``count`` layers of
+        its segment: zeroed KV caches in compute_dtype, or a ``rec``
+        block's float32 ``h`` and conv history."""
+        cfg = self.cfg
+        if kind == "rec":
+            one = rglru_mod.init_rglru_state(cfg.rglru_config(), batch, device=self.device)
+            return {k: v.expand(count, *v.shape).clone() for k, v in one.items()}
+        shape = (count, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+        return {name: torch.zeros(shape, dtype=cfg.compute_dtype, device=self.device)
+                for name in ("k", "v")}
+
     def init_decode_state(self, batch: int, max_len: Optional[int] = None) -> Params:
-        """Zeroed KV caches on the model's device, in compute_dtype:
-        ``state[f"seg{i}"][f"b{j}"]["k"|"v"]`` of shape
-        (count, batch, n_kv_heads, max_len, d_head)."""
+        """The zeroed decode state on the model's device, in the JAX
+        layout: ``state[f"seg{i}"][f"b{j}"]["k"|"v"]`` of shape (count,
+        batch, n_kv_heads, max_len, d_head) in compute_dtype for attention
+        blocks, ``["h"]`` (count, batch, d_rnn) and ``["conv"]`` (count,
+        batch, width - 1, d_rnn) in float32 for ``rec`` blocks."""
         cfg = self.cfg
         max_len = max_len or cfg.max_decode_len
-        shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-        state: Params = {}
-        for si, (unit, count) in enumerate(cfg.segments):
-            state[f"seg{si}"] = {
-                f"b{i}": {
-                    name: torch.zeros((count, *shape), dtype=cfg.compute_dtype,
-                                      device=self.device)
-                    for name in ("k", "v")
-                }
-                for i in range(len(unit))
-            }
-        return state
+        return {
+            f"seg{si}": {f"b{i}": self._block_state(kind, count, batch, max_len)
+                         for i, kind in enumerate(unit)}
+            for si, (unit, count) in enumerate(cfg.segments)
+        }
 
     @torch.no_grad()
     def decode_step(
@@ -492,10 +519,13 @@ class LM(nn.Module):
         acfg = cfg.attention_config()
         h = self._embed_tokens(self._modules, tokens)
         for (si, i, r, kind), p in zip(layer_plan(cfg), self.blocks):
-            stacked = state[f"seg{si}"][f"b{i}"]
-            cache = {"k": stacked["k"][r], "v": stacked["v"][r]}
+            # this layer's views of the stacked state: updated in place
+            layer = {k: v[r] for k, v in state[f"seg{si}"][f"b{i}"].items()}
             x = rmsnorm(p["norm1"], h, eps=cfg.norm_eps)
-            out, _ = attn_mod.decode_step(p["attn"], acfg, x, cache, lengths)
+            if kind == "rec":
+                out, _ = rglru_mod.rglru_decode_step(p["mix"], cfg.rglru_config(), x, layer)
+            else:
+                out, _ = attn_mod.decode_step(p["attn"], acfg, x, layer, lengths)
             h = h + out
             y = rmsnorm(p["norm2"], h, eps=cfg.norm_eps)
             h = h + self._ffn(kind, p, y, losses=False)[0]

@@ -11,9 +11,10 @@ port's :class:`LM` on ``device`` holding those weights, so both packages
 compute with the same numbers.  :func:`params_to_numpy` is its inverse.
 Every top-level entry the JAX init makes for the ported families is
 carried: ``embed`` (one table, or ``cb{i}`` a codebook), ``seg{i}``
-(attention, SwiGLU or GeGLU, and the MoE's ``router``,
-``experts/{gate,up,down}`` and ``shared``), ``final_norm``, ``lm_head``
-and ``heads`` (``cb{i}`` a codebook).
+(attention, SwiGLU or GeGLU, the MoE's ``router``,
+``experts/{gate,up,down}`` and ``shared``, and the RG-LRU's
+``mix/{w_in,w_gate,w_a,w_x,w_out}/w``, ``mix/conv`` and ``mix/lam``),
+``final_norm``, ``lm_head`` and ``heads`` (``cb{i}`` a codebook).
 """
 from __future__ import annotations
 

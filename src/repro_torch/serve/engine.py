@@ -61,7 +61,9 @@ class ServeEngine:
     model with parallel codebooks (the slot table holds one token a
     slot), and recurrent block kinds with ``max_batch != 1`` (their state
     updates are not gated by ``lengths``, so slots would leak into each
-    other; the port's ``LM`` has no such kinds yet)."""
+    other: recurrentgemma-9b's ``rec`` blocks).  With one slot, a new
+    request's ``_reset_slot`` zeroes its recurrent state as it zeroes a
+    KV cache."""
 
     def __init__(self, model: LM, params: Optional[Mapping[str, torch.Tensor]],
                  cfg: ServeConfig, device: DeviceLike = None):

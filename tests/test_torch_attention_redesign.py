@@ -8,7 +8,8 @@
   fails it at the mask-probe inputs; at D = 128, and at each head layout
   whose bf16 flash runs on the tensor cores (Yi-6B 32/4 at D = 128,
   qwen3-32b 64/8 at 80, h2o-danube-3-4b 32/8 at 120, musicgen-medium
-  24/24 and 32/4 at 64).
+  24/24 and 32/4 at 64, granite-34b 48/1 at 128, recurrentgemma-9b 16/1
+  and 16/4 at 256).
 * The decode kernel's split-S plan: a torch emulation of the split and
   combine (``split_combine`` below, which mirrors decode_split and
   decode_combine) equals ``decode_attention_ref`` within 1e-6 and the
@@ -118,9 +119,11 @@ def test_mask_probes_make_masked_keys_dominant():
 
 
 #: (D, H, Hkv) of each config whose bf16 flash runs flash_wgmma: Yi-6B,
-#: qwen3-32b, h2o-danube-3-4b, musicgen-medium (24/24), and D = 64 at the
-#: 32/4 layout chip_smoke.py also checks it at
-WGMMA_CONFIGS = [(128, 32, 4), (80, 64, 8), (120, 32, 8), (64, 24, 24), (64, 32, 4)]
+#: qwen3-32b, h2o-danube-3-4b, musicgen-medium (24/24), granite-34b (MQA
+#: 48/1), recurrentgemma-9b (MQA 16/1 at D = 256), and D = 64 at 32/4 and
+#: D = 256 at 16/4, the other layouts chip_smoke.py checks them at
+WGMMA_CONFIGS = [(128, 32, 4), (80, 64, 8), (120, 32, 8), (64, 24, 24), (64, 32, 4),
+                 (128, 48, 1), (256, 16, 1), (256, 16, 4)]
 #: a small S for the configs' head counts; the probes' tile edges still
 #: fall inside (0, 63, 64, 127, 128, 129, 255)
 SMALL_S = 256

@@ -1,7 +1,8 @@
-"""The MoE, vision-language and audio families in the port against the
-JAX package, on the CPU: qwen2-moe-a2.7b (``moe_attn`` blocks),
-internvl2-2b (a prefix of image patch embeddings) and musicgen-medium
-(four parallel codebooks), each at its smoke size.
+"""The MoE, vision-language, audio and hybrid families in the port against
+the JAX package, on the CPU: qwen2-moe-a2.7b (``moe_attn`` blocks),
+internvl2-2b (a prefix of image patch embeddings), musicgen-medium (four
+parallel codebooks) and recurrentgemma-9b (``rec`` RG-LRU blocks beside
+local attention, window 16 in the smoke config), each at its smoke size.
 
 Both packages compute with the same weights: the JAX ``init`` draws them
 and ``params_from_numpy`` carries them into the port.  Batches come from
@@ -17,6 +18,10 @@ default) the forward's logits agree on average within 2e-2; the
 qwen2-moe router computes in float32 in both packages from bf16 hidden
 states that round at other places, so no bf16 check holds its largest
 difference.  Greedy tokens through ``ServeEngine`` are equal.
+
+recurrentgemma's decode kernel branch has no window (as in the JAX
+package): past 16 positions its two routes part, each equal to its JAX
+branch.
 """
 import dataclasses
 import subprocess
@@ -47,7 +52,7 @@ from torch_parity import F32, to_torch
 torch.set_num_threads(1)  # tiny tensors: extra threads only contend
 
 ROOT = Path(__file__).resolve().parents[1]
-FAMILIES = ("qwen2_moe_a2_7b", "internvl2_2b", "musicgen_medium")
+FAMILIES = ("qwen2_moe_a2_7b", "internvl2_2b", "musicgen_medium", "recurrentgemma_9b")
 B, S = 2, 24
 
 
@@ -113,7 +118,9 @@ def test_decode_with_a_length_mix_matches_jax(arch, flag):
         assert tuple(got.shape) == want.shape
         close(got, want)
         lengths = lengths + 1
-    close(state_p["seg0"]["b0"]["k"], state_j["seg0"]["b0"]["k"])
+    flat_p = port_tree.flatten_with_paths(state_p)
+    for path, leaf in jax_tree.flatten_with_paths(state_j).items():
+        close(flat_p[path], leaf)  # KV caches, and the rec blocks' h and conv
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
@@ -270,8 +277,11 @@ def test_full_size_configs_build_on_the_meta_device(arch):
     assert all(tuple(got[k].shape) == want[k].shape for k in want)
     n = sum(p.numel() for p in model.parameters())
     assert n == sum(int(np.prod(v.shape)) for v in want.values())
-    expected = {"qwen2_moe_a2_7b": 14.31e9, "internvl2_2b": 1.89e9, "musicgen_medium": 1.84e9}
+    expected = {"qwen2_moe_a2_7b": 14.31e9, "internvl2_2b": 1.89e9, "musicgen_medium": 1.84e9,
+                "recurrentgemma_9b": 9.40e9}
     assert abs(n - expected[arch]) < 0.01e9
+    if arch == "recurrentgemma_9b":
+        assert n == 9_396_088_832  # 38 layers at full width: nothing cut on the card
 
 
 # ------------------------------------------------------------ the refusals
@@ -303,6 +313,62 @@ def test_serve_engine_refuses_recurrent_slots_in_both_packages(max_batch):
         ServeEngine(stand_in, None, ServeConfig(max_batch=max_batch, max_len=16), device="cpu")
 
 
+@pytest.mark.parametrize("max_batch", [1, 2, 4])
+def test_serve_engine_refuses_recurrentgemma_slots_in_both_packages(max_batch):
+    """recurrentgemma's ``rec`` blocks keep a recurrent state: both engines
+    refuse more than one slot, and with one they serve the same greedy
+    tokens, each request's state zeroed on admission."""
+    jmodel, params, _, port = pair("recurrentgemma_9b", False)
+    scfg = dict(max_batch=max_batch, max_len=32)
+    if max_batch > 1:
+        with pytest.raises(NotImplementedError, match="max_batch=1"):
+            JaxServeEngine(jmodel, params, JaxServeConfig(**scfg))
+        with pytest.raises(NotImplementedError, match="max_batch=1"):
+            ServeEngine(port, None, ServeConfig(**scfg), device="cpu")
+        return
+    prompts = [[5, 6, 200], [9, 8, 7, 3], [11]]
+    jreqs = [JaxRequest(prompt=np.array(p, np.int32), max_new_tokens=5) for p in prompts]
+    preqs = [Request(prompt=np.array(p, np.int32), max_new_tokens=5) for p in prompts]
+    JaxServeEngine(jmodel, params, JaxServeConfig(**scfg)).generate(jreqs)
+    ServeEngine(port, None, ServeConfig(**scfg), device="cpu").generate(preqs)
+    assert [r.generated for r in preqs] == [r.generated for r in jreqs]
+    assert all(len(r.generated) == 5 for r in preqs)
+
+
+@pytest.mark.parametrize("flag", [False, True], ids=["reference", "kernel"])
+def test_recurrentgemma_decode_window_divergence_kept_branch_by_branch(flag):
+    """Decode past the smoke config's window of 16 (max_decode_len 64):
+    the kernel branch attends to the whole prefix and the reference
+    branch to the window, as in the JAX package (attention.py:271-282).
+    Each port branch equals its JAX branch at every step, and after the
+    window the two branches part."""
+    steps = 24
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, 256, (B, steps)).astype(np.int32)
+    logits = {}
+    for route in (False, True):
+        jmodel, params, _, port = pair("recurrentgemma_9b", route)
+        cfg = port.cfg
+        assert (cfg.window, cfg.max_decode_len) == (16, 64)
+        state_j = jmodel.init_decode_state(B)
+        state_p = port.init_decode_state(B)
+        step = jax.jit(jmodel.decode_step)
+        out = []
+        for t in range(steps):
+            lengths = np.full((B,), t, np.int32)
+            want, state_j = step(params, state_j, jnp.asarray(tokens[:, t:t + 1]),
+                                 jnp.asarray(lengths))
+            got, state_p = port.decode_step(state_p, torch.from_numpy(tokens[:, t:t + 1]),
+                                            torch.from_numpy(lengths))
+            if route == flag:
+                close(got, want)
+            out.append(as_f32(got)[:, 0])
+        logits[route] = np.stack(out, 1)
+    inside = np.abs(logits[True][:, :16] - logits[False][:, :16]).max()
+    past = np.abs(logits[True][:, 17:] - logits[False][:, 17:]).max()
+    assert inside <= 1e-4 < 1e-2 < past  # equal inside the window, apart past it
+
+
 def launch(pkg, module, *args):
     cpu = ["--device", "cpu"] if pkg == "repro_torch" else []
     return subprocess.run(
@@ -310,6 +376,16 @@ def launch(pkg, module, *args):
         capture_output=True, text=True, cwd=ROOT, timeout=300,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"},
     )
+
+
+def test_serve_launcher_serves_recurrentgemma_on_the_cpu():
+    """``python -m repro_torch.launch.serve --arch recurrentgemma-9b
+    --smoke --device cpu``: one slot, as the JAX launcher gives it."""
+    proc = launch("repro_torch", "serve", "--arch", "recurrentgemma-9b", "--prompts", "2",
+                  "--new-tokens", "3")
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert [line.split(":")[0] for line in lines] == ["req0", "req1"]
 
 
 @pytest.mark.parametrize("pkg", ["repro", "repro_torch"])

@@ -1,22 +1,30 @@
-"""Head dims 80 (qwen3-32b) and 120 (h2o-danube-3-4b) through the port's
-attention kernels, checked on the CPU.
+"""Head dims 80 (qwen3-32b), 120 (h2o-danube-3-4b) and 256
+(recurrentgemma-9b) through the port's attention kernels, checked on the
+CPU.
 
 * Every ported config's head dim passes both wrappers' device checks.
 * The plain flash and decode versions (what the wrappers take on CPU
-  tensors) against the Pallas kernels in interpret mode at D = 80 and
-  120: float32 to rtol=atol=1e-5 (float32 sums in another order),
+  tensors) against the Pallas kernels in interpret mode at D = 80, 120
+  and 256: float32 to rtol=atol=1e-5 (float32 sums in another order),
   bfloat16 within one bf16 ulp (both round once from float32).
+* bf16 at D = 64 takes every finite scale: the wrapper's rewrite
+  (``positive_scale``) gives the plain version's result at the original
+  scale.
 * The decode kernel's padded width: zero columns past D in q, k and v
   change no output column (``padded_decode`` below mirrors it in torch),
   and the shared-memory geometry of ``decode_attention.cu`` (mirrored by
   ``geometry``) keeps every k chunk inside its row and the mma loads off
-  shared bank conflicts.
-* ``LM`` with ``use_flash_kernel=True`` at head dims 120 and 80 against
+  shared bank conflicts; its shared memory (mirrored by
+  ``decode_smem_bytes``) fits the block at every head dim, dtype and group.
+* flash_wgmma's geometry at D = 64, 80-128 and 256, from the constants of
+  ``flash_attention.cu``.
+* ``LM`` with ``use_flash_kernel=True`` at head dims 120, 80 and 256 against
   the JAX package, params carried across by ``params_from_numpy``, at
   the 1e-4 of tests/test_torch_models.py in float32.
 """
 import dataclasses
 import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +39,7 @@ from repro.models import LM as JaxLM
 from repro_torch.configs import PORTED, get_config, get_smoke_config
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
 from repro_torch.kernels.decode_attention import ops as decode_ops
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import params_from_numpy
 
@@ -39,6 +47,8 @@ torch.set_num_threads(1)  # small tensors: extra threads only contend
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 NEW_DIMS = (80, 120)
+#: the head dims held to Pallas here: qwen3-32b's, danube's, recurrentgemma's
+PARITY_DIMS = NEW_DIMS + (256,)
 
 
 def as_f32(x) -> np.ndarray:
@@ -86,7 +96,7 @@ def test_the_new_head_dims_are_those_of_qwen3_and_danube():
     assert set(NEW_DIMS) <= set(flash_ops.HEAD_DIMS) == set(decode_ops.HEAD_DIMS)
 
 
-@pytest.mark.parametrize("d", [96, 256])
+@pytest.mark.parametrize("d", [96, 112])
 def test_a_head_dim_no_config_needs_is_refused(d):
     q = torch.zeros((1, 2, 4, d))
     with pytest.raises(ValueError, match="head dim"):
@@ -96,22 +106,35 @@ def test_a_head_dim_no_config_needs_is_refused(d):
 
 
 @pytest.mark.parametrize("scale", [0.0, -0.125, float("nan")])
-def test_a_non_positive_scale_is_refused_at_bf16_64(scale):
+def test_a_non_positive_scale_is_refused_at_bf16_64(scale, rng):
     """flash_wgmma<64> takes its softmax maxima over the unscaled scores,
-    right only for scale > 0: the wrapper and the launcher refuse any other
-    scale there, and every other (dtype, head dim) still takes it."""
-    q = torch.zeros((1, 2, 4, 64), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="positive scale"):
-        flash_ops._check_cuda(q, q, q, None, scale)
-    flash_ops._check_cuda(q, q, q, None, 0.125)
+    so its launcher refuses a scale <= 0; the wrapper launches it with
+    ``positive_scale``'s (q', scale'), a positive scale whose scaled
+    scores are those of the original.  A negative scale and scale 0 are
+    so computed: through the plain version the rewrite gives exactly the
+    plain version at the original scale, causal, windowed and not.  Only
+    NaN is refused."""
     assert "if (!(scale > 0.0f)) return cudaErrorInvalidValue;" in FLASH_CU
-    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 32), (torch.bfloat16, 128)):
-        q = torch.zeros((1, 2, 4, d), dtype=dtype)
-        flash_ops._check_cuda(q, q, q, None, scale)
+    assert "q, scale = positive_scale(q, float(scale))" in Path(flash_ops.__file__).read_text()
+    q = to_torch(normal(rng, 1, 4, 128, 64), True)
+    k, v = to_torch(normal(rng, 1, 2, 128, 64), True), to_torch(normal(rng, 1, 2, 128, 64), True)
+    if scale != scale:  # NaN
+        with pytest.raises(ValueError, match="finite scale"):
+            flash_ops.positive_scale(q, scale)
+        return
+    q2, scale2 = flash_ops.positive_scale(q, scale)
+    assert scale2 > 0 and q2.dtype == q.dtype and q2.shape == q.shape
+    for causal, window in ((True, None), (False, None), (True, 48)):
+        kw = dict(causal=causal, window=window)
+        want = attention_ref(q, k, v, scale=scale, **kw)
+        assert torch.equal(attention_ref(q2, k, v, scale=scale2, **kw), want)
+        # and it is the function of the scale: not the default scale's result
+        assert not torch.equal(want, attention_ref(q, k, v, **kw))
+    assert flash_ops.positive_scale(q, 0.125) == (q, 0.125)
 
 
 # ------------------------------------------------------------ vs Pallas
-@pytest.mark.parametrize("d", NEW_DIMS)
+@pytest.mark.parametrize("d", PARITY_DIMS)
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 48),
                                            (False, 40)])
 def test_flash_vs_pallas_at_new_head_dims(d, causal, window, rng):
@@ -123,7 +146,7 @@ def test_flash_vs_pallas_at_new_head_dims(d, causal, window, rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
 
-@pytest.mark.parametrize("d", NEW_DIMS)
+@pytest.mark.parametrize("d", PARITY_DIMS)
 def test_flash_bf16_vs_pallas_at_new_head_dims(d, rng):
     q, k, v = normal(rng, 1, 4, 128, d), normal(rng, 1, 1, 128, d), normal(rng, 1, 1, 128, d)
     kw = dict(causal=True, window=64, block_q=64, block_k=64)
@@ -133,7 +156,7 @@ def test_flash_bf16_vs_pallas_at_new_head_dims(d, rng):
     assert_within_bf16_ulp(got, want)
 
 
-@pytest.mark.parametrize("d", NEW_DIMS)
+@pytest.mark.parametrize("d", PARITY_DIMS)
 @pytest.mark.parametrize("bf16", [False, True])
 def test_decode_vs_pallas_at_new_head_dims(d, bf16, rng):
     b, h, hkv, s = 4, 8, 2, 256
@@ -165,7 +188,7 @@ def padded_decode(q, k, v, lengths):
     return decode_attention_ref(*wide, lengths, scale=d ** -0.5)[..., :d]
 
 
-@pytest.mark.parametrize("d", NEW_DIMS)
+@pytest.mark.parametrize("d", PARITY_DIMS)
 def test_zero_columns_past_d_change_no_output(d, rng):
     b, h, hkv, s = 2, 8, 2, 128
     q = to_torch(normal(rng, b, h, d))
@@ -191,6 +214,38 @@ def k_offset(r: int, c: int, cpr: int, elem: int) -> int:
     return (c ^ ((r & 1) << 2)) * 16 if cpr >= 8 else c * 16
 
 
+DECODE_CU = decode_ops.SOURCE.read_text()
+
+
+def decode_smem_bytes(d: int, elem: int, group: int) -> int:
+    """decode_attention.cu's smem_bytes<T, D>(group): q in float32, each
+    warp's scores, p and corr, and the larger of the warps' k/v stages
+    (one stage for float32 at D = 256, else two) and their merge area."""
+    dp = padded_width(d)
+    _, _, sc = geometry(d, elem)
+    stages = 1 if elem == 4 and d > 128 else 2
+    stage = 8 * stages * 2 * 8 * sc * 16
+    merge = 8 * 8 * (dp + 2) * 4
+    return group * dp * 4 + 8 * (2 * 8 * 8 + 8) * 4 + max(stage, merge)
+
+
+@pytest.mark.parametrize("d", decode_ops.HEAD_DIMS)
+@pytest.mark.parametrize("elem", [2, 4])
+def test_decode_shared_memory_fits_at_every_group(d, elem):
+    """The block's shared memory at the largest group (the launcher opts
+    in to it) fits the H100's 232,448 B; at D = 256, 200,960 B at group 64
+    in both dtypes (float32 on one stage a warp: two would be 262,144 B of
+    stages alone) and 151,808 B at recurrentgemma's 16."""
+    assert ("static constexpr int kStages = sizeof(T) == 4 && D > 128 ? 1 : 2;"
+            in DECODE_CU)
+    assert "static constexpr int kWarpBytes = kStages * kStepBytes;" in DECODE_CU
+    assert decode_smem_bytes(d, elem, decode_ops.MAX_GROUP) <= SMEM_LIMIT
+    if d == 256:
+        assert decode_smem_bytes(d, elem, 64) == 200_960
+        assert decode_smem_bytes(d, elem, 16) == 151_808
+        assert 8 * 2 * 2 * 8 * geometry(d, 4)[2] * 16 == 262_144  # two float32 stages
+
+
 @pytest.mark.parametrize("d", decode_ops.HEAD_DIMS)
 @pytest.mark.parametrize("elem", [2, 4])
 def test_decode_shared_memory_rows_hold_every_chunk_once(d, elem):
@@ -211,6 +266,11 @@ def test_decode_shared_memory_rows_hold_every_chunk_once(d, elem):
 FLASH_CU = flash_ops.SOURCE.read_text()
 #: shared memory a block may use on the H100 (232,448 of the SM's 256 KB)
 SMEM_LIMIT = 232_448
+#: flash_attention.cu's choices by head dim: p.v's columns, the block's
+#: shared memory
+PV_COLS = "return D <= kHalf ? kHalf : D <= 80 ? 80 : D <= kWCols ? kWCols : D;"
+SMEM_PICK = ("static constexpr int smem = D <= kHalf ? kNarrowSmem : D > kWCols ? kWideSmem "
+             ": kWSmem;")
 
 
 def cu_consts():
@@ -261,7 +321,7 @@ def test_flash_route_table_is_the_sources():
 
 
 #: flash_wgmma's head dims whose tiles are two 64-column spans
-WIDE_DIMS = tuple(d for d in flash_ops.WGMMA_HEAD_DIMS if d > 64)
+WIDE_DIMS = tuple(d for d in flash_ops.WGMMA_HEAD_DIMS if 64 < d <= 128)
 
 
 @pytest.mark.parametrize("d", WIDE_DIMS)
@@ -295,7 +355,7 @@ def test_flash_wgmma_geometry(d):
     assert c["kWThreads"] == (c["kConsumers"] + 1) * 128
     # p.v: m64n80k16 up to D = 80 (64 columns of the first half, 16 of the
     # second, a legal wgmma width), else m64n128k16 over the padded tile
-    assert "return D <= kHalf ? kHalf : D <= 80 ? 80 : kWCols;" in FLASH_CU
+    assert PV_COLS in FLASH_CU
     assert "m64n80k16" in FLASH_CU
     pv = 80 if d <= 80 else cols
     assert d <= pv <= cols and pv % 8 == 0 and pv - half <= half
@@ -313,15 +373,18 @@ def test_flash_wgmma_geometry_at_64():
     d, half, bk = 64, c["kHalf"], c["kWBK"]
     # a row of the tensor map is one 128-byte swizzle span and one box
     assert d * 2 == half * 2 == 128
-    assert "static constexpr int boxes = D <= kHalf ? 1 : 2;" in FLASH_CU
-    assert "static constexpr int tile = boxes * kHalfBytes;" in FLASH_CU
-    boxes = 1 if d <= half else 2
-    tile = boxes * c["kHalfBytes"]
+    assert "static constexpr int boxes = (D + kHalf - 1) / kHalf;" in FLASH_CU
+    assert "static constexpr int keys = D > kWCols ? kWideKeys : kWBK;" in FLASH_CU
+    assert "static constexpr int span = keys * kHalf * 2;" in FLASH_CU
+    assert "static constexpr int tile = boxes * span;" in FLASH_CU
+    assert "static constexpr int qtile = boxes * kHalfBytes;" in FLASH_CU
+    boxes = -(-d // half)
+    tile = boxes * bk * half * 2
     assert boxes == 1 and tile == 16 * 1024
     # the producer loads `boxes` boxes a tile and expects the bytes they
     # deliver (a full 64 x 128 box each, rows past S as zero fill)
     assert FLASH_CU.count("for (int h = 0; h < B; ++h)") == 3
-    assert "mbar_expect_tx(bar_q, T);" in FLASH_CU
+    assert "mbar_expect_tx(bar_q, QT);" in FLASH_CU
     assert FLASH_CU.count("mbar_expect_tx(bar_k + 8 * s, T);") == 1
     assert tile == boxes * half * bk * 2
     # no box starts past column 0 or reaches past column 64
@@ -333,7 +396,7 @@ def test_flash_wgmma_geometry_at_64():
     assert steps == 4 and offsets == [0, 32, 64, 96]
     assert all(o + 32 <= 128 for o in offsets)
     # p.v at m64n64k16 writes every output column below 64 exactly once
-    assert "return D <= kHalf ? kHalf : D <= 80 ? 80 : kWCols;" in FLASH_CU
+    assert PV_COLS in FLASH_CU
     assert "m64n64k16" in FLASH_CU
     pv = half
     written = [8 * j + c2 + e for j in range(pv // 8) for c2 in (0, 2, 4, 6)
@@ -345,11 +408,87 @@ def test_flash_wgmma_geometry_at_64():
     assert c["kNarrowSmem"] == (1024 + c["kHalfBytes"] * (1 + 2 * c["kNarrowStages"])
                                 + 8 * (1 + 3 * c["kNarrowStages"]))
     assert c["kNarrowSmem"] <= SMEM_LIMIT
-    assert "static constexpr int smem = D <= kHalf ? kNarrowSmem : kWSmem;" in FLASH_CU
+    assert SMEM_PICK in FLASH_CU
     # registers a consumer thread holds across the overlapped loop: the
     # scores (64), o (pv / 2) and the bf16 p of the last tile (32), under
     # the 240 that setmaxnreg gives a consumer
     assert 64 + pv // 2 + 32 < 240 and "setmaxnreg.inc.sync.aligned.u32 240;" in FLASH_CU
+
+
+def test_flash_wgmma_geometry_at_256():
+    """flash_wgmma<256> (recurrentgemma-9b): four 64-column spans a row,
+    k and v tiles of 64 keys, a ring of two stages, from the constants
+    and WGeo of flash_attention.cu."""
+    c = cu_consts()
+    d, half, bq = 256, c["kHalf"], c["kWBQ"]
+    keys, span = c["kWideKeys"], c["kWideSpanBytes"]
+    assert (c["kWideCols"], keys, bq) == (256, 64, 128)
+    assert 256 in flash_ops.WGMMA_HEAD_DIMS and 256 in decode_ops.HEAD_DIMS
+    assert flash_ops.kernel_name(torch.bfloat16, 256) == "flash_wgmma"
+    assert flash_ops.kernel_name(torch.float32, 256) == "flash_fwd"
+    # 128-key tiles do not fit: q 64 KB + 2 stages of k and v at 64 KB
+    assert 1024 + 4 * c["kHalfBytes"] + 2 * c["kStages"] * 4 * c["kHalfBytes"] > SMEM_LIMIT
+    # the tensor map's rows are 512 B; boxes of 64 columns x 128 q rows or
+    # 64 keys, four a tile; the tiles' bytes are what expect_tx counts
+    boxes = d // half
+    assert boxes == 4 and d * 2 == 512 and (d * 2) % 16 == 0
+    assert span == keys * half * 2 == 8 * 1024
+    assert c["kWideTileBytes"] == boxes * span == 32 * 1024
+    assert c["kWideQBytes"] == boxes * c["kHalfBytes"] == 64 * 1024
+    assert "make_map(&tk, k, bh / group, seq_len, D, WGeo<D>::keys)" in FLASH_CU
+    assert "make_map(&tq, q, bh, seq_len, D, kWBQ)" in FLASH_CU
+    assert "tma_load(sK + s * T + h * SP, &tm_k" in FLASH_CU
+    assert "tma_load(sQ + h * kHalfBytes, &tm_q" in FLASH_CU
+    # the ring: two stages, 197 KB with q, the barriers and 1 KB slack;
+    # three would not fit
+    assert c["kWideStages"] == 2
+    assert c["kWideSmem"] == (1024 + c["kWideQBytes"] + 2 * 2 * c["kWideTileBytes"]
+                              + 8 * (1 + 3 * 2))
+    assert c["kWideSmem"] == 197_688 <= SMEM_LIMIT
+    assert 1024 + c["kWideQBytes"] + 2 * 3 * c["kWideTileBytes"] > SMEM_LIMIT
+    assert SMEM_PICK in FLASH_CU
+    # q.k^T: 16 k-steps of m64n64k16; step kk reads span kk / 4 of q (128
+    # rows, kHalfBytes apart) and of k (64 rows, kWideSpanBytes apart), 32 B
+    # into the 128-byte row, every column of D exactly once
+    steps = -(-d // 16)
+    assert steps == 16 and "m64n64k16" in FLASH_CU
+    q_off = [(kk // 4) * c["kHalfBytes"] + (kk % 4) * 32 for kk in range(steps)]
+    k_off = [(kk // 4) * span + (kk % 4) * 32 for kk in range(steps)]
+    assert all(o % 128 + 32 <= 128 for o in q_off + k_off)
+    assert max(k_off) + 32 <= c["kWideTileBytes"] and max(q_off) + 32 <= c["kWideQBytes"]
+    assert "sw128_desc(tK + (kk / 4) * WGeo<D>::span + off, 16, 1024)" in FLASH_CU
+    # p.v: one m64n256k16 a k-step of 16 keys (4 over a tile), v's spans
+    # WGeo<D>::span apart (LBO); writes every output column once
+    assert PV_COLS in FLASH_CU and "m64n256k16" in FLASH_CU
+    assert "sw128_desc(tV + kk * 16 * 128, WGeo<D>::span, 1024)" in FLASH_CU
+    pv = d
+    assert keys // 16 == 4 and (keys // 16 - 1) * 16 * 128 + 16 * 128 <= span
+    written = [8 * j + c2 + e for j in range(pv // 8) for c2 in (0, 2, 4, 6)
+               if 8 * j + c2 < d for e in (0, 1)]
+    assert sorted(written) == list(range(d))
+    # registers a consumer thread holds: o (128), the scores (32) and the
+    # bf16 p (16), under the 240 that setmaxnreg gives a consumer
+    assert pv // 2 + keys // 2 + keys // 4 < 240
+    assert "setmaxnreg.inc.sync.aligned.u32 240;" in FLASH_CU
+    # key tiles a q tile sees, at the tile height: the causal bound reaches
+    # the tile of the q tile's last row, the window's its first row's window
+    assert "const int hi = causal ? min((q0 + kWBQ - 1) / KB + 1, n_kt) : n_kt;" in FLASH_CU
+    for q0, window in ((0, None), (128, None), (3968, 2048), (2048, 2048), (256, 64)):
+        hi = (q0 + bq - 1) // keys + 1
+        lo = max((q0 - window + 1) // keys, 0) if window and q0 - window + 1 > 0 else 0
+        first = max(q0 - window + 1, 0) if window else 0
+        assert lo * keys <= first and hi * keys > q0 + bq - 1
+        assert (hi - 1) * keys <= q0 + bq - 1  # no tile wholly past the q tile
+
+
+def test_flash_fwd_float32_shared_memory_at_256():
+    """float32 at D = 256 runs flash_fwd: its q, k, v and p tiles take
+    139,904 B of the block's shared memory."""
+    c = cu_consts()
+    d, bq, bk = 256, c["kBQ"], c["kBK"]
+    floats = bq * (d + 1) + bk * (d + 1) + bk * d + bq * (bk + 1)
+    assert floats == 34_976 and floats * 4 == 139_904 <= SMEM_LIMIT
+    assert "launch<T, 256>(" in cu_function("launch_f32")
 
 
 def overlapped_turns(n_iter):
@@ -410,7 +549,7 @@ def small_config(pkg_cfg, d_head: int):
                                segments=((("attn",), 2),), use_flash_kernel=True)
 
 
-@pytest.mark.parametrize("d_head", [120, 80])
+@pytest.mark.parametrize("d_head", [120, 80, 256])
 def test_lm_kernel_route_at_new_head_dims_matches_jax(d_head):
     jcfg = dataclasses.replace(small_config(jax_smoke_config("h2o_danube_3_4b"), d_head),
                                compute_dtype=jnp.float32)

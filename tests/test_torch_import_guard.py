@@ -58,7 +58,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.utils.tree", "repro_torch.launch.train",
             "repro_torch.models.moe", "repro_torch.configs.shapes",
             "repro_torch.configs.qwen2_moe_a2_7b", "repro_torch.configs.internvl2_2b",
-            "repro_torch.configs.musicgen_medium"} <= names
+            "repro_torch.configs.musicgen_medium", "repro_torch.models.rglru",
+            "repro_torch.configs.recurrentgemma_9b"} <= names
 
 
 def _forbidden_imports(path):

@@ -5,7 +5,8 @@
   replaced (``whole_tree_then_cast`` below, a copy kept here: draw the
   whole tree in ``param_dtype``, then cast the matmul weights, the MoE's
   expert stacks and the embedding tables to ``compute_dtype``; extended
-  to the MoE blocks, codebooks and codebook heads as they were ported),
+  to the MoE blocks, codebooks, codebook heads and RG-LRU blocks as they
+  were ported),
   from the same seeded generator.
 * A spy on the draws (``common._normal``) watches which float32 draws are
   still alive when the next one is made: under ``LM.init`` only the
@@ -22,6 +23,7 @@ from repro_torch.models import LM
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.lm import layer_plan
 
 torch.set_num_threads(1)  # tiny tensors: extra threads only contend
@@ -41,11 +43,12 @@ def whole_tree_then_cast(cfg, generator):
         embed = common.init_embedding(generator, cfg.vocab, cfg.d_model, dtype=dt)
     tree = {"embed": embed, "blocks": []}
     for *_, kind in layer_plan(cfg):
-        block = {
-            "norm1": common.init_rmsnorm(cfg.d_model, dtype=dt, device=dev),
-            "attn": attn_mod.init_attention(generator, cfg.attention_config(), dtype=dt),
-            "norm2": common.init_rmsnorm(cfg.d_model, dtype=dt, device=dev),
-        }
+        block = {"norm1": common.init_rmsnorm(cfg.d_model, dtype=dt, device=dev)}
+        if kind == "rec":
+            block["mix"] = rglru_mod.init_rglru(generator, cfg.rglru_config(), dtype=dt)
+        else:
+            block["attn"] = attn_mod.init_attention(generator, cfg.attention_config(), dtype=dt)
+        block["norm2"] = common.init_rmsnorm(cfg.d_model, dtype=dt, device=dev)
         if kind == "moe_attn":
             block["moe"] = moe_mod.init_moe(generator, cfg.moe_config(), dtype=dt)
         else:
@@ -59,24 +62,32 @@ def whole_tree_then_cast(cfg, generator):
         tree["heads"] = {f"cb{i}": common.init_linear(generator, cfg.d_model, cfg.vocab, dtype=dt)
                          for i in codebooks}
     flat = {}
-
-    def walk(prefix, node, experts=False):
-        leaves = all(isinstance(v, torch.Tensor) for v in node.values())
-        # a dict of leaves becomes a ParameterDict, which sorts its keys
-        for k, v in sorted(node.items()) if leaves else node.items():
-            if isinstance(v, dict):
-                walk(f"{prefix}{k}.", v, k == "experts")
-            else:
-                cast = experts or k in ("w", "table")
-                flat[prefix + k] = v.to(cfg.compute_dtype) if cast else v
-
-    walk("embed.", tree["embed"])
+    _flatten(cfg, flat, "embed.", tree["embed"])
     for i, block in enumerate(tree["blocks"]):
-        walk(f"blocks.{i}.", block)
+        _flatten(cfg, flat, f"blocks.{i}.", block)
     for name in ("final_norm", "lm_head", "heads"):
         if name in tree:
-            walk(f"{name}.", tree[name])
+            _flatten(cfg, flat, f"{name}.", tree[name])
     return flat
+
+
+def _flatten(cfg, flat, prefix, node, experts=False, f32=False):
+    """``node``'s leaves into ``flat`` in the module's order, cast as
+    ``LM._adopt`` casts them."""
+    leaves = all(isinstance(v, torch.Tensor) for v in node.values())
+    # a dict of leaves becomes a ParameterDict, which sorts its keys; a
+    # node of leaves beside sub-trees (the RG-LRU's mix) a MixedNode, whose
+    # leaves come first
+    items = (sorted(node.items()) if leaves else
+             sorted(node.items(), key=lambda kv: isinstance(kv[1], dict)))
+    for k, v in items:
+        if isinstance(v, dict):
+            _flatten(cfg, flat, f"{prefix}{k}.", v, k == "experts",
+                     k in rglru_mod.FLOAT32_LINEARS)
+        else:
+            # the RG-LRU's float32 linears keep their w in param_dtype
+            cast = experts or (k in ("w", "table") and not f32)
+            flat[prefix + k] = v.to(cfg.compute_dtype) if cast else v
 
 
 def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -94,11 +105,16 @@ def test_per_piece_init_is_bitwise_the_whole_tree_algorithm(arch):
     for name in want:
         assert bitwise_equal(got[name], want[name]), name
     # matmul weights and the table in compute_dtype, norm scales in param_dtype
-    assert got["blocks.0.attn.wq.w"].dtype == cfg.compute_dtype
+    attn = next(i for i, (*_, kind) in enumerate(layer_plan(cfg)) if kind != "rec")
+    assert got[f"blocks.{attn}.attn.wq.w"].dtype == cfg.compute_dtype
     table = "embed.cb0.table" if cfg.n_codebooks > 1 else "embed.table"
     assert got[table].dtype == cfg.compute_dtype
     if cfg.num_experts:
         assert got["blocks.0.moe.experts.down"].dtype == cfg.compute_dtype
+    if "blocks.0.mix.w_in.w" in got:  # an RG-LRU block: its float32 leaves stay so
+        assert got["blocks.0.mix.w_in.w"].dtype == cfg.compute_dtype
+        for name in ("w_a.w", "w_x.w", "conv", "lam"):
+            assert got[f"blocks.0.mix.{name}"].dtype == cfg.param_dtype
     assert got["final_norm.scale"].dtype == cfg.param_dtype
 
 

@@ -208,8 +208,11 @@ def test_lm_forward_and_decode_match_jax(arch, flag, dtype):
         ref = None if f32 is None else f32.decode_step(state_f, tok, lengths)[0]
         close_lm(got, want, ref)
         lengths = lengths + 1
-    if f32 is None:
-        close(state_p["seg0"]["b0"]["k"], state_j["seg0"]["b0"]["k"], 1e-4)
+    if f32 is None:  # every block's state: KV caches, a rec block's h and conv
+        for seg, blocks in state_j.items():
+            for blk, leaves in blocks.items():
+                for name, leaf in leaves.items():
+                    close(state_p[seg][blk][name], leaf, 1e-4)
 
 
 def test_init_draws_the_jax_shapes_and_scales():
@@ -250,9 +253,14 @@ def test_configs_match_the_jax_package_and_refuse_the_rest():
                 if f.name not in ("param_dtype", "compute_dtype", "family"):
                     assert getattr(port_cfg, f.name) == getattr(jax_cfg, f.name), (arch, f.name)
             assert port_cfg.family.value == jax_cfg.family.value
-    for arch in ("recurrentgemma_9b", "xlstm-350m", "deepseek_v3_671b"):
+    for arch in ("xlstm-350m", "deepseek_v3_671b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch)
+    # recurrentgemma-9b is served now (RG-LRU blocks): the published config
+    rg = get_config("recurrentgemma-9b")
+    assert (rg.n_layers, rg.d_model, rg.n_heads, rg.n_kv_heads, rg.head_dim, rg.d_ff,
+            rg.vocab, rg.window) == (38, 4096, 16, 1, 256, 12288, 256000, 2048)
+    assert rg.segments == ((("rec", "rec", "attn_geglu"), 12), (("rec", "rec"), 1))
     with pytest.raises(KeyError):
         resolve("gpt-2")
     yi = get_config("yi-6b")
