@@ -162,6 +162,17 @@ Phases, each of which fails the script (non-zero exit) on any error:
    ``LM.forward`` (where the window masks), flash_attention 12 launches;
    logits under phase 6's limits; init, forward, decode step, tokens/s,
    busy shares, launches a step and the phase's seconds printed;
+6g. xlstm-350m at full width and depth (24 blocks, 429,245,440
+   parameters, nothing cut) and deepseek-v3-671b at full width and 4 of
+   61 layers (the 3 dense MLA layers and the first MoE one, 15.8 B
+   parameters; ``serve_xlstm_deepseek``), one after the other: requests
+   through ``ServeEngine`` (one slot for xlstm's recurrent state, 4 for
+   deepseek's MLA cache) and a 2048-position ``LM.forward``, no attention
+   kernel launched; xlstm's forward against the same model on the CPU and
+   its decode against its forward; deepseek's absorbed MLA decode against
+   its train path, the chunked MLA against the dense one, and its decode
+   against its forward on a forward that dropped no assignment; init,
+   forward, decode, launches and busy shares printed;
 7. time the two attention kernels at the main path's shapes like phase 4,
    and at phase 6b's, 6e's and 6f's shapes (recurrentgemma-9b's flash at
    S = 4096 with its window, where SDPA takes the window as a boolean
@@ -282,6 +293,17 @@ HYBRID_REQUESTS = 4
 HYBRID_PROMPT_LEN = 16
 HYBRID_NEW_TOKENS = 32
 HYBRID_FORWARD_LEN = 4096
+#: phase 6g: xlstm-350m at full width and depth, deepseek-v3-671b at full
+#: width and MLA_LAYERS (mla_dense, mla_moe) of 61 layers
+XLSTM_ARCH = "xlstm-350m"
+MLA_ARCH = "deepseek-v3-671b"
+MLA_LAYERS = (3, 1)
+#: xlstm: the card's forward against the CPU's over this many positions
+CPU_CHECK_LEN = 128
+#: deepseek: positions of the first layer's absorbed-decode check, and of
+#: the whole model's teacher-forced decode against its forward
+MLA_CHECK_LEN = 64
+DS_FORCED_LEN = 16
 
 Q1 = ("SELECT pickup_location_id, COUNT(*) AS n FROM taxi_table "
       "WHERE pickup_at >= '2019-04-01' GROUP BY pickup_location_id "
@@ -2135,7 +2157,9 @@ class RouterRecord:
     dispatched to (its top-k less what capacity dropped).  With ``force``
     (another run's records, call for call), each call's top-k expert ids
     are that run's and the probs this call's own, renormalised, so both
-    runs dispatch every token alike.  Comparison only: nothing here is on
+    runs dispatch every token alike; a forced call whose record has
+    ``keep`` (B, S, k) also weighs the assignments the other run dropped
+    at capacity 0, so it combines what that run combined.  Comparison only: nothing here is on
     a path the script counts launches of."""
 
     def __init__(self, torch, moe, force=None):
@@ -2150,10 +2174,13 @@ class RouterRecord:
         def recorded_route(p, cfg, x):
             logits, probs, top_p, top_e = route(p, cfg, x)
             if forced is not None:
-                top_e = next(forced)["top_e"]
+                f = next(forced)
+                top_e = f["top_e"]
                 top_p = torch.gather(probs, -1, top_e)
                 if cfg.norm_topk:
                     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+                if "keep" in f:  # the other run's dropped assignments weigh 0
+                    top_p = top_p * f["keep"]
             self.calls.append({"logits": logits.detach().clone(), "top_e": top_e})
             return logits, probs, top_p, top_e
 
@@ -2733,6 +2760,438 @@ def serve_recurrentgemma(np, torch, flash_ops, decode_ops, smi):
             "forward_profile_flash_launches": fwd_flash_n, "seconds": seconds}
 
 
+# -------------------------------------------------------------- phase 6g
+def device_profile(torch, fn):
+    """torch.profiler over one call of ``fn``, the host's and the device's
+    activity as the other profiles here: (profiled wall s, device busy s
+    or None, kernel launches, the kernels by device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    if not kernels:
+        return wall, None, 0, []
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    return (wall, busy, sum(e.count for e in kernels),
+            sorted(kernels, key=lambda e: -e.self_device_time_total))
+
+
+def relative_limits(ref):
+    """Phase 6g's stated bf16 limits for a layer's output whose largest
+    magnitude is ``max|ref|``: 4 bf16 ulps of it (the max) and half an ulp
+    (the mean)."""
+    ulp = 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7)
+    return 4 * ulp, ulp / 2
+
+
+def check_pair(what, got, want, tol, mean_tol):
+    diff = (got.float() - want.float()).abs()
+    print(f"{what}: max |diff| {float(diff.max())!r}, mean {float(diff.mean())!r} (limits "
+          f"{tol!r}, {mean_tol!r}); max |reference| {float(want.float().abs().max())!r}")
+    check(float(diff.max()) <= tol and float(diff.mean()) <= mean_tol, what)
+
+
+def init_on_card(torch, cfg, arch, expect_params, smi):
+    """``LM(cfg).init`` from SEED on the card: (model, init s, init peak B
+    above what was held, weights B)."""
+    from repro_torch.models import LM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg).init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - held
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    check(n_params == expect_params, f"{arch}: {n_params} parameters")
+    print(f"{arch}: {cfg.n_layers} layers {cfg.segments}, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, vocab {cfg.vocab}; {n_params} parameters, {weights} B of "
+          f"weights; init on the card in {init_s!r} s, init peak {init_peak} B "
+          f"({init_peak / 2**30:.2f} GiB; weights + {(init_peak - weights) / 2**30:.2f} GiB) "
+          f"[{smi}]")
+    return model, init_s, init_peak, weights
+
+
+def serve_and_forward(np, torch, flash_ops, decode_ops, model, arch, scfg, prompts, new_tokens,
+                      tokens, smi):
+    """The main path of a phase 6g config, with the launch counts set to 0
+    just before it: ``ServeEngine.generate`` on ``prompts``, then one
+    ``LM.forward`` of ``tokens``; neither reaches an attention kernel.
+    Then the forward's time (median of FORWARD_REPS after the first) and
+    peak, the decode step's median and tokens/s.  Returns the numbers and
+    the main path's outputs."""
+    counts = flash_ops.LAUNCHES, decode_ops.LAUNCHES
+    flash_ops.LAUNCHES = decode_ops.LAUNCHES = 0
+    engine, reqs, steps, lat, wall = serve_requests(torch, model, None, scfg, prompts,
+                                                    new_tokens)
+    final_lengths = engine.lengths.copy()
+    del engine
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    logits = model(tokens)
+    torch.cuda.synchronize()
+    check((flash_ops.LAUNCHES, decode_ops.LAUNCHES) == (0, 0),
+          f"{arch}: the path launched an attention kernel")
+    flash_ops.LAUNCHES, decode_ops.LAUNCHES = counts
+    check(tuple(logits.shape) == (1, tokens.shape[1], model.cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{arch}: forward logits {tuple(logits.shape)} not finite of shape "
+          f"(1, {tokens.shape[1]}, {model.cfg.vocab})")
+    del logits
+    times = []
+    for _ in range(FORWARD_REPS):
+        t1 = time.perf_counter()
+        model(tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    fwd_peak = torch.cuda.max_memory_allocated() - held
+    n_tokens = sum(len(r.generated) for r in reqs)
+    out = {"forward_s": statistics.median(times), "forward_times": times,
+           "forward_peak_bytes": fwd_peak, "decode_step_s": statistics.median(steps),
+           "decode_steps": len(steps), "tokens_per_s": n_tokens / wall,
+           "final_lengths": [int(x) for x in final_lengths], "n_layers": model.cfg.n_layers}
+    print(f"{arch} main path: no attention kernel launched; {len(prompts)} requests, "
+          f"{len(steps)} decode steps, {n_tokens} tokens in {wall!r} s "
+          f"({n_tokens / wall!r} tokens/s), decode step median {out['decode_step_s']!r} s "
+          f"(min {min(steps)!r}, max {max(steps)!r}); per-request latency (s) {lat!r}; forward "
+          f"of {tokens.shape[1]} positions median of {FORWARD_REPS} after the first "
+          f"{out['forward_s']!r} s (each {times!r}), peak {fwd_peak} B "
+          f"({fwd_peak / 2**30:.2f} GiB above the weights) [{smi}]")
+    return out, reqs
+
+
+def serve_xlstm(np, torch, flash_ops, decode_ops, smi):
+    """Phase 6g, first config; see ``serve_xlstm_deepseek``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import params_from_numpy, params_to_numpy
+    from repro_torch.serve import ServeConfig
+
+    t_arch = time.perf_counter()
+    arch = XLSTM_ARCH
+    cfg = dataclasses.replace(get_config(arch), use_flash_kernel=True)
+    model, init_s, init_peak, weights = init_on_card(torch, cfg, arch, 429_245_440, smi)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, HYBRID_PROMPT_LEN).astype(np.int32)
+               for _ in range(HYBRID_REQUESTS)]
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, (1, FORWARD_LEN)).astype(np.int32),
+                          device=dev)
+    scfg = ServeConfig(max_batch=1, max_len=4096)  # one slot: the recurrent kinds' rule
+    out, reqs = serve_and_forward(np, torch, flash_ops, decode_ops, model, arch, scfg, prompts,
+                                  HYBRID_NEW_TOKENS, tokens, smi)
+
+    # profiles of the forward's blocks over the same positions, one of each
+    # kind (every block of a kind does the same work).  A profile of the
+    # whole forward (559,093 kernels) took 126 s to read back on an H100,
+    # so the forward's launches and busy time are the blocks' sums, times
+    # their counts; the embedding, final norm and head add 11 launches (a
+    # profile that small recorded no device time after the earlier phases)
+    positions = torch.arange(FORWARD_LEN, device=dev)
+    h = model._embed_tokens(model._modules, tokens)
+    parts = {"mlstm": lambda: model._apply_block("mlstm", model.blocks[0], h, positions),
+             "slstm": lambda: model._apply_block("slstm", model.blocks[1], h, positions)}
+    counts = {kind: sum(k == kind for unit, n in cfg.segments for k in unit * n)
+              for kind in parts}
+    prof = {}
+    for name, fn in parts.items():
+        fn()  # a warm-up call, as profile_decode makes
+        prof[name] = device_profile(torch, fn)
+        wall, pbusy, n, _ = prof[name]
+        print(f"{arch} profile of {name} over {FORWARD_LEN} positions: "
+              + (f"{n} kernel launches, device busy {pbusy!r} s, wall {wall!r} s"
+                 if pbusy is not None else "the profiler recorded no device time"))
+    launches = sum(counts[n] * prof[n][2] for n in parts)
+    measured = all(prof[n][1] is not None for n in parts)
+    busy = sum(counts[n] * prof[n][1] for n in parts) if measured else None
+    slstm_share = counts["slstm"] * prof["slstm"][2] / launches if measured else None
+    if busy is None:
+        print(f"{arch} profile: a part recorded no device time (the forward's busy share not "
+              f"measured)")
+    else:
+        print(f"{arch} profile, forward of {FORWARD_LEN} positions from its blocks ("
+              f"{counts['mlstm']} mLSTM, {counts['slstm']} sLSTM): "
+              f"{launches} kernel launches, device busy {busy!r} s "
+              f"({busy / out['forward_s']:.3f} of the median forward); the sLSTM blocks' share "
+              f"of the launches {slstm_share!r} [{smi}]")
+        for e in prof["slstm"][3][:6]:
+            print(f"  sLSTM block: {e.self_device_time_total / 1e3:.3f} ms {e.count}x "
+                  f"{e.key[:80]}")
+    decode_busy = profile_decode(torch, model, out["final_lengths"], scfg.max_len,
+                                 what=f"{arch} ")
+
+    # the card against the CPU, the same weights (as served, through
+    # bf16), in float32 compute (the algorithm) and in bf16 (as served),
+    # the forward and the teacher-forced decode; the rule for each is in
+    # serve_xlstm_deepseek's docstring
+    x = np.concatenate([reqs[0].prompt, np.array(reqs[0].generated, np.int32)])
+    seq = np.resize(x, CPU_CHECK_LEN)[None].astype(np.int32)  # the served request, repeated
+    tree = params_to_numpy(model)
+    seq_card, seq_cpu = torch.tensor(seq, device=dev), torch.tensor(seq)
+    logits = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dcfg = dataclasses.replace(cfg, compute_dtype=dt)
+        card = model if dt == cfg.compute_dtype else params_from_numpy(tree, dcfg, device=dev)
+        cpu = params_from_numpy(tree, dcfg, device="cpu")
+        logits[dt] = {
+            "card": (card(seq_card)[0].float().cpu(),
+                     teacher_forced(torch, card, seq_card, CPU_CHECK_LEN)[0].cpu()),
+            "cpu": (cpu(seq_cpu)[0].float(),
+                    teacher_forced(torch, cpu, seq_cpu, CPU_CHECK_LEN)[0])}
+        del card, cpu
+    (f32_card, tf32_card), (f32_cpu, tf32_cpu) = logits[torch.float32].values()
+    (bf_card, tfbf_card), (bf_cpu, tfbf_cpu) = logits[torch.bfloat16].values()
+    check_pair(f"{arch} forward of {CPU_CHECK_LEN} positions in float32, the card vs the CPU",
+               f32_card, f32_cpu, LOGIT_TOL, LOGIT_MEAN_TOL)
+    gap_card, gap_cpu = (tf32_card - f32_card).abs(), (tf32_cpu - f32_cpu).abs()
+    print(f"{arch} decode vs forward over {CPU_CHECK_LEN} positions in float32: the card max "
+          f"|diff| {float(gap_card.max())!r}, mean {float(gap_card.mean())!r}; the CPU max "
+          f"{float(gap_cpu.max())!r}, mean {float(gap_cpu.mean())!r} (limits the CPU's + "
+          f"{LOGIT_TOL}, mean + {LOGIT_MEAN_TOL})")
+    check(float(gap_card.max()) <= float(gap_cpu.max()) + LOGIT_TOL
+          and float(gap_card.mean()) <= float(gap_cpu.mean()) + LOGIT_MEAN_TOL,
+          f"{arch}: decode vs forward in float32 on the card beyond the CPU's gap")
+    print(f"{arch} in bfloat16, the card vs the CPU directly: max |diff| "
+          f"{float((bf_card - bf_cpu).abs().max())!r}, mean "
+          f"{float((bf_card - bf_cpu).abs().mean())!r} (not a check: see the docstring)")
+    for what, card_out, cpu_out in (("forward", bf_card, bf_cpu),
+                                    ("teacher-forced decode", tfbf_card, tfbf_cpu)):
+        d_card, d_cpu = (card_out - f32_cpu).abs(), (cpu_out - f32_cpu).abs()
+        tol = 1.5 * float(d_cpu.max()) + LOGIT_TOL
+        mean_tol = 1.5 * float(d_cpu.mean()) + LOGIT_MEAN_TOL
+        print(f"{arch} bfloat16 {what} against the float32 forward: the card max |diff| "
+              f"{float(d_card.max())!r}, mean {float(d_card.mean())!r}; the CPU max "
+              f"{float(d_cpu.max())!r}, mean {float(d_cpu.mean())!r} (limits 1.5 x the CPU's + "
+              f"{LOGIT_TOL}: {tol!r}, mean {mean_tol!r})")
+        check(float(d_card.max()) <= tol and float(d_card.mean()) <= mean_tol,
+              f"{arch}: bfloat16 {what} on the card farther from float32 than the CPU's")
+    gaps = {"float32": (float(gap_card.max()), float(gap_cpu.max())),
+            "bfloat16": (float((tfbf_card - bf_card).abs().max()),
+                         float((tfbf_cpu - bf_cpu).abs().max()))}
+    del model
+    seconds = time.perf_counter() - t_arch
+    print(f"phase 6g ({arch}): {seconds!r} s [{smi}]")
+    return {**out, "init_s": init_s, "init_peak_bytes": init_peak, "weights_bytes": weights,
+            "forward_busy_s": busy, "forward_launches": launches,
+            "slstm_launch_share": slstm_share, "decode_busy_share": decode_busy,
+            "decode_vs_forward": gaps, "seconds": seconds}
+
+
+def serve_deepseek(np, torch, flash_ops, decode_ops, smi):
+    """Phase 6g, second config; see ``serve_xlstm_deepseek``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mla as mla_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import rmsnorm
+    from repro_torch.serve import ServeConfig
+
+    t_arch = time.perf_counter()
+    arch = MLA_ARCH
+    base = get_config(arch)
+    dense, moe = MLA_LAYERS
+    cfg = dataclasses.replace(base, n_layers=dense + moe, use_flash_kernel=True,
+                              segments=((("mla_dense",), dense), (("mla_moe",), moe)))
+    model, init_s, init_peak, weights = init_on_card(torch, cfg, arch, 15_797_352_448, smi)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(8, 33))).astype(np.int32)
+               for _ in range(CUT_REQUESTS)]
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, (1, FORWARD_LEN)).astype(np.int32),
+                          device=dev)
+    scfg = ServeConfig(max_batch=4, max_len=4096)
+    out, reqs = serve_and_forward(np, torch, flash_ops, decode_ops, model, arch, scfg, prompts,
+                                  CUT_NEW_TOKENS, tokens, smi)
+    fwd_busy, _, _ = profile_forward(torch, model, tokens, None, what=f"{arch} ")
+    decode_busy = profile_decode(torch, model, out["final_lengths"], scfg.max_len,
+                                 what=f"{arch} ")
+    state = model.init_decode_state(scfg.max_batch, max_len=scfg.max_len)
+    cache_bytes = sum(v.numel() * v.element_size() for seg in state.values()
+                      for blk in seg.values() for v in blk.values())
+    del state
+    per_token = cache_bytes / (scfg.max_batch * scfg.max_len)
+    mcfg = cfg.mla_config()
+    per_head = cfg.n_layers * cfg.n_heads * (mcfg.qk_dim + mcfg.v_head_dim) * 2
+    print(f"{arch} decode cache: {per_token!r} B a token over {cfg.n_layers} layers (c_kv "
+          f"{mcfg.kv_lora_rank} + k_rope {mcfg.qk_rope_dim} in bf16 a layer); a per-head KV "
+          f"cache of the same shape (k {cfg.n_heads} x {mcfg.qk_dim}, v {cfg.n_heads} x "
+          f"{mcfg.v_head_dim} a layer) {per_head} B, {per_head / per_token!r}x more")
+
+    # 1. the first layer's MLA: absorbed decode token by token against the
+    # train path at the same positions, in float32 (the JAX test's rule)
+    # and in bf16 (relative_limits)
+    p = model.blocks[0]
+    x = rmsnorm(p["norm1"], model._embed_tokens(model._modules, tokens[:, :MLA_CHECK_LEN]),
+                eps=cfg.norm_eps)
+    p32 = {k: {kk: vv.float() for kk, vv in v.items()} for k, v in p["attn"].items()}
+    for dt, params in ((torch.float32, p32), (torch.bfloat16, p["attn"])):
+        mc = dataclasses.replace(mcfg, compute_dtype=dt)
+        xs = x.to(dt)
+        train = mla_mod.mla_train(params, mc, xs, torch.arange(MLA_CHECK_LEN, device=dev))
+        cache = mla_mod.init_mla_cache(mc, 1, MLA_CHECK_LEN, dtype=dt, device=dev)
+        dec = torch.empty_like(train)
+        for t in range(MLA_CHECK_LEN):
+            step, cache = mla_mod.mla_decode_step(params, mc, xs[:, t:t + 1], cache,
+                                                  torch.tensor([t], device=dev))
+            dec[:, t] = step[:, 0]
+        what = (f"{arch} layer 0 MLA, absorbed decode vs mla_train over {MLA_CHECK_LEN} "
+                f"positions in {str(dt).split('.')[-1]}")
+        if dt == torch.float32:
+            excess = ((dec - train).abs() - (2e-4 * train.abs() + 2e-5)).max()
+            print(f"{what}: max |diff| {float((dec - train).abs().max())!r}, largest excess "
+                  f"over rtol 2e-4 / atol 2e-5 {float(excess)!r}")
+            check(float(excess) <= 0, what)
+        else:
+            check_pair(what, dec, train, *relative_limits(train))
+    # 2. mla_train with the chunk of 1024 against chunk=None at S = FORWARD_LEN
+    x = rmsnorm(p["norm1"], model._embed_tokens(model._modules, tokens), eps=cfg.norm_eps)
+    pos = torch.arange(FORWARD_LEN, device=dev)
+    for dt, params in ((torch.float32, p32), (torch.bfloat16, p["attn"])):
+        mc = dataclasses.replace(mcfg, compute_dtype=dt)
+        chunked = mla_mod.mla_train(params, mc, x.to(dt), pos).float()
+        dense_out = mla_mod.mla_train(params, dataclasses.replace(mc, chunk=None), x.to(dt),
+                                      pos).float()
+        what = (f"{arch} layer 0 MLA at S = {FORWARD_LEN}, chunk {mc.chunk} vs dense, in "
+                f"{str(dt).split('.')[-1]}")
+        if dt == torch.float32:
+            excess = ((chunked - dense_out).abs() - (3e-3 * dense_out.abs() + 3e-3)).max()
+            print(f"{what}: max |diff| {float((chunked - dense_out).abs().max())!r}, largest "
+                  f"excess over rtol = atol = 3e-3 {float(excess)!r}")
+            check(float(excess) <= 0, what)
+        else:
+            check_pair(what, chunked, dense_out, *relative_limits(dense_out))
+    del p32, x, chunked, dense_out
+    # 3. the whole model: DS_FORCED_LEN tokens teacher-forced through decode
+    # against the forward; the forward's drops at capacity are counted
+    seq = tokens[:, :DS_FORCED_LEN]
+    with RouterRecord(torch, moe_mod) as rec_f:
+        fwd = model(seq)[0].float()
+    check(len(rec_f.calls) == moe, f"{arch}: {len(rec_f.calls)} MoE calls in the forward")
+    cap = moe_mod.capacity(cfg.moe_config(), DS_FORCED_LEN)
+    fwd_e = rec_f.calls[0]["top_e"]  # (1, S, k): the forward's one MoE call
+    keep = torch.gather(rec_f.calls[0]["dispatched"], -1, fwd_e)  # (1, S, k)
+    dropped = ~keep[0].all(-1)  # (S,): positions with an assignment dropped
+    n_drop = int((~keep).sum())
+    print(f"{arch} forward of {DS_FORCED_LEN} positions: capacity {cap} slots an expert, "
+          f"{int(keep.sum())} of {keep.numel()} assignments dispatched ({n_drop} dropped, at "
+          f"{int(dropped.sum())} positions {dropped.nonzero().flatten().tolist()})")
+    with RouterRecord(torch, moe_mod) as rec_d:
+        tf = teacher_forced(torch, model, seq, DS_FORCED_LEN)[0]
+    dec_e = torch.cat([c["top_e"][0] for c in rec_d.calls])  # (S, k), a call a step
+    tipped = (fwd_e[0].sort(-1).values != dec_e.sort(-1).values).any(-1)
+    alike = ~tipped & ~dropped
+    print(f"{arch} decode on its own router: {int(tipped.sum())} of {DS_FORCED_LEN} positions "
+          f"routed to other experts than in the forward; {int(alike.sum())} positions routed "
+          f"alike with nothing dropped")
+    check(bool(alike.any()), f"{arch}: no position routed alike with nothing dropped")
+    check_pair(f"{arch} decode vs forward at the {int(alike.sum())} positions routed alike "
+               f"with nothing dropped", tf[alike], fwd[alike], LOGIT_TOL, LOGIT_MEAN_TOL)
+    force = [{"top_e": fwd_e[:, t:t + 1], "keep": keep[:, t:t + 1].to(torch.float32)}
+             for t in range(DS_FORCED_LEN)]
+    with RouterRecord(torch, moe_mod, force=force):
+        tf_forced = teacher_forced(torch, model, seq, DS_FORCED_LEN)[0]
+    check_pair(f"{arch} decode on the forward's dispatch (its drops weighing 0) vs forward at "
+               f"all {DS_FORCED_LEN} positions", tf_forced, fwd, LOGIT_TOL, LOGIT_MEAN_TOL)
+    del model, fwd, tf, tf_forced
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_arch
+    print(f"phase 6g ({arch}): {seconds!r} s [{smi}]")
+    return {**out, "init_s": init_s, "init_peak_bytes": init_peak, "weights_bytes": weights,
+            "forward_busy_share": fwd_busy, "decode_busy_share": decode_busy,
+            "cache_bytes_per_token": per_token, "per_head_bytes_per_token": per_head,
+            "tipped": int(tipped.sum()), "dropped": n_drop, "seconds": seconds}
+
+
+def serve_xlstm_deepseek(np, torch, flash_ops, decode_ops, smi):
+    """Phase 6g: xlstm-350m and deepseek-v3-671b on ``cuda``, one after
+    the other, each freed before the next; random weights from a seeded
+    generator, TF32 off (phase 6 set it).  Neither reaches an attention
+    kernel (the xLSTM and MLA blocks are plain torch, as their JAX
+    counterparts are ``lax.scan`` loops, not Pallas): the launch counts,
+    set to 0 just before each main path, must stay 0.
+
+    xlstm-350m (arXiv:2405.04517) at full width and depth, nothing cut: 24
+    blocks, ``(mlstm, slstm) x 12``, d_model 1024, 4 heads, vocab 50304,
+    tied embeddings, 429,245,440 parameters (float32 ``param_dtype``, the
+    matmul weights served in bf16).  Main path: HYBRID_REQUESTS requests of
+    HYBRID_PROMPT_LEN prompt tokens and HYBRID_NEW_TOKENS new ones through
+    ``ServeEngine`` on one slot (the recurrent kinds' rule, as in the JAX
+    engine), then one FORWARD_LEN-position ``LM.forward`` (32 mLSTM chunks
+    and FORWARD_LEN sLSTM steps a layer).  Checks, over CPU_CHECK_LEN
+    positions (the first request's tokens, repeated), against the same
+    model on the CPU (``params_to_numpy`` -> ``params_from_numpy``, the
+    served weights), in float32 compute and in bf16 (as served): the
+    forward logits, and the teacher-forced decode against the forward on
+    each device.  In float32 the card is held within LOGIT_TOL and
+    LOGIT_MEAN_TOL of the CPU, and its decode-vs-forward gap within the
+    CPU's plus LOGIT_TOL.  In bf16 this model at random weights amplifies
+    a rounding difference about twofold an mLSTM block (on the CPU at
+    full width and 8 layers, summing with one thread instead of 8 moves
+    the logits by up to 0.43 in bf16 and 2.6e-4 in float32), so after 24
+    blocks two orders of the same bf16 sums part by whole units (the card
+    against the CPU: 2.89, mean 0.269, with their float32 logits 0.002
+    apart).  There the rule is ``tests/test_torch_models.py``'s for bf16
+    LMs: the card's bf16 forward, and its bf16 decode, no farther from
+    the float32 forward than the CPU's, within 1.5 times it plus LOGIT_TOL
+    (max) and LOGIT_MEAN_TOL (mean).
+
+    deepseek-v3-671b (arXiv:2412.19437) at full width, MLA_LAYERS = the
+    paper's 3 ``mla_dense`` layers and the first ``mla_moe`` layer, 4 of
+    61: d_model 7168, 128 heads, q rank 1536, kv rank 512, nope 128, rope
+    64, v 128, dense FFN 18432, 256 routed experts + 1 shared of 2048,
+    top-8, vocab 129280, untied head, the MTP head built (read by
+    ``LM.loss`` only): 15,797,352,448 parameters, 31.6 GB in bf16.  Depth
+    is cut because 671 B parameters do not fit one card: each ``mla_moe``
+    layer is 23 GB, and two would leave no room for the init's float32
+    draws.  Main path: CUT_REQUESTS requests of CUT_NEW_TOKENS new tokens
+    through ``ServeEngine`` on 4 slots (the MLA cache is gated by lengths
+    like a KV cache), then one FORWARD_LEN-position ``LM.forward`` (MLA's
+    chunked branch, chunk 1024).  Checks, limits stated before the first
+    run: (1) the first layer's MLA, absorbed ``mla_decode_step`` token by
+    token against ``mla_train`` over MLA_CHECK_LEN positions: in float32
+    within the JAX test's rtol 2e-4 / atol 2e-5
+    (``tests/test_mla.py``), in bf16 within ``relative_limits`` (4 bf16
+    ulps of the largest output, the mean within half an ulp); (2)
+    ``mla_train`` with the chunk of 1024 against ``chunk=None`` at S =
+    FORWARD_LEN: in float32 within rtol = atol = 3e-3
+    (``tests/test_chunked_attention.py``), in bf16 within
+    ``relative_limits``; (3) the whole model, DS_FORCED_LEN tokens
+    teacher-forced through ``decode_step`` against the forward.  The
+    forward groups the 16 tokens with 4 slots an expert, and its random
+    router sends more than 4 to some experts (16 of 128 assignments
+    dropped on an H100 with these seeded weights), while decode routes
+    each token alone and
+    drops nothing; decode may also tip a near tie in the router's top 8.
+    The MoE layer is the last, so a drop or a tip changes only its own
+    position: the positions routed alike with nothing dropped within
+    LOGIT_TOL and LOGIT_MEAN_TOL (at least one), and decode run again on
+    the forward's dispatch, the assignments the forward dropped weighing
+    0 (``RouterRecord(force=...)`` with ``keep``), within them at every
+    position.
+
+    Printed for each, with the card's name and power limit: init s and
+    peak, forward s, busy share and launches, decode step s, tokens/s,
+    launches a step and busy share; xlstm's sLSTM share of the forward's
+    launches; deepseek's MLA cache bytes a token against a per-head KV
+    cache of the same shape."""
+    t_phase = time.perf_counter()
+    out = {XLSTM_ARCH: serve_xlstm(np, torch, flash_ops, decode_ops, smi)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out[MLA_ARCH] = serve_deepseek(np, torch, flash_ops, decode_ops, smi)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 6g: {seconds!r} s [{smi}]")
+    return out
+
+
 # --------------------------------------------------------------- phase 7
 def path_launches(served, trained, families, hybrid, key):
     """A kernel row's launches: phase 6's serve and phase 6d's trained
@@ -2980,6 +3439,7 @@ def main() -> int:
     trained = train_serve(np, torch, flash_ops, decode_ops, smi)
     families = serve_families(np, torch, flash_ops, decode_ops, smi)
     hybrid = serve_recurrentgemma(np, torch, flash_ops, decode_ops, smi)
+    ssm_mla = serve_xlstm_deepseek(np, torch, flash_ops, decode_ops, smi)
     rows = measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served,
                              cut_served, full_served, trained, families, hybrid, card)
     music = families["musicgen-medium"]
@@ -2993,6 +3453,12 @@ def main() -> int:
           f"kernels in the forward profile {hybrid['forward_profile_flash_ms']!r} ms in "
           f"{hybrid['forward_profile_flash_launches']} launches; decode step "
           f"{hybrid['decode_step_s']!r} s, busy share {hybrid['busy_share']!r} [{smi}]")
+    for arch, r in ssm_mla.items():
+        print(f"{arch} (phase 6g, {r['n_layers']} layers): init {r['init_s']!r} s, peak "
+              f"{r['init_peak_bytes']} B; forward of {FORWARD_LEN} positions "
+              f"{r['forward_s']!r} s; decode step {r['decode_step_s']!r} s, "
+              f"{r['tokens_per_s']!r} tokens/s, busy share {r['decode_busy_share']!r}; no "
+              f"attention kernel on the path [{smi}]")
     print(f"chip_smoke.py: {time.perf_counter() - t_start!r} s in all [{smi}]")
     print(json.dumps({"kernels": [{**row, "card": smi} for row in (ffa_row, *rows)]}))
     print(smi)

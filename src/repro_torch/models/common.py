@@ -38,7 +38,10 @@ def _normal(generator: Optional[torch.Generator], shape, scale: float, dtype) ->
     if generator is None:
         return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=generator, device=generator.device)
-    return (x * scale).to(dtype)
+    # scaled in place (the same float32 product as ``x * scale``): a draw
+    # in float32 for a bf16 leaf then costs one float32 copy, not two
+    # (deepseek-v3's expert stacks are 3.8 G elements each)
+    return x.mul_(scale).to(dtype)
 
 
 def init_linear(

@@ -1,19 +1,21 @@
-"""The decoder LM, for the architectures whose blocks are attention or
-the RG-LRU.
+"""The decoder LM, for every block kind of the JAX package.
 
 The JAX package's ``models/lm.py`` assembles all ten assigned
 architectures as *segments*, each ``count`` repetitions of a *unit* (a
 tuple of block kinds), and scans over stacked per-layer params.  The
 port keeps ``LMConfig`` whole and the segment layout at its public face,
-and serves block kinds ``attn`` (attention + SwiGLU), ``attn_geglu``
-(attention + GeGLU), ``moe_attn`` (attention + the MoE FFN of
-``models/moe.py``) and ``rec`` (the RG-LRU of ``models/rglru.py`` +
-GeGLU), with the JAX model's extras for these families: parallel
-codebooks (musicgen: summed embeddings in, one head per codebook out,
-logits (B, S, K, V)) and a prefix of image patch embeddings (internvl2:
-prepended to the text, cut off before the read-out).  The other kinds
-(MLA, xLSTM) and the MTP head come with later slices of the port
-(``ROADMAP.md`` §1).
+and serves every block kind: ``attn`` (attention + SwiGLU),
+``attn_geglu`` (attention + GeGLU), ``moe_attn`` (attention + the MoE FFN
+of ``models/moe.py``), ``rec`` (the RG-LRU of ``models/rglru.py`` +
+GeGLU), ``mla_dense`` (the MLA of ``models/mla.py`` + a SwiGLU of width
+``dense_d_ff``), ``mla_moe`` (MLA + the MoE FFN), and ``mlstm`` and
+``slstm`` (the xLSTM blocks of ``models/xlstm.py``, no FFN), with the
+JAX model's extras: parallel codebooks (musicgen: summed embeddings in,
+one head per codebook out, logits (B, S, K, V)), a prefix of image patch
+embeddings (internvl2: prepended to the text, cut off before the
+read-out) and DeepSeek's multi-token-prediction head (``mtp``: a
+projection of [h_t, emb(t+1)], one unstacked block and a norm, read by
+``loss`` only).
 
 ``LM`` is an ``nn.Module``: a ``ModuleList`` of blocks, one per layer in
 order, looped over where JAX scans.  Its parameters keep the JAX tree's
@@ -28,10 +30,15 @@ the RG-LRU's ``conv``, ``lam`` and the weights of its float32 gate
 projections (``rglru.FLOAT32_LINEARS``), which JAX reads as float32.
 
 The decode state keeps the JAX layout: ``state["seg0"]["b0"]["k"]`` is
-(layers, batch, kv heads, max_len, d_head), and a ``rec`` block's
-``state[...]["h"]`` is (layers, batch, d_rnn) and ``["conv"]`` (layers,
-batch, width - 1, d_rnn), both float32.  ``decode_step`` updates it in
-place and returns it.
+(layers, batch, kv heads, max_len, d_head); a ``rec`` block's
+``["h"]`` is (layers, batch, d_rnn) and ``["conv"]`` (layers, batch,
+width - 1, d_rnn); an ``mlstm`` block's ``["C"]``, ``["n"]``, ``["m"]``
+are (layers, batch, heads, dh, dh), (layers, batch, heads, dh) and
+(layers, batch, heads); an ``slstm`` block's ``["c"]``, ``["n"]``,
+``["h"]``, ``["m"]`` (layers, batch, d_model), all float32; an MLA
+block's ``["c_kv"]`` (layers, batch, max_len, kv rank) and
+``["k_rope"]`` (layers, batch, 1, max_len, rope dim) in compute_dtype.
+``decode_step`` updates it in place and returns it.
 
 Training does not go through the module's parameters.  It holds float32
 masters as the JAX package's own tree (``init_params``: nested dicts,
@@ -54,8 +61,10 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (
     Params,
     as_module,
@@ -75,8 +84,13 @@ from repro_torch.models.common import (
 )
 from repro_torch.utils.tree import flatten_with_paths, tree_map, unflatten_like
 
-#: block kinds this port serves
-BLOCK_KINDS = ("attn", "attn_geglu", "moe_attn", "rec")
+#: block kinds this port serves: every kind of the JAX package
+BLOCK_KINDS = ("attn", "attn_geglu", "moe_attn", "mla_dense", "mla_moe", "mlstm", "slstm",
+               "rec")
+#: kinds whose mixer is MLA, whose FFN is the MoE, that have no FFN
+MLA_KINDS = ("mla_dense", "mla_moe")
+MOE_KINDS = ("moe_attn", "mla_moe")
+XLSTM_KINDS = ("mlstm", "slstm")
 
 
 class ModelFamily(str, enum.Enum):
@@ -146,6 +160,13 @@ class LMConfig:
             compute_dtype=self.compute_dtype,
         )
 
+    def mla_config(self) -> mla_mod.MLAConfig:
+        return mla_mod.MLAConfig(
+            d_model=self.d_model,
+            n_heads=self.n_heads,
+            compute_dtype=self.compute_dtype,
+        )
+
     def moe_config(self) -> moe_mod.MoEConfig:
         return moe_mod.MoEConfig(
             d_model=self.d_model,
@@ -155,6 +176,19 @@ class LMConfig:
             num_shared=self.num_shared_experts,
             compute_dtype=self.compute_dtype,
         )
+
+    def xlstm_config(self) -> xlstm_mod.XLSTMConfig:
+        return xlstm_mod.XLSTMConfig(
+            d_model=self.d_model,
+            n_heads=self.n_heads,
+            compute_dtype=self.compute_dtype,
+        )
+
+    @property
+    def mtp_kind(self) -> str:
+        """The MTP head's block kind: ``mla_dense`` when the first block
+        is MLA, else ``attn`` (the JAX ``init`` and ``loss``)."""
+        return "mla_dense" if self.segments[0][0][0].startswith("mla") else "attn"
 
     def rglru_config(self) -> rglru_mod.RGLRUConfig:
         return rglru_mod.RGLRUConfig(
@@ -225,14 +259,6 @@ class LM(nn.Module):
             raise ValueError(
                 f"{cfg.name}: segments sum to {total} layers, expected {cfg.n_layers}"
             )
-        unported = sorted({k for *_, k in layer_plan(cfg)} - set(BLOCK_KINDS))
-        if unported or cfg.mtp:
-            raise NotImplementedError(
-                f"{cfg.name}: the port serves block kinds {BLOCK_KINDS} without "
-                f"an MTP head (found kinds {unported}); mlstm, slstm, the MLA "
-                f"kinds (mla_dense, mla_moe) and the MTP head come with later "
-                f"slices, ROADMAP.md §1"
-            )
         self.cfg = cfg
         # placeholders, so the state dict keeps the tree's order
         self.embed = nn.Module()
@@ -242,18 +268,31 @@ class LM(nn.Module):
 
     # -------------------------------------------------------------- params
     def _block_piece(self, kind: str, generator) -> Params:
-        """One block's params, in the JAX ``_init_block`` layout."""
+        """One block's params, in the JAX ``_init_block`` layout; an
+        unknown kind is a ``ValueError``, as in the JAX package."""
         cfg = self.cfg
         dt = cfg.param_dtype
         dev = device_of(generator)
         p: Params = {"norm1": init_rmsnorm(cfg.d_model, dtype=dt, device=dev)}
+        if kind == "mlstm":  # the xLSTM blocks have no norm2 and no FFN
+            p["mix"] = xlstm_mod.init_mlstm(generator, cfg.xlstm_config(), dtype=dt)
+            return p
+        if kind == "slstm":
+            p["mix"] = xlstm_mod.init_slstm(generator, cfg.xlstm_config(), dtype=dt)
+            return p
         if kind == "rec":
             p["mix"] = rglru_mod.init_rglru(generator, cfg.rglru_config(), dtype=dt)
-        else:
+        elif kind in MLA_KINDS:
+            p["attn"] = mla_mod.init_mla(generator, cfg.mla_config(), dtype=dt)
+        elif kind in ("attn", "attn_geglu", "moe_attn"):
             p["attn"] = attn_mod.init_attention(generator, cfg.attention_config(), dtype=dt)
+        else:
+            raise ValueError(f"unknown block kind {kind!r}")
         p["norm2"] = init_rmsnorm(cfg.d_model, dtype=dt, device=dev)
-        if kind == "moe_attn":
+        if kind in MOE_KINDS:
             p["moe"] = moe_mod.init_moe(generator, cfg.moe_config(), dtype=dt)
+        elif kind == "mla_dense":
+            p["mlp"] = init_swiglu(generator, cfg.d_model, cfg.dense_d_ff or cfg.d_ff, dtype=dt)
         else:
             mlp = init_swiglu if kind == "attn" else init_geglu
             p["mlp"] = mlp(generator, cfg.d_model, cfg.d_ff, dtype=dt)
@@ -265,8 +304,9 @@ class LM(nn.Module):
         the JAX init's order: ``embed`` (one table, or ``cb{i}`` a
         codebook), ``blocks.<i>`` in ``layer_plan`` order, ``final_norm``,
         ``lm_head`` (untied heads: with codebooks the JAX model builds it
-        and never reads it; the port keeps it, so trees round-trip), then
-        ``heads`` (``cb{i}`` a codebook).  A piece is drawn only when the
+        and never reads it; the port keeps it, so trees round-trip),
+        ``heads`` (``cb{i}`` a codebook), then ``mtp`` (``proj``, one
+        block of ``cfg.mtp_kind``, ``norm``).  A piece is drawn only when the
         one before it has been taken, and the generator keeps no reference
         to it: a caller that drops a piece before asking for the next
         holds at most one piece in ``param_dtype`` at a time."""
@@ -285,6 +325,10 @@ class LM(nn.Module):
         if cfg.n_codebooks > 1:
             yield "heads", {f"cb{i}": init_linear(generator, cfg.d_model, cfg.vocab, dtype=dt)
                             for i in range(cfg.n_codebooks)}
+        if cfg.mtp:
+            proj = init_linear(generator, 2 * cfg.d_model, cfg.d_model, dtype=dt)
+            yield "mtp", {"proj": proj, "block": self._block_piece(cfg.mtp_kind, generator),
+                          "norm": init_rmsnorm(cfg.d_model, dtype=dt, device=device_of(generator))}
 
     def _adopt(self, name: str, piece: Params) -> None:
         """Take ``piece`` (the port's layout) as the module's parameters
@@ -352,10 +396,11 @@ class LM(nn.Module):
         """The block's FFN on ``y``: (output, the MoE's balance + z loss
         when ``losses`` and the block has an MoE, else None)."""
         cfg = self.cfg
-        if kind == "moe_attn":
+        if kind in MOE_KINDS:
             out, aux = moe_mod.moe_apply(p["moe"], cfg.moe_config(), y, losses=losses)
             return out, (aux["balance_loss"] + aux["z_loss"]) if losses else None
-        fn = swiglu if kind == "attn" else geglu  # attn_geglu and rec: GeGLU
+        # attn and mla_dense: SwiGLU; attn_geglu and rec: GeGLU
+        fn = swiglu if kind in ("attn", "mla_dense") else geglu
         return fn(p["mlp"], y, compute_dtype=cfg.compute_dtype), None
 
     def _apply_block(self, kind: str, p, h: torch.Tensor, positions: torch.Tensor,
@@ -365,8 +410,14 @@ class LM(nn.Module):
         block's aux loss or None)."""
         cfg = self.cfg
         x = rmsnorm(p["norm1"], h, eps=cfg.norm_eps)
+        if kind == "mlstm":
+            return h + xlstm_mod.mlstm_block(p["mix"], cfg.xlstm_config(), x), None
+        if kind == "slstm":
+            return h + xlstm_mod.slstm_block(p["mix"], cfg.xlstm_config(), x), None
         if kind == "rec":
             h = h + rglru_mod.rglru_block(p["mix"], cfg.rglru_config(), x)
+        elif kind in MLA_KINDS:
+            h = h + mla_mod.mla_train(p["attn"], cfg.mla_config(), x, positions)
         else:
             h = h + attn_mod.attend_train(p["attn"], cfg.attention_config(), x, positions)
         y = rmsnorm(p["norm2"], h, eps=cfg.norm_eps)
@@ -447,7 +498,11 @@ class LM(nn.Module):
         over K), optional ``loss_mask`` (B, S), optional ``patch_embeds``
         (B, P, d) before the text.  Returns ``(total, {"ce", "aux",
         "loss"})``; ``aux`` is the MoE blocks' balance and z losses, 0
-        without MoE blocks.
+        without MoE blocks.  With an MTP head (``cfg.mtp``) the metrics add
+        ``mtp_ce``, the cross-entropy of predicting token t + 2 from
+        [h_t, emb(token t + 1)] through the head's block (its own aux loss
+        dropped, as in the JAX package), and the total adds
+        ``mtp_loss_weight * mtp_ce``.
 
         With gradients enabled it refuses ``use_flash_kernel``: the CUDA
         flash kernel has no backward (nor has the JAX package's Pallas
@@ -465,38 +520,61 @@ class LM(nn.Module):
         if cfg.num_patches and "patch_embeds" in batch:
             h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
             n_prefix = batch["patch_embeds"].shape[1]
-        h, aux = self._stack(params, h, torch.arange(h.shape[1], device=h.device))
+        positions = torch.arange(h.shape[1], device=h.device)
+        h, aux = self._stack(params, h, positions)
         h = rmsnorm(params["final_norm"], h, eps=cfg.norm_eps)
         if n_prefix:
             h = h[:, n_prefix:]
         logits = self._read_out(params, h[:, :-1])
         mask = batch.get("loss_mask")
         mask = None if mask is None else mask[:, 1:]
+        ce_mask = mask
         if cfg.n_codebooks > 1 and mask is not None:
-            mask = mask[..., None] * torch.ones((1, 1, cfg.n_codebooks), device=mask.device)
-        ce = cross_entropy(logits, tokens[:, 1:], mask=mask)
+            ce_mask = mask[..., None] * torch.ones((1, 1, cfg.n_codebooks), device=mask.device)
+        ce = cross_entropy(logits, tokens[:, 1:], mask=ce_mask)
         total = ce + aux
-        return total, {"ce": ce, "aux": aux, "loss": total}
+        metrics = {"ce": ce, "aux": aux}
+        if cfg.mtp:  # predict t + 2 from (h_t, emb_{t+1})
+            mtp = params["mtp"]
+            h_mtp = torch.cat([h[:, :-2], self._embed_tokens(params, tokens[:, 1:-1])], dim=-1)
+            h_mtp = linear(mtp["proj"], h_mtp, compute_dtype=cfg.compute_dtype)
+            h_mtp, _ = self._apply_block(cfg.mtp_kind, mtp["block"], h_mtp,
+                                         positions[:h_mtp.shape[1]])
+            h_mtp = rmsnorm(mtp["norm"], h_mtp, eps=cfg.norm_eps)
+            mtp_ce = cross_entropy(self._read_out(params, h_mtp), tokens[:, 2:],
+                                   mask=None if mask is None else mask[:, 1:])
+            metrics["mtp_ce"] = mtp_ce
+            total = total + cfg.mtp_loss_weight * mtp_ce
+        metrics["loss"] = total
+        return total, metrics
 
     # ---------------------------------------------------------- serving
     def _block_state(self, kind: str, count: int, batch: int, max_len: int) -> Params:
         """One block's decode state, stacked over the ``count`` layers of
-        its segment: zeroed KV caches in compute_dtype, or a ``rec``
-        block's float32 ``h`` and conv history."""
+        its segment: zeroed KV caches or MLA latent caches in
+        compute_dtype, or a recurrent block's float32 state."""
         cfg = self.cfg
+        dev = self.device
         if kind == "rec":
-            one = rglru_mod.init_rglru_state(cfg.rglru_config(), batch, device=self.device)
-            return {k: v.expand(count, *v.shape).clone() for k, v in one.items()}
-        shape = (count, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-        return {name: torch.zeros(shape, dtype=cfg.compute_dtype, device=self.device)
-                for name in ("k", "v")}
+            one = rglru_mod.init_rglru_state(cfg.rglru_config(), batch, device=dev)
+        elif kind == "mlstm":
+            one = xlstm_mod.init_mlstm_state(cfg.xlstm_config(), batch, device=dev)
+        elif kind == "slstm":
+            one = xlstm_mod.init_slstm_state(cfg.xlstm_config(), batch, device=dev)
+        elif kind in MLA_KINDS:
+            one = mla_mod.init_mla_cache(cfg.mla_config(), batch, max_len,
+                                         dtype=cfg.compute_dtype, device=dev)
+        else:
+            shape = (count, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+            return {name: torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)
+                    for name in ("k", "v")}
+        return {k: v.expand(count, *v.shape).clone() for k, v in one.items()}
 
     def init_decode_state(self, batch: int, max_len: Optional[int] = None) -> Params:
         """The zeroed decode state on the model's device, in the JAX
-        layout: ``state[f"seg{i}"][f"b{j}"]["k"|"v"]`` of shape (count,
-        batch, n_kv_heads, max_len, d_head) in compute_dtype for attention
-        blocks, ``["h"]`` (count, batch, d_rnn) and ``["conv"]`` (count,
-        batch, width - 1, d_rnn) in float32 for ``rec`` blocks."""
+        layout (the module's docstring lists each kind's leaves):
+        ``state[f"seg{i}"][f"b{j}"][leaf]``, every leaf stacked over the
+        segment's ``count`` layers."""
         cfg = self.cfg
         max_len = max_len or cfg.max_decode_len
         return {
@@ -514,19 +592,27 @@ class LM(nn.Module):
     ) -> Tuple[torch.Tensor, Params]:
         """One decoding step. Returns (logits (B, 1[, K], V), state), the
         state updated in place.  An MoE block routes the whole batch as
-        one group (``moe_apply``'s decode case)."""
+        one group (``moe_apply``'s decode case) and drops its aux loss."""
         cfg = self.cfg
-        acfg = cfg.attention_config()
         h = self._embed_tokens(self._modules, tokens)
         for (si, i, r, kind), p in zip(layer_plan(cfg), self.blocks):
             # this layer's views of the stacked state: updated in place
             layer = {k: v[r] for k, v in state[f"seg{si}"][f"b{i}"].items()}
             x = rmsnorm(p["norm1"], h, eps=cfg.norm_eps)
-            if kind == "rec":
+            if kind == "mlstm":
+                out, _ = xlstm_mod.mlstm_decode_step(p["mix"], cfg.xlstm_config(), x, layer)
+            elif kind == "slstm":
+                out, _ = xlstm_mod.slstm_decode_step(p["mix"], cfg.xlstm_config(), x, layer)
+            elif kind == "rec":
                 out, _ = rglru_mod.rglru_decode_step(p["mix"], cfg.rglru_config(), x, layer)
+            elif kind in MLA_KINDS:
+                out, _ = mla_mod.mla_decode_step(p["attn"], cfg.mla_config(), x, layer, lengths)
             else:
-                out, _ = attn_mod.decode_step(p["attn"], acfg, x, layer, lengths)
+                out, _ = attn_mod.decode_step(p["attn"], cfg.attention_config(), x, layer,
+                                              lengths)
             h = h + out
+            if kind in XLSTM_KINDS:
+                continue
             y = rmsnorm(p["norm2"], h, eps=cfg.norm_eps)
             h = h + self._ffn(kind, p, y, losses=False)[0]
         h = rmsnorm(self.final_norm, h, eps=cfg.norm_eps)

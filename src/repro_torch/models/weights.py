@@ -9,12 +9,16 @@ to JAX's, so this module never imports jax) or tensors (a tree the port
 trained or restored), unstacks the layers in order and returns the
 port's :class:`LM` on ``device`` holding those weights, so both packages
 compute with the same numbers.  :func:`params_to_numpy` is its inverse.
-Every top-level entry the JAX init makes for the ported families is
-carried: ``embed`` (one table, or ``cb{i}`` a codebook), ``seg{i}``
-(attention, SwiGLU or GeGLU, the MoE's ``router``,
-``experts/{gate,up,down}`` and ``shared``, and the RG-LRU's
-``mix/{w_in,w_gate,w_a,w_x,w_out}/w``, ``mix/conv`` and ``mix/lam``),
-``final_norm``, ``lm_head`` and ``heads`` (``cb{i}`` a codebook).
+Every top-level entry the JAX init makes is carried: ``embed`` (one
+table, or ``cb{i}`` a codebook), ``seg{i}`` (attention, SwiGLU or GeGLU,
+the MoE's ``router``, ``experts/{gate,up,down}`` and ``shared``, the
+RG-LRU's ``mix/{w_in,w_gate,w_a,w_x,w_out}/w``, ``mix/conv`` and
+``mix/lam``, the mLSTM's ``mix/{up,wq,wk,wv,wi,wf,down}/w`` and
+``mix/norm``, the sLSTM's ``mix/{wx,wr,up_gate,up,down}/w`` and
+``mix/norm``, and MLA's ``attn/{wq_a,wq_b,wkv_a,wkv_b,wo}/w`` with
+``attn/q_norm`` and ``attn/kv_norm``), ``final_norm``, ``lm_head``,
+``heads`` (``cb{i}`` a codebook) and ``mtp`` (DeepSeek's MTP head:
+``proj``, ``block``, ``norm``; one block, not stacked on a layer axis).
 """
 from __future__ import annotations
 
@@ -25,6 +29,10 @@ import torch
 
 from repro_torch.models.lm import LM, LMConfig, layer_plan
 from repro_torch.utils.device import DeviceLike, resolve_device
+
+#: the top-level entries after the segments, carried as they are (no
+#: layer axis)
+UNSTACKED = ("final_norm", "lm_head", "heads", "mtp")
 
 
 def _tensor(x, device: torch.device) -> torch.Tensor:
@@ -50,7 +58,7 @@ def params_from_numpy(tree: Dict[str, Any], cfg: LMConfig, device: DeviceLike = 
     for n, (si, i, r, _) in enumerate(layer_plan(cfg)):
         model._adopt(f"blocks.{n}",
                      _map(tree[f"seg{si}"][f"b{i}"], lambda x, r=r: _tensor(x[r], dev)))
-    for name in ("final_norm", "lm_head", "heads"):
+    for name in UNSTACKED:
         if name in tree:
             model._adopt(name, _map(tree[name], lambda x: _tensor(x, dev)))
     return model
@@ -78,7 +86,7 @@ def params_to_numpy(model: LM) -> Dict[str, Any]:
     for seg in (v for k, v in tree.items() if k.startswith("seg")):
         for name, layers in seg.items():
             seg[name] = _stack_layers(layers)
-    for name in ("final_norm", "lm_head", "heads"):
+    for name in UNSTACKED:
         if hasattr(model, name):
             tree[name] = plain(getattr(model, name))
     return tree

@@ -26,7 +26,6 @@ branch.
 import dataclasses
 import subprocess
 import sys
-import types
 from pathlib import Path
 
 import jax
@@ -295,22 +294,56 @@ def test_serve_engine_refuses_codebooks_in_both_packages():
 
 @pytest.mark.parametrize("max_batch", [1, 2])
 def test_serve_engine_refuses_recurrent_slots_in_both_packages(max_batch):
-    """Recurrent kinds with max_batch != 1 (the port's LM has no such
-    kinds yet: a stand-in with the config is enough, the check comes
-    first)."""
-    jcfg = jax_smoke_config("xlstm_350m")
-    jmodel = JaxLM(jcfg)
-    stand_in = types.SimpleNamespace(cfg=jcfg)
-    if max_batch == 1:  # accepted by both (the port stops later, at the stand-in)
-        JaxServeEngine(jmodel, jmodel.init(jax.random.PRNGKey(0)),
-                       JaxServeConfig(max_batch=1, max_len=16))
-        with pytest.raises(AttributeError):
-            ServeEngine(stand_in, None, ServeConfig(max_batch=1, max_len=16), device="cpu")
+    """xlstm-350m's ``mlstm`` and ``slstm`` blocks keep a recurrent state:
+    both engines refuse more than one slot, and with one they serve the
+    same greedy tokens from the same weights, each request's state zeroed
+    on admission."""
+    jmodel, params, _, port = pair("xlstm_350m", False)
+    scfg = dict(max_batch=max_batch, max_len=16)
+    if max_batch > 1:
+        with pytest.raises(NotImplementedError, match="max_batch=1"):
+            JaxServeEngine(jmodel, None, JaxServeConfig(**scfg))
+        with pytest.raises(NotImplementedError, match="max_batch=1"):
+            ServeEngine(port, None, ServeConfig(**scfg), device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="max_batch=1"):
-        JaxServeEngine(jmodel, None, JaxServeConfig(max_batch=max_batch, max_len=16))
-    with pytest.raises(NotImplementedError, match="max_batch=1"):
-        ServeEngine(stand_in, None, ServeConfig(max_batch=max_batch, max_len=16), device="cpu")
+    prompts = [[5, 6, 200], [9, 8, 7, 3], [11]]
+    jreqs = [JaxRequest(prompt=np.array(p, np.int32), max_new_tokens=5) for p in prompts]
+    preqs = [Request(prompt=np.array(p, np.int32), max_new_tokens=5) for p in prompts]
+    JaxServeEngine(jmodel, params, JaxServeConfig(**scfg)).generate(jreqs)
+    engine = ServeEngine(port, None, ServeConfig(**scfg), device="cpu")
+    engine.generate(preqs)
+    assert [r.generated for r in preqs] == [r.generated for r in jreqs]
+    assert all(len(r.generated) == 5 for r in preqs)
+    # admission zeroes every state leaf of the slot: C, n, m; c, n, h, m
+    leaves = {(blk, k): v for blk, b in engine.state["seg0"].items() for k, v in b.items()}
+    assert sorted(k for _, k in leaves) == ["C", "c", "h", "m", "m", "n", "n"]
+    assert all(float(v.abs().sum()) > 0 for v in leaves.values())
+    engine._reset_slot(0)
+    assert all(float(v.abs().sum()) == 0 for v in leaves.values())
+
+
+def test_serve_engine_serves_deepseek_on_several_slots_as_jax():
+    """deepseek's MLA cache is gated by ``lengths`` like a KV cache, so
+    both engines serve it on several slots; an MoE block routes the slot
+    table as one group in both.  Same greedy tokens from the same weights,
+    and admission zeroes the slot's ``c_kv`` and ``k_rope``."""
+    jmodel, params, _, port = pair("deepseek_v3_671b", False)
+    scfg = dict(max_batch=3, max_len=32)
+    prompts = [[5, 6, 200], [9, 8, 7, 3], [11], [40, 41]]
+    jreqs = [JaxRequest(prompt=np.array(p, np.int32), max_new_tokens=4) for p in prompts]
+    preqs = [Request(prompt=np.array(p, np.int32), max_new_tokens=4) for p in prompts]
+    JaxServeEngine(jmodel, params, JaxServeConfig(**scfg)).generate(jreqs)
+    engine = ServeEngine(port, None, ServeConfig(**scfg), device="cpu")
+    engine.generate(preqs)
+    assert [r.generated for r in preqs] == [r.generated for r in jreqs]
+    assert all(len(r.generated) == 4 for r in preqs)
+    caches = [c for seg in engine.state.values() for b in seg.values() for c in b.items()]
+    assert sorted({k for k, _ in caches}) == ["c_kv", "k_rope"]
+    assert all(tuple(v.shape[:2]) == (v.shape[0], 3) for _, v in caches)
+    assert all(float(v[:, 1].abs().sum()) > 0 for _, v in caches)
+    engine._reset_slot(1)
+    assert all(float(v[:, 1].abs().sum()) == 0 for _, v in caches)
+    assert all(float(v[:, 0].abs().sum()) > 0 for _, v in caches)
 
 
 @pytest.mark.parametrize("max_batch", [1, 2, 4])
@@ -386,6 +419,17 @@ def test_serve_launcher_serves_recurrentgemma_on_the_cpu():
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
     assert [line.split(":")[0] for line in lines] == ["req0", "req1"]
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "deepseek-v3-671b"])
+def test_serve_launcher_serves_xlstm_and_deepseek_on_the_cpu(arch):
+    """``python -m repro_torch.launch.serve --arch <arch> --smoke --device
+    cpu``: xlstm (recurrent) on one slot, deepseek (MLA caches) on two."""
+    proc = launch("repro_torch", "serve", "--arch", arch, "--prompts", "3",
+                  "--new-tokens", "3")
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert [line.split(":")[0] for line in lines] == ["req0", "req1", "req2"]
 
 
 @pytest.mark.parametrize("pkg", ["repro", "repro_torch"])

@@ -79,7 +79,20 @@ def normal(rng, *shape):
 
 
 # ------------------------------------------------------- wrapper checks
-@pytest.mark.parametrize("arch", PORTED)
+#: the ported configs whose blocks call the attention kernels (an MLA or
+#: xLSTM block calls none: deepseek's d_model / heads = 56 is no kernel's
+#: head dim, and xlstm has no attention)
+KERNEL_ARCHS = tuple(a for a in PORTED if {k for unit, _ in get_config(a).segments for k in unit}
+                     & {"attn", "attn_geglu", "moe_attn"})
+
+
+def test_the_kernel_configs_are_the_attention_ones():
+    assert set(PORTED) - set(KERNEL_ARCHS) == {"xlstm_350m", "deepseek_v3_671b"}
+    assert get_config("deepseek_v3_671b").head_dim == 56
+    assert 56 not in flash_ops.HEAD_DIMS and 56 not in decode_ops.HEAD_DIMS
+
+
+@pytest.mark.parametrize("arch", KERNEL_ARCHS)
 def test_every_ported_config_head_dim_passes_both_wrappers(arch):
     cfg = get_config(arch)
     d, h, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -312,8 +325,9 @@ def test_flash_route_table_is_the_sources():
     assert flash_ops.kernel_name(torch.bfloat16, 64) == "flash_wgmma"
     assert "launch_wgmma<64>(" in bf16 and "launch<T, 64>(" not in bf16
     assert flash_ops.kernel_name(torch.bfloat16, 32) == "flash_fwd"
-    # every ported config computes in bf16, on the tensor cores
-    for arch in PORTED:
+    # every ported config that calls the kernels computes in bf16, on the
+    # tensor cores
+    for arch in KERNEL_ARCHS:
         cfg = get_config(arch)
         assert cfg.compute_dtype == torch.bfloat16
         assert flash_ops.kernel_name(cfg.compute_dtype, cfg.head_dim) == "flash_wgmma", arch

@@ -59,7 +59,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.models.moe", "repro_torch.configs.shapes",
             "repro_torch.configs.qwen2_moe_a2_7b", "repro_torch.configs.internvl2_2b",
             "repro_torch.configs.musicgen_medium", "repro_torch.models.rglru",
-            "repro_torch.configs.recurrentgemma_9b"} <= names
+            "repro_torch.configs.recurrentgemma_9b", "repro_torch.models.xlstm",
+            "repro_torch.models.mla", "repro_torch.configs.xlstm_350m",
+            "repro_torch.configs.deepseek_v3_671b"} <= names
 
 
 def _forbidden_imports(path):

@@ -5,8 +5,8 @@
   replaced (``whole_tree_then_cast`` below, a copy kept here: draw the
   whole tree in ``param_dtype``, then cast the matmul weights, the MoE's
   expert stacks and the embedding tables to ``compute_dtype``; extended
-  to the MoE blocks, codebooks, codebook heads and RG-LRU blocks as they
-  were ported),
+  to the MoE blocks, codebooks, codebook heads, RG-LRU blocks, xLSTM
+  blocks, MLA blocks and the MTP head as they were ported),
   from the same seeded generator.
 * A spy on the draws (``common._normal``) watches which float32 draws are
   still alive when the next one is made: under ``LM.init`` only the
@@ -22,8 +22,10 @@ from repro_torch.configs import PORTED, get_smoke_config
 from repro_torch.models import LM
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.lm import layer_plan
 
 torch.set_num_threads(1)  # tiny tensors: extra threads only contend
@@ -41,34 +43,53 @@ def whole_tree_then_cast(cfg, generator):
                  for i in codebooks}
     else:
         embed = common.init_embedding(generator, cfg.vocab, cfg.d_model, dtype=dt)
-    tree = {"embed": embed, "blocks": []}
-    for *_, kind in layer_plan(cfg):
-        block = {"norm1": common.init_rmsnorm(cfg.d_model, dtype=dt, device=dev)}
-        if kind == "rec":
-            block["mix"] = rglru_mod.init_rglru(generator, cfg.rglru_config(), dtype=dt)
-        else:
-            block["attn"] = attn_mod.init_attention(generator, cfg.attention_config(), dtype=dt)
-        block["norm2"] = common.init_rmsnorm(cfg.d_model, dtype=dt, device=dev)
-        if kind == "moe_attn":
-            block["moe"] = moe_mod.init_moe(generator, cfg.moe_config(), dtype=dt)
-        else:
-            mlp = common.init_swiglu if kind == "attn" else common.init_geglu
-            block["mlp"] = mlp(generator, cfg.d_model, cfg.d_ff, dtype=dt)
-        tree["blocks"].append(block)
+    tree = {"embed": embed, "blocks": [whole_block(cfg, kind, generator)
+                                       for *_, kind in layer_plan(cfg)]}
     tree["final_norm"] = common.init_rmsnorm(cfg.d_model, dtype=dt, device=dev)
     if not cfg.tie_embeddings:
         tree["lm_head"] = common.init_linear(generator, cfg.d_model, cfg.vocab, dtype=dt)
     if codebooks:
         tree["heads"] = {f"cb{i}": common.init_linear(generator, cfg.d_model, cfg.vocab, dtype=dt)
                          for i in codebooks}
+    if cfg.mtp:
+        proj = common.init_linear(generator, 2 * cfg.d_model, cfg.d_model, dtype=dt)
+        tree["mtp"] = {"proj": proj, "block": whole_block(cfg, cfg.mtp_kind, generator),
+                       "norm": common.init_rmsnorm(cfg.d_model, dtype=dt, device=dev)}
     flat = {}
     _flatten(cfg, flat, "embed.", tree["embed"])
     for i, block in enumerate(tree["blocks"]):
         _flatten(cfg, flat, f"blocks.{i}.", block)
-    for name in ("final_norm", "lm_head", "heads"):
+    for name in ("final_norm", "lm_head", "heads", "mtp"):
         if name in tree:
             _flatten(cfg, flat, f"{name}.", tree[name])
     return flat
+
+
+def whole_block(cfg, kind, generator):
+    """One block in param_dtype, drawn as the JAX ``_init_block`` lays it
+    out."""
+    dt, dev = cfg.param_dtype, generator.device
+    block = {"norm1": common.init_rmsnorm(cfg.d_model, dtype=dt, device=dev)}
+    if kind in ("mlstm", "slstm"):
+        init = xlstm_mod.init_mlstm if kind == "mlstm" else xlstm_mod.init_slstm
+        block["mix"] = init(generator, cfg.xlstm_config(), dtype=dt)
+        return block
+    if kind == "rec":
+        block["mix"] = rglru_mod.init_rglru(generator, cfg.rglru_config(), dtype=dt)
+    elif kind.startswith("mla"):
+        block["attn"] = mla_mod.init_mla(generator, cfg.mla_config(), dtype=dt)
+    else:
+        block["attn"] = attn_mod.init_attention(generator, cfg.attention_config(), dtype=dt)
+    block["norm2"] = common.init_rmsnorm(cfg.d_model, dtype=dt, device=dev)
+    if kind in ("moe_attn", "mla_moe"):
+        block["moe"] = moe_mod.init_moe(generator, cfg.moe_config(), dtype=dt)
+    elif kind == "mla_dense":
+        block["mlp"] = common.init_swiglu(generator, cfg.d_model, cfg.dense_d_ff or cfg.d_ff,
+                                          dtype=dt)
+    else:
+        mlp = common.init_swiglu if kind == "attn" else common.init_geglu
+        block["mlp"] = mlp(generator, cfg.d_model, cfg.d_ff, dtype=dt)
+    return block
 
 
 def _flatten(cfg, flat, prefix, node, experts=False, f32=False):
@@ -105,12 +126,19 @@ def test_per_piece_init_is_bitwise_the_whole_tree_algorithm(arch):
     for name in want:
         assert bitwise_equal(got[name], want[name]), name
     # matmul weights and the table in compute_dtype, norm scales in param_dtype
-    attn = next(i for i, (*_, kind) in enumerate(layer_plan(cfg)) if kind != "rec")
-    assert got[f"blocks.{attn}.attn.wq.w"].dtype == cfg.compute_dtype
+    first = {kind: i for i, (*_, kind) in reversed(list(enumerate(layer_plan(cfg))))}
+    for kind, leaf in (("attn", "attn.wq.w"), ("attn_geglu", "attn.wq.w"),
+                       ("moe_attn", "moe.experts.down"), ("mla_dense", "attn.wkv_b.w"),
+                       ("mla_moe", "moe.experts.down"), ("mlstm", "mix.wq.w"),
+                       ("slstm", "mix.wr.w"), ("rec", "mix.w_in.w")):
+        if kind in first:
+            assert got[f"blocks.{first[kind]}.{leaf}"].dtype == cfg.compute_dtype, kind
+            assert got[f"blocks.{first[kind]}.norm1.scale"].dtype == cfg.param_dtype, kind
     table = "embed.cb0.table" if cfg.n_codebooks > 1 else "embed.table"
     assert got[table].dtype == cfg.compute_dtype
-    if cfg.num_experts:
-        assert got["blocks.0.moe.experts.down"].dtype == cfg.compute_dtype
+    if cfg.mtp:
+        assert got["mtp.proj.w"].dtype == cfg.compute_dtype
+        assert got["mtp.block.attn.kv_norm.scale"].dtype == cfg.param_dtype
     if "blocks.0.mix.w_in.w" in got:  # an RG-LRU block: its float32 leaves stay so
         assert got["blocks.0.mix.w_in.w"].dtype == cfg.compute_dtype
         for name in ("w_a.w", "w_x.w", "conv", "lam"):
@@ -185,7 +213,9 @@ def test_init_holds_at_most_one_piece_in_float32(arch, monkeypatch):
     assert spy.stale == []
     assert spy.peak <= max(by_piece.values()) < sum(by_piece.values())
     assert spy.alive() == []  # every float32 draw is gone once init returns
-    ffn = model.blocks[0]["moe"]["shared"] if cfg.num_experts else model.blocks[0]["mlp"]
+    block = model.blocks[0]
+    ffn = (block["moe"]["shared"] if "moe" in block else
+           block["mlp"] if "mlp" in block else block["mix"])
     assert ffn["up"]["w"].dtype == cfg.compute_dtype
 
 

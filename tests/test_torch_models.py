@@ -23,14 +23,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import all_configs as jax_all_configs
 from repro.configs import get_smoke_config as jax_smoke_config
+from repro.configs import resolve as jax_resolve
 from repro.models import LM as JaxLM
 from repro.models import attention as jax_attn
 from repro.models import common as jax_common
 from repro_torch.configs import PORTED, get_config, get_smoke_config
 from repro_torch.configs import resolve
 from repro_torch.configs.shapes import make_batch
-from repro_torch.models import LM, params_from_numpy
+from repro_torch.models import LM, params_from_numpy, params_to_numpy
 from repro_torch.models import attention as port_attn
 from repro_torch.models import common as port_common
 
@@ -253,28 +255,147 @@ def test_configs_match_the_jax_package_and_refuse_the_rest():
                 if f.name not in ("param_dtype", "compute_dtype", "family"):
                     assert getattr(port_cfg, f.name) == getattr(jax_cfg, f.name), (arch, f.name)
             assert port_cfg.family.value == jax_cfg.family.value
-    for arch in ("xlstm-350m", "deepseek_v3_671b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
-    # recurrentgemma-9b is served now (RG-LRU blocks): the published config
+            for f in ("param_dtype", "compute_dtype"):
+                assert str(getattr(port_cfg, f)).split(".")[-1] == \
+                    jnp.dtype(getattr(jax_cfg, f)).name, (arch, f)
+    # xlstm-350m and deepseek-v3-671b are served now: their published rows
+    xl = get_config("xlstm-350m")
+    assert (xl.n_layers, xl.d_model, xl.n_heads, xl.n_kv_heads, xl.d_ff, xl.vocab,
+            xl.tie_embeddings, xl.param_dtype) == (24, 1024, 4, 4, 0, 50304, True, torch.float32)
+    assert xl.segments == ((("mlstm", "slstm"), 12),)
+    ds = get_config("deepseek_v3_671b")
+    assert (ds.n_layers, ds.d_model, ds.n_heads, ds.n_kv_heads, ds.vocab, ds.d_ff,
+            ds.dense_d_ff, ds.moe_d_ff) == (61, 7168, 128, 128, 129280, 2048, 18432, 2048)
+    assert (ds.num_experts, ds.top_k, ds.num_shared_experts, ds.mtp, ds.tie_embeddings,
+            ds.param_dtype) == (256, 8, 1, True, False, torch.bfloat16)
+    assert ds.segments == ((("mla_dense",), 3), (("mla_moe",), 58))
+    m = ds.mla_config()
+    assert (m.q_lora_rank, m.kv_lora_rank, m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim) == \
+        (1536, 512, 128, 64, 128)
+    # recurrentgemma-9b is served (RG-LRU blocks): the published config
     rg = get_config("recurrentgemma-9b")
     assert (rg.n_layers, rg.d_model, rg.n_heads, rg.n_kv_heads, rg.head_dim, rg.d_ff,
             rg.vocab, rg.window) == (38, 4096, 16, 1, 256, 12288, 256000, 2048)
     assert rg.segments == ((("rec", "rec", "attn_geglu"), 12), (("rec", "rec"), 1))
-    with pytest.raises(KeyError):
-        resolve("gpt-2")
+    for name in ("gpt-2", "xlstm-7b"):
+        with pytest.raises(KeyError):
+            resolve(name)
+        with pytest.raises(KeyError):
+            jax_resolve(name)
+    assert sorted(PORTED) == sorted(jax_all_configs())  # every arch of the JAX package
     yi = get_config("yi-6b")
     assert (yi.n_layers, yi.d_model, yi.n_heads, yi.n_kv_heads, yi.d_ff, yi.vocab) == \
         (32, 4096, 32, 4, 11008, 64000)
 
 
-def test_unported_block_kinds_raise():
-    from repro.configs import get_smoke_config as jsc
+@pytest.mark.parametrize("pkg", ["repro", "repro_torch"])
+@pytest.mark.parametrize("kind", ["ssm", "mla", "attn_moe"])
+def test_unknown_block_kinds_raise(pkg, kind):
+    """A block kind neither package knows is a ``ValueError`` in both:
+    the JAX package's at init, the port's at construction (``LM(cfg)``
+    builds its structure on the meta device)."""
+    from repro.models.lm import LMConfig as JaxLMConfig
+    from repro.models.lm import ModelFamily as JaxFamily
     from repro_torch.models.lm import LMConfig, ModelFamily
 
-    xl = jsc("xlstm_350m")
-    cfg = LMConfig(name=xl.name, family=ModelFamily.SSM, n_layers=xl.n_layers,
-                   d_model=xl.d_model, n_heads=xl.n_heads, n_kv_heads=xl.n_kv_heads,
-                   d_ff=xl.d_ff, vocab=xl.vocab, segments=xl.segments)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(cfg)
+    if pkg == "repro":
+        cfg = JaxLMConfig(name="unknown", family=JaxFamily.SSM, n_layers=2, d_model=16,
+                          n_heads=2, n_kv_heads=2, d_ff=32, vocab=32,
+                          segments=((("attn", kind), 1),))
+        with pytest.raises(ValueError, match=f"unknown block kind '{kind}'"):
+            JaxLM(cfg).init(jax.random.PRNGKey(0))
+    else:
+        cfg = LMConfig(name="unknown", family=ModelFamily.SSM, n_layers=2, d_model=16,
+                       n_heads=2, n_kv_heads=2, d_ff=32, vocab=32,
+                       segments=((("attn", kind), 1),))
+        with pytest.raises(ValueError, match=f"unknown block kind '{kind}'"):
+            LM(cfg)
+
+
+@pytest.mark.parametrize("arch", ["xlstm_350m", "deepseek_v3_671b"])
+def test_every_block_kind_and_the_mtp_head_build(arch):
+    """``LM`` builds the xLSTM kinds (no norm2, no FFN), both MLA kinds
+    (dense FFN of ``dense_d_ff``, the MoE) and the MTP head, with the JAX
+    init's leaves: the smoke config drawn, the published one on the meta
+    device."""
+    cfg = get_smoke_config(arch)
+    model = LM(cfg).init(torch.Generator().manual_seed(0))
+    want = jax.eval_shape(JaxLM(jax_smoke_config(arch)).init, jax.random.PRNGKey(0))
+    tree = params_to_numpy(model)
+    assert jax.tree_util.tree_structure(jax.tree_util.tree_map(np.shape, tree)) == \
+        jax.tree_util.tree_structure(jax.tree_util.tree_map(lambda a: a.shape, want))
+    assert jax.tree_util.tree_map(np.shape, tree) == jax.tree_util.tree_map(lambda a: a.shape, want)
+    if arch == "xlstm_350m":
+        assert list(model.blocks[0]) == ["norm1", "mix"] == list(model.blocks[1])
+        assert "mtp" not in tree
+    else:
+        assert list(model.blocks[0]) == ["norm1", "attn", "norm2", "mlp"]
+        assert list(model.blocks[1]) == ["norm1", "attn", "norm2", "moe"]
+        assert tuple(model.blocks[0]["mlp"]["gate"]["w"].shape) == (cfg.d_model, cfg.dense_d_ff)
+        assert list(model.mtp) == ["proj", "block", "norm"]
+        assert list(model.mtp["block"]) == ["norm1", "attn", "norm2", "mlp"]
+        assert tuple(model.mtp["proj"]["w"].shape) == (2 * cfg.d_model, cfg.d_model)
+    full = LM(get_config(arch))
+    assert full.device.type == "meta"
+    n = sum(p.numel() for p in full.parameters())
+    assert n == {"xlstm_350m": 429_245_440, "deepseek_v3_671b": 671_712_655_360}[arch]
+
+
+def test_deepseek_loss_with_the_mtp_head_matches_jax():
+    """``LM.loss`` of the deepseek smoke config (MLA, MoE, the MTP head)
+    against JAX's on the same weights and batch, in float32 compute:
+    ``ce``, ``aux`` (the MoE blocks'), ``mtp_ce`` and the total, with a
+    loss mask (the MTP head takes the shifted mask's ``[:, 1:]``)."""
+    jcfg = dataclasses.replace(jax_smoke_config("deepseek_v3_671b"), compute_dtype=jnp.float32)
+    pcfg = dataclasses.replace(get_smoke_config("deepseek_v3_671b"), compute_dtype=torch.float32)
+    jmodel = JaxLM(jcfg)
+    params = jmodel.init(jax.random.PRNGKey(3))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, jcfg.vocab, (2, 20)).astype(np.int32)
+    mask = (rng.uniform(size=(2, 20)) > 0.3).astype(np.float32)
+    for batch_mask in (None, mask):
+        jbatch = {"tokens": jnp.asarray(tokens)}
+        pbatch = {"tokens": torch.from_numpy(tokens)}
+        if batch_mask is not None:
+            jbatch["loss_mask"] = jnp.asarray(batch_mask)
+            pbatch["loss_mask"] = torch.from_numpy(batch_mask)
+        _, want = jax.jit(jmodel.loss)(params, jbatch)
+        with torch.no_grad():
+            _, got = LM(pcfg).loss(tree_to_torch(tree), pbatch)
+        assert set(got) == set(want) == {"ce", "aux", "mtp_ce", "loss"}
+        for name in want:
+            close(got[name], want[name], 1e-4)
+        assert float(got["mtp_ce"]) > 0
+        np.testing.assert_allclose(
+            float(got["loss"]), float(got["ce"] + got["aux"] + pcfg.mtp_loss_weight * got["mtp_ce"]),
+            rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["xlstm_350m", "deepseek_v3_671b"])
+def test_weights_round_trip_carries_every_leaf_and_the_mtp_head(arch):
+    """``params_from_numpy`` → ``params_to_numpy`` gives the JAX tree back
+    leaf for leaf (float32 leaves exactly; the matmul weights the serving
+    LM holds in bf16 as their bf16 values), ``mtp`` unstacked; and the
+    served model computes with the carried numbers."""
+    jcfg = jax_smoke_config(arch)
+    params = JaxLM(jcfg).init(jax.random.PRNGKey(5))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    model = params_from_numpy(tree, get_smoke_config(arch), device="cpu")
+    back = params_to_numpy(model)
+    flat_want = dict(jax.tree_util.tree_flatten_with_path(tree)[0])
+    flat_got = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert list(flat_got) == list(flat_want)
+    for path, want in flat_want.items():
+        got = flat_got[path]
+        assert got.shape == want.shape, path
+        keys = [getattr(k, "key", None) for k in path]
+        if "w" in keys or "experts" in keys or "table" in keys:  # held in bf16
+            want = np.asarray(jnp.asarray(want, jnp.bfloat16).astype(jnp.float32))
+        np.testing.assert_array_equal(got, want, err_msg=str(path))
+    if arch == "deepseek_v3_671b":
+        assert back["mtp"]["block"]["attn"]["wkv_b"]["w"].shape == \
+            tree["mtp"]["block"]["attn"]["wkv_b"]["w"].shape  # no layer axis
+    again = params_from_numpy(back, get_smoke_config(arch), device="cpu")
+    for (name, a), (_, b) in zip(model.state_dict().items(), again.state_dict().items()):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
