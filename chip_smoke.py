@@ -9,7 +9,8 @@ Phases, each of which fails the script (non-zero exit) on any error:
 
 1. print the card's name and power limit (``nvidia-smi``), then build the
    three CUDA kernels from ``src/`` (one nvcc each, all started together),
-   print each build time and ptxas's report, and count the wgmma (HGMMA)
+   print each build time and ptxas's report, one ``ptxas:`` line with
+   every kernel's registers and spill bytes, and count the wgmma (HGMMA)
    instructions in the flash library's SASS (there must be some);
 2. hold ``fused_filter_agg`` against its plain PyTorch version at n in
    {0, 1, 4095, 2^23, 2^23 + 3, 2^23 + 1000} rows, for 1, 63, 64, 65,
@@ -92,8 +93,10 @@ Phases, each of which fails the script (non-zero exit) on any error:
    causal, non-causal and window 256; at head dim 256 (recurrentgemma-9b,
    MQA 16/1, and GQA 16/4), flash at S in {512, 2048, 4096, 200} causal,
    non-causal and windows 2048 and 64, mask probes at S in {512, 2048},
-   and decode at MQA groups 16 and 64, B = 4, S = 4096 with lengths 1,
-   S-1, S, 0 and the chunk edges, and B = 1 at lengths 1 and S;
+   the scales -0.0625 and 0 at 16/1, S = 512, and decode at MQA groups 16
+   and 64, B = 4, S = 4096 with lengths 1, S-1, S, 0 and the chunk edges,
+   and B = 1 at lengths 0, 1, S and its own plan's chunk edges (groups
+   above 8 in bf16 run ``decode_group``, whose chunk edges these are);
    plus mask probes (``mask_probe``: keys past the
    diagonal or outside the window carry large scores and v = +-64, so a
    leak moves outputs by whole units) at S in {512, 2048}; float32 and
@@ -280,9 +283,11 @@ CODEBOOK_STEPS = 64
 FLASH_MASKS = ((True, None), (False, None), (True, 256))
 #: phase 5 at head dim 256: recurrentgemma-9b's window of 2048, and 64
 D256_MASKS = ((True, None), (False, None), (True, 2048), (True, 64))
-#: bf16 D = 64 scales that flash_wgmma<64> computes through the wrapper's
-#: rewrite (ops.positive_scale)
+#: bf16 scales that flash_wgmma<64> and flash_wgmma<256> compute through
+#: the wrapper's rewrite (ops.positive_scale): minus the default scale,
+#: which the rewrite turns into the default (the yardstick's), and 0
 D64_SCALES = (-0.125, 0.0)
+D256_SCALES = (-0.0625, 0.0)
 #: phase 6f: recurrentgemma-9b at full width and depth (38 layers, 9.40 B
 #: parameters), both routes: requests of PROMPT_LEN prompt tokens and
 #: HYBRID_NEW_TOKENS new ones on one slot (the engine gives recurrent
@@ -345,12 +350,56 @@ def build_kernels(mods):
         for line in build.BUILD_LOG.get(stem, "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line or "warning" in line:
                 print(f"  ptxas: {line.strip()}")
+    report = ptxas_report(build.BUILD_LOG)
+    PTXAS.update(report)
+    print("ptxas: " + "; ".join(
+        f"{name}: {r['registers']} registers, {r['spill_stores']} B spill stores, "
+        f"{r['spill_loads']} B spill loads" for name, r in report.items()))
     lib = build.built_path(flash_source(mods))
     sass = subprocess.run([str(Path(build.nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
     hgmma = sum("HGMMA" in line for line in sass.splitlines())
     print(f"build: {lib.name}: {hgmma} HGMMA (wgmma) instructions in the SASS")
     check(hgmma > 0, "the flash library has no wgmma instruction")
+
+
+#: registers and spill bytes by kernel, from phase 1's build
+PTXAS: dict = {}
+
+
+def kernel_label(mangled: str) -> str:
+    """``flash_wgmma<256>``, ``decode_group<128, 3>``, ``decode_split<bf16,
+    128>`` from a mangled kernel name."""
+    import re
+
+    m = re.search(r"\d+([a-z_]+)I(.*?)EEEv", mangled)
+    if m is None:
+        return mangled
+    types = {"13__nv_bfloat16": "bf16", "f": "f32", "i": "i32", "j": "u32"}
+    words = [num or types[typ] for num, typ in
+             re.findall(r"L[ij](\d+)E|(13__nv_bfloat16|[fij])", m.group(2) + "E")]
+    return f"{m.group(1)}<{', '.join(words)}>"
+
+
+def ptxas_report(logs) -> dict:
+    """Registers and spill bytes of every kernel in ptxas's reports (the
+    ``-Xptxas -v`` output kept by the build), by kernel."""
+    import re
+
+    out, name = {}, None
+    for text in logs.values():
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = kernel_label(m.group(1))
+                out[name] = {"registers": None, "spill_stores": 0, "spill_loads": 0}
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and name:
+                out[name]["spill_stores"], out[name]["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def flash_source(mods):
@@ -1253,7 +1302,8 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                 for s in (1024, 4096):
                     q = randn(b, h, 128, dtype=dtype)
                     k, v = randn(b, hkv, s, 128, dtype=dtype), randn(b, hkv, s, 128, dtype=dtype)
-                    _, chunk = decode_ops.split_plan(s, b * hkv, sms)
+                    _, chunk = decode_ops.split_plan(s, b * hkv, sms, h // hkv, 128,
+                                                     q.element_size())
                     edges = [chunk - 1, chunk, chunk + 1]
                     sets = ([[1, s - 1, s, 0], [*edges, s]] if b == 4
                             else [[1], [s - 1], [s], [0]] + [[x] for x in edges])
@@ -1321,7 +1371,7 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
             s = 4096
             q = randn(4, h, d, dtype=dtype)
             k, v = randn(4, hkv, s, d, dtype=dtype), randn(4, hkv, s, d, dtype=dtype)
-            _, chunk = decode_ops.split_plan(s, 4 * hkv, sms)
+            _, chunk = decode_ops.split_plan(s, 4 * hkv, sms, h // hkv, d, q.element_size())
             for lens in ([1, s - 1, s, 0], [chunk - 1, chunk, chunk + 1, s]):
                 lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
                 one("decode D=80/120", f"decode {dtype} D={d} B=4 H={h}/{hkv} S={s} chunk={chunk} "
@@ -1354,7 +1404,7 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
             s = 4096
             q = randn(4, h, d, dtype=dtype)
             k, v = randn(4, hkv, s, d, dtype=dtype), randn(4, hkv, s, d, dtype=dtype)
-            _, chunk = decode_ops.split_plan(s, 4 * hkv, sms)
+            _, chunk = decode_ops.split_plan(s, 4 * hkv, sms, h // hkv, d, q.element_size())
             for lens in ([1, s - 1, s, 0], [chunk - 1, chunk, chunk + 1, s]):
                 lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
                 one("decode families", f"decode {dtype} D={d} B=4 H={h}/{hkv} S={s} "
@@ -1378,21 +1428,21 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                 lambda: flash_ops.flash_attention(q, k, v, **kw),
                 lambda: flash_ref.attention_ref(q, k, v, **kw),
                 (lambda: flash_yardstick(q, k, v, **kw)) if wgmma else None)
-        # bf16 at D = 64 at every finite scale: flash_wgmma<64> computes a
-        # negative scale and 0 through the wrapper's rewrite; the yardstick
-        # is the chunked route at the rewritten (q, default scale), which
-        # gives the same scores
+        # bf16 at D = 64 and 256 at every finite scale: flash_wgmma computes
+        # a negative scale and 0 there through the wrapper's rewrite; the
+        # yardstick is the chunked route at the rewritten (q, default
+        # scale), which gives the same scores
         if bf16:
-            for h, hkv in ((32, 4), (24, 24)):
-                q = randn(1, h, 512, 64, dtype=dtype)
-                k, v = randn(1, hkv, 512, 64, dtype=dtype), randn(1, hkv, 512, 64, dtype=dtype)
-                for scale in D64_SCALES:
+            for d, h, hkv in ((64, 32, 4), (64, 24, 24), (256, 16, 1)):
+                q = randn(1, h, 512, d, dtype=dtype)
+                k, v = randn(1, hkv, 512, d, dtype=dtype), randn(1, hkv, 512, d, dtype=dtype)
+                for scale in (D64_SCALES if d == 64 else D256_SCALES):
                     qy, sy = flash_ops.positive_scale(q, scale)
-                    check(sy == 64 ** -0.5 or not bool(qy.any()),
+                    check(sy == d ** -0.5 or not bool(qy.any()),
                           "the yardstick runs at the default scale")
                     for causal, window in FLASH_MASKS:
                         kw = dict(causal=causal, window=window)
-                        one("flash D=64 scale", f"flash {dtype} D=64 H={h}/{hkv} S=512 "
+                        one(f"flash D={d} scale", f"flash {dtype} D={d} H={h}/{hkv} S=512 "
                             f"scale={scale} {kw}",
                             lambda: flash_ops.flash_attention(q, k, v, scale=scale, **kw),
                             lambda: flash_ref.attention_ref(q, k, v, scale=scale, **kw),
@@ -1423,12 +1473,14 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                         lambda: flash_ref.attention_ref(q, k, v, **kw),
                         (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
         # decode at D = 256: MQA groups 16 (recurrentgemma-9b) and 64 (the
-        # kernel's largest), ragged lengths, and one sequence at 1 and S
+        # kernel's largest), B = 4 at ragged lengths and at the plan's chunk
+        # edges, and one sequence (recurrentgemma's serve) at 0, 1, S and its
+        # own plan's chunk edges
         for h in (16, 64):
             s = 4096
             q = randn(4, h, 256, dtype=dtype)
             k, v = randn(4, 1, s, 256, dtype=dtype), randn(4, 1, s, 256, dtype=dtype)
-            _, chunk = decode_ops.split_plan(s, 4, sms)
+            _, chunk = decode_ops.split_plan(s, 4, sms, h, 256, q.element_size())
             for lens in ([1, s - 1, s, 0], [chunk - 1, chunk, chunk + 1, s]):
                 lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
                 one("decode D=256", f"decode {dtype} D=256 B=4 H={h}/1 S={s} chunk={chunk} "
@@ -1436,9 +1488,11 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                     lambda: decode_ops.decode_attention(q, k, v, lengths),
                     lambda: decode_ref.decode_attention_ref(q, k, v, lengths))
             q1, k1, v1 = q[:1], k[:1], v[:1]
-            for lens in ([1], [s]):
+            _, chunk = decode_ops.split_plan(s, 1, sms, h, 256, q.element_size())
+            for lens in ([0], [1], [chunk - 1], [chunk], [chunk + 1], [s]):
                 lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-                one("decode D=256", f"decode {dtype} D=256 B=1 H={h}/1 S={s} lengths={lens}",
+                one("decode D=256", f"decode {dtype} D=256 B=1 H={h}/1 S={s} chunk={chunk} "
+                    f"lengths={lens}",
                     lambda: decode_ops.decode_attention(q1, k1, v1, lengths),
                     lambda: decode_ref.decode_attention_ref(q1, k1, v1, lengths))
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # comparisons are not the main path
@@ -3222,6 +3276,7 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rate = memory_rate(card)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     before = flash_ops.LAUNCHES, decode_ops.LAUNCHES
 
     def randn(*shape):
@@ -3264,7 +3319,14 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
             nbytes=rows * hkv * d * 2 * 2 + 2 * q.numel() * 2 + b * 4,
             flops=4 * rows * h * d,  # q.k and p.v per valid row, every q head
         )
-        return {**row, "sdpa_backend": sdpa_backend(torch, *sdpa[0], **sdpa[1])}
+        group = h // hkv
+        n_splits, chunk = decode_ops.split_plan(s, b * hkv, sms, group, d, 2)
+        kernel = (f"decode_group<{d}, {-(-group // 16)}>" if group > decode_ops.NARROW_GROUP
+                  else f"decode_split<bf16, {d}>")
+        return {**row, "sdpa_backend": sdpa_backend(torch, *sdpa[0], **sdpa[1]),
+                "kernel": kernel, "plan": [n_splits, chunk],
+                "partial_bytes_written_and_read": 2 * decode_ops.partial_bytes(b, h, d, n_splits),
+                "cache_bytes": b * hkv * s * d * 2 * 2, "ptxas": PTXAS.get(kernel)}
 
     def flash_case(h, hkv, d, window=None, fs=FORWARD_LEN):
         """One fs-token prompt, causal.  A window of fs or more masks
@@ -3290,7 +3352,8 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
             yard=(lambda: flash_yardstick(fq, fk, fv, causal=True, window=window))
             if flash_ops.kernel_name(torch.bfloat16, d) == "flash_wgmma" else None,
         )
-        return {**row, "sdpa_backend": sdpa_backend(torch, fq, fk, fv, **sdpa)}
+        return {**row, "sdpa_backend": sdpa_backend(torch, fq, fk, fv, **sdpa),
+                "ptxas": PTXAS.get(f"flash_wgmma<{d}>")}
 
     # the main path's shapes: decode over 4 slots of 4096 positions, 32/4
     # heads; flash on one 2048-token prompt

@@ -13,35 +13,56 @@
 // of k and D of v: at B=4, Hkv=4, S=4096, D=128 in bf16 that is 16.8 MB a
 // cache, 33.6 MB in all, 0.0100 ms at the H100 SXM's 3.35 TB/s.  The
 // arithmetic is 4 flops per cache element a q head, 0.27 GFLOP there, far
-// below the card's rate.  At recurrentgemma-9b's B=1, Hkv=1, S=4096, D=256
-// the caches are 4.19 MB, 0.00125 ms: there a launch's fixed cost is most
-// of the time.
+// below the card's rate.  At granite-34b's B=4, MQA 48/1, D=128 the caches
+// are 8.39 MB (0.0025 ms) and at recurrentgemma-9b's B=1, 16/1, D=256 4.19
+// MB (0.00125 ms): there a launch's fixed cost, the partials and the
+// merge are most of the time.
 //
 // Design: split-S.  The TPU kernel carries (m, l, acc) across a sequential
 // grid axis over S (kernel.py:44-82).  Here the cache axis is cut into
-// `n_splits` chunks of `chunk` rows, chosen on the host from S, B and Hkv
-// only (reading the lengths would synchronise), so that about two blocks
-// per SM stream the cache.  decode_split: one block of 256 threads per
-// (sequence, kv head, chunk) serves the `group` q heads of its kv head, so
-// each cache row is read from device memory once per group.  Its 8 warps
-// take steps of 8 cache rows in turn, each warp on its own with its own
-// online-softmax state (no block barrier inside the walk): a warp streams
-// its steps' k and v rows as they are stored (bf16, no float32 staging)
-// through its own two-stage cp.async buffer in shared memory.  Scores: 4
-// lanes a row, each holding a quarter of the row's k in registers and
-// multiplying it with the float32 q of up to 8 heads; the 4 sums meet by
-// shuffles and the scale is applied to the float32 score.  p.v: a lane
-// owns DP/32 columns of every head and does float32 FMAs, so the output
-// keeps float32 accuracy.  At the chunk's end the warps' (m, l, acc) merge
-// in shared memory.  Groups above 8 heads walk the chunk again for each 8
-// (from L2).  A chunk that starts at or past the sequence's length writes
-// an empty partial (m = -inf, l = 0) and exits.  Length 0 keeps the
-// Pallas result, the mean of all S rows: every chunk then runs over its
-// rows with scores -1e30.
+// `n_splits` chunks of `chunk` rows, chosen on the host from shapes only
+// (ops.split_plan; reading the lengths would synchronise); every chunk
+// writes a float32 partial (m, l, acc) for each of its q heads and
+// decode_combine merges them.  Two kernels walk a chunk:
 //
-// decode_combine merges the chunks' float32 (m, l, acc) and writes q's
-// dtype; with a single chunk, decode_split writes the output itself and
-// there is no second launch.
+// * decode_split, for float32 and for groups of at most 8 q heads a kv
+//   head (the plan: about two blocks an SM).  One block of 256 threads per
+//   (sequence, kv head, chunk) serves the group, so each cache row is read
+//   from device memory once per group.  Its 8 warps take steps of 8 cache
+//   rows in turn, each warp on its own with its own online-softmax state
+//   (no block barrier inside the walk): a warp streams its steps' k and v
+//   rows as they are stored (bf16, no float32 staging) through its own
+//   two-stage cp.async buffer in shared memory.  Scores: bf16 on the
+//   tensor cores (mma.m16n8k16, the heads in rows 0-7 of A), float32 on 4
+//   lanes a row, each holding a quarter of the row's k in registers and
+//   multiplying it with the float32 q of up to 8 heads; the scale is
+//   applied to the float32 score.  p.v: a lane owns DP/32 columns of every
+//   head and does float32 FMAs, so the output keeps float32 accuracy.  At
+//   the chunk's end the warps' (m, l, acc) merge in shared memory.
+//
+// * decode_group, for bf16 groups above 8 (granite-34b's 48, recurrentgemma-
+//   9b's 16; the plan: one block an SM at most, the float32 partials,
+//   written and read, within the cache's bytes).  decode_split would walk
+//   each chunk once for every 8 heads (6 times at 48) with a block merge
+//   after each walk, and leave rows 8-15 of each product empty.  Here all
+//   256 threads take each 64-row step together: every k row is read from
+//   shared memory once per 16 heads, the group in the rows of
+//   mma.m16n8k16 (1-4 m-tiles reusing each k fragment); a thread per
+//   quarter of a head's rows keeps its online softmax; p.v stays on the
+//   FMA pipes in float32 (p is float32 in the reference), each thread
+//   owning a tile of (heads, columns): HT * CW accumulators, 24 at 48 x
+//   128.  A chunk has several steps, and a ring of cp.async stages (three,
+//   two at D = 256) keeps the next steps' rows in flight.
+//
+// A chunk that starts at or past the sequence's length writes an empty
+// partial (m = -inf, l = 0) and exits.  Length 0 keeps the Pallas result,
+// the mean of all S rows: every chunk then runs over its rows with scores
+// -1e30.  With a single chunk the kernel writes the output itself and
+// there is no second launch.  decode_combine reads each chunk's (m, l)
+// once (one warp) and sums the acc over the chunks with independent loads.
+//
+// Registers (ptxas, sm_90a): decode_group 87-156 a thread, no spills
+// (104 at 128 x 3 m-tiles, 93 at 256 x 1); decode_split as before.
 //
 // Head dims that are not a multiple of 32 (80 for qwen3-32b, 120 for
 // h2o-danube-3-4b) run on a padded width DP, D rounded up to 32 (96 and
@@ -56,14 +77,14 @@
 // count, and rows a multiple of 128 B apart keep the mma loads free of
 // bank conflicts.
 //
-// Head dim 256 (recurrentgemma-9b, MQA group 16): a bf16 row is 512 B, so a
-// warp's two stages take 16 KB and the block 200,960 B at kMaxGroup (one
-// block an SM; the register limit is then that of one block, so the 64
-// float32 accumulators and 16 q fragments a lane stay in registers).
-// float32 rows are 1 KB, and two stages would be 262,144 B alone: float32
-// at 256 streams through a single stage a warp (Geo::kStages = 1; each step
-// waits for its own rows, loaded after the step before was read), 131,072
-// B of stages, the same as bf16.
+// Head dim 256 in decode_split (float32; bf16 groups up to 8): a bf16 row
+// is 512 B, so a warp's two stages take 16 KB and the block 200,960 B at
+// kMaxGroup (one block an SM; the register limit is then that of one
+// block, so the 64 float32 accumulators and 16 q fragments a lane stay in
+// registers).  float32 rows are 1 KB, and two stages would be 262,144 B
+// alone: float32 at 256 streams through a single stage a warp
+// (Geo::kStages = 1; each step waits for its own rows, loaded after the
+// step before was read), 131,072 B of stages, the same as bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -154,6 +175,18 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0,
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+}
+
+// d = a . b + d, m16n8k16, all 16 rows of A (a0/a1: rows g and g + 8 at
+// columns 2t, 2t + 1; a2/a3: the same rows at columns 2t + 8, 2t + 9).
+__device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0,
+                                          uint32_t a1, uint32_t a2, uint32_t a3,
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 template <typename T, int D>
@@ -411,26 +444,345 @@ __global__ void __launch_bounds__(kThreads, (Geo<T, D>::kMinBlocks))
   }
 }
 
+// ------------------------------------------ decode_group (bf16, group > 8)
+constexpr int kNarrowGroup = 8;  // wider groups run decode_group (ops.py NARROW_GROUP)
+constexpr int kGroupRows = 64;   // cache rows a step (ops.py GROUP_ROWS)
+
+// decode_group<D, MT>'s geometry: the group padded to MT m-tiles of 16
+// heads; k/v rows as decode_split keeps them (SC chunks, the k swizzle);
+// q in bf16 rows of DP + 8 elements (the pad keeps a fragment load's 32
+// lanes on 32 banks); scores [head][row] and p [row][head] in float32.
+template <int D, int MT>
+struct GGeo {
+  static constexpr int R = kGroupRows;
+  static constexpr int GP = 16 * MT;              // heads, padded
+  static constexpr int DP = (D + 31) / 32 * 32;   // padded width
+  static constexpr int KK = DP / 16;              // mma k-steps over DP
+  static constexpr int CPR = DP * 2 / 16;         // 16-byte chunks a padded row
+  static constexpr int CD = D * 2 / 16;           // of them, chunks with data
+  static constexpr int SC = CPR < 8 ? CPR : (CPR + 7) / 8 * 8;  // in shared memory
+  static constexpr int kRowBytes = SC * 16;
+  static constexpr int kStepBytes = 2 * R * kRowBytes;  // k, then v
+  static constexpr int kStages = D > 128 ? 2 : 3;       // the cp.async ring
+  static constexpr int QS = DP * 2 + 16;  // bytes a q row
+  static constexpr int SS = R + 4;        // floats a score row (a head)
+  static constexpr int PS = GP + 8;       // floats a p row (a cache row)
+  static constexpr int HT = GP / 8;       // p.v: heads a warp
+  static constexpr int CW = DP / 32;      // p.v: columns a lane
+  static constexpr int kColBytes = CW * 2;
+  static constexpr int kColAlign = kColBytes & -kColBytes;
+  static constexpr int kBytes =
+      kStages * kStepBytes + GP * QS + (GP * SS + R * PS + GP) * 4;
+  static_assert(CPR % 4 == 0 && R * CPR % kThreads == 0, "whole loads a thread");
+  static_assert(4 * GP <= kThreads && R / 8 == kWarps, "a warp per 8 rows");
+};
+
+// One block of 256 threads per (sequence, kv head, chunk), for bf16 and a
+// group above 8: every step of kGroupRows cache rows is read once by the
+// whole block for all the group's heads.  Scores: warp w takes rows 8w ..
+// 8w + 7 of the step and every head, the heads in the rows of
+// mma.m16n8k16 (MT m-tiles reuse each k fragment), q's fragments read from
+// shared memory.  Softmax: four threads a head, each over a quarter of the
+// step's rows, keep the head's running (m, l) in float32.  p.v on the FMA
+// pipes in float32, as in decode_split: warp w owns heads HT w .. HT w +
+// HT - 1 and lane l columns CW l .. CW l + CW - 1, HT * CW accumulators a
+// thread.  Three block barriers a step; the next steps' rows stream in
+// through a ring of kStages cp.async stages behind them.
+template <int D, int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+    decode_group(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k_cache,
+                 const __nv_bfloat16* __restrict__ v_cache,
+                 const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
+                 float* __restrict__ part_acc, float* __restrict__ part_ml,
+                 int n_kv_heads, int group, int seq_len, int chunk, float scale) {
+  using T = __nv_bfloat16;
+  using G = GGeo<D, MT>;
+  constexpr int R = G::R;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* sQ = smem + G::kStages * G::kStepBytes;  // GP rows of QS bytes
+  float* sS = reinterpret_cast<float*>(sQ + G::GP * G::QS);  // [head][SS]
+  float* sP = sS + G::GP * G::SS;                             // [row][PS]
+  float* sC = sP + R * G::PS;                                 // [head]: corr
+
+  const int bk = blockIdx.x;  // b * n_kv_heads + kv head
+  const int split = blockIdx.y, n_splits = gridDim.y;
+  const int len = lengths[bk / n_kv_heads];
+  const int n = len > 0 ? min(len, seq_len) : seq_len;  // rows to walk
+  const int c0 = split * chunk;
+  const int c1 = min(c0 + chunk, n);
+  const int head0 = bk * group;  // first q head (row of q) of this block
+
+  if (c0 >= n) {  // nothing of this sequence here: an empty partial
+    for (int h = threadIdx.x; h < group; h += kThreads) {
+      part_ml[((size_t)(head0 + h) * n_splits + split) * 2] = -INFINITY;
+      part_ml[((size_t)(head0 + h) * n_splits + split) * 2 + 1] = 0.0f;
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
+  const T* kp = k_cache + (size_t)bk * seq_len * D;
+  const T* vp = v_cache + (size_t)bk * seq_len * D;
+  const uint32_t buf_s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n_steps = (c1 - c0 + R - 1) / R;
+
+  // k and v rows of step `s` into stage `st`; rows at or past c1, and the
+  // chunks of a row past D, are zero
+  auto load_step = [&](int s, int st) {
+    const uint32_t dk = buf_s + st * G::kStepBytes;
+    const uint32_t dv = dk + R * G::kRowBytes;
+    const int t0 = c0 + s * R;
+#pragma unroll
+    for (int i = tid; i < R * G::CPR; i += kThreads) {
+      const int rr = i / G::CPR, c = i % G::CPR;
+      const bool valid = t0 + rr < c1 && c < G::CD;
+      const size_t src = valid ? (size_t)(t0 + rr) * D + c * 8 : (size_t)c0 * D;
+      cp_async16(dk + rr * G::kRowBytes + k_offset<T, G::CPR>(rr, c), kp + src, valid);
+      cp_async16(dv + rr * G::kRowBytes + c * 16, vp + src, valid);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < G::kStages - 1; ++s) {
+    if (s < n_steps) load_step(s, s);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+  // q in bf16 as it is stored; heads past the group and columns past D zero
+  for (int i = tid; i < G::GP * G::DP / 2; i += kThreads) {
+    const int h = i / (G::DP / 2), d = 2 * (i % (G::DP / 2));
+    uint32_t x = 0u;
+    if (h < group && d < D)
+      x = *reinterpret_cast<const uint32_t*>(q + (size_t)(head0 + h) * D + d);
+    *reinterpret_cast<uint32_t*>(sQ + h * G::QS + 2 * d) = x;
+  }
+
+  const int sh = tid / 4, sj = tid % 4;  // softmax: head sh, rows 4i + sj
+  const bool soft = tid < 4 * G::GP;      // whole warps: GP is a multiple of 16
+  float m_run = -INFINITY, l_run = 0.0f;  // head sh's, over the rows so far
+  const int ph0 = warp * G::HT;           // p.v: this warp's first head
+  float acc[G::HT][G::CW];
+#pragma unroll
+  for (int i = 0; i < G::HT; ++i)
+#pragma unroll
+    for (int j = 0; j < G::CW; ++j) acc[i][j] = 0.0f;
+
+  for (int s = 0; s < n_steps; ++s) {
+    // this thread's rows of step s are in; the barrier makes everyone's
+    // visible and frees the stage step s - 1 used for step s + kStages - 1
+    if (G::kStages == 3)
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    else
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    if (s + G::kStages - 1 < n_steps)
+      load_step(s + G::kStages - 1, (s + G::kStages - 1) % G::kStages);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    const uint8_t* tK = smem + (s % G::kStages) * G::kStepBytes;
+    const uint8_t* tV = tK + R * G::kRowBytes;
+    const int t0 = c0 + s * R;
+
+    // scores of every head at rows 8 warp .. 8 warp + 7, scaled and masked
+    {
+      float d[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        d[mt][0] = d[mt][1] = d[mt][2] = d[mt][3] = 0.0f;
+      const int kr = 8 * warp + g;  // this lane's k row of the step
+      const uint8_t* krow = tK + kr * G::kRowBytes + 4 * t;
+#pragma unroll
+      for (int kk = 0; kk < G::KK; ++kk) {
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(
+            krow + k_offset<T, G::CPR>(kr, 2 * kk));
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(
+            krow + k_offset<T, G::CPR>(kr, 2 * kk + 1));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint8_t* qa = sQ + (16 * mt + g) * G::QS + 32 * kk + 4 * t;
+          mma_16816(d[mt], *reinterpret_cast<const uint32_t*>(qa),
+                    *reinterpret_cast<const uint32_t*>(qa + 8 * G::QS),
+                    *reinterpret_cast<const uint32_t*>(qa + 16),
+                    *reinterpret_cast<const uint32_t*>(qa + 8 * G::QS + 16), b0, b1);
+        }
+      }
+      const int row = t0 + 8 * warp + 2 * t;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float2 x;
+          x.x = row >= c1 ? -INFINITY : row >= len ? kNegInf  // only at length 0
+                                                   : d[mt][2 * hh] * scale;
+          x.y = row + 1 >= c1 ? -INFINITY : row + 1 >= len ? kNegInf
+                                                           : d[mt][2 * hh + 1] * scale;
+          *reinterpret_cast<float2*>(sS + (16 * mt + g + 8 * hh) * G::SS + 8 * warp + 2 * t) = x;
+        }
+    }
+    __syncthreads();
+
+    // online softmax of head sh over the step's rows sj, sj + 4, ...
+    if (soft) {
+      const float* srow = sS + sh * G::SS + sj;
+      float x[R / 4];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < R / 4; ++i) {
+        x[i] = srow[4 * i];
+        mx = fmaxf(mx, x[i]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run, mx);  // finite: a step has a row < c1
+      const float corr = expf(m_run - m_new);
+      float ls = 0.0f;
+#pragma unroll
+      for (int i = 0; i < R / 4; ++i) {
+        const float p = expf(x[i] - m_new);
+        sP[(4 * i + sj) * G::PS + sh] = p;
+        ls += p;
+      }
+      l_run = l_run * corr + ls;  // this thread's share; summed at the end
+      m_run = m_new;
+      if (sj == 0) sC[sh] = corr;
+    }
+    __syncthreads();
+
+    // acc = acc * corr + p . v in float32; rows past c1 have p = 0 and v = 0
+    {
+#pragma unroll
+      for (int i = 0; i < G::HT; ++i) {
+        const float cr = sC[ph0 + i];
+#pragma unroll
+        for (int j = 0; j < G::CW; ++j) acc[i][j] *= cr;
+      }
+      struct alignas(G::kColAlign) Cols { T v[G::CW]; };
+#pragma unroll 8
+      for (int r = 0; r < R; ++r) {
+        const Cols cv = *reinterpret_cast<const Cols*>(tV + r * G::kRowBytes +
+                                                       lane * G::kColBytes);
+        float pr[G::HT];
+#pragma unroll
+        for (int i = 0; i < G::HT; i += 2) {
+          const float2 pp = *reinterpret_cast<const float2*>(sP + r * G::PS + ph0 + i);
+          pr[i] = pp.x;
+          pr[i + 1] = pp.y;
+        }
+#pragma unroll
+        for (int j = 0; j < G::CW; ++j) {
+          const float vj = to_f32(cv.v[j]);
+#pragma unroll
+          for (int i = 0; i < G::HT; ++i) acc[i][j] = fmaf(pr[i], vj, acc[i][j]);
+        }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+
+  // each head's (m, l) into the score area (no longer read), then out
+  if (soft) {
+    float l = l_run;
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (sj == 0) {
+      sS[sh] = m_run;
+      sS[G::GP + sh] = l;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < G::HT; ++i) {
+    const int h = ph0 + i;
+    if (h >= group) continue;
+    const size_t qh = (size_t)(head0 + h);
+    const float l = sS[G::GP + h];
+#pragma unroll
+    for (int j = 0; j < G::CW; ++j) {
+      const int d = lane * G::CW + j;
+      if (d >= D) continue;
+      if (n_splits == 1)
+        store(out + qh * D + d, acc[i][j] / fmaxf(l, 1e-30f));
+      else
+        part_acc[(qh * n_splits + split) * D + d] = acc[i][j];
+    }
+    if (n_splits > 1 && lane == 0) {
+      part_ml[(qh * n_splits + split) * 2] = sS[h];
+      part_ml[(qh * n_splits + split) * 2 + 1] = l;
+    }
+  }
+}
+
 // Merge the chunks' (m, l, acc) of each q head: one block per q head, a
-// thread per column.  Empty partials (m = -inf) are skipped.
+// thread per column.  Its first warp reads every chunk's (m, l) and puts
+// each chunk's weight exp(m - max m) (0 for an empty partial, m = -inf)
+// and l in shared memory; then each thread sums over the chunks in order,
+// its loads of acc independent of one another (an empty partial's acc,
+// never written, is loaded and not used).
 template <typename T, int D>
 __global__ void __launch_bounds__(D)
     decode_combine(const float* __restrict__ part_acc,
                    const float* __restrict__ part_ml, T* __restrict__ out,
                    int n_splits) {
+  extern __shared__ float sW[];  // weights, then l: 2 * n_splits
   const size_t qh = blockIdx.x;
   const float* ml = part_ml + qh * n_splits * 2;
-  float m = -INFINITY;
-  for (int s = 0; s < n_splits; ++s) m = fmaxf(m, ml[2 * s]);
+  if (threadIdx.x < 32) {  // a whole warp: D >= 32
+    float m = -INFINITY;
+#pragma unroll 4
+    for (int s = threadIdx.x; s < n_splits; s += 32) m = fmaxf(m, ml[2 * s]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    for (int s = threadIdx.x; s < n_splits; s += 32) {
+      const float ms = ml[2 * s];
+      sW[s] = ms == -INFINITY ? 0.0f : expf(ms - m);
+      sW[n_splits + s] = ml[2 * s + 1];
+    }
+  }
+  __syncthreads();
+  const float* acc = part_acc + qh * n_splits * D + threadIdx.x;
   float num = 0.0f, den = 0.0f;
+#pragma unroll 8
   for (int s = 0; s < n_splits; ++s) {
-    const float ms = ml[2 * s];
-    if (ms == -INFINITY) continue;
-    const float w = expf(ms - m);
-    den = fmaf(w, ml[2 * s + 1], den);
-    num = fmaf(w, part_acc[(qh * n_splits + s) * D + threadIdx.x], num);
+    const float w = sW[s], a = acc[(size_t)s * D];
+    if (w != 0.0f) {
+      den = fmaf(w, sW[n_splits + s], den);
+      num = fmaf(w, a, num);
+    }
   }
   store(out + qh * D + threadIdx.x, num / fmaxf(den, 1e-30f));
+}
+
+template <typename T, int D>
+cudaError_t combine(float* part_acc, float* part_ml, void* out, int n_heads,
+                    int n_splits, cudaStream_t stream) {
+  decode_combine<T, D><<<n_heads, D, 2 * n_splits * sizeof(float), stream>>>(
+      part_acc, part_ml, static_cast<T*>(out), n_splits);
+  return cudaGetLastError();
+}
+
+template <int D, int MT>
+cudaError_t launch_group(const void* q, const void* k, const void* v,
+                         const int* lengths, void* out, float* part_acc,
+                         float* part_ml, int n_seqs, int n_kv_heads, int group,
+                         int seq_len, int n_splits, int chunk, float scale,
+                         cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  static bool configured = false;  // the attribute is per function
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        decode_group<D, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        GGeo<D, MT>::kBytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid(n_seqs * n_kv_heads, n_splits);
+  decode_group<D, MT><<<grid, kThreads, GGeo<D, MT>::kBytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), lengths, static_cast<T*>(out), part_acc,
+      part_ml, n_kv_heads, group, seq_len, chunk, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_splits == 1) return err;
+  return combine<T, D>(part_acc, part_ml, out, n_seqs * n_kv_heads * group,
+                       n_splits, stream);
 }
 
 template <typename T, int D>
@@ -439,6 +791,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    float* part_ml, int n_seqs, int n_kv_heads, int group,
                    int seq_len, int n_splits, int chunk, float scale,
                    cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2) {  // bf16 groups above 8: decode_group
+    if (group > kNarrowGroup) {
+      const int mt = (group + 15) / 16;
+      auto go = mt == 1   ? launch_group<D, 1>
+                : mt == 2 ? launch_group<D, 2>
+                : mt == 3 ? launch_group<D, 3>
+                          : launch_group<D, 4>;
+      return go(q, k, v, lengths, out, part_acc, part_ml, n_seqs, n_kv_heads,
+                group, seq_len, n_splits, chunk, scale, stream);
+    }
+  }
   static bool configured = false;  // the attribute is per function
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -454,9 +817,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       part_ml, n_kv_heads, group, seq_len, chunk, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 1) return err;
-  decode_combine<T, D><<<n_seqs * n_kv_heads * group, D, 0, stream>>>(
-      part_acc, part_ml, static_cast<T*>(out), n_splits);
-  return cudaGetLastError();
+  return combine<T, D>(part_acc, part_ml, out, n_seqs * n_kv_heads * group,
+                       n_splits, stream);
 }
 
 template <typename T>
@@ -497,8 +859,9 @@ cudaError_t launch_d(int head_dim, const void* q, const void* k,
 
 }  // namespace
 
-// Launches the kernels on `stream` (decode_split, then decode_combine when
-// n_splits > 1) and returns cudaGetLastError() (0 on success).  Does not
+// Launches the kernels on `stream` (decode_split, or decode_group for bf16
+// groups above 8, then decode_combine when n_splits > 1) and returns
+// cudaGetLastError() (0 on success).  Does not
 // synchronise.  dtype: 0 float32, 1 bfloat16.  head_dim: 32, 64, 80, 120,
 // 128 or 256.  q and out hold n_seqs * n_kv_heads * group rows of
 // head_dim, lengths one int32 per sequence, the caches n_seqs * n_kv_heads

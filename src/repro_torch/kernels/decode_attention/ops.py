@@ -28,6 +28,18 @@ CHUNK_ALIGN = 64
 #: most q heads per kv head a block serves (the kernel's kMaxGroup)
 MAX_GROUP = 64
 
+#: bf16 groups above this run decode_group, every head of a kv head in the
+#: rows of one product (the kernel's kNarrowGroup); narrower groups, and
+#: float32, run decode_split
+NARROW_GROUP = 8
+
+#: cache rows a decode_group step (kGroupRows); its chunks are multiples
+GROUP_ROWS = 64
+
+#: decode_group's plan keeps its float32 partials, written once and read
+#: once, within this share of the bytes of the k and v caches
+PARTIAL_SHARE = 1.0
+
 #: kernel calls made through this wrapper (CUDA tensors only); one a call,
 #: though a call with more than one chunk launches a combine kernel too
 LAUNCHES = 0
@@ -61,15 +73,37 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def split_plan(s: int, n_blocks: int, sms: int) -> Tuple[int, int]:
+def split_plan(s: int, n_blocks: int, sms: int, group: int = 1, head_dim: int = 128,
+               elem: int = 2) -> Tuple[int, int]:
     """``(n_splits, chunk)`` for a cache of ``s`` rows read by ``n_blocks``
-    = B * Hkv (sequence, kv head) pairs on a card of ``sms`` SMs: about two
-    blocks an SM, chunks a multiple of CHUNK_ALIGN rows, no chunk empty at
-    full length.  From shapes only: the lengths stay on the card."""
-    want = min(max(1, -(-2 * sms // n_blocks)), -(-s // CHUNK_ALIGN))
+    = B * Hkv (sequence, kv head) pairs, ``group`` q heads each, on a card
+    of ``sms`` SMs, in elements of ``elem`` bytes.  From shapes only: the
+    lengths stay on the card.  No chunk is empty at full length.
+
+    decode_split (float32, or groups up to NARROW_GROUP): about two blocks
+    an SM, chunks a multiple of CHUNK_ALIGN rows.  decode_group (bf16
+    groups above it): one block an SM at most (its shared memory allows no
+    second), chunks a multiple of GROUP_ROWS rows, and the float32
+    partials of all heads, written and read, at most PARTIAL_SHARE of the
+    cache's bytes."""
+    if elem == 2 and group > NARROW_GROUP:
+        cache = s * head_dim * elem * 2  # k and v of one (sequence, kv head)
+        per_split = group * (head_dim + 2) * 4 * 2  # its partials, written and read
+        by_bytes = max(1, int(PARTIAL_SHARE * cache // per_split))
+        want = min(max(1, sms // n_blocks), by_bytes, -(-s // GROUP_ROWS))
+        align = GROUP_ROWS
+    else:
+        want = min(max(1, -(-2 * sms // n_blocks)), -(-s // CHUNK_ALIGN))
+        align = CHUNK_ALIGN
     chunk = -(-s // want)
-    chunk = -(-chunk // CHUNK_ALIGN) * CHUNK_ALIGN
+    chunk = -(-chunk // align) * align
     return -(-s // chunk), chunk
+
+
+def partial_bytes(b: int, h: int, head_dim: int, n_splits: int) -> int:
+    """Bytes of the float32 partials of a split call: acc and (m, l) of
+    every q head and chunk; none with one chunk."""
+    return b * h * n_splits * (head_dim + 2) * 4 if n_splits > 1 else 0
 
 
 def _check_cuda(q, k_cache, v_cache, lengths) -> None:
@@ -99,10 +133,11 @@ def _launch(lib, q, k_cache, v_cache, lengths, scale, *, device, stream, sms):
     the caches and ``lengths`` go to the kernel as they are."""
     b, h, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
-    n_splits, chunk = split_plan(s, b * hkv, sms)
+    n_splits, chunk = split_plan(s, b * hkv, sms, h // hkv, d, q.element_size())
     # per q head and chunk: acc (D floats), then (m, l); none for one chunk
     rows = b * h * n_splits if n_splits > 1 else 0
-    parts = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
+    parts = torch.empty(partial_bytes(b, h, d, n_splits) // 4, dtype=torch.float32,
+                        device=q.device)
     acc = parts.data_ptr()
     out = torch.empty_like(q)
     code = lib.decode_attention_launch(

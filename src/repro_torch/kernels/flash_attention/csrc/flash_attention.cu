@@ -352,17 +352,25 @@ constexpr int kWSmem = 1024                      // slack to align to 1 KB
 constexpr int kNarrowStages = 4;
 constexpr int kNarrowSmem = 1024 + kHalfBytes + 2 * kNarrowStages * kHalfBytes +
                             8 * (1 + 3 * kNarrowStages);
-// D = 256: four spans a row.  A 128-key tile would be 64 KB, and q plus two
-// stages of k and v 320 KB, so k and v tiles hold 64 keys (32 KB; four spans
-// of 64 rows x 128 B) and the ring has two stages (three would be 256 KB)
+// D = 256: four spans a row, and a 128-key tile would not fit (q 64 KB + 2
+// stages x 2 x 64 KB = 320 KB), so k and v tiles hold 64 keys (32 KB; four
+// spans of 64 rows x 128 B) in a ring of two stages, 197 KB in all.
 constexpr int kWideCols = 256;
 constexpr int kWideKeys = 64;
 constexpr int kWideSpanBytes = kWideKeys * kHalf * 2;          // 8 KB
 constexpr int kWideTileBytes = (kWideCols / kHalf) * kWideSpanBytes;  // 32 KB
 constexpr int kWideQBytes = (kWideCols / kHalf) * kHalfBytes;  // 64 KB
 constexpr int kWideStages = 2;
+// q, the ring, mbarriers (q; k landed, v landed, read a stage) and a refill
+// counter a stage
 constexpr int kWideSmem = 1024 + kWideQBytes + 2 * kWideStages * kWideTileBytes +
-                          8 * (1 + 3 * kWideStages);
+                          8 * (1 + 3 * kWideStages) + 4 * kWideStages;
+// D = 256: the two consumer warpgroups and no producer, 8 warps, so that
+// ptxas budgets 255 registers a thread.  A block of 9 or 12 warps puts 3
+// on one SM sub-partition and gets 168 (setmaxnreg does not raise what
+// ptxas allocates), too few for o (128 floats a thread): it spills and
+// serialises every wgmma.  The loads are issued by the consumers.
+constexpr int kWideThreads = kConsumers * 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // flash_wgmma<D>'s shared-memory geometry: 64-column TMA boxes a tile row,
@@ -378,6 +386,8 @@ struct WGeo {
   static constexpr int qtile = boxes * kHalfBytes;
   static constexpr int ring = D <= kHalf ? kNarrowStages : D > kWCols ? kWideStages : kStages;
   static constexpr int smem = D <= kHalf ? kNarrowSmem : D > kWCols ? kWideSmem : kWSmem;
+  // threads a block: a producer warpgroup, or at D = 256 a producer warp
+  static constexpr int threads = D > kWCols ? kWideThreads : kWThreads;
 };
 
 // Output columns p.v computes at head dim D: 64 at D = 64 (m64n64k16, one
@@ -438,6 +448,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cta.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ uint32_t atom_add_shared(uint32_t addr, uint32_t v) {
+  uint32_t old;
+  asm volatile("atom.shared::cta.add.u32 %0, [%1], %2;"
+               : "=r"(old)
+               : "r"(addr), "r"(v)
+               : "memory");
+  return old;
+}
+
 // wgmma shared-memory descriptor, 128-byte swizzle.  K-major operands
 // (q, k): rows of 128 B, 8-row groups 1024 B apart (SBO); LBO unused.
 // MN-major operand (v): 8-key groups 1024 B apart (SBO), the two 64-column
@@ -467,6 +489,10 @@ __device__ __forceinline__ void bar_sync(int id) {
 }
 __device__ __forceinline__ void bar_arrive(int id) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(kConsumers * 128) : "memory");
+}
+// Named barrier `id` over one warpgroup's 128 threads.
+__device__ __forceinline__ void wg_bar_sync(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
 }
 // Keep the compiler from reading accumulators before the wait.
 template <int N>
@@ -522,6 +548,84 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       "}\n"
       : R32
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#define WG_D16                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "            \
+  "%8, %9, %10, %11, %12, %13, %14, %15}"
+#define R16 R8(0), R8(8)
+
+#define WG_D24                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "            \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "       \
+  "%16, %17, %18, %19, %20, %21, %22, %23}"
+#define R24 R8(0), R8(8), R8(16)
+
+// d (+)= A . B^T, m64n48k16.
+__device__ __forceinline__ void wgmma_ss(float (&d)[24], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 " WG_D24
+      ", %24, %25, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : R24
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A . B^T, m64n32k16 (32-key tiles at D = 256).
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : R16
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A . B^T, A in registers (bf16 pairs: q's fragments), B K-major in
+// shared memory: m64n32k16, m64n48k16 and m64n64k16 (q.k^T at D = 256).
+__device__ __forceinline__ void wgmma_rk(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_D16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : R16
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_rk(float (&d)[24], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 " WG_D24
+      ", {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n"
+      "}\n"
+      : R24
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_rk(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : R32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // d += A . B, m64n128k16, A in registers (bf16 pairs), B MN-major bf16 in
@@ -1026,8 +1130,344 @@ __device__ __forceinline__ void consume_overlap(
   store_rows<D>(o, l0, l1, row0, row1, c2, op, seq_len);
 }
 
+// The serial schedule's online softmax over one warpgroup's 64 x KB score
+// tile, in place (accumulator layout of m64nKB), with the scale applied
+// first and -1e30 masks, so any scale is taken: updates m0, m1 and this
+// thread's share of l0, l1; returns the factors that bring o to the new
+// maxima in corr0, corr1.
+template <int KB>
+__device__ __forceinline__ void online_softmax_exp2(
+    float (&sc)[KB / 2], int k0, int wrow, int row0, int row1, int c2, int seq_len,
+    int causal, int window, float scale_log2, float& m0, float& m1, float& l0,
+    float& l1, float& corr0, float& corr1) {
+  const bool edge = k0 + KB > seq_len ||
+                    (causal && k0 + KB - 1 > wrow) ||
+                    (window > 0 && k0 <= wrow + 63 - window);
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int j = 0; j < KB / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float a = sc[4 * j + e] * scale_log2, b = sc[4 * j + 2 + e] * scale_log2;
+      if (edge) {
+        const int col = k0 + 8 * j + c2 + e;
+        bool keep0 = true, keep1 = true;
+        if (causal) {
+          keep0 &= col <= row0;
+          keep1 &= col <= row1;
+        }
+        if (window > 0) {
+          keep0 &= col > row0 - window;
+          keep1 &= col > row1 - window;
+        }
+        a = col >= seq_len ? -INFINITY : (keep0 ? a : kNegInf);
+        b = col >= seq_len ? -INFINITY : (keep1 ? b : kNegInf);
+      }
+      sc[4 * j + e] = a;
+      sc[4 * j + 2 + e] = b;
+      mx0 = fmaxf(mx0, a);
+      mx1 = fmaxf(mx1, b);
+    }
+  }
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  corr0 = exp2f(m0 - mn0);
+  corr1 = exp2f(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float ls0 = 0.0f, ls1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < KB / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float p0 = exp2f(sc[4 * j + e] - mn0);
+      const float p1 = exp2f(sc[4 * j + 2 + e] - mn1);
+      sc[4 * j + e] = p0;
+      sc[4 * j + 2 + e] = p1;
+      ls0 += p0;
+      ls1 += p1;
+    }
+  }
+  l0 = l0 * corr0 + ls0;
+  l1 = l1 * corr1 + ls1;
+}
+
+// consume_wide's online softmax over one warpgroup's 64 x KB score tile
+// (accumulator layout of m64nKB), in place.  The form of
+// online_softmax_fma: masked keys -inf, maxima over the unscaled scores
+// (scale > 0), one FFMA and one ex2.approx.ftz an element.  With kLazy, a
+// row's running maximum moves only when the tile's exceeds it by more than
+// 8 in log2 units of the scaled scores (p then stays below 2^8, exact in
+// float32 and as relatively precise in bf16), so corr is exactly 1 on most
+// tiles and the caller skips o's rescale; o / l is the same function.
+template <int KB, bool kLazy>
+__device__ __forceinline__ void online_softmax_wide(
+    float (&sc)[KB / 2], int k0, int wrow, int row0, int row1, int c2, int seq_len,
+    int causal, int window, float scale_log2, float& m0, float& m1, float& l0,
+    float& l1, float& corr0, float& corr1) {
+  const bool edge = k0 + KB > seq_len ||
+                    (causal && k0 + KB - 1 > wrow) ||
+                    (window > 0 && k0 <= wrow + 63 - window);
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < KB / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + 8 * j + c2 + e;
+        bool keep0 = col < seq_len, keep1 = col < seq_len;
+        if (causal) {
+          keep0 &= col <= row0;
+          keep1 &= col <= row1;
+        }
+        if (window > 0) {
+          keep0 &= col > row0 - window;
+          keep1 &= col > row1 - window;
+        }
+        if (!keep0) sc[4 * j + e] = -INFINITY;
+        if (!keep1) sc[4 * j + 2 + e] = -INFINITY;
+      }
+    }
+  }
+  float x0[4], x1[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    x0[t] = sc[t % 2 + 4 * (t / 2)];
+    x1[t] = sc[2 + t % 2 + 4 * (t / 2)];
+  }
+#pragma unroll
+  for (int j = 2; j < KB / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int t = 2 * (j % 2) + e;
+      x0[t] = fmaxf(x0[t], sc[4 * j + e]);
+      x1[t] = fmaxf(x1[t], sc[4 * j + 2 + e]);
+    }
+  }
+  float mx0 = fmaxf(fmaxf(x0[0], x0[1]), fmaxf(x0[2], x0[3]));
+  float mx1 = fmaxf(fmaxf(x1[0], x1[1]), fmaxf(x1[2], x1[3]));
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+  }
+  float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  if (kLazy) {  // keep the old maximum unless the new one is 2^8 times larger
+    if ((mn0 - m0) * scale_log2 <= 8.0f) mn0 = m0;
+    if ((mn1 - m1) * scale_log2 <= 8.0f) mn1 = m1;
+  }
+  corr0 = ex2((m0 - mn0) * scale_log2);
+  corr1 = ex2((m1 - mn1) * scale_log2);
+  m0 = mn0;
+  m1 = mn1;
+  const float b0 = -mn0 * scale_log2, b1 = -mn1 * scale_log2;
+  float s0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < KB / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int t = 2 * (j % 2) + e;
+      const float p0 = ex2(fmaf(sc[4 * j + e], scale_log2, b0));
+      const float p1 = ex2(fmaf(sc[4 * j + 2 + e], scale_log2, b1));
+      sc[4 * j + e] = p0;
+      sc[4 * j + 2 + e] = p1;
+      s0[t] += p0;
+      s1[t] += p1;
+    }
+  }
+  l0 = l0 * corr0 + ((s0[0] + s0[1]) + (s0[2] + s0[3]));
+  l1 = l1 * corr1 + ((s1[0] + s1[1]) + (s1[2] + s1[3]));
+}
+
+// k or v tile `it` (keys from lo + it) into its stage of ring `ring`, B
+// boxes of 64 columns each, completing on the stage's barrier in `full`.
 template <int D>
-__global__ void __launch_bounds__(kWThreads, 1)
+__device__ __forceinline__ void load_tile(uint32_t ring, uint32_t full,
+                                          const CUtensorMap* map, int it, int lo,
+                                          int kvh) {
+  constexpr int B = WGeo<D>::boxes, T = WGeo<D>::tile, R = WGeo<D>::ring;
+  constexpr int KB = WGeo<D>::keys, SP = WGeo<D>::span;
+  const int s = it % R;
+  mbar_expect_tx(full + 8 * s, T);
+  for (int h = 0; h < B; ++h)
+    tma_load(ring + s * T + h * SP, map, full + 8 * s, h * kHalf, (lo + it) * KB, kvh);
+}
+
+// Once consume_wide has read k tile kt and v tile vt (-1: none) in its
+// j-th release (j = kt): every consumer thread arrives on release j's
+// `read` barrier (slot j % R), and thread 0 of each warpgroup counts at
+// the slot's counter; the one that counts second waits for the barrier and
+// loads k tile kt + R and v tile vt + R into the freed stages.
+template <int D>
+__device__ __forceinline__ void refill(uint32_t read, uint32_t cnt, uint32_t sK,
+                                       uint32_t sV, uint32_t bar_k, uint32_t bar_v,
+                                       const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                       int j, int kt, int vt, int n_iter, int lo,
+                                       int kvh) {
+  constexpr int R = WGeo<D>::ring;
+  const int s = j % R;
+  const bool k_next = kt >= 0 && kt + R < n_iter, v_next = vt >= 0 && vt + R < n_iter;
+  mbar_arrive(read + 8 * s);
+  if (threadIdx.x % 128 == 0 && (k_next || v_next) &&
+      (atom_add_shared(cnt + 4 * s, 1u) & 1u)) {
+    mbar_wait(read + 8 * s, (j / R) & 1);
+    if (k_next) load_tile<D>(sK, bar_k, tm_k, kt + R, lo, kvh);
+    if (v_next) load_tile<D>(sV, bar_v, tm_v, vt + R, lo, kvh);
+  }
+}
+
+// One consumer warpgroup at D = 256, overlapped within the warpgroup: q.k^T
+// of tile j is issued together with p.v of tile j - 1, the softmax of tile
+// j runs while p.v of tile j - 1 is on the tensor cores (wait_group 1, then
+// 0), and the bf16 p of tile j - 1 stays in registers until that product
+// retires.  o is rescaled after p.v of tile j - 1 lands: o = (o + p v) *
+// corr.  Live across the softmax: o (128 floats), the scores (KB / 2) and
+// the last tile's p (KB / 4).  There is no producer: after each
+// iteration's products the consumers release the k and v stages they have
+// read and the warpgroup that releases them second refills them (refill).
+template <int D>
+__device__ __forceinline__ void consume_wide(
+    uint32_t sQ, uint32_t sK, uint32_t sV, uint32_t bar_q, uint32_t bar_k,
+    uint32_t bar_v, uint32_t bar_read, uint32_t cnt, int wg, int q0, int lo,
+    int n_iter, __nv_bfloat16* __restrict__ op, int seq_len, int causal,
+    float scale_log2, int window, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    int kvh) {
+  constexpr int R = WGeo<D>::ring, T = WGeo<D>::tile, KB = WGeo<D>::keys;
+  constexpr int SP = WGeo<D>::span;
+  // k tile it is free once q.k^T of tile it retires, before p.v of tile
+  // it - 1 does: refilled in iteration it (a tile ahead), or with v in it + 1
+  constexpr bool kLead = true;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int c2 = 2 * (lane % 4);
+  const int wrow = q0 + 64 * wg;  // first q row of this warpgroup
+  const int row0 = wrow + 16 * warp + lane / 4, row1 = row0 + 8;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f, corr0, corr1;
+  float sc[KB / 2];
+  uint32_t pa[KB / 4];
+
+  // q in registers as the A operand of q.k^T (kQRegs), else read from
+  // shared memory by each product
+  constexpr bool kQRegs = false;
+  uint32_t qa[kQRegs ? D / 16 : 1][4];
+  // q.k^T of tile `it` into sc: D / 16 steps, four per 64-column span
+  auto qk = [&](int it) {
+    const uint32_t tK = sK + (it % R) * T;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      const uint64_t db = sw128_desc(tK + (kk / 4) * SP + off, 16, 1024);
+      if constexpr (kQRegs)
+        wgmma_rk(sc, qa[kk], db, kk > 0);
+      else
+        wgmma_ss(sc, sw128_desc(sQ + (kk / 4) * kHalfBytes + off + wg * 64 * 128, 16, 1024),
+                 db, kk > 0);
+    }
+  };
+  // o += p . v of tile `it`: KB / 16 steps of m64n256k16, v's spans SP apart
+  auto pv = [&](int it) {
+    const uint32_t tV = sV + (it % R) * T;
+#pragma unroll
+    for (int kk = 0; kk < KB / 16; ++kk)
+      wgmma_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+               sw128_desc(tV + kk * 16 * 128, SP, 1024));
+  };
+  // the FMA softmax with a lazy maximum (kFma; scale > 0), else the serial
+  // schedule's (scale first, -1e30 masks, exp2f)
+  constexpr bool kFma = true, kLazy = true;
+  auto softmax = [&](int k0) {
+    if constexpr (kFma)
+      online_softmax_wide<KB, kLazy>(sc, k0, wrow, row0, row1, c2, seq_len, causal,
+                                     window, scale_log2, m0, m1, l0, l1, corr0, corr1);
+    else
+      online_softmax_exp2<KB>(sc, k0, wrow, row0, row1, c2, seq_len, causal, window,
+                              scale_log2, m0, m1, l0, l1, corr0, corr1);
+  };
+  auto pack = [&]() {
+#pragma unroll
+    for (int i = 0; i < KB / 4; ++i) {
+      pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+      asm volatile("" : "+r"(pa[i])::"memory");
+    }
+  };
+
+  constexpr bool kTurns = true;  // the warpgroups take turns at the tensor cores
+  const int mine = 1 + wg, other = 2 - wg;  // named barriers: whose turn
+  mbar_wait(bar_q, 0);
+  if constexpr (kQRegs) {
+    // this thread's A fragments of q: rows r and r + 8 (r = 16 warp + lane
+    // / 4 of the warpgroup's 64), columns 16 kk + 2 (lane % 4) (+ 1) and 8
+    // on, from the 128-byte swizzle (chunk c of row r at c ^ (r % 8))
+    const int r = wg * 64 + 16 * warp + lane / 4;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = r + 8 * (i & 1), chunk = 2 * (kk % 4) + (i >> 1);
+        const uint32_t addr = sQ + (kk / 4) * kHalfBytes + row * 128 +
+                              ((chunk ^ (row % 8)) * 16) + 4 * (lane % 4);
+        asm volatile("ld.shared.u32 %0, [%1];" : "=r"(qa[kk][i]) : "r"(addr));
+      }
+  }
+  mbar_wait(bar_k, 0);
+  if constexpr (kTurns) {
+    if (wg == 1) bar_arrive(other);  // warpgroup 0 goes first
+    bar_sync(mine);
+  }
+  wg_fence();
+  qk(0);
+  wg_commit();
+  if constexpr (kTurns) bar_arrive(other);
+  wg_wait_all();
+  fence_regs(sc);
+  if constexpr (kLead)
+    refill<D>(bar_read, cnt, sK, sV, bar_k, bar_v, tm_k, tm_v, 0, 0, -1, n_iter, lo, kvh);
+  softmax(lo * KB);
+  pack();  // o is 0: nothing to rescale
+  for (int it = 1; it < n_iter; ++it) {
+    mbar_wait(bar_k + 8 * (it % R), (it / R) & 1);
+    mbar_wait(bar_v + 8 * ((it - 1) % R), ((it - 1) / R) & 1);
+    if constexpr (kTurns) bar_sync(mine);
+    wg_fence();
+    qk(it);
+    wg_commit();
+    pv(it - 1);
+    wg_commit();
+    if constexpr (kTurns) bar_arrive(other);
+    wg_wait_one();  // q.k^T of tile it
+    fence_regs(sc);
+    softmax((lo + it) * KB);
+    wg_wait_all();  // p.v of tile it - 1
+    fence_regs(o);
+    // refilled with no product in flight (a refill's atomics and copies
+    // between a wgmma and its wait make ptxas serialise every wgmma)
+    const int kt = kLead ? it : it - 1;  // the k tile released, and the refill's slot
+    refill<D>(bar_read, cnt, sK, sV, bar_k, bar_v, tm_k, tm_v, kt, kt, it - 1, n_iter,
+              lo, kvh);
+    if (corr0 != 1.0f || corr1 != 1.0f) rescale(o, corr0, corr1);
+    pack();
+  }
+  mbar_wait(bar_v + 8 * ((n_iter - 1) % R), ((n_iter - 1) / R) & 1);
+  if constexpr (kTurns) bar_sync(mine);
+  wg_fence();
+  pv(n_iter - 1);
+  wg_commit();
+  if constexpr (kTurns)
+    if (wg == 0) bar_arrive(other);  // each takes n_iter + 1 turns
+  wg_wait_all();
+  fence_regs(o);
+  store_rows<D>(o, l0, l1, row0, row1, c2, op, seq_len);
+}
+
+template <int D>
+__global__ void __launch_bounds__(WGeo<D>::threads, 1)
     flash_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
@@ -1061,13 +1501,32 @@ __global__ void __launch_bounds__(kWThreads, 1)
       mbar_init(bar_k + 8 * s, 1);
       mbar_init(bar_v + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, kConsumers * 128);
+      if constexpr (D == kWideCols) st_shared(bar_empty + 8 * R + 4 * s, 0u);  // counters
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == kConsumers) {
+  if constexpr (D == kWideCols) {
+    // no producer: thread 0 loads q and the first R tiles, the consumers
+    // the rest (consume_wide, refill); the refill counters follow the
+    // barriers
+    const int kvh = bh / group;
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, QT);
+      for (int h = 0; h < B; ++h)
+        tma_load(sQ + h * kHalfBytes, &tm_q, bar_q, h * kHalf, q0, bh);
+      for (int it = 0; it < R && it < n_iter; ++it) {
+        load_tile<D>(sK, bar_k, &tm_k, it, lo, kvh);
+        load_tile<D>(sV, bar_v, &tm_v, it, lo, kvh);
+      }
+    }
+    consume_wide<D>(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, bar_empty + 8 * R, wg,
+                    q0, lo, n_iter,
+                    out + (size_t)bh * seq_len * D, seq_len, causal, scale_log2,
+                    window, &tm_k, &tm_v, kvh);
+  } else if (wg == kConsumers) {
     // producer warpgroup: gives its registers to the consumers; one thread
     // starts every load, B boxes of 64 columns a tile
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
@@ -1132,10 +1591,11 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int rows, int seq_len,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// flash_wgmma<D>: the overlapped schedule at D = 64, the serial one at the
-// wider head dims (see consume).  The overlapped schedule's softmax takes
-// its maxima over the unscaled scores, so at D = 64 it computes only scale
-// > 0 and refuses any other scale here (NaN included).  The wrapper
+// flash_wgmma<D>: the overlapped schedule at D = 64, the one within a
+// warpgroup at D = 256 (consume_wide), the serial one at 80, 120 and 128
+// (see consume).  The D = 64 and D = 256 softmaxes take their maxima over
+// the unscaled scores, so there only scale > 0 is computed and any other
+// scale is refused here (NaN included).  The wrapper
 // handles the sign (flash_attention/ops.py, positive_scale): it launches
 // a negative scale as -q with |scale|, and scale 0 as a zero q with scale
 // 1, which give the same scaled scores.
@@ -1145,7 +1605,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
                          float scale, int window, cudaStream_t stream) {
   static_assert(D % 8 == 0 && D >= kHalf && (D <= kWCols || D == kWideCols),
                 "rows of 16-byte multiples that fill at least one span");
-  if constexpr (D == kHalf)
+  if constexpr (D == kHalf || D == kWideCols)
     if (!(scale > 0.0f)) return cudaErrorInvalidValue;
   static bool configured = false;  // the attribute is per function
   if (!configured) {
@@ -1161,7 +1621,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
       make_map(&tv, v, bh / group, seq_len, D, WGeo<D>::keys) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   const dim3 grid(bh, (seq_len + kWBQ - 1) / kWBQ);
-  flash_wgmma<D><<<grid, kWThreads, WGeo<D>::smem, stream>>>(
+  flash_wgmma<D><<<grid, WGeo<D>::threads, WGeo<D>::smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), seq_len, group, causal,
       scale * kLog2e, window);
   return cudaGetLastError();

@@ -32,6 +32,11 @@ HEAD_DIMS = (32, 64, 80, 120, 128, 256)
 #: cores).  ``launch_bf16`` in the source dispatches the same way.
 WGMMA_HEAD_DIMS = (64, 80, 120, 128, 256)
 
+#: bf16 head dims whose kernel takes its softmax maxima over the unscaled
+#: scores, so computes only scale > 0 (the wrapper rewrites the others,
+#: ``positive_scale``): flash_wgmma<64> and flash_wgmma<256>
+POSITIVE_SCALE_DIMS = (64, 256)
+
 #: kernel launches made through this wrapper (CUDA tensors only)
 LAUNCHES = 0
 
@@ -73,13 +78,15 @@ def kernel_name(dtype: torch.dtype, head_dim: int) -> str:
 
 def positive_scale(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
     """``(q', scale')`` with ``scale' > 0`` whose scaled scores ``q' . k *
-    scale'`` equal ``q . k * scale`` for every k, for ``flash_wgmma<64>``,
-    whose softmax takes its maxima over the unscaled scores: a negative
+    scale'`` equal ``q . k * scale`` for every k, for ``flash_wgmma`` at
+    POSITIVE_SCALE_DIMS, whose softmax takes its maxima over the unscaled
+    scores: a negative
     scale as ``-q`` and ``|scale|`` (negation is exact in bf16), scale 0
     as a zero q and scale 1 (every score exactly 0, as the reference's
     ``(q * 0) . k``).  NaN is refused."""
     if math.isnan(scale):
-        raise ValueError(f"bfloat16 at head dim 64 takes a finite scale, got {scale}")
+        raise ValueError(f"bfloat16 at head dims {POSITIVE_SCALE_DIMS} takes a finite "
+                         f"scale, got {scale}")
     if scale > 0:
         return q, scale
     if scale < 0:
@@ -130,7 +137,7 @@ def flash_attention(
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda(q, k, v, window)
-    if kernel_name(q.dtype, d) == "flash_wgmma" and d == 64:
+    if kernel_name(q.dtype, d) == "flash_wgmma" and d in POSITIVE_SCALE_DIMS:
         q, scale = positive_scale(q, float(scale))
     lib = load()
     qf = q.reshape(b * h, s, d).contiguous()

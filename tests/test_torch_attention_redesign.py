@@ -11,10 +11,15 @@
   24/24 and 32/4 at 64, granite-34b 48/1 at 128, recurrentgemma-9b 16/1
   and 16/4 at 256).
 * The decode kernel's split-S plan: a torch emulation of the split and
-  combine (``split_combine`` below, which mirrors decode_split and
-  decode_combine) equals ``decode_attention_ref`` within 1e-6 and the
-  Pallas kernel in interpret mode within 1e-5, at lengths 0, 1, at the
-  chunk edges and S, for groups 1, 8 and 48.
+  combine (``split_combine`` below, which mirrors decode_split or
+  decode_group, and decode_combine) equals ``decode_attention_ref`` within
+  1e-6 and the Pallas kernel in interpret mode within 1e-5, at lengths 0,
+  1, at the chunk edges and S, for groups 1, 8 and 48 at D = 32 and 16 at
+  D = 256.  The plan (``split_plan``) aligns its chunks, covers the cache
+  with no empty chunk at full length, and, for bf16 groups above 8
+  (decode_group), keeps the partials within PARTIAL_SHARE of the cache's
+  bytes and its blocks within one an SM; Yi-6B's, granite-34b's and
+  recurrentgemma-9b's plans are pinned.
 * The decode wrapper hands the (B,) lengths to the kernel as they are.
 """
 import importlib.util
@@ -224,10 +229,13 @@ def decode_inputs(b, h, hkv, s, d, seed):
             rng.standard_normal((b, hkv, s, d)).astype(np.float32))
 
 
-@pytest.mark.parametrize("h,hkv", [(4, 4), (8, 1), (48, 1)])
-def test_split_combine_equals_plain_and_pallas(h, hkv):
-    b, s, d = 3, 512, 32
-    n_splits, chunk = decode_ops.split_plan(s, b * hkv, H100_SMS)
+@pytest.mark.parametrize("h,hkv,d", [pytest.param(4, 4, 32, id="4-4"),
+                                     pytest.param(8, 1, 32, id="8-1"),
+                                     pytest.param(48, 1, 32, id="48-1"),
+                                     pytest.param(16, 1, 256, id="16-1-256")])
+def test_split_combine_equals_plain_and_pallas(h, hkv, d):
+    b, s = 3, 512
+    n_splits, chunk = decode_ops.split_plan(s, b * hkv, H100_SMS, h // hkv, d)
     assert n_splits > 1 and chunk % decode_ops.CHUNK_ALIGN == 0
     q, k, v = decode_inputs(b, h, hkv, s, d, seed=h)
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
@@ -256,6 +264,41 @@ def test_split_plan_covers_the_cache_without_empty_chunks(s, n_blocks):
 def test_split_plan_of_the_main_shape():
     """B=4, Hkv=4, S=4096 on 132 SMs: 16 chunks of 256 rows, 256 blocks."""
     assert decode_ops.split_plan(4096, 16, H100_SMS) == (16, 256)
+    assert decode_ops.split_plan(4096, 16, H100_SMS, 8, 128) == (16, 256)  # group 8
+
+
+def test_split_plan_of_the_wide_groups():
+    """granite-34b (B=4, MQA 48/1 x 128, S=4096): 32 chunks of 128 rows,
+    128 blocks, 6.39 MB of partials written and read against 8.39 MB of
+    cache.  recurrentgemma-9b (B=1, MQA 16/1 x 256, S=4096): 64 chunks of
+    64 rows, 2.11 MB against 4.19 MB.  float32 at the same groups keeps
+    decode_split's plan."""
+    assert decode_ops.split_plan(4096, 4, H100_SMS, 48, 128) == (32, 128)
+    assert decode_ops.split_plan(4096, 1, H100_SMS, 16, 256) == (64, 64)
+    assert 2 * decode_ops.partial_bytes(4, 48, 128, 32) == 6_389_760
+    assert 2 * decode_ops.partial_bytes(1, 16, 256, 64) == 2_113_536
+    assert decode_ops.split_plan(4096, 4, H100_SMS, 48, 128, 4) == (64, 64)
+    assert decode_ops.split_plan(4096, 1, H100_SMS, 16, 256, 4) == (64, 64)
+
+
+WIDE_PLAN_SHAPES = [(s, nb, g, d) for s in (64, 200, 1000, 4096, 8192, 32768)
+                    for nb, g in ((1, 16), (4, 48), (2, 64), (8, 9), (64, 16))
+                    for d in (32, 80, 128, 256)]
+
+
+@pytest.mark.parametrize("s,n_blocks,group,d", WIDE_PLAN_SHAPES)
+def test_wide_group_plan_bounds(s, n_blocks, group, d):
+    """decode_group's plan over shapes: chunks a multiple of GROUP_ROWS,
+    the cache covered with no empty chunk at full length, at most one
+    block an SM (or one chunk), and the float32 partials, written and
+    read, within PARTIAL_SHARE of the k and v caches' bytes."""
+    n_splits, chunk = decode_ops.split_plan(s, n_blocks, H100_SMS, group, d)
+    assert chunk % decode_ops.GROUP_ROWS == 0 and chunk % decode_ops.CHUNK_ALIGN == 0
+    assert (n_splits - 1) * chunk < s <= n_splits * chunk
+    assert n_splits == 1 or n_blocks * n_splits <= H100_SMS
+    b, hkv = n_blocks, 1
+    parts = 2 * decode_ops.partial_bytes(b, hkv * group, d, n_splits)
+    assert parts <= decode_ops.PARTIAL_SHARE * b * hkv * s * d * 2 * 2
 
 
 # ------------------------------------------------------ decode wrapper
@@ -310,6 +353,20 @@ def test_decode_wrapper_group_limit(group, ok):
     else:
         with pytest.raises(ValueError, match="q heads per kv head"):
             decode_ops._check_cuda(q, k, k, lengths)
+
+
+def test_decode_wrapper_at_granite_shape():
+    """granite-34b's decode (B=4, 48/1 x 128, bf16): the library gets the
+    group and the wide-group plan, and partials sized for it."""
+    b, h, hkv, s, d = 4, 48, 1, 4096, 128
+    q = torch.zeros((b, h, d), dtype=torch.bfloat16)
+    k = torch.zeros((b, hkv, s, d), dtype=torch.bfloat16)
+    lengths = torch.full((b,), s, dtype=torch.int32)
+    lib = FakeLib()
+    decode_ops._launch(lib, q, k, k, lengths, 0.125, device=0, stream=0, sms=H100_SMS)
+    args = lib.calls[0]
+    assert args[10:16] == (b, hkv, 48, s, 32, 128)
+    assert args[9] - args[8] == b * h * 32 * d * 4  # acc, then (m, l)
 
 
 def test_decode_partials_hold_acc_then_ml():

@@ -275,6 +275,73 @@ def test_decode_shared_memory_rows_hold_every_chunk_once(d, elem):
             assert len(quads) == 8
 
 
+def group_geometry(d: int, mt: int) -> dict:
+    """decode_attention.cu's GGeo<D, MT> (decode_group, bf16 groups above
+    8): MT m-tiles of 16 heads, 64-row steps, k/v rows as decode_split
+    keeps them, q in bf16 rows of DP + 8 elements, scores [head][row + 4]
+    and p [row][heads + 8] in float32, a ring of 3 stages (2 at D = 256)."""
+    _, _, sc = geometry(d, 2)
+    rows, gp, dp = 64, 16 * mt, padded_width(d)
+    g = dict(rows=rows, gp=gp, dp=dp, kk=dp // 16, row_bytes=sc * 16,
+             stages=2 if d > 128 else 3, qs=dp * 2 + 16, ss=rows + 4, ps=gp + 8,
+             ht=gp // 8, cw=dp // 32)
+    g["step"] = 2 * rows * g["row_bytes"]
+    g["bytes"] = (g["stages"] * g["step"] + gp * g["qs"]
+                  + (gp * g["ss"] + rows * g["ps"] + gp) * 4)
+    return g
+
+
+def test_decode_group_constants_are_the_wrappers():
+    """ops.NARROW_GROUP and ops.GROUP_ROWS are the kernel's kNarrowGroup
+    and kGroupRows; GGeo's choices are the lines group_geometry mirrors."""
+    assert f"constexpr int kNarrowGroup = {decode_ops.NARROW_GROUP};" in DECODE_CU
+    assert f"constexpr int kGroupRows = {decode_ops.GROUP_ROWS};" in DECODE_CU
+    assert decode_ops.GROUP_ROWS % decode_ops.CHUNK_ALIGN == 0
+    for line in ("static constexpr int GP = 16 * MT;",
+                 "static constexpr int kStages = D > 128 ? 2 : 3;",
+                 "static constexpr int QS = DP * 2 + 16;",
+                 "static constexpr int SS = R + 4;",
+                 "static constexpr int PS = GP + 8;",
+                 "kStages * kStepBytes + GP * QS + (GP * SS + R * PS + GP) * 4;",
+                 "if (group > kNarrowGroup) {",
+                 "const int mt = (group + 15) / 16;"):
+        assert line in DECODE_CU, line
+    assert -(-decode_ops.MAX_GROUP // 16) == 4  # MT 1 .. 4 cover every group
+
+
+@pytest.mark.parametrize("d", decode_ops.HEAD_DIMS)
+@pytest.mark.parametrize("mt", [1, 2, 3, 4])
+def test_decode_group_shared_memory_and_banks(d, mt):
+    """decode_group<D, MT> fits the block's shared memory at every head
+    dim and head tile count (granite-34b's 48 heads at 128: 138,944 B;
+    recurrentgemma-9b's 16 at 256: 150,080 B; 64 at 256: 200,960 B), and
+    its shared loads keep a warp's 32 lanes on 32 banks: the q fragments
+    (rows QS bytes apart), the k fragments (decode_split's swizzle) and
+    the softmax's score reads (four threads a head)."""
+    g = group_geometry(d, mt)
+    assert g["bytes"] <= SMEM_LIMIT
+    want = {(128, 3): 138_944, (256, 1): 150_080, (256, 4): 200_960}
+    if (d, mt) in want:
+        assert g["bytes"] == want[(d, mt)]
+    assert 4 * g["gp"] <= 256 and g["rows"] // 8 == 8  # softmax threads; a warp per 8 rows
+    assert g["ht"] * 8 == g["gp"] and g["cw"] * 32 == g["dp"] and g["ht"] % 2 == 0
+    for kk in range(g["kk"]):
+        for extra in (0, 16):  # a0 / a2 (and a1 / a3, 8 rows on: the same banks)
+            banks = {((gg * g["qs"] + 32 * kk + extra + 4 * t) // 4) % 32
+                     for gg in range(8) for t in range(4)}
+            assert len(banks) == 32
+    cpr = g["dp"] * 2 // 16
+    if cpr >= 8:
+        for w in range(8):
+            for c in range(cpr):
+                quads = {((8 * w + gg) * g["row_bytes"] + k_offset(8 * w + gg, c, cpr, 2)) // 16 % 8
+                         for gg in range(8)}
+                assert len(quads) == 8
+    for i in range(g["rows"] // 4):
+        banks = {(h * g["ss"] + 4 * i + j) % 32 for h in range(8) for j in range(4)}
+        assert len(banks) == 32
+
+
 # -------------------------------------------------- flash_wgmma geometry
 FLASH_CU = flash_ops.SOURCE.read_text()
 #: shared memory a block may use on the H100 (232,448 of the SM's 256 KB)
@@ -396,8 +463,10 @@ def test_flash_wgmma_geometry_at_64():
     tile = boxes * bk * half * 2
     assert boxes == 1 and tile == 16 * 1024
     # the producer loads `boxes` boxes a tile and expects the bytes they
-    # deliver (a full 64 x 128 box each, rows past S as zero fill)
-    assert FLASH_CU.count("for (int h = 0; h < B; ++h)") == 3
+    # deliver (a full 64 x 128 box each, rows past S as zero fill); at D =
+    # 256 the consumers' loads do the same (load_tile, and q at the start)
+    assert FLASH_CU.count("for (int h = 0; h < B; ++h)") == 5
+    assert "mbar_expect_tx(full + 8 * s, T);" in FLASH_CU
     assert "mbar_expect_tx(bar_q, QT);" in FLASH_CU
     assert FLASH_CU.count("mbar_expect_tx(bar_k + 8 * s, T);") == 1
     assert tile == boxes * half * bk * 2
@@ -431,8 +500,8 @@ def test_flash_wgmma_geometry_at_64():
 
 def test_flash_wgmma_geometry_at_256():
     """flash_wgmma<256> (recurrentgemma-9b): four 64-column spans a row,
-    k and v tiles of 64 keys, a ring of two stages, from the constants
-    and WGeo of flash_attention.cu."""
+    k and v tiles of 64 keys, a ring of two stages, two warpgroups and no
+    producer, from the constants and WGeo of flash_attention.cu."""
     c = cu_consts()
     d, half, bq = 256, c["kHalf"], c["kWBQ"]
     keys, span = c["kWideKeys"], c["kWideSpanBytes"]
@@ -453,13 +522,15 @@ def test_flash_wgmma_geometry_at_256():
     assert "make_map(&tq, q, bh, seq_len, D, kWBQ)" in FLASH_CU
     assert "tma_load(sK + s * T + h * SP, &tm_k" in FLASH_CU
     assert "tma_load(sQ + h * kHalfBytes, &tm_q" in FLASH_CU
-    # the ring: two stages, 197 KB with q, the barriers and 1 KB slack;
-    # three would not fit
+    # the ring: two stages, 197 KB with q, 1 KB slack, the barriers (q; k
+    # landed, v landed, read a stage) and a refill counter a stage; three
+    # stages would not fit
     assert c["kWideStages"] == 2
     assert c["kWideSmem"] == (1024 + c["kWideQBytes"] + 2 * 2 * c["kWideTileBytes"]
-                              + 8 * (1 + 3 * 2))
-    assert c["kWideSmem"] == 197_688 <= SMEM_LIMIT
+                              + 8 * (1 + 3 * 2) + 4 * 2)
+    assert c["kWideSmem"] == 197_696 <= SMEM_LIMIT
     assert 1024 + c["kWideQBytes"] + 2 * 3 * c["kWideTileBytes"] > SMEM_LIMIT
+    assert "st_shared(bar_empty + 8 * R + 4 * s, 0u);" in FLASH_CU
     assert SMEM_PICK in FLASH_CU
     # q.k^T: 16 k-steps of m64n64k16; step kk reads span kk / 4 of q (128
     # rows, kHalfBytes apart) and of k (64 rows, kWideSpanBytes apart), 32 B
@@ -481,9 +552,17 @@ def test_flash_wgmma_geometry_at_256():
                if 8 * j + c2 < d for e in (0, 1)]
     assert sorted(written) == list(range(d))
     # registers a consumer thread holds: o (128), the scores (32) and the
-    # bf16 p (16), under the 240 that setmaxnreg gives a consumer
-    assert pv // 2 + keys // 2 + keys // 4 < 240
-    assert "setmaxnreg.inc.sync.aligned.u32 240;" in FLASH_CU
+    # bf16 p of the tile before (16).  ptxas budgets a block of w warps
+    # 65,536 / 4 / (32 ceil(w / 4)) registers a thread (the register file is
+    # split over four sub-partitions), capped at 255: 12 or 9 warps get 168,
+    # too few; the 8 warps of two warpgroups and no producer get 255
+    def budget(warps):
+        return min(255, 65_536 // 4 // (32 * -(-warps // 4)) // 8 * 8)
+    assert budget(12) == budget(9) == 168 < pv // 2 + keys // 2 + keys // 4
+    assert c["kWideThreads"] == 2 * 128 and budget(c["kWideThreads"] // 32) == 255
+    assert pv // 2 + keys // 2 + keys // 4 < 255
+    assert "static constexpr int threads = D > kWCols ? kWideThreads : kWThreads;" in FLASH_CU
+    assert "__launch_bounds__(WGeo<D>::threads, 1)" in FLASH_CU
     # key tiles a q tile sees, at the tile height: the causal bound reaches
     # the tile of the q tile's last row, the window's its first row's window
     assert "const int hi = causal ? min((q0 + kWBQ - 1) / KB + 1, n_kt) : n_kt;" in FLASH_CU
@@ -552,6 +631,100 @@ def test_overlapped_schedule_turns_balance(n_iter):
     assert overlapped_turns(n_iter) == {1: 0, 2: 0}
     assert "if (wg == 1) bar_arrive(other);" in FLASH_CU
     assert "if (wg == 0) bar_arrive(other);" in FLASH_CU
+
+
+def wide_refills(n_iter: int, ring: int, seed: int, lead: bool = True):
+    """consume_wide<256>'s loads, played out: two warpgroups, no producer.
+    Thread 0 loads tiles 0 .. ring - 1 of k and v; each warpgroup reads k
+    tile j (q.k^T) and v tile j - 1 (p.v) in iteration j, then releases
+    (refill) k tile j and v tile j - 1 (``lead``; else both j - 1): every
+    thread arrives on the release's barrier and thread 0 counts at its
+    slot's counter; the second to count loads each released tile + ring
+    into its stage.  The two warpgroups and the copies in flight advance
+    in a random order.  Returns each ring's loads, or None on a deadlock;
+    asserts that a tile is read from its own stage once it has landed and
+    that a stage is refilled only after both warpgroups released it."""
+    import random
+
+    rnd = random.Random(seed)
+    stage = {"k": [None] * ring, "v": [None] * ring}  # tile landed in each stage
+    released = {"k": {}, "v": {}}  # tile -> warpgroups that released it
+    count = [0] * ring
+    loads = {"k": [], "v": []}
+    flight = []  # (ring, tile) copies issued, not landed
+
+    def load(r, tile):
+        if tile >= ring:  # the stage's last tile was released by both
+            assert released[r].get(tile - ring, set()) == {0, 1}
+        stage[r][tile % ring] = None
+        loads[r].append(tile)
+        flight.append((r, tile))
+
+    def program():
+        ops = [("read", "k", 0)] + ([("release", 0, -1)] if lead else [])
+        for j in range(1, n_iter):
+            ops += [("read", "k", j), ("read", "v", j - 1),
+                    ("release", j if lead else j - 1, j - 1)]
+        return ops + [("read", "v", n_iter - 1)]
+
+    for tile in range(min(ring, n_iter)):
+        load("k", tile)
+        load("v", tile)
+    progs, pcs = [program(), program()], [0, 0]
+    while pcs[0] < len(progs[0]) or pcs[1] < len(progs[1]) or flight:
+        moves = [("land", i) for i in range(len(flight))]
+        for wg in (0, 1):
+            if pcs[wg] == len(progs[wg]):
+                continue
+            op = progs[wg][pcs[wg]]
+            if op[0] == "release" or stage[op[1]][op[2] % ring] == op[2]:
+                moves.append(("wg", wg))
+        if not moves:
+            return None
+        what, i = rnd.choice(moves)
+        if what == "land":
+            r, tile = flight.pop(i)
+            stage[r][tile % ring] = tile
+            continue
+        op = progs[i][pcs[i]]
+        pcs[i] += 1
+        if op[0] == "release":
+            _, kt, vt = op
+            nxt = [(r, t + ring) for r, t in (("k", kt), ("v", vt))
+                   if t >= 0 and t + ring < n_iter]
+            for r, t in (("k", kt), ("v", vt)):
+                if t >= 0:
+                    released[r].setdefault(t, set()).add(i)
+            if nxt:
+                old = count[kt % ring]
+                count[kt % ring] += 1
+                if old % 2:  # the second to count: both released, refill
+                    for r, t in nxt:
+                        load(r, t)
+    return loads
+
+
+@pytest.mark.parametrize("n_iter", [1, 2, 3, 4, 7, 32])
+@pytest.mark.parametrize("lead", [True, False])
+def test_wide_refills_load_every_tile_once(n_iter, lead):
+    """consume_wide's refills never deadlock, load every k and v tile once
+    into its stage, after both warpgroups released the tile before it, in
+    any order the warpgroups and copies take (a block sees 1 to S/64 key
+    tiles), with k refilled a tile ahead (kLead) or with v.  The kernel's
+    lines are the ones played out."""
+    ring = cu_consts()["kWideStages"]
+    for seed in range(30):
+        loads = wide_refills(n_iter, ring, seed, lead)
+        assert loads is not None, seed
+        assert sorted(loads["k"]) == list(range(n_iter)) == sorted(loads["v"])
+    for line in ("const bool k_next = kt >= 0 && kt + R < n_iter, v_next = vt >= 0 && vt + R < n_iter;",
+                 "(atom_add_shared(cnt + 4 * s, 1u) & 1u)) {",
+                 "mbar_wait(read + 8 * s, (j / R) & 1);",
+                 "const int kt = kLead ? it : it - 1;",
+                 "refill<D>(bar_read, cnt, sK, sV, bar_k, bar_v, tm_k, tm_v, kt, kt, it - 1, n_iter,",
+                 "refill<D>(bar_read, cnt, sK, sV, bar_k, bar_v, tm_k, tm_v, 0, 0, -1, n_iter, lo, kvh);",
+                 "for (int it = 0; it < R && it < n_iter; ++it) {"):
+        assert line in FLASH_CU, line
 
 
 # ------------------------------------------------------------------ LM

@@ -19,7 +19,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "tools").glob("*.py")))
 
 _BLOCKED_IMPORT = r'''
 import importlib, pkgutil, sys
