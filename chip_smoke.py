@@ -372,12 +372,12 @@ def kernel_label(mangled: str) -> str:
     128>`` from a mangled kernel name."""
     import re
 
-    m = re.search(r"\d+([a-z_]+)I(.*?)EEEv", mangled)
+    m = re.search(r"\d+([a-z_]+)I(.*?)EEv", mangled)
     if m is None:
         return mangled
     types = {"13__nv_bfloat16": "bf16", "f": "f32", "i": "i32", "j": "u32"}
     words = [num or types[typ] for num, typ in
-             re.findall(r"L[ij](\d+)E|(13__nv_bfloat16|[fij])", m.group(2) + "E")]
+             re.findall(r"L[ij](\d+)E|(13__nv_bfloat16|[fij])", m.group(2))]
     return f"{m.group(1)}<{', '.join(words)}>"
 
 

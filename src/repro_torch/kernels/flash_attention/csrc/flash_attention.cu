@@ -39,7 +39,7 @@
 //   stages x 2 x 64 KB = 320 KB): k and v tiles hold 64 keys (four spans of
 //   64 rows, 32 KB; boxes 64 x 64), two stages, 197 KB in all; q.k^T is
 //   m64n64k16 and p.v one m64n256k16 a k-step (o is 128 float registers a
-//   thread).  The tensor
+//   thread), and the block has no producer (below).  The tensor
 //   map's rows are D elements long (128, 160, 240, 256 or 512 bytes, each a
 //   multiple of 16 as TMA requires) and its boxes 64 x 128, one box per
 //   span, so at 80 and 120 columns D .. 127 of the second span land as
@@ -60,7 +60,7 @@
 //   are neighbours in the grid, so their k/v tiles are read from device
 //   memory about once.
 //
-//   Schedules (consume).  At D = 80, 120, 128 and 256 each warpgroup runs q.k^T,
+//   Schedules (consume).  At D = 80, 120 and 128 each warpgroup runs q.k^T,
 //   its softmax and p.v in turn.  At D = 64 a tile's 8,192 exponentials a
 //   warpgroup take the SM's 16 MUFU lanes as long as its two products take
 //   the tensor cores, so that schedule would leave the tensor cores idle
@@ -69,6 +69,28 @@
 //   products do, and q.k^T of tile j starts together with p.v of tile j - 1.
 //   The D = 64 softmax also spends fewer instructions an element (one FMA
 //   and one ex2.approx.ftz; online_softmax_fma).
+//
+//   D = 256 (consume_wide) takes the same turns and overlap, and what bounds
+//   it there is registers.  ptxas budgets a kernel's registers by its launch
+//   bound, for every warp alike: with 12 warps (or 9) three share an SM
+//   sub-partition's 16 K registers, so 168 a thread, and setmaxnreg does not
+//   raise what ptxas allocates (the SASS of the 384-thread kernel used no
+//   register above R166 after its setmaxnreg 240).  o alone is 128 a thread,
+//   the scores 32 and p 16: the 384-thread kernel spilled 376 B, and once
+//   o's registers spill ptxas serialises every wgmma (a wait after each).
+//   So a D = 256 block is the two consumer warpgroups alone, 8 warps, 255
+//   registers (233 used, no spills), and the consumers load k and v
+//   themselves: thread 0 loads q and the first two tiles; after each
+//   iteration every consumer arrives on that iteration's "read" barrier and
+//   thread 0 of each warpgroup counts at its slot's counter in shared
+//   memory; the warpgroup that counts second has seen both release the
+//   stages and loads k tile j + 2 and v tile j + 1 into them.  The softmax
+//   is the D = 64 one (one FMA and one ex2.approx.ftz an element, maxima
+//   over the unscaled scores, scale > 0) with a lazy maximum: a row's
+//   running maximum moves only when the tile's exceeds it 2^8-fold, so o is
+//   rescaled on few tiles.  Without the turns, with an eager maximum or the
+//   serial softmax, with k refilled with v, with 32 or 48 keys a tile, or
+//   with q in registers, it measured slower (PERF.md).
 //
 //   Rounding: q and k enter q.k^T as they are (bf16, exact products,
 //   float32 sums); p is rounded to bf16 before p.v, and the denominator sums
@@ -96,7 +118,8 @@
 // -1e30 minus a finite max), and causal and windowed rows always see one,
 // so the result does not depend on the tile sizes; keys at or past S (the
 // ragged last tile) are -inf and contribute nothing at all.  flash_wgmma<64>
-// masks with -inf throughout, which for such rows is the same function.
+// and flash_wgmma<256> mask with -inf throughout, which for such rows is the
+// same function.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -490,10 +513,6 @@ __device__ __forceinline__ void bar_sync(int id) {
 __device__ __forceinline__ void bar_arrive(int id) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(kConsumers * 128) : "memory");
 }
-// Named barrier `id` over one warpgroup's 128 threads.
-__device__ __forceinline__ void wg_bar_sync(int id) {
-  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
-}
 // Keep the compiler from reading accumulators before the wait.
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
@@ -548,84 +567,6 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       "}\n"
       : R32
       : "l"(da), "l"(db), "r"(accumulate));
-}
-
-#define WG_D16                                   \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, "            \
-  "%8, %9, %10, %11, %12, %13, %14, %15}"
-#define R16 R8(0), R8(8)
-
-#define WG_D24                                   \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, "            \
-  "%8, %9, %10, %11, %12, %13, %14, %15, "       \
-  "%16, %17, %18, %19, %20, %21, %22, %23}"
-#define R24 R8(0), R8(8), R8(16)
-
-// d (+)= A . B^T, m64n48k16.
-__device__ __forceinline__ void wgmma_ss(float (&d)[24], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %26, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 " WG_D24
-      ", %24, %25, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : R24
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (+)= A . B^T, m64n32k16 (32-key tiles at D = 256).
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_D16
-      ", %16, %17, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : R16
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (+)= A . B^T, A in registers (bf16 pairs: q's fragments), B K-major in
-// shared memory: m64n32k16, m64n48k16 and m64n64k16 (q.k^T at D = 256).
-__device__ __forceinline__ void wgmma_rk(float (&d)[16], const uint32_t (&a)[4],
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_D16
-      ", {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
-      "}\n"
-      : R16
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-__device__ __forceinline__ void wgmma_rk(float (&d)[24], const uint32_t (&a)[4],
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 " WG_D24
-      ", {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n"
-      "}\n"
-      : R24
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-__device__ __forceinline__ void wgmma_rk(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-      "}\n"
-      : R32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // d += A . B, m64n128k16, A in registers (bf16 pairs), B MN-major bf16 in
@@ -1130,81 +1071,15 @@ __device__ __forceinline__ void consume_overlap(
   store_rows<D>(o, l0, l1, row0, row1, c2, op, seq_len);
 }
 
-// The serial schedule's online softmax over one warpgroup's 64 x KB score
-// tile, in place (accumulator layout of m64nKB), with the scale applied
-// first and -1e30 masks, so any scale is taken: updates m0, m1 and this
-// thread's share of l0, l1; returns the factors that bring o to the new
-// maxima in corr0, corr1.
-template <int KB>
-__device__ __forceinline__ void online_softmax_exp2(
-    float (&sc)[KB / 2], int k0, int wrow, int row0, int row1, int c2, int seq_len,
-    int causal, int window, float scale_log2, float& m0, float& m1, float& l0,
-    float& l1, float& corr0, float& corr1) {
-  const bool edge = k0 + KB > seq_len ||
-                    (causal && k0 + KB - 1 > wrow) ||
-                    (window > 0 && k0 <= wrow + 63 - window);
-  float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-  for (int j = 0; j < KB / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float a = sc[4 * j + e] * scale_log2, b = sc[4 * j + 2 + e] * scale_log2;
-      if (edge) {
-        const int col = k0 + 8 * j + c2 + e;
-        bool keep0 = true, keep1 = true;
-        if (causal) {
-          keep0 &= col <= row0;
-          keep1 &= col <= row1;
-        }
-        if (window > 0) {
-          keep0 &= col > row0 - window;
-          keep1 &= col > row1 - window;
-        }
-        a = col >= seq_len ? -INFINITY : (keep0 ? a : kNegInf);
-        b = col >= seq_len ? -INFINITY : (keep1 ? b : kNegInf);
-      }
-      sc[4 * j + e] = a;
-      sc[4 * j + 2 + e] = b;
-      mx0 = fmaxf(mx0, a);
-      mx1 = fmaxf(mx1, b);
-    }
-  }
-#pragma unroll
-  for (int o_ = 1; o_ < 4; o_ <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
-  }
-  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-  corr0 = exp2f(m0 - mn0);
-  corr1 = exp2f(m1 - mn1);
-  m0 = mn0;
-  m1 = mn1;
-  float ls0 = 0.0f, ls1 = 0.0f;
-#pragma unroll
-  for (int j = 0; j < KB / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float p0 = exp2f(sc[4 * j + e] - mn0);
-      const float p1 = exp2f(sc[4 * j + 2 + e] - mn1);
-      sc[4 * j + e] = p0;
-      sc[4 * j + 2 + e] = p1;
-      ls0 += p0;
-      ls1 += p1;
-    }
-  }
-  l0 = l0 * corr0 + ls0;
-  l1 = l1 * corr1 + ls1;
-}
-
 // consume_wide's online softmax over one warpgroup's 64 x KB score tile
 // (accumulator layout of m64nKB), in place.  The form of
 // online_softmax_fma: masked keys -inf, maxima over the unscaled scores
-// (scale > 0), one FFMA and one ex2.approx.ftz an element.  With kLazy, a
-// row's running maximum moves only when the tile's exceeds it by more than
-// 8 in log2 units of the scaled scores (p then stays below 2^8, exact in
+// (scale > 0), one FFMA and one ex2.approx.ftz an element.  A row's running
+// maximum is lazy: it moves only when the tile's exceeds it by more than 8
+// in log2 units of the scaled scores (p then stays below 2^8, exact in
 // float32 and as relatively precise in bf16), so corr is exactly 1 on most
 // tiles and the caller skips o's rescale; o / l is the same function.
-template <int KB, bool kLazy>
+template <int KB>
 __device__ __forceinline__ void online_softmax_wide(
     float (&sc)[KB / 2], int k0, int wrow, int row0, int row1, int c2, int seq_len,
     int causal, int window, float scale_log2, float& m0, float& m1, float& l0,
@@ -1255,10 +1130,9 @@ __device__ __forceinline__ void online_softmax_wide(
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
   }
   float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-  if (kLazy) {  // keep the old maximum unless the new one is 2^8 times larger
-    if ((mn0 - m0) * scale_log2 <= 8.0f) mn0 = m0;
-    if ((mn1 - m1) * scale_log2 <= 8.0f) mn1 = m1;
-  }
+  // keep the old maximum unless the new one is 2^8 times larger
+  if ((mn0 - m0) * scale_log2 <= 8.0f) mn0 = m0;
+  if ((mn1 - m1) * scale_log2 <= 8.0f) mn1 = m1;
   corr0 = ex2((m0 - mn0) * scale_log2);
   corr1 = ex2((m1 - mn1) * scale_log2);
   m0 = mn0;
@@ -1324,10 +1198,14 @@ __device__ __forceinline__ void refill(uint32_t read, uint32_t cnt, uint32_t sK,
 // j runs while p.v of tile j - 1 is on the tensor cores (wait_group 1, then
 // 0), and the bf16 p of tile j - 1 stays in registers until that product
 // retires.  o is rescaled after p.v of tile j - 1 lands: o = (o + p v) *
-// corr.  Live across the softmax: o (128 floats), the scores (KB / 2) and
-// the last tile's p (KB / 4).  There is no producer: after each
-// iteration's products the consumers release the k and v stages they have
-// read and the warpgroup that releases them second refills them (refill).
+// corr, and only when a row's lazy maximum moved (online_softmax_wide).
+// Live across the softmax: o (128 floats), the scores (KB / 2) and the last
+// tile's p (KB / 4).  The two warpgroups take turns issuing their products
+// (named barriers 1 and 2, as consume_overlap), so one's softmax runs while
+// the other's products do.  There is no producer: after each iteration's
+// products the consumers release k tile j (q.k^T has retired) and v tile
+// j - 1, and the warpgroup that releases them second refills their stages
+// with tiles j + R and j - 1 + R (refill), k a tile ahead of v.
 template <int D>
 __device__ __forceinline__ void consume_wide(
     uint32_t sQ, uint32_t sK, uint32_t sV, uint32_t bar_q, uint32_t bar_k,
@@ -1337,9 +1215,6 @@ __device__ __forceinline__ void consume_wide(
     int kvh) {
   constexpr int R = WGeo<D>::ring, T = WGeo<D>::tile, KB = WGeo<D>::keys;
   constexpr int SP = WGeo<D>::span;
-  // k tile it is free once q.k^T of tile it retires, before p.v of tile
-  // it - 1 does: refilled in iteration it (a tile ahead), or with v in it + 1
-  constexpr bool kLead = true;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
   const int c2 = 2 * (lane % 4);
@@ -1353,22 +1228,14 @@ __device__ __forceinline__ void consume_wide(
   float sc[KB / 2];
   uint32_t pa[KB / 4];
 
-  // q in registers as the A operand of q.k^T (kQRegs), else read from
-  // shared memory by each product
-  constexpr bool kQRegs = false;
-  uint32_t qa[kQRegs ? D / 16 : 1][4];
   // q.k^T of tile `it` into sc: D / 16 steps, four per 64-column span
   auto qk = [&](int it) {
     const uint32_t tK = sK + (it % R) * T;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
-      const uint64_t db = sw128_desc(tK + (kk / 4) * SP + off, 16, 1024);
-      if constexpr (kQRegs)
-        wgmma_rk(sc, qa[kk], db, kk > 0);
-      else
-        wgmma_ss(sc, sw128_desc(sQ + (kk / 4) * kHalfBytes + off + wg * 64 * 128, 16, 1024),
-                 db, kk > 0);
+      wgmma_ss(sc, sw128_desc(sQ + (kk / 4) * kHalfBytes + off + wg * 64 * 128, 16, 1024),
+               sw128_desc(tK + (kk / 4) * SP + off, 16, 1024), kk > 0);
     }
   };
   // o += p . v of tile `it`: KB / 16 steps of m64n256k16, v's spans SP apart
@@ -1379,16 +1246,9 @@ __device__ __forceinline__ void consume_wide(
       wgmma_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
                sw128_desc(tV + kk * 16 * 128, SP, 1024));
   };
-  // the FMA softmax with a lazy maximum (kFma; scale > 0), else the serial
-  // schedule's (scale first, -1e30 masks, exp2f)
-  constexpr bool kFma = true, kLazy = true;
   auto softmax = [&](int k0) {
-    if constexpr (kFma)
-      online_softmax_wide<KB, kLazy>(sc, k0, wrow, row0, row1, c2, seq_len, causal,
-                                     window, scale_log2, m0, m1, l0, l1, corr0, corr1);
-    else
-      online_softmax_exp2<KB>(sc, k0, wrow, row0, row1, c2, seq_len, causal, window,
-                              scale_log2, m0, m1, l0, l1, corr0, corr1);
+    online_softmax_wide<KB>(sc, k0, wrow, row0, row1, c2, seq_len, causal, window,
+                            scale_log2, m0, m1, l0, l1, corr0, corr1);
   };
   auto pack = [&]() {
 #pragma unroll
@@ -1398,49 +1258,30 @@ __device__ __forceinline__ void consume_wide(
     }
   };
 
-  constexpr bool kTurns = true;  // the warpgroups take turns at the tensor cores
   const int mine = 1 + wg, other = 2 - wg;  // named barriers: whose turn
   mbar_wait(bar_q, 0);
-  if constexpr (kQRegs) {
-    // this thread's A fragments of q: rows r and r + 8 (r = 16 warp + lane
-    // / 4 of the warpgroup's 64), columns 16 kk + 2 (lane % 4) (+ 1) and 8
-    // on, from the 128-byte swizzle (chunk c of row r at c ^ (r % 8))
-    const int r = wg * 64 + 16 * warp + lane / 4;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = r + 8 * (i & 1), chunk = 2 * (kk % 4) + (i >> 1);
-        const uint32_t addr = sQ + (kk / 4) * kHalfBytes + row * 128 +
-                              ((chunk ^ (row % 8)) * 16) + 4 * (lane % 4);
-        asm volatile("ld.shared.u32 %0, [%1];" : "=r"(qa[kk][i]) : "r"(addr));
-      }
-  }
   mbar_wait(bar_k, 0);
-  if constexpr (kTurns) {
-    if (wg == 1) bar_arrive(other);  // warpgroup 0 goes first
-    bar_sync(mine);
-  }
+  if (wg == 1) bar_arrive(other);  // warpgroup 0 goes first
+  bar_sync(mine);
   wg_fence();
   qk(0);
   wg_commit();
-  if constexpr (kTurns) bar_arrive(other);
+  bar_arrive(other);
   wg_wait_all();
   fence_regs(sc);
-  if constexpr (kLead)
-    refill<D>(bar_read, cnt, sK, sV, bar_k, bar_v, tm_k, tm_v, 0, 0, -1, n_iter, lo, kvh);
+  refill<D>(bar_read, cnt, sK, sV, bar_k, bar_v, tm_k, tm_v, 0, 0, -1, n_iter, lo, kvh);
   softmax(lo * KB);
   pack();  // o is 0: nothing to rescale
   for (int it = 1; it < n_iter; ++it) {
     mbar_wait(bar_k + 8 * (it % R), (it / R) & 1);
     mbar_wait(bar_v + 8 * ((it - 1) % R), ((it - 1) / R) & 1);
-    if constexpr (kTurns) bar_sync(mine);
+    bar_sync(mine);
     wg_fence();
     qk(it);
     wg_commit();
     pv(it - 1);
     wg_commit();
-    if constexpr (kTurns) bar_arrive(other);
+    bar_arrive(other);
     wg_wait_one();  // q.k^T of tile it
     fence_regs(sc);
     softmax((lo + it) * KB);
@@ -1448,19 +1289,19 @@ __device__ __forceinline__ void consume_wide(
     fence_regs(o);
     // refilled with no product in flight (a refill's atomics and copies
     // between a wgmma and its wait make ptxas serialise every wgmma)
-    const int kt = kLead ? it : it - 1;  // the k tile released, and the refill's slot
-    refill<D>(bar_read, cnt, sK, sV, bar_k, bar_v, tm_k, tm_v, kt, kt, it - 1, n_iter,
-              lo, kvh);
+    refill<D>(bar_read, cnt, sK, sV, bar_k, bar_v, tm_k, tm_v, it, it, it - 1, n_iter, lo,
+              kvh);
     if (corr0 != 1.0f || corr1 != 1.0f) rescale(o, corr0, corr1);
     pack();
   }
+  // p.v of the last tile.  Each warpgroup takes n_iter + 1 turns, so
+  // warpgroup 1's last arrive would be one more than warpgroup 0 waits for.
   mbar_wait(bar_v + 8 * ((n_iter - 1) % R), ((n_iter - 1) / R) & 1);
-  if constexpr (kTurns) bar_sync(mine);
+  bar_sync(mine);
   wg_fence();
   pv(n_iter - 1);
   wg_commit();
-  if constexpr (kTurns)
-    if (wg == 0) bar_arrive(other);  // each takes n_iter + 1 turns
+  if (wg == 0) bar_arrive(other);
   wg_wait_all();
   fence_regs(o);
   store_rows<D>(o, l0, l1, row0, row1, c2, op, seq_len);
@@ -1474,7 +1315,7 @@ __global__ void __launch_bounds__(WGeo<D>::threads, 1)
                 __nv_bfloat16* __restrict__ out, int seq_len, int group,
                 int causal, float scale_log2, int window) {
   constexpr int B = WGeo<D>::boxes, T = WGeo<D>::tile, R = WGeo<D>::ring;
-  constexpr int QT = WGeo<D>::qtile, KB = WGeo<D>::keys, SP = WGeo<D>::span;
+  constexpr int QT = WGeo<D>::qtile, KB = WGeo<D>::keys;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
@@ -1536,15 +1377,9 @@ __global__ void __launch_bounds__(WGeo<D>::threads, 1)
       for (int h = 0; h < B; ++h)
         tma_load(sQ + h * kHalfBytes, &tm_q, bar_q, h * kHalf, q0, bh);
       for (int it = 0; it < n_iter; ++it) {
-        const int s = it % R;
-        mbar_wait(bar_empty + 8 * s, ((it / R) & 1) ^ 1);
-        const int k0 = (lo + it) * KB;
-        mbar_expect_tx(bar_k + 8 * s, T);
-        for (int h = 0; h < B; ++h)
-          tma_load(sK + s * T + h * SP, &tm_k, bar_k + 8 * s, h * kHalf, k0, kvh);
-        mbar_expect_tx(bar_v + 8 * s, T);
-        for (int h = 0; h < B; ++h)
-          tma_load(sV + s * T + h * SP, &tm_v, bar_v + 8 * s, h * kHalf, k0, kvh);
+        mbar_wait(bar_empty + 8 * (it % R), ((it / R) & 1) ^ 1);
+        load_tile<D>(sK, bar_k, &tm_k, it, lo, kvh);
+        load_tile<D>(sV, bar_v, &tm_v, it, lo, kvh);
       }
     }
   } else {

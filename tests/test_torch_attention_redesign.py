@@ -382,3 +382,35 @@ def test_decode_partials_hold_acc_then_ml():
     n_splits = decode_ops.split_plan(s, b * hkv, H100_SMS)[0]
     assert n_splits > 1 and args[8] != 0
     assert args[9] - args[8] == b * h * n_splits * d * 4
+
+
+# ------------------------------------------------------- ptxas report
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__8c2aef73_18_flash_attention_cu_23f0aea711flash_wgmmaILi256EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16iiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__8c2aef73_18_flash_attention_cu_23f0aea711flash_wgmmaILi256EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16iiifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 233 registers, used 16 barriers
+ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__19acd4fc_19_decode_attention_cu_3848999b12decode_groupILi128ELi3EEEvPK13__nv_bfloat16' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 104 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__19acd4fc_19_decode_attention_cu_3848999b12decode_splitIfLi120EEEvPKT_S3_S3_PKiPS1_Pf' for 'sm_90a'
+    56 bytes stack frame, 56 bytes spill stores, 56 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 56 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__48c8a485_19_fused_filter_agg_cu_6f2cae1123fused_filter_agg_kernelIifEEvPKiPKT_PKT0_xx' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers, 3088 bytes smem
+"""
+
+
+def test_ptxas_report_names_every_kernel_with_its_registers_and_spills():
+    """chip_smoke's phase 1 line: each kernel of ptxas's -v report by a
+    readable name (template arguments as numbers and bf16 / f32 / i32),
+    its registers and its spill bytes."""
+    report = chip_smoke.ptxas_report({"a": PTXAS_LOG})
+    assert report == {
+        "flash_wgmma<256>": {"registers": 233, "spill_stores": 0, "spill_loads": 0},
+        "decode_group<128, 3>": {"registers": 104, "spill_stores": 0, "spill_loads": 0},
+        "decode_split<f32, 120>": {"registers": 128, "spill_stores": 56, "spill_loads": 56},
+        "fused_filter_agg_kernel<i32, f32>": {"registers": 48, "spill_stores": 0,
+                                              "spill_loads": 0},
+    }

@@ -462,13 +462,13 @@ def test_flash_wgmma_geometry_at_64():
     boxes = -(-d // half)
     tile = boxes * bk * half * 2
     assert boxes == 1 and tile == 16 * 1024
-    # the producer loads `boxes` boxes a tile and expects the bytes they
-    # deliver (a full 64 x 128 box each, rows past S as zero fill); at D =
-    # 256 the consumers' loads do the same (load_tile, and q at the start)
-    assert FLASH_CU.count("for (int h = 0; h < B; ++h)") == 5
-    assert "mbar_expect_tx(full + 8 * s, T);" in FLASH_CU
+    # every k and v tile is `boxes` boxes and expects the bytes they deliver
+    # (a full 64 x 128 box each, rows past S as zero fill): load_tile, which
+    # the producer and, at D = 256, the consumers call; q likewise
+    assert FLASH_CU.count("for (int h = 0; h < B; ++h)") == 3
+    assert FLASH_CU.count("mbar_expect_tx(full + 8 * s, T);") == 1
+    assert FLASH_CU.count("mbar_expect_tx(bar_q, QT);") == 2
     assert "mbar_expect_tx(bar_q, QT);" in FLASH_CU
-    assert FLASH_CU.count("mbar_expect_tx(bar_k + 8 * s, T);") == 1
     assert tile == boxes * half * bk * 2
     # no box starts past column 0 or reaches past column 64
     box_columns = [(h * half, h * half + half) for h in range(boxes)]
@@ -520,7 +520,8 @@ def test_flash_wgmma_geometry_at_256():
     assert c["kWideQBytes"] == boxes * c["kHalfBytes"] == 64 * 1024
     assert "make_map(&tk, k, bh / group, seq_len, D, WGeo<D>::keys)" in FLASH_CU
     assert "make_map(&tq, q, bh, seq_len, D, kWBQ)" in FLASH_CU
-    assert "tma_load(sK + s * T + h * SP, &tm_k" in FLASH_CU
+    assert "tma_load(ring + s * T + h * SP, map, full + 8 * s, h * kHalf, (lo + it) * KB, kvh);" \
+        in FLASH_CU
     assert "tma_load(sQ + h * kHalfBytes, &tm_q" in FLASH_CU
     # the ring: two stages, 197 KB with q, 1 KB slack, the barriers (q; k
     # landed, v landed, read a stage) and a refill counter a stage; three
@@ -633,14 +634,13 @@ def test_overlapped_schedule_turns_balance(n_iter):
     assert "if (wg == 0) bar_arrive(other);" in FLASH_CU
 
 
-def wide_refills(n_iter: int, ring: int, seed: int, lead: bool = True):
+def wide_refills(n_iter: int, ring: int, seed: int):
     """consume_wide<256>'s loads, played out: two warpgroups, no producer.
     Thread 0 loads tiles 0 .. ring - 1 of k and v; each warpgroup reads k
     tile j (q.k^T) and v tile j - 1 (p.v) in iteration j, then releases
-    (refill) k tile j and v tile j - 1 (``lead``; else both j - 1): every
-    thread arrives on the release's barrier and thread 0 counts at its
-    slot's counter; the second to count loads each released tile + ring
-    into its stage.  The two warpgroups and the copies in flight advance
+    (refill) k tile j and v tile j - 1: every thread arrives on the
+    release's barrier and thread 0 counts at its slot's counter; the second
+    to count loads each released tile + ring into its stage.  The two warpgroups and the copies in flight advance
     in a random order.  Returns each ring's loads, or None on a deadlock;
     asserts that a tile is read from its own stage once it has landed and
     that a stage is refilled only after both warpgroups released it."""
@@ -661,10 +661,9 @@ def wide_refills(n_iter: int, ring: int, seed: int, lead: bool = True):
         flight.append((r, tile))
 
     def program():
-        ops = [("read", "k", 0)] + ([("release", 0, -1)] if lead else [])
+        ops = [("read", "k", 0), ("release", 0, -1)]
         for j in range(1, n_iter):
-            ops += [("read", "k", j), ("read", "v", j - 1),
-                    ("release", j if lead else j - 1, j - 1)]
+            ops += [("read", "k", j), ("read", "v", j - 1), ("release", j, j - 1)]
         return ops + [("read", "v", n_iter - 1)]
 
     for tile in range(min(ring, n_iter)):
@@ -705,26 +704,27 @@ def wide_refills(n_iter: int, ring: int, seed: int, lead: bool = True):
 
 
 @pytest.mark.parametrize("n_iter", [1, 2, 3, 4, 7, 32])
-@pytest.mark.parametrize("lead", [True, False])
-def test_wide_refills_load_every_tile_once(n_iter, lead):
+def test_wide_refills_load_every_tile_once(n_iter):
     """consume_wide's refills never deadlock, load every k and v tile once
     into its stage, after both warpgroups released the tile before it, in
     any order the warpgroups and copies take (a block sees 1 to S/64 key
-    tiles), with k refilled a tile ahead (kLead) or with v.  The kernel's
-    lines are the ones played out."""
+    tiles).  The kernel's lines are the ones played out, and it takes the
+    D = 64 schedule's turns (test_overlapped_schedule_turns_balance)."""
     ring = cu_consts()["kWideStages"]
     for seed in range(30):
-        loads = wide_refills(n_iter, ring, seed, lead)
+        loads = wide_refills(n_iter, ring, seed)
         assert loads is not None, seed
         assert sorted(loads["k"]) == list(range(n_iter)) == sorted(loads["v"])
     for line in ("const bool k_next = kt >= 0 && kt + R < n_iter, v_next = vt >= 0 && vt + R < n_iter;",
                  "(atom_add_shared(cnt + 4 * s, 1u) & 1u)) {",
                  "mbar_wait(read + 8 * s, (j / R) & 1);",
-                 "const int kt = kLead ? it : it - 1;",
-                 "refill<D>(bar_read, cnt, sK, sV, bar_k, bar_v, tm_k, tm_v, kt, kt, it - 1, n_iter,",
+                 "refill<D>(bar_read, cnt, sK, sV, bar_k, bar_v, tm_k, tm_v, it, it, it - 1, n_iter, lo,",
                  "refill<D>(bar_read, cnt, sK, sV, bar_k, bar_v, tm_k, tm_v, 0, 0, -1, n_iter, lo, kvh);",
                  "for (int it = 0; it < R && it < n_iter; ++it) {"):
         assert line in FLASH_CU, line
+    body = cu_function("consume_wide")
+    assert body.count("bar_sync(mine);") == 3 and "if (wg == 1) bar_arrive(other);" in body
+    assert body.count("bar_arrive(other);") == 4 and "if (wg == 0) bar_arrive(other);" in body
 
 
 # ------------------------------------------------------------------ LM

@@ -35,49 +35,13 @@ import sys
 from pathlib import Path
 
 #: name -> (file stem -> [(old, new), ...]); every ``old`` must occur in the
-#: source.  Each changes one choice of the D = 256 flash kernel or of the
-#: wide-group decode, so that it can be timed beside the sources' own.
+#: source.  Each changes one choice of a kernel, so that it can be timed
+#: beside the sources' own.
 VARIANTS = {
     # decode: every bf16 group on decode_group, not groups above 8 only
     "decode_group_for_all": {
         "decode_attention": [("constexpr int kNarrowGroup = 8;",
                               "constexpr int kNarrowGroup = 0;")],
-    },
-    # flash_wgmma<256>: the warpgroups issue their products whenever ready
-    "no_turns": {
-        "flash_attention": [("constexpr bool kTurns = true;", "constexpr bool kTurns = false;")],
-    },
-    # flash_wgmma<256>: the running maximum moves with every larger score
-    "eager_max": {
-        "flash_attention": [("constexpr bool kFma = true, kLazy = true;",
-                             "constexpr bool kFma = true, kLazy = false;")],
-    },
-    # flash_wgmma<256>: the serial schedule's softmax (scale first, -1e30
-    # masks, exp2f) and a running maximum that moves with every larger score
-    "exp2_softmax": {
-        "flash_attention": [("constexpr bool kFma = true, kLazy = true;",
-                             "constexpr bool kFma = false, kLazy = false;")],
-    },
-    # flash_wgmma<256>: a k tile refilled with the v tile of its iteration,
-    # not a tile ahead
-    "k_with_v": {
-        "flash_attention": [("constexpr bool kLead = true;", "constexpr bool kLead = false;")],
-    },
-    # flash_wgmma<256>: 32-key tiles in a ring of four stages
-    "keys32": {
-        "flash_attention": [("constexpr int kWideKeys = 64;", "constexpr int kWideKeys = 32;"),
-                            ("constexpr int kWideStages = 2;", "constexpr int kWideStages = 4;")],
-    },
-    # flash_wgmma<256>: 48-key tiles in a ring of three stages
-    "keys48": {
-        "flash_attention": [("constexpr int kWideKeys = 64;", "constexpr int kWideKeys = 48;"),
-                            ("constexpr int kWideStages = 2;", "constexpr int kWideStages = 3;")],
-    },
-    # flash_wgmma<256>: q in registers as q.k^T's A operand, 32-key tiles
-    "q_in_registers": {
-        "flash_attention": [("constexpr int kWideKeys = 64;", "constexpr int kWideKeys = 32;"),
-                            ("constexpr int kWideStages = 2;", "constexpr int kWideStages = 4;"),
-                            ("constexpr bool kQRegs = false;", "constexpr bool kQRegs = true;")],
     },
 }
 
