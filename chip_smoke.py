@@ -184,7 +184,10 @@ Phases, each of which fails the script (non-zero exit) on any error:
    [...]}`` line for all three kernels, each row with the card and its
    power limit and each flash row with the kernel that ran
    (``flash_wgmma`` or ``flash_fwd``) and, for the configs, phase 6c's,
-   6e's or 6f's forward time; the rows count the launches of phases 6,
+   6e's or 6f's forward time; each config's decode row with its kernel
+   (``decode_split`` or ``decode_group``), plan, partial and cache bytes,
+   and each config row with its kernel's ptxas registers and spills (phase
+   1's report); the rows count the launches of phases 6,
    6d, 6e and 6f, path by path.  Lines before it give phase 6e's
    musicgen-medium and phase 6f's recurrentgemma-9b forward time and the
    forward profile's flash time, and the script's seconds.

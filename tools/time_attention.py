@@ -12,7 +12,9 @@ correctness helpers), builds ``flash_attention.cu`` and
 ``decode_attention.cu`` with the port's nvcc flags, and for each variant
 (``base``: the sources as they are; the others: text substitutions of them,
 VARIANTS, built into DIR/build/variants/NAME) prints the ptxas registers
-and spill bytes of the kernels it changes, then one JSON line per row:
+and spill bytes of the kernels it changes (and, for flash_wgmma<256>, its
+SASS's wgmma instructions, the waits on them, its spill loads and stores
+and its highest register), then one JSON line per row:
 device time (CUDA events, L2 flushed, median of chip_smoke.TIMING_REPS,
 launches queued behind a sleep kernel), SDPA's time on the same inputs,
 and whether the result held to the plain version (chip_smoke's
@@ -91,6 +93,28 @@ def ptxas(log: str, pattern: str) -> dict:
     return out
 
 
+def sass_stats(so: Path, pattern: str) -> dict:
+    """For each kernel of the library ``so`` whose mangled name matches
+    ``pattern``: its wgmma instructions (HGMMA), the waits on them
+    (WARPGROUP.DEPBAR; one after every HGMMA means ptxas serialised them),
+    its local-memory loads and stores (LDL/STL: spills) and the highest
+    register it names, from ``cuobjdump -sass``."""
+    from repro_torch.kernels import build
+
+    sass = subprocess.run([str(Path(build.nvcc()).parent / "cuobjdump"), "-sass", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for body in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if re.search(pattern, name):
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", body)]
+            out[name] = {"HGMMA": len(re.findall(r"\bHGMMA\b", body)),
+                         "WARPGROUP.DEPBAR": len(re.findall(r"WARPGROUP\.DEPBAR", body)),
+                         "LDL/STL": len(re.findall(r"\b(?:LDL|STL)\b", body)),
+                         "highest register": max(regs, default=-1)}
+    return out
+
+
 def bind(lib, stem):
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if stem == "flash_attention":
@@ -165,6 +189,10 @@ def main() -> int:
             if mod in subs or name == "base":
                 print(f"time_attention: {label} {name}: ptxas {mod}: {json.dumps(report)}",
                       flush=True)
+                if mod == "flash_attention":
+                    stats = sass_stats(build.built_path(src), r"flash_wgmmaILi256E")
+                    print(f"time_attention: {label} {name}: SASS {mod}: {json.dumps(stats)}",
+                          flush=True)
         fops._lib, dops._lib = libs["flash_attention"], libs["decode_attention"]
         if narrow is not None:
             dops.NARROW_GROUP = 0 if name == "decode_group_for_all" else narrow
