@@ -97,6 +97,9 @@ Phases, each of which fails the script (non-zero exit) on any error:
    and 64, B = 4, S = 4096 with lengths 1, S-1, S, 0 and the chunk edges,
    and B = 1 at lengths 0, 1, S and its own plan's chunk edges (groups
    above 8 in bf16 run ``decode_group``, whose chunk edges these are);
+   decode at the other shapes ``decode_group`` takes (``WIDE_GROUP_CASES``:
+   MQA 24/1 at head dim 128, 16/1 at 80, 120, 64 and 32), B = 4, S = 4096
+   with lengths 1, S-1, S, 0 and the chunk edges;
    plus mask probes (``mask_probe``: keys past the
    diagonal or outside the window carry large scores and v = +-64, so a
    leak moves outputs by whole units) at S in {512, 2048}; float32 and
@@ -276,12 +279,12 @@ TRAIN_PROFILE_FIRST = 3
 TRAIN_PROFILE_STEPS = 3
 #: phase 6e: the MoE, vision-language and audio families at full size
 FAMILY_ARCHS = ("qwen2-moe-a2.7b", "internvl2-2b", "musicgen-medium")
-#: their attention layouts (heads, kv heads, head dim): qwen2-moe, internvl2,
-#: musicgen
-FAMILY_LAYOUTS = ((16, 16, 128), (16, 8, 128), (24, 24, 64))
 #: musicgen-medium's teacher-forced decode: rows of 4 codebook tokens, steps
 CODEBOOK_ROWS = 4
 CODEBOOK_STEPS = 64
+#: phase 5: (H, D) of MQA decode cases at the other shapes decode_group
+#: takes (groups above 8 in bf16): two m-tiles at 128, the padded widths
+WIDE_GROUP_CASES = ((24, 128), (16, 80), (16, 120), (16, 64), (16, 32))
 #: phase 5: (causal, window) of the random flash cases
 FLASH_MASKS = ((True, None), (False, None), (True, 256))
 #: phase 5 at head dim 256: recurrentgemma-9b's window of 2048, and 64
@@ -301,6 +304,23 @@ HYBRID_REQUESTS = 4
 HYBRID_PROMPT_LEN = 16
 HYBRID_NEW_TOKENS = 32
 HYBRID_FORWARD_LEN = 4096
+#: the attention of every config whose path runs the two kernels: heads,
+#: kv heads, head dim, flash window (None: causal only) and decode's batch
+#: (one slot for the recurrent hybrid).  Phase 5 tests phase 6e's layouts
+#: from it, phase 7 times a row for each config, and so does
+#: tools/time_attention.py
+ATTENTION_ROWS = {
+    "yi-6b": (32, 4, 128, None, 4),
+    "h2o-danube-3-4b": (32, 8, 120, 4096, 4),
+    "qwen3-32b": (64, 8, 80, None, 4),
+    "qwen2-moe-a2.7b": (16, 16, 128, None, 4),
+    "internvl2-2b": (16, 8, 128, None, 4),
+    "musicgen-medium": (24, 24, 64, None, 4),
+    "granite-34b": (48, 1, 128, None, 4),
+    HYBRID_ARCH: (16, 1, 256, 2048, 1),
+}
+#: decode's cache length in phases 5 and 7
+DECODE_LEN = 4096
 #: phase 6g: xlstm-350m at full width and depth, deepseek-v3-671b at full
 #: width and MLA_LAYERS (mla_dense, mla_moe) of 61 layers
 XLSTM_ARCH = "xlstm-350m"
@@ -1305,8 +1325,7 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                 for s in (1024, 4096):
                     q = randn(b, h, 128, dtype=dtype)
                     k, v = randn(b, hkv, s, 128, dtype=dtype), randn(b, hkv, s, 128, dtype=dtype)
-                    _, chunk = decode_ops.split_plan(s, b * hkv, sms, h // hkv, 128,
-                                                     q.element_size())
+                    _, chunk = decode_ops.split_plan(s, b * hkv, sms, h // hkv, 128, dtype)
                     edges = [chunk - 1, chunk, chunk + 1]
                     sets = ([[1, s - 1, s, 0], [*edges, s]] if b == 4
                             else [[1], [s - 1], [s], [0]] + [[x] for x in edges])
@@ -1374,7 +1393,7 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
             s = 4096
             q = randn(4, h, d, dtype=dtype)
             k, v = randn(4, hkv, s, d, dtype=dtype), randn(4, hkv, s, d, dtype=dtype)
-            _, chunk = decode_ops.split_plan(s, 4 * hkv, sms, h // hkv, d, q.element_size())
+            _, chunk = decode_ops.split_plan(s, 4 * hkv, sms, h // hkv, d, dtype)
             for lens in ([1, s - 1, s, 0], [chunk - 1, chunk, chunk + 1, s]):
                 lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
                 one("decode D=80/120", f"decode {dtype} D={d} B=4 H={h}/{hkv} S={s} chunk={chunk} "
@@ -1403,11 +1422,11 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                         (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
         # phase 6e's head layouts: MHA (group 1) at 24/24 (D = 64) and 16/16
         # (D = 128), GQA group 2 at 16/8 (D = 128)
-        for h, hkv, d in FAMILY_LAYOUTS:
+        for h, hkv, d, _, _ in (ATTENTION_ROWS[a] for a in FAMILY_ARCHS):
             s = 4096
             q = randn(4, h, d, dtype=dtype)
             k, v = randn(4, hkv, s, d, dtype=dtype), randn(4, hkv, s, d, dtype=dtype)
-            _, chunk = decode_ops.split_plan(s, 4 * hkv, sms, h // hkv, d, q.element_size())
+            _, chunk = decode_ops.split_plan(s, 4 * hkv, sms, h // hkv, d, dtype)
             for lens in ([1, s - 1, s, 0], [chunk - 1, chunk, chunk + 1, s]):
                 lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
                 one("decode families", f"decode {dtype} D={d} B=4 H={h}/{hkv} S={s} "
@@ -1483,7 +1502,7 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
             s = 4096
             q = randn(4, h, 256, dtype=dtype)
             k, v = randn(4, 1, s, 256, dtype=dtype), randn(4, 1, s, 256, dtype=dtype)
-            _, chunk = decode_ops.split_plan(s, 4, sms, h, 256, q.element_size())
+            _, chunk = decode_ops.split_plan(s, 4, sms, h, 256, dtype)
             for lens in ([1, s - 1, s, 0], [chunk - 1, chunk, chunk + 1, s]):
                 lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
                 one("decode D=256", f"decode {dtype} D=256 B=4 H={h}/1 S={s} chunk={chunk} "
@@ -1491,13 +1510,29 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                     lambda: decode_ops.decode_attention(q, k, v, lengths),
                     lambda: decode_ref.decode_attention_ref(q, k, v, lengths))
             q1, k1, v1 = q[:1], k[:1], v[:1]
-            _, chunk = decode_ops.split_plan(s, 1, sms, h, 256, q.element_size())
+            _, chunk = decode_ops.split_plan(s, 1, sms, h, 256, dtype)
             for lens in ([0], [1], [chunk - 1], [chunk], [chunk + 1], [s]):
                 lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
                 one("decode D=256", f"decode {dtype} D=256 B=1 H={h}/1 S={s} chunk={chunk} "
                     f"lengths={lens}",
                     lambda: decode_ops.decode_attention(q1, k1, v1, lengths),
                     lambda: decode_ref.decode_attention_ref(q1, k1, v1, lengths))
+        # the other shapes decode_group takes in bf16 (float32 runs
+        # decode_split at them): group 24, two m-tiles, at D = 128; group 16
+        # at D = 80 and 120 (the padded widths, columns past D zero) and at
+        # 64 and 32; B = 4 at ragged lengths and the plan's chunk edges
+        for h, d in WIDE_GROUP_CASES:
+            s = 4096
+            q = randn(4, h, d, dtype=dtype)
+            k, v = randn(4, 1, s, d, dtype=dtype), randn(4, 1, s, d, dtype=dtype)
+            _, chunk = decode_ops.split_plan(s, 4, sms, h, d, dtype)
+            for lens in ([1, s - 1, s, 0], [chunk - 1, chunk, chunk + 1, s]):
+                lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+                one("decode wide groups", f"decode {dtype} D={d} B=4 H={h}/1 S={s} "
+                    f"chunk={chunk} lengths={lens} "
+                    f"({decode_ops.decode_kernel(dtype, h, d)})",
+                    lambda: decode_ops.decode_attention(q, k, v, lengths),
+                    lambda: decode_ref.decode_attention_ref(q, k, v, lengths))
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # comparisons are not the main path
     by_rule = "; ".join(
         f"{str(dt).split('.')[-1]} D={d} ({flash_ops.kernel_name(dt, d)}) {rule}"
@@ -3308,7 +3343,7 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
             "library_ms": time_ms(torch, library, flush)[0],
         }
 
-    def decode_case(h, hkv, d, lens, s=4096):
+    def decode_case(h, hkv, d, lens, s=DECODE_LEN):
         b = len(lens)
         q, k, v = randn(b, h, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -3322,10 +3357,8 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
             nbytes=rows * hkv * d * 2 * 2 + 2 * q.numel() * 2 + b * 4,
             flops=4 * rows * h * d,  # q.k and p.v per valid row, every q head
         )
-        group = h // hkv
-        n_splits, chunk = decode_ops.split_plan(s, b * hkv, sms, group, d, 2)
-        kernel = (f"decode_group<{d}, {-(-group // 16)}>" if group > decode_ops.NARROW_GROUP
-                  else f"decode_split<bf16, {d}>")
+        n_splits, chunk = decode_ops.split_plan(s, b * hkv, sms, h // hkv, d)
+        kernel = decode_ops.decode_kernel(torch.bfloat16, h // hkv, d)
         return {**row, "sdpa_backend": sdpa_backend(torch, *sdpa[0], **sdpa[1]),
                 "kernel": kernel, "plan": [n_splits, chunk],
                 "partial_bytes_written_and_read": 2 * decode_ops.partial_bytes(b, h, d, n_splits),
@@ -3360,15 +3393,16 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
 
     # the main path's shapes: decode over 4 slots of 4096 positions, 32/4
     # heads; flash on one 2048-token prompt
-    b, h, hkv, s, d = 4, 32, 4, 4096, 128
+    h, hkv, d, _, b = ATTENTION_ROWS["yi-6b"]
+    s = DECODE_LEN
     final = [int(x) for x in served["final_lengths"]]
     dec = decode_case(h, hkv, d, final)
     dec_full = decode_case(h, hkv, d, [s] * b)
     fl = flash_case(h, hkv, d)
     # phase 6b's shapes, at full length
     flash_cut, decode_cut = {}, {}
-    for arch, (ch, chkv, cd, window) in (("h2o-danube-3-4b", (32, 8, 120, 4096)),
-                                         ("qwen3-32b", (64, 8, 80, None))):
+    for arch in FULL_ARCHS:
+        ch, chkv, cd, window, cb = ATTENTION_ROWS[arch]
         full = full_served[arch]
         flash_cut[arch] = {**flash_case(ch, chkv, cd, window),
                            "kernel": flash_ops.kernel_name(torch.bfloat16, cd),
@@ -3378,12 +3412,13 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
                            "full_depth_layers": full["n_layers"],
                            "shape": f"B=1 H={ch} Hkv={chkv} S={FORWARD_LEN} D={cd} bf16 "
                                     f"causal window={window}"}
-        decode_cut[arch] = {**decode_case(ch, chkv, cd, [s] * b),
+        decode_cut[arch] = {**decode_case(ch, chkv, cd, [s] * cb),
                             "launches": cut_served[arch]["decode_launches"],
-                            "shape": f"B={b} H={ch} Hkv={chkv} S={s} D={cd} bf16 full length"}
+                            "shape": f"B={cb} H={ch} Hkv={chkv} S={s} D={cd} bf16 full length"}
     # phase 6e's shapes: MHA 16/16 and GQA 16/8 at D = 128, MHA 24/24 at
     # D = 64 (flash_wgmma)
-    for arch, (fh, fhkv, fd) in zip(FAMILY_ARCHS, FAMILY_LAYOUTS):
+    for arch in FAMILY_ARCHS:
+        fh, fhkv, fd, _, fb = ATTENTION_ROWS[arch]
         fam = families[arch]
         path = f"phase 6e {arch} ({fam['n_layers']} layers)"
         flash_cut[arch] = {**flash_case(fh, fhkv, fd),
@@ -3393,48 +3428,52 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
                            "full_depth_forward_s": fam["forward_s"],
                            "full_depth_layers": fam["n_layers"],
                            "shape": f"B=1 H={fh} Hkv={fhkv} S={FORWARD_LEN} D={fd} bf16 causal"}
-        decode_cut[arch] = {**decode_case(fh, fhkv, fd, [s] * b),
+        decode_cut[arch] = {**decode_case(fh, fhkv, fd, [s] * fb),
                             "launches": fam["decode_launches"],
                             "launches_by_path": {path: fam["decode_launches"]},
-                            "shape": f"B={b} H={fh} Hkv={fhkv} S={s} D={fd} bf16 full length"}
+                            "shape": f"B={fb} H={fh} Hkv={fhkv} S={s} D={fd} bf16 full length"}
     # phase 6b's granite-34b: MQA 48/1 at D = 128
+    gh, ghkv, gd, _, gb = ATTENTION_ROWS["granite-34b"]
     gran = cut_served["granite-34b"]
+    gpath = f"phase 6b granite-34b ({CUT_LAYERS} layers)"
     flash_cut["granite-34b"] = {
-        **flash_case(48, 1, 128),
-        "kernel": flash_ops.kernel_name(torch.bfloat16, 128),
+        **flash_case(gh, ghkv, gd),
+        "kernel": flash_ops.kernel_name(torch.bfloat16, gd),
         "launches": gran["flash_launches"],
-        "launches_by_path": {f"phase 6b granite-34b ({CUT_LAYERS} layers)": gran["flash_launches"]},
-        "shape": f"B=1 H=48 Hkv=1 S={FORWARD_LEN} D=128 bf16 causal"}
+        "launches_by_path": {gpath: gran["flash_launches"]},
+        "shape": f"B=1 H={gh} Hkv={ghkv} S={FORWARD_LEN} D={gd} bf16 causal"}
     decode_cut["granite-34b"] = {
-        **decode_case(48, 1, 128, [s] * b),
+        **decode_case(gh, ghkv, gd, [s] * gb),
         "launches": gran["decode_launches"],
-        "launches_by_path": {f"phase 6b granite-34b ({CUT_LAYERS} layers)": gran["decode_launches"]},
-        "shape": f"B={b} H=48 Hkv=1 S={s} D=128 bf16 full length"}
+        "launches_by_path": {gpath: gran["decode_launches"]},
+        "shape": f"B={gb} H={gh} Hkv={ghkv} S={s} D={gd} bf16 full length"}
     # phase 6f's recurrentgemma-9b: MQA 16/1 at D = 256, window 2048
+    rh, rhkv, rd, rw, rb = ATTENTION_ROWS[HYBRID_ARCH]
     hpath = f"phase 6f {HYBRID_ARCH} ({hybrid['n_layers']} layers)"
     flash_by_path = {hpath: hybrid["flash_launches"]}
     decode_by_path = {hpath: hybrid["decode_launches"]}
-    flash_cut[f"{HYBRID_ARCH}, S={HYBRID_FORWARD_LEN} window 2048"] = {
-        **flash_case(16, 1, 256, window=2048, fs=HYBRID_FORWARD_LEN),
-        "kernel": flash_ops.kernel_name(torch.bfloat16, 256),
+    flash_cut[f"{HYBRID_ARCH}, S={HYBRID_FORWARD_LEN} window {rw}"] = {
+        **flash_case(rh, rhkv, rd, window=rw, fs=HYBRID_FORWARD_LEN),
+        "kernel": flash_ops.kernel_name(torch.bfloat16, rd),
         "launches": hybrid["flash_launches"], "launches_by_path": flash_by_path,
         "full_depth_forward_s": hybrid["forward_s"], "full_depth_layers": hybrid["n_layers"],
-        "shape": f"B=1 H=16 Hkv=1 S={HYBRID_FORWARD_LEN} D=256 bf16 causal window=2048"}
+        "shape": f"B=1 H={rh} Hkv={rhkv} S={HYBRID_FORWARD_LEN} D={rd} bf16 causal "
+                 f"window={rw}"}
     flash_cut[f"{HYBRID_ARCH}, S={FORWARD_LEN} causal"] = {
-        **flash_case(16, 1, 256, window=2048),
-        "kernel": flash_ops.kernel_name(torch.bfloat16, 256),
+        **flash_case(rh, rhkv, rd, window=rw),
+        "kernel": flash_ops.kernel_name(torch.bfloat16, rd),
         "launches": hybrid["flash_launches"], "launches_by_path": flash_by_path,
-        "shape": f"B=1 H=16 Hkv=1 S={FORWARD_LEN} D=256 bf16 causal window=2048 "
+        "shape": f"B=1 H={rh} Hkv={rhkv} S={FORWARD_LEN} D={rd} bf16 causal window={rw} "
                  f"(masks nothing at this S)"}
     hfinal = [int(x) for x in hybrid["final_lengths"]]
     decode_cut[f"{HYBRID_ARCH}, the serve's lengths"] = {
-        **decode_case(16, 1, 256, hfinal),
+        **decode_case(rh, rhkv, rd, hfinal),
         "launches": hybrid["decode_launches"], "launches_by_path": decode_by_path,
-        "shape": f"B=1 H=16 Hkv=1 S={s} D=256 bf16 lengths={hfinal}"}
+        "shape": f"B={len(hfinal)} H={rh} Hkv={rhkv} S={s} D={rd} bf16 lengths={hfinal}"}
     decode_cut[f"{HYBRID_ARCH}, full length"] = {
-        **decode_case(16, 1, 256, [s]),
+        **decode_case(rh, rhkv, rd, [s] * rb),
         "launches": hybrid["decode_launches"], "launches_by_path": decode_by_path,
-        "shape": f"B=1 H=16 Hkv=1 S={s} D=256 bf16 full length"}
+        "shape": f"B={rb} H={rh} Hkv={rhkv} S={s} D={rd} bf16 full length"}
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # timing is not the main path
     print("timing: kernels device-only (queued behind a sleep kernel); plain versions and "
           "SDPA queued the same way")

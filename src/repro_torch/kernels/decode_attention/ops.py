@@ -36,10 +36,6 @@ NARROW_GROUP = 8
 #: cache rows a decode_group step (kGroupRows); its chunks are multiples
 GROUP_ROWS = 64
 
-#: decode_group's plan keeps its float32 partials, written once and read
-#: once, within this share of the bytes of the k and v caches
-PARTIAL_SHARE = 1.0
-
 #: kernel calls made through this wrapper (CUDA tensors only); one a call,
 #: though a call with more than one chunk launches a combine kernel too
 LAUNCHES = 0
@@ -73,24 +69,30 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def decode_kernel(dtype: torch.dtype, group: int, head_dim: int) -> str:
+    """The kernel a call launches, named as ptxas's report names it:
+    ``decode_group<D, MT>`` (bf16 groups above NARROW_GROUP, MT m-tiles of
+    16 heads), else ``decode_split<bf16 or f32, D>``."""
+    if dtype == torch.bfloat16 and group > NARROW_GROUP:
+        return f"decode_group<{head_dim}, {-(-group // 16)}>"
+    return f"decode_split<{'bf16' if dtype == torch.bfloat16 else 'f32'}, {head_dim}>"
+
+
 def split_plan(s: int, n_blocks: int, sms: int, group: int = 1, head_dim: int = 128,
-               elem: int = 2) -> Tuple[int, int]:
+               dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
     """``(n_splits, chunk)`` for a cache of ``s`` rows read by ``n_blocks``
     = B * Hkv (sequence, kv head) pairs, ``group`` q heads each, on a card
-    of ``sms`` SMs, in elements of ``elem`` bytes.  From shapes only: the
-    lengths stay on the card.  No chunk is empty at full length.
+    of ``sms`` SMs, in ``dtype``.  From shapes only: the lengths stay on
+    the card.  No chunk is empty at full length.
 
-    decode_split (float32, or groups up to NARROW_GROUP): about two blocks
-    an SM, chunks a multiple of CHUNK_ALIGN rows.  decode_group (bf16
-    groups above it): one block an SM at most (its shared memory allows no
-    second), chunks a multiple of GROUP_ROWS rows, and the float32
-    partials of all heads, written and read, at most PARTIAL_SHARE of the
-    cache's bytes."""
-    if elem == 2 and group > NARROW_GROUP:
-        cache = s * head_dim * elem * 2  # k and v of one (sequence, kv head)
+    decode_split: about two blocks an SM, chunks a multiple of CHUNK_ALIGN
+    rows.  decode_group: one block an SM at most (its shared memory allows
+    no second), chunks a multiple of GROUP_ROWS rows, and the float32
+    partials of all heads, written and read, at most the cache's bytes."""
+    if decode_kernel(dtype, group, head_dim).startswith("decode_group"):
+        cache = s * head_dim * 2 * 2  # bf16 k and v of one (sequence, kv head)
         per_split = group * (head_dim + 2) * 4 * 2  # its partials, written and read
-        by_bytes = max(1, int(PARTIAL_SHARE * cache // per_split))
-        want = min(max(1, sms // n_blocks), by_bytes, -(-s // GROUP_ROWS))
+        want = min(max(1, sms // n_blocks), max(1, cache // per_split), -(-s // GROUP_ROWS))
         align = GROUP_ROWS
     else:
         want = min(max(1, -(-2 * sms // n_blocks)), -(-s // CHUNK_ALIGN))
@@ -133,7 +135,7 @@ def _launch(lib, q, k_cache, v_cache, lengths, scale, *, device, stream, sms):
     the caches and ``lengths`` go to the kernel as they are."""
     b, h, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
-    n_splits, chunk = split_plan(s, b * hkv, sms, h // hkv, d, q.element_size())
+    n_splits, chunk = split_plan(s, b * hkv, sms, h // hkv, d, q.dtype)
     # per q head and chunk: acc (D floats), then (m, l); none for one chunk
     rows = b * h * n_splits if n_splits > 1 else 0
     parts = torch.empty(partial_bytes(b, h, d, n_splits) // 4, dtype=torch.float32,

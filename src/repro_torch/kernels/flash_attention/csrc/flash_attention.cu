@@ -827,8 +827,8 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x, subnormals flushed
   return y;
 }
 
-// The overlapped schedule's online softmax over one warpgroup's 64 x 128
-// score tile, in place (the accumulator layout of m64n128: sc[4j + e] is
+// The overlapped schedules' online softmax over one warpgroup's 64 x KB
+// score tile, in place (the accumulator layout of m64nKB: sc[4j + e] is
 // (row0, column k0 + 8j + c2 + e), sc[4j + 2 + e] is (row1, the same
 // column)).  It updates the running maxima m0, m1 and this thread's share
 // of the denominators l0, l1, and returns in corr0, corr1 the factors that
@@ -839,17 +839,22 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x, subnormals flushed
 // either way, so this is the same function as -1e30), the maxima are over
 // the unscaled scores (scale > 0), each exponent is one FMA, s * scale_log2
 // - m * scale_log2, into ex2.approx.ftz, and the maxima and sums are trees
-// of four chains.
+// of four chains.  kLazy (consume_wide, D = 256): a row's running maximum
+// moves only when the tile's exceeds it by more than 8 in log2 units of the
+// scaled scores (p then stays below 2^8, exact in float32 and as relatively
+// precise in bf16), so corr is exactly 1 on most tiles and the caller skips
+// o's rescale; o / l is the same function.
+template <int KB, bool kLazy>
 __device__ __forceinline__ void online_softmax_fma(
-    float (&sc)[64], int k0, int wrow, int row0, int row1, int c2, int seq_len,
+    float (&sc)[KB / 2], int k0, int wrow, int row0, int row1, int c2, int seq_len,
     int causal, int window, float scale_log2, float& m0, float& m1, float& l0,
     float& l1, float& corr0, float& corr1) {
-  const bool edge = k0 + kWBK > seq_len ||
-                    (causal && k0 + kWBK - 1 > wrow) ||
+  const bool edge = k0 + KB > seq_len ||
+                    (causal && k0 + KB - 1 > wrow) ||
                     (window > 0 && k0 <= wrow + 63 - window);
   if (edge) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < KB / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = k0 + 8 * j + c2 + e;
@@ -870,11 +875,11 @@ __device__ __forceinline__ void online_softmax_fma(
   float x0[4], x1[4];
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
-    x0[t] = fmaxf(sc[t % 2 + 4 * (t / 2)], sc[t % 2 + 4 * (t / 2) + 8]);
-    x1[t] = fmaxf(sc[2 + t % 2 + 4 * (t / 2)], sc[2 + t % 2 + 4 * (t / 2) + 8]);
+    x0[t] = sc[t % 2 + 4 * (t / 2)];
+    x1[t] = sc[2 + t % 2 + 4 * (t / 2)];
   }
 #pragma unroll
-  for (int j = 4; j < 16; ++j) {
+  for (int j = 2; j < KB / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int t = 2 * (j % 2) + e;
@@ -889,7 +894,11 @@ __device__ __forceinline__ void online_softmax_fma(
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
   }
-  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  if constexpr (kLazy) {  // keep the old maximum unless it grew 2^8-fold
+    if ((mn0 - m0) * scale_log2 <= 8.0f) mn0 = m0;
+    if ((mn1 - m1) * scale_log2 <= 8.0f) mn1 = m1;
+  }
   corr0 = ex2((m0 - mn0) * scale_log2);
   corr1 = ex2((m1 - mn1) * scale_log2);
   m0 = mn0;
@@ -897,7 +906,7 @@ __device__ __forceinline__ void online_softmax_fma(
   const float b0 = -mn0 * scale_log2, b1 = -mn1 * scale_log2;
   float s0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < KB / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int t = 2 * (j % 2) + e;
@@ -1033,8 +1042,9 @@ __device__ __forceinline__ void consume_overlap(
   mbar_wait(bar_v, 0);
   wg_wait_all();
   fence_regs(sc);
-  online_softmax_fma(sc, lo * kWBK, wrow, row0, row1, c2, seq_len, causal,
-                     window, scale_log2, m0, m1, l0, l1, corr0, corr1);
+  online_softmax_fma<kWBK, false>(sc, lo * kWBK, wrow, row0, row1, c2, seq_len,
+                                  causal, window, scale_log2, m0, m1, l0, l1, corr0,
+                                  corr1);
   pack_p(pa, sc);  // o is 0: nothing to rescale
   for (int it = 1; it < n_iter; ++it) {
     const int s = it % R, sp = (it - 1) % R;
@@ -1049,8 +1059,9 @@ __device__ __forceinline__ void consume_overlap(
     mbar_wait(bar_v + 8 * s, (it / R) & 1);
     wg_wait_one();  // q.k^T of tile it
     fence_regs(sc);
-    online_softmax_fma(sc, (lo + it) * kWBK, wrow, row0, row1, c2, seq_len,
-                       causal, window, scale_log2, m0, m1, l0, l1, corr0, corr1);
+    online_softmax_fma<kWBK, false>(sc, (lo + it) * kWBK, wrow, row0, row1, c2,
+                                    seq_len, causal, window, scale_log2, m0, m1, l0,
+                                    l1, corr0, corr1);
     wg_wait_all();  // p.v of tile it - 1
     fence_regs(o);
     mbar_arrive(bar_empty + 8 * sp);
@@ -1069,91 +1080,6 @@ __device__ __forceinline__ void consume_overlap(
   fence_regs(o);
   mbar_arrive(bar_empty + 8 * s);
   store_rows<D>(o, l0, l1, row0, row1, c2, op, seq_len);
-}
-
-// consume_wide's online softmax over one warpgroup's 64 x KB score tile
-// (accumulator layout of m64nKB), in place.  The form of
-// online_softmax_fma: masked keys -inf, maxima over the unscaled scores
-// (scale > 0), one FFMA and one ex2.approx.ftz an element.  A row's running
-// maximum is lazy: it moves only when the tile's exceeds it by more than 8
-// in log2 units of the scaled scores (p then stays below 2^8, exact in
-// float32 and as relatively precise in bf16), so corr is exactly 1 on most
-// tiles and the caller skips o's rescale; o / l is the same function.
-template <int KB>
-__device__ __forceinline__ void online_softmax_wide(
-    float (&sc)[KB / 2], int k0, int wrow, int row0, int row1, int c2, int seq_len,
-    int causal, int window, float scale_log2, float& m0, float& m1, float& l0,
-    float& l1, float& corr0, float& corr1) {
-  const bool edge = k0 + KB > seq_len ||
-                    (causal && k0 + KB - 1 > wrow) ||
-                    (window > 0 && k0 <= wrow + 63 - window);
-  if (edge) {
-#pragma unroll
-    for (int j = 0; j < KB / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = k0 + 8 * j + c2 + e;
-        bool keep0 = col < seq_len, keep1 = col < seq_len;
-        if (causal) {
-          keep0 &= col <= row0;
-          keep1 &= col <= row1;
-        }
-        if (window > 0) {
-          keep0 &= col > row0 - window;
-          keep1 &= col > row1 - window;
-        }
-        if (!keep0) sc[4 * j + e] = -INFINITY;
-        if (!keep1) sc[4 * j + 2 + e] = -INFINITY;
-      }
-    }
-  }
-  float x0[4], x1[4];
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    x0[t] = sc[t % 2 + 4 * (t / 2)];
-    x1[t] = sc[2 + t % 2 + 4 * (t / 2)];
-  }
-#pragma unroll
-  for (int j = 2; j < KB / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int t = 2 * (j % 2) + e;
-      x0[t] = fmaxf(x0[t], sc[4 * j + e]);
-      x1[t] = fmaxf(x1[t], sc[4 * j + 2 + e]);
-    }
-  }
-  float mx0 = fmaxf(fmaxf(x0[0], x0[1]), fmaxf(x0[2], x0[3]));
-  float mx1 = fmaxf(fmaxf(x1[0], x1[1]), fmaxf(x1[2], x1[3]));
-#pragma unroll
-  for (int o_ = 1; o_ < 4; o_ <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
-  }
-  float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-  // keep the old maximum unless the new one is 2^8 times larger
-  if ((mn0 - m0) * scale_log2 <= 8.0f) mn0 = m0;
-  if ((mn1 - m1) * scale_log2 <= 8.0f) mn1 = m1;
-  corr0 = ex2((m0 - mn0) * scale_log2);
-  corr1 = ex2((m1 - mn1) * scale_log2);
-  m0 = mn0;
-  m1 = mn1;
-  const float b0 = -mn0 * scale_log2, b1 = -mn1 * scale_log2;
-  float s0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int j = 0; j < KB / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int t = 2 * (j % 2) + e;
-      const float p0 = ex2(fmaf(sc[4 * j + e], scale_log2, b0));
-      const float p1 = ex2(fmaf(sc[4 * j + 2 + e], scale_log2, b1));
-      sc[4 * j + e] = p0;
-      sc[4 * j + 2 + e] = p1;
-      s0[t] += p0;
-      s1[t] += p1;
-    }
-  }
-  l0 = l0 * corr0 + ((s0[0] + s0[1]) + (s0[2] + s0[3]));
-  l1 = l1 * corr1 + ((s1[0] + s1[1]) + (s1[2] + s1[3]));
 }
 
 // k or v tile `it` (keys from lo + it) into its stage of ring `ring`, B
@@ -1198,7 +1124,7 @@ __device__ __forceinline__ void refill(uint32_t read, uint32_t cnt, uint32_t sK,
 // j runs while p.v of tile j - 1 is on the tensor cores (wait_group 1, then
 // 0), and the bf16 p of tile j - 1 stays in registers until that product
 // retires.  o is rescaled after p.v of tile j - 1 lands: o = (o + p v) *
-// corr, and only when a row's lazy maximum moved (online_softmax_wide).
+// corr, and only when a row's lazy maximum moved (online_softmax_fma).
 // Live across the softmax: o (128 floats), the scores (KB / 2) and the last
 // tile's p (KB / 4).  The two warpgroups take turns issuing their products
 // (named barriers 1 and 2, as consume_overlap), so one's softmax runs while
@@ -1247,8 +1173,8 @@ __device__ __forceinline__ void consume_wide(
                sw128_desc(tV + kk * 16 * 128, SP, 1024));
   };
   auto softmax = [&](int k0) {
-    online_softmax_wide<KB>(sc, k0, wrow, row0, row1, c2, seq_len, causal, window,
-                            scale_log2, m0, m1, l0, l1, corr0, corr1);
+    online_softmax_fma<KB, true>(sc, k0, wrow, row0, row1, c2, seq_len, causal, window,
+                                 scale_log2, m0, m1, l0, l1, corr0, corr1);
   };
   auto pack = [&]() {
 #pragma unroll

@@ -17,9 +17,10 @@
   1, at the chunk edges and S, for groups 1, 8 and 48 at D = 32 and 16 at
   D = 256.  The plan (``split_plan``) aligns its chunks, covers the cache
   with no empty chunk at full length, and, for bf16 groups above 8
-  (decode_group), keeps the partials within PARTIAL_SHARE of the cache's
-  bytes and its blocks within one an SM; Yi-6B's, granite-34b's and
-  recurrentgemma-9b's plans are pinned.
+  (decode_group), keeps the partials within the cache's bytes and its
+  blocks within one an SM; Yi-6B's, granite-34b's and recurrentgemma-9b's
+  plans are pinned, and ``decode_kernel`` names the kernel the plan is
+  for.
 * The decode wrapper hands the (B,) lengths to the kernel as they are.
 """
 import importlib.util
@@ -43,6 +44,7 @@ chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 
 H100_SMS = 132
+DECODE_CU = decode_ops.SOURCE.read_text()
 
 
 # ------------------------------------------------------------ flash rule
@@ -277,8 +279,36 @@ def test_split_plan_of_the_wide_groups():
     assert decode_ops.split_plan(4096, 1, H100_SMS, 16, 256) == (64, 64)
     assert 2 * decode_ops.partial_bytes(4, 48, 128, 32) == 6_389_760
     assert 2 * decode_ops.partial_bytes(1, 16, 256, 64) == 2_113_536
-    assert decode_ops.split_plan(4096, 4, H100_SMS, 48, 128, 4) == (64, 64)
-    assert decode_ops.split_plan(4096, 1, H100_SMS, 16, 256, 4) == (64, 64)
+    assert decode_ops.split_plan(4096, 4, H100_SMS, 48, 128, torch.float32) == (64, 64)
+    assert decode_ops.split_plan(4096, 1, H100_SMS, 16, 256, torch.float32) == (64, 64)
+
+
+@pytest.mark.parametrize("dtype,group,d,name", [
+    (torch.bfloat16, 48, 128, "decode_group<128, 3>"),
+    (torch.bfloat16, 24, 128, "decode_group<128, 2>"),
+    (torch.bfloat16, 16, 256, "decode_group<256, 1>"),
+    (torch.bfloat16, 64, 256, "decode_group<256, 4>"),
+    (torch.bfloat16, 9, 80, "decode_group<80, 1>"),
+    (torch.bfloat16, 8, 128, "decode_split<bf16, 128>"),
+    (torch.bfloat16, 1, 64, "decode_split<bf16, 64>"),
+    (torch.float32, 48, 128, "decode_split<f32, 128>"),
+    (torch.float32, 16, 256, "decode_split<f32, 256>")])
+def test_decode_kernel_names_the_launched_kernel(dtype, group, d, name):
+    """decode_kernel follows the .cu's dispatch (bf16 groups above
+    kNarrowGroup to decode_group<D, MT>, MT = ceil(group / 16)), names the
+    kernel as chip_smoke's ptxas report does, and split_plan takes the
+    kernel's plan."""
+    assert decode_ops.decode_kernel(dtype, group, d) == name
+    # the Itanium mangling of the instantiation nvcc emits, as ptxas names it
+    args = (f"ILi{d}ELi{-(-group // 16)}E" if name.startswith("decode_group")
+            else f"I{'13__nv_bfloat16' if dtype == torch.bfloat16 else 'f'}Li{d}E")
+    mangled = f"_ZN12_GLOBAL__N_112{name.split('<')[0]}{args}EEvPK13__nv_bfloat16"
+    assert chip_smoke.kernel_label(mangled) == name
+    assert "const int mt = (group + 15) / 16;" in DECODE_CU
+    n_splits, chunk = decode_ops.split_plan(4096, 4, H100_SMS, group, d, dtype)
+    wide = name.startswith("decode_group")
+    assert chunk % (decode_ops.GROUP_ROWS if wide else decode_ops.CHUNK_ALIGN) == 0
+    assert (4 * n_splits <= H100_SMS) if wide else (4 * n_splits >= H100_SMS)
 
 
 WIDE_PLAN_SHAPES = [(s, nb, g, d) for s in (64, 200, 1000, 4096, 8192, 32768)
@@ -291,14 +321,14 @@ def test_wide_group_plan_bounds(s, n_blocks, group, d):
     """decode_group's plan over shapes: chunks a multiple of GROUP_ROWS,
     the cache covered with no empty chunk at full length, at most one
     block an SM (or one chunk), and the float32 partials, written and
-    read, within PARTIAL_SHARE of the k and v caches' bytes."""
+    read, within the k and v caches' bytes."""
     n_splits, chunk = decode_ops.split_plan(s, n_blocks, H100_SMS, group, d)
     assert chunk % decode_ops.GROUP_ROWS == 0 and chunk % decode_ops.CHUNK_ALIGN == 0
     assert (n_splits - 1) * chunk < s <= n_splits * chunk
     assert n_splits == 1 or n_blocks * n_splits <= H100_SMS
     b, hkv = n_blocks, 1
     parts = 2 * decode_ops.partial_bytes(b, hkv * group, d, n_splits)
-    assert parts <= decode_ops.PARTIAL_SHARE * b * hkv * s * d * 2 * 2
+    assert parts <= b * hkv * s * d * 2 * 2
 
 
 # ------------------------------------------------------ decode wrapper

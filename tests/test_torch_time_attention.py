@@ -1,44 +1,30 @@
-"""tools/time_attention.py, checked on the CPU: every variant it builds is a
-substitution that occurs exactly once in the kernel source it edits, so a
-variant changes one choice and the script stays in step with the sources;
-and the script refuses to run without a CUDA device."""
+"""tools/time_attention.py, checked on the CPU: its rows are chip_smoke's
+(one table of the configs' attention shapes, ``ATTENTION_ROWS``), and the
+script refuses to run without a CUDA device."""
 import importlib.util
 import subprocess
 import sys
 from pathlib import Path
 
-import pytest
-
 ROOT = Path(__file__).resolve().parents[1]
-_spec = importlib.util.spec_from_file_location("time_attention", ROOT / "tools" / "time_attention.py")
-time_attention = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(time_attention)
-
-SOURCES = {
-    "flash_attention": ROOT / "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-    "decode_attention": ROOT / "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
-}
-
-
-@pytest.mark.parametrize("name", sorted(time_attention.VARIANTS))
-def test_each_variant_edits_lines_the_sources_hold_once(name):
-    for stem, subs in time_attention.VARIANTS[name].items():
-        text = SOURCES[stem].read_text()
-        for old, new in subs:
-            assert text.count(old) == 1, (name, old)
-            assert old != new
+_spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 def test_the_rows_are_the_perf_tables():
-    """The decode rows at S = 4096 and the flash rows are the configs'
-    head layouts on the main paths (granite-34b and recurrentgemma-9b
-    first), every one of them bf16."""
-    assert list(time_attention.DECODE_ROWS)[0].startswith("granite-34b 48/1 x 128")
-    assert list(time_attention.FLASH_ROWS)[0].startswith("recurrentgemma-9b 16/1 x 256")
-    for h, hkv, d, lens in time_attention.DECODE_ROWS.values():
-        assert h % hkv == 0 and d in (64, 80, 120, 128, 256) and all(0 < x <= 4096 for x in lens)
-    for h, hkv, d, s, window in time_attention.FLASH_ROWS.values():
-        assert h % hkv == 0 and s in (2048, 4096) and (window is None or window > 0)
+    """The rows are the configs' head layouts on the main paths (granite-34b
+    and recurrentgemma-9b among them), every one at a head dim both
+    kernels take; the script reads them from chip_smoke and keeps no copy."""
+    rows = chip_smoke.ATTENTION_ROWS
+    assert rows["granite-34b"] == (48, 1, 128, None, 4)
+    assert rows[chip_smoke.HYBRID_ARCH] == (16, 1, 256, 2048, 1)
+    assert set(chip_smoke.FAMILY_ARCHS) | set(chip_smoke.FULL_ARCHS) <= set(rows)
+    for h, hkv, d, window, b in rows.values():
+        assert h % hkv == 0 and d in (64, 80, 120, 128, 256) and b in (1, 4)
+        assert window is None or window > 0
+    text = (ROOT / "tools" / "time_attention.py").read_text()
+    assert "cs.ATTENTION_ROWS" in text and "def ptxas" not in text
 
 
 def test_it_fails_without_a_card():

@@ -4,31 +4,31 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU and the
 CUDA toolkit::
 
-    python3 tools/time_attention.py [--root DIR] [--variant NAME ...] [--label TEXT]
+    python3 tools/time_attention.py [--root DIR] [--label TEXT]
 
-It imports the kernels of DIR's ``src/repro_torch`` (default: the checkout
-that holds this script) and DIR's ``chip_smoke.py`` (its timing and
-correctness helpers), builds ``flash_attention.cu`` and
-``decode_attention.cu`` with the port's nvcc flags, and for each variant
-(``base``: the sources as they are; the others: text substitutions of them,
-VARIANTS, built into DIR/build/variants/NAME) prints the ptxas registers
-and spill bytes of the kernels it changes (and, for flash_wgmma<256>, its
-SASS's wgmma instructions, the waits on them, its spill loads and stores
-and its highest register), then one JSON line per row:
-device time (CUDA events, L2 flushed, median of chip_smoke.TIMING_REPS,
-launches queued behind a sleep kernel), SDPA's time on the same inputs,
-and whether the result held to the plain version (chip_smoke's
-``close_enough`` for decode, ``flash_bf16_close`` for flash).
+It builds ``flash_attention.cu`` and ``decode_attention.cu`` of DIR's
+``src/repro_torch`` (default: the checkout that holds this script) with the
+port's nvcc flags, prints their ptxas registers and spill bytes and
+flash_wgmma<256>'s SASS counts (its wgmma instructions, the waits on them,
+its spill loads and stores and its highest register), then one JSON line
+per row: decode at full length and flash on one causal prompt for every
+config of ``chip_smoke.ATTENTION_ROWS``, the recurrent hybrid's decode at
+its serve's length and its flash at its forward's length, where the window
+masks.  Each row has the device time (CUDA events, L2 flushed, median of
+``chip_smoke.TIMING_REPS``, launches queued behind a sleep kernel), SDPA's
+time on the same inputs, and whether the result held to the plain version
+(``close_enough`` for decode, ``flash_bf16_close`` for flash).
 
-To compare two commits on one card, unpack the parent into a directory
-that .gitignore lists and run the script on each tree in turns (parent,
-change, change, parent) in one call; it imports only DIR's sources, so it
-runs on a parent that predates it.  It fails without a CUDA device.
+The rows, the timing, the rules and the ptxas parser are those of the
+``chip_smoke.py`` beside this script; only the kernels come from DIR, so
+the script runs on a parent that predates it.  To compare two commits on
+one card, unpack the parent into a directory that .gitignore lists and run
+the script on each tree in turns (parent, change, change, parent) in one
+call.  It fails without a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import importlib
 import json
 import re
@@ -36,61 +36,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-#: name -> (file stem -> [(old, new), ...]); every ``old`` must occur in the
-#: source.  Each changes one choice of a kernel, so that it can be timed
-#: beside the sources' own.
-VARIANTS = {
-    # decode: every bf16 group on decode_group, not groups above 8 only
-    "decode_group_for_all": {
-        "decode_attention": [("constexpr int kNarrowGroup = 8;",
-                              "constexpr int kNarrowGroup = 0;")],
-    },
-}
-
-#: decode rows: (H, Hkv, D, lengths), S = 4096, bf16
-DECODE_ROWS = {
-    "granite-34b 48/1 x 128, B=4, full length": (48, 1, 128, [4096] * 4),
-    "recurrentgemma-9b 16/1 x 256, B=1, full length": (16, 1, 256, [4096]),
-    "recurrentgemma-9b 16/1 x 256, B=1, length 48": (16, 1, 256, [48]),
-    "yi-6b 32/4 x 128, B=4, lengths 17/33/49/65": (32, 4, 128, [17, 33, 49, 65]),
-    "yi-6b 32/4 x 128, B=4, full length": (32, 4, 128, [4096] * 4),
-    "h2o-danube-3-4b 32/8 x 120, B=4, full length": (32, 8, 120, [4096] * 4),
-    "qwen3-32b 64/8 x 80, B=4, full length": (64, 8, 80, [4096] * 4),
-    "qwen2-moe-a2.7b 16/16 x 128, B=4, full length": (16, 16, 128, [4096] * 4),
-    "internvl2-2b 16/8 x 128, B=4, full length": (16, 8, 128, [4096] * 4),
-    "musicgen-medium 24/24 x 64, B=4, full length": (24, 24, 64, [4096] * 4),
-}
-#: flash rows: (H, Hkv, D, S, window), B = 1, bf16, causal
-FLASH_ROWS = {
-    "recurrentgemma-9b 16/1 x 256, S=2048": (16, 1, 256, 2048, 2048),
-    "recurrentgemma-9b 16/1 x 256, S=4096, window 2048": (16, 1, 256, 4096, 2048),
-    "yi-6b 32/4 x 128, S=2048": (32, 4, 128, 2048, None),
-    "h2o-danube-3-4b 32/8 x 120, S=2048": (32, 8, 120, 2048, 4096),
-    "qwen3-32b 64/8 x 80, S=2048": (64, 8, 80, 2048, None),
-    "musicgen-medium 24/24 x 64, S=2048": (24, 24, 64, 2048, None),
-    "granite-34b 48/1 x 128, S=2048": (48, 1, 128, 2048, None),
-    "qwen2-moe-a2.7b 16/16 x 128, S=2048": (16, 16, 128, 2048, None),
-    "internvl2-2b 16/8 x 128, S=2048": (16, 8, 128, 2048, None),
-}
-
-
-def ptxas(log: str, pattern: str) -> dict:
-    """Registers and spill bytes of the kernels of ptxas's ``-v`` report
-    whose mangled names match ``pattern``."""
-    out, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            name = m.group(1) if re.search(pattern, m.group(1)) else None
-            if name:
-                out[name] = {}
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and name:
-            out[name]["spill_stores"], out[name]["spill_loads"] = map(int, m.groups())
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out[name]["registers"] = int(m.group(1))
-    return out
+HERE = Path(__file__).resolve().parents[1]
 
 
 def sass_stats(so: Path, pattern: str) -> dict:
@@ -115,32 +61,13 @@ def sass_stats(so: Path, pattern: str) -> dict:
     return out
 
 
-def bind(lib, stem):
-    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if stem == "flash_attention":
-        lib.flash_attention_launch.argtypes = [i32, i32, i32, vp, vp, vp, vp, i32, i32, i32,
-                                               i32, f32, i32, vp]
-        lib.flash_attention_launch.restype = i32
-        lib.flash_attention_error_string.argtypes = [i32]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-    else:
-        lib.decode_attention_launch.argtypes = [i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, i32,
-                                                i32, i32, i32, i32, i32, f32, vp]
-        lib.decode_attention_launch.restype = i32
-        lib.decode_attention_error_string.argtypes = [i32]
-        lib.decode_attention_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[1])
-    ap.add_argument("--variant", action="append", default=[],
-                    help=f"base or one of {sorted(VARIANTS)} (repeatable; default base)")
+    ap.add_argument("--root", type=Path, default=HERE)
     ap.add_argument("--label", default="")
     args = ap.parse_args()
     root = args.root.resolve()
-    sys.path[:0] = [str(root / "src"), str(root)]
+    sys.path[:0] = [str(root / "src"), str(HERE)]
     import torch
     import torch.nn.functional as F
 
@@ -157,11 +84,14 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     label = args.label or str(root)
     print(f"time_attention: {label}: torch {torch.__version__} on [{smi}]", flush=True)
+    cs.build_kernels((fops, dops))
+    stats = sass_stats(build.built_path(fops.SOURCE), r"flash_wgmmaILi256E")
+    print(f"time_attention: {label}: SASS flash_attention: {json.dumps(stats)}", flush=True)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    narrow = getattr(dops, "NARROW_GROUP", None)
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -169,65 +99,50 @@ def main() -> int:
     def ms(fn):
         return cs.time_ms(torch, fn, flush)[0]
 
-    for name in args.variant or ["base"]:
-        subs = {} if name == "base" else VARIANTS[name]
-        libs = {}
-        for mod, ops in (("flash_attention", fops), ("decode_attention", dops)):
-            src = ops.SOURCE
-            if mod in subs:
-                text = src.read_text()
-                for old, new in subs[mod]:
-                    if old not in text:
-                        raise SystemExit(f"variant {name}: {old!r} not in {src.name}")
-                    text = text.replace(old, new)
-                src = root / "build" / "variants" / name / src.name
-                src.parent.mkdir(parents=True, exist_ok=True)
-                src.write_text(text)
-            libs[mod] = bind(build.load_library(src), mod)
-            report = ptxas(build.BUILD_LOG.get(src.stem, ""),
-                           r"flash_wgmmaILi256E|decode_group|decode_split|decode_combine")
-            if mod in subs or name == "base":
-                print(f"time_attention: {label} {name}: ptxas {mod}: {json.dumps(report)}",
-                      flush=True)
-                if mod == "flash_attention":
-                    stats = sass_stats(build.built_path(src), r"flash_wgmmaILi256E")
-                    print(f"time_attention: {label} {name}: SASS {mod}: {json.dumps(stats)}",
-                          flush=True)
-        fops._lib, dops._lib = libs["flash_attention"], libs["decode_attention"]
-        if narrow is not None:
-            dops.NARROW_GROUP = 0 if name == "decode_group_for_all" else narrow
-        rows = DECODE_ROWS if "flash_attention" not in subs else {}
-        for row, (h, hkv, d, lens) in rows.items():
-            b, s = len(lens), 4096
-            q, k, v = randn(b, h, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
-            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-            kernel = lambda: dops.decode_attention(q, k, v, lengths)  # noqa: E731
-            ok = cs.close_enough(torch, kernel(), dref.decode_attention_ref(q, k, v, lengths))
-            mask = (torch.arange(s, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-            sdpa = ms(lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
-                                                             enable_gqa=True))
-            print(json.dumps({"tree": label, "variant": name, "kernel": "decode_attention",
-                              "row": row, "ms": ms(kernel), "sdpa_ms": sdpa, "ok": ok,
-                              "card": smi}), flush=True)
-        rows = FLASH_ROWS if "decode_attention" not in subs else {}
-        for row, (h, hkv, d, fs, window) in rows.items():
-            if name != "base" and d != 256:
-                continue
-            q, k, v = randn(1, h, fs, d), randn(1, hkv, fs, d), randn(1, hkv, fs, d)
-            kw = dict(causal=True, window=window)
-            kernel = lambda: fops.flash_attention(q, k, v, **kw)  # noqa: E731
-            ok = cs.flash_bf16_close(torch, kernel(), fref.attention_ref(q, k, v, **kw),
-                                     cs.flash_yardstick(q, k, v, **kw))[0]
-            if window is None or window >= fs:
-                sdpa_kw = dict(is_causal=True, enable_gqa=True)
-            else:
-                pos = torch.arange(fs, device=dev)
-                sdpa_kw = dict(attn_mask=(pos[None, :] <= pos[:, None])
-                               & (pos[None, :] > pos[:, None] - window), enable_gqa=True)
-            sdpa = ms(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw))
-            print(json.dumps({"tree": label, "variant": name, "kernel": "flash_attention",
-                              "row": row, "ms": ms(kernel), "sdpa_ms": sdpa, "ok": ok,
-                              "card": smi}), flush=True)
+    def report(kernel, row, got, sdpa, ok):
+        print(json.dumps({"tree": label, "kernel": kernel, "row": row, "ms": ms(got),
+                          "sdpa_ms": ms(sdpa), "ok": ok, "card": smi}), flush=True)
+
+    s = cs.DECODE_LEN
+    decode_rows = [(arch, h, hkv, d, [s] * b)
+                   for arch, (h, hkv, d, _, b) in cs.ATTENTION_ROWS.items()]
+    h, hkv, d, _, b = cs.ATTENTION_ROWS[cs.HYBRID_ARCH]
+    decode_rows.append((cs.HYBRID_ARCH, h, hkv, d,
+                        [cs.HYBRID_PROMPT_LEN + cs.HYBRID_NEW_TOKENS] * b))
+    for arch, h, hkv, d, lens in decode_rows:
+        b = len(lens)
+        q, k, v = randn(b, h, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kernel = lambda: dops.decode_attention(q, k, v, lengths)  # noqa: E731
+        ok = cs.close_enough(torch, kernel(), dref.decode_attention_ref(q, k, v, lengths))
+        mask = (torch.arange(s, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        report("decode_attention",
+               f"{arch} {h}/{hkv} x {d}, B={b}, "
+               + ("full length" if lens[0] == s else f"length {lens[0]}"),
+               kernel, lambda: F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                                              attn_mask=mask, enable_gqa=True),
+               ok)
+
+    flash_rows = [(arch, h, hkv, d, cs.FORWARD_LEN, window)
+                  for arch, (h, hkv, d, window, _) in cs.ATTENTION_ROWS.items()]
+    h, hkv, d, window, _ = cs.ATTENTION_ROWS[cs.HYBRID_ARCH]
+    flash_rows.append((cs.HYBRID_ARCH, h, hkv, d, cs.HYBRID_FORWARD_LEN, window))
+    for arch, h, hkv, d, fs, window in flash_rows:
+        q, k, v = randn(1, h, fs, d), randn(1, hkv, fs, d), randn(1, hkv, fs, d)
+        kw = dict(causal=True, window=window)
+        kernel = lambda: fops.flash_attention(q, k, v, **kw)  # noqa: E731
+        ok = cs.flash_bf16_close(torch, kernel(), fref.attention_ref(q, k, v, **kw),
+                                 cs.flash_yardstick(q, k, v, **kw))[0]
+        if window is None or window >= fs:
+            sdpa_kw = dict(is_causal=True, enable_gqa=True)
+        else:
+            pos = torch.arange(fs, device=dev)
+            sdpa_kw = dict(attn_mask=(pos[None, :] <= pos[:, None])
+                           & (pos[None, :] > pos[:, None] - window), enable_gqa=True)
+        report("flash_attention",
+               f"{arch} {h}/{hkv} x {d}, S={fs}"
+               + (f", window {window}" if window is not None and window < fs else ""),
+               kernel, lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw), ok)
     return 0
 
 
