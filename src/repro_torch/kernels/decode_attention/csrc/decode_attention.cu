@@ -48,11 +48,13 @@
 //   256 threads take each 64-row step together: every k row is read from
 //   shared memory once per 16 heads, the group in the rows of
 //   mma.m16n8k16 (1-4 m-tiles reusing each k fragment); a thread per
-//   quarter of a head's rows keeps its online softmax; p.v stays on the
-//   FMA pipes in float32 (p is float32 in the reference), each thread
-//   owning a tile of (heads, columns): HT * CW accumulators, 24 at 48 x
-//   128.  A chunk has several steps, and a ring of cp.async stages (three,
-//   two at D = 256) keeps the next steps' rows in flight.
+//   quarter of a head's rows keeps its online softmax.  p is float32 in
+//   the reference, so p.v does not round it to one bf16: p goes to the
+//   tensor cores as a bf16 pair hi + lo (two products into float32
+//   accumulators, v exact in bf16), each warp owning output tiles of 16
+//   heads x 8 columns, 24 accumulators a thread at 48 x 128.  A chunk has
+//   several steps, and a ring of cp.async stages (three, two at D = 256)
+//   keeps the next steps' rows in flight.
 //
 // A chunk that starts at or past the sequence's length writes an empty
 // partial (m = -inf, l = 0) and exits.  Length 0 keeps the Pallas result,
@@ -449,9 +451,11 @@ constexpr int kNarrowGroup = 8;  // wider groups run decode_group (ops.py NARROW
 constexpr int kGroupRows = 64;   // cache rows a step (ops.py GROUP_ROWS)
 
 // decode_group<D, MT>'s geometry: the group padded to MT m-tiles of 16
-// heads; k/v rows as decode_split keeps them (SC chunks, the k swizzle);
-// q in bf16 rows of DP + 8 elements (the pad keeps a fragment load's 32
-// lanes on 32 banks); scores [head][row] and p [row][head] in float32.
+// heads; k/v rows of SC chunks, both with the k swizzle; q in bf16 rows of
+// DP + 8 elements and p's bf16 halves in rows of R + 8 (the pads keep a
+// fragment load's 32 lanes on 32 banks); scores [head][row] in float32.
+// p.v's output, GP heads x DP columns, is MT x NT tiles of m16n8, TPW a
+// warp.
 template <int D, int MT>
 struct GGeo {
   static constexpr int R = kGroupRows;
@@ -466,13 +470,11 @@ struct GGeo {
   static constexpr int kStages = D > 128 ? 2 : 3;       // the cp.async ring
   static constexpr int QS = DP * 2 + 16;  // bytes a q row
   static constexpr int SS = R + 4;        // floats a score row (a head)
-  static constexpr int PS = GP + 8;       // floats a p row (a cache row)
-  static constexpr int HT = GP / 8;       // p.v: heads a warp
-  static constexpr int CW = DP / 32;      // p.v: columns a lane
-  static constexpr int kColBytes = CW * 2;
-  static constexpr int kColAlign = kColBytes & -kColBytes;
+  static constexpr int PS = R + 8;        // bf16 a p row (a head)
+  static constexpr int NT = DP / 8;       // p.v: n-tiles of 8 columns
+  static constexpr int TPW = (MT * NT + kWarps - 1) / kWarps;  // tiles a warp
   static constexpr int kBytes =
-      kStages * kStepBytes + GP * QS + (GP * SS + R * PS + GP) * 4;
+      kStages * kStepBytes + GP * QS + (GP * SS + GP) * 4 + 2 * GP * PS * 2;
   static_assert(CPR % 4 == 0 && R * CPR % kThreads == 0, "whole loads a thread");
   static_assert(4 * GP <= kThreads && R / 8 == kWarps, "a warp per 8 rows");
 };
@@ -483,11 +485,14 @@ struct GGeo {
 // 8w + 7 of the step and every head, the heads in the rows of
 // mma.m16n8k16 (MT m-tiles reuse each k fragment), q's fragments read from
 // shared memory.  Softmax: four threads a head, each over a quarter of the
-// step's rows, keep the head's running (m, l) in float32.  p.v on the FMA
-// pipes in float32, as in decode_split: warp w owns heads HT w .. HT w +
-// HT - 1 and lane l columns CW l .. CW l + CW - 1, HT * CW accumulators a
-// thread.  Three block barriers a step; the next steps' rows stream in
-// through a ring of kStages cp.async stages behind them.
+// step's rows, keep the head's running (m, l) in float32, and split each
+// float32 p into bf16 hi + lo (hi = p rounded, lo = p - hi rounded: p to
+// about 2^-17 of itself).  p.v on the tensor cores: two mma.m16n8k16 a
+// tile and k-step, hi.v and lo.v, into float32 accumulators (v is exact in
+// bf16), v's fragments loaded transposed by ldmatrix; warp w owns output
+// tiles w, w + 8, ... of the MT x NT (heads x 8 columns), TPW * 4
+// accumulators a thread.  Three block barriers a step; the next steps'
+// rows stream in through a ring of kStages cp.async stages behind them.
 template <int D, int MT>
 __global__ void __launch_bounds__(kThreads, 1)
     decode_group(const __nv_bfloat16* __restrict__ q,
@@ -502,8 +507,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* sQ = smem + G::kStages * G::kStepBytes;  // GP rows of QS bytes
   float* sS = reinterpret_cast<float*>(sQ + G::GP * G::QS);  // [head][SS]
-  float* sP = sS + G::GP * G::SS;                             // [row][PS]
-  float* sC = sP + R * G::PS;                                 // [head]: corr
+  float* sC = sS + G::GP * G::SS;                             // [head]: corr
+  T* sPh = reinterpret_cast<T*>(sC + G::GP);                  // [head][PS]: hi
+  T* sPl = sPh + G::GP * G::PS;                               // [head][PS]: lo
 
   const int bk = blockIdx.x;  // b * n_kv_heads + kv head
   const int split = blockIdx.y, n_splits = gridDim.y;
@@ -540,7 +546,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const bool valid = t0 + rr < c1 && c < G::CD;
       const size_t src = valid ? (size_t)(t0 + rr) * D + c * 8 : (size_t)c0 * D;
       cp_async16(dk + rr * G::kRowBytes + k_offset<T, G::CPR>(rr, c), kp + src, valid);
-      cp_async16(dv + rr * G::kRowBytes + c * 16, vp + src, valid);
+      cp_async16(dv + rr * G::kRowBytes + k_offset<T, G::CPR>(rr, c), vp + src, valid);
     }
   };
 #pragma unroll
@@ -560,12 +566,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int sh = tid / 4, sj = tid % 4;  // softmax: head sh, rows 4i + sj
   const bool soft = tid < 4 * G::GP;      // whole warps: GP is a multiple of 16
   float m_run = -INFINITY, l_run = 0.0f;  // head sh's, over the rows so far
-  const int ph0 = warp * G::HT;           // p.v: this warp's first head
-  float acc[G::HT][G::CW];
+  float acc[G::TPW][4];  // p.v: tile warp + kWarps j, as m16n8's C fragment
 #pragma unroll
-  for (int i = 0; i < G::HT; ++i)
-#pragma unroll
-    for (int j = 0; j < G::CW; ++j) acc[i][j] = 0.0f;
+  for (int j = 0; j < G::TPW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 
   for (int s = 0; s < n_steps; ++s) {
     // this thread's rows of step s are in; the barrier makes everyone's
@@ -638,7 +641,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < R / 4; ++i) {
         const float p = expf(x[i] - m_new);
-        sP[(4 * i + sj) * G::PS + sh] = p;
+        const T hi = __float2bfloat16(p);
+        sPh[sh * G::PS + 4 * i + sj] = hi;
+        sPl[sh * G::PS + 4 * i + sj] = __float2bfloat16(p - __bfloat162float(hi));
         ls += p;
       }
       l_run = l_run * corr + ls;  // this thread's share; summed at the end
@@ -647,31 +652,42 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
 
-    // acc = acc * corr + p . v in float32; rows past c1 have p = 0 and v = 0
+    // acc = acc * corr + (hi + lo) . v in float32; rows past c1 have p = 0
+    // and v = 0, columns past D v = 0
     {
 #pragma unroll
-      for (int i = 0; i < G::HT; ++i) {
-        const float cr = sC[ph0 + i];
-#pragma unroll
-        for (int j = 0; j < G::CW; ++j) acc[i][j] *= cr;
-      }
-      struct alignas(G::kColAlign) Cols { T v[G::CW]; };
-#pragma unroll 8
-      for (int r = 0; r < R; ++r) {
-        const Cols cv = *reinterpret_cast<const Cols*>(tV + r * G::kRowBytes +
-                                                       lane * G::kColBytes);
-        float pr[G::HT];
-#pragma unroll
-        for (int i = 0; i < G::HT; i += 2) {
-          const float2 pp = *reinterpret_cast<const float2*>(sP + r * G::PS + ph0 + i);
-          pr[i] = pp.x;
-          pr[i + 1] = pp.y;
+      for (int j = 0; j < G::TPW; ++j) {
+        const int i = warp + kWarps * j;
+        if (i < MT * G::NT) {
+          const int h = 16 * (i / G::NT) + g;
+          const float c0 = sC[h], c1 = sC[h + 8];
+          acc[j][0] *= c0;
+          acc[j][1] *= c0;
+          acc[j][2] *= c1;
+          acc[j][3] *= c1;
         }
+      }
 #pragma unroll
-        for (int j = 0; j < G::CW; ++j) {
-          const float vj = to_f32(cv.v[j]);
+      for (int ks = 0; ks < R / 16; ++ks) {
+        const int vr = 16 * ks + (lane & 15);  // the row this lane addresses
+        const uint32_t vrow = static_cast<uint32_t>(__cvta_generic_to_shared(tV)) +
+                              vr * G::kRowBytes;
 #pragma unroll
-          for (int i = 0; i < G::HT; ++i) acc[i][j] = fmaf(pr[i], vj, acc[i][j]);
+        for (int j = 0; j < G::TPW; ++j) {
+          const int i = warp + kWarps * j;
+          if (i >= MT * G::NT) break;  // the same for the whole warp
+          const int nt = i % G::NT;
+          uint32_t b0, b1;
+          asm volatile(
+              "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+              : "=r"(b0), "=r"(b1)
+              : "r"(vrow + k_offset<T, G::CPR>(vr, nt)));
+          const int a = (16 * (i / G::NT) + g) * G::PS + 16 * ks + 2 * t;
+          const uint32_t* ph = reinterpret_cast<const uint32_t*>(sPh + a);
+          const uint32_t* pl = reinterpret_cast<const uint32_t*>(sPl + a);
+          constexpr int r8 = 8 * G::PS / 2;  // 8 heads on, in 32-bit words
+          mma_16816(acc[j], ph[0], ph[r8], ph[4], ph[r8 + 4], b0, b1);
+          mma_16816(acc[j], pl[0], pl[r8], pl[4], pl[r8 + 4], b0, b1);
         }
       }
     }
@@ -690,23 +706,29 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 #pragma unroll
-  for (int i = 0; i < G::HT; ++i) {
-    const int h = ph0 + i;
-    if (h >= group) continue;
-    const size_t qh = (size_t)(head0 + h);
-    const float l = sS[G::GP + h];
+  for (int j = 0; j < G::TPW; ++j) {
+    const int i = warp + kWarps * j;
+    if (i >= MT * G::NT) break;
+    const int d = 8 * (i % G::NT) + 2 * t;  // columns d, d + 1: both < D or neither
 #pragma unroll
-    for (int j = 0; j < G::CW; ++j) {
-      const int d = lane * G::CW + j;
-      if (d >= D) continue;
-      if (n_splits == 1)
-        store(out + qh * D + d, acc[i][j] / fmaxf(l, 1e-30f));
-      else
-        part_acc[(qh * n_splits + split) * D + d] = acc[i][j];
+    for (int hh = 0; hh < 2; ++hh) {
+      const int h = 16 * (i / G::NT) + g + 8 * hh;
+      if (h >= group || d >= D) continue;
+      const size_t qh = (size_t)(head0 + h);
+      if (n_splits == 1) {
+        const float den = fmaxf(sS[G::GP + h], 1e-30f);
+        store(out + qh * D + d, acc[j][2 * hh] / den);
+        store(out + qh * D + d + 1, acc[j][2 * hh + 1] / den);
+      } else {
+        *reinterpret_cast<float2*>(part_acc + (qh * n_splits + split) * D + d) =
+            make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
+      }
     }
-    if (n_splits > 1 && lane == 0) {
-      part_ml[(qh * n_splits + split) * 2] = sS[h];
-      part_ml[(qh * n_splits + split) * 2 + 1] = l;
+  }
+  if (n_splits > 1) {
+    for (int h = tid; h < group; h += kThreads) {
+      part_ml[((size_t)(head0 + h) * n_splits + split) * 2] = sS[h];
+      part_ml[((size_t)(head0 + h) * n_splits + split) * 2 + 1] = sS[G::GP + h];
     }
   }
 }

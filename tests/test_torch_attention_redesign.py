@@ -331,6 +331,28 @@ def test_wide_group_plan_bounds(s, n_blocks, group, d):
     assert parts <= b * hkv * s * d * 2 * 2
 
 
+@pytest.mark.parametrize("group,d", [(48, 128), (16, 256), (16, 80)])
+def test_hi_lo_p_keeps_p_v_in_float32(group, d):
+    """decode_group's p.v on the tensor cores: p split into bf16 hi + lo
+    (hi = p rounded, lo = p - hi rounded), each times the bf16 v exactly,
+    summed in float32, is float32's p.v to about 2^-16 of the output's
+    scale, far inside the one bf16 ulp that close_enough allows; p rounded
+    to one bf16 alone is not (it is what the split avoids)."""
+    gen = torch.Generator().manual_seed(group + d)
+    rows = 64 * 8  # eight 64-row steps of one chunk
+    scores = torch.randn(group, rows, generator=gen) * 3
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    v = torch.randn(rows, d, generator=gen).to(torch.bfloat16)
+    hi = p.to(torch.bfloat16)
+    lo = (p - hi.float()).to(torch.bfloat16)
+    want = p.double() @ v.double()
+    got = hi.float() @ v.float() + lo.float() @ v.float()
+    one = hi.float() @ v.float()
+    scale = want.abs().amax()
+    assert float((got.double() - want).abs().amax() / scale) < 2 ** -15
+    assert float((one.double() - want).abs().amax() / scale) > 2 ** -12
+
+
 # ------------------------------------------------------ decode wrapper
 class FakeLib:
     def __init__(self):

@@ -278,16 +278,18 @@ def test_decode_shared_memory_rows_hold_every_chunk_once(d, elem):
 def group_geometry(d: int, mt: int) -> dict:
     """decode_attention.cu's GGeo<D, MT> (decode_group, bf16 groups above
     8): MT m-tiles of 16 heads, 64-row steps, k/v rows as decode_split
-    keeps them, q in bf16 rows of DP + 8 elements, scores [head][row + 4]
-    and p [row][heads + 8] in float32, a ring of 3 stages (2 at D = 256)."""
+    keeps them (v with k's swizzle), q in bf16 rows of DP + 8 elements,
+    scores [head][row + 4] in float32, p's bf16 hi and lo [head][row + 8],
+    a ring of 3 stages (2 at D = 256); p.v's MT x NT output tiles of 16
+    heads x 8 columns, TPW a warp."""
     _, _, sc = geometry(d, 2)
     rows, gp, dp = 64, 16 * mt, padded_width(d)
     g = dict(rows=rows, gp=gp, dp=dp, kk=dp // 16, row_bytes=sc * 16,
-             stages=2 if d > 128 else 3, qs=dp * 2 + 16, ss=rows + 4, ps=gp + 8,
-             ht=gp // 8, cw=dp // 32)
+             stages=2 if d > 128 else 3, qs=dp * 2 + 16, ss=rows + 4, ps=rows + 8,
+             nt=dp // 8, tpw=-(-mt * (dp // 8) // 8))
     g["step"] = 2 * rows * g["row_bytes"]
-    g["bytes"] = (g["stages"] * g["step"] + gp * g["qs"]
-                  + (gp * g["ss"] + rows * g["ps"] + gp) * 4)
+    g["bytes"] = (g["stages"] * g["step"] + gp * g["qs"] + (gp * g["ss"] + gp) * 4
+                  + 2 * gp * g["ps"] * 2)
     return g
 
 
@@ -301,8 +303,15 @@ def test_decode_group_constants_are_the_wrappers():
                  "static constexpr int kStages = D > 128 ? 2 : 3;",
                  "static constexpr int QS = DP * 2 + 16;",
                  "static constexpr int SS = R + 4;",
-                 "static constexpr int PS = GP + 8;",
-                 "kStages * kStepBytes + GP * QS + (GP * SS + R * PS + GP) * 4;",
+                 "static constexpr int PS = R + 8;",
+                 "static constexpr int NT = DP / 8;",
+                 "static constexpr int TPW = (MT * NT + kWarps - 1) / kWarps;",
+                 "kStages * kStepBytes + GP * QS + (GP * SS + GP) * 4 + 2 * GP * PS * 2;",
+                 "cp_async16(dv + rr * G::kRowBytes + k_offset<T, G::CPR>(rr, c), vp + src, valid);",
+                 "vr * G::kRowBytes;",
+                 ": \"r\"(vrow + k_offset<T, G::CPR>(vr, nt)));",
+                 "const int a = (16 * (i / G::NT) + g) * G::PS + 16 * ks + 2 * t;",
+                 "sPh[sh * G::PS + 4 * i + sj] = hi;",
                  "if (group > kNarrowGroup) {",
                  "const int mt = (group + 15) / 16;"):
         assert line in DECODE_CU, line
@@ -313,18 +322,21 @@ def test_decode_group_constants_are_the_wrappers():
 @pytest.mark.parametrize("mt", [1, 2, 3, 4])
 def test_decode_group_shared_memory_and_banks(d, mt):
     """decode_group<D, MT> fits the block's shared memory at every head
-    dim and head tile count (granite-34b's 48 heads at 128: 138,944 B;
-    recurrentgemma-9b's 16 at 256: 150,080 B; 64 at 256: 200,960 B), and
-    its shared loads keep a warp's 32 lanes on 32 banks: the q fragments
-    (rows QS bytes apart), the k fragments (decode_split's swizzle) and
-    the softmax's score reads (four threads a head)."""
+    dim and head tile count (granite-34b's 48 heads at 128: 138,432 B;
+    recurrentgemma-9b's 16 at 256: 148,544 B; 64 at 256: 200,960 B), p.v's
+    tiles cover the output, and its shared loads keep a warp's 32 lanes on
+    32 banks: the q fragments (rows QS bytes apart), the k fragments and
+    v's transposed ldmatrix rows (decode_split's swizzle), the softmax's
+    score reads (four threads a head), and p's fragments (rows PS bf16
+    apart)."""
     g = group_geometry(d, mt)
     assert g["bytes"] <= SMEM_LIMIT
-    want = {(128, 3): 138_944, (256, 1): 150_080, (256, 4): 200_960}
+    want = {(128, 3): 138_432, (256, 1): 148_544, (256, 4): 200_960}
     if (d, mt) in want:
         assert g["bytes"] == want[(d, mt)]
     assert 4 * g["gp"] <= 256 and g["rows"] // 8 == 8  # softmax threads; a warp per 8 rows
-    assert g["ht"] * 8 == g["gp"] and g["cw"] * 32 == g["dp"] and g["ht"] % 2 == 0
+    assert (g["tpw"] - 1) * 8 < mt * g["nt"] <= g["tpw"] * 8  # every tile, no empty round
+    assert g["nt"] * 8 == g["dp"] and g["gp"] == 16 * mt
     for kk in range(g["kk"]):
         for extra in (0, 16):  # a0 / a2 (and a1 / a3, 8 rows on: the same banks)
             banks = {((gg * g["qs"] + 32 * kk + extra + 4 * t) // 4) % 32
@@ -340,6 +352,11 @@ def test_decode_group_shared_memory_and_banks(d, mt):
     for i in range(g["rows"] // 4):
         banks = {(h * g["ss"] + 4 * i + j) % 32 for h in range(8) for j in range(4)}
         assert len(banks) == 32
+    for ks in range(g["rows"] // 16):
+        for extra in (0, 4):  # a0 / a2 in 32-bit words (a1 / a3, 8 heads on: the same)
+            banks = {(gg * g["ps"] // 2 + 8 * ks + extra + t) % 32
+                     for gg in range(8) for t in range(4)}
+            assert len(banks) == 32
 
 
 # -------------------------------------------------- flash_wgmma geometry
