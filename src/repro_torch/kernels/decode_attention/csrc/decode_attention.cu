@@ -63,8 +63,9 @@
 // there is no second launch.  decode_combine reads each chunk's (m, l)
 // once (one warp) and sums the acc over the chunks with independent loads.
 //
-// Registers (ptxas, sm_90a): decode_group 87-156 a thread, no spills
-// (104 at 128 x 3 m-tiles, 93 at 256 x 1); decode_split as before.
+// Registers (ptxas, sm_90a): decode_group 80-185 a thread, no spills
+// (114 at 128 x 3 m-tiles, 96 at 256 x 1, 185 at 256 x 4); decode_split
+// as before (8 B of spills at bf16 x 120).
 //
 // Head dims that are not a multiple of 32 (80 for qwen3-32b, 120 for
 // h2o-danube-3-4b) run on a padded width DP, D rounded up to 32 (96 and

@@ -16,8 +16,10 @@ config of ``chip_smoke.ATTENTION_ROWS``, the recurrent hybrid's decode at
 its serve's length and its flash at its forward's length, where the window
 masks.  Each row has the device time (CUDA events, L2 flushed, median of
 ``chip_smoke.TIMING_REPS``, launches queued behind a sleep kernel), SDPA's
-time on the same inputs, and whether the result held to the plain version
-(``close_enough`` for decode, ``flash_bf16_close`` for flash).
+time on the same inputs, whether the host queued both ahead of the card
+(``ahead``; where not, the times hold host gaps), and whether the result
+held to the plain version (``close_enough`` for decode,
+``flash_bf16_close`` for flash).
 
 The rows, the timing, the rules and the ptxas parser are those of the
 ``chip_smoke.py`` beside this script; only the kernels come from DIR, so
@@ -98,7 +100,9 @@ def main() -> int:
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
 
     def ms(fn):
-        return cs.time_ms(torch, fn, flush)[0]
+        """(ms, ahead): ahead is false where the host fell behind the card
+        while queuing the launches, so the time holds host gaps."""
+        return cs.time_ms(torch, fn, flush)
 
     # half a second of products first, so the first row does not run while
     # the card's clocks still rise from idle
@@ -110,8 +114,10 @@ def main() -> int:
     del x
 
     def report(kernel, row, got, sdpa, ok):
-        print(json.dumps({"tree": label, "kernel": kernel, "row": row, "ms": ms(got),
-                          "sdpa_ms": ms(sdpa), "ok": ok, "card": smi}), flush=True)
+        (t, ahead), (t_sdpa, ahead_sdpa) = ms(got), ms(sdpa)
+        print(json.dumps({"tree": label, "kernel": kernel, "row": row, "ms": t,
+                          "sdpa_ms": t_sdpa, "ahead": ahead and ahead_sdpa, "ok": ok,
+                          "card": smi}), flush=True)
 
     s = cs.DECODE_LEN
     decode_rows = [(arch, h, hkv, d, [s] * b)
