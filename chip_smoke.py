@@ -193,7 +193,21 @@ Phases, each of which fails the script (non-zero exit) on any error:
    1's report); the rows count the launches of phases 6,
    6d, 6e and 6f, path by path.  Lines before it give phase 6e's
    musicgen-medium and phase 6f's recurrentgemma-9b forward time and the
-   forward profile's flash time, and the script's seconds.
+   forward profile's flash time, and the script's seconds;
+8. the planner and the example editions (``planner_and_examples``,
+   under PLANNER_PHASE_S seconds): (a) ``repro_torch.launch.dryrun``'s
+   ``lower_cell`` for every arch x shape on the abstract 16 x 16 mesh (on
+   meta tensors, in PLAN_WORKERS processes), none failing beyond
+   ``shape_applicable``'s skips, and the roofline table printed; (b) phase
+   6's Yi-6B parameters placed by ``DEFAULT_RULES`` as DTensors on a 1 x 1
+   ``make_host_mesh()`` (NCCL), each ``to_local()`` bitwise equal to its
+   parameter, the group torn down; (c) the roofline on a 1 x 1 mesh of
+   phase 6's decode step and phase 6c's forwards (kernel route), each
+   bound at most the time the card measured, the planner's serving
+   weights equal to phase 6c's and its init peak within
+   INIT_PEAK_SHARE of the measured one; (d) the five
+   ``examples/torch_*.py`` run as processes at their default device
+   (started first, beside (a)-(c)), each exiting 0.
 
 Timing (phases 4 and 7): CUDA events, L2 flushed between launches,
 median of 25; ``ms`` has the launches queued behind a sleep kernel so
@@ -232,13 +246,10 @@ LATENCY_REPS = 5
 #: launches (about 25 ms at the H100's clock), so host time is hidden
 QUEUE_CYCLES = 50_000_000
 
-#: device memory rate by card, bytes/s (NVIDIA data sheets)
+#: device memory rate by card, bytes/s (NVIDIA data sheets); the H100
+#: SXM's, and its float32 and bf16 rates, are the roofline's
+#: (``repro_torch.launch.roofline``: HBM_BW, FP32_FLOPS, PEAK_FLOPS)
 MEMORY_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
-H100_SXM_RATE = 3.35e12
-#: float32 rate outside the tensor cores (H100 SXM data sheet)
-FP32_RATE = 67e12
-#: dense bf16 tensor-core rate (H100 SXM data sheet)
-BF16_RATE = 989e12
 
 #: phase 6: the serving run
 N_REQUESTS = 6
@@ -351,10 +362,12 @@ def check(cond: bool, msg: str) -> None:
 
 
 def memory_rate(name: str) -> float:
+    from repro_torch.launch.roofline import HBM_BW
+
     for key, rate in MEMORY_RATE.items():
         if key in name:
             return rate
-    return H100_SXM_RATE
+    return HBM_BW
 
 
 # --------------------------------------------------------------- phase 1
@@ -1155,6 +1168,8 @@ def time_ms(torch, fn, flush, queued=True):
 
 
 def measure(torch, ops, ref, launches, inputs, card):
+    from repro_torch.launch.roofline import FP32_FLOPS
+
     keys, vals, filt = inputs
     n, G = keys.shape[0], 64
     kw = dict(op="ge", threshold=0.5, num_groups=G)
@@ -1188,7 +1203,7 @@ def measure(torch, ops, ref, launches, inputs, card):
     ops.LAUNCHES = before  # timing launches are not main-path launches
     nbytes = n * (4 + 4 + 4) + 2 * G * 4
     bytes_ms = nbytes / memory_rate(card) * 1e3
-    ops_ms = 3 * n / FP32_RATE * 1e3  # compare, add, count per row
+    ops_ms = 3 * n / FP32_FLOPS * 1e3  # compare, add, count per row
     row = {
         "name": "fused_filter_agg",
         "route": "cuda",
@@ -1994,7 +2009,8 @@ def forward_full(np, torch, flash_ops, arch, smi):
     gc.collect()
     torch.cuda.empty_cache()
     return {"n_layers": cfg.n_layers, "flash_launches": launches, "init_s": init_s,
-            "init_peak_bytes": init_peak, "forward_s": fwd_s, "forward_peak_bytes": fwd_peak}
+            "init_peak_bytes": init_peak, "weights_bytes": weights, "forward_s": fwd_s,
+            "forward_peak_bytes": fwd_peak}
 
 
 # -------------------------------------------------------------- phase 6d
@@ -3310,6 +3326,8 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
                       full_served, trained, families, hybrid, card):
     import torch.nn.functional as F
 
+    from repro_torch.launch.roofline import PEAK_FLOPS
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -3332,7 +3350,7 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
         ms, ahead = time_ms(torch, kernel, flush)
         check(ahead, "the host fell behind the card while queuing the kernel's launches")
         bytes_ms = nbytes / rate * 1e3
-        ops_ms = flops / BF16_RATE * 1e3
+        ops_ms = flops / PEAK_FLOPS * 1e3
         return {
             "max_abs_err": float((out.float() - want.float()).abs().max()),
             "ms": ms,
@@ -3495,6 +3513,205 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
     return rows
 
 
+# --------------------------------------------------------------- phase 8
+#: phase 8: the example editions, each run as a process at its default
+#: device (the card)
+EXAMPLE_EDITIONS = ("torch_quickstart", "torch_taxi_pipeline", "torch_train_lm",
+                    "torch_serve_lm", "torch_reasonable_scale")
+#: processes that plan phase 8's dry-run cells at once (the cells take
+#: 0.2-26 s of one core each on meta tensors)
+PLAN_WORKERS = 4
+#: the phase's seconds must stay below this
+PLANNER_PHASE_S = 90.0
+#: the planned init peak may differ from the measured one by this share
+INIT_PEAK_SHARE = 0.05
+
+
+def plan_cell(arch, shape_name):
+    """One single-pod dry-run cell (a process of phase 8's pool)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import make_production_mesh
+
+    torch.set_num_threads(1)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rec = lower_cell(arch, SHAPES[shape_name], make_production_mesh())
+    return f"{arch}/{shape_name}/single", rec
+
+
+def plan_sweep(pool):
+    """(a): every arch x shape on the abstract 16 x 16 mesh: the skip
+    records, and a future of each live cell's record on ``pool``, the
+    longest cells first."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.configs.shapes import SHAPES, shape_applicable
+
+    skipped, live = {}, []
+    for arch in ARCH_IDS:
+        for name, shape in SHAPES.items():
+            skip = shape_applicable(get_config(arch), shape)
+            if skip:
+                skipped[f"{arch}/{name}/single"] = {"skipped": skip}
+            else:
+                live.append((arch, name))
+    live.sort(key=lambda c: (SHAPES[c[1]].kind != "train",
+                             c[0] not in ("xlstm_350m", "deepseek_v3_671b")))
+    return skipped, [pool.submit(plan_cell, arch, name) for arch, name in live]
+
+
+def place_yi(np, torch, smi):
+    """(b): phase 6's Yi-6B parameters (the same seed) placed by
+    DEFAULT_RULES as DTensors on a 1 x 1 ``make_host_mesh()`` on the card;
+    each ``to_local()`` bitwise equal to its parameter; the group torn
+    down."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.distribution import DEFAULT_RULES, param_shardings, to_placements
+    from repro_torch.launch.mesh import close_host_mesh, make_host_mesh
+    from repro_torch.models import LM
+
+    t0 = time.perf_counter()
+    model = LM(get_config("yi-6b")).init(torch.Generator(device="cuda").manual_seed(SEED))
+    mesh = make_host_mesh()
+    try:
+        specs = param_shardings(DEFAULT_RULES, mesh, model)
+        sharded = 0
+        for name, p in model.named_parameters():
+            placements = to_placements(specs[name], mesh)
+            d = distribute_tensor(p.detach(), mesh, placements)
+            check(isinstance(d, DTensor) and d.device_mesh is mesh,
+                  f"{name}: not a DTensor on the host mesh")
+            check(bitwise_equal(torch, d.to_local(), p.detach()),
+                  f"{name}: to_local() differs from the parameter")
+            sharded += any(type(pl).__name__ == "Shard" for pl in placements)
+            del d
+        n = len(specs)
+    finally:
+        close_host_mesh()
+    check(not torch.distributed.is_initialized(), "the host mesh's group is still open")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 8 (b): yi-6b's {n} parameters placed by DEFAULT_RULES as DTensors on a "
+          f"1 x 1 host mesh (NCCL), {sharded} with a Shard placement, each to_local() "
+          f"bitwise equal to its parameter, group torn down, in "
+          f"{time.perf_counter() - t0!r} s [{smi}]")
+
+
+def roofline_vs_card(served, full_served, smi):
+    """(c): the roofline of phase 6's decode step and phase 6c's
+    full-depth forwards on a 1 x 1 mesh, on the kernel route: each bound
+    at most the card's measured time, and the planner's serving weights
+    equal to phase 6c's, below its init peak, the planned init peak
+    within INIT_PEAK_SHARE of the measured one."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import WorkloadShape
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.roofline import cell_report
+
+    mesh = AbstractMesh({"data": 1, "model": 1})
+    cells = [("yi-6b", WorkloadShape("serve_decode", DECODE_LEN, 4, "decode"),
+              served["decode_step_s"], None)]
+    cells += [(arch, WorkloadShape("forward", FORWARD_LEN, 1, "prefill"),
+               full_served[arch]["forward_s"], full_served[arch]) for arch in FULL_ARCHS]
+    out = {}
+    for arch, shape, measured, full in cells:
+        cfg = dataclasses.replace(get_config(arch), use_flash_kernel=True)
+        rec = lower_cell(arch.replace("-", "_").replace(".", "_"), shape, mesh,
+                         cfg_override=cfg)
+        r = cell_report(rec, cfg, shape)
+        frac = r["bound_s"] / measured
+        terms = {k: v * 1e3 for k, v in r["terms_s"].items()}
+        print(f"phase 8 (c): {arch} {shape.kind} (B = {shape.global_batch}, S = "
+              f"{shape.seq_len}, kernel route): roofline terms ms {terms!r}, bound "
+              f"{r['bound_s'] * 1e3!r} ms ({r['dominant']}), measured {measured * 1e3!r} ms, "
+              f"fraction {frac!r}; counted {rec['flops_per_device']!r} FLOPs, "
+              f"{rec['bytes_per_device']!r} B [{smi}]")
+        check(r["bound_s"] <= measured, f"{arch}: roofline bound {r['bound_s']} s exceeds the "
+              f"measured {measured} s")
+        if full is not None:
+            planned, peak = rec["serve_param_bytes_global"], full["init_peak_bytes"]
+            model_peak = rec["serve_init_peak_bytes"]
+            share = abs(model_peak - peak) / peak
+            print(f"phase 8 (c): {arch} weights planned {planned} B, measured "
+                  f"{full['weights_bytes']} B; init peak planned {model_peak} B, measured "
+                  f"{peak} B ({share!r} apart)")
+            check(planned == full["weights_bytes"] and planned <= peak,
+                  f"{arch}: planned weights {planned} B against {full['weights_bytes']} B "
+                  f"measured, init peak {peak} B")
+            check(share <= INIT_PEAK_SHARE, f"{arch}: planned init peak {model_peak} B is "
+                  f"{share:.3f} from the measured {peak} B")
+        out[arch] = {"bound_s": r["bound_s"], "measured_s": measured, "fraction": frac}
+    return out
+
+
+def planner_and_examples(np, torch, served, full_served, smi):
+    """Phase 8: the planner and the example editions (see the module's
+    docstring).  The editions start first and run while the planner
+    counts; each must exit 0."""
+    from repro_torch.launch.roofline import build_report, markdown_table
+
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t_phase = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = {}
+    for name in EXAMPLE_EDITIONS:  # output to files: nobody reads a pipe meanwhile
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / f"{name}.py")], cwd=ROOT, env=env,
+            stdout=out, stderr=err, text=True), out, err, time.perf_counter())
+    try:
+        with ProcessPoolExecutor(PLAN_WORKERS, mp_context=multiprocessing.get_context("spawn")
+                                 ) as pool:
+            records, futures = plan_sweep(pool)
+            # (b) and (c) here while the pool plans
+            place_yi(np, torch, smi)
+            fractions = roofline_vs_card(served, full_served, smi)
+            records.update(f.result() for f in futures)
+        plan_s = time.perf_counter() - t_phase
+        n_live = len(futures)
+        report = build_report(records, path=None)
+        print(markdown_table(report))
+        failed = [k for k, r in report.items() if "error" in r]
+        ok = sum(1 for r in records.values() if r.get("ok"))
+        skipped = sum(1 for r in records.values() if "skipped" in r)
+        print(f"phase 8 (a): {ok} of {n_live} live cells planned on the abstract 16 x 16 "
+              f"mesh, {skipped} skipped by shape_applicable, by {plan_s!r} s into the "
+              f"phase with {PLAN_WORKERS} processes; counting seconds by cell "
+              f"{sum(r['lower_s'] for r in records.values() if r.get('ok'))!r} in all "
+              f"[{smi}]")
+        check(not failed and ok == n_live, f"dry-run cells failed: {failed}")
+        for name, (proc, out, err, started) in procs.items():
+            proc.wait(timeout=max(PLANNER_PHASE_S - (time.perf_counter() - t_phase), 1.0))
+            took = time.perf_counter() - started
+            out.seek(0)
+            err.seek(0)
+            lines = out.read().strip().splitlines()
+            print(f"phase 8 (d): examples/{name}.py exited {proc.returncode} within "
+                  f"{took!r} s, {len(lines)} lines, the last {lines[-1:]!r}")
+            check(proc.returncode == 0, f"examples/{name}.py failed: {err.read()[-2000:]}")
+    finally:
+        for proc, out, err, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 8: {seconds!r} s [{smi}]")
+    check(seconds < PLANNER_PHASE_S, f"phase 8 took {seconds} s")
+    return {"fractions": fractions, "phase_s": seconds}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -3547,6 +3764,7 @@ def main() -> int:
     ssm_mla = serve_xlstm_deepseek(np, torch, flash_ops, decode_ops, smi)
     rows = measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served,
                              cut_served, full_served, trained, families, hybrid, card)
+    planner_and_examples(np, torch, served, full_served, smi)
     music = families["musicgen-medium"]
     print(f"musicgen-medium (phase 6e): forward of {FORWARD_LEN} positions "
           f"{music['forward_s']!r} s, flash_attention launches {music['flash_launches']} a "

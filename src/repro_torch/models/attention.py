@@ -14,10 +14,11 @@ package's ``models/attention.py``:
 ``use_flash_kernel=False`` is the reference route, the counterpart of
 the jnp code; it is not the kernels' plain versions (those live beside
 the kernels).  On CPU tensors the kernel route takes the kernels' plain
-versions.  The JAX code pins heads to the tensor-parallel mesh axis
-(``constrain_heads``); without a mesh that does nothing, so on one
-device the port drops it.  The KV cache is updated in place (JAX
-returns a new array); the returned cache is the same tensors.
+versions.  The chunked forward pins heads to the tensor-parallel mesh
+axis (``constrain_heads``, at the JAX call site), which does nothing
+until a mesh is registered (``distribution.sharding``).  The KV cache
+is updated in place (JAX returns a new array); the returned cache is
+the same tensors.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distribution.sharding import constrain_heads
 from repro_torch.models.common import (
     Params,
     apply_rope,
@@ -139,6 +141,9 @@ def _sdpa_chunked(
     compute dtype, and each chunk's products take compute-dtype operands
     with float32 sums (operands widened to float32 first, which is exact
     for bf16 products)."""
+    q = constrain_heads(q)  # heads over TP (q heads always divide)
+    k = constrain_heads(k)  # kv heads shard only when they divide TP
+    v = constrain_heads(v)
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     group = h // hkv

@@ -60,6 +60,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.distribution.sharding import constrain_batch, constrain_logits
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -432,18 +433,20 @@ class LM(nn.Module):
         (B, S, K) with codebooks.  With ``num_patches``, ``patch_embeds``
         (B, P, d) go before the text and the logits cover the text only."""
         cfg = self.cfg
-        h = self._embed_tokens(self._modules, tokens)
+        h = constrain_batch(self._embed_tokens(self._modules, tokens))
         n_prefix = 0
         if cfg.num_patches and patch_embeds is not None:
             h = torch.cat([patch_embeds.to(h.dtype), h], dim=1)
             n_prefix = patch_embeds.shape[1]
         positions = torch.arange(h.shape[1], device=h.device)
-        for (*_, kind), p in zip(layer_plan(cfg), self.blocks):
-            h, _ = self._apply_block(kind, p, h, positions)
+        for (si, i, _, kind), p in zip(layer_plan(cfg), self.blocks):
+            h, _ = self._apply_block(kind, p, constrain_batch(h), positions)
+            if i == len(cfg.segments[si][0]) - 1:  # a unit's end, as the JAX scan's
+                h = constrain_batch(h)
         h = rmsnorm(self.final_norm, h, eps=cfg.norm_eps)
         if n_prefix:
             h = h[:, n_prefix:]
-        return self._read_out(self._modules, h)
+        return constrain_logits(self._read_out(self._modules, h))
 
     # --------------------------------------------------------- training
     def init_params(self, generator: Optional[torch.Generator]) -> Params:
@@ -480,10 +483,11 @@ class LM(nn.Module):
             def unit_fn(h, layer, _unit=unit):
                 aux = torch.zeros((), dtype=torch.float32, device=h.device)
                 for i, kind in enumerate(_unit):
-                    h, a = self._apply_block(kind, layer[f"b{i}"], h, positions, losses=True)
+                    h, a = self._apply_block(kind, layer[f"b{i}"], constrain_batch(h), positions,
+                                             losses=True)
                     if a is not None:
                         aux = aux + a
-                return h, aux
+                return constrain_batch(h), aux
 
             for layer in _unstack(params[f"seg{si}"], count):
                 h, aux = _remat(self.cfg.remat, unit_fn, h, layer)
@@ -515,7 +519,7 @@ class LM(nn.Module):
                 f"False (the reference attention) and serve on the kernels"
             )
         tokens = batch["tokens"]
-        h = self._embed_tokens(params, tokens)
+        h = constrain_batch(self._embed_tokens(params, tokens))
         n_prefix = 0
         if cfg.num_patches and "patch_embeds" in batch:
             h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
@@ -525,7 +529,7 @@ class LM(nn.Module):
         h = rmsnorm(params["final_norm"], h, eps=cfg.norm_eps)
         if n_prefix:
             h = h[:, n_prefix:]
-        logits = self._read_out(params, h[:, :-1])
+        logits = constrain_logits(self._read_out(params, constrain_batch(h[:, :-1])))
         mask = batch.get("loss_mask")
         mask = None if mask is None else mask[:, 1:]
         ce_mask = mask
@@ -537,7 +541,7 @@ class LM(nn.Module):
         if cfg.mtp:  # predict t + 2 from (h_t, emb_{t+1})
             mtp = params["mtp"]
             h_mtp = torch.cat([h[:, :-2], self._embed_tokens(params, tokens[:, 1:-1])], dim=-1)
-            h_mtp = linear(mtp["proj"], h_mtp, compute_dtype=cfg.compute_dtype)
+            h_mtp = constrain_batch(linear(mtp["proj"], h_mtp, compute_dtype=cfg.compute_dtype))
             h_mtp, _ = self._apply_block(cfg.mtp_kind, mtp["block"], h_mtp,
                                          positions[:h_mtp.shape[1]])
             h_mtp = rmsnorm(mtp["norm"], h_mtp, eps=cfg.norm_eps)
@@ -594,10 +598,11 @@ class LM(nn.Module):
         state updated in place.  An MoE block routes the whole batch as
         one group (``moe_apply``'s decode case) and drops its aux loss."""
         cfg = self.cfg
-        h = self._embed_tokens(self._modules, tokens)
+        h = constrain_batch(self._embed_tokens(self._modules, tokens))
         for (si, i, r, kind), p in zip(layer_plan(cfg), self.blocks):
             # this layer's views of the stacked state: updated in place
             layer = {k: v[r] for k, v in state[f"seg{si}"][f"b{i}"].items()}
+            h = constrain_batch(h)
             x = rmsnorm(p["norm1"], h, eps=cfg.norm_eps)
             if kind == "mlstm":
                 out, _ = xlstm_mod.mlstm_decode_step(p["mix"], cfg.xlstm_config(), x, layer)

@@ -15,9 +15,10 @@ is set and S exceeds it, :func:`_attend_chunked`, an online softmax over
 key chunks whose products take compute-dtype operands with float32 sums
 (the operands widened to float32 first, which is exact for bf16
 products), ``q·scale`` rounded to the compute dtype, ``-1e30`` masks and
-keys padded to a multiple of the chunk.  The JAX code pins heads to the
-tensor-parallel mesh axis there (``constrain_heads``); without a mesh
-that does nothing, so on one device the port drops it.
+keys padded to a multiple of the chunk.  That branch pins heads to the
+tensor-parallel mesh axis (``constrain_heads``, at the JAX call site),
+which does nothing until a mesh is registered
+(``distribution.sharding``).
 
 Decode is the weight-absorbed step (:func:`mla_decode_step`); the cache is
 updated in place (JAX returns a new one), with the same REPLACE semantics
@@ -30,6 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distribution.sharding import constrain_heads
 from repro_torch.models.attention import _write_at
 from repro_torch.models.common import (
     Params,
@@ -131,6 +133,10 @@ def _attend_chunked(cfg, q_nope, q_rope, k_nope, k_rope, v, *, chunk):
     """Online softmax over kv chunks (working set S x chunk, not S x S):
     (B,H,S,v) float32."""
     cd, f32 = cfg.compute_dtype, torch.float32
+    q_nope = constrain_heads(q_nope)
+    q_rope = constrain_heads(q_rope)
+    k_nope = constrain_heads(k_nope)
+    v = constrain_heads(v)
     b, h, s, _ = q_nope.shape
     t = k_nope.shape[2]
     pad = -t % chunk

@@ -24,10 +24,11 @@ promises no order), and the combine adds a token's contributions in the
 order XLA's CPU scatter-add applies them (expert-major, then slot),
 rounding to ``compute_dtype`` after each add, so its bits equal the JAX
 package's on the CPU and are the same from run to run on the card (an
-atomic ``index_add_`` would sum in another order each run).  The JAX
-code pins the buffers to the expert-parallel mesh axis
-(``constrain_moe_buffer``, ``constrain_batch``); without a mesh that does
-nothing, so on one device the port drops it.
+atomic ``index_add_`` would sum in another order each run).  The
+routing tables and expert buffers are pinned to the expert-parallel mesh
+axis (``constrain_moe_buffer``, the EP all-to-all's boundary) and the
+combine to the batch axes (``constrain_batch``), at the JAX call sites;
+without a registered mesh (``distribution.sharding``) they do nothing.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distribution.sharding import constrain_batch, constrain_moe_buffer
 from repro_torch.models import common
 from repro_torch.models.common import Params, init_linear, init_swiglu, linear, swiglu
 
@@ -192,13 +194,14 @@ def moe_apply(
     table = table.scatter(1, buf_pos, tok_idx.expand(b, -1))
     w_table = torch.zeros((b, e * cap + 1), dtype=cd, device=x.device)
     w_table = w_table.scatter(1, buf_pos, top_p.reshape(b, s * k).to(cd))
-    routing = table[:, :-1].reshape(b, e, cap)
-    w_slot = w_table[:, :-1].reshape(b, e, cap)
+    # the small routing tables take the EP layout first
+    routing = constrain_moe_buffer(table[:, :-1].reshape(b, e, cap))
+    w_slot = constrain_moe_buffer(w_table[:, :-1].reshape(b, e, cap))
 
     # ---- expert inputs: one batched gather (row s is the zero pad)
     x_pad = torch.cat([x.to(cd), torch.zeros((b, 1, d), dtype=cd, device=x.device)], dim=1)
     grouped = torch.gather(x_pad, 1, routing.reshape(b, e * cap, 1).expand(-1, -1, d))
-    grouped = grouped.reshape(b, e, cap, d)
+    grouped = constrain_moe_buffer(grouped.reshape(b, e, cap, d))
 
     # ---- expert FFN
     we = p["experts"]
@@ -206,10 +209,11 @@ def moe_apply(
     u = torch.einsum("becd,edf->becf", grouped, we["up"].to(cd))
     h = F.silu(g) * u
     out_e = torch.einsum("becf,efd->becd", h, we["down"].to(cd))
+    out_e = constrain_moe_buffer(out_e)
 
     # ---- combine
     weighted = out_e * w_slot[..., None]
-    combined = _combine(weighted, buf_pos, top_e)
+    combined = constrain_batch(_combine(weighted, buf_pos, top_e))
     if cfg.num_shared:
         combined = combined + swiglu(p["shared"], x, compute_dtype=cd)
     return combined, aux

@@ -2,7 +2,8 @@
 
 * every ``repro_torch`` module imports in a fresh interpreter in which
   importing ``jax``, ``ml_dtypes`` or ``repro`` raises;
-* no source file of the port, and not ``chip_smoke.py``, names ``jax``,
+* no source file of the port, nor ``chip_smoke.py``, ``tools/`` or the
+  example editions (``examples/torch_*.py``), names ``jax``,
   ``ml_dtypes`` or ``repro`` in an import statement (``repro_torch``
   excepted);
 * the entry points, left at their default device, raise when no CUDA
@@ -20,7 +21,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-           + sorted((ROOT / "tools").glob("*.py")))
+           + sorted((ROOT / "tools").glob("*.py"))
+           + sorted((ROOT / "examples").glob("torch_*.py")))
 
 _BLOCKED_IMPORT = r'''
 import importlib, pkgutil, sys
@@ -62,7 +64,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.configs.musicgen_medium", "repro_torch.models.rglru",
             "repro_torch.configs.recurrentgemma_9b", "repro_torch.models.xlstm",
             "repro_torch.models.mla", "repro_torch.configs.xlstm_350m",
-            "repro_torch.configs.deepseek_v3_671b"} <= names
+            "repro_torch.configs.deepseek_v3_671b", "repro_torch.distribution.sharding",
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline"} <= names
 
 
 def _forbidden_imports(path):
@@ -163,6 +167,32 @@ def test_params_from_numpy_default_device_raises_without_cuda(no_cuda):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_numpy({}, get_smoke_config("yi-6b"))
+
+
+def test_host_mesh_default_device_raises_without_cuda(no_cuda):
+    """``make_host_mesh()`` — the DTensor entry point — raises at the
+    default device before it opens a process group; ``device="cpu"``
+    makes a 1 x 1 gloo mesh, and ``close_host_mesh`` tears it down."""
+    from repro_torch.launch.mesh import close_host_mesh, make_host_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_host_mesh()
+    assert not torch.distributed.is_initialized()
+    mesh = make_host_mesh(device="cpu")
+    try:
+        assert mesh.device_type == "cpu" and tuple(mesh.mesh.shape) == (1, 1)
+    finally:
+        close_host_mesh()
+    assert not torch.distributed.is_initialized()
+
+
+def test_time_serve_refuses_to_run_without_cuda(no_cuda):
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "time_serve.py")],
+        capture_output=True, text=True, cwd=ROOT, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert proc.stdout == "" and "no CUDA device" in proc.stderr
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(no_cuda):
