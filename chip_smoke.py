@@ -10,8 +10,11 @@ Phases, each of which fails the script (non-zero exit) on any error:
 1. print the card's name and power limit (``nvidia-smi``), then build the
    three CUDA kernels from ``src/`` (one nvcc each, all started together),
    print each build time and ptxas's report, one ``ptxas:`` line with
-   every kernel's registers and spill bytes, and count the wgmma (HGMMA)
-   instructions in the flash library's SASS (there must be some);
+   every kernel's registers and spill bytes (each ``flash_tf32<f32, D>``
+   and ``flash_tf32<bf16, 32>`` instance among them), and count the wgmma
+   (HGMMA) instructions and the TF32 tensor-core instructions (HMMA or
+   HGMMA with TF32: ``flash_tf32``'s mma.sync) in the flash library's SASS
+   (there must be some of each);
 2. hold ``fused_filter_agg`` against its plain PyTorch version at n in
    {0, 1, 4095, 2^23, 2^23 + 3, 2^23 + 1000} rows, for 1, 63, 64, 65,
    265 and 1024 groups and all six predicate ops, on views that start 1,
@@ -76,8 +79,8 @@ Phases, each of which fails the script (non-zero exit) on any error:
    4096}, lengths 1, S-1, S, 0 and the split's chunk - 1, chunk and
    chunk + 1; flash at S in {512, 2048} (and a ragged 200), causal,
    non-causal and window 256, GQA 32/4, at head dim 128, and at S = 512
-   causal, with and without window 256, at head dim 32 (the CUDA-core
-   kernel in both dtypes); at head dim 64, GQA 32/4 and MHA 24/24
+   causal, with and without window 256, at head dim 32 (``flash_tf32`` in
+   both dtypes); at head dim 64, GQA 32/4 and MHA 24/24
    (musicgen-medium), flash at S in {512, 2048, 200} causal, non-causal
    and window 256, at S = 200 with window 64, and mask probes at S in
    {512, 2048}; at head dims 80 (64/8 heads) and 120
@@ -103,9 +106,14 @@ Phases, each of which fails the script (non-zero exit) on any error:
    plus mask probes (``mask_probe``: keys past the
    diagonal or outside the window carry large scores and v = +-64, so a
    leak moves outputs by whole units) at S in {512, 2048}; float32 and
-   bfloat16.  Decode and float32 flash within 1e-5 + 1e-5 |plain| (sums
-   in another order); bfloat16 decode and bfloat16 flash at head dim 32
-   (``flash_fwd``) within one bf16 ulp of the output (both round once
+   bfloat16; then, after every case above (whose inputs stay what they
+   were before these came), ``flash_tf32`` at head dim 32 (32/4) in both
+   dtypes and at 256 (16/1) in float32 on what head dim 64 has: S in
+   {512, 2048, 200}, causal, non-causal, window 256, window 64 at S = 200,
+   and mask probes at S in {512, 2048}.  Decode and float32 flash
+   (``flash_tf32``: three TF32 products a pair) within 1e-5 + 1e-5 |plain|
+   (sums in another order); bfloat16 decode and bfloat16 flash at head dim
+   32 (``flash_tf32``) within one bf16 ulp of the output (both round once
    from float32) plus that 1e-5; bf16 flash at head dims 64, 80, 120 and
    128 (``flash_wgmma``) by ``flash_bf16_close``: its largest and mean
    |kernel - plain| at most twice those of the reference's chunked bf16
@@ -179,19 +187,36 @@ Phases, each of which fails the script (non-zero exit) on any error:
    its train path, the chunked MLA against the dense one, and its decode
    against its forward on a forward that dropped no assignment; init,
    forward, decode, launches and busy shares printed;
+6h. Yi-6B in float32 through the kernels (``serve_yi_float32``): full
+   width (32/4 x 128), CUT_LAYERS layers, ``compute_dtype=float32`` (TF32
+   off for the GEMMs), phase 6's requests over 4 slots of 4096 positions
+   and a FORWARD_LEN-token forward on both routes: launch counts of
+   CUT_LAYERS a decode step (``decode_split<f32, 128>``) and a forward
+   (``flash_tf32<f32, 128>``), logits within LOGIT_TOL / 100 and
+   LOGIT_MEAN_TOL / 100 of the reference route's (both compute in
+   float32), greedy tokens equal up to the first near tie, decode logits
+   equal to forward logits within LOGIT_TOL / 100; the forward's busy
+   share and flash_tf32's device ms from a profile printed;
 7. time the two attention kernels at the main path's shapes like phase 4,
    and at phase 6b's, 6e's and 6f's shapes (recurrentgemma-9b's flash at
    S = 4096 with its window, where SDPA takes the window as a boolean
    mask, and at S = 2048; its decode at the serve's lengths and at full
-   length; the backend SDPA ran is named), and print one ``{"kernels":
-   [...]}`` line for all three kernels, each row with the card and its
-   power limit and each flash row with the kernel that ran
-   (``flash_wgmma`` or ``flash_fwd``) and, for the configs, phase 6c's,
+   length; the backend SDPA ran is named), and in float32
+   (``FLOAT32_ARCHS``: flash on one 2048-token causal prompt and decode at
+   full length at the heads of Yi-6B, danube, qwen3, musicgen and
+   recurrentgemma, B = 1 for the last; Yi's decode also at phase 6h's
+   lengths) and flash at head dim 32 (``D32_HEADS``) in float32 and bf16
+   (float32 flash bounds count three TF32 products a pair at TF32_FLOPS,
+   with one product a pair on the CUDA cores beside, ``cuda_core_ms``;
+   float32 decode its 4-byte elements at the memory rate); then print one
+   ``{"kernels": [...]}`` line for all three kernels, each row with the
+   card and its power limit and each flash row with the kernel that ran
+   (``flash_wgmma`` or ``flash_tf32``) and, for the configs, phase 6c's,
    6e's or 6f's forward time; each config's decode row with its kernel
    (``decode_split`` or ``decode_group``), plan, partial and cache bytes,
    and each config row with its kernel's ptxas registers and spills (phase
-   1's report); the rows count the launches of phases 6,
-   6d, 6e and 6f, path by path.  Lines before it give phase 6e's
+   1's report); the rows count the launches of phases 6, 6d, 6e, 6f and
+   6h, path by path (float32 shapes that no path runs: 0).  Lines before it give phase 6e's
    musicgen-medium and phase 6f's recurrentgemma-9b forward time and the
    forward profile's flash time, and the script's seconds;
 8. the planner and the example editions (``planner_and_examples``,
@@ -247,8 +272,9 @@ LATENCY_REPS = 5
 QUEUE_CYCLES = 50_000_000
 
 #: device memory rate by card, bytes/s (NVIDIA data sheets); the H100
-#: SXM's, and its float32 and bf16 rates, are the roofline's
-#: (``repro_torch.launch.roofline``: HBM_BW, FP32_FLOPS, PEAK_FLOPS)
+#: SXM's, and its float32, TF32 and bf16 rates, are the roofline's
+#: (``repro_torch.launch.roofline``: HBM_BW, FP32_FLOPS, TF32_FLOPS,
+#: PEAK_FLOPS)
 MEMORY_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
 
 #: phase 6: the serving run
@@ -332,6 +358,12 @@ ATTENTION_ROWS = {
 }
 #: decode's cache length in phases 5 and 7
 DECODE_LEN = 4096
+#: phase 7's float32 rows (and tools/time_attention.py's): flash on one
+#: FORWARD_LEN-token causal prompt and decode at full length at these
+#: configs' heads, in float32 (phase 6h serves Yi-6B so); and flash at head
+#: dim 32 with these heads, in float32 and bf16
+FLOAT32_ARCHS = ("yi-6b", "h2o-danube-3-4b", "qwen3-32b", "musicgen-medium", HYBRID_ARCH)
+D32_HEADS = (32, 4)
 #: phase 6g: xlstm-350m at full width and depth, deepseek-v3-671b at full
 #: width and MLA_LAYERS (mla_dense, mla_moe) of 61 layers
 XLSTM_ARCH = "xlstm-350m"
@@ -372,7 +404,9 @@ def memory_rate(name: str) -> float:
 
 # --------------------------------------------------------------- phase 1
 def build_kernels(mods):
-    """Build every kernel library at once, one nvcc process each."""
+    """Build every kernel library at once, one nvcc process each; print
+    each build's time, ptxas's report and the flash library's SASS counts,
+    and return those counts (wgmma and TF32 tensor-core instructions)."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -395,8 +429,11 @@ def build_kernels(mods):
     sass = subprocess.run([str(Path(build.nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
     hgmma = sum("HGMMA" in line for line in sass.splitlines())
-    print(f"build: {lib.name}: {hgmma} HGMMA (wgmma) instructions in the SASS")
-    check(hgmma > 0, "the flash library has no wgmma instruction")
+    tf32 = sum(("HMMA" in line or "HGMMA" in line) and "TF32" in line
+               for line in sass.splitlines())
+    print(f"build: {lib.name}: {hgmma} HGMMA (wgmma) instructions and {tf32} TF32 "
+          f"tensor-core instructions (HMMA or HGMMA with TF32: flash_tf32) in the SASS")
+    return {"HGMMA": hgmma, "TF32": tf32}
 
 
 #: registers and spill bytes by kernel, from phase 1's build
@@ -404,17 +441,25 @@ PTXAS: dict = {}
 
 
 def kernel_label(mangled: str) -> str:
-    """``flash_wgmma<256>``, ``decode_group<128, 3>``, ``decode_split<bf16,
-    128>`` from a mangled kernel name."""
+    """``flash_wgmma<256>``, ``flash_tf32<f32, 128>``, ``decode_group<128,
+    3>``, ``decode_split<bf16, 128>`` from a mangled kernel name: the name
+    is the longest tail of what precedes the template arguments that its
+    length prefix spells (a name may end in digits, and the namespace's
+    hash before it may too)."""
     import re
 
-    m = re.search(r"\d+([a-z_]+)I(.*?)EEv", mangled)
+    m = re.match(r"_ZN(\w*?)I(.*?)EEv", mangled)
     if m is None:
+        return mangled
+    head = m.group(1)
+    names = [head[-n:] for n in range(1, len(head))
+             if not head[-n].isdigit() and head[:-n].endswith(str(n))]
+    if not names:
         return mangled
     types = {"13__nv_bfloat16": "bf16", "f": "f32", "i": "i32", "j": "u32"}
     words = [num or types[typ] for num, typ in
              re.findall(r"L[ij](\d+)E|(13__nv_bfloat16|[fij])", m.group(2))]
-    return f"{m.group(1)}<{', '.join(words)}>"
+    return f"{names[-1]}<{', '.join(words)}>"
 
 
 def ptxas_report(logs) -> dict:
@@ -1360,7 +1405,8 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                     lambda: flash_ops.flash_attention(q, k, v, **kw),
                     lambda: flash_ref.attention_ref(q, k, v, **kw),
                     (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
-        # head dim 32 runs flash_fwd in both dtypes (float32 sums)
+        # head dim 32 runs flash_tf32 in both dtypes (split-TF32 products,
+        # float32 sums); more D = 32 cases follow the loop
         q = randn(1, 32, 512, 32, dtype=dtype)
         k, v = randn(1, 4, 512, 32, dtype=dtype), randn(1, 4, 512, 32, dtype=dtype)
         for window in (None, 256):
@@ -1370,7 +1416,7 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                 lambda: flash_ref.attention_ref(q, k, v, **kw))
         # head dim 64 at musicgen-medium's 24/24 and at 32/4: bf16 on
         # flash_wgmma's overlapped schedule under the bf16 flash rule,
-        # float32 on flash_fwd under 1e-5; S = 512, 2048 and the ragged 200
+        # float32 on flash_tf32 under 1e-5; S = 512, 2048 and the ragged 200
         # (a window of 64 masks inside both of its tiles), and mask probes
         for h, hkv in ((32, 4), (24, 24)):
             for s, cases in ((512, FLASH_MASKS), (2048, FLASH_MASKS),
@@ -1403,7 +1449,7 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
         # head dims 80 (qwen3-32b, 64/8 heads) and 120 (h2o-danube-3-4b,
         # 32/8): decode on its padded width under the one-ulp rule; bf16
         # flash on flash_wgmma under the bf16 flash rule, float32 flash on
-        # flash_fwd under 1e-5
+        # flash_tf32 under 1e-5
         for d, h, hkv in ((80, 64, 8), (120, 32, 8)):
             s = 4096
             q = randn(4, h, d, dtype=dtype)
@@ -1486,8 +1532,9 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                             lambda: flash_yardstick(qy, k, v, **kw))
         # head dim 256 (recurrentgemma-9b: MQA 16/1, window 2048; and GQA
         # 16/4): bf16 on flash_wgmma<256> (64-key tiles) under the bf16 flash
-        # rule, float32 on flash_fwd under 1e-5; S = 4096 is where the window
-        # of 2048 masks, 200 the ragged end
+        # rule, float32 on flash_tf32<float, 256> (32-key tiles) under 1e-5
+        # (window 256 follows the loop); S = 4096 is where the window of 2048
+        # masks, 200 the ragged end
         for h, hkv in ((16, 1), (16, 4)):
             for s in (512, 2048, 4096, 200):
                 q = randn(1, h, s, 256, dtype=dtype)
@@ -1548,6 +1595,32 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                     f"({decode_ops.decode_kernel(dtype, h, d)})",
                     lambda: decode_ops.decode_attention(q, k, v, lengths),
                     lambda: decode_ref.decode_attention_ref(q, k, v, lengths))
+    # flash_tf32 at head dim 32 in both dtypes and at 256 in float32, the
+    # cases D = 64 has: S = 512, 2048 and the ragged 200 (a window of 64
+    # masks inside both of its tiles), causal, non-causal and window 256, and
+    # mask probes.  They come after every other case, whose inputs stay as
+    # they were before these were added.
+    for dtype in (torch.float32, torch.bfloat16):
+        for d, h, hkv in ((32, 32, 4),) + (((256, 16, 1),) if dtype == torch.float32 else ()):
+            for s, cases in ((512, FLASH_MASKS), (2048, FLASH_MASKS),
+                             (200, FLASH_MASKS + ((True, 64),))):
+                q = randn(1, h, s, d, dtype=dtype)
+                k, v = randn(1, hkv, s, d, dtype=dtype), randn(1, hkv, s, d, dtype=dtype)
+                for causal, window in cases:
+                    kw = dict(causal=causal, window=window)
+                    one(f"flash D={d} tf32", f"flash {dtype} D={d} H={h}/{hkv} S={s} {kw}",
+                        lambda: flash_ops.flash_attention(q, k, v, **kw),
+                        lambda: flash_ref.attention_ref(q, k, v, **kw))
+                del q, k, v
+            for s in (512, 2048):
+                for window in (None, 256):
+                    q, k, v = mask_probe(torch, s, window=window, h=h, hkv=hkv, d=d,
+                                         dtype=dtype, generator=gen)
+                    kw = dict(causal=True, window=window)
+                    one(f"flash probe D={d} tf32", f"flash mask probe {dtype} D={d} "
+                        f"H={h}/{hkv} S={s} {kw}",
+                        lambda: flash_ops.flash_attention(q, k, v, **kw),
+                        lambda: flash_ref.attention_ref(q, k, v, **kw))
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # comparisons are not the main path
     by_rule = "; ".join(
         f"{str(dt).split('.')[-1]} D={d} ({flash_ops.kernel_name(dt, d)}) {rule}"
@@ -1624,7 +1697,7 @@ def profile_forward(torch, model, tokens, patches, what):
           f"{sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:.3f} ms {e.count}x {e.key[:90]}")
-    flash = [e for e in kernels if "flash_wgmma" in e.key or "flash_fwd" in e.key]
+    flash = [e for e in kernels if "flash_wgmma" in e.key or "flash_tf32" in e.key]
     return (busy / wall, sum(e.self_device_time_total for e in flash) / 1e3,
             sum(e.count for e in flash))
 
@@ -1745,14 +1818,16 @@ def serve_yi(np, torch, flash_ops, decode_ops):
 
 
 def serve_both_routes(np, torch, flash_ops, decode_ops, model, prompts, long_prompt, *, what,
-                      profile):
+                      profile, tol=LOGIT_TOL, mean_tol=LOGIT_MEAN_TOL):
     """Serve ``model`` (``use_flash_kernel=True``) on its kernel route,
     then the same weights on the reference route, and hold the two to
-    each other (phase 6's checks and limits).  The launch counts start at
-    0 just before the kernel route's requests: decode_attention must
-    launch n_layers times a decode step, flash_attention n_layers times
-    in one forward.  ``what`` prefixes the printed lines; ``profile``
-    adds a profile of PROFILE_STEPS decode steps."""
+    each other (phase 6's checks; logits within ``tol`` largest and
+    ``mean_tol`` mean, a near tie a top-2 margin within ``tol``).  The
+    launch counts start at 0 just before the kernel route's requests:
+    decode_attention must launch n_layers times a decode step,
+    flash_attention n_layers times in one forward.  ``what`` prefixes the
+    printed lines; ``profile`` adds a profile of PROFILE_STEPS decode
+    steps."""
     from repro_torch.models import LM
     from repro_torch.serve import ServeConfig
 
@@ -1819,7 +1894,7 @@ def serve_both_routes(np, torch, flash_ops, decode_ops, model, prompts, long_pro
     for name, lg in (("kernel", logits_k), ("reference", logits_r)):
         check(tuple(lg.shape) == shape and bool(torch.isfinite(lg.float()).all()),
               f"{what}{name} forward logits {tuple(lg.shape)} not finite of shape {shape}")
-    check_logits(torch, f"{what}forward", logits_k.float(), logits_r.float())
+    check_logits(torch, f"{what}forward", logits_k.float(), logits_r.float(), tol, mean_tol)
     del logits_k, logits_r
 
     # decode: both routes teacher-forced on the kernel route's sequences
@@ -1831,7 +1906,7 @@ def serve_both_routes(np, torch, flash_ops, decode_ops, model, prompts, long_pro
     check(bool(torch.isfinite(tf_k[valid]).all() and torch.isfinite(tf_r[valid]).all()),
           f"{what}teacher-forced logits not finite")
     check_logits(torch, f"{what}decode, teacher-forced on {int(valid.sum())} positions,",
-                 tf_k[valid], tf_r[valid])
+                 tf_k[valid], tf_r[valid], tol, mean_tol)
 
     # greedy tokens: equal up to each request's first near tie
     same = 0
@@ -1843,7 +1918,7 @@ def serve_both_routes(np, torch, flash_ops, decode_ops, model, prompts, long_pro
                 margin = float(top2[0] - top2[1])
                 print(f"{what}request {i}: routes part at new token {j} ({a} vs {b}), "
                       f"reference top-2 margin {margin!r}")
-                check(margin <= LOGIT_TOL, f"{what}request {i}: tokens differ at margin {margin}")
+                check(margin <= tol, f"{what}request {i}: tokens differ at margin {margin}")
                 break
             same += 1
     print(f"{what}greedy tokens: {same} of {sum(len(r.generated) for r in reqs_k)} equal "
@@ -1855,8 +1930,8 @@ def serve_both_routes(np, torch, flash_ops, decode_ops, model, prompts, long_pro
     cdiff = float((full - tf_k[0, :len(x)]).abs().max())
     flash_ops.LAUNCHES = flash_launches
     print(f"{what}kernel route decode vs forward on request 0 ({len(x)} tokens): max |diff| "
-          f"{cdiff!r}")
-    check(cdiff <= LOGIT_TOL, f"{what}decode logits differ from forward logits")
+          f"{cdiff!r} (limit {tol})")
+    check(cdiff <= tol, f"{what}decode logits differ from forward logits")
     return {"decode_launches": decode_launches, "flash_launches": flash_launches,
             "final_lengths": final_lengths, "decode_step_s": statistics.median(steps_k),
             "latency_s": lat_k}
@@ -1940,6 +2015,65 @@ def serve_cut(np, torch, flash_ops, decode_ops, arch):
     check_logits(torch, f"{arch} decode, teacher-forced on {int(valid.sum())} positions,",
                  tf_k[valid], tf_r[valid])
     return launches
+
+
+# -------------------------------------------------------------- phase 6h
+def serve_yi_float32(np, torch, flash_ops, decode_ops, smi):
+    """Yi-6B at full width (32/4 heads of 128, d_model 4096, d_ff 11008,
+    the full vocabulary) and CUT_LAYERS layers, with ``compute_dtype``
+    float32 (float32 weights; TF32 off for the GEMMs) and random weights
+    from a seeded generator: phase 6's requests over 4 slots of 4096
+    positions and one FORWARD_LEN-token forward on both routes
+    (``serve_both_routes``), the launch counts set to 0 just before the
+    kernel route's requests: decode_attention (``decode_split<f32, 128>``)
+    CUT_LAYERS times a decode step, flash_attention (``flash_tf32<f32,
+    128>``) CUT_LAYERS times a forward.  Both routes compute in float32, so
+    they differ only in the order of sums and the kernel's split-TF32
+    residue: logits within LOGIT_TOL / 100 (largest) and LOGIT_MEAN_TOL /
+    100 (mean), greedy tokens equal up to the first near tie (a top-2 margin
+    within LOGIT_TOL / 100), the kernel route's decode logits equal to its
+    forward's within LOGIT_TOL / 100.  Then one kernel-route forward under
+    the profiler: the device's busy share and flash_tf32's device ms."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = get_config("yi-6b")
+    cfg = dataclasses.replace(base, n_layers=CUT_LAYERS,
+                              segments=((base.segments[0][0], CUT_LAYERS),),
+                              compute_dtype=torch.float32, use_flash_kernel=True)
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = LM(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    group = cfg.n_heads // cfg.n_kv_heads
+    print(f"yi-6b float32 (phase 6h): d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads of {cfg.head_dim}, {cfg.n_layers} of {base.n_layers} layers, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, {weights} B of weights "
+          f"(compute dtype {cfg.compute_dtype}), init in {time.perf_counter() - t0:.2f} s; "
+          f"flash kernel {flash_ops.kernel_name(cfg.compute_dtype, cfg.head_dim)}, decode "
+          f"kernel {decode_ops.decode_kernel(cfg.compute_dtype, group, cfg.head_dim)} [{smi}]")
+    prompts, long_prompt = yi_requests(np, torch, cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    out = serve_both_routes(np, torch, flash_ops, decode_ops, model, prompts, long_prompt,
+                            what="yi-6b float32: ", profile=True, tol=LOGIT_TOL / 100,
+                            mean_tol=LOGIT_MEAN_TOL / 100)
+    counts = flash_ops.LAUNCHES, decode_ops.LAUNCHES
+    busy, flash_ms, flash_n = profile_forward(torch, model, long_prompt, None,
+                                              "yi-6b float32: ")
+    flash_ops.LAUNCHES, decode_ops.LAUNCHES = counts  # the profile is not the main path
+    print(f"yi-6b float32 (phase 6h): forward busy share {busy!r}; flash_tf32 in the forward "
+          f"profile {flash_ms!r} ms in {flash_n} launches; decode step median "
+          f"{out['decode_step_s']!r} s [{smi}]")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**out, "n_layers": CUT_LAYERS, "forward_busy_share": busy,
+            "forward_profile_flash_ms": flash_ms, "forward_profile_flash_launches": flash_n}
 
 
 # -------------------------------------------------------------- phase 6c
@@ -3301,15 +3435,21 @@ def serve_xlstm_deepseek(np, torch, flash_ops, decode_ops, smi):
 
 
 # --------------------------------------------------------------- phase 7
-def path_launches(served, trained, families, hybrid, key):
+def f32_path(f32):
+    return f"phase 6h yi-6b float32 ({f32['n_layers']} layers)"
+
+
+def path_launches(served, trained, families, hybrid, f32, key):
     """A kernel row's launches: phase 6's serve and phase 6d's trained
-    model (Yi-6B), phase 6e's three configs and phase 6f's
-    recurrentgemma-9b, each path's count read just after it ran."""
+    model (Yi-6B), phase 6e's three configs, phase 6f's recurrentgemma-9b
+    and phase 6h's float32 Yi-6B, each path's count read just after it
+    ran."""
     by_path = {"phase 6 serve (yi-6b, 32 layers)": served[key],
                "phase 6d train -> serve (yi-6b, 4 layers)": trained[key]}
     for arch, fam in families.items():
         by_path[f"phase 6e {arch} ({fam['n_layers']} layers)"] = fam[key]
     by_path[f"phase 6f {HYBRID_ARCH} ({hybrid['n_layers']} layers)"] = hybrid[key]
+    by_path[f32_path(f32)] = f32[key]
     return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
 
@@ -3323,22 +3463,22 @@ def sdpa_backend(torch, *args, **kwargs):
 
 
 def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served, cut_served,
-                      full_served, trained, families, hybrid, card):
+                      full_served, trained, families, hybrid, f32, card):
     import torch.nn.functional as F
 
-    from repro_torch.launch.roofline import PEAK_FLOPS
+    from repro_torch.launch.roofline import FP32_FLOPS, PEAK_FLOPS, TF32_FLOPS
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    rate = memory_rate(card)
+    mem_rate = memory_rate(card)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     before = flash_ops.LAUNCHES, decode_ops.LAUNCHES
 
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    def timed(kernel, plain, library, nbytes, flops, yard=None):
+    def timed(kernel, plain, library, nbytes, flops, yard=None, rate=PEAK_FLOPS):
         out = kernel()
         want = plain()
         torch.cuda.synchronize()
@@ -3349,8 +3489,8 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
                   "kernel vs plain at the timed inputs (bf16 flash rule)")
         ms, ahead = time_ms(torch, kernel, flush)
         check(ahead, "the host fell behind the card while queuing the kernel's launches")
-        bytes_ms = nbytes / rate * 1e3
-        ops_ms = flops / PEAK_FLOPS * 1e3
+        bytes_ms = nbytes / mem_rate * 1e3
+        ops_ms = flops / rate * 1e3
         return {
             "max_abs_err": float((out.float() - want.float()).abs().max()),
             "ms": ms,
@@ -3361,33 +3501,45 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
             "library_ms": time_ms(torch, library, flush)[0],
         }
 
-    def decode_case(h, hkv, d, lens, s=DECODE_LEN):
-        b = len(lens)
-        q, k, v = randn(b, h, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
+    def decode_case(h, hkv, d, lens, s=DECODE_LEN, dtype=torch.bfloat16):
+        """Decode over a cache of s rows at ``lens``.  The bound: the rows
+        the function reads, each element once (2 or 4 bytes), at the card's
+        memory rate, against its products (float32: three TF32 products a
+        pair, the least for float32 accuracy) at their rate."""
+        b, esz = len(lens), 2 if dtype == torch.bfloat16 else 4
+        q = randn(b, h, d, dtype=dtype)
+        k, v = randn(b, hkv, s, d, dtype=dtype), randn(b, hkv, s, d, dtype=dtype)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         mask = (torch.arange(s, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
         rows = sum(min(int(x), s) if x > 0 else s for x in lens)  # rows the function reads
         sdpa = (q[:, :, None], k, v), dict(attn_mask=mask, enable_gqa=True)
+        flops = 4 * rows * h * d  # q.k and p.v per valid row, every q head
         row = timed(
             lambda: decode_ops.decode_attention(q, k, v, lengths),
             lambda: decode_ref.decode_attention_ref(q, k, v, lengths),
             lambda: F.scaled_dot_product_attention(*sdpa[0], **sdpa[1]),
-            nbytes=rows * hkv * d * 2 * 2 + 2 * q.numel() * 2 + b * 4,
-            flops=4 * rows * h * d,  # q.k and p.v per valid row, every q head
+            nbytes=rows * hkv * d * esz * 2 + 2 * q.numel() * esz + b * 4,
+            flops=flops if esz == 2 else 3 * flops,
+            rate=PEAK_FLOPS if esz == 2 else TF32_FLOPS,
         )
-        n_splits, chunk = decode_ops.split_plan(s, b * hkv, sms, h // hkv, d)
-        kernel = decode_ops.decode_kernel(torch.bfloat16, h // hkv, d)
+        n_splits, chunk = decode_ops.split_plan(s, b * hkv, sms, h // hkv, d, dtype)
+        kernel = decode_ops.decode_kernel(dtype, h // hkv, d)
         return {**row, "sdpa_backend": sdpa_backend(torch, *sdpa[0], **sdpa[1]),
                 "kernel": kernel, "plan": [n_splits, chunk],
                 "partial_bytes_written_and_read": 2 * decode_ops.partial_bytes(b, h, d, n_splits),
-                "cache_bytes": b * hkv * s * d * 2 * 2, "ptxas": PTXAS.get(kernel)}
+                "cache_bytes": b * hkv * s * d * esz * 2, "ptxas": PTXAS.get(kernel)}
 
-    def flash_case(h, hkv, d, window=None, fs=FORWARD_LEN):
+    def flash_case(h, hkv, d, window=None, fs=FORWARD_LEN, dtype=torch.bfloat16):
         """One fs-token prompt, causal.  A window of fs or more masks
         nothing more, so SDPA's causal call computes the same function;
         a narrower one goes to SDPA as an explicit boolean mask, and the
-        bound counts the (query, key) pairs it leaves."""
-        fq, fk, fv = randn(1, h, fs, d), randn(1, hkv, fs, d), randn(1, hkv, fs, d)
+        bound counts the (query, key) pairs it leaves.  bf16: the products
+        at the bf16 tensor-core rate; float32: three TF32 products a pair
+        (the least the card can take for float32 accuracy), with the
+        CUDA cores' time for one product a pair beside (``cuda_core_ms``)."""
+        esz = 2 if dtype == torch.bfloat16 else 4
+        fq = randn(1, h, fs, d, dtype=dtype)
+        fk, fv = randn(1, hkv, fs, d, dtype=dtype), randn(1, hkv, fs, d, dtype=dtype)
         if window is None or window >= fs:
             sdpa = dict(is_causal=True, enable_gqa=True)
             flops = 2 * h * fs * fs * d  # q.k and p.v over the causal half
@@ -3397,17 +3549,22 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
             sdpa = dict(attn_mask=mask, enable_gqa=True)
             pairs = sum(min(i + 1, window) for i in range(fs))
             flops = 4 * h * d * pairs  # q.k and p.v over the visible pairs
+        kernel = flash_ops.kernel_name(dtype, d)
         row = timed(
             lambda: flash_ops.flash_attention(fq, fk, fv, causal=True, window=window),
             lambda: flash_ref.attention_ref(fq, fk, fv, causal=True, window=window),
             lambda: F.scaled_dot_product_attention(fq, fk, fv, **sdpa),
-            nbytes=(2 * fq.numel() + fk.numel() + fv.numel()) * 2,
-            flops=flops,
+            nbytes=(2 * fq.numel() + fk.numel() + fv.numel()) * esz,
+            flops=flops if esz == 2 else 3 * flops,
             yard=(lambda: flash_yardstick(fq, fk, fv, causal=True, window=window))
-            if flash_ops.kernel_name(torch.bfloat16, d) == "flash_wgmma" else None,
+            if kernel == "flash_wgmma" else None,
+            rate=PEAK_FLOPS if esz == 2 else TF32_FLOPS,
         )
-        return {**row, "sdpa_backend": sdpa_backend(torch, fq, fk, fv, **sdpa),
-                "ptxas": PTXAS.get(f"flash_wgmma<{d}>")}
+        label = (f"flash_wgmma<{d}>" if kernel == "flash_wgmma"
+                 else f"{kernel}<{'bf16' if esz == 2 else 'f32'}, {d}>")
+        extra = {} if esz == 2 else {"cuda_core_ms": flops / FP32_FLOPS * 1e3}
+        return {**row, **extra, "sdpa_backend": sdpa_backend(torch, fq, fk, fv, **sdpa),
+                "kernel": kernel, "ptxas": PTXAS.get(label)}
 
     # the main path's shapes: decode over 4 slots of 4096 positions, 32/4
     # heads; flash on one 2048-token prompt
@@ -3492,6 +3649,37 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
         **decode_case(rh, rhkv, rd, [s] * rb),
         "launches": hybrid["decode_launches"], "launches_by_path": decode_by_path,
         "shape": f"B={rb} H={rh} Hkv={rhkv} S={s} D={rd} bf16 full length"}
+    # float32 (flash_tf32 and decode_split<f32, D>) at the heads of
+    # FLOAT32_ARCHS, and flash at head dim 32 in both dtypes (flash_tf32):
+    # phase 6h runs Yi-6B's shapes; the others are on no path (0 launches)
+    fpath = f32_path(f32)
+    flash_f32, decode_f32 = {}, {}
+    for arch in FLOAT32_ARCHS:
+        ah, ahkv, ad, aw, ab = ATTENTION_ROWS[arch]
+        on_path = arch == "yi-6b"
+        fl_n = f32["flash_launches"] if on_path else 0
+        dec_n = f32["decode_launches"] if on_path else 0
+        flash_f32[f"{arch} float32"] = {
+            **flash_case(ah, ahkv, ad, window=aw, dtype=torch.float32),
+            "launches": fl_n, "launches_by_path": {fpath: fl_n} if on_path else {},
+            "shape": f"B=1 H={ah} Hkv={ahkv} S={FORWARD_LEN} D={ad} float32 causal"
+                     + (f" window={aw} (masks nothing at this S)" if aw else "")}
+        decode_f32[f"{arch} float32, full length"] = {
+            **decode_case(ah, ahkv, ad, [s] * ab, dtype=torch.float32),
+            "launches": dec_n, "launches_by_path": {fpath: dec_n} if on_path else {},
+            "shape": f"B={ab} H={ah} Hkv={ahkv} S={s} D={ad} float32 full length"}
+    f32_final = [int(x) for x in f32["final_lengths"]]
+    decode_f32["yi-6b float32, the serve's lengths"] = {
+        **decode_case(h, hkv, d, f32_final, dtype=torch.float32),
+        "launches": f32["decode_launches"],
+        "launches_by_path": {fpath: f32["decode_launches"]},
+        "shape": f"B={len(f32_final)} H={h} Hkv={hkv} S={s} D={d} float32 lengths={f32_final}"}
+    dh, dhkv = D32_HEADS
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        flash_f32[f"{dh}/{dhkv} x 32 {name}"] = {
+            **flash_case(dh, dhkv, 32, dtype=dtype), "launches": 0, "launches_by_path": {},
+            "shape": f"B=1 H={dh} Hkv={dhkv} S={FORWARD_LEN} D=32 {name} causal"}
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # timing is not the main path
     print("timing: kernels device-only (queued behind a sleep kernel); plain versions and "
           "SDPA queued the same way")
@@ -3499,16 +3687,16 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
-         **fl, **path_launches(served, trained, families, hybrid, "flash_launches"),
+         **fl, **path_launches(served, trained, families, hybrid, f32, "flash_launches"),
          "kernel": flash_ops.kernel_name(torch.bfloat16, d),
          "shape": f"B=1 H={h} Hkv={hkv} S={FORWARD_LEN} D={d} bf16 causal",
-         "by_config": flash_cut},
+         "by_config": flash_cut, "float32_and_d32": flash_f32},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:85",
-         **dec, **path_launches(served, trained, families, hybrid, "decode_launches"),
+         **dec, **path_launches(served, trained, families, hybrid, f32, "decode_launches"),
          "shape": f"B={b} H={h} Hkv={hkv} S={s} D={d} bf16 lengths={final}",
-         "at_full_length": dec_full, "by_config": decode_cut},
+         "at_full_length": dec_full, "by_config": decode_cut, "float32": decode_f32},
     ]
     return rows
 
@@ -3741,7 +3929,9 @@ def main() -> int:
     card = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}")
 
-    build_kernels((ops, flash_ops, decode_ops))
+    sass = build_kernels((ops, flash_ops, decode_ops))
+    check(sass["HGMMA"] > 0, "the flash library has no wgmma instruction")
+    check(sass["TF32"] > 0, "the flash library has no TF32 tensor-core instruction")
     kernel_vs_plain(torch, ops, ref)
     from repro_torch.examples_data import make_taxi_data
 
@@ -3762,8 +3952,9 @@ def main() -> int:
     families = serve_families(np, torch, flash_ops, decode_ops, smi)
     hybrid = serve_recurrentgemma(np, torch, flash_ops, decode_ops, smi)
     ssm_mla = serve_xlstm_deepseek(np, torch, flash_ops, decode_ops, smi)
+    f32 = serve_yi_float32(np, torch, flash_ops, decode_ops, smi)
     rows = measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served,
-                             cut_served, full_served, trained, families, hybrid, card)
+                             cut_served, full_served, trained, families, hybrid, f32, card)
     planner_and_examples(np, torch, served, full_served, smi)
     music = families["musicgen-medium"]
     print(f"musicgen-medium (phase 6e): forward of {FORWARD_LEN} positions "

@@ -101,18 +101,38 @@
 //   is held to that route, not to a one-ulp match with the float32 plain
 //   version.
 //
-// * flash_fwd: float32 at every head dim, and bfloat16 at D = 32 (no
-//   ported config computes at either).  One block of 256 threads per
-//   (batch-head, 64-row q tile); key tiles of 32 rows are staged through
-//   shared memory as float32 and every product is a float32 FMA on the CUDA
-//   cores, as the TPU kernel multiplies in float32 (kernel.py:49, 66-67), so
-//   float32 output is exact to 1e-5.  A thread owns a 4-row x 2-column
-//   micro-tile of the scores and a 4-row x ceil(D/16)-column micro-tile of
-//   the output (columns tx + 16 j; at D = 120 the last column of lanes 8-15
-//   lies past D and is neither read nor written); rows of q and k in shared
-//   memory are padded to D+1 floats.  A row is D * sizeof(T) bytes, a
-//   multiple of 16 at every instantiated D, so rows are staged in 16-byte
-//   pieces.  It runs at about 1/15 of the bf16 tensor-core rate.
+// * flash_tf32<T, D>: float32 at every head dim, and bfloat16 at D = 32
+//   (no shipped config computes at either; an LMConfig with
+//   compute_dtype=float32 sends both kernels float32).  The TPU kernel
+//   multiplies in float32 (kernel.py:49, 66-67), and a float32 output is
+//   held to 1e-5 + 1e-5 |plain|.  One TF32 product rounds each operand to
+//   10 mantissa bits and misses that by about 60x, so every float32 operand
+//   x is split as hi = tf32(x) (cvt.rna) and lo = tf32(x - hi), and each
+//   product is the three TF32 products lo.hi + hi.lo + hi.hi
+//   (mma.sync.m16n8k8, float32 accumulators; lo.lo, about 2^-22 of the
+//   product, is left out).  The split operands are q * scale (rounded to
+//   float32 once, as the plain version does), k, p and v; bf16 k and v are
+//   exact in TF32 and go in whole (two products).  What bounds it:
+//   operations, three TF32 products a pair at the H100's 494.7 TFLOP/s dense
+//   TF32 rate, 2.5x the 67 TFLOP/s of any kernel on the CUDA cores (at Yi's
+//   32/4 x 128, S = 2048, causal: 34.4 GFLOP, 0.209 ms; 0.513 ms on the
+//   CUDA cores).  A block is 8 warps (4 at D = 256) and each warp owns 16 q
+//   rows and their online-softmax state (the m of the mma), so a block
+//   takes 128 q rows (64 at 256); k and v tiles of 64 keys (32 at 256) come
+//   through a two-stage cp.async ring in shared memory, rows padded so that
+//   a warp's fragment loads hit 32 distinct banks (TGeo).  q * scale stays
+//   in shared memory as float32 and is split at each fragment load (at
+//   D = 256 its split halves would not fit beside the ring).  The mma's k
+//   index t stands for column 2t and t + 4 for column 2t + 1, in a and b
+//   alike, so q and k come as 8-byte pairs, and p's accumulator layout is
+//   p.v's a layout with no shuffle (keys 2t, 2t + 1; v's rows read in the
+//   same order).  The split costs ALU work beside every product (two cvt and
+//   a subtraction an operand); a wgmma design would need v transposed in
+//   shared memory (TF32 wgmma takes K-major operands only).  A warp skips
+//   the tiles of its block's range that are masked for all its rows, masks
+//   only tiles that cross the diagonal, the window's edge or the ragged end,
+//   and rescales o only when a row's maximum moved (a factor of exactly 1
+//   changes nothing).
 //
 // Masked keys contribute exactly 0 once a row has seen a valid key (exp of
 // -1e30 minus a finite max), and causal and windowed rows always see one,
@@ -130,232 +150,6 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-
-// ------------------------------------------------ flash_fwd (CUDA cores)
-constexpr int kBQ = 64;        // q rows per block
-constexpr int kBK = 32;        // key rows per shared-memory tile
-constexpr int kThreads = 256;  // 16 x 16: ty owns 4 rows, tx columns
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
-
-template <typename T>
-struct Vec16 {  // elements of T in one 16-byte load
-  static constexpr int N = 16 / sizeof(T);
-};
-
-// Copy `rows` x D elements of a row-major (., D) array into shared memory
-// as float32 times `mul`, with a row stride of `stride` floats; rows at or
-// past `avail` are zero.  16-byte loads, neighbouring threads on
-// neighbouring addresses.
-template <typename T, int D>
-__device__ __forceinline__ void stage(const T* __restrict__ src, int rows,
-                                      int avail, float mul, float* dst,
-                                      int stride) {
-  constexpr int N = Vec16<T>::N;
-  constexpr int kPerRow = D / N;
-  for (int i = threadIdx.x; i < rows * kPerRow; i += blockDim.x) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * N;
-    float* out = dst + r * stride + c;
-    if (r < avail) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int u = 0; u < N; ++u) out[u] = to_f32(e[u]) * mul;
-    } else {
-#pragma unroll
-      for (int u = 0; u < N; ++u) out[u] = 0.0f;
-    }
-  }
-}
-
-__device__ __forceinline__ float max16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int D>
-constexpr int smem_floats() {
-  return kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ out, int seq_len,
-              int group, int causal, float scale, int window) {
-  constexpr int QS = D + 1;   // padded row stride of q and k tiles
-  constexpr int PS = kBK + 1; // padded row stride of the p tile
-  constexpr int CD = (D + 15) / 16;  // output columns a thread owns
-  static_assert(D % Vec16<T>::N == 0, "rows are staged in 16-byte pieces");
-  extern __shared__ float smem[];
-  float* sQ = smem;             // kBQ x QS, q * scale
-  float* sK = sQ + kBQ * QS;    // kBK x QS
-  float* sV = sK + kBK * QS;    // kBK x D
-  float* sP = sV + kBK * D;     // kBQ x PS
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBQ;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const T* qp = q + (size_t)bh * seq_len * D;
-  const T* kp = k + (size_t)(bh / group) * seq_len * D;
-  const T* vp = v + (size_t)(bh / group) * seq_len * D;
-
-  stage<T, D>(qp + (size_t)q0 * D, kBQ, seq_len - q0, scale, sQ, QS);
-
-  // key tiles this q tile can see (kernel.py:54-62; C division truncates
-  // like lax.div, and a negative lo is clamped to 0)
-  const int n_tiles = (seq_len + kBK - 1) / kBK;
-  const int hi = causal ? min((q0 + kBQ - 1) / kBK + 1, n_tiles) : n_tiles;
-  const int lo = window > 0 ? max((q0 - window + 1) / kBK, 0) : 0;
-
-  float m[4], l[4], acc[4][CD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < CD; ++j) acc[i][j] = 0.0f;
-  }
-
-  for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the last tile's sK, sV and sP are no longer read
-    stage<T, D>(kp + (size_t)k0 * D, kBK, seq_len - k0, 1.0f, sK, QS);
-    stage<T, D>(vp + (size_t)k0 * D, kBK, seq_len - k0, 1.0f, sV, D);
-    __syncthreads();
-
-    float s[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.0f;
-    const float* qrow = sQ + (ty * 4) * QS;
-    const float* krow = sK + tx * QS;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float k_a = krow[d], k_b = krow[16 * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float qv = qrow[i * QS + d];
-        s[i][0] = fmaf(qv, k_a, s[i][0]);
-        s[i][1] = fmaf(qv, k_b, s[i][1]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = k0 + tx + 16 * j;
-        bool keep = true;
-        if (causal) keep &= col <= row;
-        if (window > 0) keep &= col > row - window;
-        s[i][j] = col >= seq_len ? -INFINITY : (keep ? s[i][j] : kNegInf);
-      }
-      const float m_new = fmaxf(m[i], max16(fmaxf(s[i][0], s[i][1])));
-      const float p0 = expf(s[i][0] - m_new), p1 = expf(s[i][1] - m_new);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + sum16(p0 + p1);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < CD; ++j) acc[i][j] *= corr;
-      sP[(ty * 4 + i) * PS + tx] = p0;
-      sP[(ty * 4 + i) * PS + tx + 16] = p1;
-    }
-    __syncthreads();
-
-    const float* prow = sP + (ty * 4) * PS;
-#pragma unroll 4
-    for (int t = 0; t < kBK; ++t) {
-      float vv[CD];
-#pragma unroll
-      for (int j = 0; j < CD; ++j)
-        vv[j] = (D % 16 == 0 || tx + 16 * j < D) ? sV[t * D + tx + 16 * j] : 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = prow[i * PS + t];
-#pragma unroll
-        for (int j = 0; j < CD; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-      }
-    }
-  }
-
-  T* op = out + (size_t)bh * seq_len * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= seq_len) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < CD; ++j)
-      if (D % 16 == 0 || tx + 16 * j < D)
-        store(op + (size_t)row * D + tx + 16 * j, acc[i][j] / denom);
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int bh, int seq_len, int group, int causal, float scale,
-                   int window, cudaStream_t stream) {
-  constexpr size_t bytes = smem_floats<D>() * sizeof(float);
-  static bool configured = false;  // the attribute is per function
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  const dim3 grid(bh, (seq_len + kBQ - 1) / kBQ);
-  flash_fwd<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), seq_len, group, causal,
-      scale, window);
-  return cudaGetLastError();
-}
-
-// float32 at every head dim: flash_fwd
-cudaError_t launch_f32(int head_dim, const void* q, const void* k,
-                       const void* v, void* out, int bh, int seq_len,
-                       int group, int causal, float scale, int window,
-                       cudaStream_t stream) {
-  using T = float;
-  switch (head_dim) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, bh, seq_len, group, causal, scale,
-                           window, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, bh, seq_len, group, causal, scale,
-                           window, stream);
-    case 80:
-      return launch<T, 80>(q, k, v, out, bh, seq_len, group, causal, scale,
-                           window, stream);
-    case 120:
-      return launch<T, 120>(q, k, v, out, bh, seq_len, group, causal, scale,
-                            window, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, bh, seq_len, group, causal, scale,
-                            window, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, out, bh, seq_len, group, causal, scale,
-                            window, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
 
 // ---------------------------------------------- flash_wgmma (tensor cores)
 constexpr int kWBQ = 128;                // q rows per block
@@ -1352,6 +1146,377 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int rows, int seq_len,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// ------------------------------------- flash_tf32 (TF32 tensor cores, split)
+constexpr int kTRows = 16;      // q rows a warp owns: the m of mma.m16n8k8
+constexpr int kTWarps = 8;      // warps a block, D <= 128
+constexpr int kTWideWarps = 4;  // warps a block at D = 256
+constexpr int kTKeys = 64;      // keys a k/v tile, D <= 128
+constexpr int kTWideKeys = 32;  // keys a k/v tile at D = 256
+constexpr int kTStages = 2;     // the cp.async ring of k/v tiles
+
+// flash_tf32<T, D>'s geometry: warps, threads and q rows a block, keys a
+// k/v tile, the row strides of q (float32), k and v (T) in shared memory,
+// in elements, and the block's dynamic shared memory.  The strides are
+// padded so that the fragment loads of a warp hit 32 distinct banks: q and
+// float32 k are read as 8-byte pairs at row g, word 2t (a stride of 8 mod 16
+// words); float32 v as words at row 2t, column g (a stride of 4 mod 16);
+// bf16 k and v rows are 20 words, so pairs at (g, t) and halves at (2t, g)
+// fall on distinct banks too.  Every row is a multiple of 16 bytes for
+// cp.async.
+template <typename T, int D>
+struct TGeo {
+  static constexpr bool wide = D > 128;
+  static constexpr int warps = wide ? kTWideWarps : kTWarps;
+  static constexpr int threads = 32 * warps;
+  static constexpr int rows = kTRows * warps;
+  static constexpr int keys = wide ? kTWideKeys : kTKeys;
+  static constexpr int qs = (D + 15) / 16 * 16 + 8;
+  static constexpr int ks = sizeof(T) == 4 ? qs : D + 8;
+  static constexpr int vs = sizeof(T) == 4 ? D + 4 : D + 8;
+  static constexpr int smem =
+      rows * qs * 4 + kTStages * keys * (ks + vs) * (int)sizeof(T);
+  // two blocks an SM up to D = 64 (at most 128 registers a thread)
+  static constexpr int min_blocks = D <= 64 ? 2 : 1;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+// two neighbouring elements of a row as float32 (exact for bf16)
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+// two neighbouring outputs, rounded once to T (to nearest even, as torch's .to())
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits; to nearest, ties away from zero)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+// x = hi + lo to about 2^-22 of x: hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// c += a . b, one m16n8k8 product of TF32 operands into float32
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b to float32 accuracy, a given as its hi and lo halves: the
+// products lo . hi, hi . lo and hi . hi (lo . lo, about 2^-22 of a product,
+// is left out).  A b that came from bf16 is exact in TF32: hi . b and
+// lo . b.
+template <typename T>
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  if constexpr (sizeof(T) == 4) {
+    uint32_t h0, l0, h1, l1;
+    split(b0, h0, l0);
+    split(b1, h1, l1);
+    mma_tf32(c, al, h0, h1);
+    mma_tf32(c, ah, l0, l1);
+    mma_tf32(c, ah, h0, h1);
+  } else {
+    const uint32_t e0 = __float_as_uint(b0), e1 = __float_as_uint(b1);
+    mma_tf32(c, al, e0, e1);
+    mma_tf32(c, ah, e0, e1);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(TGeo<T, D>::threads, TGeo<T, D>::min_blocks)
+    flash_tf32(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ out, int seq_len,
+               int group, int causal, float scale, int window) {
+  using G = TGeo<T, D>;
+  constexpr int BQ = G::rows, BK = G::keys;
+  constexpr int NK = BK / 8;  // 8-key n-tiles of q.k^T, k-steps of p.v
+  constexpr int ND = D / 8;   // 8-column k-steps of q.k^T, n-tiles of p.v
+  constexpr int C = 16 / (int)sizeof(T);  // elements a 16-byte copy
+  static_assert(D % C == 0, "rows are copied in 16-byte pieces");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);     // BQ x qs: q * scale
+  T* sK = reinterpret_cast<T*>(sQ + BQ * G::qs);  // kTStages x BK x ks
+  T* sV = sK + kTStages * BK * G::ks;             // kTStages x BK x vs
+
+  const int bh = blockIdx.x;
+  // causal work grows with the q tile: the longest tiles start first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const T* qp = q + (size_t)bh * seq_len * D;
+  const T* kp = k + (size_t)(bh / group) * seq_len * D;
+  const T* vp = v + (size_t)(bh / group) * seq_len * D;
+
+  // key tiles the block can see (kernel.py:54-62; C division truncates like
+  // lax.div, and a negative lo is clamped to 0)
+  const int n_tiles = (seq_len + BK - 1) / BK;
+  const int hi = causal ? min((q0 + BQ - 1) / BK + 1, n_tiles) : n_tiles;
+  const int lo = window > 0 ? max((q0 - window + 1) / BK, 0) : 0;
+
+  // k and v tile j into ring stage j % kTStages; rows past S are zeros
+  auto load_kv = [&](int j) {
+    constexpr int CPR = D / C;
+    const int k0 = j * BK;
+    const uint32_t dk = smem_addr(sK + (j % kTStages) * BK * G::ks);
+    const uint32_t dv = smem_addr(sV + (j % kTStages) * BK * G::vs);
+    for (int i = threadIdx.x; i < BK * CPR; i += G::threads) {
+      const int r = i / CPR, c = (i % CPR) * C;
+      const bool valid = k0 + r < seq_len;
+      const size_t src = valid ? (size_t)(k0 + r) * D + c : 0;
+      cp_async16(dk + (r * G::ks + c) * (int)sizeof(T), kp + src, valid);
+      cp_async16(dv + (r * G::vs + c) * (int)sizeof(T), vp + src, valid);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  load_kv(lo);
+
+  // q * scale in float32 (rounded once, as the plain version), rows past S
+  // zero; the first barrier of the loop publishes it
+  for (int i = threadIdx.x; i < BQ * (D / C); i += G::threads) {
+    const int r = i / (D / C), c = (i % (D / C)) * C;
+    float* dst = sQ + r * G::qs + c;
+    if (q0 + r < seq_len) {
+      const uint4 raw =
+          *reinterpret_cast<const uint4*>(qp + (size_t)(q0 + r) * D + c);
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int u = 0; u < C; ++u) dst[u] = to_f32(e[u]) * scale;
+    } else {
+#pragma unroll
+      for (int u = 0; u < C; ++u) dst[u] = 0.0f;
+    }
+  }
+
+  // the warp's 16 rows: this thread holds rows g and g + 8 of them
+  const int r0 = q0 + warp * kTRows;
+  const int row0 = r0 + g, row1 = row0 + 8;
+  const bool live = r0 < seq_len;
+  // the tiles of [lo, hi) that this warp's rows see; a tile wholly masked
+  // for every row of the warp adds exactly 0 (every row has a valid key in
+  // its range), so the warp skips it
+  const int whi = causal ? min((r0 + kTRows - 1) / BK + 1, hi) : hi;
+  const int wlo = window > 0 ? max((r0 - window + 1) / BK, lo) : lo;
+  const float* qr0 = sQ + (warp * kTRows + g) * G::qs + 2 * t;
+  const float* qr1 = qr0 + 8 * G::qs;
+
+  float o[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
+
+  for (int j = lo; j < hi; ++j) {
+    if (j + 1 < hi) {
+      load_kv(j + 1);  // into the stage tile j - 1 used
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j (and q) is in shared memory for every warp
+    if (live && j >= wlo && j < whi) {
+      const T* tk = sK + (j % kTStages) * BK * G::ks;
+      const T* tv = sV + (j % kTStages) * BK * G::vs;
+      const int k0 = j * BK;
+
+      // s = (q * scale) . k^T.  The mma's k index t holds column 2t of an
+      // 8-column step and t + 4 holds column 2t + 1, in a and in b alike (a
+      // sum does not care about the order), so each operand pair is one
+      // 8-byte load.
+      float s[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < ND; ++kk) {
+        const float2 x0 = *reinterpret_cast<const float2*>(qr0 + 8 * kk);
+        const float2 x1 = *reinterpret_cast<const float2*>(qr1 + 8 * kk);
+        uint32_t ah[4], al[4];
+        split(x0.x, ah[0], al[0]);  // (g, 2t)
+        split(x1.x, ah[1], al[1]);  // (g + 8, 2t)
+        split(x0.y, ah[2], al[2]);  // (g, 2t + 1)
+        split(x1.y, ah[3], al[3]);  // (g + 8, 2t + 1)
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          const float2 y = load2(tk + (8 * n + g) * G::ks + 8 * kk + 2 * t);
+          mma3<T>(s[n], ah, al, y.x, y.y);
+        }
+      }
+
+      // masks, only on tiles that cross the causal diagonal, the window's
+      // edge or the ragged end for some row of the warp: -1e30 outside the
+      // masks, -inf past S.  s[n][e] is row (e < 2 ? g : g + 8), key
+      // 8n + 2t + (e & 1).
+      if (k0 + BK > seq_len || (causal && k0 + BK - 1 > r0) ||
+          (window > 0 && k0 <= r0 + kTRows - 1 - window)) {
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = e < 2 ? row0 : row1;
+            const int col = k0 + 8 * n + 2 * t + (e & 1);
+            bool keep = true;
+            if (causal) keep &= col <= row;
+            if (window > 0) keep &= col > row - window;
+            s[n][e] = col >= seq_len ? -INFINITY : (keep ? s[n][e] : kNegInf);
+          }
+      }
+
+      // the online softmax in float32; the four threads of a row share its
+      // maximum, and each keeps its own share of the denominator (every
+      // share is rescaled by the same factor; summed at the end)
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+      }
+#pragma unroll
+      for (int x = 1; x <= 2; x <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+      }
+      const float c0 = expf(m0 - mx0), c1 = expf(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        s[n][0] = expf(s[n][0] - mx0);
+        s[n][1] = expf(s[n][1] - mx0);
+        s[n][2] = expf(s[n][2] - mx1);
+        s[n][3] = expf(s[n][3] - mx1);
+        ps0 += s[n][0] + s[n][1];
+        ps1 += s[n][2] + s[n][3];
+      }
+      l0 = l0 * c0 + ps0;
+      l1 = l1 * c1 + ps1;
+      // a factor of exactly 1 changes nothing, so o is rescaled only when
+      // some row's maximum moved
+      if (__any_sync(0xffffffffu, c0 != 1.0f || c1 != 1.0f)) {
+#pragma unroll
+        for (int jd = 0; jd < ND; ++jd) {
+          o[jd][0] *= c0;
+          o[jd][1] *= c0;
+          o[jd][2] *= c1;
+          o[jd][3] *= c1;
+        }
+      }
+
+      // o += p . v.  p's accumulator layout (rows g, g + 8; keys 2t, 2t + 1)
+      // is the a layout once the mma's k index t stands for key 2t and t + 4
+      // for key 2t + 1; v's rows are read in the same order.  p is split
+      // into hi + lo here.
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        uint32_t ah[4], al[4];
+        split(s[n][0], ah[0], al[0]);  // (g, key 2t)
+        split(s[n][2], ah[1], al[1]);  // (g + 8, key 2t)
+        split(s[n][1], ah[2], al[2]);  // (g, key 2t + 1)
+        split(s[n][3], ah[3], al[3]);  // (g + 8, key 2t + 1)
+        const T* vr = tv + (8 * n + 2 * t) * G::vs + g;
+#pragma unroll
+        for (int jd = 0; jd < ND; ++jd)
+          mma3<T>(o[jd], ah, al, to_f32(vr[8 * jd]), to_f32(vr[G::vs + 8 * jd]));
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  if (!live) return;
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  T* op = out + (size_t)bh * seq_len * D + 2 * t;
+#pragma unroll
+  for (int jd = 0; jd < ND; ++jd) {
+    if (row0 < seq_len)
+      store2(op + (size_t)row0 * D + 8 * jd, o[jd][0] / d0, o[jd][1] / d0);
+    if (row1 < seq_len)
+      store2(op + (size_t)row1 * D + 8 * jd, o[jd][2] / d1, o[jd][3] / d1);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* out,
+                        int bh, int seq_len, int group, int causal, float scale,
+                        int window, cudaStream_t stream) {
+  using G = TGeo<T, D>;
+  static bool configured = false;  // the attribute is per function
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_tf32<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid(bh, (seq_len + G::rows - 1) / G::rows);
+  flash_tf32<T, D><<<grid, G::threads, G::smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), seq_len, group, causal,
+      scale, window);
+  return cudaGetLastError();
+}
+
+// float32 at every head dim: flash_tf32
+cudaError_t launch_f32(int head_dim, const void* q, const void* k,
+                       const void* v, void* out, int bh, int seq_len,
+                       int group, int causal, float scale, int window,
+                       cudaStream_t stream) {
+  using T = float;
+  switch (head_dim) {
+    case 32:
+      return launch_tf32<T, 32>(q, k, v, out, bh, seq_len, group, causal,
+                                scale, window, stream);
+    case 64:
+      return launch_tf32<T, 64>(q, k, v, out, bh, seq_len, group, causal,
+                                scale, window, stream);
+    case 80:
+      return launch_tf32<T, 80>(q, k, v, out, bh, seq_len, group, causal,
+                                scale, window, stream);
+    case 120:
+      return launch_tf32<T, 120>(q, k, v, out, bh, seq_len, group, causal,
+                                 scale, window, stream);
+    case 128:
+      return launch_tf32<T, 128>(q, k, v, out, bh, seq_len, group, causal,
+                                 scale, window, stream);
+    case 256:
+      return launch_tf32<T, 256>(q, k, v, out, bh, seq_len, group, causal,
+                                 scale, window, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 // flash_wgmma<D>: the overlapped schedule at D = 64, the one within a
 // warpgroup at D = 256 (consume_wide), the serial one at 80, 120 and 128
 // (see consume).  The D = 64 and D = 256 softmaxes take their maxima over
@@ -1388,7 +1553,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-// bfloat16: flash_wgmma at the ported configs' head dims, flash_fwd at 32
+// bfloat16: flash_wgmma at the ported configs' head dims, flash_tf32 at 32
 cudaError_t launch_bf16(int head_dim, const void* q, const void* k,
                         const void* v, void* out, int bh, int seq_len,
                         int group, int causal, float scale, int window,
@@ -1396,8 +1561,8 @@ cudaError_t launch_bf16(int head_dim, const void* q, const void* k,
   using T = __nv_bfloat16;
   switch (head_dim) {
     case 32:
-      return launch<T, 32>(q, k, v, out, bh, seq_len, group, causal, scale,
-                           window, stream);
+      return launch_tf32<T, 32>(q, k, v, out, bh, seq_len, group, causal,
+                                scale, window, stream);
     case 64:
       return launch_wgmma<64>(q, k, v, out, bh, seq_len, group, causal, scale,
                               window, stream);
@@ -1425,9 +1590,9 @@ cudaError_t launch_bf16(int head_dim, const void* q, const void* k,
 // head_dim: 32, 64, 80, 120, 128 or 256.  window <= 0 means no window.  q
 // and out hold bh * seq_len * head_dim elements, k and v bh / group times
 // that.  bfloat16 at head_dim 64, 80, 120, 128 and 256 runs flash_wgmma;
-// float32, and bfloat16 at 32, run flash_fwd.  bfloat16 at 64 takes only
-// scale > 0 (cudaErrorInvalidValue otherwise; the wrapper rewrites the
-// others).
+// float32, and bfloat16 at 32, run flash_tf32.  bfloat16 at 64 and 256
+// takes only scale > 0 (cudaErrorInvalidValue otherwise; the wrapper
+// rewrites the others).
 extern "C" int flash_attention_launch(int device, int dtype, int head_dim,
                                       const void* q, const void* k,
                                       const void* v, void* out, int bh,

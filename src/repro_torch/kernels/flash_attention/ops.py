@@ -15,9 +15,10 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 
 #: the JAX wrapper's block sizes; they fix the ``S % block`` contract only,
-#: since the CUDA kernels tile by their own (128 x 128 for bf16 at head dims
-#: 64, 80, 120 and 128, 128 x 64 at 256, 64 x 32 otherwise; the result does
-#: not depend on the block: masked keys contribute exactly 0)
+#: since the CUDA kernels tile by their own (bf16 on ``flash_wgmma``: 128 x
+#: 128 at head dims 64, 80, 120 and 128, 128 x 64 at 256; ``flash_tf32``:
+#: 128 x 64, and 64 x 32 at 256; the result does not depend on the block:
+#: masked keys contribute exactly 0)
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
 
@@ -28,8 +29,9 @@ HEAD_DIMS = (32, 64, 80, 120, 128, 256)
 
 #: bfloat16 head dims that run ``flash_wgmma`` (wgmma + TMA; at 64 the
 #: softmax overlaps the tensor cores, at 256 the key tiles are 64 rows);
-#: float32 at every head dim and bfloat16 at 32 run ``flash_fwd`` (CUDA
-#: cores).  ``launch_bf16`` in the source dispatches the same way.
+#: float32 at every head dim and bfloat16 at 32 run ``flash_tf32``
+#: (mma.sync on TF32 tensor cores, float32 operands split into hi + lo).
+#: ``launch_f32`` and ``launch_bf16`` in the source dispatch the same way.
 WGMMA_HEAD_DIMS = (64, 80, 120, 128, 256)
 
 #: bf16 head dims whose kernel takes its softmax maxima over the unscaled
@@ -73,7 +75,7 @@ def kernel_name(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernel a launch at ``dtype`` and ``head_dim`` runs."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "flash_wgmma"
-    return "flash_fwd"
+    return "flash_tf32"
 
 
 def positive_scale(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:

@@ -40,6 +40,9 @@ import numpy as np
 PEAK_FLOPS = 989e12
 #: float32 FLOP/s outside the tensor cores (H100 SXM data sheet)
 FP32_FLOPS = 67e12
+#: dense TF32 tensor-core FLOP/s of one H100 SXM (NVIDIA data sheet); a
+#: float32-accurate product split into three TF32 products runs at a third
+TF32_FLOPS = 494.7e12
 #: HBM3 bytes/s of one H100 SXM
 HBM_BW = 3.35e12
 #: NVLink 4 bytes/s a card sends in one direction (900 GB/s both ways)

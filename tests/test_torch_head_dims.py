@@ -396,19 +396,22 @@ def test_flash_route_table_is_the_sources():
     """(dtype, D) -> kernel in ops.kernel_name, as launch_f32 and
     launch_bf16 of flash_attention.cu dispatch."""
     f32, bf16 = cu_function("launch_f32"), cu_function("launch_bf16")
-    assert route_dims(f32, "launch") == set(flash_ops.HEAD_DIMS)
+    assert route_dims(f32, "launch_tf32") == set(flash_ops.HEAD_DIMS)
     assert route_dims(f32, "launch_wgmma") == set()
     assert route_dims(bf16, "launch_wgmma") == set(flash_ops.WGMMA_HEAD_DIMS)
-    assert route_dims(bf16, "launch") == set(flash_ops.HEAD_DIMS) - set(flash_ops.WGMMA_HEAD_DIMS)
+    assert route_dims(bf16, "launch_tf32") == (set(flash_ops.HEAD_DIMS)
+                                               - set(flash_ops.WGMMA_HEAD_DIMS))
     for d in flash_ops.HEAD_DIMS:
-        assert flash_ops.kernel_name(torch.float32, d) == "flash_fwd"
-        want = "flash_wgmma" if d in flash_ops.WGMMA_HEAD_DIMS else "flash_fwd"
+        assert flash_ops.kernel_name(torch.float32, d) == "flash_tf32"
+        want = "flash_wgmma" if d in flash_ops.WGMMA_HEAD_DIMS else "flash_tf32"
         assert flash_ops.kernel_name(torch.bfloat16, d) == want
-    # bf16 at 64 (musicgen-medium) is on the tensor cores; bf16 at 32 and
-    # float32 at every head dim stay on the CUDA cores
+    # bf16 at 64 (musicgen-medium) is on wgmma; bf16 at 32 and float32 at
+    # every head dim run the split-TF32 mma.sync kernel; the CUDA-core
+    # flash_fwd is gone
     assert flash_ops.kernel_name(torch.bfloat16, 64) == "flash_wgmma"
-    assert "launch_wgmma<64>(" in bf16 and "launch<T, 64>(" not in bf16
-    assert flash_ops.kernel_name(torch.bfloat16, 32) == "flash_fwd"
+    assert "launch_wgmma<64>(" in bf16 and "launch_tf32<T, 64>(" not in bf16
+    assert flash_ops.kernel_name(torch.bfloat16, 32) == "flash_tf32"
+    assert "flash_fwd" not in FLASH_CU
     # every ported config that calls the kernels computes in bf16, on the
     # tensor cores
     for arch in KERNEL_ARCHS:
@@ -525,7 +528,7 @@ def test_flash_wgmma_geometry_at_256():
     assert (c["kWideCols"], keys, bq) == (256, 64, 128)
     assert 256 in flash_ops.WGMMA_HEAD_DIMS and 256 in decode_ops.HEAD_DIMS
     assert flash_ops.kernel_name(torch.bfloat16, 256) == "flash_wgmma"
-    assert flash_ops.kernel_name(torch.float32, 256) == "flash_fwd"
+    assert flash_ops.kernel_name(torch.float32, 256) == "flash_tf32"
     # 128-key tiles do not fit: q 64 KB + 2 stages of k and v at 64 KB
     assert 1024 + 4 * c["kHalfBytes"] + 2 * c["kStages"] * 4 * c["kHalfBytes"] > SMEM_LIMIT
     # the tensor map's rows are 512 B; boxes of 64 columns x 128 q rows or
@@ -592,14 +595,27 @@ def test_flash_wgmma_geometry_at_256():
         assert (hi - 1) * keys <= q0 + bq - 1  # no tile wholly past the q tile
 
 
-def test_flash_fwd_float32_shared_memory_at_256():
-    """float32 at D = 256 runs flash_fwd: its q, k, v and p tiles take
-    139,904 B of the block's shared memory."""
+def test_flash_tf32_float32_shared_memory_at_256():
+    """float32 at D = 256 runs flash_tf32<float, 256>: four warps of 16 q
+    rows, q * scale as float32 and a two-stage ring of 32-key k and v tiles
+    take 201,728 B of the block's shared memory (TGeo in the source)."""
     c = cu_consts()
-    d, bq, bk = 256, c["kBQ"], c["kBK"]
-    floats = bq * (d + 1) + bk * (d + 1) + bk * d + bq * (bk + 1)
-    assert floats == 34_976 and floats * 4 == 139_904 <= SMEM_LIMIT
-    assert "launch<T, 256>(" in cu_function("launch_f32")
+    d = 256
+    rows, keys, stages = c["kTRows"] * c["kTWideWarps"], c["kTWideKeys"], c["kTStages"]
+    assert (rows, keys, stages) == (64, 32, 2)
+    qs = (d + 15) // 16 * 16 + 8
+    ks, vs = qs, d + 4
+    smem = rows * qs * 4 + stages * keys * (ks + vs) * 4
+    assert (qs, vs) == (264, 260) and smem == 201_728 <= SMEM_LIMIT
+    # q's split halves beside the ring would not fit
+    assert 2 * rows * qs * 4 + stages * keys * (ks + vs) * 4 > SMEM_LIMIT
+    for line in ("static constexpr int qs = (D + 15) / 16 * 16 + 8;",
+                 "static constexpr int ks = sizeof(T) == 4 ? qs : D + 8;",
+                 "static constexpr int vs = sizeof(T) == 4 ? D + 4 : D + 8;",
+                 "rows * qs * 4 + kTStages * keys * (ks + vs) * (int)sizeof(T);",
+                 "static constexpr int keys = wide ? kTWideKeys : kTKeys;"):
+        assert line in FLASH_CU
+    assert "launch_tf32<T, 256>(" in cu_function("launch_f32")
 
 
 def overlapped_turns(n_iter):

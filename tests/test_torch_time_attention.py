@@ -31,3 +31,19 @@ def test_it_fails_without_a_card():
     proc = subprocess.run([sys.executable, str(ROOT / "tools" / "time_attention.py")],
                           capture_output=True, text=True)
     assert proc.returncode != 0 and "no CUDA device" in proc.stderr and not proc.stdout.strip()
+
+
+def test_the_float32_rows_are_chip_smokes():
+    """The float32 rows (flash_tf32 and decode_split<f32, D>) are at the
+    heads of chip_smoke's FLOAT32_ARCHS, Yi-6B's (phase 6h's path) first,
+    and flash at head dim 32 at D32_HEADS; the script reads both from
+    chip_smoke and names the kernel each row launched."""
+    assert chip_smoke.FLOAT32_ARCHS[0] == "yi-6b"
+    assert set(chip_smoke.FLOAT32_ARCHS) <= set(chip_smoke.ATTENTION_ROWS)
+    assert chip_smoke.ATTENTION_ROWS[chip_smoke.FLOAT32_ARCHS[-1]][4] == 1  # B = 1 at 16/1 x 256
+    h, hkv = chip_smoke.D32_HEADS
+    assert h % hkv == 0
+    text = (ROOT / "tools" / "time_attention.py").read_text()
+    for name in ("cs.FLOAT32_ARCHS", "cs.D32_HEADS", "fops.kernel_name(dtype, d)",
+                 "dops.decode_kernel(dtype, h // hkv, d)"):
+        assert name in text

@@ -8,18 +8,23 @@ CUDA toolkit::
 
 It builds ``flash_attention.cu`` and ``decode_attention.cu`` of DIR's
 ``src/repro_torch`` (default: the checkout that holds this script) with the
-port's nvcc flags, prints their ptxas registers and spill bytes and
-flash_wgmma<256>'s SASS counts (its wgmma instructions, the waits on them,
-its spill loads and stores and its highest register), then one JSON line
-per row: decode at full length and flash on one causal prompt for every
-config of ``chip_smoke.ATTENTION_ROWS``, the recurrent hybrid's decode at
+port's nvcc flags, prints their ptxas registers and spill bytes and the
+SASS counts of flash_wgmma<256> and of every flash_tf32 instance (wgmma
+instructions, the waits on them, TF32 mma.sync instructions, spill loads
+and stores, the highest register), then one JSON line per row: decode at
+full length and flash on one causal prompt for every config of
+``chip_smoke.ATTENTION_ROWS`` in bf16, the recurrent hybrid's decode at
 its serve's length and its flash at its forward's length, where the window
-masks.  Each row has the device time (CUDA events, L2 flushed, median of
-``chip_smoke.TIMING_REPS``, launches queued behind a sleep kernel), SDPA's
-time on the same inputs, whether the host queued both ahead of the card
-(``ahead``; where not, the times hold host gaps), and whether the result
-held to the plain version (``close_enough`` for decode,
-``flash_bf16_close`` for flash).
+masks; then the same decode and flash rows in float32 at the configs of
+``chip_smoke.FLOAT32_ARCHS``, and flash at head dim 32 (heads
+``chip_smoke.D32_HEADS``) in float32 and bf16.  Each row names the kernel
+DIR's wrapper launches (``runs``) and has the device time (CUDA events, L2
+flushed, median of ``chip_smoke.TIMING_REPS``, launches queued behind a
+sleep kernel), SDPA's time on the same inputs, whether the host queued both
+ahead of the card (``ahead``; where not, the times hold host gaps), and
+whether the result held to the plain version (``close_enough`` for decode
+and for flash in float32 or at head dim 32, ``flash_bf16_close`` for
+bf16 flash on wgmma).
 
 The rows, the timing, the rules and the ptxas parser are those of the
 ``chip_smoke.py`` beside this script; only the kernels come from DIR, so
@@ -58,6 +63,7 @@ def sass_stats(so: Path, pattern: str) -> dict:
         if re.search(pattern, name):
             regs = [int(r) for r in re.findall(r"\bR(\d+)\b", body)]
             out[name] = {"HGMMA": len(re.findall(r"\bHGMMA\b", body)),
+                         "HMMA.TF32": len(re.findall(r"\bHMMA\S*TF32", body)),
                          "WARPGROUP.DEPBAR": len(re.findall(r"WARPGROUP\.DEPBAR", body)),
                          "LDL/STL": len(re.findall(r"\b(?:LDL|STL)\b", body)),
                          "highest register": max(regs, default=-1)}
@@ -88,7 +94,7 @@ def main() -> int:
     label = args.label or str(root)
     print(f"time_attention: {label}: torch {torch.__version__} on [{smi}]", flush=True)
     cs.build_kernels((fops, dops))
-    stats = sass_stats(build.built_path(fops.SOURCE), r"flash_wgmmaILi256E")
+    stats = sass_stats(build.built_path(fops.SOURCE), r"flash_wgmmaILi256E|flash_tf32")
     print(f"time_attention: {label}: SASS flash_attention: {json.dumps(stats)}", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -96,8 +102,8 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
 
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     def ms(fn):
         """(ms, ahead): ahead is false where the host fell behind the card
@@ -113,42 +119,54 @@ def main() -> int:
         torch.cuda.synchronize()
     del x
 
-    def report(kernel, row, got, sdpa, ok):
+    def report(kernel, row, got, sdpa, ok, runs):
         (t, ahead), (t_sdpa, ahead_sdpa) = ms(got), ms(sdpa)
-        print(json.dumps({"tree": label, "kernel": kernel, "row": row, "ms": t,
-                          "sdpa_ms": t_sdpa, "ahead": ahead and ahead_sdpa, "ok": ok,
+        print(json.dumps({"tree": label, "kernel": kernel, "runs": runs, "row": row,
+                          "ms": t, "sdpa_ms": t_sdpa, "ahead": ahead and ahead_sdpa, "ok": ok,
                           "card": smi}), flush=True)
 
     s = cs.DECODE_LEN
-    decode_rows = [(arch, h, hkv, d, [s] * b)
+    bf16, f32 = torch.bfloat16, torch.float32
+    decode_rows = [(arch, h, hkv, d, [s] * b, bf16)
                    for arch, (h, hkv, d, _, b) in cs.ATTENTION_ROWS.items()]
     h, hkv, d, _, b = cs.ATTENTION_ROWS[cs.HYBRID_ARCH]
     decode_rows.append((cs.HYBRID_ARCH, h, hkv, d,
-                        [cs.HYBRID_PROMPT_LEN + cs.HYBRID_NEW_TOKENS] * b))
-    for arch, h, hkv, d, lens in decode_rows:
+                        [cs.HYBRID_PROMPT_LEN + cs.HYBRID_NEW_TOKENS] * b, bf16))
+    decode_rows += [(arch, h, hkv, d, [s] * b, f32) for arch, (h, hkv, d, _, b) in
+                    ((a, cs.ATTENTION_ROWS[a]) for a in cs.FLOAT32_ARCHS)]
+    for arch, h, hkv, d, lens, dtype in decode_rows:
         b = len(lens)
-        q, k, v = randn(b, h, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
+        q = randn(b, h, d, dtype=dtype)
+        k, v = randn(b, hkv, s, d, dtype=dtype), randn(b, hkv, s, d, dtype=dtype)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         kernel = lambda: dops.decode_attention(q, k, v, lengths)  # noqa: E731
         ok = cs.close_enough(torch, kernel(), dref.decode_attention_ref(q, k, v, lengths))
         mask = (torch.arange(s, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
         report("decode_attention",
-               f"{arch} {h}/{hkv} x {d}, B={b}, "
+               f"{arch} {h}/{hkv} x {d}, B={b}, {str(dtype).split('.')[-1]}, "
                + ("full length" if lens[0] == s else f"length {lens[0]}"),
                kernel, lambda: F.scaled_dot_product_attention(q[:, :, None], k, v,
                                                               attn_mask=mask, enable_gqa=True),
-               ok)
+               ok, dops.decode_kernel(dtype, h // hkv, d))
 
-    flash_rows = [(arch, h, hkv, d, cs.FORWARD_LEN, window)
+    flash_rows = [(arch, h, hkv, d, cs.FORWARD_LEN, window, bf16)
                   for arch, (h, hkv, d, window, _) in cs.ATTENTION_ROWS.items()]
     h, hkv, d, window, _ = cs.ATTENTION_ROWS[cs.HYBRID_ARCH]
-    flash_rows.append((cs.HYBRID_ARCH, h, hkv, d, cs.HYBRID_FORWARD_LEN, window))
-    for arch, h, hkv, d, fs, window in flash_rows:
-        q, k, v = randn(1, h, fs, d), randn(1, hkv, fs, d), randn(1, hkv, fs, d)
+    flash_rows.append((cs.HYBRID_ARCH, h, hkv, d, cs.HYBRID_FORWARD_LEN, window, bf16))
+    flash_rows += [(arch, h, hkv, d, cs.FORWARD_LEN, window, f32) for arch, (h, hkv, d, window, _)
+                   in ((a, cs.ATTENTION_ROWS[a]) for a in cs.FLOAT32_ARCHS)]
+    h, hkv = cs.D32_HEADS
+    flash_rows += [("head dim 32", h, hkv, 32, cs.FORWARD_LEN, None, dt) for dt in (f32, bf16)]
+    for arch, h, hkv, d, fs, window, dtype in flash_rows:
+        q = randn(1, h, fs, d, dtype=dtype)
+        k, v = randn(1, hkv, fs, d, dtype=dtype), randn(1, hkv, fs, d, dtype=dtype)
         kw = dict(causal=True, window=window)
         kernel = lambda: fops.flash_attention(q, k, v, **kw)  # noqa: E731
-        ok = cs.flash_bf16_close(torch, kernel(), fref.attention_ref(q, k, v, **kw),
-                                 cs.flash_yardstick(q, k, v, **kw))[0]
+        want = fref.attention_ref(q, k, v, **kw)
+        wgmma = dtype == bf16 and d in fops.WGMMA_HEAD_DIMS
+        ok = (cs.flash_bf16_close(torch, kernel(), want, cs.flash_yardstick(q, k, v, **kw))[0]
+              if wgmma else cs.close_enough(torch, kernel(), want))
+        del want
         if window is None or window >= fs:
             sdpa_kw = dict(is_causal=True, enable_gqa=True)
         else:
@@ -156,9 +174,10 @@ def main() -> int:
             sdpa_kw = dict(attn_mask=(pos[None, :] <= pos[:, None])
                            & (pos[None, :] > pos[:, None] - window), enable_gqa=True)
         report("flash_attention",
-               f"{arch} {h}/{hkv} x {d}, S={fs}"
+               f"{arch} {h}/{hkv} x {d}, {str(dtype).split('.')[-1]}, S={fs}"
                + (f", window {window}" if window is not None and window < fs else ""),
-               kernel, lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw), ok)
+               kernel, lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw), ok,
+               fops.kernel_name(dtype, d))
     return 0
 
 
