@@ -106,9 +106,10 @@ Phases, each of which fails the script (non-zero exit) on any error:
    plus mask probes (``mask_probe``: keys past the
    diagonal or outside the window carry large scores and v = +-64, so a
    leak moves outputs by whole units) at S in {512, 2048}; float32 and
-   bfloat16; then, after every case above (whose inputs stay what they
-   were before these came), ``flash_tf32`` at head dim 32 (32/4) in both
-   dtypes and at 256 (16/1) in float32 on what head dim 64 has: S in
+   bfloat16; then, drawn from a generator of their own (seed SEED + 1, so
+   the cases above keep their inputs), ``flash_tf32`` at head dim 32
+   (32/4) in both dtypes and at 256 (16/1) in float32 on what head dim 64
+   has: S in
    {512, 2048, 200}, causal, non-causal, window 256, window 64 at S = 200,
    and mask probes at S in {512, 2048}.  Decode and float32 flash
    (``flash_tf32``: three TF32 products a pair) within 1e-5 + 1e-5 |plain|
@@ -207,8 +208,12 @@ Phases, each of which fails the script (non-zero exit) on any error:
    recurrentgemma, B = 1 for the last; Yi's decode also at phase 6h's
    lengths) and flash at head dim 32 (``D32_HEADS``) in float32 and bf16
    (float32 flash bounds count three TF32 products a pair at TF32_FLOPS,
-   with one product a pair on the CUDA cores beside, ``cuda_core_ms``;
-   float32 decode its 4-byte elements at the memory rate); then print one
+   and a line before the ``kernels`` line gives the CUDA cores' ceiling,
+   one float32 product a pair at FP32_FLOPS, computed; float32 decode
+   bounds count 4-byte elements at the memory rate; the float32 and
+   head-dim-32 rows add SDPA on k and v expanded to the q heads,
+   ``library_expanded_ms``, since ``enable_gqa`` sends float32 to SDPA's
+   ``MATH`` backend); then print one
    ``{"kernels": [...]}`` line for all three kernels, each row with the
    card and its power limit and each flash row with the kernel that ran
    (``flash_wgmma`` or ``flash_tf32``) and, for the configs, phase 6c's,
@@ -331,6 +336,9 @@ D256_MASKS = ((True, None), (False, None), (True, 2048), (True, 64))
 #: which the rewrite turns into the default (the yardstick's), and 0
 D64_SCALES = (-0.125, 0.0)
 D256_SCALES = (-0.0625, 0.0)
+#: phase 5: (D, H, Hkv) of the bf16 cases at those scales, S = 512
+SCALE_SHAPES = ((64, 32, 4), (64, 24, 24), (256, 16, 1))
+SCALE_LEN = 512
 #: phase 6f: recurrentgemma-9b at full width and depth (38 layers, 9.40 B
 #: parameters), both routes: requests of PROMPT_LEN prompt tokens and
 #: HYBRID_NEW_TOKENS new ones on one slot (the engine gives recurrent
@@ -442,24 +450,25 @@ PTXAS: dict = {}
 
 def kernel_label(mangled: str) -> str:
     """``flash_wgmma<256>``, ``flash_tf32<f32, 128>``, ``decode_group<128,
-    3>``, ``decode_split<bf16, 128>`` from a mangled kernel name: the name
-    is the longest tail of what precedes the template arguments that its
-    length prefix spells (a name may end in digits, and the namespace's
-    hash before it may too)."""
+    3>``, ``decode_split<bf16, 128>`` from a mangled kernel name, read as
+    the Itanium grammar reads it: after ``_ZN``, the nested name's
+    ``<length><identifier>`` pieces from the front (namespace, then the
+    kernel, which may end in digits), then its template arguments."""
     import re
 
-    m = re.match(r"_ZN(\w*?)I(.*?)EEv", mangled)
-    if m is None:
+    if not mangled.startswith("_ZN"):
         return mangled
-    head = m.group(1)
-    names = [head[-n:] for n in range(1, len(head))
-             if not head[-n].isdigit() and head[:-n].endswith(str(n))]
-    if not names:
+    pos, name = 3, None
+    while (m := re.compile(r"\d+").match(mangled, pos)) is not None:
+        end = m.end() + int(m.group())
+        name, pos = mangled[m.end():end], end
+    args = re.compile(r"I(.*?)EEv").match(mangled, pos)
+    if name is None or args is None:
         return mangled
     types = {"13__nv_bfloat16": "bf16", "f": "f32", "i": "i32", "j": "u32"}
     words = [num or types[typ] for num, typ in
-             re.findall(r"L[ij](\d+)E|(13__nv_bfloat16|[fij])", m.group(2))]
-    return f"{names[-1]}<{', '.join(words)}>"
+             re.findall(r"L[ij](\d+)E|(13__nv_bfloat16|[fij])", args.group(1))]
+    return f"{name}<{', '.join(words)}>"
 
 
 def ptxas_report(logs) -> dict:
@@ -1347,8 +1356,8 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
     before = flash_ops.LAUNCHES, decode_ops.LAUNCHES
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def randn(*shape, dtype):
-        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+    def randn(*shape, dtype, generator=None):
+        return torch.randn(*shape, generator=generator or gen, device=dev).to(dtype)
 
     def one(kind, name, kernel, plain, yard=None):
         """One case; its largest |kernel - plain| counts under (kind,
@@ -1516,9 +1525,10 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
         # yardstick is the chunked route at the rewritten (q, default
         # scale), which gives the same scores
         if bf16:
-            for d, h, hkv in ((64, 32, 4), (64, 24, 24), (256, 16, 1)):
-                q = randn(1, h, 512, d, dtype=dtype)
-                k, v = randn(1, hkv, 512, d, dtype=dtype), randn(1, hkv, 512, d, dtype=dtype)
+            for d, h, hkv in SCALE_SHAPES:
+                q = randn(1, h, SCALE_LEN, d, dtype=dtype)
+                k = randn(1, hkv, SCALE_LEN, d, dtype=dtype)
+                v = randn(1, hkv, SCALE_LEN, d, dtype=dtype)
                 for scale in (D64_SCALES if d == 64 else D256_SCALES):
                     qy, sy = flash_ops.positive_scale(q, scale)
                     check(sy == d ** -0.5 or not bool(qy.any()),
@@ -1598,14 +1608,18 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
     # flash_tf32 at head dim 32 in both dtypes and at 256 in float32, the
     # cases D = 64 has: S = 512, 2048 and the ragged 200 (a window of 64
     # masks inside both of its tiles), causal, non-causal and window 256, and
-    # mask probes.  They come after every other case, whose inputs stay as
-    # they were before these were added.
+    # mask probes.  They draw from a generator of their own, so the cases
+    # above keep their inputs whatever is added here (ROADMAP section 3
+    # records a bf16 case at scale 0 that fails the bf16 flash rule at other
+    # inputs; tools/flash_scale0_probe.py finds such inputs).
+    tf32_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     for dtype in (torch.float32, torch.bfloat16):
         for d, h, hkv in ((32, 32, 4),) + (((256, 16, 1),) if dtype == torch.float32 else ()):
             for s, cases in ((512, FLASH_MASKS), (2048, FLASH_MASKS),
                              (200, FLASH_MASKS + ((True, 64),))):
-                q = randn(1, h, s, d, dtype=dtype)
-                k, v = randn(1, hkv, s, d, dtype=dtype), randn(1, hkv, s, d, dtype=dtype)
+                q = randn(1, h, s, d, dtype=dtype, generator=tf32_gen)
+                k = randn(1, hkv, s, d, dtype=dtype, generator=tf32_gen)
+                v = randn(1, hkv, s, d, dtype=dtype, generator=tf32_gen)
                 for causal, window in cases:
                     kw = dict(causal=causal, window=window)
                     one(f"flash D={d} tf32", f"flash {dtype} D={d} H={h}/{hkv} S={s} {kw}",
@@ -1615,7 +1629,7 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
             for s in (512, 2048):
                 for window in (None, 256):
                     q, k, v = mask_probe(torch, s, window=window, h=h, hkv=hkv, d=d,
-                                         dtype=dtype, generator=gen)
+                                         dtype=dtype, generator=tf32_gen)
                     kw = dict(causal=True, window=window)
                     one(f"flash probe D={d} tf32", f"flash mask probe {dtype} D={d} "
                         f"H={h}/{hkv} S={s} {kw}",
@@ -3474,6 +3488,7 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
     mem_rate = memory_rate(card)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     before = flash_ops.LAUNCHES, decode_ops.LAUNCHES
+    ceilings = {}  # float32 flash: the CUDA cores' ceiling by heads, ms
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
@@ -3501,11 +3516,27 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
             "library_ms": time_ms(torch, library, flush)[0],
         }
 
-    def decode_case(h, hkv, d, lens, s=DECODE_LEN, dtype=torch.bfloat16):
+    def expanded_sdpa(q, k, v, **kw):
+        """SDPA with k and v expanded to q's heads beforehand (outside the
+        timing), where the heads are grouped: ``enable_gqa`` sends float32
+        to SDPA's ``MATH`` backend, the expanded call may take a fused one.
+        Its time and backend, or Nones for one kv head a q head."""
+        g = q.shape[1] // k.shape[1]
+        if g == 1:
+            return {"library_expanded_ms": None, "sdpa_expanded_backend": None}
+        ek, ev = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+        out = {"library_expanded_ms":
+               time_ms(torch, lambda: F.scaled_dot_product_attention(q, ek, ev, **kw), flush)[0],
+               "sdpa_expanded_backend": sdpa_backend(torch, q, ek, ev, **kw)}
+        del ek, ev
+        return out
+
+    def decode_case(h, hkv, d, lens, s=DECODE_LEN, dtype=torch.bfloat16, expanded=False):
         """Decode over a cache of s rows at ``lens``.  The bound: the rows
         the function reads, each element once (2 or 4 bytes), at the card's
         memory rate, against its products (float32: three TF32 products a
-        pair, the least for float32 accuracy) at their rate."""
+        pair, the least for float32 accuracy) at their rate.  expanded:
+        SDPA on k and v expanded to the q heads beside (``expanded_sdpa``)."""
         b, esz = len(lens), 2 if dtype == torch.bfloat16 else 4
         q = randn(b, h, d, dtype=dtype)
         k, v = randn(b, hkv, s, d, dtype=dtype), randn(b, hkv, s, d, dtype=dtype)
@@ -3522,6 +3553,8 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
             flops=flops if esz == 2 else 3 * flops,
             rate=PEAK_FLOPS if esz == 2 else TF32_FLOPS,
         )
+        if expanded:
+            row.update(expanded_sdpa(q[:, :, None], k, v, attn_mask=mask))
         n_splits, chunk = decode_ops.split_plan(s, b * hkv, sms, h // hkv, d, dtype)
         kernel = decode_ops.decode_kernel(dtype, h // hkv, d)
         return {**row, "sdpa_backend": sdpa_backend(torch, *sdpa[0], **sdpa[1]),
@@ -3529,14 +3562,16 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
                 "partial_bytes_written_and_read": 2 * decode_ops.partial_bytes(b, h, d, n_splits),
                 "cache_bytes": b * hkv * s * d * esz * 2, "ptxas": PTXAS.get(kernel)}
 
-    def flash_case(h, hkv, d, window=None, fs=FORWARD_LEN, dtype=torch.bfloat16):
+    def flash_case(h, hkv, d, window=None, fs=FORWARD_LEN, dtype=torch.bfloat16,
+                   expanded=False):
         """One fs-token prompt, causal.  A window of fs or more masks
         nothing more, so SDPA's causal call computes the same function;
         a narrower one goes to SDPA as an explicit boolean mask, and the
         bound counts the (query, key) pairs it leaves.  bf16: the products
         at the bf16 tensor-core rate; float32: three TF32 products a pair
-        (the least the card can take for float32 accuracy), with the
-        CUDA cores' time for one product a pair beside (``cuda_core_ms``)."""
+        (the least the card can take for float32 accuracy); the CUDA cores'
+        ceiling for one float32 product a pair goes to ``ceilings``, not
+        to the row.  expanded: SDPA on k and v expanded beside."""
         esz = 2 if dtype == torch.bfloat16 else 4
         fq = randn(1, h, fs, d, dtype=dtype)
         fk, fv = randn(1, hkv, fs, d, dtype=dtype), randn(1, hkv, fs, d, dtype=dtype)
@@ -3562,8 +3597,12 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
         )
         label = (f"flash_wgmma<{d}>" if kernel == "flash_wgmma"
                  else f"{kernel}<{'bf16' if esz == 2 else 'f32'}, {d}>")
-        extra = {} if esz == 2 else {"cuda_core_ms": flops / FP32_FLOPS * 1e3}
-        return {**row, **extra, "sdpa_backend": sdpa_backend(torch, fq, fk, fv, **sdpa),
+        if esz == 4:
+            ceilings[f"{h}/{hkv} x {d}"] = flops / FP32_FLOPS * 1e3
+        if expanded:
+            row.update(expanded_sdpa(fq, fk, fv, **{k: w for k, w in sdpa.items()
+                                                    if k != "enable_gqa"}))
+        return {**row, "sdpa_backend": sdpa_backend(torch, fq, fk, fv, **sdpa),
                 "kernel": kernel, "ptxas": PTXAS.get(label)}
 
     # the main path's shapes: decode over 4 slots of 4096 positions, 32/4
@@ -3660,17 +3699,17 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
         fl_n = f32["flash_launches"] if on_path else 0
         dec_n = f32["decode_launches"] if on_path else 0
         flash_f32[f"{arch} float32"] = {
-            **flash_case(ah, ahkv, ad, window=aw, dtype=torch.float32),
+            **flash_case(ah, ahkv, ad, window=aw, dtype=torch.float32, expanded=True),
             "launches": fl_n, "launches_by_path": {fpath: fl_n} if on_path else {},
             "shape": f"B=1 H={ah} Hkv={ahkv} S={FORWARD_LEN} D={ad} float32 causal"
                      + (f" window={aw} (masks nothing at this S)" if aw else "")}
         decode_f32[f"{arch} float32, full length"] = {
-            **decode_case(ah, ahkv, ad, [s] * ab, dtype=torch.float32),
+            **decode_case(ah, ahkv, ad, [s] * ab, dtype=torch.float32, expanded=True),
             "launches": dec_n, "launches_by_path": {fpath: dec_n} if on_path else {},
             "shape": f"B={ab} H={ah} Hkv={ahkv} S={s} D={ad} float32 full length"}
     f32_final = [int(x) for x in f32["final_lengths"]]
     decode_f32["yi-6b float32, the serve's lengths"] = {
-        **decode_case(h, hkv, d, f32_final, dtype=torch.float32),
+        **decode_case(h, hkv, d, f32_final, dtype=torch.float32, expanded=True),
         "launches": f32["decode_launches"],
         "launches_by_path": {fpath: f32["decode_launches"]},
         "shape": f"B={len(f32_final)} H={h} Hkv={hkv} S={s} D={d} float32 lengths={f32_final}"}
@@ -3678,11 +3717,15 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         flash_f32[f"{dh}/{dhkv} x 32 {name}"] = {
-            **flash_case(dh, dhkv, 32, dtype=dtype), "launches": 0, "launches_by_path": {},
+            **flash_case(dh, dhkv, 32, dtype=dtype, expanded=True), "launches": 0,
+            "launches_by_path": {},
             "shape": f"B=1 H={dh} Hkv={dhkv} S={FORWARD_LEN} D=32 {name} causal"}
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # timing is not the main path
     print("timing: kernels device-only (queued behind a sleep kernel); plain versions and "
           "SDPA queued the same way")
+    print("float32 flash, the CUDA cores' ceiling (one float32 product a pair at FP32_FLOPS, "
+          "computed, not measured; the rows' bound_ms counts three TF32 products a pair): "
+          + json.dumps({shape: ms for shape, ms in ceilings.items()}))
     rows = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
