@@ -120,7 +120,24 @@ Phases, each of which fails the script (non-zero exit) on any error:
    |kernel - plain| at most twice those of the reference's chunked bf16
    route (``flash_yardstick``) plus 1e-5, since the kernel's tensor-core
    products round p to bf16 as that route does.  The rule each (dtype,
-   head dim) was held to is printed.  Two launches bitwise equal;
+   head dim) was held to is printed.  Two launches bitwise equal.  Where the
+   chunked route's own error is exactly 0 (scale 0), the bf16 flash rule is
+   one bf16 ulp plus 1e-5, the rule of the exact kernels.  Then
+   (``domain_vs_plain``, a generator of its own, SEED + 2) the rest of the
+   domain: float16 flash at every compiled width (32 on ``flash_tf32``,
+   64-256 on ``flash_wgmma``) at S in {512, 200}, causal, non-causal,
+   window 256 and window 64 at S = 200, and mask probes at S = 512, under
+   the float16 form of the bf16 flash rule (the chunked route in float16
+   as the yardstick) or, at 32, one float16 ulp + 1e-5; float16 decode at
+   32/4 and 48/1 (D = 128) and 16/1 (D = 256); head dims ODD_DIMS (1, 33,
+   96, 100, 250) in all three dtypes in both kernels (flash at S in {512,
+   200}; decode at 32/4 and 16/1, S = 1024); decode groups 71 and 128 (one
+   block a slice of at most 64 heads) at D = 64 and 128 in all three
+   dtypes, B = 4, S = 4096 at lengths 1, S-1, S, 0 and the chunk edges; and
+   ``fused_filter_agg`` at 1025, 4096 and 65536 groups over Q2's rows (its
+   own keys and keys over [-1, G], its values and float ones): counts
+   exact, sums within 1e-5 sum|v| of float64 (integer ones exact), repeat
+   launches bitwise equal;
 6. serve Yi-6B at full width and depth on ``cuda`` (random weights from
    a seeded generator, TF32 off): ``ServeEngine.generate`` on 6 requests
    over 4 slots of 4096 positions, 16 new tokens each, through the
@@ -198,6 +215,13 @@ Phases, each of which fails the script (non-zero exit) on any error:
    float32), greedy tokens equal up to the first near tie, decode logits
    equal to forward logits within LOGIT_TOL / 100; the forward's busy
    share and flash_tf32's device ms from a profile printed;
+6i. Yi-6B in float16 through the kernels (``serve_yi_float16``): full
+   width (32/4 x 128) and F16_LAYERS (32) layers, ``compute_dtype=float16``,
+   phase 6's requests and forward on both routes: launch counts of
+   F16_LAYERS a decode step (``decode_split<f16, 128>``) and a forward
+   (``flash_wgmma<f16, 128>``), logits within LOGIT_TOL and LOGIT_MEAN_TOL,
+   greedy tokens equal up to the first near tie, decode vs forward within
+   LOGIT_TOL;
 7. time the two attention kernels at the main path's shapes like phase 4,
    and at phase 6b's, 6e's and 6f's shapes (recurrentgemma-9b's flash at
    S = 4096 with its window, where SDPA takes the window as a boolean
@@ -221,7 +245,13 @@ Phases, each of which fails the script (non-zero exit) on any error:
    (``decode_split`` or ``decode_group``), plan, partial and cache bytes,
    and each config row with its kernel's ptxas registers and spills (phase
    1's report); the rows count the launches of phases 6, 6d, 6e, 6f and
-   6h, path by path (float32 shapes that no path runs: 0).  Lines before it give phase 6e's
+   6h, path by path (float32 shapes that no path runs: 0); float16 flash and
+   decode at Yi-6B's shapes (phase 6i's launches), Phi-3-mini's flash (MHA
+   32/32 x 96, ``flash_wgmma_any<bf16, 128>``) and Falcon-7B's decode (MQA 71/1
+   x 64, two slices) with no path (0), flash at head dim 33 in bf16 (rows
+   padded to 40 by the wrapper; ``pad_ms`` times the copies alone), and
+   ``fused_filter_agg`` at 4096 and
+   65536 groups over Q2's rows (``many_groups``; no path).  Lines before it give phase 6e's
    musicgen-medium and phase 6f's recurrentgemma-9b forward time and the
    forward profile's flash time, and the script's seconds;
 8. the planner and the example editions (``planner_and_examples``,
@@ -449,8 +479,9 @@ PTXAS: dict = {}
 
 
 def kernel_label(mangled: str) -> str:
-    """``flash_wgmma<256>``, ``flash_tf32<f32, 128>``, ``decode_group<128,
-    3>``, ``decode_split<bf16, 128>`` from a mangled kernel name, read as
+    """``flash_wgmma<bf16, 256>``, ``flash_tf32<f16, 32>``,
+    ``decode_group<bf16, 128, 3>``, ``decode_split<f32, 128>`` from a
+    mangled kernel name, read as
     the Itanium grammar reads it: after ``_ZN``, the nested name's
     ``<length><identifier>`` pieces from the front (namespace, then the
     kernel, which may end in digits), then its template arguments."""
@@ -463,11 +494,14 @@ def kernel_label(mangled: str) -> str:
         end = m.end() + int(m.group())
         name, pos = mangled[m.end():end], end
     args = re.compile(r"I(.*?)EEv").match(mangled, pos)
+    if name is not None and args is None and mangled[pos:pos + 1] == "E":
+        return name  # not a template: ``merge_partials``
     if name is None or args is None:
         return mangled
-    types = {"13__nv_bfloat16": "bf16", "f": "f32", "i": "i32", "j": "u32"}
+    types = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32", "i": "i32",
+             "j": "u32"}
     words = [num or types[typ] for num, typ in
-             re.findall(r"L[ij](\d+)E|(13__nv_bfloat16|[fij])", args.group(1))]
+             re.findall(r"L[ij](\d+)E|(13__nv_bfloat16|6__half|[fij])", args.group(1))]
     return f"{name}<{', '.join(words)}>"
 
 
@@ -1254,6 +1288,41 @@ def measure(torch, ops, ref, launches, inputs, card):
         k, v, f = (t[:rows] if rows <= n else t.repeat(rows // n) for t in (keys, vals, filt))
         by_rows[rows] = time_ms(torch, lambda: ops.fused_filter_agg(k, v, f, **kw), flush)[0]
     print(f"fused_filter_agg device ms against rows: {by_rows!r}")
+    # above 1024 groups (windows of groups and a merge launch): Q2's rows
+    # with keys drawn over [0, G); on no path (a caller raises max_groups)
+    gen = torch.Generator(device=keys.device).manual_seed(SEED + 3)
+    many = {}
+    for g in TIMED_GROUPS:
+        gkeys = torch.randint(0, g, (n,), generator=gen, device=keys.device, dtype=torch.int32)
+        gkw = dict(op="ge", threshold=0.5, num_groups=g)
+        s_k, c_k = ops.fused_filter_agg(gkeys, vals, filt, **gkw)
+        s_p, c_p = ref.fused_filter_agg_ref(gkeys, vals, filt, **gkw)
+        torch.cuda.synchronize()
+        check(torch.equal(s_k, s_p) and torch.equal(c_k, c_p),
+              f"kernel vs plain at Q2's rows, G={g}")
+        gm, gv = gkeys[keep], vals[keep].to(torch.float32)
+        fn = lambda: ops.fused_filter_agg(gkeys, vals, filt, **gkw)  # noqa: E731
+        g_ms, g_ahead = time_ms(torch, fn, flush)
+        check(g_ahead, "the host fell behind the card while queuing the kernel's launches")
+        g_bytes_ms = (n * 12 + 2 * g * 4) / memory_rate(card) * 1e3
+        g_ops_ms = 3 * n / FP32_FLOPS * 1e3
+        many[f"G={g}"] = {
+            "launches": 0, "launches_by_path": {},
+            "max_abs_err": max(float((s_k - s_p).abs().max()), float((c_k - c_p).abs().max())),
+            "ms": g_ms, "wrapper_ms": time_ms(torch, fn, flush, queued=False)[0],
+            "plain_ms": time_ms(torch, lambda: ref.fused_filter_agg_ref(
+                gkeys, vals, filt, **gkw), flush)[0],
+            "bound_ms": max(g_bytes_ms, g_ops_ms),
+            "bound_by": "bytes" if g_bytes_ms >= g_ops_ms else "operations",
+            "library_ms": time_ms(torch, lambda: torch.bincount(gm, weights=gv, minlength=g),
+                                  flush)[0],
+            "windows_and_widest": list(ops.windows(g)), "blocks": ops.grid(n, 2048, g)[0],
+            "ptxas": {k: PTXAS.get(k) for k in (
+                f"fused_filter_agg_kernel<{'i32' if vals.dtype == torch.int32 else 'f32'}, "
+                f"{'i32' if filt.dtype == torch.int32 else 'f32'}>", "merge_partials")},
+            "n": n, "num_groups": g}
+    print(f"fused_filter_agg above 1024 groups (Q2's rows, keys over [0, G)): "
+          f"{json.dumps(many)}")
     ops.LAUNCHES = before  # timing launches are not main-path launches
     nbytes = n * (4 + 4 + 4) + 2 * G * 4
     bytes_ms = nbytes / memory_rate(card) * 1e3
@@ -1275,29 +1344,36 @@ def measure(torch, ops, ref, launches, inputs, card):
         "n": n,
         "num_groups": G,
         "ms_by_rows": by_rows,
+        "many_groups": many,
     }
     return row
 
 
 # --------------------------------------------------------------- phase 5
+#: mantissa bits of the 16-bit types, for their ulp
+MANTISSA_BITS = {"bfloat16": 7, "float16": 10}
+
+
 def close_enough(torch, got, want) -> bool:
     """float32: within 1e-5 + 1e-5 |want| (sums in another order);
-    bfloat16: within one bf16 ulp of the larger magnitude (both versions
-    compute in float32 and round once) plus the same 1e-5 floor, since
-    near 0 an ulp is smaller than the float32 sums' own difference.  The
-    rule of float32 flash and of decode in both types."""
+    bfloat16 and float16: within one ulp of the type at the larger
+    magnitude (both versions compute in float32 and round once) plus the
+    same 1e-5 floor, since near 0 an ulp is smaller than the float32 sums'
+    own difference.  The rule of float32 flash and of decode in every type."""
     diff = (got.float() - want.float()).abs()
     if want.dtype == torch.float32:
         return bool((diff <= 1e-5 + 1e-5 * want.abs()).all())
+    bits = MANTISSA_BITS[str(want.dtype).split(".")[-1]]
     mag = torch.maximum(got.float().abs(), want.float().abs()).clamp_min(1e-30)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - bits)
     return bool((diff <= 1e-5 + ulp).all())
 
 
 def flash_yardstick(q, k, v, *, causal, window):
-    """The reference's own bf16 route at the same inputs: the port's copy
-    of the JAX package's ``_sdpa_chunked`` with one chunk of S keys (q *
-    scale and p rounded to bf16, float32 sums), rounded to q's dtype."""
+    """The reference's own 16-bit route at the same inputs: the port's
+    copy of the JAX package's ``_sdpa_chunked`` with one chunk of S keys (q
+    * scale and p rounded to q's dtype, bf16 or float16, float32 sums),
+    rounded to q's dtype."""
     from repro_torch.models.attention import _sdpa_chunked
 
     return _sdpa_chunked(q, k, v, causal=causal, window=window,
@@ -1305,17 +1381,24 @@ def flash_yardstick(q, k, v, *, causal, window):
 
 
 def flash_bf16_close(torch, got, want, yard):
-    """The bf16 flash rule.  The kernel runs both products on the tensor
-    cores with bf16 operands (p rounded to bf16), so it cannot match the
-    float32 plain version to one ulp.  It passes when its largest and its
-    mean |kernel - plain| are each at most twice those of ``yard`` (the
-    reference's chunked bf16 route, ``flash_yardstick``) against the same
-    plain version, plus 1e-5: FlashAttention's own test rule, with the JAX
-    package's own bf16 route as the yardstick.  Returns (ok, (kernel max,
-    kernel mean, route max, route mean))."""
+    """The bf16 flash rule, and float16's.  The kernel runs both products
+    on the tensor cores with 16-bit operands (p rounded to q's dtype), so
+    it cannot match the float32 plain version to one ulp.  It passes when
+    its largest and its mean |kernel - plain| are each at most twice those
+    of ``yard`` (the reference's chunked route in q's dtype,
+    ``flash_yardstick``) against the same plain version, plus 1e-5:
+    FlashAttention's own test rule, with the JAX package's own route as the
+    yardstick.  Where the route's own error is exactly 0 everywhere (scale
+    0: every p is 1, nothing rounds but the mean's float32 sums, taken in
+    another order by each), twice 0 would ask for bit-exact sums, so the
+    kernel gets the one-ulp-plus-1e-5 rule of every other 16-bit kernel
+    (``close_enough``).  Returns (ok, (kernel max, kernel mean, route max,
+    route mean))."""
     e = (got.float() - want.float()).abs()
     ey = (yard.float() - want.float()).abs()
     stats = (float(e.max()), float(e.mean()), float(ey.max()), float(ey.mean()))
+    if stats[2] == 0.0:
+        return close_enough(torch, got, want), stats
     ok = stats[0] <= 2 * stats[2] + 1e-5 and stats[1] <= 2 * stats[3] + 1e-5
     return ok, stats
 
@@ -1644,6 +1727,182 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
           f"route's + 1e-5); decode in both dtypes within 1e-5 + 1e-5|plain| (bf16: + one bf16 "
           f"ulp); repeat launches bitwise equal; max |kernel - plain|: "
           + ", ".join(f"{k} {str(dt).split('.')[-1]} {v!r}" for (k, dt), v in worst.items()))
+
+
+#: phase 5: the rest of the kernels' domain: head dims off the compiled widths
+#: (1 and 33 pad inside the wrapper in bf16 and float16; 96 is
+#: Phi-3-mini's, 100 and 250 other rows), decode groups above the kernel's
+#: 64 (Falcon-7B's 71/1 and a 128/1), and fused_filter_agg above 1024 groups
+ODD_DIMS = (1, 33, 96, 100, 250)
+WIDE_GROUPS = (71, 128)
+WIDE_GROUP_DIMS = (64, 128)
+MANY_GROUPS = (1025, 4096, 65536)
+#: their cache and prompt lengths (S = 200: one full and one ragged tile)
+ODD_DECODE_LEN = 1024
+ODD_FLASH_LENS = (512, 200)
+#: phase 7's rows for them: Phi-3-mini's flash heads (32/32 x 96) and
+#: Falcon-7B's decode heads (MQA 71/1 x 64), and fused_filter_agg's groups
+PHI3_HEADS = (32, 32, 96)
+FALCON_HEADS = (71, 1, 64)
+#: and a flash row whose rows the wrapper pads (33 bf16 elements -> 40)
+PAD_DIM = 33
+TIMED_GROUPS = (4096, 65536)
+
+
+def domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ffa_ops, ffa_ref,
+                    inputs):
+    """Phase 5's cases for float16, any head dim, any group and any group count, drawn
+    from a generator of their own (SEED + 2), so the cases before keep
+    their inputs: float16 flash at every compiled width (causal,
+    non-causal, window 256, window 64 at the ragged S = 200, mask probes)
+    under the 16-bit flash rule (``flash_tf32<f16, 32>`` under one float16
+    ulp + 1e-5); float16 decode at narrow (32/4) and wide groups (48/1 at
+    128, 16/1 at 256); head dims ODD_DIMS in all three dtypes in both
+    kernels; decode groups WIDE_GROUPS at WIDE_GROUP_DIMS in all three
+    dtypes, B = 4 at lengths 1, S - 1, S, 0 and the plan's chunk edges; and
+    fused_filter_agg at MANY_GROUPS over Q2's rows (``inputs``: its own keys,
+    and keys drawn over [-1, G]): counts exact, float sums within 1e-5
+    sum|v| of a float64 oracle, integer sums exact, repeat launches bitwise
+    equal.  Every case runs; the failures are listed together."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    before = flash_ops.LAUNCHES, decode_ops.LAUNCHES, ffa_ops.LAUNCHES
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    failures, worst, rules = [], {}, {}
+    n = 0
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def name_of(dtype):
+        return str(dtype).split(".")[-1]
+
+    def one(kind, name, kernel, plain, yard=None):
+        nonlocal n
+        n += 1
+        out, out2 = kernel(), kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        diff = float((out.float() - want.float()).abs().max())
+        worst[(kind, out.dtype)] = max(worst.get((kind, out.dtype), 0.0), diff)
+        if not torch.equal(out, out2):
+            failures.append(f"{name}: two launches differ")
+        elif out.dtype != want.dtype or out.shape != want.shape:
+            failures.append(f"{name}: dtype/shape {out.dtype} {tuple(out.shape)}")
+        elif not bool(torch.isfinite(out).all()):
+            failures.append(f"{name}: not finite")
+        elif yard is None:
+            if not close_enough(torch, out, want):
+                failures.append(f"{name}: kernel vs plain max |diff| {diff!r}")
+        else:
+            ok, stats = flash_bf16_close(torch, out, want, yard())
+            if not ok:
+                failures.append(f"{name}: kernel vs plain (max, mean) {stats[:2]!r} exceed "
+                                f"twice the chunked route's {stats[2:]!r} + 1e-5")
+
+    def flash(dtype, d, h, hkv, s, cases, probes=(), tag=""):
+        label = flash_ops.kernel_label(dtype, d)
+        wgmma = flash_ops.kernel_name(dtype, d) == "flash_wgmma"
+        rules[label] = ("the 16-bit flash rule" if wgmma else "1e-5 + 1e-5|plain|"
+                        if dtype == torch.float32 else f"1e-5 + one {name_of(dtype)} ulp")
+        q = randn(1, h, s, d, dtype=dtype)
+        k, v = randn(1, hkv, s, d, dtype=dtype), randn(1, hkv, s, d, dtype=dtype)
+        for causal, window in cases:
+            kw = dict(causal=causal, window=window)
+            one(f"flash{tag}", f"flash {dtype} D={d} ({label}) H={h}/{hkv} S={s} {kw}",
+                lambda: flash_ops.flash_attention(q, k, v, **kw),
+                lambda: flash_ref.attention_ref(q, k, v, **kw),
+                (lambda: flash_yardstick(q, k, v, **kw)) if wgmma else None)
+        del q, k, v
+        for window in probes:
+            q, k, v = mask_probe(torch, s, window=window, h=h, hkv=hkv, d=d, dtype=dtype,
+                                 generator=gen)
+            kw = dict(causal=True, window=window)
+            one(f"flash probe{tag}", f"flash mask probe {dtype} D={d} ({label}) H={h}/{hkv} "
+                f"S={s} {kw}",
+                lambda: flash_ops.flash_attention(q, k, v, **kw),
+                lambda: flash_ref.attention_ref(q, k, v, **kw),
+                (lambda: flash_yardstick(q, k, v, **kw)) if wgmma else None)
+
+    def decode(dtype, d, h, hkv, s, b=4, tag=""):
+        q = randn(b, h, d, dtype=dtype)
+        k, v = randn(b, hkv, s, d, dtype=dtype), randn(b, hkv, s, d, dtype=dtype)
+        _, chunk = decode_ops.split_plan(s, b * hkv, sms, h // hkv, d, dtype)
+        label = decode_ops.decode_kernel(dtype, h // hkv, d)
+        rules[label] = ("1e-5 + 1e-5|plain|" if dtype == torch.float32
+                        else f"1e-5 + one {name_of(dtype)} ulp")
+        for lens in ([1, s - 1, s, 0][:b], [chunk - 1, chunk, chunk + 1, s][:b]):
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            one(f"decode{tag}", f"decode {dtype} D={d} ({label}) B={b} H={h}/{hkv} S={s} "
+                f"chunk={chunk} lengths={lens}",
+                lambda: decode_ops.decode_attention(q, k, v, lengths),
+                lambda: decode_ref.decode_attention_ref(q, k, v, lengths))
+
+    f16 = torch.float16
+    # float16 flash at every compiled width, float16 decode at narrow and
+    # wide groups
+    for d in flash_ops.HEAD_DIMS:
+        h, hkv = (16, 1) if d == 256 else (32, 4)
+        for s, cases in ((512, FLASH_MASKS), (200, FLASH_MASKS + ((True, 64),))):
+            flash(f16, d, h, hkv, s, cases, probes=(None, 256) if s == 512 else (),
+                  tag=" float16")
+    for d, h, hkv in ((128, 32, 4), (128, 48, 1), (256, 16, 1)):
+        decode(f16, d, h, hkv, DECODE_LEN, tag=" float16")
+    # head dims off the compiled widths, in every dtype
+    for dtype in (torch.float32, torch.bfloat16, f16):
+        for d in ODD_DIMS:
+            for s in ODD_FLASH_LENS:
+                cases = FLASH_MASKS + (((True, 64),) if s == 200 else ())
+                flash(dtype, d, 32, 4, s, cases, tag=" odd D")
+            decode(dtype, d, 32, 4, ODD_DECODE_LEN, tag=" odd D")
+            decode(dtype, d, 16, 1, ODD_DECODE_LEN, tag=" odd D")
+        # groups above 64: one block a slice of the group
+        for g in WIDE_GROUPS:
+            for d in WIDE_GROUP_DIMS:
+                decode(dtype, d, g, 1, DECODE_LEN, tag=" wide group")
+    flash_ops.LAUNCHES, decode_ops.LAUNCHES = before[:2]
+
+    # fused_filter_agg above 1024 groups over Q2's rows
+    keys_q2, vals_q2, filt_q2 = inputs
+    rows = keys_q2.shape[0]
+    vals_f = torch.randn(rows, generator=gen, device=dev)
+    for G in MANY_GROUPS:
+        drawn = torch.randint(-1, G + 1, (rows,), generator=gen, device=dev, dtype=torch.int32)
+        for kname, keys in (("Q2's keys", keys_q2), ("keys over [-1, G]", drawn)):
+            for vname, vals in (("Q2's values", vals_q2), ("float values", vals_f)):
+                n += 1
+                name = f"fused_filter_agg G={G} {kname}, {vname}, n={rows}"
+                kw = dict(op="ge", threshold=0.5, num_groups=G)
+                s_k, c_k = ffa_ops.fused_filter_agg(keys, vals, filt_q2, **kw)
+                s_k2, c_k2 = ffa_ops.fused_filter_agg(keys, vals, filt_q2, **kw)
+                torch.cuda.synchronize()
+                s_p, c_p = ffa_ref.fused_filter_agg_ref(keys, vals, filt_q2, **kw)
+                keep = (filt_q2 >= 0.5) & (keys >= 0) & (keys < G)
+                idx = keys[keep].long()
+                f64 = torch.zeros(G, dtype=torch.float64, device=dev).index_add_(
+                    0, idx, vals[keep].double())
+                a64 = torch.zeros(G, dtype=torch.float64, device=dev).index_add_(
+                    0, idx, vals[keep].double().abs())
+                c64 = torch.bincount(idx, minlength=G)
+                worst[("fused_filter_agg", torch.float32)] = max(
+                    worst.get(("fused_filter_agg", torch.float32), 0.0),
+                    float((s_k - s_p).abs().max()))
+                if not (torch.equal(c_k, c_p) and torch.equal(c_k.long(), c64)):
+                    failures.append(f"{name}: counts")
+                elif not bool(((s_k.double() - f64).abs() <= 1e-5 * a64).all()):
+                    failures.append(f"{name}: float sums vs float64")
+                elif vals.dtype == torch.int32 and not torch.equal(s_k.long(), f64.long()):
+                    failures.append(f"{name}: integer sums not exact")
+                elif not (bitwise_equal(torch, s_k, s_k2) and torch.equal(c_k, c_k2)):
+                    failures.append(f"{name}: repeat launch not bitwise equal")
+    ffa_ops.LAUNCHES = before[2]  # comparisons are not the main path
+    print(f"domain vs plain: {n} cases, {len(failures)} failed; rules by kernel: "
+          + "; ".join(f"{k} {v}" for k, v in sorted(rules.items()))
+          + "; max |kernel - plain|: "
+          + ", ".join(f"{k} {name_of(dt)} {v!r}" for (k, dt), v in worst.items()))
+    for f in failures:
+        print(f"domain vs plain FAILED: {f}")
+    check(not failures, f"{len(failures)} of {n} domain cases failed (listed above)")
 
 
 # --------------------------------------------------------------- phase 6
@@ -2088,6 +2347,68 @@ def serve_yi_float32(np, torch, flash_ops, decode_ops, smi):
     torch.cuda.empty_cache()
     return {**out, "n_layers": CUT_LAYERS, "forward_busy_share": busy,
             "forward_profile_flash_ms": flash_ms, "forward_profile_flash_launches": flash_n}
+
+
+# -------------------------------------------------------------- phase 6i
+#: phase 6i: Yi-6B in float16 at full width; its depth (the full 32 layers
+#: unless the run's time or the logits' range forces a cut)
+F16_LAYERS = 32
+
+
+def serve_yi_float16(np, torch, flash_ops, decode_ops, smi):
+    """Yi-6B at full width (32/4 heads of 128, d_model 4096, d_ff 11008,
+    the full vocabulary) and F16_LAYERS layers with ``compute_dtype``
+    float16 (the weights held in float16, as they are held in bf16 in
+    phase 6; Llama-2's published checkpoints are float16) and
+    random weights from a seeded generator: phase 6's requests over 4 slots
+    of 4096 positions and one FORWARD_LEN-token forward on both routes
+    (``serve_both_routes``), the launch counts set to 0 just before the
+    kernel route's requests: decode_attention (``decode_split<f16, 128>``)
+    F16_LAYERS times a decode step, flash_attention (``flash_wgmma<f16,
+    128>``) F16_LAYERS times a forward.  Both routes round where phase 6's
+    do, in float16 where phase 6 rounds to bf16 (3 more mantissa bits), so
+    phase 6's limits hold them: logits within LOGIT_TOL (largest) and
+    LOGIT_MEAN_TOL (mean), greedy tokens equal up to the first near tie,
+    the kernel route's decode logits equal to its forward's within
+    LOGIT_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = get_config("yi-6b")
+    cfg = dataclasses.replace(base, n_layers=F16_LAYERS,
+                              segments=((base.segments[0][0], F16_LAYERS),),
+                              compute_dtype=torch.float16, use_flash_kernel=True)
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = LM(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    group = cfg.n_heads // cfg.n_kv_heads
+    flash_label = flash_ops.kernel_label(cfg.compute_dtype, cfg.head_dim)
+    decode_label = decode_ops.decode_kernel(cfg.compute_dtype, group, cfg.head_dim)
+    print(f"yi-6b float16 (phase 6i): d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads of {cfg.head_dim}, {cfg.n_layers} of {base.n_layers} layers, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, {weights} B of weights "
+          f"(compute dtype {cfg.compute_dtype}), init in "
+          f"{time.perf_counter() - t0:.2f} s; flash kernel {flash_label}, decode kernel "
+          f"{decode_label} [{smi}]")
+    check(flash_label == "flash_wgmma<f16, 128>" and decode_label == "decode_split<f16, 128>",
+          f"phase 6i runs {flash_label} and {decode_label}")
+    prompts, long_prompt = yi_requests(np, torch, cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = serve_both_routes(np, torch, flash_ops, decode_ops, model, prompts, long_prompt,
+                            what="yi-6b float16: ", profile=False)
+    print(f"yi-6b float16 (phase 6i): decode step median {out['decode_step_s']!r} s, both "
+          f"routes and their checks in {time.perf_counter() - t0!r} s [{smi}]")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**out, "n_layers": F16_LAYERS}
 
 
 # -------------------------------------------------------------- phase 6c
@@ -3453,17 +3774,22 @@ def f32_path(f32):
     return f"phase 6h yi-6b float32 ({f32['n_layers']} layers)"
 
 
-def path_launches(served, trained, families, hybrid, f32, key):
+def f16_path(f16):
+    return f"phase 6i yi-6b float16 ({f16['n_layers']} layers)"
+
+
+def path_launches(served, trained, families, hybrid, f32, f16, key):
     """A kernel row's launches: phase 6's serve and phase 6d's trained
     model (Yi-6B), phase 6e's three configs, phase 6f's recurrentgemma-9b
-    and phase 6h's float32 Yi-6B, each path's count read just after it
-    ran."""
+    and phase 6h's float32 and 6i's float16 Yi-6B, each path's count read
+    just after it ran."""
     by_path = {"phase 6 serve (yi-6b, 32 layers)": served[key],
                "phase 6d train -> serve (yi-6b, 4 layers)": trained[key]}
     for arch, fam in families.items():
         by_path[f"phase 6e {arch} ({fam['n_layers']} layers)"] = fam[key]
     by_path[f"phase 6f {HYBRID_ARCH} ({hybrid['n_layers']} layers)"] = hybrid[key]
     by_path[f32_path(f32)] = f32[key]
+    by_path[f16_path(f16)] = f16[key]
     return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
 
@@ -3477,7 +3803,7 @@ def sdpa_backend(torch, *args, **kwargs):
 
 
 def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served, cut_served,
-                      full_served, trained, families, hybrid, f32, card):
+                      full_served, trained, families, hybrid, f32, f16, card):
     import torch.nn.functional as F
 
     from repro_torch.launch.roofline import FP32_FLOPS, PEAK_FLOPS, TF32_FLOPS
@@ -3537,7 +3863,7 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
         memory rate, against its products (float32: three TF32 products a
         pair, the least for float32 accuracy) at their rate.  expanded:
         SDPA on k and v expanded to the q heads beside (``expanded_sdpa``)."""
-        b, esz = len(lens), 2 if dtype == torch.bfloat16 else 4
+        b, esz = len(lens), dtype.itemsize
         q = randn(b, h, d, dtype=dtype)
         k, v = randn(b, hkv, s, d, dtype=dtype), randn(b, hkv, s, d, dtype=dtype)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -3572,7 +3898,7 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
         (the least the card can take for float32 accuracy); the CUDA cores'
         ceiling for one float32 product a pair goes to ``ceilings``, not
         to the row.  expanded: SDPA on k and v expanded beside."""
-        esz = 2 if dtype == torch.bfloat16 else 4
+        esz = dtype.itemsize
         fq = randn(1, h, fs, d, dtype=dtype)
         fk, fv = randn(1, hkv, fs, d, dtype=dtype), randn(1, hkv, fs, d, dtype=dtype)
         if window is None or window >= fs:
@@ -3595,15 +3921,14 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
             if kernel == "flash_wgmma" else None,
             rate=PEAK_FLOPS if esz == 2 else TF32_FLOPS,
         )
-        label = (f"flash_wgmma<{d}>" if kernel == "flash_wgmma"
-                 else f"{kernel}<{'bf16' if esz == 2 else 'f32'}, {d}>")
+        label = flash_ops.kernel_label(dtype, d)
         if esz == 4:
             ceilings[f"{h}/{hkv} x {d}"] = flops / FP32_FLOPS * 1e3
         if expanded:
             row.update(expanded_sdpa(fq, fk, fv, **{k: w for k, w in sdpa.items()
                                                     if k != "enable_gqa"}))
         return {**row, "sdpa_backend": sdpa_backend(torch, fq, fk, fv, **sdpa),
-                "kernel": kernel, "ptxas": PTXAS.get(label)}
+                "kernel": kernel, "instantiation": label, "ptxas": PTXAS.get(label)}
 
     # the main path's shapes: decode over 4 slots of 4096 positions, 32/4
     # heads; flash on one 2048-token prompt
@@ -3720,6 +4045,56 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
             **flash_case(dh, dhkv, 32, dtype=dtype, expanded=True), "launches": 0,
             "launches_by_path": {},
             "shape": f"B=1 H={dh} Hkv={dhkv} S={FORWARD_LEN} D=32 {name} causal"}
+    # float16 at Yi-6B's shapes, phase 6i's path; and the new
+    # domain's configs, on no path: Phi-3-mini's flash (MHA 32/32 x 96,
+    # flash_wgmma_any<bf16, 128>) and Falcon-7B's decode (MQA 71/1 x 64, two
+    # slices of the group)
+    hpath16 = f16_path(f16)
+    f16_final = [int(x) for x in f16["final_lengths"]]
+    domain = {
+        "yi-6b float16 flash": {
+            **flash_case(h, hkv, d, dtype=torch.float16),
+            "launches": f16["flash_launches"],
+            "launches_by_path": {hpath16: f16["flash_launches"]},
+            "shape": f"B=1 H={h} Hkv={hkv} S={FORWARD_LEN} D={d} float16 causal"},
+        "yi-6b float16 decode, the serve's lengths": {
+            **decode_case(h, hkv, d, f16_final, dtype=torch.float16),
+            "launches": f16["decode_launches"],
+            "launches_by_path": {hpath16: f16["decode_launches"]},
+            "shape": f"B={len(f16_final)} H={h} Hkv={hkv} S={s} D={d} float16 "
+                     f"lengths={f16_final}"},
+        "yi-6b float16 decode, full length": {
+            **decode_case(h, hkv, d, [s] * b, dtype=torch.float16),
+            "launches": f16["decode_launches"],
+            "launches_by_path": {hpath16: f16["decode_launches"]},
+            "shape": f"B={b} H={h} Hkv={hkv} S={s} D={d} float16 full length"},
+    }
+    ph, phkv, pd = PHI3_HEADS
+    domain["phi-3-mini flash"] = {
+        **flash_case(ph, phkv, pd), "launches": 0, "launches_by_path": {},
+        "shape": f"B=1 H={ph} Hkv={phkv} S={FORWARD_LEN} D={pd} bf16 causal"}
+    # a head dim whose rows are not whole 16-byte pieces: the wrapper pads
+    # q, k and v with zero columns (33 -> 40 in bf16) and copies the output
+    # back; pad_ms times those copies alone, the same way
+    pq, pk, pv = (randn(1, n_, FORWARD_LEN, PAD_DIM) for n_ in (32, 4, 4))
+    ld = flash_ops.row_elems(torch.bfloat16, PAD_DIM)
+
+    def pad_only():
+        for t in (pq, pk, pv):
+            F.pad(t, (0, ld - PAD_DIM))
+        return torch.empty((1, 32, FORWARD_LEN, ld), dtype=torch.bfloat16,
+                           device=dev)[..., :PAD_DIM].contiguous()
+
+    domain[f"32/4 x {PAD_DIM} bf16 flash (rows padded to {ld})"] = {
+        **flash_case(32, 4, PAD_DIM), "launches": 0, "launches_by_path": {},
+        "pad_ms": time_ms(torch, pad_only, flush)[0],
+        "shape": f"B=1 H=32 Hkv=4 S={FORWARD_LEN} D={PAD_DIM} bf16 causal"}
+    del pq, pk, pv
+    fh, fhkv, fd = FALCON_HEADS
+    domain["falcon-7b decode, full length"] = {
+        **decode_case(fh, fhkv, fd, [s] * 4), "launches": 0, "launches_by_path": {},
+        "slices": list(decode_ops.group_slices(fh // fhkv)),
+        "shape": f"B=4 H={fh} Hkv={fhkv} S={s} D={fd} bf16 full length"}
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # timing is not the main path
     print("timing: kernels device-only (queued behind a sleep kernel); plain versions and "
           "SDPA queued the same way")
@@ -3730,16 +4105,18 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
-         **fl, **path_launches(served, trained, families, hybrid, f32, "flash_launches"),
+         **fl, **path_launches(served, trained, families, hybrid, f32, f16, "flash_launches"),
          "kernel": flash_ops.kernel_name(torch.bfloat16, d),
          "shape": f"B=1 H={h} Hkv={hkv} S={FORWARD_LEN} D={d} bf16 causal",
-         "by_config": flash_cut, "float32_and_d32": flash_f32},
+         "by_config": flash_cut, "float32_and_d32": flash_f32,
+         "float16_and_domain": {k: r for k, r in domain.items() if "flash" in k}},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:85",
-         **dec, **path_launches(served, trained, families, hybrid, f32, "decode_launches"),
+         **dec, **path_launches(served, trained, families, hybrid, f32, f16, "decode_launches"),
          "shape": f"B={b} H={h} Hkv={hkv} S={s} D={d} bf16 lengths={final}",
-         "at_full_length": dec_full, "by_config": decode_cut, "float32": decode_f32},
+         "at_full_length": dec_full, "by_config": decode_cut, "float32": decode_f32,
+         "float16_and_domain": {k: r for k, r in domain.items() if "decode" in k}},
     ]
     return rows
 
@@ -3988,6 +4365,7 @@ def main() -> int:
                 "Client": client_launches}
     ffa_row = measure(torch, ops, ref, launches, inputs, card)
     attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref)
+    domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ops, ref, inputs)
     served = serve_yi(np, torch, flash_ops, decode_ops)
     cut_served = {arch: serve_cut(np, torch, flash_ops, decode_ops, arch) for arch in CUT_ARCHS}
     full_served = {arch: forward_full(np, torch, flash_ops, arch, smi) for arch in FULL_ARCHS}
@@ -3996,8 +4374,10 @@ def main() -> int:
     hybrid = serve_recurrentgemma(np, torch, flash_ops, decode_ops, smi)
     ssm_mla = serve_xlstm_deepseek(np, torch, flash_ops, decode_ops, smi)
     f32 = serve_yi_float32(np, torch, flash_ops, decode_ops, smi)
+    f16 = serve_yi_float16(np, torch, flash_ops, decode_ops, smi)
     rows = measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, served,
-                             cut_served, full_served, trained, families, hybrid, f32, card)
+                             cut_served, full_served, trained, families, hybrid, f32, f16,
+                             card)
     planner_and_examples(np, torch, served, full_served, smi)
     music = families["musicgen-medium"]
     print(f"musicgen-medium (phase 6e): forward of {FORWARD_LEN} positions "

@@ -13,8 +13,8 @@ Routing rules (``engine="auto"``):
   ``kernels/fused_filter_agg`` fuses;
 * the group key is integer/bool with *known* min/max statistics (shard
   stats folded over the snapshot) spanning at most ``max_groups``
-  distinct values — a kernel block's per-group partials must fit shared
-  memory;
+  distinct values (the default equals the JAX route's; the kernel takes
+  any count, a caller who raises it gets the kernel's windowed variant);
 * exactness is provable: the kernel accumulates in f32, so every
   aggregated column must be integer/bool with
   ``max(|min|, |max|) * rows < 2**24`` and the row count itself below
@@ -56,8 +56,9 @@ FUSED_AGGS = frozenset({"count", "sum", "mean"})
 EXACT_BOUND = 2 ** 24
 
 #: default cap on the kernel's dense group axis, equal to the JAX route's
-#: so both route alike: each of a CUDA block's 8 warps keeps a (sum, count)
-#: bin a group in shared memory, 64 KB at 1024 groups
+#: so both route alike: up to it each of a CUDA block's 8 warps keeps a
+#: (sum, count) bin a group in shared memory (64 KB at 1024 groups) and the
+#: kernel is one launch; above it, windows of groups and a merge launch
 DEFAULT_MAX_GROUPS = 1024
 
 _PRED_TO_KERNEL_OP = {"<": "lt", "<=": "le", ">": "gt", ">=": "ge", "==": "eq", "!=": "ne"}

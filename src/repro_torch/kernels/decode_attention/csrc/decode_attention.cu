@@ -3,7 +3,8 @@
 //
 // Replaces repro/kernels/decode_attention/kernel.py:decode_attention_kernel,
 // the Pallas TPU kernel.  q is (B*H, D), the caches are (B*Hkv, S, D), all
-// float32 or all bfloat16; lengths is (B,) int32, one per sequence (the
+// float32, all bfloat16 or all float16, at any head dim D from 1 to 256
+// and any group H / Hkv; lengths is (B,) int32, one per sequence (the
 // Pallas wrapper broadcasts it to one per q head, all equal).  For q head
 // i: scores = q . k_t * scale in float32 for every cache row t, rows at or
 // past the length set to -1e30, a float32 softmax, and out = acc /
@@ -26,22 +27,23 @@
 // decode_combine merges them.  Two kernels walk a chunk:
 //
 // * decode_split, for float32 and for groups of at most 8 q heads a kv
-//   head (the plan: about two blocks an SM).  One block of 256 threads per
+//   head in bf16 or float16 (the plan: about two blocks an SM).  One block of 256 threads per
 //   (sequence, kv head, chunk) serves the group, so each cache row is read
 //   from device memory once per group.  Its 8 warps take steps of 8 cache
 //   rows in turn, each warp on its own with its own online-softmax state
 //   (no block barrier inside the walk): a warp streams its steps' k and v
 //   rows as they are stored (bf16, no float32 staging) through its own
-//   two-stage cp.async buffer in shared memory.  Scores: bf16 on the
-//   tensor cores (mma.m16n8k16, the heads in rows 0-7 of A), float32 on 4
+//   two-stage cp.async buffer in shared memory.  Scores: bf16 and float16
+//   on the tensor cores (mma.m16n8k16 in the operands' own type, the heads
+//   in rows 0-7 of A; every product is exact in float32), float32 on 4
 //   lanes a row, each holding a quarter of the row's k in registers and
 //   multiplying it with the float32 q of up to 8 heads; the scale is
 //   applied to the float32 score.  p.v: a lane owns DP/32 columns of every
 //   head and does float32 FMAs, so the output keeps float32 accuracy.  At
 //   the chunk's end the warps' (m, l, acc) merge in shared memory.
 //
-// * decode_group, for bf16 groups above 8 (granite-34b's 48, recurrentgemma-
-//   9b's 16; the plan: one block an SM at most, the float32 partials,
+// * decode_group, for bf16 and float16 groups above 8 (granite-34b's 48,
+//   recurrentgemma-9b's 16; the plan: one block an SM at most, the float32 partials,
 //   written and read, within the cache's bytes).  decode_split would walk
 //   each chunk once for every 8 heads (6 times at 48) with a block merge
 //   after each walk, and leave rows 8-15 of each product empty.  Here all
@@ -52,7 +54,10 @@
 //   the reference, so p.v does not round it to one bf16: p goes to the
 //   tensor cores as a bf16 pair hi + lo (two products into float32
 //   accumulators, v exact in bf16), each warp owning output tiles of 16
-//   heads x 8 columns, 24 accumulators a thread at 48 x 128.  A chunk has
+//   heads x 8 columns, 24 accumulators a thread at 48 x 128.  In float16
+//   p is scaled by 2^15 before the split (p <= 1, so p 2^15 < 65504), so
+//   that neither half falls among float16's subnormals for p above 2^-22;
+//   the accumulators are scaled back by 2^-15, which is exact.  A chunk has
 //   several steps, and a ring of cp.async stages (three, two at D = 256)
 //   keeps the next steps' rows in flight.
 //
@@ -67,13 +72,29 @@
 // (114 at 128 x 3 m-tiles, 96 at 256 x 1, 185 at 256 x 4); decode_split
 // as before (8 B of spills at bf16 x 120).
 //
-// Head dims that are not a multiple of 32 (80 for qwen3-32b, 120 for
-// h2o-danube-3-4b) run on a padded width DP, D rounded up to 32 (96 and
-// 128): a lane's p.v columns, the mma k-steps and the four lanes of a row
-// all divide DP.  The chunks of a row past D are loaded by cp.async with
-// src-size 0, so they land as zeros; q's columns past D are zero too, so
-// q.k gains exactly 0 from them, and acc's columns past D are never
-// written out.  A cache row in global memory stays D elements.  In shared
+// Head dims.  Each kernel is compiled at the widths 32, 64, 80, 120, 128
+// and 256 (the ported configs' and 32) for rows of exactly D elements, the
+// stride a constant.  Any other head dim d runs decode_split_any /
+// decode_group_any, the same blocks with d a runtime argument, at the
+// smallest of 32, 64, 128 and 256 above d (Phi-3-mini's 96 runs 128).  The
+// runtime row costs registers (decode_split<bf16, 64> went from 80 to 105,
+// so from three blocks an SM to two, and 28 % slower at MusicGen's decode
+// on an NVIDIA H100 80GB HBM3 at 700 W), so the compiled widths keep their
+// constant.  A width that is not a multiple
+// of 32 (80 for qwen3-32b, 120 for h2o-danube-3-4b) runs on a padded width
+// DP, D rounded up to 32 (96 and 128): a lane's p.v columns, the mma
+// k-steps and the four lanes of a row all divide DP.  The chunks of a row
+// past d are loaded by cp.async with src-size 0, so they land as zeros;
+// q's columns past d are zero too, so q.k gains exactly 0 from them, and
+// acc's columns past d are never written out.  A cache row in global
+// memory stays d elements: the cache is never copied.  Rows whose bytes
+// are a multiple of 16 take the 16-byte cp.async loads; other rows (an odd
+// d in bf16 or float16, d not a multiple of 4 in float32) do not start on
+// a 16-byte boundary, and take a narrower path inside the kernel: element
+// by element through registers (2- or 4-byte loads), stored where the
+// 16-byte path puts them, zeros past d.  That path does not overlap its
+// loads with the step before (the loads complete before the step's
+// stores), so it is slower, and no shipped config takes it.  In shared
 // memory a row takes SC chunks, DP's chunks rounded up to a multiple of 8
 // (bf16 at D = 80: 12 -> 16, 256 B): the k swizzle XORs a chunk index
 // inside its aligned group of 8, so it stays inside the row for any chunk
@@ -88,8 +109,22 @@
 // alone: float32 at 256 streams through a single stage a warp
 // (Geo::kStages = 1; each step waits for its own rows, loaded after the
 // step before was read), 131,072 B of stages, the same as bf16.
+//
+// Groups above kMaxGroup (64; Falcon-7B's 71/1, a 128/1 MQA): a block's
+// shared memory holds at most 64 heads (decode_split's float32 q, and
+// decode_group's 4 m-tiles), so the group is cut into n_slices = ceil(group
+// / 64) slices of ceil(group / n_slices) heads (71: 36 + 35; 128: 64 + 64),
+// and each (sequence, kv head, chunk) has one block a slice, the slices of
+// one chunk neighbours in the grid.  Each slice's block re-reads the chunk,
+// from L2 after the first, since they run side by side.  Slices over the
+// grid were chosen over a loop inside the block because the blocks then
+// keep their shared memory, registers and plan as they are, and the extra
+// blocks add parallelism where MQA has few (sequence, kv head) pairs; the
+// cost is a second read of each chunk, from L2.  decode_combine merges each
+// head's chunks as before.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,16 +132,45 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGroup = 64;  // q heads per kv head (ops.py MAX_GROUP)
+constexpr int kMaxGroup = 64;  // most q heads a block serves (ops.py MAX_GROUP)
 constexpr float kNegInf = -1e30f;
+
+template <typename T>
+constexpr bool kIsHalf = false;
+template <>
+constexpr bool kIsHalf<__half> = true;
+
+// the raw bits of an element, for the narrow load path
+template <int N>
+struct BitsOf;
+template <>
+struct BitsOf<2> {
+  using type = unsigned short;
+};
+template <>
+struct BitsOf<4> {
+  using type = unsigned int;
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);  // round to nearest even, as torch's .to()
+}
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);  // round to nearest even, as torch's .to()
+}
+// x rounded to T (to nearest even)
+template <typename T>
+__device__ __forceinline__ T round_to(float x) {
+  if constexpr (kIsHalf<T>)
+    return __float2half_rn(x);
+  else
+    return __float2bfloat16(x);
 }
 
 template <typename T, int D>
@@ -114,7 +178,6 @@ struct Geo {
   static constexpr int kRows = 8;                  // cache rows a warp step
   static constexpr int DP = (D + 31) / 32 * 32;    // padded width
   static constexpr int CPR = DP * sizeof(T) / 16;  // 16-byte chunks a padded row
-  static constexpr int CD = D * sizeof(T) / 16;    // of them, chunks with data
   static constexpr int SC = CPR < 8 ? CPR : (CPR + 7) / 8 * 8;  // in shared memory
   static constexpr int E = 16 / sizeof(T);         // elements a chunk
   static constexpr int NC = CPR / 4;               // k chunks a lane (FMA path)
@@ -128,14 +191,16 @@ struct Geo {
   static constexpr int kStages = sizeof(T) == 4 && D > 128 ? 1 : 2;
   static constexpr int kWarpBytes = kStages * kStepBytes;
   // blocks an SM the registers are budgeted for: one at D = 256, where the
-  // shared memory allows no second
-  static constexpr int kMinBlocks = D > 128 ? 1 : 2;
-  static constexpr bool kMma = sizeof(T) == 2;  // bf16: q.k on the tensor cores
-  static_assert(D * sizeof(T) % 16 == 0, "a cache row is whole 16-byte chunks");
+  // shared memory allows no second, and three at bf16 and float16 D = 64
+  // (80 registers; at 89 one block fewer fits, and MusicGen's decode, 4 x 24
+  // x 3 blocks, took two waves of the H100's 132 SMs where it had taken one)
+  static constexpr int kMinBlocks = D > 128 ? 1 : sizeof(T) == 2 && D == 64 ? 3 : 2;
+  static constexpr bool kMma = sizeof(T) == 2;  // bf16, f16: q.k on the tensor cores
+  static_assert(D * sizeof(T) % 16 == 0, "a compiled row is whole 16-byte chunks");
   static_assert(CPR % 4 == 0, "four lanes share a row");
 };
 
-// Byte offset of 16-byte chunk c of k row r (0..7) in a step.  bf16: chunks
+// Byte offset of 16-byte chunk c of k row r (0..7) in a step.  bf16, f16: chunks
 // XOR the row, so the eight rows an mma fragment load touches sit in
 // different banks; float32: odd rows swap the 64-byte halves of each 128
 // bytes, for the FMA path's four lanes a row.  Either XOR stays inside the
@@ -145,6 +210,33 @@ template <typename T, int CPR>
 __device__ __forceinline__ int k_offset(int r, int c) {
   if (sizeof(T) == 2) return (c ^ (r & (CPR >= 8 ? 7 : CPR - 1))) * 16;
   return CPR >= 8 ? (c ^ ((r & 1) << 2)) * 16 : c * 16;
+}
+
+// The narrow load path (rows that are not whole 16-byte chunks): k and v
+// rows t0 .. t0 + rows - 1 of hd elements each (rows at or past c1, and
+// columns past hd, zero), element by element through registers, each
+// element where the 16-byte path puts it: k at k_offset, v at k_offset too
+// where kVSwizzle (decode_group) or in plain chunk order (decode_split).
+// Threads first, first + stride, ... share the work.  Not inlined, so the
+// 16-byte path keeps the registers and schedule it had.
+template <typename T, int CPR, int DP, bool kVSwizzle>
+__device__ __noinline__ void load_rows_narrow(uint8_t* bk, uint8_t* bv, int row_bytes,
+                                              const T* kp, const T* vp, int t0, int rows,
+                                              int c1, int hd, int first, int stride) {
+  using B = typename BitsOf<sizeof(T)>::type;
+  constexpr int E = 16 / sizeof(T);
+  const B* kb = reinterpret_cast<const B*>(kp);
+  const B* vb = reinterpret_cast<const B*>(vp);
+  for (int i = first; i < rows * DP; i += stride) {
+    const int rr = i / DP, e = i % DP;
+    const bool valid = t0 + rr < c1 && e < hd;
+    const size_t src = (size_t)(t0 + rr) * hd + e;
+    const B kx = valid ? kb[src] : B(0), vx = valid ? vb[src] : B(0);
+    const int c = e / E, off = (e % E) * (int)sizeof(T);
+    *reinterpret_cast<B*>(bk + rr * row_bytes + k_offset<T, CPR>(rr, c) + off) = kx;
+    *reinterpret_cast<B*>(bv + rr * row_bytes + (kVSwizzle ? k_offset<T, CPR>(rr, c) : c * 16) +
+                          off) = vx;
+  }
 }
 
 template <typename T, int D>
@@ -164,59 +256,82 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
-  return *reinterpret_cast<uint32_t*>(&h);
+// two values as a pair of T (.x = lo: the low half), rounded to nearest
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsHalf<T>) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
 }
 
-// d = a . b + d, m16n8k16, bf16 operands, float32 accumulators.
-__device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0,
-                                          uint32_t a2, uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
-}
-
-// d = a . b + d, m16n8k16, all 16 rows of A (a0/a1: rows g and g + 8 at
-// columns 2t, 2t + 1; a2/a3: the same rows at columns 2t + 8, 2t + 9).
+// d = a . b + d, m16n8k16, T operands (bf16 or f16), float32
+// accumulators, all 16 rows of A (a0/a1: rows g and g + 8 at columns 2t,
+// 2t + 1; a2/a3: the same rows at columns 2t + 8, 2t + 9).
+#define MMA_16816(TY)                                                     \
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY         \
+               ".f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "      \
+               "{%0, %1, %2, %3};"                                        \
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])           \
+               : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1))
+template <typename T>
 __device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0,
                                           uint32_t a1, uint32_t a2, uint32_t a3,
                                           uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  if constexpr (kIsHalf<T>)
+    MMA_16816("f16");
+  else
+    MMA_16816("bf16");
+}
+#undef MMA_16816
+
+// The same with rows 8-15 of A zero (decode_split: at most 8 heads).
+template <typename T>
+__device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0,
+                                          uint32_t a2, uint32_t b0,
+                                          uint32_t b1) {
+  mma_16816<T>(d, a0, 0u, a2, 0u, b0, b1);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, (Geo<T, D>::kMinBlocks))
-    decode_split(const T* __restrict__ q, const T* __restrict__ k_cache,
-                 const T* __restrict__ v_cache, const int* __restrict__ lengths,
-                 T* __restrict__ out, float* __restrict__ part_acc,
-                 float* __restrict__ part_ml, int n_kv_heads, int group,
-                 int seq_len, int chunk, float scale) {
+// The block of decode_split and decode_split_any.  kAny: cache rows of
+// hd <= D elements (a runtime argument, any alignment); else rows of
+// exactly D, the stride a constant and every row whole 16-byte chunks, as
+// the kernels at the compiled widths always had.
+template <typename T, int D, bool kAny>
+__device__ __forceinline__ void decode_split_block(
+    const T* __restrict__ q, const T* __restrict__ k_cache,
+    const T* __restrict__ v_cache, const int* __restrict__ lengths,
+    T* __restrict__ out, float* __restrict__ part_acc, float* __restrict__ part_ml,
+    int n_kv_heads, int group, int slice, int seq_len, int chunk, float scale,
+    int hd_arg) {
+  const int hd = kAny ? hd_arg : D;
   using G = Geo<T, D>;
   constexpr int R = G::kRows;
   extern __shared__ __align__(16) uint8_t smem[];
-  float* sQ = reinterpret_cast<float*>(smem);  // group x DP, zero past D
-  float* sW = sQ + group * G::DP;  // per warp: s [R][8], p [R][8], corr [8]
+  float* sQ = reinterpret_cast<float*>(smem);  // slice x DP, zero past hd
+  float* sW = sQ + slice * G::DP;  // per warp: s [R][8], p [R][8], corr [8]
   uint8_t* sBuf = reinterpret_cast<uint8_t*>(sW + kWarps * (2 * R * 8 + 8));
   float* sMerge = reinterpret_cast<float*>(sBuf);  // reuses the stages
 
-  const int bk = blockIdx.x;  // b * n_kv_heads + kv head
+  // (b * n_kv_heads + kv head, slice z of the group): heads z * slice ..
+  // float32 groups above kMaxGroup are sliced here; bf16 and float16 groups
+  // above kNarrowGroup run decode_group, so theirs never are
+  const int n_slices = sizeof(T) == 2 ? 1 : (group + slice - 1) / slice;
+  const int bk = n_slices == 1 ? blockIdx.x : blockIdx.x / n_slices;
+  const int z = n_slices == 1 ? 0 : blockIdx.x % n_slices;
+  const int gs = sizeof(T) == 2 ? group : min(slice, group - z * slice);  // this block's heads
   const int split = blockIdx.y, n_splits = gridDim.y;
   const int len = lengths[bk / n_kv_heads];
   const int n = len > 0 ? min(len, seq_len) : seq_len;  // rows to walk
   const int c0 = split * chunk;
   const int c1 = min(c0 + chunk, n);
-  const int head0 = bk * group;  // first q head (row of q) of this block
+  const int head0 = bk * group + z * slice;  // first q head (row of q) here
 
   if (c0 >= n) {  // nothing of this sequence here: an empty partial
-    for (int h = threadIdx.x; h < group; h += kThreads) {
+    for (int h = threadIdx.x; h < gs; h += kThreads) {
       part_ml[((size_t)(head0 + h) * n_splits + split) * 2] = -INFINITY;
       part_ml[((size_t)(head0 + h) * n_splits + split) * 2 + 1] = 0.0f;
     }
@@ -226,8 +341,11 @@ __global__ void __launch_bounds__(kThreads, (Geo<T, D>::kMinBlocks))
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // after the scores a lane holds head g's scores of step rows 2t, 2t + 1
   const int g = lane / 4, t = lane % 4;
-  const T* kp = k_cache + (size_t)bk * seq_len * D;
-  const T* vp = v_cache + (size_t)bk * seq_len * D;
+  const T* kp = k_cache + (size_t)bk * seq_len * hd;
+  const T* vp = v_cache + (size_t)bk * seq_len * hd;
+  // rows of whole 16-byte chunks take cp.async; others the narrow path
+  const bool vec = hd * (int)sizeof(T) % 16 == 0;
+  const int cd = hd * (int)sizeof(T) / 16;  // chunks with data (vec)
   uint8_t* wbuf = sBuf + warp * G::kWarpBytes;
   const uint32_t wbuf_s = static_cast<uint32_t>(__cvta_generic_to_shared(wbuf));
   float* wS = sW + warp * (2 * R * 8 + 8);  // [R rows][8 heads]
@@ -236,44 +354,50 @@ __global__ void __launch_bounds__(kThreads, (Geo<T, D>::kMinBlocks))
   const int n_steps = (c1 - c0 + R - 1) / R;
 
   // k and v rows of step `s` into stage `st`; rows at or past c1, and the
-  // chunks of a row past D, are zero
+  // columns of a row past hd, are zero
   auto load_step = [&](int s, int st) {
-    const uint32_t dk = wbuf_s + st * G::kStepBytes;
-    const uint32_t dv = dk + R * G::kRowBytes;
     const int t0 = c0 + s * R;
+    if (vec) {
+      const uint32_t dk = wbuf_s + st * G::kStepBytes;
+      const uint32_t dv = dk + R * G::kRowBytes;
 #pragma unroll
-    for (int i = lane; i < R * G::CPR; i += 32) {
-      const int rr = i / G::CPR, c = i % G::CPR;
-      const bool valid = t0 + rr < c1 && c < G::CD;
-      const size_t src = valid ? (size_t)(t0 + rr) * D + c * G::E : (size_t)c0 * D;
-      cp_async16(dk + rr * G::kRowBytes + k_offset<T, G::CPR>(rr, c), kp + src, valid);
-      cp_async16(dv + rr * G::kRowBytes + c * 16, vp + src, valid);
+      for (int i = lane; i < R * G::CPR; i += 32) {
+        const int rr = i / G::CPR, c = i % G::CPR;
+        const bool valid = t0 + rr < c1 && c < cd;
+        const size_t src = valid ? (size_t)(t0 + rr) * hd + c * G::E : (size_t)c0 * hd;
+        cp_async16(dk + rr * G::kRowBytes + k_offset<T, G::CPR>(rr, c), kp + src, valid);
+        cp_async16(dv + rr * G::kRowBytes + c * 16, vp + src, valid);
+      }
+    } else {
+      uint8_t* bk_ = wbuf + st * G::kStepBytes;
+      load_rows_narrow<T, G::CPR, G::DP, false>(bk_, bk_ + R * G::kRowBytes, G::kRowBytes, kp,
+                                                vp, t0, R, c1, hd, lane, 32);
     }
   };
 
   // heads in batches of 8; each batch walks the chunk once (from L2 after
   // the first)
-  for (int hb = 0; hb < group; hb += 8) {
-    const int hn = min(8, group - hb);
+  for (int hb = 0; hb < gs; hb += 8) {
+    const int hn = min(8, gs - hb);
     if (hb > 0) __syncthreads();  // the merge area (over the stages) is free
     if (warp < n_steps) load_step(warp, 0);
     asm volatile("cp.async.commit_group;" ::: "memory");
     if (hb == 0)
-      for (int i = threadIdx.x; i < group * G::DP; i += kThreads) {
+      for (int i = threadIdx.x; i < gs * G::DP; i += kThreads) {
         const int h = i / G::DP, d = i % G::DP;
-        sQ[i] = d < D ? to_f32(q[(size_t)(head0 + h) * D + d]) : 0.0f;
+        sQ[i] = d < hd ? to_f32(q[(size_t)(head0 + h) * hd + d]) : 0.0f;
       }
     __syncthreads();  // q is in
 
-    // bf16: this batch's q as mma A fragments (rows = heads; 8..15 zero)
+    // bf16, f16: this batch's q as mma A fragments (rows = heads; 8..15 zero)
     uint32_t qa[G::kMma ? G::KK : 1][2];
     if (G::kMma) {
       const float* qg = sQ + (hb + g) * G::DP;
 #pragma unroll
       for (int kk = 0; kk < (G::kMma ? G::KK : 1); ++kk) {
         const int d = 16 * kk + 2 * t;
-        qa[kk][0] = g < hn ? pack_bf16(qg[d], qg[d + 1]) : 0u;
-        qa[kk][1] = g < hn ? pack_bf16(qg[d + 8], qg[d + 9]) : 0u;
+        qa[kk][0] = g < hn ? pack2<T>(qg[d], qg[d + 1]) : 0u;
+        qa[kk][1] = g < hn ? pack2<T>(qg[d + 8], qg[d + 9]) : 0u;
       }
     }
 
@@ -308,7 +432,7 @@ __global__ void __launch_bounds__(kThreads, (Geo<T, D>::kMinBlocks))
               krow + k_offset<T, G::CPR>(g, 2 * kk));
           const uint32_t b1 = *reinterpret_cast<const uint32_t*>(
               krow + k_offset<T, G::CPR>(g, 2 * kk + 1));
-          mma_16816(d, qa[kk][0], qa[kk][1], b0, b1);
+          mma_16816<T>(d, qa[kk][0], qa[kk][1], b0, b1);
         }
         s2[0] = d[0];
         s2[1] = d[1];
@@ -419,8 +543,8 @@ __global__ void __launch_bounds__(kThreads, (Geo<T, D>::kMinBlocks))
       for (int j = 0; j < G::CW; ++j)
         mAcc[(warp * 8 + h) * G::DP + lane * G::CW + j] = acc[h][j];
     __syncthreads();
-    for (int i = threadIdx.x; i < hn * D; i += kThreads) {
-      const int h = i / D, d = i % D;
+    for (int i = threadIdx.x; i < hn * hd; i += kThreads) {
+      const int h = i / hd, d = i % hd;
       float mx = -INFINITY;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, mMl[(w * 8 + h) * 2]);
@@ -435,9 +559,9 @@ __global__ void __launch_bounds__(kThreads, (Geo<T, D>::kMinBlocks))
       }
       const size_t qh = (size_t)(head0 + hb + h);
       if (n_splits == 1) {
-        store(out + qh * D + d, num / fmaxf(den, 1e-30f));
+        store(out + qh * hd + d, num / fmaxf(den, 1e-30f));
       } else {
-        part_acc[(qh * n_splits + split) * D + d] = num;
+        part_acc[(qh * n_splits + split) * hd + d] = num;
         if (d == 0) {
           part_ml[(qh * n_splits + split) * 2] = mx;
           part_ml[(qh * n_splits + split) * 2 + 1] = den;
@@ -447,11 +571,35 @@ __global__ void __launch_bounds__(kThreads, (Geo<T, D>::kMinBlocks))
   }
 }
 
-// ------------------------------------------ decode_group (bf16, group > 8)
+// rows of exactly D elements: the compiled widths
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, (Geo<T, D>::kMinBlocks))
+    decode_split(const T* __restrict__ q, const T* __restrict__ k_cache,
+                 const T* __restrict__ v_cache, const int* __restrict__ lengths,
+                 T* __restrict__ out, float* __restrict__ part_acc,
+                 float* __restrict__ part_ml, int n_kv_heads, int group,
+                 int slice, int seq_len, int chunk, float scale, int hd) {
+  decode_split_block<T, D, false>(q, k_cache, v_cache, lengths, out, part_acc, part_ml, n_kv_heads, group, slice,
+                                   seq_len, chunk, scale, hd);
+}
+
+// rows of any hd <= D elements
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, (Geo<T, D>::kMinBlocks))
+    decode_split_any(const T* __restrict__ q, const T* __restrict__ k_cache,
+                 const T* __restrict__ v_cache, const int* __restrict__ lengths,
+                 T* __restrict__ out, float* __restrict__ part_acc,
+                 float* __restrict__ part_ml, int n_kv_heads, int group,
+                 int slice, int seq_len, int chunk, float scale, int hd) {
+  decode_split_block<T, D, true>(q, k_cache, v_cache, lengths, out, part_acc, part_ml, n_kv_heads, group, slice,
+                                   seq_len, chunk, scale, hd);
+}
+
+// -------------------------------- decode_group (bf16 and f16, group > 8)
 constexpr int kNarrowGroup = 8;  // wider groups run decode_group (ops.py NARROW_GROUP)
 constexpr int kGroupRows = 64;   // cache rows a step (ops.py GROUP_ROWS)
 
-// decode_group<D, MT>'s geometry: the group padded to MT m-tiles of 16
+// decode_group<T, D, MT>'s geometry: the group padded to MT m-tiles of 16
 // heads; k/v rows of SC chunks, both with the k swizzle; q in bf16 rows of
 // DP + 8 elements and p's bf16 halves in rows of R + 8 (the pads keep a
 // fragment load's 32 lanes on 32 banks); scores [head][row] in float32.
@@ -464,7 +612,6 @@ struct GGeo {
   static constexpr int DP = (D + 31) / 32 * 32;   // padded width
   static constexpr int KK = DP / 16;              // mma k-steps over DP
   static constexpr int CPR = DP * 2 / 16;         // 16-byte chunks a padded row
-  static constexpr int CD = D * 2 / 16;           // of them, chunks with data
   static constexpr int SC = CPR < 8 ? CPR : (CPR + 7) / 8 * 8;  // in shared memory
   static constexpr int kRowBytes = SC * 16;
   static constexpr int kStepBytes = 2 * R * kRowBytes;  // k, then v
@@ -480,30 +627,34 @@ struct GGeo {
   static_assert(4 * GP <= kThreads && R / 8 == kWarps, "a warp per 8 rows");
 };
 
-// One block of 256 threads per (sequence, kv head, chunk), for bf16 and a
-// group above 8: every step of kGroupRows cache rows is read once by the
+// One block of 256 threads per (sequence, kv head, chunk, slice of at most
+// 64 heads), for bf16 or float16 and a group above 8: every step of
+// kGroupRows cache rows is read once by the
 // whole block for all the group's heads.  Scores: warp w takes rows 8w ..
 // 8w + 7 of the step and every head, the heads in the rows of
 // mma.m16n8k16 (MT m-tiles reuse each k fragment), q's fragments read from
 // shared memory.  Softmax: four threads a head, each over a quarter of the
 // step's rows, keep the head's running (m, l) in float32, and split each
-// float32 p into bf16 hi + lo (hi = p rounded, lo = p - hi rounded: p to
-// about 2^-17 of itself).  p.v on the tensor cores: two mma.m16n8k16 a
+// float32 p into T's hi + lo (hi = p rounded, lo = p - hi rounded: p to
+// about 2^-17 of itself in bf16; in float16 p 2^15 is split, to about
+// 2^-22).  p.v on the tensor cores: two mma.m16n8k16 a
 // tile and k-step, hi.v and lo.v, into float32 accumulators (v is exact in
-// bf16), v's fragments loaded transposed by ldmatrix; warp w owns output
+// T), v's fragments loaded transposed by ldmatrix; warp w owns output
 // tiles w, w + 8, ... of the MT x NT (heads x 8 columns), TPW * 4
 // accumulators a thread.  Three block barriers a step; the next steps'
 // rows stream in through a ring of kStages cp.async stages behind them.
-template <int D, int MT>
-__global__ void __launch_bounds__(kThreads, 1)
-    decode_group(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k_cache,
-                 const __nv_bfloat16* __restrict__ v_cache,
-                 const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
-                 float* __restrict__ part_acc, float* __restrict__ part_ml,
-                 int n_kv_heads, int group, int seq_len, int chunk, float scale) {
-  using T = __nv_bfloat16;
+template <typename T, int D, int MT, bool kAny>
+__device__ __forceinline__ void decode_group_block(
+    const T* __restrict__ q, const T* __restrict__ k_cache,
+    const T* __restrict__ v_cache, const int* __restrict__ lengths,
+    T* __restrict__ out, float* __restrict__ part_acc, float* __restrict__ part_ml,
+    int n_kv_heads, int group, int slice, int seq_len, int chunk, float scale,
+    int hd_arg) {
+  const int hd = kAny ? hd_arg : D;  // as decode_split_block's
   using G = GGeo<D, MT>;
+  using B = unsigned short;  // an element's bits (narrow path, q)
+  // float16: p is split at 2^15 times itself (kPScale), o scaled back
+  constexpr float kPScale = kIsHalf<T> ? 32768.0f : 1.0f;
   constexpr int R = G::R;
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* sQ = smem + G::kStages * G::kStepBytes;  // GP rows of QS bytes
@@ -512,16 +663,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   T* sPh = reinterpret_cast<T*>(sC + G::GP);                  // [head][PS]: hi
   T* sPl = sPh + G::GP * G::PS;                               // [head][PS]: lo
 
-  const int bk = blockIdx.x;  // b * n_kv_heads + kv head
+  // (b * n_kv_heads + kv head, slice z of the group): heads z * slice ..
+  const int n_slices = slice >= group ? 1 : (group + slice - 1) / slice;
+  const int bk = n_slices == 1 ? blockIdx.x : blockIdx.x / n_slices;
+  const int z = n_slices == 1 ? 0 : blockIdx.x % n_slices;
+  const int gs = min(slice, group - z * slice);  // this block's heads
   const int split = blockIdx.y, n_splits = gridDim.y;
   const int len = lengths[bk / n_kv_heads];
   const int n = len > 0 ? min(len, seq_len) : seq_len;  // rows to walk
   const int c0 = split * chunk;
   const int c1 = min(c0 + chunk, n);
-  const int head0 = bk * group;  // first q head (row of q) of this block
+  const int head0 = bk * group + z * slice;  // first q head (row of q) here
 
   if (c0 >= n) {  // nothing of this sequence here: an empty partial
-    for (int h = threadIdx.x; h < group; h += kThreads) {
+    for (int h = threadIdx.x; h < gs; h += kThreads) {
       part_ml[((size_t)(head0 + h) * n_splits + split) * 2] = -INFINITY;
       part_ml[((size_t)(head0 + h) * n_splits + split) * 2 + 1] = 0.0f;
     }
@@ -530,24 +685,33 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
-  const T* kp = k_cache + (size_t)bk * seq_len * D;
-  const T* vp = v_cache + (size_t)bk * seq_len * D;
+  const T* kp = k_cache + (size_t)bk * seq_len * hd;
+  const T* vp = v_cache + (size_t)bk * seq_len * hd;
   const uint32_t buf_s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   const int n_steps = (c1 - c0 + R - 1) / R;
+  // rows of whole 16-byte chunks take cp.async; others the narrow path
+  const bool vec = hd % 8 == 0;
+  const int cd = hd / 8;  // chunks with data (vec)
 
   // k and v rows of step `s` into stage `st`; rows at or past c1, and the
-  // chunks of a row past D, are zero
+  // columns of a row past hd, are zero
   auto load_step = [&](int s, int st) {
-    const uint32_t dk = buf_s + st * G::kStepBytes;
-    const uint32_t dv = dk + R * G::kRowBytes;
     const int t0 = c0 + s * R;
+    if (vec) {
+      const uint32_t dk = buf_s + st * G::kStepBytes;
+      const uint32_t dv = dk + R * G::kRowBytes;
 #pragma unroll
-    for (int i = tid; i < R * G::CPR; i += kThreads) {
-      const int rr = i / G::CPR, c = i % G::CPR;
-      const bool valid = t0 + rr < c1 && c < G::CD;
-      const size_t src = valid ? (size_t)(t0 + rr) * D + c * 8 : (size_t)c0 * D;
-      cp_async16(dk + rr * G::kRowBytes + k_offset<T, G::CPR>(rr, c), kp + src, valid);
-      cp_async16(dv + rr * G::kRowBytes + k_offset<T, G::CPR>(rr, c), vp + src, valid);
+      for (int i = tid; i < R * G::CPR; i += kThreads) {
+        const int rr = i / G::CPR, c = i % G::CPR;
+        const bool valid = t0 + rr < c1 && c < cd;
+        const size_t src = valid ? (size_t)(t0 + rr) * hd + c * 8 : (size_t)c0 * hd;
+        cp_async16(dk + rr * G::kRowBytes + k_offset<T, G::CPR>(rr, c), kp + src, valid);
+        cp_async16(dv + rr * G::kRowBytes + k_offset<T, G::CPR>(rr, c), vp + src, valid);
+      }
+    } else {
+      uint8_t* bk_ = smem + st * G::kStepBytes;
+      load_rows_narrow<T, G::CPR, G::DP, true>(bk_, bk_ + R * G::kRowBytes, G::kRowBytes, kp,
+                                               vp, t0, R, c1, hd, tid, kThreads);
     }
   };
 #pragma unroll
@@ -555,13 +719,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (s < n_steps) load_step(s, s);
     asm volatile("cp.async.commit_group;" ::: "memory");
   }
-  // q in bf16 as it is stored; heads past the group and columns past D zero
-  for (int i = tid; i < G::GP * G::DP / 2; i += kThreads) {
-    const int h = i / (G::DP / 2), d = 2 * (i % (G::DP / 2));
-    uint32_t x = 0u;
-    if (h < group && d < D)
-      x = *reinterpret_cast<const uint32_t*>(q + (size_t)(head0 + h) * D + d);
-    *reinterpret_cast<uint32_t*>(sQ + h * G::QS + 2 * d) = x;
+  // q in T as it is stored, in pairs (element by element at an odd hd);
+  // heads past the slice and columns past hd zero
+  if (hd % 2 == 0) {
+    for (int i = tid; i < G::GP * G::DP / 2; i += kThreads) {
+      const int h = i / (G::DP / 2), d = 2 * (i % (G::DP / 2));
+      uint32_t x = 0u;
+      if (h < gs && d < hd)
+        x = *reinterpret_cast<const uint32_t*>(q + (size_t)(head0 + h) * hd + d);
+      *reinterpret_cast<uint32_t*>(sQ + h * G::QS + 2 * d) = x;
+    }
+  } else {
+    const B* qb = reinterpret_cast<const B*>(q);
+    for (int i = tid; i < G::GP * G::DP; i += kThreads) {
+      const int h = i / G::DP, d = i % G::DP;
+      *reinterpret_cast<B*>(sQ + h * G::QS + 2 * d) =
+          h < gs && d < hd ? qb[(size_t)(head0 + h) * hd + d] : B(0);
+    }
   }
 
   const int sh = tid / 4, sj = tid % 4;  // softmax: head sh, rows 4i + sj
@@ -603,7 +777,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           const uint8_t* qa = sQ + (16 * mt + g) * G::QS + 32 * kk + 4 * t;
-          mma_16816(d[mt], *reinterpret_cast<const uint32_t*>(qa),
+          mma_16816<T>(d[mt], *reinterpret_cast<const uint32_t*>(qa),
                     *reinterpret_cast<const uint32_t*>(qa + 8 * G::QS),
                     *reinterpret_cast<const uint32_t*>(qa + 16),
                     *reinterpret_cast<const uint32_t*>(qa + 8 * G::QS + 16), b0, b1);
@@ -642,9 +816,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < R / 4; ++i) {
         const float p = expf(x[i] - m_new);
-        const T hi = __float2bfloat16(p);
+        const float ps = p * kPScale;  // exact: a power of two
+        const T hi = round_to<T>(ps);
         sPh[sh * G::PS + 4 * i + sj] = hi;
-        sPl[sh * G::PS + 4 * i + sj] = __float2bfloat16(p - __bfloat162float(hi));
+        sPl[sh * G::PS + 4 * i + sj] = round_to<T>(ps - to_f32(hi));
         ls += p;
       }
       l_run = l_run * corr + ls;  // this thread's share; summed at the end
@@ -687,13 +862,19 @@ __global__ void __launch_bounds__(kThreads, 1)
           const uint32_t* ph = reinterpret_cast<const uint32_t*>(sPh + a);
           const uint32_t* pl = reinterpret_cast<const uint32_t*>(sPl + a);
           constexpr int r8 = 8 * G::PS / 2;  // 8 heads on, in 32-bit words
-          mma_16816(acc[j], ph[0], ph[r8], ph[4], ph[r8 + 4], b0, b1);
-          mma_16816(acc[j], pl[0], pl[r8], pl[4], pl[r8 + 4], b0, b1);
+          mma_16816<T>(acc[j], ph[0], ph[r8], ph[4], ph[r8 + 4], b0, b1);
+          mma_16816<T>(acc[j], pl[0], pl[r8], pl[4], pl[r8 + 4], b0, b1);
         }
       }
     }
   }
   asm volatile("cp.async.wait_group 0;" ::: "memory");
+  if constexpr (kPScale != 1.0f) {  // back from p 2^15: exact
+#pragma unroll
+    for (int j = 0; j < G::TPW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= 1.0f / kPScale;
+  }
 
   // each head's (m, l) into the score area (no longer read), then out
   if (soft) {
@@ -710,41 +891,69 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int j = 0; j < G::TPW; ++j) {
     const int i = warp + kWarps * j;
     if (i >= MT * G::NT) break;
-    const int d = 8 * (i % G::NT) + 2 * t;  // columns d, d + 1: both < D or neither
+    const int d = 8 * (i % G::NT) + 2 * t;  // columns d, d + 1 (d + 1 < hd: even hd)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int h = 16 * (i / G::NT) + g + 8 * hh;
-      if (h >= group || d >= D) continue;
+      if (h >= gs || d >= hd) continue;
       const size_t qh = (size_t)(head0 + h);
+      const bool pair = d + 1 < hd;
       if (n_splits == 1) {
         const float den = fmaxf(sS[G::GP + h], 1e-30f);
-        store(out + qh * D + d, acc[j][2 * hh] / den);
-        store(out + qh * D + d + 1, acc[j][2 * hh + 1] / den);
-      } else {
-        *reinterpret_cast<float2*>(part_acc + (qh * n_splits + split) * D + d) =
+        store(out + qh * hd + d, acc[j][2 * hh] / den);
+        if (pair) store(out + qh * hd + d + 1, acc[j][2 * hh + 1] / den);
+      } else if (hd % 2 == 0) {
+        *reinterpret_cast<float2*>(part_acc + (qh * n_splits + split) * hd + d) =
             make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
+      } else {
+        part_acc[(qh * n_splits + split) * hd + d] = acc[j][2 * hh];
+        if (pair) part_acc[(qh * n_splits + split) * hd + d + 1] = acc[j][2 * hh + 1];
       }
     }
   }
   if (n_splits > 1) {
-    for (int h = tid; h < group; h += kThreads) {
+    for (int h = tid; h < gs; h += kThreads) {
       part_ml[((size_t)(head0 + h) * n_splits + split) * 2] = sS[h];
       part_ml[((size_t)(head0 + h) * n_splits + split) * 2 + 1] = sS[G::GP + h];
     }
   }
 }
 
+template <typename T, int D, int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+    decode_group(const T* __restrict__ q, const T* __restrict__ k_cache,
+                 const T* __restrict__ v_cache, const int* __restrict__ lengths,
+                 T* __restrict__ out, float* __restrict__ part_acc,
+                 float* __restrict__ part_ml, int n_kv_heads, int group,
+                 int slice, int seq_len, int chunk, float scale, int hd) {
+  decode_group_block<T, D, MT, false>(q, k_cache, v_cache, lengths, out, part_acc, part_ml, n_kv_heads, group, slice,
+                                   seq_len, chunk, scale, hd);
+}
+
+template <typename T, int D, int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+    decode_group_any(const T* __restrict__ q, const T* __restrict__ k_cache,
+                 const T* __restrict__ v_cache, const int* __restrict__ lengths,
+                 T* __restrict__ out, float* __restrict__ part_acc,
+                 float* __restrict__ part_ml, int n_kv_heads, int group,
+                 int slice, int seq_len, int chunk, float scale, int hd) {
+  decode_group_block<T, D, MT, true>(q, k_cache, v_cache, lengths, out, part_acc, part_ml, n_kv_heads, group, slice,
+                                   seq_len, chunk, scale, hd);
+}
+
 // Merge the chunks' (m, l, acc) of each q head: one block per q head, a
-// thread per column.  Its first warp reads every chunk's (m, l) and puts
+// thread per column (D threads, hd <= D of them with a column).  Its first
+// warp reads every chunk's (m, l) and puts
 // each chunk's weight exp(m - max m) (0 for an empty partial, m = -inf)
 // and l in shared memory; then each thread sums over the chunks in order,
 // its loads of acc independent of one another (an empty partial's acc,
 // never written, is loaded and not used).
-template <typename T, int D>
-__global__ void __launch_bounds__(D)
-    decode_combine(const float* __restrict__ part_acc,
-                   const float* __restrict__ part_ml, T* __restrict__ out,
-                   int n_splits) {
+template <typename T, int D, bool kAny>
+__device__ __forceinline__ void decode_combine_block(const float* __restrict__ part_acc,
+                                                     const float* __restrict__ part_ml,
+                                                     T* __restrict__ out, int n_splits,
+                                                     int hd_arg) {
+  const int hd = kAny ? hd_arg : D;  // as decode_split_block's
   extern __shared__ float sW[];  // weights, then l: 2 * n_splits
   const size_t qh = blockIdx.x;
   const float* ml = part_ml + qh * n_splits * 2;
@@ -761,134 +970,166 @@ __global__ void __launch_bounds__(D)
     }
   }
   __syncthreads();
-  const float* acc = part_acc + qh * n_splits * D + threadIdx.x;
+  if (threadIdx.x >= hd) return;
+  const float* acc = part_acc + qh * n_splits * hd + threadIdx.x;
   float num = 0.0f, den = 0.0f;
 #pragma unroll 8
   for (int s = 0; s < n_splits; ++s) {
-    const float w = sW[s], a = acc[(size_t)s * D];
+    const float w = sW[s], a = acc[(size_t)s * hd];
     if (w != 0.0f) {
       den = fmaf(w, sW[n_splits + s], den);
       num = fmaf(w, a, num);
     }
   }
-  store(out + qh * D + threadIdx.x, num / fmaxf(den, 1e-30f));
+  store(out + qh * hd + threadIdx.x, num / fmaxf(den, 1e-30f));
 }
 
 template <typename T, int D>
+__global__ void __launch_bounds__(D)
+    decode_combine(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                   T* __restrict__ out, int n_splits, int hd) {
+  decode_combine_block<T, D, false>(part_acc, part_ml, out, n_splits, hd);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+    decode_combine_any(const float* __restrict__ part_acc,
+                       const float* __restrict__ part_ml, T* __restrict__ out,
+                       int n_splits, int hd) {
+  decode_combine_block<T, D, true>(part_acc, part_ml, out, n_splits, hd);
+}
+
+template <typename T, int D, bool kAny>
 cudaError_t combine(float* part_acc, float* part_ml, void* out, int n_heads,
-                    int n_splits, cudaStream_t stream) {
-  decode_combine<T, D><<<n_heads, D, 2 * n_splits * sizeof(float), stream>>>(
-      part_acc, part_ml, static_cast<T*>(out), n_splits);
+                    int n_splits, int hd, cudaStream_t stream) {
+  if constexpr (kAny)
+    decode_combine_any<T, D><<<n_heads, D, 2 * n_splits * sizeof(float), stream>>>(
+        part_acc, part_ml, static_cast<T*>(out), n_splits, hd);
+  else
+    decode_combine<T, D><<<n_heads, D, 2 * n_splits * sizeof(float), stream>>>(
+        part_acc, part_ml, static_cast<T*>(out), n_splits, hd);
   return cudaGetLastError();
 }
 
-template <int D, int MT>
+// The slices of a group (ops.py group_slices): n_slices = ceil(group /
+// kMaxGroup) of ceil(group / n_slices) heads each, the last maybe fewer.
+int slice_width(int group) {
+  const int n_slices = (group + kMaxGroup - 1) / kMaxGroup;
+  return (group + n_slices - 1) / n_slices;
+}
+
+// The kernel a launch runs: the _any one where kAny (only the one named
+// is instantiated)
+template <typename T, int D, bool kAny>
+auto split_kernel() {
+  if constexpr (kAny)
+    return &decode_split_any<T, D>;
+  else
+    return &decode_split<T, D>;
+}
+template <typename T, int D, int MT, bool kAny>
+auto group_kernel() {
+  if constexpr (kAny)
+    return &decode_group_any<T, D, MT>;
+  else
+    return &decode_group<T, D, MT>;
+}
+
+template <typename T, int D, int MT, bool kAny>
 cudaError_t launch_group(const void* q, const void* k, const void* v,
                          const int* lengths, void* out, float* part_acc,
                          float* part_ml, int n_seqs, int n_kv_heads, int group,
                          int seq_len, int n_splits, int chunk, float scale,
-                         cudaStream_t stream) {
-  using T = __nv_bfloat16;
+                         int hd, cudaStream_t stream) {
+  auto kernel = group_kernel<T, D, MT, kAny>();
   static bool configured = false;  // the attribute is per function
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        decode_group<D, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        GGeo<D, MT>::kBytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GGeo<D, MT>::kBytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid(n_seqs * n_kv_heads, n_splits);
-  decode_group<D, MT><<<grid, kThreads, GGeo<D, MT>::kBytes, stream>>>(
+  const int slice = slice_width(group);
+  const dim3 grid(n_seqs * n_kv_heads * ((group + slice - 1) / slice), n_splits);
+  kernel<<<grid, kThreads, GGeo<D, MT>::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(out), part_acc,
-      part_ml, n_kv_heads, group, seq_len, chunk, scale);
+      part_ml, n_kv_heads, group, slice, seq_len, chunk, scale, hd);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 1) return err;
-  return combine<T, D>(part_acc, part_ml, out, n_seqs * n_kv_heads * group,
-                       n_splits, stream);
+  return combine<T, D, kAny>(part_acc, part_ml, out, n_seqs * n_kv_heads * group,
+                       n_splits, hd, stream);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kAny>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* lengths, void* out, float* part_acc,
                    float* part_ml, int n_seqs, int n_kv_heads, int group,
-                   int seq_len, int n_splits, int chunk, float scale,
+                   int seq_len, int n_splits, int chunk, float scale, int hd,
                    cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2) {  // bf16 groups above 8: decode_group
+  const int slice = slice_width(group);
+  if constexpr (sizeof(T) == 2) {  // bf16 and f16 groups above 8: decode_group
     if (group > kNarrowGroup) {
-      const int mt = (group + 15) / 16;
-      auto go = mt == 1   ? launch_group<D, 1>
-                : mt == 2 ? launch_group<D, 2>
-                : mt == 3 ? launch_group<D, 3>
-                          : launch_group<D, 4>;
+      const int mt = (slice + 15) / 16;
+      auto go = mt == 1   ? launch_group<T, D, 1, kAny>
+                : mt == 2 ? launch_group<T, D, 2, kAny>
+                : mt == 3 ? launch_group<T, D, 3, kAny>
+                          : launch_group<T, D, 4, kAny>;
       return go(q, k, v, lengths, out, part_acc, part_ml, n_seqs, n_kv_heads,
-                group, seq_len, n_splits, chunk, scale, stream);
+                group, seq_len, n_splits, chunk, scale, hd, stream);
     }
   }
+  auto kernel = split_kernel<T, D, kAny>();
   static bool configured = false;  // the attribute is per function
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        decode_split<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem_bytes<T, D>(kMaxGroup));
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid(n_seqs * n_kv_heads, n_splits);
-  decode_split<T, D><<<grid, kThreads, smem_bytes<T, D>(group), stream>>>(
+  const dim3 grid(n_seqs * n_kv_heads * ((group + slice - 1) / slice), n_splits);
+  kernel<<<grid, kThreads, smem_bytes<T, D>(slice), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(out), part_acc,
-      part_ml, n_kv_heads, group, seq_len, chunk, scale);
+      part_ml, n_kv_heads, group, slice, seq_len, chunk, scale, hd);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 1) return err;
-  return combine<T, D>(part_acc, part_ml, out, n_seqs * n_kv_heads * group,
-                       n_splits, stream);
+  return combine<T, D, kAny>(part_acc, part_ml, out, n_seqs * n_kv_heads * group,
+                       n_splits, hd, stream);
 }
 
+// Head dim hd at a compiled width runs that width's kernels; any other the
+// _any kernels at the smallest of 32, 64, 128, 256 above it (ops.py width).
 template <typename T>
-cudaError_t launch_d(int head_dim, const void* q, const void* k,
-                     const void* v, const int* lengths, void* out,
-                     float* part_acc, float* part_ml, int n_seqs,
-                     int n_kv_heads, int group, int seq_len, int n_splits,
-                     int chunk, float scale, cudaStream_t stream) {
-  switch (head_dim) {
-    case 32:
-      return launch<T, 32>(q, k, v, lengths, out, part_acc, part_ml, n_seqs,
-                           n_kv_heads, group, seq_len, n_splits, chunk, scale,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, lengths, out, part_acc, part_ml, n_seqs,
-                           n_kv_heads, group, seq_len, n_splits, chunk, scale,
-                           stream);
-    case 80:
-      return launch<T, 80>(q, k, v, lengths, out, part_acc, part_ml, n_seqs,
-                           n_kv_heads, group, seq_len, n_splits, chunk, scale,
-                           stream);
-    case 120:
-      return launch<T, 120>(q, k, v, lengths, out, part_acc, part_ml, n_seqs,
-                            n_kv_heads, group, seq_len, n_splits, chunk,
-                            scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, lengths, out, part_acc, part_ml, n_seqs,
-                            n_kv_heads, group, seq_len, n_splits, chunk,
-                            scale, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, lengths, out, part_acc, part_ml, n_seqs,
-                            n_kv_heads, group, seq_len, n_splits, chunk,
-                            scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t launch_d(int hd, const void* q, const void* k, const void* v,
+                     const int* lengths, void* out, float* part_acc,
+                     float* part_ml, int n_seqs, int n_kv_heads, int group,
+                     int seq_len, int n_splits, int chunk, float scale,
+                     cudaStream_t stream) {
+  auto go = hd == 32    ? launch<T, 32, false>
+            : hd == 64  ? launch<T, 64, false>
+            : hd == 80  ? launch<T, 80, false>
+            : hd == 120 ? launch<T, 120, false>
+            : hd == 128 ? launch<T, 128, false>
+            : hd == 256 ? launch<T, 256, false>
+            : hd < 32   ? launch<T, 32, true>
+            : hd < 64   ? launch<T, 64, true>
+            : hd < 128  ? launch<T, 128, true>
+                        : launch<T, 256, true>;
+  return go(q, k, v, lengths, out, part_acc, part_ml, n_seqs, n_kv_heads,
+            group, seq_len, n_splits, chunk, scale, hd, stream);
 }
 
 }  // namespace
 
 // Launches the kernels on `stream` (decode_split, or decode_group for bf16
-// groups above 8, then decode_combine when n_splits > 1) and returns
-// cudaGetLastError() (0 on success).  Does not
-// synchronise.  dtype: 0 float32, 1 bfloat16.  head_dim: 32, 64, 80, 120,
-// 128 or 256.  q and out hold n_seqs * n_kv_heads * group rows of
-// head_dim, lengths one int32 per sequence, the caches n_seqs * n_kv_heads
-// * seq_len rows.
+// and float16 groups above 8, then decode_combine when n_splits > 1) and
+// returns cudaGetLastError() (0 on success).  Does not synchronise.
+// dtype: 0 float32, 1 bfloat16, 2 float16; any other code is refused.
+// head_dim: 1 to 256; any group >= 1.  q and out hold n_seqs * n_kv_heads
+// * group rows of head_dim, lengths one int32 per sequence, the caches
+// n_seqs * n_kv_heads * seq_len rows.
 // part_acc holds q's rows * n_splits * head_dim floats and part_ml q's rows
 // * n_splits * 2; chunk is a multiple of 64 with n_splits * chunk >= seq_len.
 extern "C" int decode_attention_launch(int device, int dtype, int head_dim,
@@ -904,21 +1145,18 @@ extern "C" int decode_attention_launch(int device, int dtype, int head_dim,
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaGetLastError();  // clear a stale error from an earlier call
-  if (group < 1 || group > kMaxGroup || chunk % 64 != 0 ||
-      (long long)n_splits * chunk < seq_len)
+  if (group < 1 || head_dim < 1 || head_dim > 256 || dtype < 0 || dtype > 2 ||
+      chunk % 64 != 0 || (long long)n_splits * chunk < seq_len)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
-  if (dtype == 0)
-    err = launch_d<float>(head_dim, q, k_cache, v_cache, len, out, pa, pm,
-                          n_seqs, n_kv_heads, group, seq_len, n_splits, chunk,
-                          scale, s);
-  else
-    err = launch_d<__nv_bfloat16>(head_dim, q, k_cache, v_cache, len, out, pa,
-                                  pm, n_seqs, n_kv_heads, group, seq_len,
-                                  n_splits, chunk, scale, s);
+  auto go = dtype == 0   ? launch_d<float>
+            : dtype == 1 ? launch_d<__nv_bfloat16>
+                         : launch_d<__half>;
+  err = go(head_dim, q, k_cache, v_cache, len, out, pa, pm, n_seqs, n_kv_heads,
+           group, seq_len, n_splits, chunk, scale, s);
   return (int)err;
 }
 

@@ -17,20 +17,30 @@ SOURCE = Path(__file__).parent / "csrc" / "decode_attention.cu"
 #: since the CUDA kernel splits the cache by its own plan (``split_plan``)
 DEFAULT_BLOCK_S = 1024
 
-#: head widths the kernel is instantiated for: the ported configs' (yi-6b
-#: and granite-34b 128, qwen3-32b 80, h2o-danube-3-4b 120, musicgen-medium
-#: 64, recurrentgemma-9b 256), and 32
+#: head widths the kernels are compiled for, cache rows of exactly that
+#: many elements: the ported configs' (yi-6b and granite-34b 128, qwen3-32b
+#: 80, h2o-danube-3-4b 120, musicgen-medium 64, recurrentgemma-9b 256), and 32
 HEAD_DIMS = (32, 64, 80, 120, 128, 256)
+
+#: widths of the ``_any`` kernels, which read rows of any length up to the
+#: width as they are (never a copy): a head dim that is none of HEAD_DIMS
+#: runs the smallest of them at or above it (``width``)
+ANY_WIDTHS = (32, 64, 128, 256)
+
+#: the widest head dim the kernel takes (ROADMAP.md section 3)
+MAX_HEAD_DIM = 256
 
 #: cache rows a chunk is a multiple of (the kernel's bf16 tile)
 CHUNK_ALIGN = 64
 
-#: most q heads per kv head a block serves (the kernel's kMaxGroup)
+#: most q heads per kv head a block serves (the kernel's kMaxGroup); wider
+#: groups are cut into slices of at most this many (``group_slices``), a
+#: block each
 MAX_GROUP = 64
 
-#: bf16 groups above this run decode_group, every head of a kv head in the
-#: rows of one product (the kernel's kNarrowGroup); narrower groups, and
-#: float32, run decode_split
+#: bf16 and float16 groups above this run decode_group, every head of a
+#: slice in the rows of one product (the kernel's kNarrowGroup); narrower
+#: groups, and float32, run decode_split
 NARROW_GROUP = 8
 
 #: cache rows a decode_group step (kGroupRows); its chunks are multiples
@@ -40,7 +50,9 @@ GROUP_ROWS = 64
 #: though a call with more than one chunk launches a combine kernel too
 LAUNCHES = 0
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the library's dtype codes; it refuses any other
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 _lib = None
 #: guards the launch count: launches may come from several threads
 _lock = threading.Lock()
@@ -69,13 +81,35 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def width(head_dim: int) -> int:
+    """The compiled width a call at ``head_dim`` runs: ``head_dim`` where
+    it is one of HEAD_DIMS, else the smallest of ANY_WIDTHS at or above it
+    (an ``_any`` kernel)."""
+    if head_dim in HEAD_DIMS:
+        return head_dim
+    return next(w for w in ANY_WIDTHS if w >= head_dim)
+
+
+def group_slices(group: int) -> Tuple[int, int]:
+    """``(n_slices, slice)``: a group of q heads cut into the fewest slices
+    of at most MAX_GROUP heads, ``slice`` = ceil(group / n_slices) each
+    (the last may have fewer), one block a slice."""
+    n = -(-group // MAX_GROUP)
+    return n, -(-group // n)
+
+
 def decode_kernel(dtype: torch.dtype, group: int, head_dim: int) -> str:
     """The kernel a call launches, named as ptxas's report names it:
-    ``decode_group<D, MT>`` (bf16 groups above NARROW_GROUP, MT m-tiles of
-    16 heads), else ``decode_split<bf16 or f32, D>``."""
-    if dtype == torch.bfloat16 and group > NARROW_GROUP:
-        return f"decode_group<{head_dim}, {-(-group // 16)}>"
-    return f"decode_split<{'bf16' if dtype == torch.bfloat16 else 'f32'}, {head_dim}>"
+    ``decode_group<T, D, MT>`` (bf16 and float16 groups above NARROW_GROUP,
+    MT m-tiles of 16 heads of a slice), else ``decode_split<T, D>``; D is
+    the compiled width (``width``), and a head dim that is not one of
+    HEAD_DIMS runs the ``_any`` kernel (``decode_split_any<T, D>``)."""
+    w = width(head_dim)
+    any_ = "" if head_dim in HEAD_DIMS else "_any"
+    if dtype != torch.float32 and group > NARROW_GROUP:
+        mt = -(-group_slices(group)[1] // 16)
+        return f"decode_group{any_}<{_SHORT[dtype]}, {w}, {mt}>"
+    return f"decode_split{any_}<{_SHORT[dtype]}, {w}>"
 
 
 def split_plan(s: int, n_blocks: int, sms: int, group: int = 1, head_dim: int = 128,
@@ -83,14 +117,16 @@ def split_plan(s: int, n_blocks: int, sms: int, group: int = 1, head_dim: int = 
     """``(n_splits, chunk)`` for a cache of ``s`` rows read by ``n_blocks``
     = B * Hkv (sequence, kv head) pairs, ``group`` q heads each, on a card
     of ``sms`` SMs, in ``dtype``.  From shapes only: the lengths stay on
-    the card.  No chunk is empty at full length.
+    the card.  No chunk is empty at full length.  A group above MAX_GROUP
+    has a block per slice (``group_slices``), so n_blocks counts slices.
 
     decode_split: about two blocks an SM, chunks a multiple of CHUNK_ALIGN
     rows.  decode_group: one block an SM at most (its shared memory allows
     no second), chunks a multiple of GROUP_ROWS rows, and the float32
     partials of all heads, written and read, at most the cache's bytes."""
+    n_blocks *= group_slices(group)[0]
     if decode_kernel(dtype, group, head_dim).startswith("decode_group"):
-        cache = s * head_dim * 2 * 2  # bf16 k and v of one (sequence, kv head)
+        cache = s * head_dim * 2 * 2  # k and v of one (sequence, kv head), 2 bytes each
         per_split = group * (head_dim + 2) * 4 * 2  # its partials, written and read
         want = min(max(1, sms // n_blocks), max(1, cache // per_split), -(-s // GROUP_ROWS))
         align = GROUP_ROWS
@@ -116,18 +152,16 @@ def _check_cuda(q, k_cache, v_cache, lengths) -> None:
     if k_cache.dtype != dt or v_cache.dtype != dt:
         raise TypeError(f"q is {dt}, caches {k_cache.dtype} and {v_cache.dtype}")
     if dt not in _DTYPES:
-        raise TypeError(f"the kernel takes float32 or bfloat16, got {dt}")
+        raise TypeError(f"the kernel takes float32, bfloat16 or float16, got {dt}")
     b, _, d = q.shape
     if k_cache.shape != v_cache.shape or k_cache.shape[0] != b or k_cache.shape[3] != d:
         raise ValueError(f"shapes q {tuple(q.shape)}, caches {tuple(k_cache.shape)}, "
                          f"{tuple(v_cache.shape)}")
     if lengths.shape != (b,):
         raise ValueError(f"lengths must be ({b},), got {tuple(lengths.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if q.shape[1] // k_cache.shape[1] > MAX_GROUP:
-        raise ValueError(f"{q.shape[1] // k_cache.shape[1]} q heads per kv head exceed "
-                         f"the kernel's {MAX_GROUP}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} is outside 1 .. {MAX_HEAD_DIM}: wider heads need "
+                         f"q.k tiled across D (ROADMAP.md section 3)")
 
 
 def _launch(lib, q, k_cache, v_cache, lengths, scale, *, device, stream, sms):
@@ -163,9 +197,11 @@ def decode_attention(
     block_s: int = DEFAULT_BLOCK_S,
 ) -> torch.Tensor:
     """One query token per sequence over its first ``lengths[b]`` cache
-    rows; (B, H, D) in q's dtype.  CUDA tensors launch the kernels on the
-    current stream without synchronising (the split kernel, and a combine
-    when the cache is split); CPU tensors take the plain version."""
+    rows; (B, H, D) in q's dtype, float32, bfloat16 or float16, any D from
+    1 to MAX_HEAD_DIM and any group.  CUDA tensors launch the kernels on
+    the current stream without synchronising (the split kernel, and a
+    combine when the cache is split), reading the caches as they are;
+    CPU tensors take the plain version."""
     b, h, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     if h % hkv:

@@ -2,7 +2,15 @@
 //
 // Replaces repro/kernels/flash_attention/kernel.py:flash_attention_kernel,
 // the Pallas TPU kernel.  q is (B*H, S, D), k and v are (B*Hkv, S, D), all
-// float32 or all bfloat16; q head i reads kv head i / group.  For each
+// float32, all bfloat16 or all float16; q head i reads kv head i / group.
+// Any head dim from 1 to 256.  A row whose bytes are not a multiple of 16
+// is padded with zero columns by the wrapper (ops.py), as TMA and the
+// 16-byte copies need.  A row of d elements runs the kernel compiled for
+// width d where d is one of 32, 64, 80, 120, 128 and 256 (the stride a
+// constant); any other row runs flash_wgmma_any / flash_tf32_any, the same
+// blocks with d a runtime argument, at the smallest of 32, 64, 128 and 256
+// above d (the columns past d are zeros in shared memory, so they add exact
+// zeros, and are not stored).  For each
 // query row: scores = q . k * scale in float32, keys outside the causal
 // and window masks set to -1e30, an online softmax with a float32 running
 // max, denominator and accumulator, and out = acc / max(l, 1e-30) written
@@ -22,9 +30,12 @@
 //
 // Two kernels, chosen by dtype and head dim in flash_attention_launch:
 //
-// * flash_wgmma<D>: bfloat16 at D = 64, 80, 120, 128 and 256
-//   (musicgen-medium, qwen3-32b, h2o-danube-3-4b, Yi-6B and
-//   recurrentgemma-9b compute in bf16).  One block of
+// * flash_wgmma<T, D>: bfloat16 and float16 at D = 64, 80, 120, 128 and
+//   256 (musicgen-medium, qwen3-32b, h2o-danube-3-4b, Yi-6B and
+//   recurrentgemma-9b compute in bf16; Llama-2's published checkpoints are
+//   float16).  The two types share every instruction but the wgmma's
+//   operand type (.f32.f16.f16 or .f32.bf16.bf16), the TMA map's element
+//   type and the rounding of p and of the output.  One block of
 //   384 threads per (batch-head, 128-row q tile): two consumer warpgroups
 //   of 64 q rows each and a producer warpgroup, which hands its registers
 //   to the consumers (setmaxnreg 24 / 240).  One producer thread loads the
@@ -101,8 +112,8 @@
 //   is held to that route, not to a one-ulp match with the float32 plain
 //   version.
 //
-// * flash_tf32<T, D>: float32 at every head dim, and bfloat16 at D = 32
-//   (no shipped config computes at either; an LMConfig with
+// * flash_tf32<T, D>: float32 at every head dim, and bfloat16 and
+//   float16 at D = 32 (no shipped config computes at either; an LMConfig with
 //   compute_dtype=float32 sends both kernels float32).  The TPU kernel
 //   multiplies in float32 (kernel.py:49, 66-67), and a float32 output is
 //   held to 1e-5 + 1e-5 |plain|.  One TF32 product rounds each operand to
@@ -112,7 +123,11 @@
 //   (mma.sync.m16n8k8, float32 accumulators; lo.lo, about 2^-22 of the
 //   product, is left out).  The split operands are q * scale (rounded to
 //   float32 once, as the plain version does), k, p and v; bf16 k and v are
-//   exact in TF32 and go in whole (two products).  What bounds it:
+//   exact in TF32 and go in whole (two products).  A float16 value is exact
+//   in TF32 too (10 mantissa bits), so in float16 q.k is one product of q
+//   and k as they are, scaled in float32 after, and p.v two (p split, v
+//   whole): the float32 sums keep float32 accuracy, and the output is held
+//   to one float16 ulp of the plain version.  What bounds it:
 //   operations, three TF32 products a pair at the H100's 494.7 TFLOP/s dense
 //   TF32 rate, 2.5x the 67 TFLOP/s of any kernel on the CUDA cores (at Yi's
 //   32/4 x 128, S = 2048, causal: 34.4 GFLOP, 0.209 ms; 0.513 ms on the
@@ -143,6 +158,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
@@ -328,18 +344,33 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define R64 R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56)
 
-// d (+)= A . B^T, m64n128k16, A and B K-major bf16 in shared memory.
+// The wgmma forms below take bf16 or float16 operands (T), float32
+// accumulators; WG_TY(T) spells the operand types of the instruction.
+template <typename T>
+constexpr bool kIsHalf = false;
+template <>
+constexpr bool kIsHalf<__half> = true;
+#define WG_TY(TY) ".f32." TY "." TY " "
+
+// d (+)= A . B^T, m64n128k16, A and B K-major T in shared memory.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
                                          uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
-      ", %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : R64
-      : "l"(da), "l"(db), "r"(accumulate));
+#define WG_SS(TY)                                                          \
+  asm volatile(                                                            \
+      "{\n"                                                                \
+      ".reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %66, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n128k16" WG_TY(TY) WG_D64           \
+      ", %64, %65, p, 1, 1, 0, 0;\n"                                       \
+      "}\n"                                                                \
+      : R64                                                                \
+      : "l"(da), "l"(db), "r"(accumulate))
+  if constexpr (kIsHalf<T>)
+    WG_SS("f16");
+  else
+    WG_SS("bf16");
+#undef WG_SS
 }
 
 #define WG_D32                                   \
@@ -350,33 +381,47 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
 #define R32 R8(0), R8(8), R8(16), R8(24)
 
 // d (+)= A . B^T, m64n64k16 (64-key tiles at D = 256).
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : R32
-      : "l"(da), "l"(db), "r"(accumulate));
+#define WG_SS(TY)                                                          \
+  asm volatile(                                                            \
+      "{\n"                                                                \
+      ".reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %34, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16" WG_TY(TY) WG_D32            \
+      ", %32, %33, p, 1, 1, 0, 0;\n"                                       \
+      "}\n"                                                                \
+      : R32                                                                \
+      : "l"(da), "l"(db), "r"(accumulate))
+  if constexpr (kIsHalf<T>)
+    WG_SS("f16");
+  else
+    WG_SS("bf16");
+#undef WG_SS
 }
 
-// d += A . B, m64n128k16, A in registers (bf16 pairs), B MN-major bf16 in
+// d += A . B, m64n128k16, A in registers (T pairs), B MN-major T in
 // shared memory.
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
                                          uint32_t a1, uint32_t a2, uint32_t a3,
                                          uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : R64
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+#define WG_RS(TY)                                                          \
+  asm volatile(                                                            \
+      "{\n"                                                                \
+      ".reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %69, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n128k16" WG_TY(TY) WG_D64           \
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"                         \
+      "}\n"                                                                \
+      : R64                                                                \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1))
+  if constexpr (kIsHalf<T>)
+    WG_RS("f16");
+  else
+    WG_RS("bf16");
+#undef WG_RS
 }
 
 #define WG_D40                                   \
@@ -389,33 +434,47 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
 
 // d += A . B, m64n80k16: the same over B's first 80 columns, 64 in the
 // first half and 16 in the second (LBO apart).
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[40], uint32_t a0,
                                          uint32_t a1, uint32_t a2, uint32_t a3,
                                          uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 " WG_D40
-      ", {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n"
-      "}\n"
-      : R40
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+#define WG_RS(TY)                                                          \
+  asm volatile(                                                            \
+      "{\n"                                                                \
+      ".reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %45, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n80k16" WG_TY(TY) WG_D40            \
+      ", {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n"                         \
+      "}\n"                                                                \
+      : R40                                                                \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1))
+  if constexpr (kIsHalf<T>)
+    WG_RS("f16");
+  else
+    WG_RS("bf16");
+#undef WG_RS
 }
 
 // d += A . B, m64n64k16: B is one 64-column span (LBO unused).
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
                                          uint32_t a1, uint32_t a2, uint32_t a3,
                                          uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : R32
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+#define WG_RS(TY)                                                          \
+  asm volatile(                                                            \
+      "{\n"                                                                \
+      ".reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %37, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16" WG_TY(TY) WG_D32            \
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"                         \
+      "}\n"                                                                \
+      : R32                                                                \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1))
+  if constexpr (kIsHalf<T>)
+    WG_RS("f16");
+  else
+    WG_RS("bf16");
+#undef WG_RS
 }
 
 #define WG_D128 \
@@ -440,36 +499,50 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
       R8(72), R8(80), R8(88), R8(96), R8(104), R8(112), R8(120)
 
 // d += A . B, m64n256k16: B's four 64-column spans, LBO apart (D = 256).
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[128], uint32_t a0,
                                          uint32_t a1, uint32_t a2, uint32_t a3,
                                          uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WG_D128
-      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
-      "}\n"
-      : R128
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+#define WG_RS(TY)                                                          \
+  asm volatile(                                                            \
+      "{\n"                                                                \
+      ".reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %133, 0;\n"                                          \
+      "wgmma.mma_async.sync.aligned.m64n256k16" WG_TY(TY) WG_D128          \
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"                    \
+      "}\n"                                                                \
+      : R128                                                               \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1))
+  if constexpr (kIsHalf<T>)
+    WG_RS("f16");
+  else
+    WG_RS("bf16");
+#undef WG_RS
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
-  return *reinterpret_cast<uint32_t*>(&h);
+// two values as a pair of T (.x = lo: the low half), rounded to nearest
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsHalf<T>) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
 }
 
 // One consumer warpgroup on the serial schedule (D = 80, 120, 128 and
 // 256): q rows q0 + 64 wg .. + 63 against key tiles lo .. lo + n_iter - 1
 // of KB keys (128, or 64 at D = 256), per tile q.k^T, wait, softmax, p.v,
-// wait; writes those rows of `op` (rows of D elements).  Only the warp
+// wait; writes those rows of `op` (rows of ld <= D elements).  Only the warp
 // schedulers' interleaving of the two consumer warpgroups overlaps one's
 // softmax with the other's products.
-template <int D>
+template <typename Elt, int D>
 __device__ __forceinline__ void consume(
     uint32_t sQ, uint32_t sK, uint32_t sV, uint32_t bar_q, uint32_t bar_k,
     uint32_t bar_v, uint32_t bar_empty, int wg, int q0, int lo, int n_iter,
-    __nv_bfloat16* __restrict__ op, int seq_len, int causal, float scale_log2,
+    Elt* __restrict__ op, int ld, int seq_len, int causal, float scale_log2,
     int window) {
   constexpr int R = WGeo<D>::ring, T = WGeo<D>::tile, KB = WGeo<D>::keys;
   // consumer warpgroup wg: q rows q0 + 64 wg .. + 63.  Accumulator layout
@@ -504,7 +577,7 @@ __device__ __forceinline__ void consume(
 #pragma unroll
     for (int kk = 0; kk < (D + 15) / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
-      wgmma_ss(sc, sw128_desc(sQ + (kk / 4) * kHalfBytes + off + wg * 64 * 128, 16, 1024),
+      wgmma_ss<Elt>(sc, sw128_desc(sQ + (kk / 4) * kHalfBytes + off + wg * 64 * 128, 16, 1024),
                sw128_desc(tK + (kk / 4) * WGeo<D>::span + off, 16, 1024), kk > 0);
     }
     wg_commit();
@@ -580,14 +653,14 @@ __device__ __forceinline__ void consume(
     uint32_t pa[KB / 4];
 #pragma unroll
     for (int i = 0; i < KB / 4; ++i) {
-      pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+      pa[i] = pack2<Elt>(sc[2 * i], sc[2 * i + 1]);
       asm volatile("" : "+r"(pa[i])::"memory");
     }
     mbar_wait(bar_v + 8 * s, phase);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < KB / 16; ++kk)
-      wgmma_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+      wgmma_rs<Elt>(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
                sw128_desc(tV + kk * 16 * 128, WGeo<D>::span, 1024));
     wg_commit();
     wg_wait_all();
@@ -601,17 +674,17 @@ __device__ __forceinline__ void consume(
     l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
   }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  // D is even and col is even: a pair never straddles column D
+  // ld is a multiple of 8 and col is even: a pair never straddles column ld
 #pragma unroll
   for (int j = 0; j < NV / 8; ++j) {
     const int col = 8 * j + c2;
-    if (col >= D) continue;
+    if (col >= ld) continue;
     if (row0 < seq_len)
-      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row0 * D + col) =
-          __floats2bfloat162_rn(o[4 * j] / d0, o[4 * j + 1] / d0);
+      *reinterpret_cast<uint32_t*>(op + (size_t)row0 * ld + col) =
+          pack2<Elt>(o[4 * j] / d0, o[4 * j + 1] / d0);
     if (row1 < seq_len)
-      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row1 * D + col) =
-          __floats2bfloat162_rn(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+      *reinterpret_cast<uint32_t*>(op + (size_t)row1 * ld + col) =
+          pack2<Elt>(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
   }
 }
 
@@ -637,8 +710,17 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x, subnormals flushed
 // moves only when the tile's exceeds it by more than 8 in log2 units of the
 // scaled scores (p then stays below 2^8, exact in float32 and as relatively
 // precise in bf16), so corr is exactly 1 on most tiles and the caller skips
-// o's rescale; o / l is the same function.
-template <int KB, bool kLazy>
+// o's rescale; o / l is the same function.  kExact (float16): each exponent
+// is (s - m) * scale_log2 instead, an FADD and an FMUL.  The FMA's
+// -m * scale_log2 is rounded, so its p carry a common factor 2^delta
+// (|delta| up to half a float32 ulp of m * scale_log2) that o / l cancels,
+// except where rounding p to the operand type drops it: p = 1 at the
+// maximum rounds to 1 in float16 (2^-10 apart above 1), while l keeps the
+// factor.  That costs a few 1e-6 of the output, invisible under bf16's
+// rounding, but as large as the float16 chunked route's own error where the
+// scale is a power of two (D = 64 and 256).  With s - m the maximum's p is
+// exactly 1.
+template <int KB, bool kLazy, bool kExact>
 __device__ __forceinline__ void online_softmax_fma(
     float (&sc)[KB / 2], int k0, int wrow, int row0, int row1, int c2, int seq_len,
     int causal, int window, float scale_log2, float& m0, float& m1, float& l0,
@@ -704,8 +786,10 @@ __device__ __forceinline__ void online_softmax_fma(
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int t = 2 * (j % 2) + e;
-      const float p0 = ex2(fmaf(sc[4 * j + e], scale_log2, b0));
-      const float p1 = ex2(fmaf(sc[4 * j + 2 + e], scale_log2, b1));
+      const float p0 = kExact ? ex2((sc[4 * j + e] - mn0) * scale_log2)
+                              : ex2(fmaf(sc[4 * j + e], scale_log2, b0));
+      const float p1 = kExact ? ex2((sc[4 * j + 2 + e] - mn1) * scale_log2)
+                              : ex2(fmaf(sc[4 * j + 2 + e], scale_log2, b1));
       sc[4 * j + e] = p0;
       sc[4 * j + 2 + e] = p1;
       s0[t] += p0;
@@ -730,44 +814,45 @@ __device__ __forceinline__ void rescale(float (&o)[NO], float corr0, float corr1
 
 // p (float, the accumulator layout) as bf16 pairs in the A-operand layout
 // of the p.v wgmma: registers 4kk .. 4kk + 3 hold keys 16kk .. 16kk + 15.
+template <typename Elt>
 __device__ __forceinline__ void pack_p(uint32_t (&pa)[32], const float (&sc)[64]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
-    pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+    pa[i] = pack2<Elt>(sc[2 * i], sc[2 * i + 1]);
     asm volatile("" : "+r"(pa[i])::"memory");
   }
 }
 
 // q.k^T of this warpgroup's 64 rows against k tile tK: ceil(D/16) steps of
 // 16, four per 64-column span (columns past D are zeros in both tiles).
-template <int D>
+template <typename Elt, int D>
 __device__ __forceinline__ void mma_qk(float (&sc)[64], uint32_t sQ,
                                          uint32_t tK, int wg) {
 #pragma unroll
   for (int kk = 0; kk < (D + 15) / 16; ++kk) {
     const uint32_t off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
-    wgmma_ss(sc, sw128_desc(sQ + off + wg * 64 * 128, 16, 1024),
+    wgmma_ss<Elt>(sc, sw128_desc(sQ + off + wg * 64 * 128, 16, 1024),
              sw128_desc(tK + off, 16, 1024), kk > 0);
   }
 }
 
 // o += p . v: p (bf16) is the A operand from registers, 16 keys a step; v
 // MN-major, the spans kHalfBytes apart.
-template <int NO>
+template <typename Elt, int NO>
 __device__ __forceinline__ void mma_pv(float (&o)[NO], const uint32_t (&pa)[32],
                                          uint32_t tV) {
 #pragma unroll
   for (int kk = 0; kk < kWBK / 16; ++kk)
-    wgmma_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+    wgmma_rs<Elt>(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
              sw128_desc(tV + kk * 16 * 128, kHalfBytes, 1024));
 }
 
 // out = o / l for rows row0 and row1 of this thread; D is even and col is
 // even, so a pair never straddles column D.
-template <int D, int NO>
+template <typename Elt, int NO>
 __device__ __forceinline__ void store_rows(const float (&o)[NO], float l0, float l1,
                                            int row0, int row1, int c2,
-                                           __nv_bfloat16* __restrict__ op,
+                                           Elt* __restrict__ op, int ld,
                                            int seq_len) {
 #pragma unroll
   for (int o_ = 1; o_ < 4; o_ <<= 1) {
@@ -778,13 +863,13 @@ __device__ __forceinline__ void store_rows(const float (&o)[NO], float l0, float
 #pragma unroll
   for (int j = 0; j < NO / 4; ++j) {
     const int col = 8 * j + c2;
-    if (col >= D) continue;
+    if (col >= ld) continue;
     if (row0 < seq_len)
-      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row0 * D + col) =
-          __floats2bfloat162_rn(o[4 * j] / d0, o[4 * j + 1] / d0);
+      *reinterpret_cast<uint32_t*>(op + (size_t)row0 * ld + col) =
+          pack2<Elt>(o[4 * j] / d0, o[4 * j + 1] / d0);
     if (row1 < seq_len)
-      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row1 * D + col) =
-          __floats2bfloat162_rn(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+      *reinterpret_cast<uint32_t*>(op + (size_t)row1 * ld + col) =
+          pack2<Elt>(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
   }
 }
 
@@ -797,11 +882,11 @@ __device__ __forceinline__ void store_rows(const float (&o)[NO], float l0, float
 // p.v of tile j - 1 is on the tensor cores (wait_group 1, then 0).  o is
 // therefore rescaled after p.v of tile j - 1 lands instead of before it:
 // o = (o + p v) * corr where the serial schedule computes o * corr + p v.
-template <int D>
+template <typename Elt, int D>
 __device__ __forceinline__ void consume_overlap(
     uint32_t sQ, uint32_t sK, uint32_t sV, uint32_t bar_q, uint32_t bar_k,
     uint32_t bar_v, uint32_t bar_empty, int wg, int q0, int lo, int n_iter,
-    __nv_bfloat16* __restrict__ op, int seq_len, int causal, float scale_log2,
+    Elt* __restrict__ op, int ld, int seq_len, int causal, float scale_log2,
     int window) {
   constexpr int R = WGeo<D>::ring, T = WGeo<D>::tile;
   // accumulator rows: r = 16 warp + lane / 4 and r + 8; columns 8j + c2 + e
@@ -827,7 +912,7 @@ __device__ __forceinline__ void consume_overlap(
   mbar_wait(bar_k, 0);
   bar_sync(mine);
   wg_fence();
-  mma_qk<D>(sc, sQ, sK, wg);
+  mma_qk<Elt, D>(sc, sQ, sK, wg);
   wg_commit();
   bar_arrive(other);
   // the next turn's operands are polled while q.k^T runs (the ring is deep
@@ -836,44 +921,44 @@ __device__ __forceinline__ void consume_overlap(
   mbar_wait(bar_v, 0);
   wg_wait_all();
   fence_regs(sc);
-  online_softmax_fma<kWBK, false>(sc, lo * kWBK, wrow, row0, row1, c2, seq_len,
+  online_softmax_fma<kWBK, false, kIsHalf<Elt>>(sc, lo * kWBK, wrow, row0, row1, c2, seq_len,
                                   causal, window, scale_log2, m0, m1, l0, l1, corr0,
                                   corr1);
-  pack_p(pa, sc);  // o is 0: nothing to rescale
+  pack_p<Elt>(pa, sc);  // o is 0: nothing to rescale
   for (int it = 1; it < n_iter; ++it) {
     const int s = it % R, sp = (it - 1) % R;
     bar_sync(mine);
     wg_fence();
-    mma_qk<D>(sc, sQ, sK + s * T, wg);
+    mma_qk<Elt, D>(sc, sQ, sK + s * T, wg);
     wg_commit();
-    mma_pv(o, pa, sV + sp * T);
+    mma_pv<Elt>(o, pa, sV + sp * T);
     wg_commit();
     bar_arrive(other);
     if (it + 1 < n_iter) mbar_wait(bar_k + 8 * ((it + 1) % R), ((it + 1) / R) & 1);
     mbar_wait(bar_v + 8 * s, (it / R) & 1);
     wg_wait_one();  // q.k^T of tile it
     fence_regs(sc);
-    online_softmax_fma<kWBK, false>(sc, (lo + it) * kWBK, wrow, row0, row1, c2,
+    online_softmax_fma<kWBK, false, kIsHalf<Elt>>(sc, (lo + it) * kWBK, wrow, row0, row1, c2,
                                     seq_len, causal, window, scale_log2, m0, m1, l0,
                                     l1, corr0, corr1);
     wg_wait_all();  // p.v of tile it - 1
     fence_regs(o);
     mbar_arrive(bar_empty + 8 * sp);
     rescale(o, corr0, corr1);
-    pack_p(pa, sc);
+    pack_p<Elt>(pa, sc);
   }
   // p.v of the last tile.  Each warpgroup takes n_iter + 1 turns, so
   // warpgroup 1's last arrive would be one more than warpgroup 0 waits for.
   const int s = (n_iter - 1) % R;
   bar_sync(mine);
   wg_fence();
-  mma_pv(o, pa, sV + s * T);
+  mma_pv<Elt>(o, pa, sV + s * T);
   wg_commit();
   if (wg == 0) bar_arrive(other);
   wg_wait_all();
   fence_regs(o);
   mbar_arrive(bar_empty + 8 * s);
-  store_rows<D>(o, l0, l1, row0, row1, c2, op, seq_len);
+  store_rows(o, l0, l1, row0, row1, c2, op, ld, seq_len);
 }
 
 // k or v tile `it` (keys from lo + it) into its stage of ring `ring`, B
@@ -926,11 +1011,11 @@ __device__ __forceinline__ void refill(uint32_t read, uint32_t cnt, uint32_t sK,
 // products the consumers release k tile j (q.k^T has retired) and v tile
 // j - 1, and the warpgroup that releases them second refills their stages
 // with tiles j + R and j - 1 + R (refill), k a tile ahead of v.
-template <int D>
+template <typename Elt, int D>
 __device__ __forceinline__ void consume_wide(
     uint32_t sQ, uint32_t sK, uint32_t sV, uint32_t bar_q, uint32_t bar_k,
     uint32_t bar_v, uint32_t bar_read, uint32_t cnt, int wg, int q0, int lo,
-    int n_iter, __nv_bfloat16* __restrict__ op, int seq_len, int causal,
+    int n_iter, Elt* __restrict__ op, int ld, int seq_len, int causal,
     float scale_log2, int window, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
     int kvh) {
   constexpr int R = WGeo<D>::ring, T = WGeo<D>::tile, KB = WGeo<D>::keys;
@@ -954,7 +1039,7 @@ __device__ __forceinline__ void consume_wide(
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
-      wgmma_ss(sc, sw128_desc(sQ + (kk / 4) * kHalfBytes + off + wg * 64 * 128, 16, 1024),
+      wgmma_ss<Elt>(sc, sw128_desc(sQ + (kk / 4) * kHalfBytes + off + wg * 64 * 128, 16, 1024),
                sw128_desc(tK + (kk / 4) * SP + off, 16, 1024), kk > 0);
     }
   };
@@ -963,17 +1048,18 @@ __device__ __forceinline__ void consume_wide(
     const uint32_t tV = sV + (it % R) * T;
 #pragma unroll
     for (int kk = 0; kk < KB / 16; ++kk)
-      wgmma_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+      wgmma_rs<Elt>(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
                sw128_desc(tV + kk * 16 * 128, SP, 1024));
   };
   auto softmax = [&](int k0) {
-    online_softmax_fma<KB, true>(sc, k0, wrow, row0, row1, c2, seq_len, causal, window,
+    online_softmax_fma<KB, true, kIsHalf<Elt>>(sc, k0, wrow, row0, row1, c2, seq_len, causal,
+                                                window,
                                  scale_log2, m0, m1, l0, l1, corr0, corr1);
   };
   auto pack = [&]() {
 #pragma unroll
     for (int i = 0; i < KB / 4; ++i) {
-      pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+      pa[i] = pack2<Elt>(sc[2 * i], sc[2 * i + 1]);
       asm volatile("" : "+r"(pa[i])::"memory");
     }
   };
@@ -1024,16 +1110,18 @@ __device__ __forceinline__ void consume_wide(
   if (wg == 0) bar_arrive(other);
   wg_wait_all();
   fence_regs(o);
-  store_rows<D>(o, l0, l1, row0, row1, c2, op, seq_len);
+  store_rows(o, l0, l1, row0, row1, c2, op, ld, seq_len);
 }
 
-template <int D>
-__global__ void __launch_bounds__(WGeo<D>::threads, 1)
-    flash_wgmma(const __grid_constant__ CUtensorMap tm_q,
-                const __grid_constant__ CUtensorMap tm_k,
-                const __grid_constant__ CUtensorMap tm_v,
-                __nv_bfloat16* __restrict__ out, int seq_len, int group,
-                int causal, float scale_log2, int window) {
+// The block of flash_wgmma and flash_wgmma_any.  kAny: rows of ld <= D
+// elements (a runtime argument); else rows of exactly D, the stride a
+// constant, as the kernels at the compiled widths always had.
+template <typename Elt, int D, bool kAny>
+__device__ __forceinline__ void flash_wgmma_block(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    Elt* __restrict__ out, int ld_arg, int seq_len, int group, int causal,
+    float scale_log2, int window) {
+  const int ld = kAny ? ld_arg : D;
   constexpr int B = WGeo<D>::boxes, T = WGeo<D>::tile, R = WGeo<D>::ring;
   constexpr int QT = WGeo<D>::qtile, KB = WGeo<D>::keys;
   extern __shared__ uint8_t smem_raw[];
@@ -1077,16 +1165,15 @@ __global__ void __launch_bounds__(WGeo<D>::threads, 1)
     if (threadIdx.x == 0) {
       mbar_expect_tx(bar_q, QT);
       for (int h = 0; h < B; ++h)
-        tma_load(sQ + h * kHalfBytes, &tm_q, bar_q, h * kHalf, q0, bh);
+        tma_load(sQ + h * kHalfBytes, tm_q, bar_q, h * kHalf, q0, bh);
       for (int it = 0; it < R && it < n_iter; ++it) {
-        load_tile<D>(sK, bar_k, &tm_k, it, lo, kvh);
-        load_tile<D>(sV, bar_v, &tm_v, it, lo, kvh);
+        load_tile<D>(sK, bar_k, tm_k, it, lo, kvh);
+        load_tile<D>(sV, bar_v, tm_v, it, lo, kvh);
       }
     }
-    consume_wide<D>(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, bar_empty + 8 * R, wg,
-                    q0, lo, n_iter,
-                    out + (size_t)bh * seq_len * D, seq_len, causal, scale_log2,
-                    window, &tm_k, &tm_v, kvh);
+    consume_wide<Elt, D>(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, bar_empty + 8 * R,
+                         wg, q0, lo, n_iter, out + (size_t)bh * seq_len * ld, ld,
+                         seq_len, causal, scale_log2, window, tm_k, tm_v, kvh);
   } else if (wg == kConsumers) {
     // producer warpgroup: gives its registers to the consumers; one thread
     // starts every load, B boxes of 64 columns a tile
@@ -1095,31 +1182,56 @@ __global__ void __launch_bounds__(WGeo<D>::threads, 1)
       const int kvh = bh / group;
       mbar_expect_tx(bar_q, QT);
       for (int h = 0; h < B; ++h)
-        tma_load(sQ + h * kHalfBytes, &tm_q, bar_q, h * kHalf, q0, bh);
+        tma_load(sQ + h * kHalfBytes, tm_q, bar_q, h * kHalf, q0, bh);
       for (int it = 0; it < n_iter; ++it) {
         mbar_wait(bar_empty + 8 * (it % R), ((it / R) & 1) ^ 1);
-        load_tile<D>(sK, bar_k, &tm_k, it, lo, kvh);
-        load_tile<D>(sV, bar_v, &tm_v, it, lo, kvh);
+        load_tile<D>(sK, bar_k, tm_k, it, lo, kvh);
+        load_tile<D>(sV, bar_v, tm_v, it, lo, kvh);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
-    __nv_bfloat16* op = out + (size_t)bh * seq_len * D;
+    Elt* op = out + (size_t)bh * seq_len * ld;
     if constexpr (D == kHalf)
-      consume_overlap<D>(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, wg, q0, lo,
-                         n_iter, op, seq_len, causal, scale_log2, window);
+      consume_overlap<Elt, D>(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, wg, q0, lo,
+                              n_iter, op, ld, seq_len, causal, scale_log2, window);
     else
-      consume<D>(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, wg, q0, lo, n_iter,
-                 op, seq_len, causal, scale_log2, window);
+      consume<Elt, D>(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, wg, q0, lo, n_iter,
+                      op, ld, seq_len, causal, scale_log2, window);
   }
 }
 
-// A (rows, S, D) bf16 array as a 3-D tensor map with boxes of 64 columns x
-// box_rows in the 128-byte swizzle; rows past S and columns past D read as
-// zeros.  The row stride, D * 2 bytes, must be a multiple of 16 (D = 64, 80,
-// 120, 128, 256).
+// bf16 or float16 (Elt) rows of exactly D elements: the compiled widths
+template <typename Elt, int D>
+__global__ void __launch_bounds__(WGeo<D>::threads, 1)
+    flash_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                Elt* __restrict__ out, int ld, int seq_len, int group,
+                int causal, float scale_log2, int window) {
+  flash_wgmma_block<Elt, D, false>(&tm_q, &tm_k, &tm_v, out, ld, seq_len, group, causal,
+                                   scale_log2, window);
+}
+
+// rows of any ld <= D elements, a multiple of 8 (TMA fills the columns
+// past ld with zeros)
+template <typename Elt, int D>
+__global__ void __launch_bounds__(WGeo<D>::threads, 1)
+    flash_wgmma_any(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    Elt* __restrict__ out, int ld, int seq_len, int group,
+                    int causal, float scale_log2, int window) {
+  flash_wgmma_block<Elt, D, true>(&tm_q, &tm_k, &tm_v, out, ld, seq_len, group, causal,
+                                  scale_log2, window);
+}
+
+// A (rows, S, d) bf16 or float16 array (`type`) as a 3-D tensor map with
+// boxes of 64 columns x box_rows in the 128-byte swizzle; rows past S and
+// columns past d read as zeros.  The row stride, d * 2 bytes, must be a
+// multiple of 16 (d a multiple of 8; the wrapper pads other rows).
 CUresult make_map(CUtensorMap* map, const void* ptr, int rows, int seq_len,
-                  int d, int box_rows) {
+                  int d, int box_rows, CUtensorMapDataType type) {
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)seq_len,
                               (cuuint64_t)rows};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
@@ -1140,7 +1252,7 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int rows, int seq_len,
     if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
   }
   return encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      map, type, 3, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1183,6 +1295,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 // two neighbouring elements of a row as float32 (exact for bf16)
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -1190,12 +1303,18 @@ __device__ __forceinline__ float2 load2(const float* p) {
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
+__device__ __forceinline__ float2 load2(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
+}
 // two neighbouring outputs, rounded once to T (to nearest even, as torch's .to())
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void store2(__half* p, float x, float y) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
@@ -1232,8 +1351,8 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 
 // c += a . b to float32 accuracy, a given as its hi and lo halves: the
 // products lo . hi, hi . lo and hi . hi (lo . lo, about 2^-22 of a product,
-// is left out).  A b that came from bf16 is exact in TF32: hi . b and
-// lo . b.
+// is left out).  A b that came from bf16 or float16 is exact in TF32:
+// hi . b and lo . b.
 template <typename T>
 __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
                                      const uint32_t (&al)[4], float b0,
@@ -1252,11 +1371,15 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(TGeo<T, D>::threads, TGeo<T, D>::min_blocks)
-    flash_tf32(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ out, int seq_len,
-               int group, int causal, float scale, int window) {
+// The block of flash_tf32 and flash_tf32_any; kAny as flash_wgmma_block's.
+template <typename T, int D, bool kAny>
+__device__ __forceinline__ void flash_tf32_block(const T* __restrict__ q,
+                                                 const T* __restrict__ k,
+                                                 const T* __restrict__ v,
+                                                 T* __restrict__ out, int ld_arg,
+                                                 int seq_len, int group, int causal,
+                                                 float scale, int window) {
+  const int ld = kAny ? ld_arg : D;
   using G = TGeo<T, D>;
   constexpr int BQ = G::rows, BK = G::keys;
   constexpr int NK = BK / 8;  // 8-key n-tiles of q.k^T, k-steps of p.v
@@ -1273,9 +1396,15 @@ __global__ void __launch_bounds__(TGeo<T, D>::threads, TGeo<T, D>::min_blocks)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const T* qp = q + (size_t)bh * seq_len * D;
-  const T* kp = k + (size_t)(bh / group) * seq_len * D;
-  const T* vp = v + (size_t)(bh / group) * seq_len * D;
+  // rows are ld <= D elements (whole 16-byte pieces); columns past ld are
+  // zeros in shared memory, so they add exact zeros and are not stored
+  const T* qp = q + (size_t)bh * seq_len * ld;
+  const T* kp = k + (size_t)(bh / group) * seq_len * ld;
+  const T* vp = v + (size_t)(bh / group) * seq_len * ld;
+  // float16: q and k are exact in TF32, so q.k is one product a pair and
+  // the scale is applied to the float32 score; float32 and bf16 take
+  // q * scale, rounded to float32 once as the plain version does, split
+  constexpr bool kOne = kIsHalf<T>;
 
   // key tiles the block can see (kernel.py:54-62; C division truncates like
   // lax.div, and a negative lo is clamped to 0)
@@ -1283,7 +1412,8 @@ __global__ void __launch_bounds__(TGeo<T, D>::threads, TGeo<T, D>::min_blocks)
   const int hi = causal ? min((q0 + BQ - 1) / BK + 1, n_tiles) : n_tiles;
   const int lo = window > 0 ? max((q0 - window + 1) / BK, 0) : 0;
 
-  // k and v tile j into ring stage j % kTStages; rows past S are zeros
+  // k and v tile j into ring stage j % kTStages; rows past S and columns
+  // past ld are zeros
   auto load_kv = [&](int j) {
     constexpr int CPR = D / C;
     const int k0 = j * BK;
@@ -1291,8 +1421,8 @@ __global__ void __launch_bounds__(TGeo<T, D>::threads, TGeo<T, D>::min_blocks)
     const uint32_t dv = smem_addr(sV + (j % kTStages) * BK * G::vs);
     for (int i = threadIdx.x; i < BK * CPR; i += G::threads) {
       const int r = i / CPR, c = (i % CPR) * C;
-      const bool valid = k0 + r < seq_len;
-      const size_t src = valid ? (size_t)(k0 + r) * D + c : 0;
+      const bool valid = k0 + r < seq_len && c < ld;
+      const size_t src = valid ? (size_t)(k0 + r) * ld + c : 0;
       cp_async16(dk + (r * G::ks + c) * (int)sizeof(T), kp + src, valid);
       cp_async16(dv + (r * G::vs + c) * (int)sizeof(T), vp + src, valid);
     }
@@ -1300,17 +1430,19 @@ __global__ void __launch_bounds__(TGeo<T, D>::threads, TGeo<T, D>::min_blocks)
   };
   load_kv(lo);
 
-  // q * scale in float32 (rounded once, as the plain version), rows past S
-  // zero; the first barrier of the loop publishes it
+  // q * scale in float32 (rounded once, as the plain version; float16: q
+  // as it is), rows past S and columns past ld zero; the first barrier of
+  // the loop publishes it
+  const float qscale = kOne ? 1.0f : scale;
   for (int i = threadIdx.x; i < BQ * (D / C); i += G::threads) {
     const int r = i / (D / C), c = (i % (D / C)) * C;
     float* dst = sQ + r * G::qs + c;
-    if (q0 + r < seq_len) {
+    if (q0 + r < seq_len && c < ld) {
       const uint4 raw =
-          *reinterpret_cast<const uint4*>(qp + (size_t)(q0 + r) * D + c);
+          *reinterpret_cast<const uint4*>(qp + (size_t)(q0 + r) * ld + c);
       const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-      for (int u = 0; u < C; ++u) dst[u] = to_f32(e[u]) * scale;
+      for (int u = 0; u < C; ++u) dst[u] = to_f32(e[u]) * qscale;
     } else {
 #pragma unroll
       for (int u = 0; u < C; ++u) dst[u] = 0.0f;
@@ -1358,16 +1490,32 @@ __global__ void __launch_bounds__(TGeo<T, D>::threads, TGeo<T, D>::min_blocks)
       for (int kk = 0; kk < ND; ++kk) {
         const float2 x0 = *reinterpret_cast<const float2*>(qr0 + 8 * kk);
         const float2 x1 = *reinterpret_cast<const float2*>(qr1 + 8 * kk);
-        uint32_t ah[4], al[4];
-        split(x0.x, ah[0], al[0]);  // (g, 2t)
-        split(x1.x, ah[1], al[1]);  // (g + 8, 2t)
-        split(x0.y, ah[2], al[2]);  // (g, 2t + 1)
-        split(x1.y, ah[3], al[3]);  // (g + 8, 2t + 1)
+        if constexpr (kOne) {  // float16: q and k whole, one product
+          const uint32_t a[4] = {__float_as_uint(x0.x), __float_as_uint(x1.x),
+                                 __float_as_uint(x0.y), __float_as_uint(x1.y)};
 #pragma unroll
-        for (int n = 0; n < NK; ++n) {
-          const float2 y = load2(tk + (8 * n + g) * G::ks + 8 * kk + 2 * t);
-          mma3<T>(s[n], ah, al, y.x, y.y);
+          for (int n = 0; n < NK; ++n) {
+            const float2 y = load2(tk + (8 * n + g) * G::ks + 8 * kk + 2 * t);
+            mma_tf32(s[n], a, __float_as_uint(y.x), __float_as_uint(y.y));
+          }
+        } else {
+          uint32_t ah[4], al[4];
+          split(x0.x, ah[0], al[0]);  // (g, 2t)
+          split(x1.x, ah[1], al[1]);  // (g + 8, 2t)
+          split(x0.y, ah[2], al[2]);  // (g, 2t + 1)
+          split(x1.y, ah[3], al[3]);  // (g + 8, 2t + 1)
+#pragma unroll
+          for (int n = 0; n < NK; ++n) {
+            const float2 y = load2(tk + (8 * n + g) * G::ks + 8 * kk + 2 * t);
+            mma3<T>(s[n], ah, al, y.x, y.y);
+          }
         }
+      }
+      if constexpr (kOne) {
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] *= scale;
       }
 
       // masks, only on tiles that cross the causal diagonal, the window's
@@ -1457,140 +1605,166 @@ __global__ void __launch_bounds__(TGeo<T, D>::threads, TGeo<T, D>::min_blocks)
   }
   if (!live) return;
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  T* op = out + (size_t)bh * seq_len * D + 2 * t;
+  // ld is a multiple of 4: a pair never straddles column ld
+  T* op = out + (size_t)bh * seq_len * ld + 2 * t;
 #pragma unroll
   for (int jd = 0; jd < ND; ++jd) {
+    if (8 * jd + 2 * t >= ld) continue;
     if (row0 < seq_len)
-      store2(op + (size_t)row0 * D + 8 * jd, o[jd][0] / d0, o[jd][1] / d0);
+      store2(op + (size_t)row0 * ld + 8 * jd, o[jd][0] / d0, o[jd][1] / d0);
     if (row1 < seq_len)
-      store2(op + (size_t)row1 * D + 8 * jd, o[jd][2] / d1, o[jd][3] / d1);
+      store2(op + (size_t)row1 * ld + 8 * jd, o[jd][2] / d1, o[jd][3] / d1);
   }
 }
 
+// float32, bf16 or float16 (T) rows of exactly D elements
 template <typename T, int D>
+__global__ void __launch_bounds__(TGeo<T, D>::threads, TGeo<T, D>::min_blocks)
+    flash_tf32(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ out, int ld, int seq_len,
+               int group, int causal, float scale, int window) {
+  flash_tf32_block<T, D, false>(q, k, v, out, ld, seq_len, group, causal, scale, window);
+}
+
+// rows of any ld <= D elements, whole 16-byte pieces
+template <typename T, int D>
+__global__ void __launch_bounds__(TGeo<T, D>::threads, TGeo<T, D>::min_blocks)
+    flash_tf32_any(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, T* __restrict__ out, int ld, int seq_len,
+                   int group, int causal, float scale, int window) {
+  flash_tf32_block<T, D, true>(q, k, v, out, ld, seq_len, group, causal, scale, window);
+}
+
+// The kernel a launch runs: the _any one where kAny (only the one named
+// is instantiated)
+template <typename T, int D, bool kAny>
+auto tf32_kernel() {
+  if constexpr (kAny)
+    return &flash_tf32_any<T, D>;
+  else
+    return &flash_tf32<T, D>;
+}
+template <typename T, int D, bool kAny>
+auto wgmma_kernel() {
+  if constexpr (kAny)
+    return &flash_wgmma_any<T, D>;
+  else
+    return &flash_wgmma<T, D>;
+}
+
+template <typename T, int D, bool kAny>
 cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* out,
-                        int bh, int seq_len, int group, int causal, float scale,
-                        int window, cudaStream_t stream) {
+                        int ld, int bh, int seq_len, int group, int causal,
+                        float scale, int window, cudaStream_t stream) {
   using G = TGeo<T, D>;
+  auto kernel = tf32_kernel<T, D, kAny>();
   static bool configured = false;  // the attribute is per function
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_tf32<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid(bh, (seq_len + G::rows - 1) / G::rows);
-  flash_tf32<T, D><<<grid, G::threads, G::smem, stream>>>(
+  kernel<<<grid, G::threads, G::smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), seq_len, group, causal,
-      scale, window);
+      static_cast<const T*>(v), static_cast<T*>(out), ld, seq_len, group,
+      causal, scale, window);
   return cudaGetLastError();
 }
 
-// float32 at every head dim: flash_tf32
-cudaError_t launch_f32(int head_dim, const void* q, const void* k,
-                       const void* v, void* out, int bh, int seq_len,
-                       int group, int causal, float scale, int window,
-                       cudaStream_t stream) {
+// float32 at every head dim: flash_tf32 at a compiled width, else
+// flash_tf32_any at the smallest of 32, 64, 128, 256 above ld (ops.py
+// width)
+cudaError_t launch_f32(int ld, const void* q, const void* k, const void* v,
+                       void* out, int bh, int seq_len, int group, int causal,
+                       float scale, int window, cudaStream_t stream) {
   using T = float;
-  switch (head_dim) {
-    case 32:
-      return launch_tf32<T, 32>(q, k, v, out, bh, seq_len, group, causal,
-                                scale, window, stream);
-    case 64:
-      return launch_tf32<T, 64>(q, k, v, out, bh, seq_len, group, causal,
-                                scale, window, stream);
-    case 80:
-      return launch_tf32<T, 80>(q, k, v, out, bh, seq_len, group, causal,
-                                scale, window, stream);
-    case 120:
-      return launch_tf32<T, 120>(q, k, v, out, bh, seq_len, group, causal,
-                                 scale, window, stream);
-    case 128:
-      return launch_tf32<T, 128>(q, k, v, out, bh, seq_len, group, causal,
-                                 scale, window, stream);
-    case 256:
-      return launch_tf32<T, 256>(q, k, v, out, bh, seq_len, group, causal,
-                                 scale, window, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  auto go = ld == 32    ? launch_tf32<T, 32, false>
+            : ld == 64  ? launch_tf32<T, 64, false>
+            : ld == 80  ? launch_tf32<T, 80, false>
+            : ld == 120 ? launch_tf32<T, 120, false>
+            : ld == 128 ? launch_tf32<T, 128, false>
+            : ld == 256 ? launch_tf32<T, 256, false>
+            : ld < 32   ? launch_tf32<T, 32, true>
+            : ld < 64   ? launch_tf32<T, 64, true>
+            : ld < 128  ? launch_tf32<T, 128, true>
+                        : launch_tf32<T, 256, true>;
+  return go(q, k, v, out, ld, bh, seq_len, group, causal, scale, window, stream);
 }
 
-// flash_wgmma<D>: the overlapped schedule at D = 64, the one within a
+// flash_wgmma<T, D>: the overlapped schedule at D = 64, the one within a
 // warpgroup at D = 256 (consume_wide), the serial one at 80, 120 and 128
 // (see consume).  The D = 64 and D = 256 softmaxes take their maxima over
 // the unscaled scores, so there only scale > 0 is computed and any other
 // scale is refused here (NaN included).  The wrapper
 // handles the sign (flash_attention/ops.py, positive_scale): it launches
 // a negative scale as -q with |scale|, and scale 0 as a zero q with scale
-// 1, which give the same scaled scores.
-template <int D>
+// 1, which give the same scaled scores.  Rows are ld <= D elements (a
+// multiple of 8; exactly D unless kAny); TMA fills the columns past ld with
+// zeros.
+template <typename T, int D, bool kAny>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                         int bh, int seq_len, int group, int causal,
+                         int ld, int bh, int seq_len, int group, int causal,
                          float scale, int window, cudaStream_t stream) {
   static_assert(D % 8 == 0 && D >= kHalf && (D <= kWCols || D == kWideCols),
                 "rows of 16-byte multiples that fill at least one span");
   if constexpr (D == kHalf || D == kWideCols)
     if (!(scale > 0.0f)) return cudaErrorInvalidValue;
+  auto kernel = wgmma_kernel<T, D, kAny>();
   static bool configured = false;  // the attribute is per function
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        WGeo<D>::smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WGeo<D>::smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
+  const CUtensorMapDataType type =
+      kIsHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tq, tk, tv;
-  if (make_map(&tq, q, bh, seq_len, D, kWBQ) != CUDA_SUCCESS ||
-      make_map(&tk, k, bh / group, seq_len, D, WGeo<D>::keys) != CUDA_SUCCESS ||
-      make_map(&tv, v, bh / group, seq_len, D, WGeo<D>::keys) != CUDA_SUCCESS)
+  if (ld % 8 != 0 || ld > D || (!kAny && ld != D) ||
+      make_map(&tq, q, bh, seq_len, ld, kWBQ, type) != CUDA_SUCCESS ||
+      make_map(&tk, k, bh / group, seq_len, ld, WGeo<D>::keys, type) != CUDA_SUCCESS ||
+      make_map(&tv, v, bh / group, seq_len, ld, WGeo<D>::keys, type) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   const dim3 grid(bh, (seq_len + kWBQ - 1) / kWBQ);
-  flash_wgmma<D><<<grid, WGeo<D>::threads, WGeo<D>::smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), seq_len, group, causal,
+  kernel<<<grid, WGeo<D>::threads, WGeo<D>::smem, stream>>>(
+      tq, tk, tv, static_cast<T*>(out), ld, seq_len, group, causal,
       scale * kLog2e, window);
   return cudaGetLastError();
 }
 
-// bfloat16: flash_wgmma at the ported configs' head dims, flash_tf32 at 32
-cudaError_t launch_bf16(int head_dim, const void* q, const void* k,
-                        const void* v, void* out, int bh, int seq_len,
-                        int group, int causal, float scale, int window,
-                        cudaStream_t stream) {
-  using T = __nv_bfloat16;
-  switch (head_dim) {
-    case 32:
-      return launch_tf32<T, 32>(q, k, v, out, bh, seq_len, group, causal,
-                                scale, window, stream);
-    case 64:
-      return launch_wgmma<64>(q, k, v, out, bh, seq_len, group, causal, scale,
-                              window, stream);
-    case 80:
-      return launch_wgmma<80>(q, k, v, out, bh, seq_len, group, causal, scale,
-                              window, stream);
-    case 120:
-      return launch_wgmma<120>(q, k, v, out, bh, seq_len, group, causal,
-                               scale, window, stream);
-    case 128:
-      return launch_wgmma<128>(q, k, v, out, bh, seq_len, group, causal,
-                               scale, window, stream);
-    case 256:
-      return launch_wgmma<256>(q, k, v, out, bh, seq_len, group, causal,
-                               scale, window, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+// bfloat16 and float16: flash_tf32 up to 32 columns, flash_wgmma above;
+// at a compiled width the kernel of that width, else the _any kernel at the
+// smallest of 32, 64, 128, 256 above ld (ops.py width)
+template <typename T>
+cudaError_t launch_16bit(int ld, const void* q, const void* k, const void* v,
+                         void* out, int bh, int seq_len, int group, int causal,
+                         float scale, int window, cudaStream_t stream) {
+  auto go = ld == 32    ? launch_tf32<T, 32, false>
+            : ld == 64  ? launch_wgmma<T, 64, false>
+            : ld == 80  ? launch_wgmma<T, 80, false>
+            : ld == 120 ? launch_wgmma<T, 120, false>
+            : ld == 128 ? launch_wgmma<T, 128, false>
+            : ld == 256 ? launch_wgmma<T, 256, false>
+            : ld < 32   ? launch_tf32<T, 32, true>
+            : ld < 64   ? launch_wgmma<T, 64, true>
+            : ld < 128  ? launch_wgmma<T, 128, true>
+                        : launch_wgmma<T, 256, true>;
+  return go(q, k, v, out, ld, bh, seq_len, group, causal, scale, window, stream);
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
-// success).  Does not synchronise.  dtype: 0 float32, 1 bfloat16.
-// head_dim: 32, 64, 80, 120, 128 or 256.  window <= 0 means no window.  q
-// and out hold bh * seq_len * head_dim elements, k and v bh / group times
-// that.  bfloat16 at head_dim 64, 80, 120, 128 and 256 runs flash_wgmma;
-// float32, and bfloat16 at 32, run flash_tf32.  bfloat16 at 64 and 256
+// success).  Does not synchronise.  dtype: 0 float32, 1 bfloat16, 2
+// float16; any other code is refused.  head_dim: the row length ld, 1 to
+// 256, with ld * element bytes a multiple of 16 (the wrapper pads other
+// rows with zero columns).  window <= 0 means no window.  q and out hold
+// bh * seq_len * ld elements, k and v bh / group times that.  A call runs
+// the smallest compiled width D >= ld: float32 flash_tf32 at every width
+// (32, 64, 80, 120, 128, 256); bfloat16 and float16 flash_tf32 at 32 and
+// flash_wgmma at 64, 80, 120, 128 and 256.  flash_wgmma at 64 and 256
 // takes only scale > 0 (cudaErrorInvalidValue otherwise; the wrapper
 // rewrites the others).
 extern "C" int flash_attention_launch(int device, int dtype, int head_dim,
@@ -1602,10 +1776,14 @@ extern "C" int flash_attention_launch(int device, int dtype, int head_dim,
   if (err != cudaSuccess) return (int)err;
   cudaGetLastError();  // clear a stale error from an earlier call
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = dtype == 0 ? launch_f32(head_dim, q, k, v, out, bh, seq_len, group,
-                                causal, scale, window, s)
-                   : launch_bf16(head_dim, q, k, v, out, bh, seq_len, group,
-                                 causal, scale, window, s);
+  const int elem = dtype == 0 ? 4 : 2;
+  if (dtype < 0 || dtype > 2 || head_dim < 1 || head_dim > 256 ||
+      head_dim * elem % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  auto go = dtype == 0   ? launch_f32
+            : dtype == 1 ? launch_16bit<__nv_bfloat16>
+                         : launch_16bit<__half>;
+  err = go(head_dim, q, k, v, out, bh, seq_len, group, causal, scale, window, s);
   return (int)err;
 }
 

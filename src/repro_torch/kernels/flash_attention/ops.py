@@ -22,27 +22,39 @@ SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
 
-#: head widths the kernel is instantiated for: the ported configs' (yi-6b
-#: and granite-34b 128, qwen3-32b 80, h2o-danube-3-4b 120, musicgen-medium
-#: 64, recurrentgemma-9b 256), and 32
+#: head widths the kernels are compiled for, rows of exactly that many
+#: elements: the ported configs' (yi-6b and granite-34b 128, qwen3-32b 80,
+#: h2o-danube-3-4b 120, musicgen-medium 64, recurrentgemma-9b 256), and 32
 HEAD_DIMS = (32, 64, 80, 120, 128, 256)
 
-#: bfloat16 head dims that run ``flash_wgmma`` (wgmma + TMA; at 64 the
-#: softmax overlaps the tensor cores, at 256 the key tiles are 64 rows);
-#: float32 at every head dim and bfloat16 at 32 run ``flash_tf32``
-#: (mma.sync on TF32 tensor cores, float32 operands split into hi + lo).
-#: ``launch_f32`` and ``launch_bf16`` in the source dispatch the same way.
+#: widths of the ``_any`` kernels, which take rows of any length up to the
+#: width (the columns past it zeros): a row that is none of HEAD_DIMS runs
+#: the smallest of them at or above it (``width``)
+ANY_WIDTHS = (32, 64, 128, 256)
+
+#: the widest head dim the kernels take; wider ones need q.k tiled across
+#: D (ROADMAP.md section 3)
+MAX_HEAD_DIM = 256
+
+#: bfloat16 and float16 widths that run ``flash_wgmma`` (wgmma + TMA; at 64
+#: the softmax overlaps the tensor cores, at 256 the key tiles are 64
+#: rows); float32 at every width and bf16 and float16 at 32 run
+#: ``flash_tf32`` (mma.sync on TF32 tensor cores, float32 operands split
+#: into hi + lo).  ``launch_f32`` and ``launch_16bit`` in the source
+#: dispatch the same way.
 WGMMA_HEAD_DIMS = (64, 80, 120, 128, 256)
 
-#: bf16 head dims whose kernel takes its softmax maxima over the unscaled
-#: scores, so computes only scale > 0 (the wrapper rewrites the others,
-#: ``positive_scale``): flash_wgmma<64> and flash_wgmma<256>
+#: bf16 and float16 widths whose kernel takes its softmax maxima over the
+#: unscaled scores, so computes only scale > 0 (the wrapper rewrites the
+#: others, ``positive_scale``): flash_wgmma at 64 and 256
 POSITIVE_SCALE_DIMS = (64, 256)
 
 #: kernel launches made through this wrapper (CUDA tensors only)
 LAUNCHES = 0
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the library's dtype codes; it refuses any other
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 _lib = None
 #: guards the launch count: launches may come from several threads
 _lock = threading.Lock()
@@ -71,11 +83,35 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def row_elems(dtype: torch.dtype, head_dim: int) -> int:
+    """The row the kernel reads at ``head_dim``: a whole number of 16-byte
+    pieces (TMA and the 16-byte copies), ``head_dim`` itself where it is
+    one already, else ``head_dim`` padded with zero columns."""
+    per = 16 // dtype.itemsize
+    return -(-head_dim // per) * per
+
+
+def width(dtype: torch.dtype, head_dim: int) -> int:
+    """The compiled width a call at ``head_dim`` runs: its row
+    (``row_elems``) where that is one of HEAD_DIMS, else the smallest of
+    ANY_WIDTHS at or above it."""
+    ld = row_elems(dtype, head_dim)
+    return ld if ld in HEAD_DIMS else next(w for w in ANY_WIDTHS if w >= ld)
+
+
 def kernel_name(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernel a launch at ``dtype`` and ``head_dim`` runs."""
-    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+    if dtype != torch.float32 and width(dtype, head_dim) in WGMMA_HEAD_DIMS:
         return "flash_wgmma"
     return "flash_tf32"
+
+
+def kernel_label(dtype: torch.dtype, head_dim: int) -> str:
+    """The instantiation a launch runs, named as ptxas's report names it
+    (``flash_wgmma<bf16, 128>``, ``flash_tf32<f16, 32>``,
+    ``flash_wgmma_any<bf16, 128>`` at head dim 96)."""
+    any_ = "" if row_elems(dtype, head_dim) in HEAD_DIMS else "_any"
+    return f"{kernel_name(dtype, head_dim)}{any_}<{_SHORT[dtype]}, {width(dtype, head_dim)}>"
 
 
 def positive_scale(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
@@ -83,12 +119,12 @@ def positive_scale(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
     scale'`` equal ``q . k * scale`` for every k, for ``flash_wgmma`` at
     POSITIVE_SCALE_DIMS, whose softmax takes its maxima over the unscaled
     scores: a negative
-    scale as ``-q`` and ``|scale|`` (negation is exact in bf16), scale 0
-    as a zero q and scale 1 (every score exactly 0, as the reference's
-    ``(q * 0) . k``).  NaN is refused."""
+    scale as ``-q`` and ``|scale|`` (negation is exact in bf16 and float16),
+    scale 0 as a zero q and scale 1 (every score exactly 0, as the
+    reference's ``(q * 0) . k``).  NaN is refused."""
     if math.isnan(scale):
-        raise ValueError(f"bfloat16 at head dims {POSITIVE_SCALE_DIMS} takes a finite "
-                         f"scale, got {scale}")
+        raise ValueError(f"bfloat16 and float16 at widths {POSITIVE_SCALE_DIMS} take a "
+                         f"finite scale, got {scale}")
     if scale > 0:
         return q, scale
     if scale < 0:
@@ -105,9 +141,10 @@ def _check_cuda(q, k, v, window) -> None:
     if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
+        raise TypeError(f"the kernel takes float32, bfloat16 or float16, got {q.dtype}")
+    if not 1 <= q.shape[-1] <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {q.shape[-1]} is outside 1 .. {MAX_HEAD_DIM}: wider "
+                         f"heads need q.k tiled across D (ROADMAP.md section 3)")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
 
@@ -124,8 +161,12 @@ def flash_attention(
     block_k: int = DEFAULT_BLOCK_K,
 ) -> torch.Tensor:
     """Causal, non-causal or sliding-window GQA attention; (B, H, S, D)
-    in q's dtype.  CUDA tensors launch the kernel on the current stream
-    without synchronising; CPU tensors take the plain version."""
+    in q's dtype, float32, bfloat16 or float16, any D from 1 to
+    MAX_HEAD_DIM.  CUDA tensors launch the kernel on the current stream
+    without synchronising (rows whose bytes are not a multiple of 16 are
+    padded with zero columns first, ``row_elems``); CPU tensors take the
+    plain version.  ``scale`` defaults to ``1 / sqrt(D)`` of the unpadded
+    D."""
     b, h, s, d = q.shape
     hkv = k.shape[1]
     if h % hkv:
@@ -139,23 +180,36 @@ def flash_attention(
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda(q, k, v, window)
-    if kernel_name(q.dtype, d) == "flash_wgmma" and d in POSITIVE_SCALE_DIMS:
+    if kernel_name(q.dtype, d) == "flash_wgmma" and width(q.dtype, d) in POSITIVE_SCALE_DIMS:
         q, scale = positive_scale(q, float(scale))
-    lib = load()
-    qf = q.reshape(b * h, s, d).contiguous()
-    kf = k.reshape(b * hkv, s, d).contiguous()
-    vf = v.reshape(b * hkv, s, d).contiguous()
+    dev, stream = device_and_stream(q)
+    out = _launch(load(), q, k, v, causal=causal, scale=float(scale), window=window,
+                  device=dev, stream=stream)
+    _count_launch()
+    return out
+
+
+def _launch(lib, q, k, v, *, causal, scale, window, device, stream):
+    """Pad rows to ``row_elems`` where needed, allocate the output and
+    launch on ``stream``; the output is (B, H, S, D), its padding cut off."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    ld = row_elems(q.dtype, d)
+    qf = q.reshape(b * h, s, d)
+    kf = k.reshape(b * hkv, s, d)
+    vf = v.reshape(b * hkv, s, d)
+    if ld != d:  # zero columns add exact zeros to q.k and are cut from out
+        qf, kf, vf = (torch.nn.functional.pad(t, (0, ld - d)) for t in (qf, kf, vf))
+    qf, kf, vf = qf.contiguous(), kf.contiguous(), vf.contiguous()
     if (qf.data_ptr() | kf.data_ptr() | vf.data_ptr()) % 16:
         raise ValueError("q, k and v must start on a 16-byte boundary")
     out = torch.empty_like(qf)
-    dev, stream = device_and_stream(q)
     code = lib.flash_attention_launch(
-        dev, _DTYPES[q.dtype], d, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
-        out.data_ptr(), b * h, s, h // hkv, int(causal), float(scale),
-        window or 0, stream,
+        device, _DTYPES[q.dtype], ld, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+        out.data_ptr(), b * h, s, h // hkv, int(causal), scale, window or 0, stream,
     )
     if code != 0:
         msg = lib.flash_attention_error_string(code).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({code})")
-    _count_launch()
-    return out.reshape(b, h, s, d)
+    out = out.reshape(b, h, s, ld)
+    return out if ld == d else out[..., :d].contiguous()

@@ -5,7 +5,7 @@
 // `filt <op> threshold` (compared in float32) and whose key lies in
 // [0, num_groups), adds the value (as float32) to its group's sum and one
 // to its group's count.  Keys outside that range, -1 included, contribute
-// nothing.  Outputs: sums f32[G] and counts f32[G], G <= 1024.
+// nothing.  Outputs: sums f32[G] and counts f32[G], for any G >= 1.
 //
 // What bounds it: memory.  Each row is read once: a 4-byte key, a 4-byte
 // value and a 4-byte filter value, 12 B a row.  At the query path's 2.8 M
@@ -48,8 +48,25 @@
 // lane values and 3 KB for the last block's slices: 8.2 KB at G = 64,
 // 69.6 KB at G = 1024.  Above 48 KB a launch needs the dynamic
 // shared-memory opt-in (cudaFuncSetAttribute), set once per instantiation
-// for G = 1024; the card allows a block 227 KB.  G <= 1024 is the cap of
-// engine/route.py's DEFAULT_MAX_GROUPS.
+// for the largest window (below); the card allows a block 227 KB.
+//
+// More than 1,024 groups (kMaxGroups, the cap of engine/route.py's
+// DEFAULT_MAX_GROUPS; a caller may raise it): group windows over the grid.
+// The G groups are cut into W = ceil(G / kWindow) windows of at most
+// kWindow = 3,072 groups (bins of 196 KB), as even as they go, and the
+// launch has P x W blocks, window fastest, so the W blocks that read the
+// same rows run side by side and all but the first read them from L2.
+// Block (p, w) walks row block p exactly as above, keeps only the keys of
+// window w in its warps' bins, and writes its groups' slice of partial p.
+// A second launch (merge_partials, a thread a group) then adds the P
+// partials in block order.  P shrinks with G (ops.py grid(): P x G at
+// most 2^22 partial entries, 32 MB), so the partials stay within the
+// rows' bytes at the query path's sizes.  The promises hold: counts are
+// summed as integers, every float sum is taken in an order fixed by
+// (n, G), there are no atomics on sums or counts, and there is no ticket.
+// Two launches were chosen over one block-wide bin set with the warps in
+// turn: that set holds at most 28 K groups in 227 KB, so large G needs
+// windows anyway, and the turns would serialise the warps on every row.
 
 #include <cuda_runtime.h>
 
@@ -59,7 +76,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kQuads = 2;                            // per thread and tile
 constexpr int kTileRows = kThreads * 4 * kQuads;     // 2048
-constexpr int kMaxGroups = 1024;
+constexpr int kMaxGroups = 1024;                 // one launch, merged by ticket
+constexpr int kWindow = 3072;                    // most groups a block bins
 
 enum Op { kGe = 0, kGt = 1, kLe = 2, kLt = 3, kEq = 4, kNe = 5 };
 
@@ -108,7 +126,7 @@ __global__ void __launch_bounds__(kThreads)
                             const V* __restrict__ vals,
                             const F* __restrict__ filt, long long n,
                             long long rows_per_block, int op, float threshold,
-                            int num_groups, int aligned,
+                            int num_groups, int windows, int aligned,
                             float* __restrict__ part_sums,
                             int* __restrict__ part_counts,
                             unsigned int* __restrict__ ticket,
@@ -118,7 +136,10 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float slice_sum[kThreads];
   __shared__ long long slice_count[kThreads];
   __shared__ bool is_last;
-  const int G = num_groups;
+  // this block's rows (row block pb) and groups (window win: [g0, g0 + G))
+  const int pb = blockIdx.x / windows, win = blockIdx.x % windows;
+  const int g0 = (int)((long long)num_groups * win / windows);
+  const int G = (int)((long long)num_groups * (win + 1) / windows) - g0;
   float* bin_sum = reinterpret_cast<float*>(smem);  // [kWarps][G]
   int* bin_count = reinterpret_cast<int*>(bin_sum + kWarps * G);
   float* lane_val = reinterpret_cast<float*>(bin_count + kWarps * G);
@@ -134,7 +155,7 @@ __global__ void __launch_bounds__(kThreads)
   float* wval = lane_val + warp * 32;
 
   const bool vk = aligned & 1, vv = aligned & 2, vf = aligned & 4;
-  const long long begin = (long long)blockIdx.x * rows_per_block;
+  const long long begin = (long long)pb * rows_per_block;
   const long long end = min(n, begin + rows_per_block);
   for (long long base = begin; base < end; base += kTileRows) {
     int k[kQuads][4];
@@ -151,7 +172,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int qd = 0; qd < kQuads; ++qd) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int kj = k[qd][j];
+        const int kj = k[qd][j] - g0;
         const bool keep =
             passes(to_f32(f[qd][j]), op, threshold) && kj >= 0 && kj < G;
         const int key = keep ? kj : -1;
@@ -180,9 +201,10 @@ __global__ void __launch_bounds__(kThreads)
       s += bin_sum[w * G + g];
       c += bin_count[w * G + g];
     }
-    part_sums[(size_t)blockIdx.x * G + g] = s;
-    part_counts[(size_t)blockIdx.x * G + g] = c;
+    part_sums[(size_t)pb * num_groups + g0 + g] = s;
+    part_counts[(size_t)pb * num_groups + g0 + g] = c;
   }
+  if (num_groups > kMaxGroups) return;  // merge_partials adds the partials
   __threadfence();  // the partial is visible to every block before the ticket
   __syncthreads();
   if (threadIdx.x == 0) is_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
@@ -227,6 +249,31 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) *ticket = 0;  // ready for the next call on this stream
 }
 
+// More than kMaxGroups groups: sums[g] and counts[g] over the P partials
+// in block order, a thread a group (neighbouring threads on neighbouring
+// groups of a partial).
+__global__ void __launch_bounds__(kThreads)
+    merge_partials(const float* __restrict__ part_sums,
+                   const int* __restrict__ part_counts, int num_blocks,
+                   int num_groups, float* __restrict__ sums,
+                   float* __restrict__ counts) {
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  if (g >= num_groups) return;
+  float s = 0.0f;
+  long long c = 0;
+#pragma unroll 8
+  for (int p = 0; p < num_blocks; ++p) {
+    s += part_sums[(size_t)p * num_groups + g];
+    c += part_counts[(size_t)p * num_groups + g];
+  }
+  sums[g] = s;
+  counts[g] = (float)c;
+}
+
+// Windows of the groups: the fewest of at most kWindow groups each
+// (ops.py windows()), so one up to kWindow groups.
+int group_windows(int num_groups) { return (num_groups + kWindow - 1) / kWindow; }
+
 template <typename V, typename F>
 cudaError_t launch(const void* keys, const void* vals, const void* filt,
                    long long n, long long rows_per_block, int op,
@@ -239,15 +286,22 @@ cudaError_t launch(const void* keys, const void* vals, const void* filt,
     cudaError_t err = cudaFuncSetAttribute(
         fused_filter_agg_kernel<V, F>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)dynamic_smem(kMaxGroups));
+        (int)dynamic_smem(kWindow));
     if (err != cudaSuccess) return err;
     configured = true;
   }
+  const int windows = group_windows(num_groups);
+  const int widest = (num_groups + windows - 1) / windows;
   fused_filter_agg_kernel<V, F>
-      <<<num_blocks, kThreads, dynamic_smem(num_groups), stream>>>(
+      <<<num_blocks * windows, kThreads, dynamic_smem(widest), stream>>>(
           static_cast<const int*>(keys), static_cast<const V*>(vals),
           static_cast<const F*>(filt), n, rows_per_block, op, threshold,
-          num_groups, aligned, part_sums, part_counts, ticket, sums, counts);
+          num_groups, windows, aligned, part_sums, part_counts, ticket, sums,
+          counts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || num_groups <= kMaxGroups) return err;
+  merge_partials<<<(num_groups + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      part_sums, part_counts, num_blocks, num_groups, sums, counts);
   return cudaGetLastError();
 }
 
@@ -256,10 +310,10 @@ cudaError_t launch(const void* keys, const void* vals, const void* filt,
 // Rows per tile; the Python wrapper reads it to size the grid.
 extern "C" int fused_filter_agg_tile_rows() { return kTileRows; }
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 on
-// success).  Does not synchronise.  `vals_is_int` / `filt_is_int` select
+// Launches the kernel on `stream` (and merge_partials above 1024 groups)
+// and returns cudaGetLastError() (0 on success).  Does not synchronise.  `vals_is_int` / `filt_is_int` select
 // int32 instead of float32 inputs; bit 0, 1, 2 of `aligned` say that keys,
-// vals, filt start on a 16-byte boundary.  num_groups must be in [1, 1024];
+// vals, filt start on a 16-byte boundary.  num_groups must be positive;
 // rows_per_block a multiple of the tile rows.  part_sums / part_counts hold
 // num_blocks * num_groups entries; `ticket` is one unsigned int that is 0
 // before the call and is 0 again after it.
@@ -272,7 +326,7 @@ extern "C" int fused_filter_agg_launch(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaGetLastError();  // clear a stale error from an earlier call
-  if (num_groups < 1 || num_groups > kMaxGroups || num_blocks < 1 ||
+  if (num_groups < 1 || num_blocks < 1 ||
       rows_per_block % kTileRows != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -14,13 +14,21 @@ from repro_torch.kernels.fused_filter_agg.ref import _OPS, fused_filter_agg_ref
 SOURCE = Path(__file__).parent / "csrc" / "fused_filter_agg.cu"
 
 #: each of a block's 8 warps keeps a (sum, count) bin a group in shared
-#: memory, 64 KB at 1024 groups; engine/route.py caps G at this
+#: memory, 64 KB at 1024 groups; up to this many groups the kernel is one
+#: launch whose last block merges (engine/route.py's default cap)
 MAX_GROUPS = 1024
 
-#: rows a block covers, before the cap on the number of blocks; the cap
-#: bounds the partials the last block adds (P x G)
+#: the groups are cut into windows of at most this many, one block per
+#: (row block, window) (the kernel's kWindow); above MAX_GROUPS a second
+#: launch merges the blocks' partials
+WINDOW = 3072
+
+#: rows a block covers, before the caps on the number of blocks; the caps
+#: bound the partials that are merged (P x G)
 ROWS_PER_BLOCK = 8192
 MAX_BLOCKS = 1024
+#: most partial entries (P x G) a launch writes: 32 MB of sums and counts
+MAX_PARTIALS = 1 << 22
 
 #: kernel launches made through this wrapper (CUDA tensors only), counted
 #: under ``_lock``: pipeline stages launch from executor threads
@@ -53,23 +61,33 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def grid(n: int, tile_rows: int) -> Tuple[int, int]:
-    """``(blocks, rows_per_block)`` for ``n`` rows: a function of ``n``
-    alone, so float sums are the same on every run and every card; rows a
+def grid(n: int, tile_rows: int, num_groups: int = 1) -> Tuple[int, int]:
+    """``(blocks, rows_per_block)`` for ``n`` rows and ``num_groups``: a
+    function of ``(n, G)`` alone, and of ``n`` alone up to 4096 groups,
+    so float sums are the same on every run and every card; rows a
     multiple of the kernel's tile, so every block starts on a 16-byte
-    boundary of an aligned column."""
-    blocks = max(1, min(MAX_BLOCKS, -(-n // ROWS_PER_BLOCK)))
+    boundary of an aligned column.  Blocks are at most MAX_PARTIALS / G."""
+    cap = min(MAX_BLOCKS, max(1, MAX_PARTIALS // max(num_groups, 1)))
+    blocks = max(1, min(cap, -(-n // ROWS_PER_BLOCK)))
     rows = -(-max(n, 1) // blocks)
     rows = -(-rows // tile_rows) * tile_rows
     return max(1, -(-n // rows)), rows
 
 
+def windows(num_groups: int) -> Tuple[int, int]:
+    """``(windows, widest)``: the group windows of a launch (the fewest
+    of at most WINDOW groups, as even as they go) and the most groups one
+    window holds."""
+    n = -(-num_groups // WINDOW)
+    return n, -(-num_groups // n)
+
+
 def smem_bytes(num_groups: int) -> int:
     """Shared memory a block of the kernel takes: dynamic, 8 warps' bins
-    (a float32 sum and an int32 count a group) and 32 lane values each;
-    static, the last block's 256 float32 and 256 int64 slice totals and a
-    flag."""
-    return 8 * num_groups * 8 + 8 * 32 * 4 + 256 * (4 + 8) + 1
+    (a float32 sum and an int32 count a group of its window) and 32 lane
+    values each; static, the last block's 256 float32 and 256 int64 slice
+    totals and a flag."""
+    return 8 * windows(num_groups)[1] * 8 + 8 * 32 * 4 + 256 * (4 + 8) + 1
 
 
 def _ticket(index: int, stream: int, device: torch.device) -> torch.Tensor:
@@ -121,10 +139,11 @@ def _check(keys, values, filter_vals, op: str, num_groups: int) -> None:
 
 
 def _launch(lib, keys, values, filter_vals, op, threshold, num_groups, *, index, stream):
-    """Allocate the blocks' partials and the outputs, and launch once on
-    ``stream``.  The tensors go to the kernel as they are."""
+    """Allocate the blocks' partials and the outputs, and launch on
+    ``stream`` (once; above MAX_GROUPS groups the library adds the merge
+    launch).  The tensors go to the kernel as they are."""
     n = keys.shape[0]
-    blocks, rows_per_block = grid(n, lib.fused_filter_agg_tile_rows())
+    blocks, rows_per_block = grid(n, lib.fused_filter_agg_tile_rows(), num_groups)
     dev = keys.device
     # the blocks' float32 sums, then their int32 counts; then the outputs
     parts = torch.empty(2 * blocks * num_groups, dtype=torch.int32, device=dev)
@@ -156,9 +175,10 @@ def fused_filter_agg(
 
     Returns ``(sums f32[num_groups], counts f32[num_groups])``.  Rows whose
     key lies outside ``[0, num_groups)`` contribute nothing.  CUDA tensors
-    launch the kernel once on the current stream without synchronising
-    (views that do not start on a 16-byte boundary included); CPU tensors
-    take the plain version.
+    launch the kernel on the current stream without synchronising (views
+    that do not start on a 16-byte boundary included; above MAX_GROUPS
+    groups a second launch merges the windows' partials); CPU tensors take
+    the plain version.
     """
     _check(keys, values, filter_vals, op, num_groups)
     if keys.device.type == "cpu":
@@ -168,10 +188,6 @@ def fused_filter_agg(
         )
     if keys.device.type != "cuda":
         raise ValueError(f"unsupported device {keys.device}")
-    if num_groups > MAX_GROUPS:
-        raise ValueError(
-            f"num_groups={num_groups} exceeds the kernel's {MAX_GROUPS}"
-        )
     index, stream = device_and_stream(keys)
     out = _launch(load(), keys, values, filter_vals, op, threshold, num_groups,
                   index=index, stream=stream)

@@ -283,28 +283,36 @@ def test_split_plan_of_the_wide_groups():
     assert decode_ops.split_plan(4096, 1, H100_SMS, 16, 256, torch.float32) == (64, 64)
 
 
+#: (dtype, group, head dim, kernel); the ids are those the cases had
+#: before the kernels took a type (decode_group<D, MT> for bf16 alone)
+DECODE_NAMES = [
+    (torch.bfloat16, 48, 128, "decode_group<bf16, 128, 3>", "decode_group<128, 3>"),
+    (torch.bfloat16, 24, 128, "decode_group<bf16, 128, 2>", "decode_group<128, 2>"),
+    (torch.bfloat16, 16, 256, "decode_group<bf16, 256, 1>", "decode_group<256, 1>"),
+    (torch.bfloat16, 64, 256, "decode_group<bf16, 256, 4>", "decode_group<256, 4>"),
+    (torch.bfloat16, 9, 80, "decode_group<bf16, 80, 1>", "decode_group<80, 1>"),
+    (torch.bfloat16, 8, 128, "decode_split<bf16, 128>", None),
+    (torch.bfloat16, 1, 64, "decode_split<bf16, 64>", None),
+    (torch.float32, 48, 128, "decode_split<f32, 128>", None),
+    (torch.float32, 16, 256, "decode_split<f32, 256>", None)]
+
+
 @pytest.mark.parametrize("dtype,group,d,name", [
-    (torch.bfloat16, 48, 128, "decode_group<128, 3>"),
-    (torch.bfloat16, 24, 128, "decode_group<128, 2>"),
-    (torch.bfloat16, 16, 256, "decode_group<256, 1>"),
-    (torch.bfloat16, 64, 256, "decode_group<256, 4>"),
-    (torch.bfloat16, 9, 80, "decode_group<80, 1>"),
-    (torch.bfloat16, 8, 128, "decode_split<bf16, 128>"),
-    (torch.bfloat16, 1, 64, "decode_split<bf16, 64>"),
-    (torch.float32, 48, 128, "decode_split<f32, 128>"),
-    (torch.float32, 16, 256, "decode_split<f32, 256>")])
+    pytest.param(dt, g, d, name, id=f"dtype{i}-{g}-{d}-{old or name}")
+    for i, (dt, g, d, name, old) in enumerate(DECODE_NAMES)])
 def test_decode_kernel_names_the_launched_kernel(dtype, group, d, name):
-    """decode_kernel follows the .cu's dispatch (bf16 groups above
-    kNarrowGroup to decode_group<D, MT>, MT = ceil(group / 16)), names the
-    kernel as chip_smoke's ptxas report does, and split_plan takes the
-    kernel's plan."""
+    """decode_kernel follows the .cu's dispatch (bf16 and float16 groups
+    above kNarrowGroup to decode_group<T, D, MT>, MT = ceil(slice / 16)),
+    names the kernel as chip_smoke's ptxas report does, and split_plan
+    takes the kernel's plan."""
     assert decode_ops.decode_kernel(dtype, group, d) == name
     # the Itanium mangling of the instantiation nvcc emits, as ptxas names it
-    args = (f"ILi{d}ELi{-(-group // 16)}E" if name.startswith("decode_group")
-            else f"I{'13__nv_bfloat16' if dtype == torch.bfloat16 else 'f'}Li{d}E")
+    typ = {torch.bfloat16: "13__nv_bfloat16", torch.float16: "6__half", torch.float32: "f"}
+    args = (f"I{typ[dtype]}Li{d}ELi{-(-group // 16)}E" if name.startswith("decode_group")
+            else f"I{typ[dtype]}Li{d}E")
     mangled = f"_ZN12_GLOBAL__N_112{name.split('<')[0]}{args}EEvPK13__nv_bfloat16"
     assert chip_smoke.kernel_label(mangled) == name
-    assert "const int mt = (group + 15) / 16;" in DECODE_CU
+    assert "const int mt = (slice + 15) / 16;" in DECODE_CU
     n_splits, chunk = decode_ops.split_plan(4096, 4, H100_SMS, group, d, dtype)
     wide = name.startswith("decode_group")
     assert chunk % (decode_ops.GROUP_ROWS if wide else decode_ops.CHUNK_ALIGN) == 0
@@ -397,14 +405,17 @@ def test_decode_wrapper_rejects_per_head_or_wide_lengths():
 @pytest.mark.parametrize("group,ok", [(1, True), (48, True), (decode_ops.MAX_GROUP, True),
                                       (decode_ops.MAX_GROUP * 2, False)])
 def test_decode_wrapper_group_limit(group, ok):
+    """Every group passes the wrapper; ``ok``: the group fits one block
+    (MAX_GROUP heads), else it is cut into slices of at most MAX_GROUP, a
+    block each (128: two of 64)."""
     q = torch.zeros((1, group, 32))
     k = torch.zeros((1, 1, 64, 32))
     lengths = torch.ones((1,), dtype=torch.int32)
-    if ok:
-        decode_ops._check_cuda(q, k, k, lengths)
-    else:
-        with pytest.raises(ValueError, match="q heads per kv head"):
-            decode_ops._check_cuda(q, k, k, lengths)
+    decode_ops._check_cuda(q, k, k, lengths)
+    n_slices, width = decode_ops.group_slices(group)
+    assert (n_slices == 1) == ok and width <= decode_ops.MAX_GROUP
+    if not ok:
+        assert (n_slices, width) == (2, 64)
 
 
 def test_decode_wrapper_at_granite_shape():

@@ -250,7 +250,7 @@ def test_flash_tf32_geometry(d):
                 words_read = {((2 * t + e) * geo["vs"] + g) // 2 for g in range(8)
                               for t in range(4)}
                 assert len(words_read) == len(banks)
-    assert f"launch_tf32<T, {d}>(" in FLASH_CU
+    assert f"launch_tf32<T, {d}, false>" in FLASH_CU
     assert flash_ops.kernel_name(torch.float32, d) == "flash_tf32"
 
 
@@ -260,7 +260,7 @@ def test_flash_tf32_dispatch_and_launch_bounds():
     below D = 256 and 4 at 256; three mma.sync products a float32 pair,
     two where b came from bf16."""
     assert flash_ops.kernel_name(torch.bfloat16, 32) == "flash_tf32"
-    assert "return launch_tf32<T, 32>(" in FLASH_CU.split("cudaError_t launch_bf16")[1]
+    assert "? launch_tf32<T, 32, false>" in FLASH_CU.split("cudaError_t launch_16bit")[1]
     assert "static constexpr int min_blocks = D <= 64 ? 2 : 1;" in FLASH_CU
     assert "__launch_bounds__(TGeo<T, D>::threads, TGeo<T, D>::min_blocks)" in FLASH_CU
     assert (cu_int("kTWarps"), cu_int("kTWideWarps"), cu_int("kTStages")) == (8, 4, 2)

@@ -242,10 +242,18 @@ def test_plan_is_a_function_of_n_alone(n):
 
 def test_shared_memory_fits_the_card_for_every_group_count():
     """8 warps x G x (sum, count) of bins, the lane values and the last
-    block's slices: within the 227 KB a block may use at every G <= 1024,
-    above the 48 KB that needs the opt-in only at large G."""
+    block's slices: within the 227 KB a block may use at every G, above
+    the 48 KB that needs the opt-in only at large G.  Up to MAX_GROUPS
+    (1024) the kernel is one launch with every group in a block's bins;
+    above it the bins hold one window of at most WINDOW groups, so any G
+    fits."""
     for G in range(1, ops.MAX_GROUPS + 1):
         assert ops.smem_bytes(G) <= 232_448
+        assert ops.windows(G) == (1, G)
+    for G in list(range(ops.MAX_GROUPS + 1, 4 * ops.WINDOW, 7)) + [65_536, 1_000_003]:
+        n, widest = ops.windows(G)
+        assert ops.smem_bytes(G) <= 232_448 and widest <= ops.WINDOW
+        assert (n - 1) * widest < G <= n * widest
     assert ops.smem_bytes(64) < 48 * 1024 < ops.smem_bytes(ops.MAX_GROUPS)
     assert ops.MAX_GROUPS == 1024
 

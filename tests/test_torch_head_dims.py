@@ -111,11 +111,18 @@ def test_the_new_head_dims_are_those_of_qwen3_and_danube():
 
 @pytest.mark.parametrize("d", [96, 112])
 def test_a_head_dim_no_config_needs_is_refused(d):
+    """Head dims 96 and 112 (no compiled width) are in the kernels' domain
+    now: both wrappers take them, on the ``_any`` kernels of width 128.  A
+    head dim past MAX_HEAD_DIM (d + 256) is the one refused."""
     q = torch.zeros((1, 2, 4, d))
+    flash_ops._check_cuda(q, q, q, None)
+    decode_ops._check_cuda(q[:, :, 0], q, q, torch.ones((1,), dtype=torch.int32))
+    assert flash_ops.width(torch.bfloat16, d) == decode_ops.width(d) == 128
+    wide = torch.zeros((1, 2, 4, d + 256))
     with pytest.raises(ValueError, match="head dim"):
-        flash_ops._check_cuda(q, q, q, None)
+        flash_ops._check_cuda(wide, wide, wide, None)
     with pytest.raises(ValueError, match="head dim"):
-        decode_ops._check_cuda(q[:, :, 0], q, q, torch.ones((1,), dtype=torch.int32))
+        decode_ops._check_cuda(wide[:, :, 0], wide, wide, torch.ones((1,), dtype=torch.int32))
 
 
 @pytest.mark.parametrize("scale", [0.0, -0.125, float("nan")])
@@ -313,9 +320,15 @@ def test_decode_group_constants_are_the_wrappers():
                  "const int a = (16 * (i / G::NT) + g) * G::PS + 16 * ks + 2 * t;",
                  "sPh[sh * G::PS + 4 * i + sj] = hi;",
                  "if (group > kNarrowGroup) {",
-                 "const int mt = (group + 15) / 16;"):
+                 "const int mt = (slice + 15) / 16;",
+                 "const int n_slices = (group + kMaxGroup - 1) / kMaxGroup;",
+                 "return (group + n_slices - 1) / n_slices;"):
         assert line in DECODE_CU, line
-    assert -(-decode_ops.MAX_GROUP // 16) == 4  # MT 1 .. 4 cover every group
+    # MT 1 .. 4 cover every slice, and a slice is at most MAX_GROUP heads
+    assert -(-decode_ops.MAX_GROUP // 16) == 4
+    for group in range(1, 1025):
+        n, width = decode_ops.group_slices(group)
+        assert width <= decode_ops.MAX_GROUP and (n - 1) * width < group <= n * width
 
 
 @pytest.mark.parametrize("d", decode_ops.HEAD_DIMS)
@@ -389,13 +402,15 @@ def cu_function(name: str) -> str:
 
 
 def route_dims(body: str, kernel: str):
-    return {int(d) for d in re.findall(rf"{kernel}<(?:T, )?(\d+)>", body)}
+    """The compiled widths ``body`` sends to ``kernel`` at rows of exactly
+    that width (its ``false`` instances; ``true`` is the _any kernel)."""
+    return {int(d) for d in re.findall(rf"{kernel}<(?:T, )?(\d+), false>", body)}
 
 
 def test_flash_route_table_is_the_sources():
     """(dtype, D) -> kernel in ops.kernel_name, as launch_f32 and
-    launch_bf16 of flash_attention.cu dispatch."""
-    f32, bf16 = cu_function("launch_f32"), cu_function("launch_bf16")
+    launch_16bit (bf16 and float16) of flash_attention.cu dispatch."""
+    f32, bf16 = cu_function("launch_f32"), cu_function("launch_16bit")
     assert route_dims(f32, "launch_tf32") == set(flash_ops.HEAD_DIMS)
     assert route_dims(f32, "launch_wgmma") == set()
     assert route_dims(bf16, "launch_wgmma") == set(flash_ops.WGMMA_HEAD_DIMS)
@@ -405,11 +420,12 @@ def test_flash_route_table_is_the_sources():
         assert flash_ops.kernel_name(torch.float32, d) == "flash_tf32"
         want = "flash_wgmma" if d in flash_ops.WGMMA_HEAD_DIMS else "flash_tf32"
         assert flash_ops.kernel_name(torch.bfloat16, d) == want
+        assert flash_ops.kernel_name(torch.float16, d) == want
     # bf16 at 64 (musicgen-medium) is on wgmma; bf16 at 32 and float32 at
     # every head dim run the split-TF32 mma.sync kernel; the CUDA-core
     # flash_fwd is gone
     assert flash_ops.kernel_name(torch.bfloat16, 64) == "flash_wgmma"
-    assert "launch_wgmma<64>(" in bf16 and "launch_tf32<T, 64>(" not in bf16
+    assert "launch_wgmma<T, 64, false>" in bf16 and "launch_tf32<T, 64, " not in bf16
     assert flash_ops.kernel_name(torch.bfloat16, 32) == "flash_tf32"
     assert "flash_fwd" not in FLASH_CU
     # every ported config that calls the kernels computes in bf16, on the
@@ -538,11 +554,11 @@ def test_flash_wgmma_geometry_at_256():
     assert span == keys * half * 2 == 8 * 1024
     assert c["kWideTileBytes"] == boxes * span == 32 * 1024
     assert c["kWideQBytes"] == boxes * c["kHalfBytes"] == 64 * 1024
-    assert "make_map(&tk, k, bh / group, seq_len, D, WGeo<D>::keys)" in FLASH_CU
-    assert "make_map(&tq, q, bh, seq_len, D, kWBQ)" in FLASH_CU
+    assert "make_map(&tk, k, bh / group, seq_len, ld, WGeo<D>::keys, type)" in FLASH_CU
+    assert "make_map(&tq, q, bh, seq_len, ld, kWBQ, type)" in FLASH_CU
     assert "tma_load(ring + s * T + h * SP, map, full + 8 * s, h * kHalf, (lo + it) * KB, kvh);" \
         in FLASH_CU
-    assert "tma_load(sQ + h * kHalfBytes, &tm_q" in FLASH_CU
+    assert "tma_load(sQ + h * kHalfBytes, tm_q" in FLASH_CU
     # the ring: two stages, 197 KB with q, 1 KB slack, the barriers (q; k
     # landed, v landed, read a stage) and a refill counter a stage; three
     # stages would not fit
@@ -615,7 +631,7 @@ def test_flash_tf32_float32_shared_memory_at_256():
                  "rows * qs * 4 + kTStages * keys * (ks + vs) * (int)sizeof(T);",
                  "static constexpr int keys = wide ? kTWideKeys : kTKeys;"):
         assert line in FLASH_CU
-    assert "launch_tf32<T, 256>(" in cu_function("launch_f32")
+    assert "launch_tf32<T, 256, false>" in cu_function("launch_f32")
 
 
 def overlapped_turns(n_iter):

@@ -3,11 +3,12 @@
 
 At scale 0 every score is 0 and every p exactly 1, so the output is the
 mean of v over the visible keys. The chunked bf16 route, the yardstick of
-``chip_smoke.flash_bf16_close``, then equals the plain version exactly, and
-the rule (largest and mean |kernel - plain| within twice the route's, plus
-1e-5) asks the kernel's float32 sums on the tensor cores to round to the
-same bf16 as the plain version's. Where they round one ulp apart, the case
-fails although the kernel is as exact as its sums allow.
+``chip_smoke.flash_bf16_close``, then equals the plain version exactly.
+Twice its error, 0, would ask the kernel's float32 sums on the tensor cores
+to round to the same bf16 as the plain version's, though the two sum in
+another order; so where the route's error is exactly 0 the rule holds the
+kernel to one bf16 ulp plus 1e-5, as every other bf16 kernel is held. The
+probe counts the cases that miss the rule as ``flash_bf16_close`` has it.
 
 Run from the root of a checkout on a machine with one NVIDIA GPU and the
 CUDA toolkit::
