@@ -133,11 +133,17 @@ Phases, each of which fails the script (non-zero exit) on any error:
    96, 100, 250) in all three dtypes in both kernels (flash at S in {512,
    200}; decode at 32/4 and 16/1, S = 1024); decode groups 71 and 128 (one
    block a slice of at most 64 heads) at D = 64 and 128 in all three
-   dtypes, B = 4, S = 4096 at lengths 1, S-1, S, 0 and the chunk edges; and
-   ``fused_filter_agg`` at 1025, 4096 and 65536 groups over Q2's rows (its
-   own keys and keys over [-1, G], its values and float ones): counts
-   exact, sums within 1e-5 sum|v| of float64 (integer ones exact), repeat
-   launches bitwise equal;
+   dtypes, B = 4, S = 4096 at lengths 1, S-1, S, 0 and the chunk edges;
+   ``fused_filter_agg`` at 1025, 4096, 65536 and 262144 groups over Q2's
+   rows (its own keys and keys over [-1, G], its values and float ones):
+   counts exact, sums within 1e-5 sum|v| of float64 (integer ones exact),
+   repeat launches bitwise equal; and (a generator of their own, SEED + 3)
+   head dims WIDE_DIMS (257 to 1024: ``flash_tf32_wide`` and
+   ``decode_wide``) in all three dtypes, flash at 32/4 and 16/1, S in
+   {512, 200}, causal, non-causal, window 256 and window 64 at S = 200,
+   decode at 32/4, 16/1 and 71/1, B = 4, S = 1024 (and 32/4 at S = 64,
+   one chunk), lengths 1, S-1, S, 0 and the chunk edges, under float32's
+   1e-5 + 1e-5 |plain| or one 16-bit ulp + 1e-5;
 6. serve Yi-6B at full width and depth on ``cuda`` (random weights from
    a seeded generator, TF32 off): ``ServeEngine.generate`` on 6 requests
    over 4 slots of 4096 positions, 16 new tokens each, through the
@@ -250,8 +256,11 @@ Phases, each of which fails the script (non-zero exit) on any error:
    32/32 x 96, ``flash_wgmma_any<bf16, 128>``) and Falcon-7B's decode (MQA 71/1
    x 64, two slices) with no path (0), flash at head dim 33 in bf16 (rows
    padded to 40 by the wrapper; ``pad_ms`` times the copies alone), and
-   ``fused_filter_agg`` at 4096 and
-   65536 groups over Q2's rows (``many_groups``; no path).  Lines before it give phase 6e's
+   flash at 16/1 and 32/4 x 512 (S = 2048, causal) and decode at B = 4,
+   32/4 x 512 (S = 4096, full length) in bf16 and float32 (the wide
+   kernels; no path), and ``fused_filter_agg`` at 1025, 4096, 65536 and
+   262144 groups over Q2's rows (``many_groups``: the partition, bin and
+   merge launches; no path).  Lines before it give phase 6e's
    musicgen-medium and phase 6f's recurrentgemma-9b forward time and the
    forward profile's flash time, and the script's seconds;
 8. the planner and the example editions (``planner_and_examples``,
@@ -1288,8 +1297,9 @@ def measure(torch, ops, ref, launches, inputs, card):
         k, v, f = (t[:rows] if rows <= n else t.repeat(rows // n) for t in (keys, vals, filt))
         by_rows[rows] = time_ms(torch, lambda: ops.fused_filter_agg(k, v, f, **kw), flush)[0]
     print(f"fused_filter_agg device ms against rows: {by_rows!r}")
-    # above 1024 groups (windows of groups and a merge launch): Q2's rows
-    # with keys drawn over [0, G); on no path (a caller raises max_groups)
+    # above 1024 groups (rows partitioned by group window, each window
+    # binned, the partials merged): Q2's rows with keys drawn over [0, G);
+    # on no path (a caller raises max_groups)
     gen = torch.Generator(device=keys.device).manual_seed(SEED + 3)
     many = {}
     for g in TIMED_GROUPS:
@@ -1316,10 +1326,13 @@ def measure(torch, ops, ref, launches, inputs, card):
             "bound_by": "bytes" if g_bytes_ms >= g_ops_ms else "operations",
             "library_ms": time_ms(torch, lambda: torch.bincount(gm, weights=gv, minlength=g),
                                   flush)[0],
-            "windows_and_widest": list(ops.windows(g)), "blocks": ops.grid(n, 2048, g)[0],
+            "plan": ops.many_plan(n, g)._asdict(), "launch_sequence": ops.launch_sequence(n, g),
+            "scratch_bytes": ops.scratch_bytes(n, g),
+            "passing_rows": int(((filt >= 0.5) & (gkeys >= 0) & (gkeys < g)).sum()),
             "ptxas": {k: PTXAS.get(k) for k in (
-                f"fused_filter_agg_kernel<{'i32' if vals.dtype == torch.int32 else 'f32'}, "
-                f"{'i32' if filt.dtype == torch.int32 else 'f32'}>", "merge_partials")},
+                f"partition_rows<{'i32' if vals.dtype == torch.int32 else 'f32'}, "
+                f"{'i32' if filt.dtype == torch.int32 else 'f32'}>", "bin_buckets",
+                "merge_partials")},
             "n": n, "num_groups": g}
     print(f"fused_filter_agg above 1024 groups (Q2's rows, keys over [0, G)): "
           f"{json.dumps(many)}")
@@ -1736,7 +1749,17 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
 ODD_DIMS = (1, 33, 96, 100, 250)
 WIDE_GROUPS = (71, 128)
 WIDE_GROUP_DIMS = (64, 128)
-MANY_GROUPS = (1025, 4096, 65536)
+MANY_GROUPS = (1025, 4096, 65536, 262144)
+#: phase 5: head dims above 256 (``flash_tf32_wide``, ``decode_wide``), in
+#: all three dtypes, drawn from a generator of their own (SEED + 3): flash
+#: at WIDE_FLASH_HEADS, decode at WIDE_DECODE_HEADS, S = ODD_DECODE_LEN
+WIDE_DIMS = (257, 320, 512, 576, 1024)
+WIDE_FLASH_HEADS = ((32, 4), (16, 1))
+WIDE_DECODE_HEADS = ((32, 4), (16, 1), (71, 1))
+#: phase 7's rows for them: flash (H, Hkv) at head dim WIDE_TIMED_DIM, and
+#: decode 32/4 at it, in bf16 and float32
+WIDE_TIMED_DIM = 512
+WIDE_TIMED_FLASH = ((16, 1), (32, 4))
 #: their cache and prompt lengths (S = 200: one full and one ragged tile)
 ODD_DECODE_LEN = 1024
 ODD_FLASH_LENS = (512, 200)
@@ -1746,14 +1769,16 @@ PHI3_HEADS = (32, 32, 96)
 FALCON_HEADS = (71, 1, 64)
 #: and a flash row whose rows the wrapper pads (33 bf16 elements -> 40)
 PAD_DIM = 33
-TIMED_GROUPS = (4096, 65536)
+#: (4096 and 65536 first: their keys are drawn as before)
+TIMED_GROUPS = (4096, 65536, 262144, 1025)
 
 
 def domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ffa_ops, ffa_ref,
                     inputs):
-    """Phase 5's cases for float16, any head dim, any group and any group count, drawn
-    from a generator of their own (SEED + 2), so the cases before keep
-    their inputs: float16 flash at every compiled width (causal,
+    """Phase 5's cases for float16, any head dim, any group and any group
+    count, drawn from a generator of their own (SEED + 2; the head dims
+    above 256 from another, SEED + 3), so the cases before keep their
+    inputs: float16 flash at every compiled width (causal,
     non-causal, window 256, window 64 at the ragged S = 200, mask probes)
     under the 16-bit flash rule (``flash_tf32<f16, 32>`` under one float16
     ulp + 1e-5); float16 decode at narrow (32/4) and wide groups (48/1 at
@@ -1763,7 +1788,10 @@ def domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ffa_ops
     fused_filter_agg at MANY_GROUPS over Q2's rows (``inputs``: its own keys,
     and keys drawn over [-1, G]): counts exact, float sums within 1e-5
     sum|v| of a float64 oracle, integer sums exact, repeat launches bitwise
-    equal.  Every case runs; the failures are listed together."""
+    equal; and head dims WIDE_DIMS in all three dtypes in both kernels
+    (flash at WIDE_FLASH_HEADS, decode at WIDE_DECODE_HEADS) under the
+    rules of the non-wgmma kernels.  Every case runs; the failures are
+    listed together."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     before = flash_ops.LAUNCHES, decode_ops.LAUNCHES, ffa_ops.LAUNCHES
@@ -1771,8 +1799,8 @@ def domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ffa_ops
     failures, worst, rules = [], {}, {}
     n = 0
 
-    def randn(*shape, dtype):
-        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+    def randn(*shape, dtype, generator=gen):
+        return torch.randn(*shape, generator=generator, device=dev).to(dtype)
 
     def name_of(dtype):
         return str(dtype).split(".")[-1]
@@ -1800,13 +1828,14 @@ def domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ffa_ops
                 failures.append(f"{name}: kernel vs plain (max, mean) {stats[:2]!r} exceed "
                                 f"twice the chunked route's {stats[2:]!r} + 1e-5")
 
-    def flash(dtype, d, h, hkv, s, cases, probes=(), tag=""):
+    def flash(dtype, d, h, hkv, s, cases, probes=(), tag="", generator=gen):
         label = flash_ops.kernel_label(dtype, d)
         wgmma = flash_ops.kernel_name(dtype, d) == "flash_wgmma"
         rules[label] = ("the 16-bit flash rule" if wgmma else "1e-5 + 1e-5|plain|"
                         if dtype == torch.float32 else f"1e-5 + one {name_of(dtype)} ulp")
-        q = randn(1, h, s, d, dtype=dtype)
-        k, v = randn(1, hkv, s, d, dtype=dtype), randn(1, hkv, s, d, dtype=dtype)
+        q = randn(1, h, s, d, dtype=dtype, generator=generator)
+        k = randn(1, hkv, s, d, dtype=dtype, generator=generator)
+        v = randn(1, hkv, s, d, dtype=dtype, generator=generator)
         for causal, window in cases:
             kw = dict(causal=causal, window=window)
             one(f"flash{tag}", f"flash {dtype} D={d} ({label}) H={h}/{hkv} S={s} {kw}",
@@ -1824,9 +1853,10 @@ def domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ffa_ops
                 lambda: flash_ref.attention_ref(q, k, v, **kw),
                 (lambda: flash_yardstick(q, k, v, **kw)) if wgmma else None)
 
-    def decode(dtype, d, h, hkv, s, b=4, tag=""):
-        q = randn(b, h, d, dtype=dtype)
-        k, v = randn(b, hkv, s, d, dtype=dtype), randn(b, hkv, s, d, dtype=dtype)
+    def decode(dtype, d, h, hkv, s, b=4, tag="", generator=gen):
+        q = randn(b, h, d, dtype=dtype, generator=generator)
+        k = randn(b, hkv, s, d, dtype=dtype, generator=generator)
+        v = randn(b, hkv, s, d, dtype=dtype, generator=generator)
         _, chunk = decode_ops.split_plan(s, b * hkv, sms, h // hkv, d, dtype)
         label = decode_ops.decode_kernel(dtype, h // hkv, d)
         rules[label] = ("1e-5 + 1e-5|plain|" if dtype == torch.float32
@@ -1860,6 +1890,22 @@ def domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ffa_ops
         for g in WIDE_GROUPS:
             for d in WIDE_GROUP_DIMS:
                 decode(dtype, d, g, 1, DECODE_LEN, tag=" wide group")
+    # head dims above 256 (flash_tf32_wide, decode_wide), from a generator
+    # of their own, so the cases above and below keep their inputs; every
+    # case launches the kernels (twice), none takes the plain version
+    wide = torch.Generator(device=dev).manual_seed(SEED + 3)
+    n_before, launched = n, (flash_ops.LAUNCHES, decode_ops.LAUNCHES)
+    for dtype in (torch.float32, torch.bfloat16, f16):
+        for d in WIDE_DIMS:
+            for h, hkv in WIDE_FLASH_HEADS:
+                for s in ODD_FLASH_LENS:
+                    cases = FLASH_MASKS + (((True, 64),) if s == 200 else ())
+                    flash(dtype, d, h, hkv, s, cases, tag=" wide D", generator=wide)
+            for h, hkv in WIDE_DECODE_HEADS:
+                decode(dtype, d, h, hkv, ODD_DECODE_LEN, tag=" wide D", generator=wide)
+            decode(dtype, d, 32, 4, 64, tag=" wide D", generator=wide)  # one chunk
+    check(flash_ops.LAUNCHES + decode_ops.LAUNCHES - sum(launched) == 2 * (n - n_before),
+          "a case above head dim 256 did not launch its kernel twice")
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before[:2]
 
     # fused_filter_agg above 1024 groups over Q2's rows
@@ -4095,6 +4141,21 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
         **decode_case(fh, fhkv, fd, [s] * 4), "launches": 0, "launches_by_path": {},
         "slices": list(decode_ops.group_slices(fh // fhkv)),
         "shape": f"B=4 H={fh} Hkv={fhkv} S={s} D={fd} bf16 full length"}
+    # head dims above 256 (flash_tf32_wide, decode_wide; SDPA's flash and
+    # cuDNN backends refuse them, so the backend named is what ran), on no
+    # path
+    wd = WIDE_TIMED_DIM
+    for dtype in (torch.bfloat16, torch.float32):
+        name, f32_row = str(dtype).split(".")[-1], dtype == torch.float32
+        for wh, whkv in WIDE_TIMED_FLASH:
+            domain[f"{wh}/{whkv} x {wd} {name} flash"] = {
+                **flash_case(wh, whkv, wd, dtype=dtype, expanded=f32_row), "launches": 0,
+                "launches_by_path": {}, "slices": flash_ops.wide_slices(dtype, wd),
+                "shape": f"B=1 H={wh} Hkv={whkv} S={FORWARD_LEN} D={wd} {name} causal"}
+        domain[f"32/4 x {wd} {name} decode, full length"] = {
+            **decode_case(32, 4, wd, [s] * 4, dtype=dtype, expanded=f32_row), "launches": 0,
+            "launches_by_path": {},
+            "shape": f"B=4 H=32 Hkv=4 S={s} D={wd} {name} full length"}
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # timing is not the main path
     print("timing: kernels device-only (queued behind a sleep kernel); plain versions and "
           "SDPA queued the same way")

@@ -3,9 +3,10 @@
 //
 // Replaces repro/kernels/decode_attention/kernel.py:decode_attention_kernel,
 // the Pallas TPU kernel.  q is (B*H, D), the caches are (B*Hkv, S, D), all
-// float32, all bfloat16 or all float16, at any head dim D from 1 to 256
-// and any group H / Hkv; lengths is (B,) int32, one per sequence (the
-// Pallas wrapper broadcasts it to one per q head, all equal).  For q head
+// float32, all bfloat16 or all float16, at any head dim D from 1 up
+// (decode_wide above 256) and any group H / Hkv; lengths is (B,) int32,
+// one per sequence (the Pallas wrapper broadcasts it to one per q head,
+// all equal).  For q head
 // i: scores = q . k_t * scale in float32 for every cache row t, rows at or
 // past the length set to -1e30, a float32 softmax, and out = acc /
 // max(l, 1e-30) written in q's dtype.
@@ -1099,6 +1100,218 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                        n_splits, hd, stream);
 }
 
+// ------------------------------ decode_wide (head dims above 256, any dtype)
+constexpr int kWideHeads = 8;     // q heads a block (a batch of the group)
+constexpr int kWidePiece = 256;   // columns of q staged at a time
+constexpr int kWideChunk = 1024;  // most cache rows a block (ops.py WIDE_CHUNK)
+
+// Head dims above 256, in float32, bfloat16 and float16, any group and
+// ragged lengths.  Block (sequence and kv head, batch of up to 8 q heads of
+// the group, chunk) walks its chunk of at most 1,024 cache rows three times
+// over shared memory, so its shared memory does not depend on the head
+// dim: (1) the scores, a thread a cache row, q.k as a sum over pieces of
+// 256 columns (the batch's q piece staged in float32, 8 KB; the row's k
+// read as it is stored, 16 bytes at a time where rows are whole 16-byte
+// pieces, else element by element), accumulated piece by piece into the
+// chunk's scores (1,024 x 8 floats, 32 KB); (2) a warp a head: the scale,
+// -1e30 past the length (only at length 0, which walks every row), the
+// chunk's maximum m and p = exp(s - m) in place, and l = sum p; (3) p.v in
+// output slices of 256 columns, a thread a column, every row of the chunk
+// in order (v read once, coalesced across the threads).  Every product is
+// a float32 FMA (the cache element converted exactly), so the result keeps
+// float32 accuracy in every dtype.  A single chunk writes the output; more
+// write their partials (m, l, acc) and decode_combine_wide (a thread per
+// column, 256 columns at a time) merges them as decode_combine does.  The
+// cache is read as it is stored, each row's k and v once; q.k is on the
+// CUDA cores, which a long cache in bf16 does not notice (the bytes bound
+// it).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    decode_wide(const T* __restrict__ q, const T* __restrict__ k_cache,
+                const T* __restrict__ v_cache, const int* __restrict__ lengths,
+                T* __restrict__ out, float* __restrict__ part_acc,
+                float* __restrict__ part_ml, int n_kv_heads, int group,
+                int seq_len, int chunk, float scale, int hd) {
+  constexpr int H = kWideHeads, E = 16 / (int)sizeof(T);
+  __shared__ __align__(16) float sQ[H * kWidePiece];  // the batch's q piece
+  __shared__ __align__(16) float sS[kWideChunk * H];  // scores, then p
+  __shared__ float sM[H], sL[H];
+  const int batches = (group + H - 1) / H;
+  const int bk = blockIdx.x / batches, hb = blockIdx.x % batches;
+  const int hn = min(H, group - hb * H);  // this block's heads
+  const int split = blockIdx.y, n_splits = gridDim.y;
+  const int len = lengths[bk / n_kv_heads];
+  const int n = len > 0 ? min(len, seq_len) : seq_len;  // rows to walk
+  const int c0 = split * chunk, c1 = min(c0 + chunk, n);
+  const int head0 = bk * group + hb * H;
+  if (c0 >= n) {  // nothing of this sequence here: an empty partial
+    for (int h = threadIdx.x; h < hn; h += kThreads) {
+      part_ml[((size_t)(head0 + h) * n_splits + split) * 2] = -INFINITY;
+      part_ml[((size_t)(head0 + h) * n_splits + split) * 2 + 1] = 0.0f;
+    }
+    return;
+  }
+  const int rows = c1 - c0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const T* kp = k_cache + (size_t)bk * seq_len * hd;
+  const T* vp = v_cache + (size_t)bk * seq_len * hd;
+  const bool vec = hd * (int)sizeof(T) % 16 == 0;
+
+  // (1) scores, piece by piece
+  for (int i = threadIdx.x; i < rows * H; i += kThreads) sS[i] = 0.0f;
+  for (int col0 = 0; col0 < hd; col0 += kWidePiece) {
+    const int cn = min(kWidePiece, hd - col0);
+    __syncthreads();  // the last piece is used (and the scores zeroed)
+    for (int i = threadIdx.x; i < H * kWidePiece; i += kThreads) {
+      const int h = i / kWidePiece, c = i % kWidePiece;
+      sQ[i] = h < hn && c < cn ? to_f32(q[(size_t)(head0 + h) * hd + col0 + c]) : 0.0f;
+    }
+    __syncthreads();
+    for (int r = threadIdx.x; r < rows; r += kThreads) {
+      const T* kr = kp + (size_t)(c0 + r) * hd + col0;
+      float acc[H];
+#pragma unroll
+      for (int h = 0; h < H; ++h) acc[h] = 0.0f;
+      if (vec) {  // cn is a multiple of E: the row and the piece are whole 16-byte pieces
+        for (int c = 0; c < cn; c += E) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(kr + c);
+          const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+          for (int x = 0; x < E; ++x) {
+            const float kx = to_f32(e[x]);
+#pragma unroll
+            for (int h = 0; h < H; ++h) acc[h] = fmaf(sQ[h * kWidePiece + c + x], kx, acc[h]);
+          }
+        }
+      } else {
+        for (int c = 0; c < cn; ++c) {
+          const float kx = to_f32(kr[c]);
+#pragma unroll
+          for (int h = 0; h < H; ++h) acc[h] = fmaf(sQ[h * kWidePiece + c], kx, acc[h]);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < H; ++h) sS[r * H + h] += acc[h];
+    }
+  }
+  __syncthreads();
+
+  // (2) a warp a head: scale, mask, maximum, p and l
+  {
+    const int h = warp;
+    float m = -INFINITY;
+    for (int r = lane; r < rows; r += 32) {
+      const float x = c0 + r >= len ? kNegInf : sS[r * H + h] * scale;  // only at length 0
+      sS[r * H + h] = x;
+      m = fmaxf(m, x);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float l = 0.0f;
+    for (int r = lane; r < rows; r += 32) {
+      const float p = expf(sS[r * H + h] - m);
+      sS[r * H + h] = p;
+      l += p;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if (lane == 0) {
+      sM[h] = m;
+      sL[h] = l;
+    }
+  }
+  __syncthreads();
+
+  // (3) p.v, a thread a column of a 256-column slice
+  for (int c = threadIdx.x; c < hd; c += kThreads) {
+    float acc[H];
+#pragma unroll
+    for (int h = 0; h < H; ++h) acc[h] = 0.0f;
+    const T* vc = vp + (size_t)c0 * hd + c;
+#pragma unroll 4
+    for (int r = 0; r < rows; ++r) {
+      const float vx = to_f32(vc[(size_t)r * hd]);
+      const float4 pa = *reinterpret_cast<const float4*>(sS + r * H);
+      const float4 pb = *reinterpret_cast<const float4*>(sS + r * H + 4);
+      const float pr[H] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+      for (int h = 0; h < H; ++h) acc[h] = fmaf(pr[h], vx, acc[h]);
+    }
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      if (h >= hn) break;
+      const size_t qh = (size_t)(head0 + h);
+      if (n_splits == 1)
+        store(out + qh * hd + c, acc[h] / fmaxf(sL[h], 1e-30f));
+      else
+        part_acc[(qh * n_splits + split) * hd + c] = acc[h];
+    }
+  }
+  if (n_splits > 1 && threadIdx.x < hn) {
+    const size_t qh = (size_t)(head0 + threadIdx.x);
+    part_ml[(qh * n_splits + split) * 2] = sM[threadIdx.x];
+    part_ml[(qh * n_splits + split) * 2 + 1] = sL[threadIdx.x];
+  }
+}
+
+// decode_combine for head dims above 256: a block a q head, its first warp
+// reads every chunk's (m, l) as decode_combine's does, then a thread a
+// column, 256 columns at a time, sums the chunks in order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    decode_combine_wide(const float* __restrict__ part_acc,
+                        const float* __restrict__ part_ml, T* __restrict__ out,
+                        int n_splits, int hd) {
+  extern __shared__ float sW[];  // weights, then l: 2 * n_splits
+  const size_t qh = blockIdx.x;
+  const float* ml = part_ml + qh * n_splits * 2;
+  if (threadIdx.x < 32) {
+    float m = -INFINITY;
+    for (int s = threadIdx.x; s < n_splits; s += 32) m = fmaxf(m, ml[2 * s]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    for (int s = threadIdx.x; s < n_splits; s += 32) {
+      const float ms = ml[2 * s];
+      sW[s] = ms == -INFINITY ? 0.0f : expf(ms - m);
+      sW[n_splits + s] = ml[2 * s + 1];
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < hd; c += kThreads) {
+    const float* acc = part_acc + qh * n_splits * hd + c;
+    float num = 0.0f, den = 0.0f;
+#pragma unroll 8
+    for (int s = 0; s < n_splits; ++s) {
+      const float w = sW[s], a = acc[(size_t)s * hd];
+      if (w != 0.0f) {
+        den = fmaf(w, sW[n_splits + s], den);
+        num = fmaf(w, a, num);
+      }
+    }
+    store(out + qh * hd + c, num / fmaxf(den, 1e-30f));
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        const int* lengths, void* out, float* part_acc,
+                        float* part_ml, int n_seqs, int n_kv_heads, int group,
+                        int seq_len, int n_splits, int chunk, float scale, int hd,
+                        cudaStream_t stream) {
+  if (chunk > kWideChunk) return cudaErrorInvalidValue;
+  const dim3 grid(n_seqs * n_kv_heads * ((group + kWideHeads - 1) / kWideHeads), n_splits);
+  decode_wide<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), lengths, static_cast<T*>(out), part_acc,
+      part_ml, n_kv_heads, group, seq_len, chunk, scale, hd);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_splits == 1) return err;
+  decode_combine_wide<T><<<n_seqs * n_kv_heads * group, kThreads,
+                           2 * n_splits * sizeof(float), stream>>>(
+      part_acc, part_ml, static_cast<T*>(out), n_splits, hd);
+  return cudaGetLastError();
+}
+
 // Head dim hd at a compiled width runs that width's kernels; any other the
 // _any kernels at the smallest of 32, 64, 128, 256 above it (ops.py width).
 template <typename T>
@@ -1107,7 +1320,8 @@ cudaError_t launch_d(int hd, const void* q, const void* k, const void* v,
                      float* part_ml, int n_seqs, int n_kv_heads, int group,
                      int seq_len, int n_splits, int chunk, float scale,
                      cudaStream_t stream) {
-  auto go = hd == 32    ? launch<T, 32, false>
+  auto go = hd > 256    ? launch_wide<T>
+            : hd == 32  ? launch<T, 32, false>
             : hd == 64  ? launch<T, 64, false>
             : hd == 80  ? launch<T, 80, false>
             : hd == 120 ? launch<T, 120, false>
@@ -1127,7 +1341,8 @@ cudaError_t launch_d(int hd, const void* q, const void* k, const void* v,
 // and float16 groups above 8, then decode_combine when n_splits > 1) and
 // returns cudaGetLastError() (0 on success).  Does not synchronise.
 // dtype: 0 float32, 1 bfloat16, 2 float16; any other code is refused.
-// head_dim: 1 to 256; any group >= 1.  q and out hold n_seqs * n_kv_heads
+// head_dim: any >= 1 (decode_wide above 256, chunk at most 1,024 rows);
+// any group >= 1.  q and out hold n_seqs * n_kv_heads
 // * group rows of head_dim, lengths one int32 per sequence, the caches
 // n_seqs * n_kv_heads * seq_len rows.
 // part_acc holds q's rows * n_splits * head_dim floats and part_ml q's rows
@@ -1145,7 +1360,7 @@ extern "C" int decode_attention_launch(int device, int dtype, int head_dim,
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaGetLastError();  // clear a stale error from an earlier call
-  if (group < 1 || head_dim < 1 || head_dim > 256 || dtype < 0 || dtype > 2 ||
+  if (group < 1 || head_dim < 1 || dtype < 0 || dtype > 2 ||
       chunk % 64 != 0 || (long long)n_splits * chunk < seq_len)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

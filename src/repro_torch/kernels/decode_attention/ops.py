@@ -27,8 +27,13 @@ HEAD_DIMS = (32, 64, 80, 120, 128, 256)
 #: runs the smallest of them at or above it (``width``)
 ANY_WIDTHS = (32, 64, 128, 256)
 
-#: the widest head dim the kernel takes (ROADMAP.md section 3)
-MAX_HEAD_DIM = 256
+#: head dims above this run ``decode_wide``: a block a batch of at most
+#: WIDE_HEADS q heads and a chunk of at most WIDE_CHUNK cache rows, q.k as
+#: a sum over pieces of WIDE_PIECE columns, p.v a thread a column
+WIDE_ABOVE = 256
+WIDE_HEADS = 8
+WIDE_CHUNK = 1024
+WIDE_PIECE = 256
 
 #: cache rows a chunk is a multiple of (the kernel's bf16 tile)
 CHUNK_ALIGN = 64
@@ -83,9 +88,9 @@ def load() -> ctypes.CDLL:
 
 def width(head_dim: int) -> int:
     """The compiled width a call at ``head_dim`` runs: ``head_dim`` where
-    it is one of HEAD_DIMS, else the smallest of ANY_WIDTHS at or above it
-    (an ``_any`` kernel)."""
-    if head_dim in HEAD_DIMS:
+    it is one of HEAD_DIMS or above WIDE_ABOVE (``decode_wide`` takes any),
+    else the smallest of ANY_WIDTHS at or above it (an ``_any`` kernel)."""
+    if head_dim in HEAD_DIMS or head_dim > WIDE_ABOVE:
         return head_dim
     return next(w for w in ANY_WIDTHS if w >= head_dim)
 
@@ -103,7 +108,10 @@ def decode_kernel(dtype: torch.dtype, group: int, head_dim: int) -> str:
     ``decode_group<T, D, MT>`` (bf16 and float16 groups above NARROW_GROUP,
     MT m-tiles of 16 heads of a slice), else ``decode_split<T, D>``; D is
     the compiled width (``width``), and a head dim that is not one of
-    HEAD_DIMS runs the ``_any`` kernel (``decode_split_any<T, D>``)."""
+    HEAD_DIMS runs the ``_any`` kernel (``decode_split_any<T, D>``); a head
+    dim above WIDE_ABOVE runs ``decode_wide<T>``."""
+    if head_dim > WIDE_ABOVE:
+        return f"decode_wide<{_SHORT[dtype]}>"
     w = width(head_dim)
     any_ = "" if head_dim in HEAD_DIMS else "_any"
     if dtype != torch.float32 and group > NARROW_GROUP:
@@ -123,7 +131,17 @@ def split_plan(s: int, n_blocks: int, sms: int, group: int = 1, head_dim: int = 
     decode_split: about two blocks an SM, chunks a multiple of CHUNK_ALIGN
     rows.  decode_group: one block an SM at most (its shared memory allows
     no second), chunks a multiple of GROUP_ROWS rows, and the float32
-    partials of all heads, written and read, at most the cache's bytes."""
+    partials of all heads, written and read, at most the cache's bytes.
+    decode_wide (head dims above WIDE_ABOVE): a block a batch of
+    WIDE_HEADS q heads, about two blocks an SM, chunks a multiple of
+    CHUNK_ALIGN rows and at most WIDE_CHUNK (its scores stay in shared
+    memory)."""
+    if head_dim > WIDE_ABOVE:
+        n_blocks *= -(-group // WIDE_HEADS)
+        want = min(max(1, -(-2 * sms // n_blocks)), -(-s // CHUNK_ALIGN))
+        chunk = -(-(-(-s // want)) // CHUNK_ALIGN) * CHUNK_ALIGN
+        chunk = min(chunk, WIDE_CHUNK)
+        return -(-s // chunk), chunk
     n_blocks *= group_slices(group)[0]
     if decode_kernel(dtype, group, head_dim).startswith("decode_group"):
         cache = s * head_dim * 2 * 2  # k and v of one (sequence, kv head), 2 bytes each
@@ -144,6 +162,13 @@ def partial_bytes(b: int, h: int, head_dim: int, n_splits: int) -> int:
     return b * h * n_splits * (head_dim + 2) * 4 if n_splits > 1 else 0
 
 
+def wide_smem_bytes() -> int:
+    """The shared memory of a ``decode_wide`` block, at every head dim: the
+    batch's q piece in float32, the chunk's scores (WIDE_CHUNK rows x
+    WIDE_HEADS) and each head's (m, l)."""
+    return (WIDE_HEADS * WIDE_PIECE + WIDE_CHUNK * WIDE_HEADS + 2 * WIDE_HEADS) * 4
+
+
 def _check_cuda(q, k_cache, v_cache, lengths) -> None:
     dev, dt = q.device, q.dtype
     if k_cache.device != dev or v_cache.device != dev or lengths.device != dev:
@@ -159,9 +184,8 @@ def _check_cuda(q, k_cache, v_cache, lengths) -> None:
                          f"{tuple(v_cache.shape)}")
     if lengths.shape != (b,):
         raise ValueError(f"lengths must be ({b},), got {tuple(lengths.shape)}")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} is outside 1 .. {MAX_HEAD_DIM}: wider heads need "
-                         f"q.k tiled across D (ROADMAP.md section 3)")
+    if d < 1:
+        raise ValueError(f"head dim must be at least 1, got {d}")
 
 
 def _launch(lib, q, k_cache, v_cache, lengths, scale, *, device, stream, sms):
@@ -198,10 +222,10 @@ def decode_attention(
 ) -> torch.Tensor:
     """One query token per sequence over its first ``lengths[b]`` cache
     rows; (B, H, D) in q's dtype, float32, bfloat16 or float16, any D from
-    1 to MAX_HEAD_DIM and any group.  CUDA tensors launch the kernels on
-    the current stream without synchronising (the split kernel, and a
-    combine when the cache is split), reading the caches as they are;
-    CPU tensors take the plain version."""
+    1 up (``decode_wide`` above 256) and any group.  CUDA tensors launch
+    the kernels on the current stream without synchronising (the split
+    kernel, and a combine when the cache is split), reading the caches as
+    they are; CPU tensors take the plain version."""
     b, h, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     if h % hkv:

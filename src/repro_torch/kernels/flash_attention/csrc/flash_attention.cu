@@ -3,9 +3,9 @@
 // Replaces repro/kernels/flash_attention/kernel.py:flash_attention_kernel,
 // the Pallas TPU kernel.  q is (B*H, S, D), k and v are (B*Hkv, S, D), all
 // float32, all bfloat16 or all float16; q head i reads kv head i / group.
-// Any head dim from 1 to 256.  A row whose bytes are not a multiple of 16
+// Any head dim from 1 up.  A row whose bytes are not a multiple of 16
 // is padded with zero columns by the wrapper (ops.py), as TMA and the
-// 16-byte copies need.  A row of d elements runs the kernel compiled for
+// 16-byte copies need.  Rows wider than 256 run flash_tf32_wide (below).  A row of d elements runs the kernel compiled for
 // width d where d is one of 32, 64, 80, 120, 128 and 256 (the stride a
 // constant); any other row runs flash_wgmma_any / flash_tf32_any, the same
 // blocks with d a runtime argument, at the smallest of 32, 64, 128 and 256
@@ -28,7 +28,7 @@
 // per q tile, and the q heads of one kv head run side by side, so the
 // repeated reads hit L2.
 //
-// Two kernels, chosen by dtype and head dim in flash_attention_launch:
+// Three kernels, chosen by dtype and head dim in flash_attention_launch:
 //
 // * flash_wgmma<T, D>: bfloat16 and float16 at D = 64, 80, 120, 128 and
 //   256 (musicgen-medium, qwen3-32b, h2o-danube-3-4b, Yi-6B and
@@ -148,6 +148,12 @@
 //   only tiles that cross the diagonal, the window's edge or the ragged end,
 //   and rescales o only when a row's maximum moved (a factor of exactly 1
 //   changes nothing).
+//
+// * flash_tf32_wide<T>: every dtype at head dims above 256 (no shipped
+//   config; the Pallas kernel takes any D).  Both kernels above keep q and
+//   a k/v tile of whole rows in shared memory (197 KB at 256), so wider
+//   rows take q.k as a sum over 64-column pieces and p.v in slices of 256
+//   output columns, a block a slice (see the kernel's comment).
 //
 // Masked keys contribute exactly 0 once a row has seen a valid key (exp of
 // -1e30 minus a finite max), and causal and windowed rows always see one,
@@ -1673,6 +1679,289 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// ------------------------ flash_tf32_wide (head dims above 256, any dtype)
+constexpr int kXWarps = 4;     // warps a block: 64 q rows, 16 a warp
+constexpr int kXKeys = 32;     // keys a k/v tile
+constexpr int kXPiece = 64;    // columns of a q.k piece
+constexpr int kXSlice = 256;   // output columns a block (its p.v)
+
+// flash_tf32_wide<T>'s geometry: q rows a block, the row strides of a q or
+// k piece and of v's slice in shared memory (elements of T, padded as
+// TGeo's so that a warp's fragment loads hit 32 distinct banks), and the
+// block's dynamic shared memory: two stages of (q piece, k piece) and one
+// v slice.  None of it depends on the head dim.
+template <typename T>
+struct XGeo {
+  static constexpr int rows = kTRows * kXWarps;  // 64
+  static constexpr int threads = 32 * kXWarps;
+  static constexpr int ps = kXPiece + 8;
+  static constexpr int vs = sizeof(T) == 4 ? kXSlice + 4 : kXSlice + 8;
+  static constexpr int stage = (rows + kXKeys) * ps;  // q piece, then k piece
+  static constexpr int smem = (2 * stage + kXKeys * vs) * (int)sizeof(T);
+};
+
+// Head dims above 256 (rows of ld elements, any ld > 256, whole 16-byte
+// pieces), in float32, bfloat16 and float16.  A q tile of 64 rows, a
+// k/v tile of 32 keys, and output slices of 256 columns: block (bh, q
+// tile, slice z) computes out[:, 256 z .. 256 z + 255].  Its scores are the
+// whole row's: q.k is taken as a sum over pieces of 64 columns, each q and
+// k piece staged through shared memory, with flash_tf32's split-TF32
+// products (float32: three a pair, bf16: two, float16: one, scaled after);
+// p.v is flash_tf32's, over the slice's columns of v.  So each block
+// recomputes the scores of its q tile, ceil(ld / 256) times in all: a
+// simple plan whose shared memory (88,576 B in float32, 44,544 B in bf16
+// and float16) is the same at every head dim, against flash_tf32's 197 KB
+// at 256, which does not grow past 227 KB because q and k never sit in
+// shared memory whole.  A block runs its steps in order, tile by tile: the
+// tile's pieces, then its v slice; each step's copies are issued (cp.async)
+// while the step before computes, the pieces alternating between two
+// stages.  The online softmax, the masks (-1e30, -inf past S), the [lo, hi)
+// tile skipping and the acc / max(l, 1e-30) finish are flash_tf32's.
+template <typename T>
+__global__ void __launch_bounds__(XGeo<T>::threads)
+    flash_tf32_wide(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ out, int ld,
+                    int seq_len, int group, int causal, float scale, int window) {
+  using G = XGeo<T>;
+  constexpr int BQ = G::rows, BK = kXKeys;
+  constexpr int NK = BK / 8;       // 8-key n-tiles of q.k^T, k-steps of p.v
+  constexpr int NP = kXPiece / 8;  // 8-column k-steps of a piece
+  constexpr int ND = kXSlice / 8;  // 8-column n-tiles of p.v
+  constexpr int C = 16 / (int)sizeof(T);  // elements a 16-byte copy
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sP = reinterpret_cast<T*>(smem);  // 2 stages x (BQ + BK) x ps
+  T* sV = sP + 2 * G::stage;           // BK x vs
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest tiles first
+  const int c0 = blockIdx.z * kXSlice;               // this block's columns
+  const int cols = min(kXSlice, ld - c0);            // a multiple of C
+  const int n_pieces = (ld + kXPiece - 1) / kXPiece;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const T* qp = q + (size_t)bh * seq_len * ld;
+  const T* kp = k + (size_t)(bh / group) * seq_len * ld;
+  const T* vp = v + (size_t)(bh / group) * seq_len * ld;
+  constexpr bool kOne = kIsHalf<T>;  // as flash_tf32_block
+  const float qscale = kOne ? 1.0f : scale;
+
+  const int n_tiles = (seq_len + BK - 1) / BK;
+  const int hi = causal ? min((q0 + BQ - 1) / BK + 1, n_tiles) : n_tiles;
+  const int lo = window > 0 ? max((q0 - window + 1) / BK, 0) : 0;
+
+  // step i: tile lo + i / per_tile; part i % per_tile, a piece (q and k
+  // columns 64 p ..) or, last, v's slice
+  const int per_tile = n_pieces + 1;
+  const int n_steps = max(hi - lo, 0) * per_tile;
+  auto load_step = [&](int i) {
+    const int k0 = (lo + i / per_tile) * BK, p = i % per_tile;
+    if (p < n_pieces) {
+      constexpr int CPR = kXPiece / C;
+      T* dst = sP + ((i - i / per_tile) & 1) * G::stage;
+      const int col = p * kXPiece;
+      for (int e = threadIdx.x; e < (BQ + BK) * CPR; e += G::threads) {
+        const int r = e / CPR, c = (e % CPR) * C;
+        const int row = r < BQ ? q0 + r : k0 + r - BQ;
+        const bool valid = row < seq_len && col + c < ld;
+        const T* src = (r < BQ ? qp : kp) + (valid ? (size_t)row * ld + col + c : 0);
+        cp_async16(smem_addr(dst + r * G::ps + c), src, valid);
+      }
+    } else {
+      constexpr int CPR = kXSlice / C;
+      for (int e = threadIdx.x; e < BK * CPR; e += G::threads) {
+        const int r = e / CPR, c = (e % CPR) * C;
+        const bool valid = k0 + r < seq_len && c < cols;
+        const T* src = vp + (valid ? (size_t)(k0 + r) * ld + c0 + c : 0);
+        cp_async16(smem_addr(sV + r * G::vs + c), src, valid);
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  if (n_steps > 0) load_step(0);
+
+  const int r0 = q0 + warp * kTRows;
+  const int row0 = r0 + g, row1 = row0 + 8;
+  const bool live = r0 < seq_len;
+  const int whi = causal ? min((r0 + kTRows - 1) / BK + 1, hi) : hi;
+  const int wlo = window > 0 ? max((r0 - window + 1) / BK, lo) : lo;
+
+  float o[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  float s[NK][4];
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
+
+  for (int i = 0; i < n_steps; ++i) {
+    if (i + 1 < n_steps) {
+      load_step(i + 1);  // into the other stage, or v's slice
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // step i's copies are in shared memory for every warp
+    const int j = lo + i / per_tile, p = i % per_tile;
+    if (live && j >= wlo && j < whi) {
+      const int k0 = j * BK;
+      if (p < n_pieces) {
+        // s += (q * scale) . k^T over the piece's 64 columns (zeros past ld)
+        const T* tq = sP + ((i - i / per_tile) & 1) * G::stage;
+        const T* tk = tq + BQ * G::ps;
+        const T* qr0 = tq + (warp * kTRows + g) * G::ps + 2 * t;
+        const T* qr1 = qr0 + 8 * G::ps;
+        // the piece's sum in accumulators of its own, added to s after:
+        // the tensor cores truncate as they accumulate, so one chain of
+        // products over the whole row (384 at D = 1024 in float32) drifts
+        // past the float32 rule, and a piece's 24 do not
+        float sp[NK][4];
+#pragma unroll
+        for (int n = 0; n < NK; ++n) sp[n][0] = sp[n][1] = sp[n][2] = sp[n][3] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < NP; ++kk) {
+          float2 x0 = load2(qr0 + 8 * kk), x1 = load2(qr1 + 8 * kk);
+          x0.x *= qscale;
+          x0.y *= qscale;
+          x1.x *= qscale;
+          x1.y *= qscale;
+          if constexpr (kOne) {  // float16: q and k whole, one product
+            const uint32_t a[4] = {__float_as_uint(x0.x), __float_as_uint(x1.x),
+                                   __float_as_uint(x0.y), __float_as_uint(x1.y)};
+#pragma unroll
+            for (int n = 0; n < NK; ++n) {
+              const float2 y = load2(tk + (8 * n + g) * G::ps + 8 * kk + 2 * t);
+              mma_tf32(sp[n], a, __float_as_uint(y.x), __float_as_uint(y.y));
+            }
+          } else {
+            uint32_t ah[4], al[4];
+            split(x0.x, ah[0], al[0]);
+            split(x1.x, ah[1], al[1]);
+            split(x0.y, ah[2], al[2]);
+            split(x1.y, ah[3], al[3]);
+#pragma unroll
+            for (int n = 0; n < NK; ++n) {
+              const float2 y = load2(tk + (8 * n + g) * G::ps + 8 * kk + 2 * t);
+              mma3<T>(sp[n], ah, al, y.x, y.y);
+            }
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = p == 0 ? sp[n][e] : s[n][e] + sp[n][e];
+        if (p == n_pieces - 1) {  // the scores are whole: masks and softmax
+          if constexpr (kOne) {
+#pragma unroll
+            for (int n = 0; n < NK; ++n)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) s[n][e] *= scale;
+          }
+          if (k0 + BK > seq_len || (causal && k0 + BK - 1 > r0) ||
+              (window > 0 && k0 <= r0 + kTRows - 1 - window)) {
+#pragma unroll
+            for (int n = 0; n < NK; ++n)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int row = e < 2 ? row0 : row1;
+                const int col = k0 + 8 * n + 2 * t + (e & 1);
+                bool keep = true;
+                if (causal) keep &= col <= row;
+                if (window > 0) keep &= col > row - window;
+                s[n][e] = col >= seq_len ? -INFINITY : (keep ? s[n][e] : kNegInf);
+              }
+          }
+          float mx0 = m0, mx1 = m1;
+#pragma unroll
+          for (int n = 0; n < NK; ++n) {
+            mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+            mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+          }
+#pragma unroll
+          for (int x = 1; x <= 2; x <<= 1) {
+            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+          }
+          const float cr0 = expf(m0 - mx0), cr1 = expf(m1 - mx1);
+          m0 = mx0;
+          m1 = mx1;
+          float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+          for (int n = 0; n < NK; ++n) {
+            s[n][0] = expf(s[n][0] - mx0);
+            s[n][1] = expf(s[n][1] - mx0);
+            s[n][2] = expf(s[n][2] - mx1);
+            s[n][3] = expf(s[n][3] - mx1);
+            ps0 += s[n][0] + s[n][1];
+            ps1 += s[n][2] + s[n][3];
+          }
+          l0 = l0 * cr0 + ps0;
+          l1 = l1 * cr1 + ps1;
+          if (__any_sync(0xffffffffu, cr0 != 1.0f || cr1 != 1.0f)) {
+#pragma unroll
+            for (int jd = 0; jd < ND; ++jd) {
+              o[jd][0] *= cr0;
+              o[jd][1] *= cr0;
+              o[jd][2] *= cr1;
+              o[jd][3] *= cr1;
+            }
+          }
+        }
+      } else {
+        // o += p . v over the slice's columns (n-tiles past them skipped)
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          uint32_t ah[4], al[4];
+          split(s[n][0], ah[0], al[0]);
+          split(s[n][2], ah[1], al[1]);
+          split(s[n][1], ah[2], al[2]);
+          split(s[n][3], ah[3], al[3]);
+          const T* vr = sV + (8 * n + 2 * t) * G::vs + g;
+#pragma unroll
+          for (int jd = 0; jd < ND; ++jd)
+            if (8 * jd < cols)
+              mma3<T>(o[jd], ah, al, to_f32(vr[8 * jd]), to_f32(vr[G::vs + 8 * jd]));
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with step i's stage
+  }
+
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  if (!live) return;
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  T* op = out + (size_t)bh * seq_len * ld + c0 + 2 * t;
+#pragma unroll
+  for (int jd = 0; jd < ND; ++jd) {
+    if (8 * jd + 2 * t >= cols) continue;
+    if (row0 < seq_len)
+      store2(op + (size_t)row0 * ld + 8 * jd, o[jd][0] / d0, o[jd][1] / d0);
+    if (row1 < seq_len)
+      store2(op + (size_t)row1 * ld + 8 * jd, o[jd][2] / d1, o[jd][3] / d1);
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* out,
+                        int ld, int bh, int seq_len, int group, int causal,
+                        float scale, int window, cudaStream_t stream) {
+  using G = XGeo<T>;
+  static bool configured = false;  // the attribute is per function
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_tf32_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid(bh, (seq_len + G::rows - 1) / G::rows, (ld + kXSlice - 1) / kXSlice);
+  flash_tf32_wide<T><<<grid, G::threads, G::smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), ld, seq_len, group,
+      causal, scale, window);
+  return cudaGetLastError();
+}
+
 // float32 at every head dim: flash_tf32 at a compiled width, else
 // flash_tf32_any at the smallest of 32, 64, 128, 256 above ld (ops.py
 // width)
@@ -1680,7 +1969,8 @@ cudaError_t launch_f32(int ld, const void* q, const void* k, const void* v,
                        void* out, int bh, int seq_len, int group, int causal,
                        float scale, int window, cudaStream_t stream) {
   using T = float;
-  auto go = ld == 32    ? launch_tf32<T, 32, false>
+  auto go = ld > 256    ? launch_wide<T>
+            : ld == 32  ? launch_tf32<T, 32, false>
             : ld == 64  ? launch_tf32<T, 64, false>
             : ld == 80  ? launch_tf32<T, 80, false>
             : ld == 120 ? launch_tf32<T, 120, false>
@@ -1741,7 +2031,8 @@ template <typename T>
 cudaError_t launch_16bit(int ld, const void* q, const void* k, const void* v,
                          void* out, int bh, int seq_len, int group, int causal,
                          float scale, int window, cudaStream_t stream) {
-  auto go = ld == 32    ? launch_tf32<T, 32, false>
+  auto go = ld > 256    ? launch_wide<T>
+            : ld == 32  ? launch_tf32<T, 32, false>
             : ld == 64  ? launch_wgmma<T, 64, false>
             : ld == 80  ? launch_wgmma<T, 80, false>
             : ld == 120 ? launch_wgmma<T, 120, false>
@@ -1758,9 +2049,9 @@ cudaError_t launch_16bit(int ld, const void* q, const void* k, const void* v,
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
 // success).  Does not synchronise.  dtype: 0 float32, 1 bfloat16, 2
-// float16; any other code is refused.  head_dim: the row length ld, 1 to
-// 256, with ld * element bytes a multiple of 16 (the wrapper pads other
-// rows with zero columns).  window <= 0 means no window.  q and out hold
+// float16; any other code is refused.  head_dim: the row length ld, any
+// ld >= 1 with ld * element bytes a multiple of 16 (the wrapper pads other
+// rows with zero columns); above 256, flash_tf32_wide in every dtype.  window <= 0 means no window.  q and out hold
 // bh * seq_len * ld elements, k and v bh / group times that.  A call runs
 // the smallest compiled width D >= ld: float32 flash_tf32 at every width
 // (32, 64, 80, 120, 128, 256); bfloat16 and float16 flash_tf32 at 32 and
@@ -1777,8 +2068,7 @@ extern "C" int flash_attention_launch(int device, int dtype, int head_dim,
   cudaGetLastError();  // clear a stale error from an earlier call
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int elem = dtype == 0 ? 4 : 2;
-  if (dtype < 0 || dtype > 2 || head_dim < 1 || head_dim > 256 ||
-      head_dim * elem % 16 != 0)
+  if (dtype < 0 || dtype > 2 || head_dim < 1 || head_dim * elem % 16 != 0)
     return (int)cudaErrorInvalidValue;
   auto go = dtype == 0   ? launch_f32
             : dtype == 1 ? launch_16bit<__nv_bfloat16>

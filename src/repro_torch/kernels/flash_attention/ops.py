@@ -5,7 +5,7 @@ import ctypes
 import math
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -32,9 +32,12 @@ HEAD_DIMS = (32, 64, 80, 120, 128, 256)
 #: the smallest of them at or above it (``width``)
 ANY_WIDTHS = (32, 64, 128, 256)
 
-#: the widest head dim the kernels take; wider ones need q.k tiled across
-#: D (ROADMAP.md section 3)
-MAX_HEAD_DIM = 256
+#: rows wider than this (head dims above 256) run ``flash_tf32_wide``: q.k
+#: as a sum over pieces of WIDE_PIECE columns, p.v in output slices of
+#: WIDE_SLICE columns, a block a slice (``wide_slices``), in every dtype
+WIDE_ABOVE = 256
+WIDE_PIECE = 64
+WIDE_SLICE = 256
 
 #: bfloat16 and float16 widths that run ``flash_wgmma`` (wgmma + TMA; at 64
 #: the softmax overlaps the tensor cores, at 256 the key tiles are 64
@@ -94,13 +97,18 @@ def row_elems(dtype: torch.dtype, head_dim: int) -> int:
 def width(dtype: torch.dtype, head_dim: int) -> int:
     """The compiled width a call at ``head_dim`` runs: its row
     (``row_elems``) where that is one of HEAD_DIMS, else the smallest of
-    ANY_WIDTHS at or above it."""
+    ANY_WIDTHS at or above it; a row wider than WIDE_ABOVE is its own
+    width (``flash_tf32_wide`` takes any)."""
     ld = row_elems(dtype, head_dim)
-    return ld if ld in HEAD_DIMS else next(w for w in ANY_WIDTHS if w >= ld)
+    if ld in HEAD_DIMS or ld > WIDE_ABOVE:
+        return ld
+    return next(w for w in ANY_WIDTHS if w >= ld)
 
 
 def kernel_name(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernel a launch at ``dtype`` and ``head_dim`` runs."""
+    if row_elems(dtype, head_dim) > WIDE_ABOVE:
+        return "flash_tf32_wide"
     if dtype != torch.float32 and width(dtype, head_dim) in WGMMA_HEAD_DIMS:
         return "flash_wgmma"
     return "flash_tf32"
@@ -109,9 +117,31 @@ def kernel_name(dtype: torch.dtype, head_dim: int) -> str:
 def kernel_label(dtype: torch.dtype, head_dim: int) -> str:
     """The instantiation a launch runs, named as ptxas's report names it
     (``flash_wgmma<bf16, 128>``, ``flash_tf32<f16, 32>``,
-    ``flash_wgmma_any<bf16, 128>`` at head dim 96)."""
+    ``flash_wgmma_any<bf16, 128>`` at head dim 96, ``flash_tf32_wide<f32>``
+    above 256)."""
+    if kernel_name(dtype, head_dim) == "flash_tf32_wide":
+        return f"flash_tf32_wide<{_SHORT[dtype]}>"
     any_ = "" if row_elems(dtype, head_dim) in HEAD_DIMS else "_any"
     return f"{kernel_name(dtype, head_dim)}{any_}<{_SHORT[dtype]}, {width(dtype, head_dim)}>"
+
+
+def wide_slices(dtype: torch.dtype, head_dim: int) -> List[Tuple[int, int]]:
+    """``(first column, columns)`` of the output slice of each block of
+    ``flash_tf32_wide`` (the grid's third dimension) at ``head_dim``: the
+    row cut into WIDE_SLICE columns, the last the rest; each block
+    computes the whole row's scores and p.v for its slice."""
+    ld = row_elems(dtype, head_dim)
+    return [(c, min(WIDE_SLICE, ld - c)) for c in range(0, ld, WIDE_SLICE)]
+
+
+def wide_smem_bytes(dtype: torch.dtype) -> int:
+    """The dynamic shared memory of a ``flash_tf32_wide`` block (the
+    kernel's XGeo): two stages of a q piece (64 rows) and a k piece (32
+    keys) of WIDE_PIECE columns, and v's slice of 32 keys, rows padded (8
+    elements; v's by 4 in float32), at every head dim."""
+    ps = WIDE_PIECE + 8
+    vs = WIDE_SLICE + (4 if dtype == torch.float32 else 8)
+    return (2 * (64 + 32) * ps + 32 * vs) * dtype.itemsize
 
 
 def positive_scale(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
@@ -142,9 +172,8 @@ def _check_cuda(q, k, v, window) -> None:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"the kernel takes float32, bfloat16 or float16, got {q.dtype}")
-    if not 1 <= q.shape[-1] <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {q.shape[-1]} is outside 1 .. {MAX_HEAD_DIM}: wider "
-                         f"heads need q.k tiled across D (ROADMAP.md section 3)")
+    if q.shape[-1] < 1:
+        raise ValueError(f"head dim must be at least 1, got {q.shape[-1]}")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
 
@@ -161,12 +190,12 @@ def flash_attention(
     block_k: int = DEFAULT_BLOCK_K,
 ) -> torch.Tensor:
     """Causal, non-causal or sliding-window GQA attention; (B, H, S, D)
-    in q's dtype, float32, bfloat16 or float16, any D from 1 to
-    MAX_HEAD_DIM.  CUDA tensors launch the kernel on the current stream
-    without synchronising (rows whose bytes are not a multiple of 16 are
-    padded with zero columns first, ``row_elems``); CPU tensors take the
-    plain version.  ``scale`` defaults to ``1 / sqrt(D)`` of the unpadded
-    D."""
+    in q's dtype, float32, bfloat16 or float16, any D from 1 up
+    (``flash_tf32_wide`` above 256).  CUDA tensors launch the kernel on
+    the current stream without synchronising (rows whose bytes are not a
+    multiple of 16 are padded with zero columns first, ``row_elems``); CPU
+    tensors take the plain version.  ``scale`` defaults to ``1 / sqrt(D)``
+    of the unpadded D."""
     b, h, s, d = q.shape
     hkv = k.shape[1]
     if h % hkv:

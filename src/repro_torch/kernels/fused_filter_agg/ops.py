@@ -4,7 +4,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -18,17 +18,26 @@ SOURCE = Path(__file__).parent / "csrc" / "fused_filter_agg.cu"
 #: launch whose last block merges (engine/route.py's default cap)
 MAX_GROUPS = 1024
 
-#: the groups are cut into windows of at most this many, one block per
-#: (row block, window) (the kernel's kWindow); above MAX_GROUPS a second
-#: launch merges the blocks' partials
-WINDOW = 3072
-
-#: rows a block covers, before the caps on the number of blocks; the caps
-#: bound the partials that are merged (P x G)
+#: rows a block of the one-launch kernel covers, before the cap on the
+#: number of blocks; the cap bounds the partials the last block adds (P x G)
 ROWS_PER_BLOCK = 8192
 MAX_BLOCKS = 1024
-#: most partial entries (P x G) a launch writes: 32 MB of sums and counts
-MAX_PARTIALS = 1 << 22
+
+#: above MAX_GROUPS (three launches, ``many_plan``): a bin block holds a
+#: window of at most this many groups (the kernel's kWindow); a partition
+#: block stages this many rows (kPartRows); a partition block counts at
+#: most this many buckets (kMaxBuckets: a bucket is one window, or
+#: neighbouring windows above WINDOW x MAX_BUCKETS groups); and the bin
+#: launch aims at this many blocks (a constant, never the SM count, so the
+#: float sums depend on (n, G) alone)
+WINDOW = 1024
+PART_ROWS = 2048
+MAX_BUCKETS = 1024
+BIN_BLOCKS = 396
+#: a bin block stages this many row blocks' segment offsets at a time, and
+#: its warps take units of 32 consecutive pairs of the batch in turn
+#: (kSegBatch)
+SEG_BATCH = 512
 
 #: kernel launches made through this wrapper (CUDA tensors only), counted
 #: under ``_lock``: pipeline stages launch from executor threads
@@ -54,6 +63,11 @@ def load() -> ctypes.CDLL:
             i32, i32, i64, i32, vp, vp, vp, vp, vp, vp,
         ]
         lib.fused_filter_agg_launch.restype = i32
+        lib.fused_filter_agg_many_launch.argtypes = [
+            i32, vp, vp, i32, vp, i32, i64, i32, ctypes.c_float,
+            i32, i32, i32, i32, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp,
+        ]
+        lib.fused_filter_agg_many_launch.restype = i32
         lib.fused_filter_agg_error_string.argtypes = [i32]
         lib.fused_filter_agg_error_string.restype = ctypes.c_char_p
         lib.fused_filter_agg_tile_rows.restype = i32
@@ -61,33 +75,86 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def grid(n: int, tile_rows: int, num_groups: int = 1) -> Tuple[int, int]:
-    """``(blocks, rows_per_block)`` for ``n`` rows and ``num_groups``: a
-    function of ``(n, G)`` alone, and of ``n`` alone up to 4096 groups,
-    so float sums are the same on every run and every card; rows a
-    multiple of the kernel's tile, so every block starts on a 16-byte
-    boundary of an aligned column.  Blocks are at most MAX_PARTIALS / G."""
-    cap = min(MAX_BLOCKS, max(1, MAX_PARTIALS // max(num_groups, 1)))
-    blocks = max(1, min(cap, -(-n // ROWS_PER_BLOCK)))
+def grid(n: int, tile_rows: int) -> Tuple[int, int]:
+    """``(blocks, rows_per_block)`` of the one-launch kernel for ``n``
+    rows: a function of ``n`` alone, so float sums are the same on every
+    run and every card; rows a multiple of the kernel's tile, so every
+    block starts on a 16-byte boundary of an aligned column."""
+    blocks = max(1, min(MAX_BLOCKS, -(-n // ROWS_PER_BLOCK)))
     rows = -(-max(n, 1) // blocks)
     rows = -(-rows // tile_rows) * tile_rows
     return max(1, -(-n // rows)), rows
 
 
 def windows(num_groups: int) -> Tuple[int, int]:
-    """``(windows, widest)``: the group windows of a launch (the fewest
-    of at most WINDOW groups, as even as they go) and the most groups one
-    window holds."""
-    n = -(-num_groups // WINDOW)
-    return n, -(-num_groups // n)
+    """``(windows, width)``: the groups cut into windows of ``width``
+    groups (the last may have fewer), the fewest of at most WINDOW groups,
+    as even as whole widths go; window w holds groups [w width, (w + 1)
+    width)."""
+    width = -(-num_groups // -(-num_groups // WINDOW))
+    return -(-num_groups // width), width
+
+
+class ManyPlan(NamedTuple):
+    """The launches above MAX_GROUPS groups (fused_filter_agg.cu's header):
+    ``row_blocks`` partition blocks of PART_ROWS rows; ``windows`` windows
+    of ``width`` groups; ``buckets`` buckets of ``per_bucket`` windows
+    (one window a bucket up to WINDOW x MAX_BUCKETS groups); and the bin
+    launch's ``chunks`` of row blocks, a bin block per (window, chunk)."""
+    row_blocks: int
+    windows: int
+    width: int
+    buckets: int
+    per_bucket: int
+    chunks: int
+
+
+def many_plan(n: int, num_groups: int) -> ManyPlan:
+    """The plan of a call over ``n`` rows above MAX_GROUPS groups, from
+    (n, G) alone."""
+    w, width = windows(num_groups)
+    per = -(-w // MAX_BUCKETS)
+    row_blocks = max(1, -(-n // PART_ROWS))
+    chunks = max(1, min(row_blocks, -(-BIN_BLOCKS // w)))
+    return ManyPlan(row_blocks, w, width, -(-w // per), per, chunks)
+
+
+def scratch_bytes(n: int, num_groups: int) -> Dict[str, int]:
+    """The device scratch a call above MAX_GROUPS groups allocates: the
+    pair buffer (8 B a row: the passing rows' key and float32 value, by
+    bucket), the row blocks' bucket offsets, and the bin blocks' float32
+    sum and int32 count partials (a chunk x G each)."""
+    p = many_plan(n, num_groups)
+    return {"pairs": 8 * n, "offsets": 4 * p.row_blocks * (p.buckets + 1),
+            "partials": 8 * p.chunks * num_groups}
+
+
+def launch_sequence(n: int, num_groups: int) -> List[Tuple[str, int]]:
+    """The kernels a call launches, in order, with their blocks: the
+    one-launch kernel up to MAX_GROUPS groups; above, partition_rows,
+    bin_buckets (a block per window and chunk) and merge_partials (a
+    thread a group)."""
+    if num_groups <= MAX_GROUPS:
+        return [("fused_filter_agg_kernel", grid(n, 2048)[0])]
+    p = many_plan(n, num_groups)
+    return [("partition_rows", p.row_blocks), ("bin_buckets", p.windows * p.chunks),
+            ("merge_partials", -(-num_groups // 32))]
 
 
 def smem_bytes(num_groups: int) -> int:
-    """Shared memory a block of the kernel takes: dynamic, 8 warps' bins
-    (a float32 sum and an int32 count a group of its window) and 32 lane
-    values each; static, the last block's 256 float32 and 256 int64 slice
-    totals and a flag."""
-    return 8 * windows(num_groups)[1] * 8 + 8 * 32 * 4 + 256 * (4 + 8) + 1
+    """Shared memory a block takes, the most of a call's kernels: up to
+    MAX_GROUPS groups the one-launch kernel's (dynamic, 8 warps' bins, a
+    float32 sum and an int32 count a group, and 32 lane values each;
+    static, the last block's 256 float32 and 256 int64 slice totals and a
+    flag); above, partition_rows' (PART_ROWS staged pairs, (bucket, rank)
+    entries and places, 8 warps' counts a bucket and the bucket offsets)
+    or bin_buckets' (the bins of one window, 32 lane values a warp, and
+    SEG_BATCH row blocks' segment offsets and first pairs)."""
+    if num_groups <= MAX_GROUPS:
+        return 8 * num_groups * 8 + 8 * 32 * 4 + 256 * (4 + 8) + 1
+    p = many_plan(0, num_groups)
+    partition = PART_ROWS * 16 + 8 * p.buckets * 4 + (p.buckets + 1) * 4 + 8 * 4
+    return max(partition, 8 * p.width * 8 + 8 * 32 * 4 + (2 * SEG_BATCH + 1 + 8) * 4)
 
 
 def _ticket(index: int, stream: int, device: torch.device) -> torch.Tensor:
@@ -139,23 +206,38 @@ def _check(keys, values, filter_vals, op: str, num_groups: int) -> None:
 
 
 def _launch(lib, keys, values, filter_vals, op, threshold, num_groups, *, index, stream):
-    """Allocate the blocks' partials and the outputs, and launch on
-    ``stream`` (once; above MAX_GROUPS groups the library adds the merge
-    launch).  The tensors go to the kernel as they are."""
+    """Allocate the partials (and above MAX_GROUPS groups the rest of the
+    scratch) and the outputs, and launch on ``stream``: once up to
+    MAX_GROUPS groups, else the three launches of ``many_plan``.  The
+    tensors go to the kernels as they are."""
     n = keys.shape[0]
-    blocks, rows_per_block = grid(n, lib.fused_filter_agg_tile_rows(), num_groups)
     dev = keys.device
-    # the blocks' float32 sums, then their int32 counts; then the outputs
-    parts = torch.empty(2 * blocks * num_groups, dtype=torch.int32, device=dev)
     out = torch.empty((2, num_groups), dtype=torch.float32, device=dev)
-    code = lib.fused_filter_agg_launch(
-        index, keys.data_ptr(), values.data_ptr(), int(values.dtype == torch.int32),
-        filter_vals.data_ptr(), int(filter_vals.dtype == torch.int32),
-        n, _OPS.index(op), float(threshold), num_groups, blocks, rows_per_block,
-        _aligned(keys, values, filter_vals), parts.data_ptr(),
-        parts.data_ptr() + blocks * num_groups * 4, _ticket(index, stream, dev).data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), stream,
-    )
+    common = (keys.data_ptr(), values.data_ptr(), int(values.dtype == torch.int32),
+              filter_vals.data_ptr(), int(filter_vals.dtype == torch.int32),
+              n, _OPS.index(op), float(threshold), num_groups)
+    aligned = _aligned(keys, values, filter_vals)
+    if num_groups <= MAX_GROUPS:
+        blocks, rows_per_block = grid(n, lib.fused_filter_agg_tile_rows())
+        # the blocks' float32 sums, then their int32 counts
+        parts = torch.empty(2 * blocks * num_groups, dtype=torch.int32, device=dev)
+        code = lib.fused_filter_agg_launch(
+            index, *common, blocks, rows_per_block, aligned, parts.data_ptr(),
+            parts.data_ptr() + blocks * num_groups * 4,
+            _ticket(index, stream, dev).data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            stream,
+        )
+    else:
+        p = many_plan(n, num_groups)
+        pairs = torch.empty(2 * n, dtype=torch.int32, device=dev)
+        offsets = torch.empty(p.row_blocks * (p.buckets + 1), dtype=torch.int32, device=dev)
+        parts = torch.empty(2 * p.chunks * num_groups, dtype=torch.int32, device=dev)
+        code = lib.fused_filter_agg_many_launch(
+            index, *common, p.row_blocks, p.windows, p.width, p.buckets, p.per_bucket,
+            p.chunks, aligned, pairs.data_ptr(), offsets.data_ptr(), parts.data_ptr(),
+            parts.data_ptr() + p.chunks * num_groups * 4, out[0].data_ptr(),
+            out[1].data_ptr(), stream,
+        )
     if code != 0:
         msg = lib.fused_filter_agg_error_string(code).decode()
         raise RuntimeError(f"fused_filter_agg launch failed: {msg} ({code})")
@@ -177,8 +259,9 @@ def fused_filter_agg(
     key lies outside ``[0, num_groups)`` contribute nothing.  CUDA tensors
     launch the kernel on the current stream without synchronising (views
     that do not start on a 16-byte boundary included; above MAX_GROUPS
-    groups a second launch merges the windows' partials); CPU tensors take
-    the plain version.
+    groups three launches: the rows partitioned by group window, each
+    window binned, the partials merged); CPU tensors take the plain
+    version.
     """
     _check(keys, values, filter_vals, op, num_groups)
     if keys.device.type == "cpu":

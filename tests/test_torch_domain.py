@@ -20,7 +20,9 @@ number of aggregation groups.
   only where their bytes are not a multiple of 16, in flash alone), the
   group slices and the plan above 64 q heads, the caches passed as they
   are, and the many-group variant's plan and partials.
-* Head dim 257 refused by both wrappers.
+* Head dims above 256 taken by both wrappers in every dtype, and 0
+  refused (``tests/test_torch_wide_heads.py`` holds the wide kernels'
+  plans).
 """
 import dataclasses
 
@@ -281,50 +283,73 @@ def test_group_slices_and_their_plan(group, slices):
     assert n_splits == 1 or 4 * slices[0] * n_splits <= H100_SMS
 
 
-@pytest.mark.parametrize("num_groups,windows", [(1024, (1, 1024)), (1025, (1, 1025)),
-                                                (3072, (1, 3072)), (4096, (2, 2048)),
-                                                (65536, (22, 2979))])
+@pytest.mark.parametrize("num_groups,windows", [(1024, (1, 1024)), (1025, (2, 513)),
+                                                (3072, (3, 1024)), (4096, (4, 1024)),
+                                                (65536, (64, 1024)), (262144, (256, 1024))])
 def test_many_group_plan(num_groups, windows):
-    """Above 1024 groups: windows of at most 3,072 groups (bins within the
-    227 KB a block may use), blocks at most 2^22 / G so the partials stay
-    at 32 MB, a grid of n (and of G alone above 4096 groups); the launch
-    passes partials sized for every block and group."""
+    """Above 1024 groups: windows of at most 1,024 groups (bins of 64 KB,
+    three blocks an SM), rows partitioned by window in blocks of 2,048
+    rows (a plan of n and G alone), about 396 bin blocks, each chunk's
+    partials at most G entries; the launch passes the plan, pairs for
+    every row, the bucket offsets and the partials.  Up to 1024 groups a
+    call stays one launch of grid(n)."""
     assert ffa_ops.windows(num_groups) == windows
     assert ffa_ops.smem_bytes(num_groups) <= 232_448
     n = 2_796_308
-    blocks, rows = ffa_ops.grid(n, 2048, num_groups)
-    assert blocks * num_groups <= max(ffa_ops.MAX_PARTIALS, num_groups)
-    assert blocks * rows >= n and rows % 2048 == 0
-    if num_groups <= 4096:
-        assert (blocks, rows) == ffa_ops.grid(n, 2048)
 
     class Lib:
         def fused_filter_agg_tile_rows(self):
             return 2048
 
         def fused_filter_agg_launch(self, *args):
-            self.args = args
+            self.args, self.entry = args, "one"
+            return 0
+
+        def fused_filter_agg_many_launch(self, *args):
+            self.args, self.entry = args, "many"
             return 0
 
     lib = Lib()
     keys = torch.zeros(n, dtype=torch.int32)
     sums, counts = ffa_ops._launch(lib, keys, torch.zeros(n), torch.zeros(n), "ge", 0.0,
                                    num_groups, index=0, stream=0)
-    assert lib.args[9:12] == (num_groups, blocks, rows)
-    assert lib.args[14] - lib.args[13] == blocks * num_groups * 4
     assert sums.shape == counts.shape == (num_groups,)
+    if num_groups <= ffa_ops.MAX_GROUPS:
+        blocks, rows = ffa_ops.grid(n, 2048)
+        assert lib.entry == "one" and lib.args[9:12] == (num_groups, blocks, rows)
+        assert lib.args[14] - lib.args[13] == blocks * num_groups * 4
+        return
+    p = ffa_ops.many_plan(n, num_groups)
+    assert lib.entry == "many" and lib.args[9:16] == (num_groups, *p)
+    assert (p.windows, p.width) == windows and p.buckets == p.windows
+    assert p.row_blocks * ffa_ops.PART_ROWS >= n > (p.row_blocks - 1) * ffa_ops.PART_ROWS
+    assert p.windows * p.chunks <= ffa_ops.BIN_BLOCKS + p.windows
+    assert lib.args[20] - lib.args[19] == p.chunks * num_groups * 4
 
 
 def test_head_dim_257_is_refused():
-    q = torch.zeros((1, 2, 4, 257), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="ROADMAP.md section 3"):
-        flash_ops._check_cuda(q, q, q, None)
-    with pytest.raises(ValueError, match="ROADMAP.md section 3"):
-        decode_ops._check_cuda(q[:, :, 0], q, q, torch.ones((1,), dtype=torch.int32))
-    for d in (1, 2, 255, 256):
-        small = torch.zeros((1, 2, 4, d), dtype=torch.float16)
-        flash_ops._check_cuda(small, small, small, None)
-        decode_ops._check_cuda(small[:, :, 0], small, small, torch.ones((1,), dtype=torch.int32))
+    """Head dims above 256 were refused until both kernels took q.k across
+    D in pieces (``flash_tf32_wide``, ``decode_wide``); now both wrappers'
+    checks take 257, 512 and 1024 in float32, bfloat16 and float16, as the
+    Pallas kernels do, and refuse only a head dim of 0."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for d in (257, 512, 1024):
+            q = torch.zeros((1, 2, 4, d), dtype=dtype)
+            flash_ops._check_cuda(q, q, q, None)
+            decode_ops._check_cuda(q[:, :, 0], q, q, torch.ones((1,), dtype=torch.int32))
+            assert flash_ops.kernel_name(dtype, d) == "flash_tf32_wide"
+            assert decode_ops.decode_kernel(dtype, 2, d).startswith("decode_wide<")
+        for d in (1, 2, 255, 256):
+            small = torch.zeros((1, 2, 4, d), dtype=dtype)
+            flash_ops._check_cuda(small, small, small, None)
+            decode_ops._check_cuda(small[:, :, 0], small, small,
+                                   torch.ones((1,), dtype=torch.int32))
+        empty = torch.zeros((1, 2, 4, 0), dtype=dtype)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_ops._check_cuda(empty, empty, empty, None)
+        with pytest.raises(ValueError, match="head dim"):
+            decode_ops._check_cuda(empty[:, :, 0], empty, empty,
+                                   torch.ones((1,), dtype=torch.int32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.int32])

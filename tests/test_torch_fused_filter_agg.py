@@ -437,3 +437,183 @@ def test_kernel_order_of_sums_matches_pallas(n, G, rng):
         np.testing.assert_array_equal(got_c, np.asarray(exp_c))
         np.testing.assert_allclose(got_s, np.asarray(exp_s), rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(got_s, np.asarray(exp_s))  # integer values: exact
+
+
+# ------------------------------------------- more than 1,024 groups
+def emulate_many(keys, vals, filt, op, threshold, G, threads=256, tile=2048):
+    """The three launches above MAX_GROUPS (fused_filter_agg.cu's header),
+    in numpy float32, with their layout: partition block b stages rows
+    [PART_ROWS b, ..); warp w ranks its lanes' rows step by step (quad qd,
+    row j, lanes ascending) within their bucket; the block writes each
+    pair at its region's bucket offset + the warps' counts before w + the
+    rank.  Bin block (window, chunk) takes the chunk's row blocks in order,
+    SEG_BATCH at a time, whose segments of the window's bucket make one
+    sequence of pairs, cut into units of 32 consecutive pairs, warp k
+    taking a batch's units k, k + 8, ...; in a unit the lanes of one group
+    add in
+    ascending lane order into the warp's bin; the warps' bins add in warp
+    order; merge_partials adds the chunks' partials in order.  Returns
+    (sums, counts, offsets, pair keys)."""
+    n = len(keys)
+    p = ops.many_plan(n, G)
+    rows_a_block = ops.PART_ROWS
+    keep = np.asarray(ref_mask(filt, op, threshold)) & (keys >= 0) & (keys < G)
+    bucket = np.where(keep, keys // p.width // p.per_bucket, -1)
+    v = vals.astype(np.float32)
+    pair_key = np.full(n, -7, np.int64)
+    pair_val = np.zeros(n, np.float32)
+    offsets = np.zeros((p.row_blocks, p.buckets + 1), np.int64)
+    lanes = np.arange(32)
+    for b in range(p.row_blocks):
+        begin, end = b * rows_a_block, min(n, (b + 1) * rows_a_block)
+        cnt = np.zeros((8, p.buckets), np.int64)
+        placed = []
+        for base in range(begin, end, tile):
+            for qd in range(2):
+                for j in range(4):
+                    for w in range(8):
+                        for r in base + (qd * threads + w * 32 + lanes) * 4 + j:
+                            if r < end and bucket[r] >= 0:
+                                placed.append((bucket[r], w, cnt[w, bucket[r]], r))
+                                cnt[w, bucket[r]] += 1
+        before = np.cumsum(cnt, axis=0) - cnt  # the warps' counts before w
+        offsets[b, 1:] = np.cumsum(cnt.sum(axis=0))
+        for u, w, pos, r in placed:
+            dst = begin + offsets[b, u] + before[w, u] + pos
+            assert pair_key[dst] == -7  # every place taken once
+            pair_key[dst], pair_val[dst] = keys[r], v[r]
+    part_s = np.zeros((p.chunks, G), np.float32)
+    part_c = np.zeros((p.chunks, G), np.int64)
+    for c in range(p.chunks):
+        b0, b1 = p.row_blocks * c // p.chunks, p.row_blocks * (c + 1) // p.chunks
+        for win in range(p.windows):
+            g0, u = win * p.width, win // p.per_bucket
+            width = min(p.width, G - g0)
+            bin_s = np.zeros((8, width), np.float32)
+            bin_c = np.zeros((8, width), np.int64)
+            for bb in range(b0, b1, ops.SEG_BATCH):
+                seq = np.concatenate(
+                    [b * rows_a_block + np.arange(offsets[b, u], offsets[b, u + 1])
+                     for b in range(bb, min(bb + ops.SEG_BATCH, b1))] + [np.zeros(0, np.int64)])
+                for k in range(-(-len(seq) // 32)):
+                    w_unit = k % 8
+                    ok = k * 32 + lanes < len(seq)
+                    at = seq[np.minimum(k * 32 + lanes, max(len(seq) - 1, 0))]
+                    key = np.where(ok, pair_key[at] - g0, -1)
+                    key = np.where((key >= 0) & (key < width), key, -1)
+                    for g in sorted(set(key[key >= 0].tolist())):
+                        s = np.float32(0)
+                        for lane in lanes[key == g]:
+                            s = np.float32(s + pair_val[at[lane]])
+                        bin_s[w_unit, g] = np.float32(bin_s[w_unit, g] + s)
+                        bin_c[w_unit, g] += int((key == g).sum())
+            for w in range(8):
+                part_s[c, g0:g0 + width] = (part_s[c, g0:g0 + width] + bin_s[w]).astype(np.float32)
+                part_c[c, g0:g0 + width] += bin_c[w]
+    sums = np.zeros(G, np.float32)  # 8 slices of chunks in order, then the slices
+    for sl in range(8):
+        s = np.zeros(G, np.float32)
+        for c in range(p.chunks * sl // 8, p.chunks * (sl + 1) // 8):
+            s = (s + part_s[c]).astype(np.float32)
+        sums = (sums + s).astype(np.float32)
+    return sums, part_c.sum(axis=0).astype(np.float32), offsets, pair_key
+
+
+@pytest.mark.parametrize("n,G", [(9000, 1025), (9000, 7000), (4097, 1_100_000), (0, 2000)])
+def test_many_group_order_of_sums_matches_pallas(n, G, rng):
+    """The partition and binning (``emulate_many``) on the CPU: every
+    passing row placed once, the bucket offsets those of a count, counts
+    exact, float sums within 1e-5 of the Pallas kernel, integer-valued sums
+    exact.  1,100,000 groups take two windows a bucket (above WINDOW x
+    MAX_BUCKETS)."""
+    keys = rng.integers(-1, G + 1, n).astype(np.int32)
+    if G > 10_000:  # crowd a few windows, so that buckets hold several groups
+        keys = np.where(rng.random(n) < 0.7, keys % 20_000, keys).astype(np.int32)
+    filt = (rng.random(n) * 100).astype(np.float32)
+    p = ops.many_plan(n, G)
+    assert (p.per_bucket > 1) == (G > ops.WINDOW * ops.MAX_BUCKETS)
+    for vals in (rng.standard_normal(n).astype(np.float32),
+                 rng.integers(-50, 51, n).astype(np.float32)):
+        got_s, got_c, offsets, pair_key = emulate_many(keys, vals, filt, "ge", 30.0, G)
+        keep = (filt >= 30.0) & (keys >= 0) & (keys < G)
+        assert offsets[:, -1].sum() == keep.sum() == (pair_key != -7).sum()
+        for b in range(p.row_blocks):
+            rows = slice(b * ops.PART_ROWS, (b + 1) * ops.PART_ROWS)
+            u = keys[rows][keep[rows]] // p.width // p.per_bucket
+            assert np.array_equal(np.diff(offsets[b]), np.bincount(u, minlength=p.buckets))
+        if n == 0:
+            exp_s, exp_c = (t.numpy() for t in fused_filter_agg_ref(
+                *(torch.from_numpy(a) for a in (keys, vals, filt)),
+                op="ge", threshold=30.0, num_groups=G))
+        elif G > 10_000:  # the Pallas kernel's one-hot over G is too large here
+            exp_s, exp_c = (t.numpy() for t in fused_filter_agg_ref(
+                *(torch.from_numpy(a) for a in (keys, vals, filt)),
+                op="ge", threshold=30.0, num_groups=G))
+        else:
+            exp_s, exp_c = jax_ffa(jnp.asarray(keys), jnp.asarray(vals), jnp.asarray(filt),
+                                   op="ge", threshold=30.0, num_groups=G, interpret=True)
+        np.testing.assert_array_equal(got_c, np.asarray(exp_c))
+        np.testing.assert_allclose(got_s, np.asarray(exp_s), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got_s, np.asarray(exp_s))  # integer values: exact
+
+
+class ManyLib(FakeLib):
+    def fused_filter_agg_many_launch(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+#: Q2's rows (phase 2's query path) and, by group count, the plan, the
+#: launches (kernel, blocks) and the scratch bytes
+Q2_ROWS = 2_796_308
+MANY_PLANS = {
+    1025: ((1366, 2, 513, 2, 1, 198),
+           [("partition_rows", 1366), ("bin_buckets", 396), ("merge_partials", 33)], 1_623_600),
+    4096: ((1366, 4, 1024, 4, 1, 99),
+           [("partition_rows", 1366), ("bin_buckets", 396), ("merge_partials", 128)],
+           3_244_032),
+    65536: ((1366, 64, 1024, 64, 1, 7),
+            [("partition_rows", 1366), ("bin_buckets", 448), ("merge_partials", 2048)],
+            3_670_016),
+    262144: ((1366, 256, 1024, 256, 1, 2),
+             [("partition_rows", 1366), ("bin_buckets", 512), ("merge_partials", 8192)],
+             4_194_304),
+}
+
+
+@pytest.mark.parametrize("G", sorted(MANY_PLANS))
+def test_many_group_plan_launches_and_scratch(G):
+    """At Q2's rows: 2,048-row partition blocks, windows of at most 1,024
+    groups, a bucket a window, about 396 bin blocks; scratch of 8 B a row
+    of pairs, the bucket offsets and a chunk's partials; the wrapper passes
+    that plan and scratch to the many-group entry point, and the outputs."""
+    plan, launches, partial_bytes = MANY_PLANS[G]
+    p = ops.many_plan(Q2_ROWS, G)
+    assert tuple(p) == plan and ops.launch_sequence(Q2_ROWS, G) == launches
+    assert ops.scratch_bytes(Q2_ROWS, G) == {
+        "pairs": 8 * Q2_ROWS, "offsets": 4 * p.row_blocks * (p.buckets + 1),
+        "partials": partial_bytes}
+    assert ops.smem_bytes(G) <= 232_448
+    lib = ManyLib()
+    keys = torch.zeros(Q2_ROWS, dtype=torch.int32)
+    sums, counts = ops._launch(lib, keys, torch.zeros(Q2_ROWS), torch.zeros(Q2_ROWS), "ge",
+                               0.0, G, index=0, stream=0)
+    (args,) = lib.calls
+    assert args[6] == Q2_ROWS and args[9] == G and args[10:16] == plan
+    assert args[16] == 0b111
+    assert args[20] - args[19] == p.chunks * G * 4  # float32 sums, then int32 counts
+    assert (args[21], args[22]) == (sums.data_ptr(), counts.data_ptr())
+    assert sums.shape == counts.shape == (G,)
+
+
+def test_many_group_entry_point_checks_the_plan():
+    """The C entry point recomputes what it can of the plan and refuses a
+    call that disagrees, instead of writing past the scratch."""
+    src = ops.SOURCE.read_text()
+    for needle in ("row_blocks != want_blocks", "width > kWindow", "buckets > kMaxBuckets",
+                   "chunks > row_blocks", "num_groups <= kMaxGroups"):
+        assert needle in src
+    assert f"constexpr int kWindow = {ops.WINDOW};" in src
+    assert f"constexpr int kMaxBuckets = {ops.MAX_BUCKETS};" in src
+    assert "constexpr int kPartRows = kTileRows;" in src and ops.PART_ROWS == 2048
+    assert f"constexpr int kSegBatch = {ops.SEG_BATCH};" in src

@@ -112,17 +112,23 @@ def test_the_new_head_dims_are_those_of_qwen3_and_danube():
 @pytest.mark.parametrize("d", [96, 112])
 def test_a_head_dim_no_config_needs_is_refused(d):
     """Head dims 96 and 112 (no compiled width) are in the kernels' domain
-    now: both wrappers take them, on the ``_any`` kernels of width 128.  A
-    head dim past MAX_HEAD_DIM (d + 256) is the one refused."""
+    now: both wrappers take them, on the ``_any`` kernels of width 128.
+    So is d + 256, on the wide kernels (q.k across D in pieces); a head
+    dim of 0 is the one refused."""
     q = torch.zeros((1, 2, 4, d))
     flash_ops._check_cuda(q, q, q, None)
     decode_ops._check_cuda(q[:, :, 0], q, q, torch.ones((1,), dtype=torch.int32))
     assert flash_ops.width(torch.bfloat16, d) == decode_ops.width(d) == 128
     wide = torch.zeros((1, 2, 4, d + 256))
+    flash_ops._check_cuda(wide, wide, wide, None)
+    decode_ops._check_cuda(wide[:, :, 0], wide, wide, torch.ones((1,), dtype=torch.int32))
+    assert flash_ops.kernel_label(torch.float32, d + 256) == "flash_tf32_wide<f32>"
+    assert decode_ops.decode_kernel(torch.float32, 1, d + 256) == "decode_wide<f32>"
+    empty = torch.zeros((1, 2, 4, 0))
     with pytest.raises(ValueError, match="head dim"):
-        flash_ops._check_cuda(wide, wide, wide, None)
+        flash_ops._check_cuda(empty, empty, empty, None)
     with pytest.raises(ValueError, match="head dim"):
-        decode_ops._check_cuda(wide[:, :, 0], wide, wide, torch.ones((1,), dtype=torch.int32))
+        decode_ops._check_cuda(empty[:, :, 0], empty, empty, torch.ones((1,), dtype=torch.int32))
 
 
 @pytest.mark.parametrize("scale", [0.0, -0.125, float("nan")])

@@ -195,6 +195,15 @@ def test_time_serve_refuses_to_run_without_cuda(no_cuda):
     assert proc.stdout == "" and "no CUDA device" in proc.stderr
 
 
+def test_time_filter_agg_refuses_to_run_without_cuda(no_cuda):
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "time_filter_agg.py")],
+        capture_output=True, text=True, cwd=ROOT, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert proc.stdout == "" and "no CUDA device" in proc.stderr
+
+
 def test_chip_smoke_refuses_to_run_without_cuda(no_cuda):
     proc = subprocess.run(
         [sys.executable, str(ROOT / "chip_smoke.py")],

@@ -1,0 +1,350 @@
+"""Head dims above 256 in both attention kernels, checked on the CPU.
+
+The Pallas kernels take any head dim; the port runs ``flash_tf32_wide``
+and ``decode_wide`` above 256 (``chip_smoke.py`` phase 5 holds them to
+their plain versions on the card).  Here:
+
+* the port's plain versions (what the wrappers take on CPU tensors) at
+  head dims 257, 320 and 576 against the Pallas kernels in interpret mode,
+  in float32, bfloat16 and float16: within 1e-5 + 1e-5 |want| in float32
+  and one ulp of the type plus 1e-5 in the 16-bit types (both compute in
+  float32 and round once);
+* an emulation of each wide kernel's plan against the Pallas kernel under
+  the same rules: flash's 64-row q tiles of 16-row warps, 32-key tiles,
+  q.k summed over 64-column pieces (split-TF32 products, as
+  ``flash_tf32``), p.v in 256-column output slices; decode's chunks of
+  ``split_plan``, q.k summed over 256-column pieces, a softmax a chunk and
+  the combine, at lengths 0, 1, a chunk edge and S;
+* the plans without a card: both wide kernels' shared memory within the
+  227 KB a block may use at every head dim from 257 to 1,024 (it does not
+  depend on the head dim), every output column in exactly one slice, and
+  the wrappers' launch arguments through stand-in libraries (the row, the
+  dtype code, no scale rewrite, the decode plan and its partials);
+* both ``_check_cuda`` take head dims 257 to 1,024 in every dtype and
+  refuse 0 (``tests/test_torch_domain.py::test_head_dim_257_is_refused``).
+"""
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from repro.kernels.decode_attention import decode_attention as jax_decode
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from test_torch_flash_tf32 import product
+
+torch.set_num_threads(1)  # small tensors: extra threads only contend
+
+H100_SMS = 132
+#: shared memory a block may use on the H100 (232,448 of the SM's 256 KB)
+SMEM_LIMIT = 232_448
+WIDE_DIMS = (257, 320, 576)
+DTYPES = {"float32": (torch.float32, jnp.float32),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16),
+          "float16": (torch.float16, jnp.float16)}
+MASKS = ((True, None), (False, None), (True, 40))
+FLASH_CU = flash_ops.SOURCE.read_text()
+DECODE_CU = decode_ops.SOURCE.read_text()
+
+
+def normal(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def both(x, name):
+    tdt, jdt = DTYPES[name]
+    return torch.from_numpy(x).to(tdt), jnp.asarray(x).astype(jdt)
+
+
+def as_torch(x, dtype):
+    return torch.from_numpy(np.array(jnp.asarray(x, jnp.float32))).to(dtype)
+
+
+def within_rule(got, want) -> bool:
+    """Phase 5's rule (``chip_smoke.close_enough``)."""
+    return chip_smoke.close_enough(torch, got, want)
+
+
+# ------------------------------------------------ plain versions vs Pallas
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_above_256_matches_pallas(name, d, causal, window, rng):
+    b, h, hkv, s = 1, 4, 2, 64
+    (qt, qj), (kt, kj), (vt, vj) = (both(normal(rng, b, n, s, d), name)
+                                    for n in (h, hkv, hkv))
+    got = flash_attention(qt, kt, vt, causal=causal, window=window)
+    want = jax_flash(qj, kj, vj, causal=causal, window=window, interpret=True,
+                     block_q=32, block_k=32)
+    assert got.dtype == qt.dtype and got.shape == (b, h, s, d)
+    assert within_rule(got, as_torch(want, qt.dtype))
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_decode_above_256_matches_pallas(name, d, rng):
+    b, h, hkv, s = 4, 8, 2, 128
+    (qt, qj), (kt, kj), (vt, vj) = (both(x, name) for x in (
+        normal(rng, b, h, d), normal(rng, b, hkv, s, d), normal(rng, b, hkv, s, d)))
+    lengths = np.array([0, 1, 65, s], np.int32)
+    got = decode_attention(qt, kt, vt, torch.from_numpy(lengths))
+    want = jax_decode(qj, kj, vj, jnp.asarray(lengths), interpret=True, block_s=64)
+    assert got.dtype == qt.dtype and got.shape == (b, h, d)
+    assert within_rule(got, as_torch(want, qt.dtype))
+
+
+# -------------------------------------------------- the wide kernels' plans
+def cu_int(src: str, name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def emulate_flash_wide(q, k, v, *, causal, window):
+    """flash_tf32_wide's plan and arithmetic on the CPU: block (q tile of
+    64 rows, output slice of 256 columns); each warp of 16 rows walks the
+    32-key tiles its rows see; a tile's scores are the sum over 64-column
+    pieces of split-TF32 products (float32: three, bf16: two, float16: one
+    of q and k as they are, scaled after), then the masks and the online
+    softmax, and p.v over the slice's columns."""
+    b, h, s, d = q.shape
+    group = h // k.shape[1]
+    bq, bk = 16 * cu_int(FLASH_CU, "kXWarps"), cu_int(FLASH_CU, "kXKeys")
+    piece, width = cu_int(FLASH_CU, "kXPiece"), cu_int(FLASH_CU, "kXSlice")
+    assert (piece, width) == (flash_ops.WIDE_PIECE, flash_ops.WIDE_SLICE)
+    half, exact = q.dtype == torch.float16, q.dtype != torch.float32
+    scale = 1.0 / d ** 0.5
+    qs = q.to(torch.float32).reshape(b * h, s, d)
+    if not half:
+        qs = qs * scale
+    kf = k.to(torch.float32).repeat_interleave(group, dim=1).reshape(b * h, s, d)
+    vf = v.to(torch.float32).repeat_interleave(group, dim=1).reshape(b * h, s, d)
+    out = torch.empty(b * h, s, d, dtype=torch.float32)
+    n_tiles = -(-s // bk)
+    for c0, cols in flash_ops.wide_slices(q.dtype, d):
+        for q0 in range(0, s, bq):
+            hi = min((q0 + bq - 1) // bk + 1, n_tiles) if causal else n_tiles
+            lo = max(int((q0 - window + 1) / bk), 0) if window else 0
+            for r0 in range(q0, min(q0 + bq, s), 16):
+                whi = min((r0 + 15) // bk + 1, hi) if causal else hi
+                wlo = max(int((r0 - window + 1) / bk), lo) if window else lo
+                rows = torch.arange(r0, r0 + 16)
+                qw = torch.zeros(b * h, 16, d)
+                qw[:, : min(16, s - r0)] = qs[:, r0:r0 + 16]
+                m = torch.full((b * h, 16, 1), -1e30)
+                l = torch.zeros((b * h, 16, 1))
+                o = torch.zeros((b * h, 16, cols))
+                for j in range(wlo, whi):
+                    keys = torch.arange(j * bk, (j + 1) * bk)
+                    kt = torch.zeros(b * h, bk, d)
+                    vt = torch.zeros(b * h, bk, cols)
+                    valid = min(bk, s - j * bk)
+                    kt[:, :valid] = kf[:, j * bk:j * bk + valid]
+                    vt[:, :valid] = vf[:, j * bk:j * bk + valid, c0:c0 + cols]
+                    sc = torch.zeros(b * h, 16, bk)
+                    for p0 in range(0, d, piece):
+                        qp, kp = qw[..., p0:p0 + piece], kt[..., p0:p0 + piece]
+                        sc = sc + (qp @ kp.transpose(1, 2) if half else
+                                   product(qp, kp.transpose(1, 2), 3, exact))
+                    if half:
+                        sc = sc * scale
+                    keep = torch.ones(16, bk, dtype=torch.bool)
+                    if causal:
+                        keep &= keys[None, :] <= rows[:, None]
+                    if window:
+                        keep &= keys[None, :] > rows[:, None] - window
+                    sc = torch.where(keep, sc, torch.tensor(-1e30))
+                    sc = torch.where(keys[None, :] >= s, torch.tensor(-torch.inf), sc)
+                    mx = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+                    corr = torch.exp(m - mx)
+                    p = torch.exp(sc - mx)
+                    l = l * corr + p.sum(dim=-1, keepdim=True)
+                    o = o * corr + product(p, vt, 3, exact)
+                    m = mx
+                n = min(16, s - r0)
+                out[:, r0:r0 + n, c0:c0 + cols] = (o / l.clamp_min(1e-30))[:, :n]
+    return out.reshape(b, h, s, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("d,s", [(320, 96), (576, 72)])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_wide_plan_meets_the_rules(name, d, s, causal, window, rng):
+    """Two and three slices, S a whole and a ragged number of 32-key tiles
+    and of 64-row q tiles, GQA 4/2."""
+    (qt, qj), (kt, kj), (vt, vj) = (both(normal(rng, 1, n, s, d), name) for n in (4, 2, 2))
+    got = emulate_flash_wide(qt, kt, vt, causal=causal, window=window)
+    want = jax_flash(qj, kj, vj, causal=causal, window=window, interpret=True,
+                     block_q=s, block_k=s)
+    assert within_rule(got, as_torch(want, qt.dtype))
+
+
+def emulate_decode_wide(q, k_cache, v_cache, lengths, sms=H100_SMS):
+    """decode_wide's plan and arithmetic on the CPU: the chunks of
+    split_plan; in each, the scores summed over 256-column pieces, the
+    scale, -1e30 past the length (only at length 0, which walks every
+    row), the chunk's maximum, p and l, and p.v in float32; the chunks
+    combined as decode_combine_wide does (a single chunk is the output)."""
+    b, h, d = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    group = h // hkv
+    n_splits, chunk = decode_ops.split_plan(s, b * hkv, sms, group, d, q.dtype)
+    assert chunk <= cu_int(DECODE_CU, "kWideChunk") and chunk % 64 == 0
+    piece = cu_int(DECODE_CU, "kWidePiece")
+    scale = 1.0 / d ** 0.5
+    qf = q.to(torch.float32).reshape(b, hkv, group, d)
+    kf, vf = k_cache.to(torch.float32), v_cache.to(torch.float32)
+    out = torch.empty(b, hkv, group, d)
+    for bi in range(b):
+        ln = int(lengths[bi])
+        n = min(ln, s) if ln > 0 else s
+        ms, ls, accs = [], [], []
+        for c0 in range(0, n_splits * chunk, chunk):
+            if c0 >= n:
+                continue  # an empty partial: weight 0
+            c1 = min(c0 + chunk, n)
+            sc = torch.zeros(hkv, group, c1 - c0)
+            for p0 in range(0, d, piece):
+                sc = sc + qf[bi, :, :, p0:p0 + piece] @ kf[bi, :, c0:c1, p0:p0 + piece].transpose(1, 2)
+            rows = torch.arange(c0, c1)
+            sc = torch.where(rows >= ln, torch.tensor(-1e30), sc * scale)
+            m = sc.amax(dim=-1, keepdim=True)
+            p = torch.exp(sc - m)
+            ms.append(m)
+            ls.append(p.sum(dim=-1, keepdim=True))
+            accs.append(p @ vf[bi, :, c0:c1])
+        if len(ms) == 1 and n_splits == 1:
+            out[bi] = accs[0] / ls[0].clamp_min(1e-30)
+            continue
+        mx = torch.stack(ms).amax(dim=0)
+        num = sum(torch.exp(m - mx) * a for m, a in zip(ms, accs))
+        den = sum(torch.exp(m - mx) * l_ for m, l_ in zip(ms, ls))
+        out[bi] = num / den.clamp_min(1e-30)
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("d,group,s", [(320, 4, 256), (576, 9, 128), (257, 16, 64)])
+def test_decode_wide_plan_meets_the_rules(name, d, group, s, rng):
+    """Several chunks (and one, at S = 64), a head batch of 8 and a
+    ragged one (9 and 16 q heads a kv head), lengths 0, 1, a chunk edge
+    and S."""
+    b, hkv = 4, 1
+    (qt, qj), (kt, kj), (vt, vj) = (both(x, name) for x in (
+        normal(rng, b, group * hkv, d), normal(rng, b, hkv, s, d), normal(rng, b, hkv, s, d)))
+    _, chunk = decode_ops.split_plan(s, b * hkv, H100_SMS, group, d, qt.dtype)
+    lengths = np.array([0, 1, min(chunk + 1, s), s], np.int32)
+    got = emulate_decode_wide(qt, kt, vt, lengths)
+    want = jax_decode(qj, kj, vj, jnp.asarray(lengths), interpret=True, block_s=64)
+    assert within_rule(got, as_torch(want, qt.dtype))
+
+
+def test_wide_shared_memory_and_slices_at_every_head_dim():
+    """Both wide kernels' blocks fit the card at every head dim from 257
+    to 1,024 (their shared memory does not grow with it), and the flash
+    slices cover every output column exactly once."""
+    for d in range(257, 1025):
+        for dtype, _ in DTYPES.values():
+            assert flash_ops.wide_smem_bytes(dtype) <= SMEM_LIMIT
+            ld = flash_ops.row_elems(dtype, d)
+            covered = np.zeros(ld, np.int64)
+            for c0, cols in flash_ops.wide_slices(dtype, d):
+                assert 0 < cols <= flash_ops.WIDE_SLICE and c0 % flash_ops.WIDE_SLICE == 0
+                covered[c0:c0 + cols] += 1
+            assert (covered == 1).all(), d
+            assert flash_ops.kernel_label(dtype, d) == (
+                f"flash_tf32_wide<{flash_ops._SHORT[dtype]}>")
+            assert decode_ops.decode_kernel(dtype, 4, d) == (
+                f"decode_wide<{decode_ops._SHORT[dtype]}>")
+    assert decode_ops.wide_smem_bytes() <= 48 * 1024  # static shared memory
+
+
+def test_wide_geometry_matches_the_sources():
+    """The wrappers' mirrors of the kernels' constants and shared memory."""
+    assert cu_int(FLASH_CU, "kXSlice") == flash_ops.WIDE_SLICE
+    assert cu_int(FLASH_CU, "kXPiece") == flash_ops.WIDE_PIECE
+    x = cu_int(FLASH_CU, "kXWarps") * 16 + cu_int(FLASH_CU, "kXKeys")
+    assert x == 96 and cu_int(FLASH_CU, "kXKeys") == 32
+    assert flash_ops.wide_smem_bytes(torch.float32) == 88_576
+    assert flash_ops.wide_smem_bytes(torch.bfloat16) == 44_544
+    assert cu_int(DECODE_CU, "kWideChunk") == decode_ops.WIDE_CHUNK
+    assert cu_int(DECODE_CU, "kWidePiece") == decode_ops.WIDE_PIECE
+    assert cu_int(DECODE_CU, "kWideHeads") == decode_ops.WIDE_HEADS
+    assert decode_ops.wide_smem_bytes() == 41_024
+    # no refusal of wide rows is left in either C entry point
+    assert "head_dim > 256" not in FLASH_CU and "head_dim > 256" not in DECODE_CU
+
+
+class FakeFlashLib:
+    def __init__(self):
+        self.calls = []
+
+    def flash_attention_launch(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+class FakeDecodeLib:
+    def __init__(self):
+        self.calls = []
+
+    def decode_attention_launch(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("dtype,d,row", [
+    (torch.float32, 257, 260), (torch.float32, 512, 512), (torch.bfloat16, 257, 264),
+    (torch.float16, 576, 576), (torch.bfloat16, 1024, 1024)])
+def test_flash_wrapper_above_256(dtype, d, row):
+    """The library gets the row (padded only where its bytes are not a
+    multiple of 16), the dtype code and the default scale of the unpadded
+    D as it is (flash_tf32_wide takes any scale: no rewrite)."""
+    b, h, hkv, s = 1, 4, 2, 16
+    q = torch.randn(b, h, s, d).to(dtype)
+    k, v = torch.randn(b, hkv, s, d).to(dtype), torch.randn(b, hkv, s, d).to(dtype)
+    assert flash_ops.row_elems(dtype, d) == row and flash_ops.width(dtype, d) == row
+    assert flash_ops.kernel_name(dtype, d) == "flash_tf32_wide"
+    flash_ops._check_cuda(q, k, v, None)
+    lib = FakeFlashLib()
+    out = flash_ops._launch(lib, q, k, v, causal=True, scale=-(d ** -0.5), window=None,
+                            device=0, stream=0)
+    (args,) = lib.calls
+    assert args[1] == {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}[dtype]
+    assert args[2] == row and args[7:10] == (b * h, s, h // hkv)
+    assert args[11] == pytest.approx(-(d ** -0.5))
+    assert (args[3] == q.data_ptr()) == (row == d)
+    assert out.shape == (b, h, s, d) and out.dtype == dtype
+
+
+@pytest.mark.parametrize("dtype,group,d,plan", [
+    (torch.float32, 8, 512, (64, 64)), (torch.bfloat16, 71, 257, (8, 512)),
+    (torch.float16, 1, 1024, (64, 64)), (torch.bfloat16, 4, 320, (64, 64))])
+def test_decode_wrapper_above_256(dtype, group, d, plan):
+    """The library gets the head dim, the caches and q as they are (no
+    copy), and split_plan's decode_wide plan: about two blocks an SM,
+    counting a block per batch of 8 q heads (4 sequences x 9 batches at
+    71 heads: 8 chunks of 512 rows), chunks a multiple of 64 and at most
+    1,024 rows; the partials sized for every q head and chunk."""
+    b, s = 4, 4096
+    q = torch.zeros((b, group, d), dtype=dtype)
+    k = torch.zeros((b, 1, s, d), dtype=dtype)
+    v = torch.zeros((b, 1, s, d), dtype=dtype)
+    lengths = torch.full((b,), s, dtype=torch.int32)
+    decode_ops._check_cuda(q, k, v, lengths)
+    lib = FakeDecodeLib()
+    out = decode_ops._launch(lib, q, k, v, lengths, d ** -0.5, device=0, stream=0,
+                             sms=H100_SMS)
+    (args,) = lib.calls
+    assert args[2] == d and (args[3], args[4], args[5]) == (q.data_ptr(), k.data_ptr(),
+                                                            v.data_ptr())
+    assert decode_ops.split_plan(s, b, H100_SMS, group, d, dtype) == plan
+    assert args[10:16] == (b, 1, group, s, *plan)
+    assert args[9] - args[8] == b * group * plan[0] * d * 4
+    assert out.shape == q.shape and out.dtype == dtype
+    assert decode_ops.split_plan(64, b, H100_SMS, group, d, dtype) == (1, 64)
+    assert decode_ops.split_plan(1 << 16, 1, 1, group, d, dtype)[1] == decode_ops.WIDE_CHUNK

@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU and the
 CUDA toolkit::
 
-    python3 tools/time_attention.py [--root DIR] [--label TEXT]
+    python3 tools/time_attention.py [--root DIR] [--label TEXT] [--only TEXT]
 
 It builds ``flash_attention.cu`` and ``decode_attention.cu`` of DIR's
 ``src/repro_torch`` (default: the checkout that holds this script) with the
@@ -24,7 +24,9 @@ sleep kernel), SDPA's time on the same inputs, whether the host queued both
 ahead of the card (``ahead``; where not, the times hold host gaps), and
 whether the result held to the plain version (``close_enough`` for decode
 and for flash in float32 or at head dim 32, ``flash_bf16_close`` for
-bf16 flash on wgmma).
+bf16 flash on wgmma).  ``--only TEXT`` keeps the rows whose name holds
+TEXT (their inputs then differ from a full run's: the rows draw from one
+generator in turn).
 
 The rows, the timing, the rules and the ptxas parser are those of the
 ``chip_smoke.py`` beside this script; only the kernels come from DIR, so
@@ -74,6 +76,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", type=Path, default=HERE)
     ap.add_argument("--label", default="")
+    ap.add_argument("--only", default="")
     args = ap.parse_args()
     root = args.root.resolve()
     sys.path[:0] = [str(root / "src"), str(HERE)]
@@ -100,6 +103,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    flush.zero_()  # its kernel's module loads here, not in the first row's queued loop
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
 
     def randn(*shape, dtype=torch.bfloat16):
@@ -136,16 +140,17 @@ def main() -> int:
                     ((a, cs.ATTENTION_ROWS[a]) for a in cs.FLOAT32_ARCHS)]
     for arch, h, hkv, d, lens, dtype in decode_rows:
         b = len(lens)
+        row = (f"{arch} {h}/{hkv} x {d}, B={b}, {str(dtype).split('.')[-1]}, "
+               + ("full length" if lens[0] == s else f"length {lens[0]}"))
+        if args.only not in row:
+            continue
         q = randn(b, h, d, dtype=dtype)
         k, v = randn(b, hkv, s, d, dtype=dtype), randn(b, hkv, s, d, dtype=dtype)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         kernel = lambda: dops.decode_attention(q, k, v, lengths)  # noqa: E731
         ok = cs.close_enough(torch, kernel(), dref.decode_attention_ref(q, k, v, lengths))
         mask = (torch.arange(s, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-        report("decode_attention",
-               f"{arch} {h}/{hkv} x {d}, B={b}, {str(dtype).split('.')[-1]}, "
-               + ("full length" if lens[0] == s else f"length {lens[0]}"),
-               kernel, lambda: F.scaled_dot_product_attention(q[:, :, None], k, v,
+        report("decode_attention", row, kernel, lambda: F.scaled_dot_product_attention(q[:, :, None], k, v,
                                                               attn_mask=mask, enable_gqa=True),
                ok, dops.decode_kernel(dtype, h // hkv, d))
 
@@ -158,6 +163,10 @@ def main() -> int:
     h, hkv = cs.D32_HEADS
     flash_rows += [("head dim 32", h, hkv, 32, cs.FORWARD_LEN, None, dt) for dt in (f32, bf16)]
     for arch, h, hkv, d, fs, window, dtype in flash_rows:
+        row = (f"{arch} {h}/{hkv} x {d}, {str(dtype).split('.')[-1]}, S={fs}"
+               + (f", window {window}" if window is not None and window < fs else ""))
+        if args.only not in row:
+            continue
         q = randn(1, h, fs, d, dtype=dtype)
         k, v = randn(1, hkv, fs, d, dtype=dtype), randn(1, hkv, fs, d, dtype=dtype)
         kw = dict(causal=True, window=window)
@@ -173,10 +182,7 @@ def main() -> int:
             pos = torch.arange(fs, device=dev)
             sdpa_kw = dict(attn_mask=(pos[None, :] <= pos[:, None])
                            & (pos[None, :] > pos[:, None] - window), enable_gqa=True)
-        report("flash_attention",
-               f"{arch} {h}/{hkv} x {d}, {str(dtype).split('.')[-1]}, S={fs}"
-               + (f", window {window}" if window is not None and window < fs else ""),
-               kernel, lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw), ok,
+        report("flash_attention", row, kernel, lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw), ok,
                fops.kernel_name(dtype, d))
     return 0
 
