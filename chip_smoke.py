@@ -138,9 +138,9 @@ Phases, each of which fails the script (non-zero exit) on any error:
    rows (its own keys and keys over [-1, G], its values and float ones):
    counts exact, sums within 1e-5 sum|v| of float64 (integer ones exact),
    repeat launches bitwise equal; and (a generator of their own, SEED + 3)
-   head dims WIDE_DIMS (257 to 1024: ``flash_tf32_wide`` and
-   ``decode_wide``) in all three dtypes, flash at 32/4 and 16/1, S in
-   {512, 200}, causal, non-causal, window 256 and window 64 at S = 200,
+   head dims WIDE_DIMS (257 to 1024: ``flash_wgmma_wide`` in bf16 and
+   float16, ``flash_tf32_wide`` in float32, and ``decode_wide``) in all
+   three dtypes, flash at 32/4 and 16/1, S in {512, 200}, causal, non-causal, window 256 and window 64 at S = 200,
    decode at 32/4, 16/1 and 71/1, B = 4, S = 1024 (and 32/4 at S = 64,
    one chunk), lengths 1, S-1, S, 0 and the chunk edges, under float32's
    1e-5 + 1e-5 |plain| or one 16-bit ulp + 1e-5;
@@ -256,10 +256,12 @@ Phases, each of which fails the script (non-zero exit) on any error:
    32/32 x 96, ``flash_wgmma_any<bf16, 128>``) and Falcon-7B's decode (MQA 71/1
    x 64, two slices) with no path (0), flash at head dim 33 in bf16 (rows
    padded to 40 by the wrapper; ``pad_ms`` times the copies alone), and
-   flash at 16/1 and 32/4 x 512 (S = 2048, causal) and decode at B = 4,
-   32/4 x 512 (S = 4096, full length) in bf16 and float32 (the wide
-   kernels; no path), and ``fused_filter_agg`` at 1025, 4096, 65536 and
-   262144 groups over Q2's rows (``many_groups``: the partition, bin and
+   flash at 16/1 and 32/4 x 512 (S = 2048, causal) in bf16 and float32
+   and at 16/1 x 512 in float16, and decode at B = 4, 32/4 x 512 (S =
+   4096, full length) in bf16 and float32 (the wide kernels; no path; each
+   with SDPA on k and v expanded to the q heads beside), and
+   ``fused_filter_agg`` at 1025, 4096, 65536 and 262144 groups over Q2's
+   rows (``many_groups``: the partition, bin and
    merge launches; no path).  Lines before it give phase 6e's
    musicgen-medium and phase 6f's recurrentgemma-9b forward time and the
    forward profile's flash time, and the script's seconds;
@@ -1750,14 +1752,16 @@ ODD_DIMS = (1, 33, 96, 100, 250)
 WIDE_GROUPS = (71, 128)
 WIDE_GROUP_DIMS = (64, 128)
 MANY_GROUPS = (1025, 4096, 65536, 262144)
-#: phase 5: head dims above 256 (``flash_tf32_wide``, ``decode_wide``), in
-#: all three dtypes, drawn from a generator of their own (SEED + 3): flash
-#: at WIDE_FLASH_HEADS, decode at WIDE_DECODE_HEADS, S = ODD_DECODE_LEN
+#: phase 5: head dims above 256 (``flash_wgmma_wide``, ``flash_tf32_wide``,
+#: ``decode_wide``), in all three dtypes, drawn from a generator of their
+#: own (SEED + 3): flash at WIDE_FLASH_HEADS, decode at WIDE_DECODE_HEADS,
+#: S = ODD_DECODE_LEN
 WIDE_DIMS = (257, 320, 512, 576, 1024)
 WIDE_FLASH_HEADS = ((32, 4), (16, 1))
 WIDE_DECODE_HEADS = ((32, 4), (16, 1), (71, 1))
 #: phase 7's rows for them: flash (H, Hkv) at head dim WIDE_TIMED_DIM, and
-#: decode 32/4 at it, in bf16 and float32
+#: decode 32/4 at it, in bf16 and float32; flash at the first heads in
+#: float16 too
 WIDE_TIMED_DIM = 512
 WIDE_TIMED_FLASH = ((16, 1), (32, 4))
 #: their cache and prompt lengths (S = 200: one full and one ragged tile)
@@ -1890,9 +1894,10 @@ def domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ffa_ops
         for g in WIDE_GROUPS:
             for d in WIDE_GROUP_DIMS:
                 decode(dtype, d, g, 1, DECODE_LEN, tag=" wide group")
-    # head dims above 256 (flash_tf32_wide, decode_wide), from a generator
-    # of their own, so the cases above and below keep their inputs; every
-    # case launches the kernels (twice), none takes the plain version
+    # head dims above 256 (flash_wgmma_wide, flash_tf32_wide, decode_wide),
+    # from a generator of their own, so the cases above and below keep their
+    # inputs; every case launches the kernels (twice), none takes the plain
+    # version
     wide = torch.Generator(device=dev).manual_seed(SEED + 3)
     n_before, launched = n, (flash_ops.LAUNCHES, decode_ops.LAUNCHES)
     for dtype in (torch.float32, torch.bfloat16, f16):
@@ -3976,6 +3981,14 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
         return {**row, "sdpa_backend": sdpa_backend(torch, fq, fk, fv, **sdpa),
                 "kernel": kernel, "instantiation": label, "ptxas": PTXAS.get(label)}
 
+    def wide_flash(h, hkv, dtype):
+        """A flash row above head dim 256 (WIDE_TIMED_DIM), on no path."""
+        name = str(dtype).split(".")[-1]
+        return {**flash_case(h, hkv, WIDE_TIMED_DIM, dtype=dtype, expanded=True),
+                "launches": 0, "launches_by_path": {},
+                "groups": flash_ops.wide_groups(dtype, WIDE_TIMED_DIM),
+                "shape": f"B=1 H={h} Hkv={hkv} S={FORWARD_LEN} D={WIDE_TIMED_DIM} {name} causal"}
+
     # the main path's shapes: decode over 4 slots of 4096 positions, 32/4
     # heads; flash on one 2048-token prompt
     h, hkv, d, _, b = ATTENTION_ROWS["yi-6b"]
@@ -4141,21 +4154,23 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
         **decode_case(fh, fhkv, fd, [s] * 4), "launches": 0, "launches_by_path": {},
         "slices": list(decode_ops.group_slices(fh // fhkv)),
         "shape": f"B=4 H={fh} Hkv={fhkv} S={s} D={fd} bf16 full length"}
-    # head dims above 256 (flash_tf32_wide, decode_wide; SDPA's flash and
-    # cuDNN backends refuse them, so the backend named is what ran), on no
-    # path
+    # head dims above 256 (flash_wgmma_wide, flash_tf32_wide, decode_wide),
+    # on no path.  SDPA's flash and cuDNN backends refuse them, so the backend
+    # named is what ran; every row also times SDPA on k and v expanded to the
+    # q heads (EFFICIENT_ATTENTION takes D > 256; enable_gqa sends it to MATH)
     wd = WIDE_TIMED_DIM
     for dtype in (torch.bfloat16, torch.float32):
-        name, f32_row = str(dtype).split(".")[-1], dtype == torch.float32
+        name = str(dtype).split(".")[-1]
         for wh, whkv in WIDE_TIMED_FLASH:
-            domain[f"{wh}/{whkv} x {wd} {name} flash"] = {
-                **flash_case(wh, whkv, wd, dtype=dtype, expanded=f32_row), "launches": 0,
-                "launches_by_path": {}, "slices": flash_ops.wide_slices(dtype, wd),
-                "shape": f"B=1 H={wh} Hkv={whkv} S={FORWARD_LEN} D={wd} {name} causal"}
+            domain[f"{wh}/{whkv} x {wd} {name} flash"] = wide_flash(wh, whkv, dtype)
         domain[f"32/4 x {wd} {name} decode, full length"] = {
-            **decode_case(32, 4, wd, [s] * 4, dtype=dtype, expanded=f32_row), "launches": 0,
+            **decode_case(32, 4, wd, [s] * 4, dtype=dtype, expanded=True), "launches": 0,
             "launches_by_path": {},
             "shape": f"B=4 H=32 Hkv=4 S={s} D={wd} {name} full length"}
+    # float16 above 256 runs flash_wgmma_wide too (drawn last, so the rows
+    # above keep their inputs)
+    wh, whkv = WIDE_TIMED_FLASH[0]
+    domain[f"{wh}/{whkv} x {wd} float16 flash"] = wide_flash(wh, whkv, torch.float16)
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # timing is not the main path
     print("timing: kernels device-only (queued behind a sleep kernel); plain versions and "
           "SDPA queued the same way")

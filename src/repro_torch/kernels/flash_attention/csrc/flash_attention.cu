@@ -5,12 +5,13 @@
 // float32, all bfloat16 or all float16; q head i reads kv head i / group.
 // Any head dim from 1 up.  A row whose bytes are not a multiple of 16
 // is padded with zero columns by the wrapper (ops.py), as TMA and the
-// 16-byte copies need.  Rows wider than 256 run flash_tf32_wide (below).  A row of d elements runs the kernel compiled for
-// width d where d is one of 32, 64, 80, 120, 128 and 256 (the stride a
-// constant); any other row runs flash_wgmma_any / flash_tf32_any, the same
-// blocks with d a runtime argument, at the smallest of 32, 64, 128 and 256
-// above d (the columns past d are zeros in shared memory, so they add exact
-// zeros, and are not stored).  For each
+// 16-byte copies need.  Rows wider than 256 run flash_wgmma_wide (bf16,
+// float16) or flash_tf32_wide (float32), below.  A row of d elements runs
+// the kernel compiled for width d where d is one of 32, 64, 80, 120, 128
+// and 256 (the stride a constant); any other row runs flash_wgmma_any /
+// flash_tf32_any, the same blocks with d a runtime argument, at the
+// smallest of 32, 64, 128 and 256 above d (the columns past d are zeros in
+// shared memory, so they add exact zeros, and are not stored).  For each
 // query row: scores = q . k * scale in float32, keys outside the causal
 // and window masks set to -1e30, an online softmax with a float32 running
 // max, denominator and accumulator, and out = acc / max(l, 1e-30) written
@@ -28,7 +29,7 @@
 // per q tile, and the q heads of one kv head run side by side, so the
 // repeated reads hit L2.
 //
-// Three kernels, chosen by dtype and head dim in flash_attention_launch:
+// Four kernels, chosen by dtype and head dim in flash_attention_launch:
 //
 // * flash_wgmma<T, D>: bfloat16 and float16 at D = 64, 80, 120, 128 and
 //   256 (musicgen-medium, qwen3-32b, h2o-danube-3-4b, Yi-6B and
@@ -149,11 +150,17 @@
 //   and rescales o only when a row's maximum moved (a factor of exactly 1
 //   changes nothing).
 //
-// * flash_tf32_wide<T>: every dtype at head dims above 256 (no shipped
-//   config; the Pallas kernel takes any D).  Both kernels above keep q and
-//   a k/v tile of whole rows in shared memory (197 KB at 256), so wider
-//   rows take q.k as a sum over 64-column pieces and p.v in slices of 256
-//   output columns, a block a slice (see the kernel's comment).
+// * Above head dim 256 (no shipped config; the Pallas kernel takes any D)
+//   the kernels above would need q and a k/v tile of whole rows in shared
+//   memory (197 KB at 256), so the wide kernels take q.k as a sum over
+//   64-column pieces staged through shared memory, and a block 64 q rows
+//   and a group of 512 output columns in two halves of 256, each half
+//   taking alternate pieces and the two partial score tiles summed through
+//   shared memory, so a key tile's scores are computed once a group (see
+//   the kernels' comments).  flash_wgmma_wide<T>: bfloat16 and float16, on
+//   wgmma (two warpgroups, TMA, p.v with p as a hi + lo pair).
+//   flash_tf32_wide<T>: float32, flash_tf32's split-TF32 mma.sync (two sets
+//   of 4 warps, k and v split into hi and lo once a block).
 //
 // Masked keys contribute exactly 0 once a row has seen a valid key (exp of
 // -1e30 minus a finite max), and causal and windowed rows always see one,
@@ -1264,6 +1271,306 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int rows, int seq_len,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// ------------------ flash_wgmma_wide (bf16 and float16 above head dim 256)
+constexpr int kGCols = 512;    // output columns a block (a column group)
+constexpr int kGWgCols = 256;  // of them, a warpgroup's (o: m64n256)
+constexpr int kGRows = 64;     // q rows a block, shared by both warpgroups
+constexpr int kGKeys = 64;     // keys a k/v tile
+constexpr int kGPiece = 64;    // columns of a q.k piece: one 128-byte span
+constexpr int kGRing = 4;      // stages of each warpgroup's piece ring
+constexpr int kGSpanBytes = kGKeys * kHalf * 2;           // 8 KB: 64 rows x 128 B
+constexpr int kGStageBytes = 2 * kGSpanBytes;             // a q piece, a k piece
+constexpr int kGVBytes = (kGCols / kHalf) * kGSpanBytes;  // 64 KB: v's 512 columns
+constexpr int kGXBytes = kGRows * kGKeys * 4;             // 16 KB: a partial score tile
+// two piece rings, v's tile, the score exchange, and a warpgroup's
+// mbarriers (a ring stage landed, its v spans landed): 214,096 B
+constexpr int kGSmem = 1024 + kConsumers * kGRing * kGStageBytes + kGVBytes + kGXBytes +
+                       8 * kConsumers * (kGRing + 1);
+
+__device__ __forceinline__ void bar_sync_n(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// two T as floats (the inverse of pack2)
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+  if constexpr (kIsHalf<T>)
+    return __half22float2(*reinterpret_cast<__half2*>(&u));
+  else
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+}
+
+// Head dims above 256 in bfloat16 and float16 (rows of ld > 256 elements,
+// a multiple of 8).  Block (bh, 64-row q tile, column group z) computes
+// out[:, 512 z .. 512 z + 511] for its 64 q rows: warpgroup 0 columns
+// 0 .. 255 of the group, warpgroup 1 256 .. 511, each holding o as the
+// 128 float registers of m64n256 as flash_wgmma<256> does, so at D <= 512
+// a key tile's scores are computed once, and above 512 once a group
+// (ceil(ld / 512) groups).  Two consumer warpgroups and no producer (8 warps,
+// so ptxas budgets 255 registers; see kWideThreads).
+//
+// q.k^T over 64-column pieces: q and k arrive piece by piece (TMA boxes of
+// 64 x 64 in the 128-byte swizzle, q's 64 rows and the tile's 64 keys) into
+// a ring of kGRing stages that each warpgroup owns and refills itself;
+// warpgroup w takes pieces w, w + 2, ..., m64n64k16 steps into a fresh
+// accumulator a tile, one chain over its half of the row (the tensor cores
+// truncate as they accumulate: in float32 one chain over a 1,024-wide row
+// drifted past the float32 rule; here the products are exact and the rule
+// one 16-bit ulp).  Both warpgroups take as many pieces, half the row's
+// rounded up to whole chunks of kGRing (a piece past the row is TMA's zero
+// fill), so neither's products depend on which warpgroup it is, and a tile
+// with more pieces than the ring takes them a chunk at a time.  Thread t of
+// both warpgroups holds the same (row, key) elements, so the
+// halves are summed through 16 KB of shared memory: warpgroup 0 writes its
+// half and arrives on named barrier 1, warpgroup 1 waits, adds it, writes
+// its own and arrives on 2, warpgroup 0 waits and adds (a + b = b + a: both
+// hold the same sums to the bit).  Both run the same online softmax on the
+// same scores (flash_wgmma<256>'s: maxima over the unscaled scores, scale
+// > 0, a lazy maximum), so both keep the same m and l.  p.v keeps the
+// plain version's accuracy: p is split into a T pair, hi = round(p) and lo =
+// round(p - hi), and both go to m64n256k16 against the warpgroup's 256
+// columns of v (MN-major, four spans), two products a k-step, as
+// decode_group's p.v (float16: p 2^7 is split, since the lazy maximum
+// leaves p <= 2^8, so hi <= 2^15 and lo clear of float16's subnormals; o is
+// scaled back in the finish).  v's tile holds the group's 512 columns (64
+// KB; a warpgroup loads and waits for its own four spans, only those below
+// ld).
+//
+// Schedule of a warpgroup, tile j: q.k^T of tile j has retired (with p.v
+// of tile j - 1), so the leader loads the freed ring stages and v spans;
+// the exchange, the softmax, o rescaled where a row's lazy maximum moved, p
+// split; then p.v of tile j and q.k^T of tile j + 1 issued together and
+// retired, while the other warpgroup's exchange or softmax may run.  What
+// bounds it: operations.  At 16 q heads of 512 over one kv head, S = 2048,
+// causal, q.k and p.v are 68.7 GFLOP, 0.0695 ms at 989 TFLOP/s, and p's lo
+// half adds p.v once more (0.104 ms); q and k pieces are read again
+// for every key tile and group, from L2 (the q heads of a kv head are
+// neighbours in the grid).
+// Shared memory does not grow with D (214,096 B); the masks (-1e30, -inf
+// past S: the same function, as flash_wgmma<256>), the [lo, hi) tile
+// skipping, the longest q tiles first, the q heads of one kv head side by
+// side in the grid, and acc / max(l, 1e-30) are flash_wgmma's.
+template <typename Elt>
+__global__ void __launch_bounds__(kConsumers * 128, 1)
+    flash_wgmma_wide(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     Elt* __restrict__ out, int ld, int seq_len, int group,
+                     int causal, float scale_log2, int window) {
+  constexpr int R = kGRing, KB = kGKeys;
+  constexpr float kPScale = kIsHalf<Elt> ? 128.0f : 1.0f;  // p's split, a power of 2
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, c2 = 2 * (lane % 4);
+  const bool leader = tid == 0;
+  const uint32_t sRing = base + wg * R * kGStageBytes;  // this warpgroup's ring
+  const uint32_t sV = base + kConsumers * R * kGStageBytes;
+  const uint32_t sX = sV + kGVBytes;
+  const uint32_t bar_full = sX + kGXBytes + 8 * (R + 1) * wg;  // a ring stage landed
+  const uint32_t bar_v = bar_full + 8 * R;                    // this warpgroup's v spans
+  float4* xch = reinterpret_cast<float4*>(smem_raw + (sX - raw)) + tid;
+
+  const int bh = blockIdx.x, kvh = bh / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kGRows;  // longest causal tiles first
+  const int c0 = blockIdx.z * kGCols + wg * kGWgCols;    // this warpgroup's columns
+  const bool has_cols = c0 < ld;
+  const int n_spans = has_cols ? min(kGWgCols, ld - c0 + kHalf - 1) / kHalf : 0;
+  // pieces a warpgroup takes a tile (its own: wg, wg + 2, ...): half the
+  // row's rounded up to whole chunks of R, the same count in both
+  // warpgroups, so that every product is issued in control flow that does
+  // not depend on the warpgroup (ptxas serialises every wgmma otherwise);
+  // a piece past the row is TMA's zero fill and adds exact zeros
+  const int n_pieces = (ld + kGPiece - 1) / kGPiece;
+  const int per = ((n_pieces + 1) / 2 + R - 1) / R * R;
+  // key tiles this q tile can see (kernel.py:54-62); a negative lo is 0
+  const int n_kt = (seq_len + KB - 1) / KB;
+  const int hi = causal ? min((q0 + kGRows - 1) / KB + 1, n_kt) : n_kt;
+  const int lo = window > 0 ? max((q0 - window + 1) / KB, 0) : 0;
+  const int n_iter = hi - lo;
+  const int total = n_iter * per;  // this warpgroup's pieces, in order
+
+  if (leader) {
+    for (int s = 0; s < R; ++s) mbar_init(bar_full + 8 * s, 1);
+    mbar_init(bar_v, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // piece i of this warpgroup: tile i / per, q and k columns 64 p
+  auto load_piece = [&](int i) {
+    const int p = 2 * (i % per) + wg, s = i % R;
+    const uint32_t st = sRing + s * kGStageBytes, bar = bar_full + 8 * s;
+    mbar_expect_tx(bar, kGStageBytes);
+    tma_load(st, &tm_q, bar, p * kGPiece, q0, bh);
+    tma_load(st + kGSpanBytes, &tm_k, bar, p * kGPiece, (lo + i / per) * KB, kvh);
+  };
+  // v tile j: this warpgroup's spans below ld
+  auto load_v = [&](int j) {
+    mbar_expect_tx(bar_v, n_spans * kGSpanBytes);
+    for (int h = 0; h < n_spans; ++h)
+      tma_load(sV + (wg * (kGWgCols / kHalf) + h) * kGSpanBytes, &tm_v, bar_v,
+               c0 + h * kHalf, (lo + j) * KB, kvh);
+  };
+  int loaded = min(R, total);
+  if (leader) {
+    for (int i = 0; i < loaded; ++i) load_piece(i);
+    if (has_cols) load_v(0);
+  }
+  // every product reading the ring has retired and pieces < done are
+  // consumed: once the warpgroup's warps are all here, the leader loads
+  // the pieces up to done + R into the freed stages
+  auto refill = [&](int done) {
+    bar_sync_n(3 + wg, 128);
+    const int upto = min(done + R, total);
+    if (leader)
+      for (int i = loaded; i < upto; ++i) load_piece(i);
+    loaded = upto;
+  };
+
+  const int row0 = q0 + 16 * warp + lane / 4, row1 = row0 + 8;
+  float o[kGWgCols / 2];
+#pragma unroll
+  for (int i = 0; i < kGWgCols / 2; ++i) o[i] = 0.0f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f, corr0, corr1;
+  float sc[KB / 2];
+  uint32_t ph[KB / 4], pl[KB / 4];
+
+  // this warpgroup's half of q.k^T of tile j into sc, R pieces at a time
+  // (one chunk at D <= 512), piece c + u of the tile in stage u.  Nothing
+  // waits or copies while a product is in flight, and every product
+  // retires in the pass of the loop that issued it (a product in flight
+  // across a loop's back edge makes ptxas serialise every wgmma): a chunk's
+  // pieces are waited for before its products are issued (the first
+  // chunk's by the caller, ready), and a tile with more pieces than the
+  // ring retires each chunk but the last and refills the ring before the
+  // next; the caller commits and retires the last.
+  auto ready = [&](int j, int c) {
+    const uint32_t parity = ((j * per + c) / R) & 1;
+    for (int u = 0; u < R; ++u) mbar_wait(bar_full + 8 * u, parity);
+  };
+  auto qk = [&](int j) {
+    for (int c = 0; c < per; c += R) {
+      if (c > 0) {
+        refill(j * per + c);
+        ready(j, c);
+        wg_fence();
+      }
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        const uint32_t st = sRing + u * kGStageBytes;
+#pragma unroll
+        for (int kk = 0; kk < kGPiece / 16; ++kk)
+          wgmma_ss<Elt>(sc, sw128_desc(st + kk * 32, 16, 1024),
+                        sw128_desc(st + kGSpanBytes + kk * 32, 16, 1024),
+                        c > 0 || u > 0 || kk > 0);
+      }
+      if (c + R < per) {
+        wg_commit();
+        wg_wait_all();
+        fence_regs(sc);
+      }
+    }
+  };
+
+  ready(0, 0);
+  wg_fence();
+  qk(0);
+  wg_commit();
+  wg_wait_all();
+  fence_regs(sc);
+  for (int j = 0; j < n_iter; ++j) {
+    // p.v of tile j - 1 and q.k^T of tile j have retired: their v spans
+    // and ring stages are free for tile j's v and the next pieces
+    refill((j + 1) * per);
+    if (leader && has_cols && j > 0) load_v(j);
+    // the two halves summed (both warpgroups end with the same tile)
+    if (wg == 0) {
+#pragma unroll
+      for (int v = 0; v < KB / 8; ++v)
+        xch[128 * v] = make_float4(sc[4 * v], sc[4 * v + 1], sc[4 * v + 2], sc[4 * v + 3]);
+      bar_arrive(1);
+      bar_sync(2);
+#pragma unroll
+      for (int v = 0; v < KB / 8; ++v) {
+        const float4 y = xch[128 * v];
+        sc[4 * v] += y.x;
+        sc[4 * v + 1] += y.y;
+        sc[4 * v + 2] += y.z;
+        sc[4 * v + 3] += y.w;
+      }
+    } else {
+      bar_sync(1);
+#pragma unroll
+      for (int v = 0; v < KB / 8; ++v) {
+        const float4 y = xch[128 * v];
+        xch[128 * v] = make_float4(sc[4 * v], sc[4 * v + 1], sc[4 * v + 2], sc[4 * v + 3]);
+        sc[4 * v] += y.x;
+        sc[4 * v + 1] += y.y;
+        sc[4 * v + 2] += y.z;
+        sc[4 * v + 3] += y.w;
+      }
+      bar_arrive(2);
+    }
+    online_softmax_fma<KB, true, kIsHalf<Elt>>(sc, (lo + j) * KB, q0, row0, row1, c2,
+                                                 seq_len, causal, window, scale_log2, m0,
+                                                 m1, l0, l1, corr0, corr1);
+    if (corr0 != 1.0f || corr1 != 1.0f) rescale(o, corr0, corr1);
+    // p as a pair hi + lo (p * kPScale: exact), the A operand of p.v
+#pragma unroll
+    for (int i = 0; i < KB / 4; ++i) {
+      const float a = sc[2 * i] * kPScale, b = sc[2 * i + 1] * kPScale;
+      ph[i] = pack2<Elt>(a, b);
+      const float2 h = unpack2<Elt>(ph[i]);
+      pl[i] = pack2<Elt>(a - h.x, b - h.y);
+      asm volatile("" : "+r"(ph[i]), "+r"(pl[i])::"memory");
+    }
+    if (has_cols) mbar_wait(bar_v, j & 1);
+    if (j + 1 < n_iter) ready(j + 1, 0);
+    // o's rescale and the scores are done before the fence; a warpgroup
+    // past the row runs p.v too, on spans it never loaded, so that no
+    // product depends on the warpgroup (its o is not stored)
+    fence_regs(o);
+    fence_regs(sc);
+    wg_fence();
+    const uint32_t tV = sV + wg * (kGWgCols / kHalf) * kGSpanBytes;
+#pragma unroll
+    for (int kk = 0; kk < KB / 16; ++kk) {
+      const uint64_t dv = sw128_desc(tV + kk * 16 * 128, kGSpanBytes, 1024);
+      wgmma_rs<Elt>(o, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], dv);
+      wgmma_rs<Elt>(o, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], dv);
+    }
+    if (j + 1 < n_iter) qk(j + 1);
+    wg_commit();
+    wg_wait_all();  // p.v of tile j and q.k^T of tile j + 1
+    fence_regs(o);
+    fence_regs(sc);
+  }
+  if (!has_cols) return;
+
+  // out = o / (l kPScale) for this warpgroup's columns below ld (ld is a
+  // multiple of 8 and col even: a pair never straddles it)
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+  }
+  const float d0 = fmaxf(l0, 1e-30f) * kPScale, d1 = fmaxf(l1, 1e-30f) * kPScale;
+  Elt* op = out + (size_t)bh * seq_len * ld + c0;
+#pragma unroll
+  for (int j = 0; j < kGWgCols / 8; ++j) {
+    const int col = 8 * j + c2;
+    if (c0 + col >= ld) continue;
+    if (row0 < seq_len)
+      *reinterpret_cast<uint32_t*>(op + (size_t)row0 * ld + col) =
+          pack2<Elt>(o[4 * j] / d0, o[4 * j + 1] / d0);
+    if (row1 < seq_len)
+      *reinterpret_cast<uint32_t*>(op + (size_t)row1 * ld + col) =
+          pack2<Elt>(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+  }
+}
+
 // ------------------------------------- flash_tf32 (TF32 tensor cores, split)
 constexpr int kTRows = 16;      // q rows a warp owns: the m of mma.m16n8k8
 constexpr int kTWarps = 8;      // warps a block, D <= 128
@@ -1679,107 +1986,135 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-// ------------------------ flash_tf32_wide (head dims above 256, any dtype)
-constexpr int kXWarps = 4;     // warps a block: 64 q rows, 16 a warp
+// ------------------------------ flash_tf32_wide (float32 above head dim 256)
+constexpr int kXRows = 64;     // q rows a block, shared by both sets of warps
 constexpr int kXKeys = 32;     // keys a k/v tile
 constexpr int kXPiece = 64;    // columns of a q.k piece
-constexpr int kXSlice = 256;   // output columns a block (its p.v)
+constexpr int kXCols = 512;    // output columns a block (a column group)
+constexpr int kXSetCols = 256; // of them, a set's: o is 32 n-tiles of 8
+constexpr int kXWarps = 8;     // two sets of 4 warps, 16 q rows a warp
 
-// flash_tf32_wide<T>'s geometry: q rows a block, the row strides of a q or
-// k piece and of v's slice in shared memory (elements of T, padded as
-// TGeo's so that a warp's fragment loads hit 32 distinct banks), and the
-// block's dynamic shared memory: two stages of (q piece, k piece) and one
-// v slice.  None of it depends on the head dim.
+// flash_tf32_wide<T>'s geometry, in floats: the row strides of a q or k
+// piece and of v's tile in shared memory (padded as TGeo's, so that a
+// warp's fragment loads hit 32 distinct banks), a stage (both sets' q and k
+// pieces, or v's tile of the group's 512 columns: the larger), the lo
+// halves of a stage's k pieces or v, the partial-score exchange (a set's
+// 128 threads x 16 floats, each set its own), and the block's dynamic
+// shared memory: two stages, lo and the exchange, 214,528 B at every head dim.
 template <typename T>
 struct XGeo {
-  static constexpr int rows = kTRows * kXWarps;  // 64
+  static_assert(sizeof(T) == 4, "float32 only: bf16 and float16 run flash_wgmma_wide");
   static constexpr int threads = 32 * kXWarps;
   static constexpr int ps = kXPiece + 8;
-  static constexpr int vs = sizeof(T) == 4 ? kXSlice + 4 : kXSlice + 8;
-  static constexpr int stage = (rows + kXKeys) * ps;  // q piece, then k piece
-  static constexpr int smem = (2 * stage + kXKeys * vs) * (int)sizeof(T);
+  static constexpr int vs = kXCols + 4;
+  static constexpr int set_piece = (kXRows + kXKeys) * ps;  // a set's q piece, then k piece
+  static constexpr int stage = 2 * set_piece > kXKeys * vs ? 2 * set_piece : kXKeys * vs;
+  static constexpr int lo = kXKeys * vs;
+  static constexpr int xch = 2 * 128 * 16;
+  static constexpr int smem = (2 * stage + lo + xch) * 4;
 };
 
-// Head dims above 256 (rows of ld elements, any ld > 256, whole 16-byte
-// pieces), in float32, bfloat16 and float16.  A q tile of 64 rows, a
-// k/v tile of 32 keys, and output slices of 256 columns: block (bh, q
-// tile, slice z) computes out[:, 256 z .. 256 z + 255].  Its scores are the
-// whole row's: q.k is taken as a sum over pieces of 64 columns, each q and
-// k piece staged through shared memory, with flash_tf32's split-TF32
-// products (float32: three a pair, bf16: two, float16: one, scaled after);
-// p.v is flash_tf32's, over the slice's columns of v.  So each block
-// recomputes the scores of its q tile, ceil(ld / 256) times in all: a
-// simple plan whose shared memory (88,576 B in float32, 44,544 B in bf16
-// and float16) is the same at every head dim, against flash_tf32's 197 KB
-// at 256, which does not grow past 227 KB because q and k never sit in
-// shared memory whole.  A block runs its steps in order, tile by tile: the
-// tile's pieces, then its v slice; each step's copies are issued (cp.async)
-// while the step before computes, the pieces alternating between two
-// stages.  The online softmax, the masks (-1e30, -inf past S), the [lo, hi)
-// tile skipping and the acc / max(l, 1e-30) finish are flash_tf32's.
+// c += a . b to float32 accuracy from both operands' halves (bh, bl: b's
+// hi and lo, split once a block): lo . hi, hi . lo, hi . hi, as mma3<float>
+__device__ __forceinline__ void mma3s(float (&c)[4], const uint32_t (&ah)[4],
+                                      const uint32_t (&al)[4], float bh0, float bh1,
+                                      float bl0, float bl1) {
+  const uint32_t h0 = __float_as_uint(bh0), h1 = __float_as_uint(bh1);
+  mma_tf32(c, al, h0, h1);
+  mma_tf32(c, ah, __float_as_uint(bl0), __float_as_uint(bl1));
+  mma_tf32(c, ah, h0, h1);
+}
+
+// Head dims above 256 in float32 (rows of ld > 256 elements, a multiple of
+// 4).  Block (bh, 64-row q tile, column group z) computes out[:, 512 z ..
+// 512 z + 511]: 8 warps in two sets of 4 that share the tile's 64 rows
+// (warp w: rows 16 (w % 4) ..), set s holding columns 256 s .. of the group
+// as flash_tf32 holds o (128 registers a thread), so a key tile's scores
+// are computed once a group.  flash_tf32's split-TF32 products throughout
+// (every float32 operand x as hi = tf32(x) and lo = tf32(x - hi), three
+// products a pair: one TF32 product misses the float32 rule 60x).  A block
+// runs its steps in order, tile by tile, every step's copies (cp.async)
+// issued while the step before computes, the steps alternating between two
+// stages: ceil(pieces / 2) piece steps, in which set s takes the 64-column
+// piece 2 m + s of q and of k, then the tile's v step.  When a step's copies
+// land, each set splits its k piece, or its 256 columns of v, into hi (in
+// place) and lo once for its 4 warps, where flash_tf32 splits at every
+// fragment load in every warp.  A set sums its pieces' products, each piece
+// in accumulators of its own (the tensor cores truncate as they accumulate:
+// one chain over a 1,024-wide row drifted past the float32 rule), and
+// the two sets' partial scores meet through shared memory at the v step
+// (a + b = b + a: both hold the same scores to the bit, so the same m and l).
+// Then flash_tf32's masks (-1e30, -inf past S), online softmax and p.v (p
+// split) over the set's columns; a warp skips the tiles masked for all its
+// rows, and its partner in the other set (the same rows) does too.  What
+// bounds it: operations, three TF32 products a pair at 494.7 TFLOP/s (at
+// 16 q heads of 512 over one kv head, S = 2048, causal: 0.417 ms); the
+// splits and fragment loads beside every mma.sync take issue slots, so the
+// block splits k and v once for its warps.
 template <typename T>
-__global__ void __launch_bounds__(XGeo<T>::threads)
+__global__ void __launch_bounds__(XGeo<T>::threads, 1)
     flash_tf32_wide(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ out, int ld,
                     int seq_len, int group, int causal, float scale, int window) {
   using G = XGeo<T>;
-  constexpr int BQ = G::rows, BK = kXKeys;
-  constexpr int NK = BK / 8;       // 8-key n-tiles of q.k^T, k-steps of p.v
-  constexpr int NP = kXPiece / 8;  // 8-column k-steps of a piece
-  constexpr int ND = kXSlice / 8;  // 8-column n-tiles of p.v
-  constexpr int C = 16 / (int)sizeof(T);  // elements a 16-byte copy
+  constexpr int BQ = kXRows, BK = kXKeys;
+  constexpr int NK = BK / 8;           // 8-key n-tiles of q.k^T, k-steps of p.v
+  constexpr int NP = kXPiece / 8;      // 8-column k-steps of a piece
+  constexpr int ND = kXSetCols / 8;    // 8-column n-tiles of p.v
+  constexpr int C = 4;                 // floats a 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sP = reinterpret_cast<T*>(smem);  // 2 stages x (BQ + BK) x ps
-  T* sV = sP + 2 * G::stage;           // BK x vs
+  float* sS = reinterpret_cast<float*>(smem);  // 2 stages
+  float* sL = sS + 2 * G::stage;               // lo halves
+  float4* sX = reinterpret_cast<float4*>(sL + G::lo);
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest tiles first
-  const int c0 = blockIdx.z * kXSlice;               // this block's columns
-  const int cols = min(kXSlice, ld - c0);            // a multiple of C
-  const int n_pieces = (ld + kXPiece - 1) / kXPiece;
+  const int cg = blockIdx.z * kXCols;                // the group's first column
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int set = warp / 4, st = threadIdx.x % 128;  // a set's thread
   const int g = lane / 4, t = lane % 4;
-  const T* qp = q + (size_t)bh * seq_len * ld;
-  const T* kp = k + (size_t)(bh / group) * seq_len * ld;
-  const T* vp = v + (size_t)(bh / group) * seq_len * ld;
-  constexpr bool kOne = kIsHalf<T>;  // as flash_tf32_block
-  const float qscale = kOne ? 1.0f : scale;
+  const int c0 = cg + set * kXSetCols;               // this set's columns
+  const int cols = min(kXSetCols, ld - c0);          // <= 0: none
+  const int n_pieces = (ld + kXPiece - 1) / kXPiece;
+  const int per_tile = (n_pieces + 1) / 2 + 1;       // piece steps, then v's
+  const float* qp = q + (size_t)bh * seq_len * ld;
+  const float* kp = k + (size_t)(bh / group) * seq_len * ld;
+  const float* vp = v + (size_t)(bh / group) * seq_len * ld;
 
   const int n_tiles = (seq_len + BK - 1) / BK;
   const int hi = causal ? min((q0 + BQ - 1) / BK + 1, n_tiles) : n_tiles;
   const int lo = window > 0 ? max((q0 - window + 1) / BK, 0) : 0;
-
-  // step i: tile lo + i / per_tile; part i % per_tile, a piece (q and k
-  // columns 64 p ..) or, last, v's slice
-  const int per_tile = n_pieces + 1;
   const int n_steps = max(hi - lo, 0) * per_tile;
+
+  // step i: tile lo + i / per_tile; part i % per_tile: piece step m (set
+  // s takes piece 2 m + s) or, last, v's tile of the group's columns
   auto load_step = [&](int i) {
-    const int k0 = (lo + i / per_tile) * BK, p = i % per_tile;
-    if (p < n_pieces) {
+    const int k0 = (lo + i / per_tile) * BK, m = i % per_tile;
+    float* dst = sS + (i & 1) * G::stage;
+    if (m < per_tile - 1) {
       constexpr int CPR = kXPiece / C;
-      T* dst = sP + ((i - i / per_tile) & 1) * G::stage;
-      const int col = p * kXPiece;
-      for (int e = threadIdx.x; e < (BQ + BK) * CPR; e += G::threads) {
-        const int r = e / CPR, c = (e % CPR) * C;
+      for (int e = threadIdx.x; e < 2 * (BQ + BK) * CPR; e += G::threads) {
+        const int s2 = e / ((BQ + BK) * CPR), r = e / CPR % (BQ + BK), c = (e % CPR) * C;
+        const int col = (2 * m + s2) * kXPiece + c;
         const int row = r < BQ ? q0 + r : k0 + r - BQ;
-        const bool valid = row < seq_len && col + c < ld;
-        const T* src = (r < BQ ? qp : kp) + (valid ? (size_t)row * ld + col + c : 0);
-        cp_async16(smem_addr(dst + r * G::ps + c), src, valid);
+        const bool valid = row < seq_len && col < ld;
+        const float* src = (r < BQ ? qp : kp) + (valid ? (size_t)row * ld + col : 0);
+        cp_async16(smem_addr(dst + s2 * G::set_piece + r * G::ps + c), src, valid);
       }
     } else {
-      constexpr int CPR = kXSlice / C;
+      constexpr int CPR = kXCols / C;
       for (int e = threadIdx.x; e < BK * CPR; e += G::threads) {
         const int r = e / CPR, c = (e % CPR) * C;
-        const bool valid = k0 + r < seq_len && c < cols;
-        const T* src = vp + (valid ? (size_t)(k0 + r) * ld + c0 + c : 0);
-        cp_async16(smem_addr(sV + r * G::vs + c), src, valid);
+        const bool valid = k0 + r < seq_len && cg + c < ld;
+        const float* src = vp + (valid ? (size_t)(k0 + r) * ld + cg + c : 0);
+        cp_async16(smem_addr(dst + r * G::vs + c), src, valid);
       }
     }
     asm volatile("cp.async.commit_group;" ::: "memory");
   };
   if (n_steps > 0) load_step(0);
 
-  const int r0 = q0 + warp * kTRows;
+  const int r0 = q0 + (warp % 4) * kTRows;
   const int row0 = r0 + g, row1 = row0 + 8;
   const bool live = r0 < seq_len;
   const int whi = causal ? min((r0 + kTRows - 1) / BK + 1, hi) : hi;
@@ -1792,136 +2127,154 @@ __global__ void __launch_bounds__(XGeo<T>::threads)
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
 
   for (int i = 0; i < n_steps; ++i) {
-    if (i + 1 < n_steps) {
-      load_step(i + 1);  // into the other stage, or v's slice
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // step i's copies are in shared memory for every warp
-    const int j = lo + i / per_tile, p = i % per_tile;
-    if (live && j >= wlo && j < whi) {
-      const int k0 = j * BK;
-      if (p < n_pieces) {
-        // s += (q * scale) . k^T over the piece's 64 columns (zeros past ld)
-        const T* tq = sP + ((i - i / per_tile) & 1) * G::stage;
-        const T* tk = tq + BQ * G::ps;
-        const T* qr0 = tq + (warp * kTRows + g) * G::ps + 2 * t;
-        const T* qr1 = qr0 + 8 * G::ps;
-        // the piece's sum in accumulators of its own, added to s after:
-        // the tensor cores truncate as they accumulate, so one chain of
-        // products over the whole row (384 at D = 1024 in float32) drifts
-        // past the float32 rule, and a piece's 24 do not
-        float sp[NK][4];
-#pragma unroll
-        for (int n = 0; n < NK; ++n) sp[n][0] = sp[n][1] = sp[n][2] = sp[n][3] = 0.0f;
-#pragma unroll
-        for (int kk = 0; kk < NP; ++kk) {
-          float2 x0 = load2(qr0 + 8 * kk), x1 = load2(qr1 + 8 * kk);
-          x0.x *= qscale;
-          x0.y *= qscale;
-          x1.x *= qscale;
-          x1.y *= qscale;
-          if constexpr (kOne) {  // float16: q and k whole, one product
-            const uint32_t a[4] = {__float_as_uint(x0.x), __float_as_uint(x1.x),
-                                   __float_as_uint(x0.y), __float_as_uint(x1.y)};
-#pragma unroll
-            for (int n = 0; n < NK; ++n) {
-              const float2 y = load2(tk + (8 * n + g) * G::ps + 8 * kk + 2 * t);
-              mma_tf32(sp[n], a, __float_as_uint(y.x), __float_as_uint(y.y));
-            }
-          } else {
-            uint32_t ah[4], al[4];
-            split(x0.x, ah[0], al[0]);
-            split(x1.x, ah[1], al[1]);
-            split(x0.y, ah[2], al[2]);
-            split(x1.y, ah[3], al[3]);
-#pragma unroll
-            for (int n = 0; n < NK; ++n) {
-              const float2 y = load2(tk + (8 * n + g) * G::ps + 8 * kk + 2 * t);
-              mma3<T>(sp[n], ah, al, y.x, y.y);
-            }
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < NK; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = p == 0 ? sp[n][e] : s[n][e] + sp[n][e];
-        if (p == n_pieces - 1) {  // the scores are whole: masks and softmax
-          if constexpr (kOne) {
-#pragma unroll
-            for (int n = 0; n < NK; ++n)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) s[n][e] *= scale;
-          }
-          if (k0 + BK > seq_len || (causal && k0 + BK - 1 > r0) ||
-              (window > 0 && k0 <= r0 + kTRows - 1 - window)) {
-#pragma unroll
-            for (int n = 0; n < NK; ++n)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const int row = e < 2 ? row0 : row1;
-                const int col = k0 + 8 * n + 2 * t + (e & 1);
-                bool keep = true;
-                if (causal) keep &= col <= row;
-                if (window > 0) keep &= col > row - window;
-                s[n][e] = col >= seq_len ? -INFINITY : (keep ? s[n][e] : kNegInf);
-              }
-          }
-          float mx0 = m0, mx1 = m1;
-#pragma unroll
-          for (int n = 0; n < NK; ++n) {
-            mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-            mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-          }
-#pragma unroll
-          for (int x = 1; x <= 2; x <<= 1) {
-            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
-            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
-          }
-          const float cr0 = expf(m0 - mx0), cr1 = expf(m1 - mx1);
-          m0 = mx0;
-          m1 = mx1;
-          float ps0 = 0.0f, ps1 = 0.0f;
-#pragma unroll
-          for (int n = 0; n < NK; ++n) {
-            s[n][0] = expf(s[n][0] - mx0);
-            s[n][1] = expf(s[n][1] - mx0);
-            s[n][2] = expf(s[n][2] - mx1);
-            s[n][3] = expf(s[n][3] - mx1);
-            ps0 += s[n][0] + s[n][1];
-            ps1 += s[n][2] + s[n][3];
-          }
-          l0 = l0 * cr0 + ps0;
-          l1 = l1 * cr1 + ps1;
-          if (__any_sync(0xffffffffu, cr0 != 1.0f || cr1 != 1.0f)) {
-#pragma unroll
-            for (int jd = 0; jd < ND; ++jd) {
-              o[jd][0] *= cr0;
-              o[jd][1] *= cr0;
-              o[jd][2] *= cr1;
-              o[jd][3] *= cr1;
-            }
-          }
-        }
-      } else {
-        // o += p . v over the slice's columns (n-tiles past them skipped)
-#pragma unroll
-        for (int n = 0; n < NK; ++n) {
-          uint32_t ah[4], al[4];
-          split(s[n][0], ah[0], al[0]);
-          split(s[n][2], ah[1], al[1]);
-          split(s[n][1], ah[2], al[2]);
-          split(s[n][3], ah[3], al[3]);
-          const T* vr = sV + (8 * n + 2 * t) * G::vs + g;
-#pragma unroll
-          for (int jd = 0; jd < ND; ++jd)
-            if (8 * jd < cols)
-              mma3<T>(o[jd], ah, al, to_f32(vr[8 * jd]), to_f32(vr[G::vs + 8 * jd]));
-        }
+    cp_async_wait<0>();
+    __syncthreads();  // step i is in shared memory; every warp is done with step i - 1
+    if (i + 1 < n_steps) load_step(i + 1);  // into the other stage
+    const int j = lo + i / per_tile, m = i % per_tile;
+    const bool vstep = m == per_tile - 1;
+    const int pc = 2 * m + set;  // this set's piece (piece steps)
+    float* tile = sS + (i & 1) * G::stage;
+    // split once for the set: its k piece, or its columns of v; hi in
+    // place, lo beside
+    if (vstep) {
+      for (int e = st; e < BK * kXSetCols; e += 128) {
+        const int off = (e / kXSetCols) * G::vs + set * kXSetCols + e % kXSetCols;
+        const float x = tile[off];
+        const uint32_t h = tf32(x);
+        tile[off] = __uint_as_float(h);
+        sL[off] = __uint_as_float(tf32(x - __uint_as_float(h)));
+      }
+    } else if (pc < n_pieces) {
+      float* tk = tile + set * G::set_piece + BQ * G::ps;
+      float* tl = sL + set * BK * G::ps;
+      for (int e = st; e < BK * kXPiece; e += 128) {
+        const int off = (e / kXPiece) * G::ps + e % kXPiece;
+        const float x = tk[off];
+        const uint32_t h = tf32(x);
+        tk[off] = __uint_as_float(h);
+        tl[off] = __uint_as_float(tf32(x - __uint_as_float(h)));
       }
     }
-    __syncthreads();  // every warp is done with step i's stage
+    bar_sync_n(1 + set, 128);  // the set's split is done
+    if (!live || j < wlo || j >= whi) continue;
+    const int k0 = j * BK;
+
+    if (!vstep) {
+      if (pc >= n_pieces) continue;  // an odd count: set 1 has one piece fewer
+      // this piece's (q * scale) . k^T, in accumulators of its own
+      const float* tq = tile + set * G::set_piece;
+      const float* tk = tq + BQ * G::ps;
+      const float* tl = sL + set * BK * G::ps;
+      const float* qr0 = tq + ((warp % 4) * kTRows + g) * G::ps + 2 * t;
+      const float* qr1 = qr0 + 8 * G::ps;
+      float sp[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n) sp[n][0] = sp[n][1] = sp[n][2] = sp[n][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < NP; ++kk) {
+        const float2 x0 = load2(qr0 + 8 * kk), x1 = load2(qr1 + 8 * kk);
+        uint32_t ah[4], al[4];
+        split(x0.x * scale, ah[0], al[0]);  // (g, 2t)
+        split(x1.x * scale, ah[1], al[1]);  // (g + 8, 2t)
+        split(x0.y * scale, ah[2], al[2]);  // (g, 2t + 1)
+        split(x1.y * scale, ah[3], al[3]);  // (g + 8, 2t + 1)
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          const int off = (8 * n + g) * G::ps + 8 * kk + 2 * t;
+          const float2 yh = load2(tk + off), yl = load2(tl + off);
+          mma3s(sp[n], ah, al, yh.x, yh.y, yl.x, yl.y);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = m == 0 ? sp[n][e] : s[n][e] + sp[n][e];
+      if (2 * (m + 1) + set >= n_pieces) {  // the set's last piece: its partial out
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+          sX[(set * NK + n) * 128 + st] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+      }
+      continue;
+    }
+
+    // the v step: the other set's partial added (the same sum in both)
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      const float4 y = sX[((1 - set) * NK + n) * 128 + st];
+      s[n][0] += y.x;
+      s[n][1] += y.y;
+      s[n][2] += y.z;
+      s[n][3] += y.w;
+    }
+    // masks, only on tiles that cross the causal diagonal, the window's edge
+    // or the ragged end for some row of the warp
+    if (k0 + BK > seq_len || (causal && k0 + BK - 1 > r0) ||
+        (window > 0 && k0 <= r0 + kTRows - 1 - window)) {
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e < 2 ? row0 : row1;
+          const int col = k0 + 8 * n + 2 * t + (e & 1);
+          bool keep = true;
+          if (causal) keep &= col <= row;
+          if (window > 0) keep &= col > row - window;
+          s[n][e] = col >= seq_len ? -INFINITY : (keep ? s[n][e] : kNegInf);
+        }
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    const float cr0 = expf(m0 - mx0), cr1 = expf(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      s[n][0] = expf(s[n][0] - mx0);
+      s[n][1] = expf(s[n][1] - mx0);
+      s[n][2] = expf(s[n][2] - mx1);
+      s[n][3] = expf(s[n][3] - mx1);
+      ps0 += s[n][0] + s[n][1];
+      ps1 += s[n][2] + s[n][3];
+    }
+    l0 = l0 * cr0 + ps0;
+    l1 = l1 * cr1 + ps1;
+    if (cols <= 0) continue;
+    if (__any_sync(0xffffffffu, cr0 != 1.0f || cr1 != 1.0f)) {
+#pragma unroll
+      for (int jd = 0; jd < ND; ++jd) {
+        o[jd][0] *= cr0;
+        o[jd][1] *= cr0;
+        o[jd][2] *= cr1;
+        o[jd][3] *= cr1;
+      }
+    }
+    // o += p . v over the set's columns (n-tiles past them skipped); p's
+    // accumulator layout is the a layout (keys 2t, 2t + 1 as flash_tf32)
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      uint32_t ah[4], al[4];
+      split(s[n][0], ah[0], al[0]);
+      split(s[n][2], ah[1], al[1]);
+      split(s[n][1], ah[2], al[2]);
+      split(s[n][3], ah[3], al[3]);
+      const int off = (8 * n + 2 * t) * G::vs + set * kXSetCols + g;
+      const float* vh = tile + off;
+      const float* vl = sL + off;
+#pragma unroll
+      for (int jd = 0; jd < ND; ++jd)
+        if (8 * jd < cols)
+          mma3s(o[jd], ah, al, vh[8 * jd], vh[G::vs + 8 * jd], vl[8 * jd], vl[G::vs + 8 * jd]);
+    }
   }
 
 #pragma unroll
@@ -1929,9 +2282,9 @@ __global__ void __launch_bounds__(XGeo<T>::threads)
     l0 += __shfl_xor_sync(0xffffffffu, l0, x);
     l1 += __shfl_xor_sync(0xffffffffu, l1, x);
   }
-  if (!live) return;
+  if (!live || cols <= 0) return;
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  T* op = out + (size_t)bh * seq_len * ld + c0 + 2 * t;
+  float* op = out + (size_t)bh * seq_len * ld + c0 + 2 * t;
 #pragma unroll
   for (int jd = 0; jd < ND; ++jd) {
     if (8 * jd + 2 * t >= cols) continue;
@@ -1954,7 +2307,8 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* out,
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid(bh, (seq_len + G::rows - 1) / G::rows, (ld + kXSlice - 1) / kXSlice);
+  if (ld % 4 != 0 || ld <= kWideCols) return cudaErrorInvalidValue;
+  const dim3 grid(bh, (seq_len + kXRows - 1) / kXRows, (ld + kXCols - 1) / kXCols);
   flash_tf32_wide<T><<<grid, G::threads, G::smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), ld, seq_len, group,
@@ -2024,14 +2378,44 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// flash_wgmma_wide<T>: rows of ld > 256 elements, a multiple of 8; scale >
+// 0 only, as flash_wgmma at 256 (its softmax)
+template <typename T>
+cudaError_t launch_wgmma_wide(const void* q, const void* k, const void* v, void* out,
+                              int ld, int bh, int seq_len, int group, int causal,
+                              float scale, int window, cudaStream_t stream) {
+  if (!(scale > 0.0f)) return cudaErrorInvalidValue;
+  static bool configured = false;  // the attribute is per function
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_wgmma_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kGSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const CUtensorMapDataType type =
+      kIsHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap tq, tk, tv;
+  if (ld % 8 != 0 || ld <= kWideCols ||
+      make_map(&tq, q, bh, seq_len, ld, kGRows, type) != CUDA_SUCCESS ||
+      make_map(&tk, k, bh / group, seq_len, ld, kGKeys, type) != CUDA_SUCCESS ||
+      make_map(&tv, v, bh / group, seq_len, ld, kGKeys, type) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  const dim3 grid(bh, (seq_len + kGRows - 1) / kGRows, (ld + kGCols - 1) / kGCols);
+  flash_wgmma_wide<T><<<grid, kConsumers * 128, kGSmem, stream>>>(
+      tq, tk, tv, static_cast<T*>(out), ld, seq_len, group, causal, scale * kLog2e,
+      window);
+  return cudaGetLastError();
+}
+
 // bfloat16 and float16: flash_tf32 up to 32 columns, flash_wgmma above;
 // at a compiled width the kernel of that width, else the _any kernel at the
-// smallest of 32, 64, 128, 256 above ld (ops.py width)
+// smallest of 32, 64, 128, 256 above ld (ops.py width); above 256
+// flash_wgmma_wide
 template <typename T>
 cudaError_t launch_16bit(int ld, const void* q, const void* k, const void* v,
                          void* out, int bh, int seq_len, int group, int causal,
                          float scale, int window, cudaStream_t stream) {
-  auto go = ld > 256    ? launch_wide<T>
+  auto go = ld > 256    ? launch_wgmma_wide<T>
             : ld == 32  ? launch_tf32<T, 32, false>
             : ld == 64  ? launch_wgmma<T, 64, false>
             : ld == 80  ? launch_wgmma<T, 80, false>
@@ -2051,7 +2435,9 @@ cudaError_t launch_16bit(int ld, const void* q, const void* k, const void* v,
 // success).  Does not synchronise.  dtype: 0 float32, 1 bfloat16, 2
 // float16; any other code is refused.  head_dim: the row length ld, any
 // ld >= 1 with ld * element bytes a multiple of 16 (the wrapper pads other
-// rows with zero columns); above 256, flash_tf32_wide in every dtype.  window <= 0 means no window.  q and out hold
+// rows with zero columns); above 256, flash_wgmma_wide in bfloat16 and
+// float16 (scale > 0 only) and flash_tf32_wide in float32.  window <= 0
+// means no window.  q and out hold
 // bh * seq_len * ld elements, k and v bh / group times that.  A call runs
 // the smallest compiled width D >= ld: float32 flash_tf32 at every width
 // (32, 64, 80, 120, 128, 256); bfloat16 and float16 flash_tf32 at 32 and

@@ -32,12 +32,18 @@ HEAD_DIMS = (32, 64, 80, 120, 128, 256)
 #: the smallest of them at or above it (``width``)
 ANY_WIDTHS = (32, 64, 128, 256)
 
-#: rows wider than this (head dims above 256) run ``flash_tf32_wide``: q.k
-#: as a sum over pieces of WIDE_PIECE columns, p.v in output slices of
-#: WIDE_SLICE columns, a block a slice (``wide_slices``), in every dtype
+#: rows wider than this (head dims above 256) run the wide kernels:
+#: ``flash_wgmma_wide`` in bfloat16 and float16, ``flash_tf32_wide`` in
+#: float32.  Both take a block of WIDE_ROWS q rows and WIDE_GROUP output
+#: columns (a column group, ``wide_groups``: two halves of 256, one a
+#: warpgroup or a set of 4 warps, so the scores of a key tile are computed
+#: once a group), and q.k as a sum over pieces of WIDE_PIECE columns, the
+#: two halves of the block taking alternate pieces; key tiles of
+#: ``wide_keys`` keys
 WIDE_ABOVE = 256
 WIDE_PIECE = 64
-WIDE_SLICE = 256
+WIDE_GROUP = 512
+WIDE_ROWS = 64
 
 #: bfloat16 and float16 widths that run ``flash_wgmma`` (wgmma + TMA; at 64
 #: the softmax overlaps the tensor cores, at 256 the key tiles are 64
@@ -49,7 +55,8 @@ WGMMA_HEAD_DIMS = (64, 80, 120, 128, 256)
 
 #: bf16 and float16 widths whose kernel takes its softmax maxima over the
 #: unscaled scores, so computes only scale > 0 (the wrapper rewrites the
-#: others, ``positive_scale``): flash_wgmma at 64 and 256
+#: others, ``positive_scale``): flash_wgmma at 64 and 256, and
+#: flash_wgmma_wide at every row above WIDE_ABOVE (``positive_only``)
 POSITIVE_SCALE_DIMS = (64, 256)
 
 #: kernel launches made through this wrapper (CUDA tensors only)
@@ -98,7 +105,7 @@ def width(dtype: torch.dtype, head_dim: int) -> int:
     """The compiled width a call at ``head_dim`` runs: its row
     (``row_elems``) where that is one of HEAD_DIMS, else the smallest of
     ANY_WIDTHS at or above it; a row wider than WIDE_ABOVE is its own
-    width (``flash_tf32_wide`` takes any)."""
+    width (the wide kernels take any)."""
     ld = row_elems(dtype, head_dim)
     if ld in HEAD_DIMS or ld > WIDE_ABOVE:
         return ld
@@ -108,7 +115,7 @@ def width(dtype: torch.dtype, head_dim: int) -> int:
 def kernel_name(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernel a launch at ``dtype`` and ``head_dim`` runs."""
     if row_elems(dtype, head_dim) > WIDE_ABOVE:
-        return "flash_tf32_wide"
+        return "flash_tf32_wide" if dtype == torch.float32 else "flash_wgmma_wide"
     if dtype != torch.float32 and width(dtype, head_dim) in WGMMA_HEAD_DIMS:
         return "flash_wgmma"
     return "flash_tf32"
@@ -117,44 +124,73 @@ def kernel_name(dtype: torch.dtype, head_dim: int) -> str:
 def kernel_label(dtype: torch.dtype, head_dim: int) -> str:
     """The instantiation a launch runs, named as ptxas's report names it
     (``flash_wgmma<bf16, 128>``, ``flash_tf32<f16, 32>``,
-    ``flash_wgmma_any<bf16, 128>`` at head dim 96, ``flash_tf32_wide<f32>``
-    above 256)."""
-    if kernel_name(dtype, head_dim) == "flash_tf32_wide":
-        return f"flash_tf32_wide<{_SHORT[dtype]}>"
+    ``flash_wgmma_any<bf16, 128>`` at head dim 96, ``flash_wgmma_wide<bf16>``
+    and ``flash_tf32_wide<f32>`` above 256)."""
+    name = kernel_name(dtype, head_dim)
+    if name.endswith("_wide"):
+        return f"{name}<{_SHORT[dtype]}>"
     any_ = "" if row_elems(dtype, head_dim) in HEAD_DIMS else "_any"
-    return f"{kernel_name(dtype, head_dim)}{any_}<{_SHORT[dtype]}, {width(dtype, head_dim)}>"
+    return f"{name}{any_}<{_SHORT[dtype]}, {width(dtype, head_dim)}>"
 
 
-def wide_slices(dtype: torch.dtype, head_dim: int) -> List[Tuple[int, int]]:
-    """``(first column, columns)`` of the output slice of each block of
-    ``flash_tf32_wide`` (the grid's third dimension) at ``head_dim``: the
-    row cut into WIDE_SLICE columns, the last the rest; each block
-    computes the whole row's scores and p.v for its slice."""
+def positive_only(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the kernel at ``dtype`` and ``head_dim`` takes only scale >
+    0 (its softmax takes maxima over the unscaled scores), so the wrapper
+    rewrites the scale (``positive_scale``): flash_wgmma at
+    POSITIVE_SCALE_DIMS and flash_wgmma_wide."""
+    name = kernel_name(dtype, head_dim)
+    return name == "flash_wgmma_wide" or (
+        name == "flash_wgmma" and width(dtype, head_dim) in POSITIVE_SCALE_DIMS)
+
+
+def wide_keys(dtype: torch.dtype) -> int:
+    """Keys a k/v tile of the wide kernels: 64 on wgmma (m64n64 scores),
+    32 in float32."""
+    return 32 if dtype == torch.float32 else 64
+
+
+def wide_groups(dtype: torch.dtype, head_dim: int) -> List[Tuple[int, int]]:
+    """``(first column, columns)`` of the output column group of each
+    block of the wide kernels (the grid's third dimension) at
+    ``head_dim``: the row cut into WIDE_GROUP columns, the last the rest.
+    Each block computes the whole row's scores once and p.v for its group,
+    its first 256 columns in one half of the block and the rest in the
+    other (a half past the row stores nothing)."""
     ld = row_elems(dtype, head_dim)
-    return [(c, min(WIDE_SLICE, ld - c)) for c in range(0, ld, WIDE_SLICE)]
+    return [(c, min(WIDE_GROUP, ld - c)) for c in range(0, ld, WIDE_GROUP)]
 
 
 def wide_smem_bytes(dtype: torch.dtype) -> int:
-    """The dynamic shared memory of a ``flash_tf32_wide`` block (the
-    kernel's XGeo): two stages of a q piece (64 rows) and a k piece (32
-    keys) of WIDE_PIECE columns, and v's slice of 32 keys, rows padded (8
-    elements; v's by 4 in float32), at every head dim."""
-    ps = WIDE_PIECE + 8
-    vs = WIDE_SLICE + (4 if dtype == torch.float32 else 8)
-    return (2 * (64 + 32) * ps + 32 * vs) * dtype.itemsize
+    """The dynamic shared memory of a wide block, the same at every head
+    dim.  flash_wgmma_wide (the kernel's kGSmem): 1 KB of alignment slack,
+    a ring of 4 stages of a q and a k piece (64 x 64, 8 KB each) for each
+    warpgroup, v's tile of 64 keys x WIDE_GROUP columns, the 16 KB score
+    exchange and 10 mbarriers.  flash_tf32_wide (its XGeo): two stages, each
+    both sets' q piece (64 rows) and k piece (32 keys) of WIDE_PIECE columns
+    or v's tile of 32 keys x WIDE_GROUP columns (the larger), the lo halves
+    of a stage's k pieces or v, and the exchange (two sets of 128 threads x
+    16 floats); rows padded so that fragment loads are bank-free (8 floats a
+    piece row, 4 a v row)."""
+    keys = wide_keys(dtype)
+    if dtype == torch.float32:
+        piece_row, v_row = WIDE_PIECE + 8, WIDE_GROUP + 4
+        stage = max(2 * (WIDE_ROWS + keys) * piece_row, keys * v_row)
+        return (2 * stage + keys * v_row + 2 * 128 * 16) * 4
+    span = keys * WIDE_PIECE * 2
+    return (1024 + 2 * 4 * 2 * span + (WIDE_GROUP // WIDE_PIECE) * span
+            + WIDE_ROWS * keys * 4 + 8 * 2 * 5)
 
 
 def positive_scale(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
     """``(q', scale')`` with ``scale' > 0`` whose scaled scores ``q' . k *
-    scale'`` equal ``q . k * scale`` for every k, for ``flash_wgmma`` at
-    POSITIVE_SCALE_DIMS, whose softmax takes its maxima over the unscaled
-    scores: a negative
-    scale as ``-q`` and ``|scale|`` (negation is exact in bf16 and float16),
-    scale 0 as a zero q and scale 1 (every score exactly 0, as the
-    reference's ``(q * 0) . k``).  NaN is refused."""
+    scale'`` equal ``q . k * scale`` for every k, for the kernels whose
+    softmax takes its maxima over the unscaled scores (``positive_only``):
+    a negative scale as ``-q`` and ``|scale|`` (negation is exact in bf16
+    and float16), scale 0 as a zero q and scale 1 (every score exactly 0,
+    as the reference's ``(q * 0) . k``).  NaN is refused."""
     if math.isnan(scale):
-        raise ValueError(f"bfloat16 and float16 at widths {POSITIVE_SCALE_DIMS} take a "
-                         f"finite scale, got {scale}")
+        raise ValueError(f"bfloat16 and float16 at widths {POSITIVE_SCALE_DIMS} and above "
+                         f"{WIDE_ABOVE} take a finite scale, got {scale}")
     if scale > 0:
         return q, scale
     if scale < 0:
@@ -191,10 +227,10 @@ def flash_attention(
 ) -> torch.Tensor:
     """Causal, non-causal or sliding-window GQA attention; (B, H, S, D)
     in q's dtype, float32, bfloat16 or float16, any D from 1 up
-    (``flash_tf32_wide`` above 256).  CUDA tensors launch the kernel on
-    the current stream without synchronising (rows whose bytes are not a
-    multiple of 16 are padded with zero columns first, ``row_elems``); CPU
-    tensors take the plain version.  ``scale`` defaults to ``1 / sqrt(D)``
+    (``flash_wgmma_wide``, ``flash_tf32_wide`` above 256).  CUDA tensors
+    launch the kernel on the current stream without synchronising (rows
+    whose bytes are not a multiple of 16 are padded with zero columns
+    first, ``row_elems``); CPU tensors take the plain version.  ``scale`` defaults to ``1 / sqrt(D)``
     of the unpadded D."""
     b, h, s, d = q.shape
     hkv = k.shape[1]
@@ -209,7 +245,7 @@ def flash_attention(
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda(q, k, v, window)
-    if kernel_name(q.dtype, d) == "flash_wgmma" and width(q.dtype, d) in POSITIVE_SCALE_DIMS:
+    if positive_only(q.dtype, d):
         q, scale = positive_scale(q, float(scale))
     dev, stream = device_and_stream(q)
     out = _launch(load(), q, k, v, causal=causal, scale=float(scale), window=window,

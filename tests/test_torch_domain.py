@@ -329,15 +329,17 @@ def test_many_group_plan(num_groups, windows):
 
 def test_head_dim_257_is_refused():
     """Head dims above 256 were refused until both kernels took q.k across
-    D in pieces (``flash_tf32_wide``, ``decode_wide``); now both wrappers'
-    checks take 257, 512 and 1024 in float32, bfloat16 and float16, as the
-    Pallas kernels do, and refuse only a head dim of 0."""
+    D in pieces (``flash_wgmma_wide`` in bf16 and float16, ``flash_tf32_wide``
+    in float32, ``decode_wide``); now both wrappers' checks take 257, 512
+    and 1024 in float32, bfloat16 and float16, as the Pallas kernels do,
+    and refuse only a head dim of 0."""
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for d in (257, 512, 1024):
             q = torch.zeros((1, 2, 4, d), dtype=dtype)
             flash_ops._check_cuda(q, q, q, None)
             decode_ops._check_cuda(q[:, :, 0], q, q, torch.ones((1,), dtype=torch.int32))
-            assert flash_ops.kernel_name(dtype, d) == "flash_tf32_wide"
+            assert flash_ops.kernel_name(dtype, d) == (
+                "flash_tf32_wide" if dtype == torch.float32 else "flash_wgmma_wide")
             assert decode_ops.decode_kernel(dtype, 2, d).startswith("decode_wide<")
         for d in (1, 2, 255, 256):
             small = torch.zeros((1, 2, 4, d), dtype=dtype)

@@ -1,8 +1,9 @@
 """Head dims above 256 in both attention kernels, checked on the CPU.
 
-The Pallas kernels take any head dim; the port runs ``flash_tf32_wide``
-and ``decode_wide`` above 256 (``chip_smoke.py`` phase 5 holds them to
-their plain versions on the card).  Here:
+The Pallas kernels take any head dim; the port runs ``flash_wgmma_wide``
+(bf16, float16), ``flash_tf32_wide`` (float32) and ``decode_wide`` above
+256 (``chip_smoke.py`` phase 5 holds them to their plain versions on the
+card).  Here:
 
 * the port's plain versions (what the wrappers take on CPU tensors) at
   head dims 257, 320 and 576 against the Pallas kernels in interpret mode,
@@ -10,19 +11,22 @@ their plain versions on the card).  Here:
   and one ulp of the type plus 1e-5 in the 16-bit types (both compute in
   float32 and round once);
 * an emulation of each wide kernel's plan against the Pallas kernel under
-  the same rules: flash's 64-row q tiles of 16-row warps, 32-key tiles,
-  q.k summed over 64-column pieces (split-TF32 products, as
-  ``flash_tf32``), p.v in 256-column output slices; decode's chunks of
+  the same rules: flash's blocks of 64 q rows and 512 output columns
+  (two halves of 256), q.k over 64-column pieces split between the halves
+  and summed, on wgmma in bf16 and float16 (64-key tiles, the lazy
+  maximum, p as a hi + lo pair) and split-TF32 in float32 (32-key tiles,
+  16-row warps, three products a pair); decode's chunks of
   ``split_plan``, q.k summed over 256-column pieces, a softmax a chunk and
   the combine, at lengths 0, 1, a chunk edge and S;
 * the plans without a card: both wide kernels' shared memory within the
   227 KB a block may use at every head dim from 257 to 1,024 (it does not
-  depend on the head dim), every output column in exactly one slice, and
+  depend on the head dim), every output column in exactly one group, and
   the wrappers' launch arguments through stand-in libraries (the row, the
-  dtype code, no scale rewrite, the decode plan and its partials);
+  dtype code, the 16-bit scale rewrite, the decode plan and its partials);
 * both ``_check_cuda`` take head dims 257 to 1,024 in every dtype and
   refuse 0 (``tests/test_torch_domain.py::test_head_dim_257_is_refused``).
 """
+import math
 import re
 
 import jax.numpy as jnp
@@ -105,77 +109,114 @@ def cu_int(src: str, name: str) -> int:
 
 
 def emulate_flash_wide(q, k, v, *, causal, window):
-    """flash_tf32_wide's plan and arithmetic on the CPU: block (q tile of
-    64 rows, output slice of 256 columns); each warp of 16 rows walks the
-    32-key tiles its rows see; a tile's scores are the sum over 64-column
-    pieces of split-TF32 products (float32: three, bf16: two, float16: one
-    of q and k as they are, scaled after), then the masks and the online
-    softmax, and p.v over the slice's columns."""
+    """The wide flash kernels' plans and arithmetic on the CPU.  A block
+    takes a q tile of 64 rows and a group of 512 output columns
+    (``wide_groups``), its two halves 256 columns each; a key tile's scores
+    are the sum of two halves of q.k, each half the pieces of 64 columns it
+    takes (pieces 0, 2, .. and 1, 3, ..), computed once a group.
+    bfloat16 and float16 (``flash_wgmma_wide``): 64-key tiles, exact
+    products and float32 sums, each half one chain; masks -inf; the online
+    softmax with its maxima over the unscaled scores, a lazy maximum (it
+    moves only past 2^8) and exp2 of the scaled differences; p.v as the pair
+    hi = round(p s) + lo = round(p s - hi) in q's dtype (s = 2^7 in float16,
+    1 in bf16) against v, scaled back in the finish.  float32
+    (``flash_tf32_wide``): 32-key tiles walked by warps of 16 rows (a warp
+    skips the tiles masked for all its rows), each piece's split-TF32
+    products (three a pair, k split once) in accumulators of their own, masks
+    -1e30 and -inf past S, the eager softmax, p.v split-TF32 (p and v
+    split, three products a pair)."""
     b, h, s, d = q.shape
     group = h // k.shape[1]
-    bq, bk = 16 * cu_int(FLASH_CU, "kXWarps"), cu_int(FLASH_CU, "kXKeys")
-    piece, width = cu_int(FLASH_CU, "kXPiece"), cu_int(FLASH_CU, "kXSlice")
-    assert (piece, width) == (flash_ops.WIDE_PIECE, flash_ops.WIDE_SLICE)
-    half, exact = q.dtype == torch.float16, q.dtype != torch.float32
+    ld = flash_ops.row_elems(q.dtype, d)
+    f32 = q.dtype == torch.float32
+    bq, bk = flash_ops.WIDE_ROWS, flash_ops.wide_keys(q.dtype)
+    assert (bq, bk) == ((cu_int(FLASH_CU, "kXRows"), cu_int(FLASH_CU, "kXKeys")) if f32 else
+                        (cu_int(FLASH_CU, "kGRows"), cu_int(FLASH_CU, "kGKeys")))
+    piece = cu_int(FLASH_CU, "kXPiece" if f32 else "kGPiece")
+    assert piece == flash_ops.WIDE_PIECE
+    assert cu_int(FLASH_CU, "kXCols" if f32 else "kGCols") == flash_ops.WIDE_GROUP
+    rows_a_warp = 16 if f32 else bq  # wgmma: a warpgroup takes the tile's rows
+    pscale = 128.0 if q.dtype == torch.float16 else 1.0
     scale = 1.0 / d ** 0.5
-    qs = q.to(torch.float32).reshape(b * h, s, d)
-    if not half:
+    c = scale * math.log2(math.e)
+
+    def pad(x):
+        return torch.nn.functional.pad(x.to(torch.float32), (0, ld - d)).reshape(-1, s, ld)
+
+    qs = pad(q)
+    if f32:
         qs = qs * scale
-    kf = k.to(torch.float32).repeat_interleave(group, dim=1).reshape(b * h, s, d)
-    vf = v.to(torch.float32).repeat_interleave(group, dim=1).reshape(b * h, s, d)
-    out = torch.empty(b * h, s, d, dtype=torch.float32)
+    kf = pad(k.repeat_interleave(group, dim=1))
+    vf = pad(v.repeat_interleave(group, dim=1))
+    bh = b * h
+    out = torch.empty(bh, s, ld, dtype=torch.float32)
     n_tiles = -(-s // bk)
-    for c0, cols in flash_ops.wide_slices(q.dtype, d):
+    pieces = [range(w * piece, ld, 2 * piece) for w in (0, 1)]
+    for c0, cols in flash_ops.wide_groups(q.dtype, d):
         for q0 in range(0, s, bq):
             hi = min((q0 + bq - 1) // bk + 1, n_tiles) if causal else n_tiles
             lo = max(int((q0 - window + 1) / bk), 0) if window else 0
-            for r0 in range(q0, min(q0 + bq, s), 16):
-                whi = min((r0 + 15) // bk + 1, hi) if causal else hi
+            for r0 in range(q0, min(q0 + bq, s), rows_a_warp):
+                n_r = rows_a_warp
+                whi = min((r0 + n_r - 1) // bk + 1, hi) if causal else hi
                 wlo = max(int((r0 - window + 1) / bk), lo) if window else lo
-                rows = torch.arange(r0, r0 + 16)
-                qw = torch.zeros(b * h, 16, d)
-                qw[:, : min(16, s - r0)] = qs[:, r0:r0 + 16]
-                m = torch.full((b * h, 16, 1), -1e30)
-                l = torch.zeros((b * h, 16, 1))
-                o = torch.zeros((b * h, 16, cols))
+                rows = torch.arange(r0, r0 + n_r)
+                qw = torch.zeros(bh, n_r, ld)
+                qw[:, : min(n_r, s - r0)] = qs[:, r0:r0 + n_r]
+                m = torch.full((bh, n_r, 1), -1e30)
+                l = torch.zeros((bh, n_r, 1))
+                o = torch.zeros((bh, n_r, cols))
                 for j in range(wlo, whi):
                     keys = torch.arange(j * bk, (j + 1) * bk)
-                    kt = torch.zeros(b * h, bk, d)
-                    vt = torch.zeros(b * h, bk, cols)
+                    kt = torch.zeros(bh, bk, ld)
+                    vt = torch.zeros(bh, bk, cols)
                     valid = min(bk, s - j * bk)
                     kt[:, :valid] = kf[:, j * bk:j * bk + valid]
                     vt[:, :valid] = vf[:, j * bk:j * bk + valid, c0:c0 + cols]
-                    sc = torch.zeros(b * h, 16, bk)
-                    for p0 in range(0, d, piece):
-                        qp, kp = qw[..., p0:p0 + piece], kt[..., p0:p0 + piece]
-                        sc = sc + (qp @ kp.transpose(1, 2) if half else
-                                   product(qp, kp.transpose(1, 2), 3, exact))
-                    if half:
-                        sc = sc * scale
-                    keep = torch.ones(16, bk, dtype=torch.bool)
+                    halves = []
+                    for mine in pieces:
+                        part = torch.zeros(bh, n_r, bk)
+                        for p0 in mine:
+                            qp = qw[..., p0:p0 + piece]
+                            kp = kt[..., p0:p0 + piece].transpose(1, 2)
+                            # float32: each piece in accumulators of its own
+                            part = part + (product(qp, kp, 3, False) if f32 else qp @ kp)
+                        halves.append(part)
+                    sc = halves[0] + halves[1]
+                    keep = torch.ones(n_r, bk, dtype=torch.bool)
                     if causal:
                         keep &= keys[None, :] <= rows[:, None]
                     if window:
                         keep &= keys[None, :] > rows[:, None] - window
-                    sc = torch.where(keep, sc, torch.tensor(-1e30))
+                    sc = torch.where(keep, sc, torch.tensor(-1e30 if f32 else -torch.inf))
                     sc = torch.where(keys[None, :] >= s, torch.tensor(-torch.inf), sc)
-                    mx = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
-                    corr = torch.exp(m - mx)
-                    p = torch.exp(sc - mx)
+                    if f32:
+                        mx = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+                        corr, p = torch.exp(m - mx), torch.exp(sc - mx)
+                        pv = product(p, vt, 3, False)
+                    else:
+                        mx = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+                        mx = torch.where((mx - m) * c <= 8.0, m, mx)  # the lazy maximum
+                        corr, p = torch.exp2((m - mx) * c), torch.exp2((sc - mx) * c)
+                        ph = (p * pscale).to(q.dtype).to(torch.float32)
+                        pl = (p * pscale - ph).to(q.dtype).to(torch.float32)
+                        pv = ph @ vt + pl @ vt
                     l = l * corr + p.sum(dim=-1, keepdim=True)
-                    o = o * corr + product(p, vt, 3, exact)
+                    o = o * corr + pv
                     m = mx
-                n = min(16, s - r0)
-                out[:, r0:r0 + n, c0:c0 + cols] = (o / l.clamp_min(1e-30))[:, :n]
-    return out.reshape(b, h, s, d).to(q.dtype)
+                n = min(n_r, s - r0)
+                out[:, r0:r0 + n, c0:c0 + cols] = (o / (l.clamp_min(1e-30) * pscale))[:, :n]
+    return out[..., :d].reshape(b, h, s, d).to(q.dtype)
 
 
 @pytest.mark.parametrize("name", list(DTYPES))
-@pytest.mark.parametrize("d,s", [(320, 96), (576, 72)])
+@pytest.mark.parametrize("d,s", [(320, 96), (576, 72), (1024, 72)])
 @pytest.mark.parametrize("causal,window", MASKS)
 def test_flash_wide_plan_meets_the_rules(name, d, s, causal, window, rng):
-    """Two and three slices, S a whole and a ragged number of 32-key tiles
-    and of 64-row q tiles, GQA 4/2."""
+    """One column group (320: its second half 64 columns), two with a
+    ragged last one (576: 64 columns) and two whole ones (1024: more
+    pieces than a warpgroup's ring holds), S a whole and a ragged number of
+    key tiles and of 64-row q tiles, GQA 4/2."""
     (qt, qj), (kt, kj), (vt, vj) = (both(normal(rng, 1, n, s, d), name) for n in (4, 2, 2))
     got = emulate_flash_wide(qt, kt, vt, causal=causal, window=window)
     want = jax_flash(qj, kj, vj, causal=causal, window=window, interpret=True,
@@ -246,31 +287,45 @@ def test_decode_wide_plan_meets_the_rules(name, d, group, s, rng):
 def test_wide_shared_memory_and_slices_at_every_head_dim():
     """Both wide kernels' blocks fit the card at every head dim from 257
     to 1,024 (their shared memory does not grow with it), and the flash
-    slices cover every output column exactly once."""
+    column groups cover every output column exactly once, each half of a
+    group 256 columns or what is left."""
     for d in range(257, 1025):
         for dtype, _ in DTYPES.values():
             assert flash_ops.wide_smem_bytes(dtype) <= SMEM_LIMIT
             ld = flash_ops.row_elems(dtype, d)
             covered = np.zeros(ld, np.int64)
-            for c0, cols in flash_ops.wide_slices(dtype, d):
-                assert 0 < cols <= flash_ops.WIDE_SLICE and c0 % flash_ops.WIDE_SLICE == 0
+            for c0, cols in flash_ops.wide_groups(dtype, d):
+                assert 0 < cols <= flash_ops.WIDE_GROUP and c0 % flash_ops.WIDE_GROUP == 0
                 covered[c0:c0 + cols] += 1
             assert (covered == 1).all(), d
-            assert flash_ops.kernel_label(dtype, d) == (
-                f"flash_tf32_wide<{flash_ops._SHORT[dtype]}>")
+            name = "flash_tf32_wide" if dtype == torch.float32 else "flash_wgmma_wide"
+            assert flash_ops.kernel_label(dtype, d) == f"{name}<{flash_ops._SHORT[dtype]}>"
+            assert flash_ops.positive_only(dtype, d) == (dtype != torch.float32)
             assert decode_ops.decode_kernel(dtype, 4, d) == (
                 f"decode_wide<{decode_ops._SHORT[dtype]}>")
     assert decode_ops.wide_smem_bytes() <= 48 * 1024  # static shared memory
 
 
 def test_wide_geometry_matches_the_sources():
-    """The wrappers' mirrors of the kernels' constants and shared memory."""
-    assert cu_int(FLASH_CU, "kXSlice") == flash_ops.WIDE_SLICE
-    assert cu_int(FLASH_CU, "kXPiece") == flash_ops.WIDE_PIECE
-    x = cu_int(FLASH_CU, "kXWarps") * 16 + cu_int(FLASH_CU, "kXKeys")
-    assert x == 96 and cu_int(FLASH_CU, "kXKeys") == 32
-    assert flash_ops.wide_smem_bytes(torch.float32) == 88_576
-    assert flash_ops.wide_smem_bytes(torch.bfloat16) == 44_544
+    """The wrappers' mirrors of the kernels' constants and shared memory:
+    both wide flash kernels take 64 q rows and 512 output columns a block
+    and 64-column pieces; flash_wgmma_wide 64-key tiles and a ring of 4
+    stages a warpgroup (214,096 B), flash_tf32_wide 8 warps and 32-key
+    tiles (214,528 B)."""
+    for name in ("kGCols", "kXCols"):
+        assert cu_int(FLASH_CU, name) == flash_ops.WIDE_GROUP == 512
+    for name in ("kGPiece", "kXPiece"):
+        assert cu_int(FLASH_CU, name) == flash_ops.WIDE_PIECE == 64
+    for name in ("kGRows", "kXRows"):
+        assert cu_int(FLASH_CU, name) == flash_ops.WIDE_ROWS == 64
+    assert cu_int(FLASH_CU, "kGKeys") == flash_ops.wide_keys(torch.bfloat16) == 64
+    assert cu_int(FLASH_CU, "kXKeys") == flash_ops.wide_keys(torch.float32) == 32
+    assert cu_int(FLASH_CU, "kGRing") == 4 and cu_int(FLASH_CU, "kXWarps") == 8
+    assert 2 * cu_int(FLASH_CU, "kGWgCols") == 2 * cu_int(FLASH_CU, "kXSetCols") == 512
+    assert flash_ops.wide_smem_bytes(torch.float32) == 214_528
+    assert flash_ops.wide_smem_bytes(torch.bfloat16) == 214_096
+    assert flash_ops.wide_smem_bytes(torch.float16) == 214_096
+    assert "214,096 B" in FLASH_CU and "214,528 B" in FLASH_CU  # the comments agree
     assert cu_int(DECODE_CU, "kWideChunk") == decode_ops.WIDE_CHUNK
     assert cu_int(DECODE_CU, "kWidePiece") == decode_ops.WIDE_PIECE
     assert cu_int(DECODE_CU, "kWideHeads") == decode_ops.WIDE_HEADS
@@ -303,21 +358,29 @@ class FakeDecodeLib:
 def test_flash_wrapper_above_256(dtype, d, row):
     """The library gets the row (padded only where its bytes are not a
     multiple of 16), the dtype code and the default scale of the unpadded
-    D as it is (flash_tf32_wide takes any scale: no rewrite)."""
+    D.  flash_tf32_wide takes any scale as it is; flash_wgmma_wide (bf16,
+    float16) takes scale > 0 only, so a negative scale reaches it as -q and
+    |scale| (``positive_scale``), a copy of q."""
     b, h, hkv, s = 1, 4, 2, 16
     q = torch.randn(b, h, s, d).to(dtype)
     k, v = torch.randn(b, hkv, s, d).to(dtype), torch.randn(b, hkv, s, d).to(dtype)
     assert flash_ops.row_elems(dtype, d) == row and flash_ops.width(dtype, d) == row
-    assert flash_ops.kernel_name(dtype, d) == "flash_tf32_wide"
+    wgmma = dtype != torch.float32
+    assert flash_ops.kernel_name(dtype, d) == (
+        "flash_wgmma_wide" if wgmma else "flash_tf32_wide")
+    assert flash_ops.positive_only(dtype, d) == wgmma
     flash_ops._check_cuda(q, k, v, None)
     lib = FakeFlashLib()
-    out = flash_ops._launch(lib, q, k, v, causal=True, scale=-(d ** -0.5), window=None,
+    qs, scale = (flash_ops.positive_scale(q, -(d ** -0.5)) if wgmma else (q, -(d ** -0.5)))
+    out = flash_ops._launch(lib, qs, k, v, causal=True, scale=scale, window=None,
                             device=0, stream=0)
     (args,) = lib.calls
     assert args[1] == {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}[dtype]
     assert args[2] == row and args[7:10] == (b * h, s, h // hkv)
-    assert args[11] == pytest.approx(-(d ** -0.5))
-    assert (args[3] == q.data_ptr()) == (row == d)
+    assert args[11] == pytest.approx(d ** -0.5 if wgmma else -(d ** -0.5))
+    assert (args[3] == q.data_ptr()) == (row == d and not wgmma)
+    if wgmma:
+        assert torch.equal(qs, -q)
     assert out.shape == (b, h, s, d) and out.dtype == dtype
 
 

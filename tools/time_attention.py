@@ -9,24 +9,29 @@ CUDA toolkit::
 It builds ``flash_attention.cu`` and ``decode_attention.cu`` of DIR's
 ``src/repro_torch`` (default: the checkout that holds this script) with the
 port's nvcc flags, prints their ptxas registers and spill bytes and the
-SASS counts of flash_wgmma<256> and of every flash_tf32 instance (wgmma
-instructions, the waits on them, TF32 mma.sync instructions, spill loads
-and stores, the highest register), then one JSON line per row: decode at
-full length and flash on one causal prompt for every config of
-``chip_smoke.ATTENTION_ROWS`` in bf16, the recurrent hybrid's decode at
-its serve's length and its flash at its forward's length, where the window
-masks; then the same decode and flash rows in float32 at the configs of
-``chip_smoke.FLOAT32_ARCHS``, and flash at head dim 32 (heads
-``chip_smoke.D32_HEADS``) in float32 and bf16.  Each row names the kernel
-DIR's wrapper launches (``runs``) and has the device time (CUDA events, L2
-flushed, median of ``chip_smoke.TIMING_REPS``, launches queued behind a
-sleep kernel), SDPA's time on the same inputs, whether the host queued both
-ahead of the card (``ahead``; where not, the times hold host gaps), and
-whether the result held to the plain version (``close_enough`` for decode
-and for flash in float32 or at head dim 32, ``flash_bf16_close`` for
-bf16 flash on wgmma).  ``--only TEXT`` keeps the rows whose name holds
-TEXT (their inputs then differ from a full run's: the rows draw from one
-generator in turn).
+SASS counts of flash_wgmma<256>, of every flash_tf32 instance and of the
+wide kernels (wgmma instructions, the waits on them, TF32 mma.sync
+instructions, spill loads and stores, the highest register), then one JSON
+line per row: decode at full length and flash on one causal prompt for
+every config of ``chip_smoke.ATTENTION_ROWS`` in bf16, the recurrent
+hybrid's decode at its serve's length and its flash at its forward's
+length, where the window masks; then the same decode and flash rows in
+float32 at the configs of ``chip_smoke.FLOAT32_ARCHS``, and flash at head
+dim 32 (heads ``chip_smoke.D32_HEADS``) in float32 and bf16; then the wide
+rows, flash at head dim ``chip_smoke.WIDE_TIMED_DIM`` (S =
+``chip_smoke.FORWARD_LEN``, causal) at the heads of
+``chip_smoke.WIDE_TIMED_FLASH`` in bf16, float16 and float32 (``--only
+wide`` keeps only them). Each row names the kernel DIR's wrapper launches
+(``runs``) and has the device time (CUDA events, L2 flushed, median of
+``chip_smoke.TIMING_REPS``, launches queued behind a sleep kernel), SDPA's
+time on the same inputs (the wide rows add ``sdpa_expanded_ms``: SDPA on k
+and v expanded to the q heads, which takes ``EFFICIENT_ATTENTION`` where
+``enable_gqa`` falls back to ``MATH``), whether the host queued both ahead
+of the card (``ahead``; where not, the times hold host gaps), and whether
+the result held to the plain version (``close_enough`` for decode and for
+flash in float32 or at head dim 32, ``flash_bf16_close`` for bf16 flash on
+wgmma). ``--only TEXT`` keeps the rows whose name holds TEXT (their inputs
+then differ from a full run's: the rows draw from one generator in turn).
 
 The rows, the timing, the rules and the ptxas parser are those of the
 ``chip_smoke.py`` beside this script; only the kernels come from DIR, so
@@ -97,7 +102,7 @@ def main() -> int:
     label = args.label or str(root)
     print(f"time_attention: {label}: torch {torch.__version__} on [{smi}]", flush=True)
     cs.build_kernels((fops, dops))
-    stats = sass_stats(build.built_path(fops.SOURCE), r"flash_wgmmaILi256E|flash_tf32")
+    stats = sass_stats(build.built_path(fops.SOURCE), r"flash_wgmmaI\w+Li256E|flash_tf32|_wide")
     print(f"time_attention: {label}: SASS flash_attention: {json.dumps(stats)}", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -123,11 +128,12 @@ def main() -> int:
         torch.cuda.synchronize()
     del x
 
-    def report(kernel, row, got, sdpa, ok, runs):
+    def report(kernel, row, got, sdpa, ok, runs, expanded=None):
         (t, ahead), (t_sdpa, ahead_sdpa) = ms(got), ms(sdpa)
+        extra = {"sdpa_expanded_ms": ms(expanded)[0]} if expanded is not None else {}
         print(json.dumps({"tree": label, "kernel": kernel, "runs": runs, "row": row,
-                          "ms": t, "sdpa_ms": t_sdpa, "ahead": ahead and ahead_sdpa, "ok": ok,
-                          "card": smi}), flush=True)
+                          "ms": t, "sdpa_ms": t_sdpa, **extra, "ahead": ahead and ahead_sdpa,
+                          "ok": ok, "card": smi}), flush=True)
 
     s = cs.DECODE_LEN
     bf16, f32 = torch.bfloat16, torch.float32
@@ -184,6 +190,24 @@ def main() -> int:
                            & (pos[None, :] > pos[:, None] - window), enable_gqa=True)
         report("flash_attention", row, kernel, lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw), ok,
                fops.kernel_name(dtype, d))
+
+    # the wide rows: above head dim 256, on no path
+    d, fs = cs.WIDE_TIMED_DIM, cs.FORWARD_LEN
+    for dtype in (bf16, torch.float16, f32):
+        for h, hkv in cs.WIDE_TIMED_FLASH:
+            row = f"wide {h}/{hkv} x {d}, {str(dtype).split('.')[-1]}, S={fs}"
+            if args.only not in row:
+                continue
+            q = randn(1, h, fs, d, dtype=dtype)
+            k, v = randn(1, hkv, fs, d, dtype=dtype), randn(1, hkv, fs, d, dtype=dtype)
+            kernel = lambda: fops.flash_attention(q, k, v, causal=True)  # noqa: E731
+            ok = cs.close_enough(torch, kernel(), fref.attention_ref(q, k, v, causal=True))
+            ek, ev = k.repeat_interleave(h // hkv, dim=1), v.repeat_interleave(h // hkv, dim=1)
+            report("flash_attention", row, kernel,
+                   lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+                   ok, fops.kernel_label(dtype, d),
+                   expanded=lambda: F.scaled_dot_product_attention(q, ek, ev, is_causal=True))
+            del ek, ev
     return 0
 
 
