@@ -130,8 +130,13 @@ Phases, each of which fails the script (non-zero exit) on any error:
    the float16 form of the bf16 flash rule (the chunked route in float16
    as the yardstick) or, at 32, one float16 ulp + 1e-5; float16 decode at
    32/4 and 48/1 (D = 128) and 16/1 (D = 256); head dims ODD_DIMS (1, 33,
-   96, 100, 250) in all three dtypes in both kernels (flash at S in {512,
-   200}; decode at 32/4 and 16/1, S = 1024); decode groups 71 and 128 (one
+   96, 100, 250, and from a generator of their own, SEED + 4, 150, 160,
+   192, 200, 224, 90, 170, 210) in all three dtypes in both kernels (flash at S in {512,
+   200}, and for bf16 and float16 rows that are not whole 16-byte pieces
+   at S = 199 with q, k and v 1, 3 and 5 elements into their buffers;
+   decode at 32/4 and 16/1, S = 1024), each (dtype, head dim)'s flash
+   kernel read back from torch.profiler against the one the wrapper names;
+   decode groups 71 and 128 (one
    block a slice of at most 64 heads) at D = 64 and 128 in all three
    dtypes, B = 4, S = 4096 at lengths 1, S-1, S, 0 and the chunk edges;
    ``fused_filter_agg`` at 1025, 4096, 65536 and 262144 groups over Q2's
@@ -253,9 +258,10 @@ Phases, each of which fails the script (non-zero exit) on any error:
    1's report); the rows count the launches of phases 6, 6d, 6e, 6f and
    6h, path by path (float32 shapes that no path runs: 0); float16 flash and
    decode at Yi-6B's shapes (phase 6i's launches), Phi-3-mini's flash (MHA
-   32/32 x 96, ``flash_wgmma_any<bf16, 128>``) and Falcon-7B's decode (MQA 71/1
+   32/32 x 96, ``flash_wgmma_any<bf16, 96>``) and Falcon-7B's decode (MQA 71/1
    x 64, two slices) with no path (0), flash at head dim 33 in bf16 (rows
-   padded to 40 by the wrapper; ``pad_ms`` times the copies alone), and
+   read as they are, no padded copy) and at 32/4 x 160 in bf16
+   (``flash_wgmma_any<bf16, 160>``), and
    flash at 16/1 and 32/4 x 512 (S = 2048, causal) in bf16 and float32
    and at 16/1 x 512 in float16, and decode at B = 4, 32/4 x 512 (S =
    4096, full length) in bf16 and float32 (the wide kernels; no path; each
@@ -360,11 +366,15 @@ TRAIN_CORPUS = 2_000_000
 #: steps profiled in run A (0-based first index), left out of the median
 TRAIN_PROFILE_FIRST = 3
 TRAIN_PROFILE_STEPS = 3
-#: phase 6e: the MoE, vision-language and audio families at full size
+#: phase 6e: the MoE, vision-language and audio families at full size;
+#: their serves' new tokens (half of phase 6's NEW_TOKENS: the phase is
+#: bound by the host's dispatch, and the script's time limit asks for a cut
+#: in depth)
 FAMILY_ARCHS = ("qwen2-moe-a2.7b", "internvl2-2b", "musicgen-medium")
+FAMILY_NEW_TOKENS = 8
 #: musicgen-medium's teacher-forced decode: rows of 4 codebook tokens, steps
 CODEBOOK_ROWS = 4
-CODEBOOK_STEPS = 64
+CODEBOOK_STEPS = 32
 #: phase 5: (H, D) of MQA decode cases at the other shapes decode_group
 #: takes (groups above 8 in bf16): two m-tiles at 128, the padded widths
 WIDE_GROUP_CASES = ((24, 128), (16, 80), (16, 120), (16, 64), (16, 32))
@@ -420,6 +430,12 @@ MLA_ARCH = "deepseek-v3-671b"
 MLA_LAYERS = (3, 1)
 #: xlstm: the card's forward against the CPU's over this many positions
 CPU_CHECK_LEN = 128
+#: xlstm: new tokens a request (half of HYBRID_NEW_TOKENS) and timed
+#: forwards after the first (one, not FORWARD_REPS): its forward is bound by
+#: the host's dispatch (about 11-14 s on an H100's host), and the script's
+#: time limit asks for a cut in depth
+XLSTM_NEW_TOKENS = 16
+XLSTM_FORWARD_REPS = 1
 #: deepseek: positions of the first layer's absorbed-decode check, and of
 #: the whole model's teacher-forced decode against its forward
 MLA_CHECK_LEN = 64
@@ -1745,10 +1761,21 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
 
 
 #: phase 5: the rest of the kernels' domain: head dims off the compiled widths
-#: (1 and 33 pad inside the wrapper in bf16 and float16; 96 is
-#: Phi-3-mini's, 100 and 250 other rows), decode groups above the kernel's
-#: 64 (Falcon-7B's 71/1 and a 128/1), and fused_filter_agg above 1024 groups
-ODD_DIMS = (1, 33, 96, 100, 250)
+#: (1 pads inside the wrapper in bf16 and float16; 33, 100, 150, 90 and 170
+#: are rows of bf16 and float16 that are not whole 16-byte pieces, which
+#: flash_wgmma_any's narrow loader reads as they are, at each of its
+#: geometries: 64 and 128 with a producer, 96 with 128-key tiles and none,
+#: 160 and 192 with 64-key tiles and none; 210 and 250 are such rows above
+#: 192, which the wrapper pads; 96 is Phi-3-mini's; 160, 192, 200 and 224
+#: run flash_wgmma_any at 160, 192 and 224), decode
+#: groups above the kernel's 64 (Falcon-7B's 71/1 and a 128/1), and
+#: fused_filter_agg above 1024 groups
+ODD_DIMS = (1, 33, 96, 100, 250, 150, 160, 192, 200, 224, 90, 170, 210)
+#: and, for those bf16 and float16 rows (the narrow loader's and the padded
+#: ones above 192), a prompt of ODD_HEAD_LEN tokens whose q, k and v start
+#: 1, 3 and 5 elements into their buffers, so that heads and rows start at
+#: any even address
+ODD_HEAD_LEN = 199
 WIDE_GROUPS = (71, 128)
 WIDE_GROUP_DIMS = (64, 128)
 MANY_GROUPS = (1025, 4096, 65536, 262144)
@@ -1771,10 +1798,51 @@ ODD_FLASH_LENS = (512, 200)
 #: Falcon-7B's decode heads (MQA 71/1 x 64), and fused_filter_agg's groups
 PHI3_HEADS = (32, 32, 96)
 FALCON_HEADS = (71, 1, 64)
-#: and a flash row whose rows the wrapper pads (33 bf16 elements -> 40)
-PAD_DIM = 33
+#: and a flash row whose rows are not whole 16-byte pieces (33 bf16
+#: elements, which the kernel reads as they are: no padded copy), and one
+#: at head dim 160 (32/4, bf16: ``flash_wgmma_any<bf16, 160>``)
+NARROW_DIM = 33
+ANY_TIMED_HEADS = (32, 4, 160)
 #: (4096 and 65536 first: their keys are drawn as before)
 TIMED_GROUPS = (4096, 65536, 262144, 1025)
+
+
+def profiled_label(name: str) -> str:
+    """A kernel's label (``flash_wgmma_any<bf16, 96>``) from the name
+    torch.profiler gives it: mangled (``kernel_label``) or demangled
+    (``void (anonymous namespace)::flash_wgmma_any<__nv_bfloat16, 96>(...)``)."""
+    import re
+
+    if name.startswith("_Z"):
+        return kernel_label(name)
+    m = re.search(r"(\w+)<([^<>]*)>\(", name)
+    if m is None:
+        return name
+    types = {"__nv_bfloat16": "bf16", "__half": "f16", "float": "f32"}
+    args = [types.get(a.strip(), a.strip().replace("(int)", "")) for a in m.group(2).split(",")]
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def check_launched(torch, launched, failures):
+    """Phase 5: one launch of each (kernel label, call) of ``launched``
+    under torch.profiler; each call's flash kernel, in launch order, must
+    be the one the wrapper names, and a profile with no flash kernel in it
+    is a failure too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _, fn in launched:
+            fn()
+        torch.cuda.synchronize()
+    ran = [profiled_label(e.name) for e in sorted(
+        (e for e in prof.events() if e.device_type.name == "CUDA" and "flash_" in e.name),
+        key=lambda e: e.time_range.start)]
+    want = [label for label, _ in launched]
+    if ran != want:
+        failures.append(f"the kernels launched {ran} are not the wrapper's {want}")
+    else:
+        print(f"domain vs plain: each of {len(want)} (dtype, head dim) launched the kernel the "
+              f"wrapper names: " + ", ".join(sorted(set(want))))
 
 
 def domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ffa_ops, ffa_ref,
@@ -1832,7 +1900,7 @@ def domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ffa_ops
                 failures.append(f"{name}: kernel vs plain (max, mean) {stats[:2]!r} exceed "
                                 f"twice the chunked route's {stats[2:]!r} + 1e-5")
 
-    def flash(dtype, d, h, hkv, s, cases, probes=(), tag="", generator=gen):
+    def flash(dtype, d, h, hkv, s, cases, probes=(), tag="", generator=gen, offsets=None):
         label = flash_ops.kernel_label(dtype, d)
         wgmma = flash_ops.kernel_name(dtype, d) == "flash_wgmma"
         rules[label] = ("the 16-bit flash rule" if wgmma else "1e-5 + 1e-5|plain|"
@@ -1840,6 +1908,9 @@ def domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ffa_ops
         q = randn(1, h, s, d, dtype=dtype, generator=generator)
         k = randn(1, hkv, s, d, dtype=dtype, generator=generator)
         v = randn(1, hkv, s, d, dtype=dtype, generator=generator)
+        if offsets is not None:  # the same values, `off` elements into a buffer
+            q, k, v = (torch.empty(t.numel() + off, dtype=dtype, device=dev)[off:]
+                       .view(t.shape).copy_(t) for t, off in zip((q, k, v), offsets))
         for causal, window in cases:
             kw = dict(causal=causal, window=window)
             one(f"flash{tag}", f"flash {dtype} D={d} ({label}) H={h}/{hkv} S={s} {kw}",
@@ -1882,18 +1953,30 @@ def domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ffa_ops
                   tag=" float16")
     for d, h, hkv in ((128, 32, 4), (128, 48, 1), (256, 16, 1)):
         decode(f16, d, h, hkv, DECODE_LEN, tag=" float16")
-    # head dims off the compiled widths, in every dtype
+    # head dims off the compiled widths, in every dtype; the dims after 250
+    # draw from a generator of their own, so the cases before keep their
+    # inputs
+    odd = torch.Generator(device=dev).manual_seed(SEED + 4)
+    odd_kernels = []  # (the kernel the wrapper names, a launch of it) a (dtype, D)
     for dtype in (torch.float32, torch.bfloat16, f16):
         for d in ODD_DIMS:
+            gd = gen if ODD_DIMS.index(d) <= ODD_DIMS.index(250) else odd
             for s in ODD_FLASH_LENS:
                 cases = FLASH_MASKS + (((True, 64),) if s == 200 else ())
-                flash(dtype, d, 32, 4, s, cases, tag=" odd D")
-            decode(dtype, d, 32, 4, ODD_DECODE_LEN, tag=" odd D")
-            decode(dtype, d, 16, 1, ODD_DECODE_LEN, tag=" odd D")
+                flash(dtype, d, 32, 4, s, cases, tag=" odd D", generator=gd)
+            decode(dtype, d, 32, 4, ODD_DECODE_LEN, tag=" odd D", generator=gd)
+            decode(dtype, d, 16, 1, ODD_DECODE_LEN, tag=" odd D", generator=gd)
+            q, k, v = (randn(1, n_, 200, d, dtype=dtype, generator=odd) for n_ in (32, 4, 4))
+            odd_kernels.append((flash_ops.kernel_label(dtype, d),
+                             lambda q=q, k=k, v=v: flash_ops.flash_attention(q, k, v)))
+            if (d * dtype.itemsize) % 16 and dtype != torch.float32 and d > 32:
+                flash(dtype, d, 32, 4, ODD_HEAD_LEN, FLASH_MASKS, tag=" odd D, any address",
+                      generator=odd, offsets=(1, 3, 5))
         # groups above 64: one block a slice of the group
         for g in WIDE_GROUPS:
             for d in WIDE_GROUP_DIMS:
                 decode(dtype, d, g, 1, DECODE_LEN, tag=" wide group")
+    check_launched(torch, odd_kernels, failures)
     # head dims above 256 (flash_wgmma_wide, flash_tf32_wide, decode_wide),
     # from a generator of their own, so the cases above and below keep their
     # inputs; every case launches the kernels (twice), none takes the plain
@@ -2945,7 +3028,7 @@ def serve_family(np, torch, flash_ops, decode_ops, moe_mod, arch, smi):
     flash_ops.LAUNCHES = decode_ops.LAUNCHES = 0
     if cfg.n_codebooks == 1:
         engine, reqs_k, steps, lat_k, wall = serve_requests(torch, model, None, scfg, prompts,
-                                                            NEW_TOKENS)
+                                                            FAMILY_NEW_TOKENS)
         final_lengths = engine.lengths.copy()
         del engine
         n_tokens = sum(len(r.generated) for r in reqs_k)
@@ -3028,7 +3111,7 @@ def serve_family(np, torch, flash_ops, decode_ops, moe_mod, arch, smi):
         logits_r = ref_model(tokens, patch_embeds=patches)
     if cfg.n_codebooks == 1:
         engine, reqs_r, steps_r, _, wall_r = serve_requests(torch, ref_model, None, scfg,
-                                                            prompts, NEW_TOKENS)
+                                                            prompts, FAMILY_NEW_TOKENS)
         del engine
         print(f"{arch} reference route: decode step median {statistics.median(steps_r)!r} s, "
               f"{sum(len(r.generated) for r in reqs_r) / wall_r!r} tokens/s")
@@ -3144,7 +3227,7 @@ def serve_families(np, torch, flash_ops, decode_ops, smi):
 
     * qwen2-moe-a2.7b (24 ``moe_attn`` layers, 16/16 heads of 128 on
       ``flash_wgmma<128>``): ``ServeEngine.generate`` on N_REQUESTS
-      requests of NEW_TOKENS over 4 slots of 4096, decode_attention 24
+      requests of FAMILY_NEW_TOKENS over 4 slots of 4096, decode_attention 24
       launches a step; then one FORWARD_LEN-token ``LM.forward``,
       flash_attention 24 launches, and the share of routed assignments
       dropped at capacity (int(2048 * 4 / 60 * 1.25) = 170 slots an
@@ -3450,11 +3533,11 @@ def init_on_card(torch, cfg, arch, expect_params, smi):
 
 
 def serve_and_forward(np, torch, flash_ops, decode_ops, model, arch, scfg, prompts, new_tokens,
-                      tokens, smi):
+                      tokens, smi, reps=FORWARD_REPS):
     """The main path of a phase 6g config, with the launch counts set to 0
     just before it: ``ServeEngine.generate`` on ``prompts``, then one
     ``LM.forward`` of ``tokens``; neither reaches an attention kernel.
-    Then the forward's time (median of FORWARD_REPS after the first) and
+    Then the forward's time (median of ``reps`` after the first) and
     peak, the decode step's median and tokens/s.  Returns the numbers and
     the main path's outputs."""
     counts = flash_ops.LAUNCHES, decode_ops.LAUNCHES
@@ -3476,7 +3559,7 @@ def serve_and_forward(np, torch, flash_ops, decode_ops, model, arch, scfg, promp
           f"(1, {tokens.shape[1]}, {model.cfg.vocab})")
     del logits
     times = []
-    for _ in range(FORWARD_REPS):
+    for _ in range(reps):
         t1 = time.perf_counter()
         model(tokens)
         torch.cuda.synchronize()
@@ -3491,7 +3574,7 @@ def serve_and_forward(np, torch, flash_ops, decode_ops, model, arch, scfg, promp
           f"{len(steps)} decode steps, {n_tokens} tokens in {wall!r} s "
           f"({n_tokens / wall!r} tokens/s), decode step median {out['decode_step_s']!r} s "
           f"(min {min(steps)!r}, max {max(steps)!r}); per-request latency (s) {lat!r}; forward "
-          f"of {tokens.shape[1]} positions median of {FORWARD_REPS} after the first "
+          f"of {tokens.shape[1]} positions median of {reps} after the first "
           f"{out['forward_s']!r} s (each {times!r}), peak {fwd_peak} B "
           f"({fwd_peak / 2**30:.2f} GiB above the weights) [{smi}]")
     return out, reqs
@@ -3515,7 +3598,7 @@ def serve_xlstm(np, torch, flash_ops, decode_ops, smi):
                           device=dev)
     scfg = ServeConfig(max_batch=1, max_len=4096)  # one slot: the recurrent kinds' rule
     out, reqs = serve_and_forward(np, torch, flash_ops, decode_ops, model, arch, scfg, prompts,
-                                  HYBRID_NEW_TOKENS, tokens, smi)
+                                  XLSTM_NEW_TOKENS, tokens, smi, reps=XLSTM_FORWARD_REPS)
 
     # profiles of the forward's blocks over the same positions, one of each
     # kind (every block of a kind does the same work).  A profile of the
@@ -3750,7 +3833,7 @@ def serve_xlstm_deepseek(np, torch, flash_ops, decode_ops, smi):
     blocks, ``(mlstm, slstm) x 12``, d_model 1024, 4 heads, vocab 50304,
     tied embeddings, 429,245,440 parameters (float32 ``param_dtype``, the
     matmul weights served in bf16).  Main path: HYBRID_REQUESTS requests of
-    HYBRID_PROMPT_LEN prompt tokens and HYBRID_NEW_TOKENS new ones through
+    HYBRID_PROMPT_LEN prompt tokens and XLSTM_NEW_TOKENS new ones through
     ``ServeEngine`` on one slot (the recurrent kinds' rule, as in the JAX
     engine), then one FORWARD_LEN-position ``LM.forward`` (32 mLSTM chunks
     and FORWARD_LEN sLSTM steps a layer).  Checks, over CPU_CHECK_LEN
@@ -4106,7 +4189,7 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
             "shape": f"B=1 H={dh} Hkv={dhkv} S={FORWARD_LEN} D=32 {name} causal"}
     # float16 at Yi-6B's shapes, phase 6i's path; and the new
     # domain's configs, on no path: Phi-3-mini's flash (MHA 32/32 x 96,
-    # flash_wgmma_any<bf16, 128>) and Falcon-7B's decode (MQA 71/1 x 64, two
+    # flash_wgmma_any<bf16, 96>) and Falcon-7B's decode (MQA 71/1 x 64, two
     # slices of the group)
     hpath16 = f16_path(f16)
     f16_final = [int(x) for x in f16["final_lengths"]]
@@ -4132,23 +4215,19 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
     domain["phi-3-mini flash"] = {
         **flash_case(ph, phkv, pd), "launches": 0, "launches_by_path": {},
         "shape": f"B=1 H={ph} Hkv={phkv} S={FORWARD_LEN} D={pd} bf16 causal"}
-    # a head dim whose rows are not whole 16-byte pieces: the wrapper pads
-    # q, k and v with zero columns (33 -> 40 in bf16) and copies the output
-    # back; pad_ms times those copies alone, the same way
-    pq, pk, pv = (randn(1, n_, FORWARD_LEN, PAD_DIM) for n_ in (32, 4, 4))
-    ld = flash_ops.row_elems(torch.bfloat16, PAD_DIM)
-
-    def pad_only():
-        for t in (pq, pk, pv):
-            F.pad(t, (0, ld - PAD_DIM))
-        return torch.empty((1, 32, FORWARD_LEN, ld), dtype=torch.bfloat16,
-                           device=dev)[..., :PAD_DIM].contiguous()
-
-    domain[f"32/4 x {PAD_DIM} bf16 flash (rows padded to {ld})"] = {
-        **flash_case(32, 4, PAD_DIM), "launches": 0, "launches_by_path": {},
-        "pad_ms": time_ms(torch, pad_only, flush)[0],
-        "shape": f"B=1 H=32 Hkv=4 S={FORWARD_LEN} D={PAD_DIM} bf16 causal"}
-    del pq, pk, pv
+    # a head dim whose rows are not whole 16-byte pieces (33 bf16 elements):
+    # the kernel reads q, k and v as they are and writes the output at 33
+    # columns, no copy (flash_wgmma_any's narrow loader); and a row at 160,
+    # S = FORWARD_LEN, causal
+    check(flash_ops.row_elems(torch.bfloat16, NARROW_DIM) == NARROW_DIM,
+          f"the wrapper pads head dim {NARROW_DIM}")
+    domain[f"32/4 x {NARROW_DIM} bf16 flash (no padded copy)"] = {
+        **flash_case(32, 4, NARROW_DIM), "launches": 0, "launches_by_path": {},
+        "shape": f"B=1 H=32 Hkv=4 S={FORWARD_LEN} D={NARROW_DIM} bf16 causal"}
+    ah, ahkv, ad = ANY_TIMED_HEADS
+    domain[f"{ah}/{ahkv} x {ad} bf16 flash"] = {
+        **flash_case(ah, ahkv, ad), "launches": 0, "launches_by_path": {},
+        "shape": f"B=1 H={ah} Hkv={ahkv} S={FORWARD_LEN} D={ad} bf16 causal"}
     fh, fhkv, fd = FALCON_HEADS
     domain["falcon-7b decode, full length"] = {
         **decode_case(fh, fhkv, fd, [s] * 4), "launches": 0, "launches_by_path": {},

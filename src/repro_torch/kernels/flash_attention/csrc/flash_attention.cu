@@ -3,15 +3,19 @@
 // Replaces repro/kernels/flash_attention/kernel.py:flash_attention_kernel,
 // the Pallas TPU kernel.  q is (B*H, S, D), k and v are (B*Hkv, S, D), all
 // float32, all bfloat16 or all float16; q head i reads kv head i / group.
-// Any head dim from 1 up.  A row whose bytes are not a multiple of 16
-// is padded with zero columns by the wrapper (ops.py), as TMA and the
-// 16-byte copies need.  Rows wider than 256 run flash_wgmma_wide (bf16,
+// Any head dim from 1 up.  Rows wider than 256 run flash_wgmma_wide (bf16,
 // float16) or flash_tf32_wide (float32), below.  A row of d elements runs
 // the kernel compiled for width d where d is one of 32, 64, 80, 120, 128
 // and 256 (the stride a constant); any other row runs flash_wgmma_any /
-// flash_tf32_any, the same blocks with d a runtime argument, at the
-// smallest of 32, 64, 128 and 256 above d (the columns past d are zeros in
-// shared memory, so they add exact zeros, and are not stored).  For each
+// flash_tf32_any, the same blocks with d a runtime argument (the columns
+// past d are zeros in shared memory, so they add exact zeros, and are not
+// stored): flash_tf32_any at the smallest of 32, 64, 128 and 256 above d,
+// flash_wgmma_any (bf16 and float16 rows of 33 to 255) at d rounded up to
+// a multiple of 32, so that it does the row's own width of work.  A
+// float32 row, or a 16-bit row of at most 32 or above 256 elements, whose
+// bytes are not a multiple of 16 is padded with zero columns by the
+// wrapper (ops.py), as TMA and the 16-byte copies need; flash_wgmma_any
+// takes such rows as they are (its narrow loader, below).  For each
 // query row: scores = q . k * scale in float32, keys outside the causal
 // and window masks set to -1e30, an online softmax with a float32 running
 // max, denominator and accumulator, and out = acc / max(l, 1e-30) written
@@ -104,14 +108,42 @@
 //   serial softmax, with k refilled with v, with 32 or 48 keys a tile, or
 //   with q in registers, it measured slower (PERF.md).
 //
-//   Rounding: q and k enter q.k^T as they are (bf16, exact products,
-//   float32 sums); p is rounded to bf16 before p.v, and the denominator sums
-//   the float32 p.  That is what the JAX package's own chunked route,
-//   repro/models/attention.py:_sdpa_chunked (the port's copy is
-//   repro_torch/models/attention.py:_sdpa_chunked), computes with bf16
-//   operands, except that it also rounds q * scale to bf16.  So this kernel
-//   is held to that route, not to a one-ulp match with the float32 plain
-//   version.
+// * flash_wgmma_any<T, D>: the same blocks for rows of ld <= D elements, at
+//   D = 64, 96, 128, 160, 192, 224 and 256 (ld rounded up to a multiple of
+//   32): q.k^T runs D / 16 k-steps and p.v D output columns (m64n96k16 at
+//   96; m64n160k16 .. m64n224k16 at 160 .. 224), each a fixed instantiation
+//   (a product whose issue hangs on a runtime count makes ptxas serialise
+//   every wgmma).  64 is flash_wgmma<64>'s geometry and schedule, 128 the
+//   128-column one (a producer warpgroup, 128-key tiles, the serial
+//   consume), 160 .. 256 the 256-column one (64-key tiles, no producer,
+//   consume_wide; three spans a tile at 160 and 192).  96 keeps 128-key
+//   tiles but has no producer and runs consume_wide: its scores, p and o
+//   take 144 registers a thread, and a 12-warp block gets 168 (on the
+//   serial consume it ran no faster than at 128 columns, and on
+//   consume_overlap it spilled and ptxas serialised every wgmma; PERF.md).
+//   Rows of whole 16-byte pieces come by TMA as above.  Other rows of 33
+//   to 192 (33, 100, 170 ... in a 16-bit type) have no tensor map (TMA
+//   needs 16-byte row strides), and the wrapper makes no padded copy of
+//   them: the narrow
+//   loader copies a tile's rows, one contiguous run of bytes in the
+//   caller's array, with a 1-D bulk copy (cp.async.bulk, a 16-byte-aligned
+//   window around the run: a head starts at any even address) into a
+//   staging buffer in shared memory, and threads rewrite it into the
+//   128-byte swizzle the descriptors read (relayout: a thread a row, four
+//   4-byte words and four byte permutes a chunk of 8 elements; columns from
+//   ld and rows from S on as zeros), then fence.proxy.async and arrive on
+//   the tile's barrier.  With a producer warpgroup (64, 128) its 128
+//   threads do that, through up to four staging buffers a few tiles ahead
+//   of the ring (produce_narrow); without one the consumers do at each
+//   refill (refill_narrow), from two staging buffers filled a refill
+//   earlier, one warpgroup the k tile and the other the v tile, after a
+//   start-up that stages q and the first tiles through the empty ring
+//   (start_narrow).  At 224 and 256 only one buffer fits beside the
+//   layout, so a refill would wait for a copy: that was 13 % slower than
+//   the padded copy (PERF.md), and the wrapper pads those rows (ops.py
+//   row_elems); the narrow loader is not compiled there (WGeo<D>::narrow).
+//   The output is written row by row at ld (pairs where ld is even,
+//   elements where it is odd).
 //
 // * flash_tf32<T, D>: float32 at every head dim, and bfloat16 and
 //   float16 at D = 32 (no shipped config computes at either; an LMConfig with
@@ -218,6 +250,8 @@ constexpr int kWideSmem = 1024 + kWideQBytes + 2 * kWideStages * kWideTileBytes 
 // serialises every wgmma.  The loads are issued by the consumers.
 constexpr int kWideThreads = kConsumers * 128;
 constexpr float kLog2e = 1.4426950408889634f;
+// dynamic shared memory a block may use on the H100 (227 KB)
+constexpr int kSmemLimit = 232448;
 
 // flash_wgmma<D>'s shared-memory geometry: 64-column TMA boxes a tile row,
 // keys a k or v tile, bytes of a k/v tile's 64-column span and of the whole
@@ -231,18 +265,46 @@ struct WGeo {
   static constexpr int tile = boxes * span;
   static constexpr int qtile = boxes * kHalfBytes;
   static constexpr int ring = D <= kHalf ? kNarrowStages : D > kWCols ? kWideStages : kStages;
-  static constexpr int smem = D <= kHalf ? kNarrowSmem : D > kWCols ? kWideSmem : kWSmem;
-  // threads a block: a producer warpgroup, or at D = 256 a producer warp
-  static constexpr int threads = D > kWCols ? kWideThreads : kWThreads;
+  // no producer warpgroup: the consumers load k and v themselves
+  // (consume_wide) above D = 128 and in flash_wgmma_any<96>, whose 128-key
+  // tiles' scores, p and o (144 floats a thread) want the 255 registers of
+  // an 8-warp block (with a producer, 12 warps, ptxas gives 168)
+  static constexpr bool self_load = D > kWCols || D == 96;
+  // threads a block: a producer warpgroup, or none
+  static constexpr int threads = self_load ? kWideThreads : kWThreads;
+  // dynamic shared memory: 1 KB of slack, q, the ring, the mbarriers and,
+  // without a producer, a refill counter a stage
+  static constexpr int smem =
+      1024 + qtile + 2 * ring * tile + 8 * (1 + 3 * ring) + (self_load ? 4 * ring : 0);
+  // flash_wgmma_any's narrow loader (rows whose bytes are not a multiple of
+  // 16): staging buffers after the layout (stage_at bytes from its 1 KB
+  // aligned base), each the raw rows of a k or v tile (keys rows of at most
+  // D - 1 elements, the 16-byte window's slack and the second word its last
+  // chunk reads), as many as fit in the SM's shared memory up to 4 with a
+  // producer (4 at 64, 2 at 96 and 128) and 2 without (2 at 160 and 192),
+  // then their mbarriers, two start-up mbarriers and two refill flags.  The
+  // loader runs where at least two fit (narrow): at 224 and 256 one does,
+  // and those rows are padded by the wrapper instead.
+  static constexpr int stage_at = (smem - 1024 + 127) / 128 * 128;
+  static constexpr int xbytes = (keys * (D - 1) * 2 + 48 + 127) / 128 * 128;
+  static constexpr int fit = (kSmemLimit - 1024 - stage_at - 24) / (xbytes + 8);
+  static constexpr int nx = fit > (self_load ? 2 : 4) ? (self_load ? 2 : 4) : fit;
+  static constexpr bool narrow = nx >= 2;
+  static constexpr int narrow_smem = narrow ? 1024 + stage_at + nx * (xbytes + 8) + 24 : smem;
 };
+static_assert(WGeo<64>::smem == kNarrowSmem && WGeo<80>::smem == kWSmem &&
+                  WGeo<120>::smem == kWSmem && WGeo<128>::smem == kWSmem &&
+                  WGeo<256>::smem == kWideSmem,
+              "the compiled widths' shared memory");
 
 // Output columns p.v computes at head dim D: 64 at D = 64 (m64n64k16, one
 // span), 80 up to D = 80 (m64n80k16: the first half and 16 columns of the
-// second), the whole padded tile up to D = 128 (m64n128k16; at D = 120 its
-// last 8 columns are zeros), and all 256 at D = 256 (m64n256k16).
+// second), 96 up to D = 96 (m64n96k16, flash_wgmma_any), the whole padded
+// tile up to D = 128 (m64n128k16; at D = 120 its last 8 columns are zeros),
+// and D above (m64n160k16 .. m64n256k16).
 template <int D>
 __host__ __device__ constexpr int pv_cols() {
-  return D <= kHalf ? kHalf : D <= 80 ? 80 : D <= kWCols ? kWCols : D;
+  return D <= kHalf ? kHalf : D <= 80 ? 80 : D <= 96 ? 96 : D <= kWCols ? kWCols : D;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -468,6 +530,82 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[40], uint32_t a0,
 #undef WG_RS
 }
 
+// d += A . B at flash_wgmma_any's p.v widths, m64nNk16 with N = 2 NO (96,
+// 160, 192, 224): B's spans LBO apart, the last one read in part.
+#define WG_RS_ANY(NO, SHAPE, DL, RL, OPS, PRED)                                 \
+  template <typename T>                                                         \
+  __device__ __forceinline__ void wgmma_rs(float(&d)[NO], uint32_t a0,          \
+                                           uint32_t a1, uint32_t a2,            \
+                                           uint32_t a3, uint64_t db) {          \
+    if constexpr (kIsHalf<T>)                                                   \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"           \
+                   "wgmma.mma_async.sync.aligned." SHAPE WG_TY("f16") DL        \
+                   ", " OPS ", p, 1, 1, 1;\n}\n"                                \
+                   : RL                                                         \
+                   : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));     \
+    else                                                                        \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"           \
+                   "wgmma.mma_async.sync.aligned." SHAPE WG_TY("bf16") DL       \
+                   ", " OPS ", p, 1, 1, 1;\n}\n"                                \
+                   : RL                                                         \
+                   : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));     \
+  }
+#define WG_D48                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "            \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "       \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "     \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "     \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "     \
+  "%40, %41, %42, %43, %44, %45, %46, %47}"
+#define R48 R8(0), R8(8), R8(16), R8(24), R8(32), R8(40)
+#define WG_D80                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "            \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "       \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "     \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "     \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "     \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "     \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "     \
+  "%56, %57, %58, %59, %60, %61, %62, %63, "     \
+  "%64, %65, %66, %67, %68, %69, %70, %71, "     \
+  "%72, %73, %74, %75, %76, %77, %78, %79}"
+#define R80 R48, R8(48), R8(56), R8(64), R8(72)
+#define WG_D96                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "            \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "       \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "     \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "     \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "     \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "     \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "     \
+  "%56, %57, %58, %59, %60, %61, %62, %63, "     \
+  "%64, %65, %66, %67, %68, %69, %70, %71, "     \
+  "%72, %73, %74, %75, %76, %77, %78, %79, "     \
+  "%80, %81, %82, %83, %84, %85, %86, %87, "     \
+  "%88, %89, %90, %91, %92, %93, %94, %95}"
+#define R96 R80, R8(80), R8(88)
+#define WG_D112                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "            \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "       \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "     \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "     \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "     \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "     \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "     \
+  "%56, %57, %58, %59, %60, %61, %62, %63, "     \
+  "%64, %65, %66, %67, %68, %69, %70, %71, "     \
+  "%72, %73, %74, %75, %76, %77, %78, %79, "     \
+  "%80, %81, %82, %83, %84, %85, %86, %87, "     \
+  "%88, %89, %90, %91, %92, %93, %94, %95, "     \
+  "%96, %97, %98, %99, %100, %101, %102, %103, " \
+  "%104, %105, %106, %107, %108, %109, %110, %111}"
+#define R112 R96, R8(96), R8(104)
+WG_RS_ANY(48, "m64n96k16", WG_D48, R48, "{%48, %49, %50, %51}, %52", "%53")
+WG_RS_ANY(80, "m64n160k16", WG_D80, R80, "{%80, %81, %82, %83}, %84", "%85")
+WG_RS_ANY(96, "m64n192k16", WG_D96, R96, "{%96, %97, %98, %99}, %100", "%101")
+WG_RS_ANY(112, "m64n224k16", WG_D112, R112, "{%112, %113, %114, %115}, %116", "%117")
+#undef WG_RS_ANY
+
 // d += A . B, m64n64k16: B is one 64-column span (LBO unused).
 template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
@@ -545,8 +683,22 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
-// One consumer warpgroup on the serial schedule (D = 80, 120, 128 and
-// 256): q rows q0 + 64 wg .. + 63 against key tiles lo .. lo + n_iter - 1
+// out columns col and col + 1 (col even, below ld) of the row at p: one
+// 4-byte store where ld is even; where it is odd the pair is not 4-byte
+// aligned and its second column may lie past the row, so element by element
+template <typename Elt>
+__device__ __forceinline__ void store_pair(Elt* p, int col, int ld, float a, float b) {
+  const uint32_t u = pack2<Elt>(a, b);
+  if (ld & 1) {
+    reinterpret_cast<uint16_t*>(p)[col] = (uint16_t)(u & 0xFFFFu);
+    if (col + 1 < ld) reinterpret_cast<uint16_t*>(p)[col + 1] = (uint16_t)(u >> 16);
+  } else {
+    *reinterpret_cast<uint32_t*>(p + col) = u;
+  }
+}
+
+// One consumer warpgroup on the serial schedule (D = 80, 120 and 128):
+// q rows q0 + 64 wg .. + 63 against key tiles lo .. lo + n_iter - 1
 // of KB keys (128, or 64 at D = 256), per tile q.k^T, wait, softmax, p.v,
 // wait; writes those rows of `op` (rows of ld <= D elements).  Only the warp
 // schedulers' interleaving of the two consumer warpgroups overlaps one's
@@ -687,17 +839,15 @@ __device__ __forceinline__ void consume(
     l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
   }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  // ld is a multiple of 8 and col is even: a pair never straddles column ld
+  // col is even: a pair straddles column ld only where ld is odd (store_pair)
 #pragma unroll
   for (int j = 0; j < NV / 8; ++j) {
     const int col = 8 * j + c2;
     if (col >= ld) continue;
     if (row0 < seq_len)
-      *reinterpret_cast<uint32_t*>(op + (size_t)row0 * ld + col) =
-          pack2<Elt>(o[4 * j] / d0, o[4 * j + 1] / d0);
+      store_pair(op + (size_t)row0 * ld, col, ld, o[4 * j] / d0, o[4 * j + 1] / d0);
     if (row1 < seq_len)
-      *reinterpret_cast<uint32_t*>(op + (size_t)row1 * ld + col) =
-          pack2<Elt>(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+      store_pair(op + (size_t)row1 * ld, col, ld, o[4 * j + 2] / d1, o[4 * j + 3] / d1);
   }
 }
 
@@ -860,8 +1010,9 @@ __device__ __forceinline__ void mma_pv(float (&o)[NO], const uint32_t (&pa)[32],
              sw128_desc(tV + kk * 16 * 128, kHalfBytes, 1024));
 }
 
-// out = o / l for rows row0 and row1 of this thread; D is even and col is
-// even, so a pair never straddles column D.
+// out = o / l for rows row0 and row1 of this thread, rows of ld elements;
+// col is even, so a pair straddles column ld only where ld is odd
+// (store_pair).
 template <typename Elt, int NO>
 __device__ __forceinline__ void store_rows(const float (&o)[NO], float l0, float l1,
                                            int row0, int row1, int c2,
@@ -878,11 +1029,9 @@ __device__ __forceinline__ void store_rows(const float (&o)[NO], float l0, float
     const int col = 8 * j + c2;
     if (col >= ld) continue;
     if (row0 < seq_len)
-      *reinterpret_cast<uint32_t*>(op + (size_t)row0 * ld + col) =
-          pack2<Elt>(o[4 * j] / d0, o[4 * j + 1] / d0);
+      store_pair(op + (size_t)row0 * ld, col, ld, o[4 * j] / d0, o[4 * j + 1] / d0);
     if (row1 < seq_len)
-      *reinterpret_cast<uint32_t*>(op + (size_t)row1 * ld + col) =
-          pack2<Elt>(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+      store_pair(op + (size_t)row1 * ld, col, ld, o[4 * j + 2] / d1, o[4 * j + 3] / d1);
   }
 }
 
@@ -988,6 +1137,147 @@ __device__ __forceinline__ void load_tile(uint32_t ring, uint32_t full,
     tma_load(ring + s * T + h * SP, map, full + 8 * s, h * kHalf, (lo + it) * KB, kvh);
 }
 
+// --------------------------------- flash_wgmma_any's narrow loader
+__device__ __forceinline__ void fence_proxy_async() {  // generic writes -> wgmma
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// bar.sync over the 128 threads of one warpgroup (ids 3 and 4; 1 and 2
+// are the consumers' turns)
+__device__ __forceinline__ void wg_bar(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ uint32_t ld_shared(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared::cta.u32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// Byte of the staging buffer at which rows copied from p start (load_raw).
+template <typename Elt>
+__device__ __forceinline__ uint32_t raw_skew(const Elt* p) {
+  return (uint32_t)(reinterpret_cast<uint64_t>(p) & 15u);
+}
+
+// `rows` (>= 1) rows of ld elements from p, any even address, into the
+// staging buffer x by one 1-D bulk copy completing on bar: the 16-byte
+// aligned window around their bytes (each 16-byte piece of it holds one of
+// their bytes, so it lies in their pages).
+template <typename Elt>
+__device__ __forceinline__ void load_raw(uint32_t x, uint32_t bar, const Elt* p, int rows,
+                                         int ld) {
+  const uint64_t s = reinterpret_cast<uint64_t>(p);
+  const uint64_t a0 = s & ~15ull;
+  const uint32_t bytes =
+      (uint32_t)(((s + (uint64_t)rows * ld * sizeof(Elt) + 15) & ~15ull) - a0);
+  mbar_expect_tx(bar, bytes);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(x),
+      "l"(a0), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The staging buffer x (rows of ld 16-bit elements from byte `skew` on) as
+// a tile of KR rows in the 128-byte swizzle at dst, NC chunks of 8 elements
+// a row: chunk j of row r at dst + (j / 8) span + 128 r + 16 ((j % 8) ^ (r %
+// 8)), columns from ld and rows from `rows` on zeros.  NT threads: thread t
+// takes row t % KR and its NT / KR-th part of the chunks, in order, so a
+// chunk is four 4-byte words read at the row's offset (a multiple of 2)
+// from the 4-byte word before it, the last kept for the next chunk, and
+// byte-permuted where the row starts half a word in; a warp reads 32 rows
+// and writes 32 chunks in distinct 16-byte positions of their lines.
+template <int NC, int KR, int NT>
+__device__ __forceinline__ void relayout(uint32_t dst, uint32_t span, uint32_t x,
+                                         uint32_t skew, int rows, int ld, int t) {
+  static_assert(NT % KR == 0, "whole rows a thread group");
+  constexpr int P = NT / KR, PER = (NC + P - 1) / P;
+  const int r = t % KR, j0 = (t / KR) * PER;
+  const int elems = r < rows ? ld : 0;
+  const uint32_t off = skew + 2u * (uint32_t)(r * ld) + 16u * j0;
+  const uint32_t sel = (off & 2u) ? 0x5432u : 0x3210u;
+  uint32_t a = x + (off & ~3u), w0 = 0u;
+  if (elems > 8 * j0) asm volatile("ld.shared.b32 %0, [%1];" : "=r"(w0) : "r"(a));
+#pragma unroll 4
+  for (int j = j0; j < j0 + PER && j < NC; ++j, a += 16) {
+    const int cnt = elems - 8 * j;  // the row's elements from this chunk on
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (cnt > 0) {
+      uint32_t n[4];
+      asm volatile("ld.shared.b32 %0, [%1];" : "=r"(n[0]) : "r"(a + 4));
+      asm volatile("ld.shared.b32 %0, [%1];" : "=r"(n[1]) : "r"(a + 8));
+      asm volatile("ld.shared.b32 %0, [%1];" : "=r"(n[2]) : "r"(a + 12));
+      asm volatile("ld.shared.b32 %0, [%1];" : "=r"(n[3]) : "r"(a + 16));
+      w[0] = __byte_perm(w0, n[0], sel);
+#pragma unroll
+      for (int m = 1; m < 4; ++m) w[m] = __byte_perm(n[m - 1], n[m], sel);
+      w0 = n[3];
+      if (cnt < 8) {
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          w[m] = 2 * m >= cnt ? 0u : 2 * m + 1 >= cnt ? (w[m] & 0xFFFFu) : w[m];
+      }
+    }
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(
+                     dst + (j >> 3) * span + r * 128 + ((uint32_t)((j & 7) ^ (r & 7)) << 4)),
+                 "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+                 : "memory");
+  }
+}
+
+// The producer warpgroup of flash_wgmma_any at D <= 128 for narrow rows:
+// items q, k tile 0, v tile 0, k tile 1, ... each through staging buffer
+// i % NX (its copy issued NX items ahead, once the buffer's last reader is
+// done), rewritten into its place (a k tile's once the ring stage is
+// released) by the warpgroup's 128 threads, each arriving on the place's
+// barrier after fence.proxy.async.
+template <typename Elt, int D>
+__device__ __forceinline__ void produce_narrow(
+    const Elt* qh, const Elt* kh, const Elt* vh, uint32_t sQ, uint32_t sK, uint32_t sV,
+    uint32_t bar_q, uint32_t bar_k, uint32_t bar_v, uint32_t bar_empty, uint32_t xs,
+    uint32_t bar_x, int q0, int lo, int n_iter, int ld, int seq_len) {
+  constexpr int R = WGeo<D>::ring, T = WGeo<D>::tile, KB = WGeo<D>::keys;
+  constexpr int X = WGeo<D>::xbytes, NX = WGeo<D>::nx;
+  static_assert(KB == kWBQ && WGeo<D>::span == kHalfBytes, "q and a k/v tile alike");
+  static_assert(NX >= 2, "a copy in flight while a buffer is rewritten");
+  const int t = threadIdx.x % 128, n = 1 + 2 * n_iter;
+  // item i's first row (the q tile's, or k or v tile (i - 1) / 2's) and its
+  // rows below seq_len
+  auto rows_of = [&](int i, const Elt*& p) {
+    const int r0 = i == 0 ? q0 : (lo + (i - 1) / 2) * KB;
+    p = (i == 0 ? qh : (i & 1) ? kh : vh) + (size_t)r0 * ld;
+    return min(KB, seq_len - r0);
+  };
+  auto issue = [&](int i) {
+    if (t == 0 && i < n) {
+      const Elt* p;
+      const int rows = rows_of(i, p);
+      fence_proxy_async();
+      load_raw(xs + (i % NX) * X, bar_x + 8 * (i % NX), p, rows, ld);
+    }
+  };
+  for (int i = 0; i < NX; ++i) issue(i);
+  for (int i = 0; i < n; ++i) {
+    const int tile = (i - 1) / 2, s = tile % R;
+    uint32_t dst = sQ, bar = bar_q;
+    if (i > 0 && (i & 1)) {  // k tile `tile`, once its stage is released
+      mbar_wait(bar_empty + 8 * s, ((tile / R) & 1) ^ 1);
+      dst = sK + s * T;
+      bar = bar_k + 8 * s;
+    } else if (i > 0) {
+      dst = sV + s * T;
+      bar = bar_v + 8 * s;
+    }
+    const Elt* p;
+    const int rows = rows_of(i, p);
+    mbar_wait(bar_x + 8 * (i % NX), (i / NX) & 1);
+    relayout<D / 8, KB, 128>(dst, kHalfBytes, xs + (i % NX) * X, raw_skew(p), rows, ld, t);
+    fence_proxy_async();
+    mbar_arrive(bar);
+    wg_bar(3);  // buffer i % NX read by every thread
+    issue(i + NX);
+  }
+}
+
 // Once consume_wide has read k tile kt and v tile vt (-1: none) in its
 // j-th release (j = kt): every consumer thread arrives on release j's
 // `read` barrier (slot j % R), and thread 0 of each warpgroup counts at
@@ -1011,7 +1301,159 @@ __device__ __forceinline__ void refill(uint32_t read, uint32_t cnt, uint32_t sK,
   }
 }
 
-// One consumer warpgroup at D = 256, overlapped within the warpgroup: q.k^T
+// Where consume_wide's row is narrow, the block's staging: buffers xs (nx
+// of them), their barriers bar_x, the start-up barriers bar_s, a refill flag
+// a warpgroup, and the k and v heads' first rows.
+template <typename Elt>
+struct Narrow {
+  uint32_t xs, bar_x, bar_s, flag;
+  const Elt* kh;
+  const Elt* vh;
+};
+
+// refill for narrow rows, with two staging buffers (96, 160, 192).  Thread
+// 0 of each warpgroup counts at release j's counter and passes its place to
+// the warpgroup (a flag and named barrier 3 + wg).  Both warpgroups wait
+// for release j, then the one that counted second rewrites k tile kt + R
+// from buffer 0 into its freed stage and the first v tile vt + R from
+// buffer 1 (128 arrivals a barrier), so each rewrites one tile; each then
+// copies its stream's next tile into its buffer (k tile m is buffer 0's
+// m-th copy, the start-up's included; v tile m from 2 on buffer 1's (m -
+// 2)-th), a refill ahead.
+template <typename Elt, int D>
+__device__ __forceinline__ void refill_narrow(uint32_t read, uint32_t cnt, uint32_t sK,
+                                              uint32_t sV, uint32_t bar_k, uint32_t bar_v,
+                                              const Narrow<Elt>& nw, int wg, int j, int kt,
+                                              int vt, int n_iter, int lo, int ld,
+                                              int seq_len) {
+  constexpr int R = WGeo<D>::ring, T = WGeo<D>::tile, KB = WGeo<D>::keys;
+  constexpr int X = WGeo<D>::xbytes;
+  static_assert(WGeo<D>::nx == 2, "a staging buffer for each stream");
+  const int s = j % R, t = threadIdx.x % 128;
+  const bool k_next = kt >= 0 && kt + R < n_iter, v_next = vt >= 0 && vt + R < n_iter;
+  mbar_arrive(read + 8 * s);
+  // 0: no tile to load; 1: counted first; 2: counted second
+  if (t == 0)
+    st_shared(nw.flag + 4 * wg,
+              (k_next || v_next) ? 1u + (atom_add_shared(cnt + 4 * s, 1u) & 1u) : 0u);
+  wg_bar(3 + wg);
+  const uint32_t place = ld_shared(nw.flag + 4 * wg);
+  if (place == 0) return;
+  mbar_wait(read + 8 * s, (j / R) & 1);
+  auto rows_of = [&](const Elt* h, int tile, const Elt*& p) {
+    const int r0 = (lo + tile) * KB;
+    p = h + (size_t)r0 * ld;
+    return min(KB, seq_len - r0);
+  };
+  auto put = [&](const Elt* h, int tile, uint32_t ring, uint32_t bar, uint32_t x) {
+    const Elt* p;
+    const int rows = rows_of(h, tile, p);
+    relayout<D / 8, KB, 128>(ring + (tile % R) * T, WGeo<D>::span, x, raw_skew(p), rows, ld,
+                             t);
+    fence_proxy_async();
+    mbar_arrive(bar + 8 * (tile % R));
+  };
+  auto fetch = [&](const Elt* h, int tile, uint32_t x, uint32_t bx) {
+    if (t == 0 && tile < n_iter) {
+      const Elt* p;
+      const int rows = rows_of(h, tile, p);
+      fence_proxy_async();
+      load_raw(x, bx, p, rows, ld);
+    }
+  };
+  if (place == 2) {
+    if (k_next) {
+      mbar_wait(nw.bar_x, (kt + R) & 1);
+      put(nw.kh, kt + R, sK, bar_k, nw.xs);
+    }
+    wg_bar(3 + wg);  // buffer 0 read
+    fetch(nw.kh, kt + R + 1, nw.xs, nw.bar_x);
+  } else {
+    if (v_next) {
+      mbar_wait(nw.bar_x + 8, (vt + R) & 1);
+      put(nw.vh, vt + R, sV, bar_v, nw.xs + X);
+    }
+    wg_bar(3 + wg);  // buffer 1 read
+    fetch(nw.vh, vt + R + 1, nw.xs + X, nw.bar_x + 8);
+  }
+}
+
+// consume_wide's start for narrow rows, all 256 threads: q's two 64-row
+// halves by way of the v stages and k tile 0 by way of buffer 0, then v
+// tile 0 by way of v stage 1, v tile 1 by way of k stage 1 and k tile 1 by
+// way of buffer 0 (each staging place rewritten before it is a tile's), the
+// copies of a round in flight together; warpgroup 0 then arrives on the
+// barriers of what was loaded, and thread 0 issues k tile 2's copy.
+template <typename Elt, int D>
+__device__ __forceinline__ void start_narrow(const Elt* qh, uint32_t sQ, uint32_t sK,
+                                             uint32_t sV, uint32_t bar_q, uint32_t bar_k,
+                                             uint32_t bar_v, const Narrow<Elt>& nw, int q0,
+                                             int lo, int n_iter, int ld, int seq_len) {
+  constexpr int T = WGeo<D>::tile, KB = WGeo<D>::keys, SP = WGeo<D>::span, NC = D / 8;
+  static_assert(WGeo<D>::xbytes <= T, "a stage holds a tile's raw rows");
+  const int t = threadIdx.x;
+  const int qrows = seq_len - q0;  // >= 1; rows from 64 on may be none
+  const Elt* q1 = qh + (qrows > 64 ? 64 * ld : 0);
+  auto rows_of = [&](const Elt* h, int tile, const Elt*& p) {
+    const int r0 = (lo + tile) * KB;
+    p = h + (size_t)r0 * ld;
+    return min(KB, seq_len - r0);
+  };
+  const Elt *k0, *k1, *v0, *v1;
+  const int nk0 = rows_of(nw.kh, 0, k0), nv0 = rows_of(nw.vh, 0, v0);
+  const int nk1 = n_iter > 1 ? rows_of(nw.kh, 1, k1) : 0;
+  const int nv1 = n_iter > 1 ? rows_of(nw.vh, 1, v1) : 0;
+  if (t == 0) {
+    load_raw(sV, nw.bar_s, qh, min(64, qrows), ld);
+    load_raw(sV + T, nw.bar_s + 8, q1, qrows > 64 ? min(64, qrows - 64) : 1, ld);
+    load_raw(nw.xs, nw.bar_x, k0, nk0, ld);
+  }
+  mbar_wait(nw.bar_s, 0);
+  mbar_wait(nw.bar_s + 8, 0);
+  mbar_wait(nw.bar_x, 0);
+  relayout<NC, 64, 256>(sQ, kHalfBytes, sV, raw_skew(qh), min(64, qrows), ld, t);
+  relayout<NC, 64, 256>(sQ + 64 * 128, kHalfBytes, sV + T, raw_skew(q1), qrows - 64, ld, t);
+  relayout<NC, KB, 256>(sK, SP, nw.xs, raw_skew(k0), nk0, ld, t);
+  fence_proxy_async();
+  __syncthreads();
+  if (t == 0) {
+    load_raw(sV + T, nw.bar_s + 8, v0, nv0, ld);
+    if (n_iter > 1) {
+      load_raw(sK + T, nw.bar_s, v1, nv1, ld);
+      load_raw(nw.xs, nw.bar_x, k1, nk1, ld);
+    }
+  }
+  mbar_wait(nw.bar_s + 8, 1);
+  relayout<NC, KB, 256>(sV, SP, sV + T, raw_skew(v0), nv0, ld, t);
+  fence_proxy_async();
+  __syncthreads();
+  if (n_iter > 1) {
+    mbar_wait(nw.bar_s, 1);
+    relayout<NC, KB, 256>(sV + T, SP, sK + T, raw_skew(v1), nv1, ld, t);
+    fence_proxy_async();
+    __syncthreads();
+    mbar_wait(nw.bar_x, 1);
+    relayout<NC, KB, 256>(sK + T, SP, nw.xs, raw_skew(k1), nk1, ld, t);
+    fence_proxy_async();
+    __syncthreads();
+  }
+  if (t < 128) {
+    mbar_arrive(bar_q);
+    for (int s = 0; s < 2 && s < n_iter; ++s) {
+      mbar_arrive(bar_k + 8 * s);
+      mbar_arrive(bar_v + 8 * s);
+    }
+  }
+  if (t == 0 && n_iter > 2) {
+    const Elt* k2;
+    const int nk2 = rows_of(nw.kh, 2, k2);
+    load_raw(nw.xs, nw.bar_x, k2, nk2, ld);
+  }
+}
+
+// One consumer warpgroup at D = 256 (and flash_wgmma_any at 96 and 160 ..
+// 224, o at D / 2 floats; at 96 the tiles are 128 keys), overlapped within
+// the warpgroup: q.k^T
 // of tile j is issued together with p.v of tile j - 1, the softmax of tile
 // j runs while p.v of tile j - 1 is on the tensor cores (wait_group 1, then
 // 0), and the bf16 p of tile j - 1 stays in registers until that product
@@ -1023,14 +1465,15 @@ __device__ __forceinline__ void refill(uint32_t read, uint32_t cnt, uint32_t sK,
 // the other's products do.  There is no producer: after each iteration's
 // products the consumers release k tile j (q.k^T has retired) and v tile
 // j - 1, and the warpgroup that releases them second refills their stages
-// with tiles j + R and j - 1 + R (refill), k a tile ahead of v.
-template <typename Elt, int D>
+// with tiles j + R and j - 1 + R (refill; for narrow rows refill_narrow),
+// k a tile ahead of v.
+template <typename Elt, int D, bool kAny>
 __device__ __forceinline__ void consume_wide(
     uint32_t sQ, uint32_t sK, uint32_t sV, uint32_t bar_q, uint32_t bar_k,
     uint32_t bar_v, uint32_t bar_read, uint32_t cnt, int wg, int q0, int lo,
     int n_iter, Elt* __restrict__ op, int ld, int seq_len, int causal,
     float scale_log2, int window, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
-    int kvh) {
+    int kvh, bool narrow, const Narrow<Elt>& nw) {
   constexpr int R = WGeo<D>::ring, T = WGeo<D>::tile, KB = WGeo<D>::keys;
   constexpr int SP = WGeo<D>::span;
   const int tid = threadIdx.x % 128;
@@ -1076,6 +1519,17 @@ __device__ __forceinline__ void consume_wide(
       asm volatile("" : "+r"(pa[i])::"memory");
     }
   };
+  // release k tile kt and v tile vt (-1: none) and refill their stages
+  auto release = [&](int j, int kt, int vt) {
+    if constexpr (kAny && WGeo<D>::narrow) {
+      if (narrow) {
+        refill_narrow<Elt, D>(bar_read, cnt, sK, sV, bar_k, bar_v, nw, wg, j, kt, vt, n_iter,
+                              lo, ld, seq_len);
+        return;
+      }
+    }
+    refill<D>(bar_read, cnt, sK, sV, bar_k, bar_v, tm_k, tm_v, j, kt, vt, n_iter, lo, kvh);
+  };
 
   const int mine = 1 + wg, other = 2 - wg;  // named barriers: whose turn
   mbar_wait(bar_q, 0);
@@ -1088,7 +1542,7 @@ __device__ __forceinline__ void consume_wide(
   bar_arrive(other);
   wg_wait_all();
   fence_regs(sc);
-  refill<D>(bar_read, cnt, sK, sV, bar_k, bar_v, tm_k, tm_v, 0, 0, -1, n_iter, lo, kvh);
+  release(0, 0, -1);
   softmax(lo * KB);
   pack();  // o is 0: nothing to rescale
   for (int it = 1; it < n_iter; ++it) {
@@ -1108,8 +1562,7 @@ __device__ __forceinline__ void consume_wide(
     fence_regs(o);
     // refilled with no product in flight (a refill's atomics and copies
     // between a wgmma and its wait make ptxas serialise every wgmma)
-    refill<D>(bar_read, cnt, sK, sV, bar_k, bar_v, tm_k, tm_v, it, it, it - 1, n_iter, lo,
-              kvh);
+    release(it, it, it - 1);
     if (corr0 != 1.0f || corr1 != 1.0f) rescale(o, corr0, corr1);
     pack();
   }
@@ -1127,14 +1580,17 @@ __device__ __forceinline__ void consume_wide(
 }
 
 // The block of flash_wgmma and flash_wgmma_any.  kAny: rows of ld <= D
-// elements (a runtime argument); else rows of exactly D, the stride a
-// constant, as the kernels at the compiled widths always had.
+// elements (a runtime argument), by TMA where their bytes are whole 16-byte
+// pieces and else by the narrow loader from qp, kp and vp; else rows of
+// exactly D, the stride a constant, as the kernels at the compiled widths
+// always had.
 template <typename Elt, int D, bool kAny>
 __device__ __forceinline__ void flash_wgmma_block(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
-    Elt* __restrict__ out, int ld_arg, int seq_len, int group, int causal,
-    float scale_log2, int window) {
+    const Elt* qp, const Elt* kp, const Elt* vp, Elt* __restrict__ out, int ld_arg,
+    int seq_len, int group, int causal, float scale_log2, int window) {
   const int ld = kAny ? ld_arg : D;
+  const bool narrow = kAny && WGeo<D>::narrow && ld % 8 != 0;
   constexpr int B = WGeo<D>::boxes, T = WGeo<D>::tile, R = WGeo<D>::ring;
   constexpr int QT = WGeo<D>::qtile, KB = WGeo<D>::keys;
   extern __shared__ uint8_t smem_raw[];
@@ -1146,6 +1602,10 @@ __device__ __forceinline__ void flash_wgmma_block(
   const uint32_t bar_k = bar_q + 8;          // k landed, a stage each
   const uint32_t bar_v = bar_k + 8 * R;      // v landed
   const uint32_t bar_empty = bar_v + 8 * R;  // both read
+  // the narrow loader's (flash_wgmma_any): staging buffers, their barriers,
+  // the start-up barriers, the refill flags
+  const uint32_t xs = base + WGeo<D>::stage_at;
+  const uint32_t bar_x = xs + WGeo<D>::nx * WGeo<D>::xbytes;
 
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal tiles first
@@ -1158,24 +1618,34 @@ __device__ __forceinline__ void flash_wgmma_block(
   const int n_iter = hi - lo;
 
   if (threadIdx.x == 0) {
-    mbar_init(bar_q, 1);
+    // a tile the narrow loader rewrites lands when its 128 writers arrive
+    const int landed = narrow ? 128 : 1;
+    mbar_init(bar_q, landed);
     for (int s = 0; s < R; ++s) {
-      mbar_init(bar_k + 8 * s, 1);
-      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_k + 8 * s, landed);
+      mbar_init(bar_v + 8 * s, landed);
       mbar_init(bar_empty + 8 * s, kConsumers * 128);
-      if constexpr (D == kWideCols) st_shared(bar_empty + 8 * R + 4 * s, 0u);  // counters
+      if constexpr (WGeo<D>::self_load) st_shared(bar_empty + 8 * R + 4 * s, 0u);  // counters
     }
+    if (narrow)
+      for (int b = 0; b < WGeo<D>::nx + 2; ++b) mbar_init(bar_x + 8 * b, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if constexpr (D == kWideCols) {
+  const int kvh = bh / group;
+  if constexpr (WGeo<D>::self_load) {
     // no producer: thread 0 loads q and the first R tiles, the consumers
     // the rest (consume_wide, refill); the refill counters follow the
     // barriers
-    const int kvh = bh / group;
-    if (threadIdx.x == 0) {
+    const Narrow<Elt> nw = {xs, bar_x, bar_x + 8 * WGeo<D>::nx,
+                            bar_x + 8 * WGeo<D>::nx + 16,
+                            kp + (size_t)kvh * seq_len * ld, vp + (size_t)kvh * seq_len * ld};
+    if (kAny && narrow) {
+      start_narrow<Elt, D>(qp + ((size_t)bh * seq_len + q0) * ld, sQ, sK, sV, bar_q, bar_k,
+                           bar_v, nw, q0, lo, n_iter, ld, seq_len);
+    } else if (threadIdx.x == 0) {
       mbar_expect_tx(bar_q, QT);
       for (int h = 0; h < B; ++h)
         tma_load(sQ + h * kHalfBytes, tm_q, bar_q, h * kHalf, q0, bh);
@@ -1184,15 +1654,23 @@ __device__ __forceinline__ void flash_wgmma_block(
         load_tile<D>(sV, bar_v, tm_v, it, lo, kvh);
       }
     }
-    consume_wide<Elt, D>(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, bar_empty + 8 * R,
-                         wg, q0, lo, n_iter, out + (size_t)bh * seq_len * ld, ld,
-                         seq_len, causal, scale_log2, window, tm_k, tm_v, kvh);
+    consume_wide<Elt, D, kAny>(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, bar_empty + 8 * R,
+                               wg, q0, lo, n_iter, out + (size_t)bh * seq_len * ld, ld,
+                               seq_len, causal, scale_log2, window, tm_k, tm_v, kvh, narrow,
+                               nw);
   } else if (wg == kConsumers) {
     // producer warpgroup: gives its registers to the consumers; one thread
-    // starts every load, B boxes of 64 columns a tile
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
-    if (threadIdx.x == kConsumers * 128) {
-      const int kvh = bh / group;
+    // starts every load, B boxes of 64 columns a tile (the _any kernels keep
+    // 56, for the narrow loader's 128 threads)
+    if constexpr (kAny)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;");
+    else
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (kAny && narrow) {
+      produce_narrow<Elt, D>(qp + (size_t)bh * seq_len * ld, kp + (size_t)kvh * seq_len * ld,
+                             vp + (size_t)kvh * seq_len * ld, sQ, sK, sV, bar_q, bar_k, bar_v,
+                             bar_empty, xs, bar_x, q0, lo, n_iter, ld, seq_len);
+    } else if (threadIdx.x == kConsumers * 128) {
       mbar_expect_tx(bar_q, QT);
       for (int h = 0; h < B; ++h)
         tma_load(sQ + h * kHalfBytes, tm_q, bar_q, h * kHalf, q0, bh);
@@ -1203,7 +1681,10 @@ __device__ __forceinline__ void flash_wgmma_block(
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    if constexpr (kAny)  // ptxas gives every thread 168 in any case
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 224;");
+    else
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
     Elt* op = out + (size_t)bh * seq_len * ld;
     if constexpr (D == kHalf)
       consume_overlap<Elt, D>(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, wg, q0, lo,
@@ -1222,21 +1703,22 @@ __global__ void __launch_bounds__(WGeo<D>::threads, 1)
                 const __grid_constant__ CUtensorMap tm_v,
                 Elt* __restrict__ out, int ld, int seq_len, int group,
                 int causal, float scale_log2, int window) {
-  flash_wgmma_block<Elt, D, false>(&tm_q, &tm_k, &tm_v, out, ld, seq_len, group, causal,
-                                   scale_log2, window);
+  flash_wgmma_block<Elt, D, false>(&tm_q, &tm_k, &tm_v, nullptr, nullptr, nullptr, out, ld,
+                                   seq_len, group, causal, scale_log2, window);
 }
 
-// rows of any ld <= D elements, a multiple of 8 (TMA fills the columns
-// past ld with zeros)
+// rows of any ld <= D elements: a multiple of 8 by TMA (which fills the
+// columns past ld with zeros), any other from q, k and v (the narrow
+// loader; the tensor maps unused)
 template <typename Elt, int D>
 __global__ void __launch_bounds__(WGeo<D>::threads, 1)
     flash_wgmma_any(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
-                    const __grid_constant__ CUtensorMap tm_v,
-                    Elt* __restrict__ out, int ld, int seq_len, int group,
+                    const __grid_constant__ CUtensorMap tm_v, const Elt* q, const Elt* k,
+                    const Elt* v, Elt* __restrict__ out, int ld, int seq_len, int group,
                     int causal, float scale_log2, int window) {
-  flash_wgmma_block<Elt, D, true>(&tm_q, &tm_k, &tm_v, out, ld, seq_len, group, causal,
-                                  scale_log2, window);
+  flash_wgmma_block<Elt, D, true>(&tm_q, &tm_k, &tm_v, q, k, v, out, ld, seq_len, group,
+                                  causal, scale_log2, window);
 }
 
 // A (rows, S, d) bf16 or float16 array (`type`) as a 3-D tensor map with
@@ -2338,43 +2820,56 @@ cudaError_t launch_f32(int ld, const void* q, const void* k, const void* v,
 }
 
 // flash_wgmma<T, D>: the overlapped schedule at D = 64, the one within a
-// warpgroup at D = 256 (consume_wide), the serial one at 80, 120 and 128
-// (see consume).  The D = 64 and D = 256 softmaxes take their maxima over
+// warpgroup above 128 and at 96 (consume_wide), the serial one at 80, 120
+// and 128 (see consume).  The D = 64, 96 and D > 128 softmaxes take their
+// maxima over
 // the unscaled scores, so there only scale > 0 is computed and any other
 // scale is refused here (NaN included).  The wrapper
 // handles the sign (flash_attention/ops.py, positive_scale): it launches
 // a negative scale as -q with |scale|, and scale 0 as a zero q with scale
-// 1, which give the same scaled scores.  Rows are ld <= D elements (a
-// multiple of 8; exactly D unless kAny); TMA fills the columns past ld with
-// zeros.
+// 1, which give the same scaled scores.  Rows are ld <= D elements, exactly
+// D unless kAny.  A multiple of 8 comes by TMA, which fills the columns past
+// ld with zeros; any other (kAny only) by the narrow loader, with the
+// narrow loader's shared memory and no tensor map.
 template <typename T, int D, bool kAny>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
                          int ld, int bh, int seq_len, int group, int causal,
                          float scale, int window, cudaStream_t stream) {
-  static_assert(D % 8 == 0 && D >= kHalf && (D <= kWCols || D == kWideCols),
-                "rows of 16-byte multiples that fill at least one span");
-  if constexpr (D == kHalf || D == kWideCols)
+  static_assert(D % 32 == 0 || (!kAny && D % 8 == 0), "rows of 16-byte multiples");
+  static_assert(D >= kHalf && D <= kWideCols && (kAny || D <= kWCols || D == kWideCols),
+                "widths that fill at least one span");
+  static_assert(WGeo<D>::narrow_smem <= kSmemLimit, "the narrow loader's buffers fit");
+  if constexpr (D == kHalf || WGeo<D>::self_load)
     if (!(scale > 0.0f)) return cudaErrorInvalidValue;
   auto kernel = wgmma_kernel<T, D, kAny>();
+  constexpr int most = kAny ? WGeo<D>::narrow_smem : WGeo<D>::smem;
   static bool configured = false;  // the attribute is per function
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WGeo<D>::smem);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (err != cudaSuccess) return err;
     configured = true;
   }
+  const bool narrow = kAny && WGeo<D>::narrow && ld % 8 != 0;
   const CUtensorMapDataType type =
       kIsHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  CUtensorMap tq, tk, tv;
-  if (ld % 8 != 0 || ld > D || (!kAny && ld != D) ||
-      make_map(&tq, q, bh, seq_len, ld, kWBQ, type) != CUDA_SUCCESS ||
-      make_map(&tk, k, bh / group, seq_len, ld, WGeo<D>::keys, type) != CUDA_SUCCESS ||
-      make_map(&tv, v, bh / group, seq_len, ld, WGeo<D>::keys, type) != CUDA_SUCCESS)
+  CUtensorMap tq = {}, tk = {}, tv = {};
+  if (ld < 1 || ld > D || (!kAny && ld != D) || (ld % 8 != 0 && !narrow) ||
+      (!narrow &&
+       (make_map(&tq, q, bh, seq_len, ld, kWBQ, type) != CUDA_SUCCESS ||
+        make_map(&tk, k, bh / group, seq_len, ld, WGeo<D>::keys, type) != CUDA_SUCCESS ||
+        make_map(&tv, v, bh / group, seq_len, ld, WGeo<D>::keys, type) != CUDA_SUCCESS)))
     return cudaErrorInvalidValue;
   const dim3 grid(bh, (seq_len + kWBQ - 1) / kWBQ);
-  kernel<<<grid, WGeo<D>::threads, WGeo<D>::smem, stream>>>(
-      tq, tk, tv, static_cast<T*>(out), ld, seq_len, group, causal,
-      scale * kLog2e, window);
+  if constexpr (kAny)
+    kernel<<<grid, WGeo<D>::threads, narrow ? WGeo<D>::narrow_smem : WGeo<D>::smem,
+             stream>>>(tq, tk, tv, static_cast<const T*>(q), static_cast<const T*>(k),
+                       static_cast<const T*>(v), static_cast<T*>(out), ld, seq_len, group,
+                       causal, scale * kLog2e, window);
+  else
+    kernel<<<grid, WGeo<D>::threads, WGeo<D>::smem, stream>>>(
+        tq, tk, tv, static_cast<T*>(out), ld, seq_len, group, causal,
+        scale * kLog2e, window);
   return cudaGetLastError();
 }
 
@@ -2408,9 +2903,9 @@ cudaError_t launch_wgmma_wide(const void* q, const void* k, const void* v, void*
 }
 
 // bfloat16 and float16: flash_tf32 up to 32 columns, flash_wgmma above;
-// at a compiled width the kernel of that width, else the _any kernel at the
-// smallest of 32, 64, 128, 256 above ld (ops.py width); above 256
-// flash_wgmma_wide
+// at a compiled width the kernel of that width, else flash_wgmma_any at ld
+// rounded up to a multiple of 32 (flash_tf32_any below 32; ops.py width);
+// above 256 flash_wgmma_wide
 template <typename T>
 cudaError_t launch_16bit(int ld, const void* q, const void* k, const void* v,
                          void* out, int bh, int seq_len, int group, int causal,
@@ -2424,7 +2919,11 @@ cudaError_t launch_16bit(int ld, const void* q, const void* k, const void* v,
             : ld == 256 ? launch_wgmma<T, 256, false>
             : ld < 32   ? launch_tf32<T, 32, true>
             : ld < 64   ? launch_wgmma<T, 64, true>
+            : ld <= 96  ? launch_wgmma<T, 96, true>
             : ld < 128  ? launch_wgmma<T, 128, true>
+            : ld <= 160 ? launch_wgmma<T, 160, true>
+            : ld <= 192 ? launch_wgmma<T, 192, true>
+            : ld <= 224 ? launch_wgmma<T, 224, true>
                         : launch_wgmma<T, 256, true>;
   return go(q, k, v, out, ld, bh, seq_len, group, causal, scale, window, stream);
 }
@@ -2434,16 +2933,17 @@ cudaError_t launch_16bit(int ld, const void* q, const void* k, const void* v,
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
 // success).  Does not synchronise.  dtype: 0 float32, 1 bfloat16, 2
 // float16; any other code is refused.  head_dim: the row length ld, any
-// ld >= 1 with ld * element bytes a multiple of 16 (the wrapper pads other
+// ld >= 1 with ld * element bytes a multiple of 16, and in bfloat16 and
+// float16 any ld from 33 to 192 (the narrow loader; the wrapper pads other
 // rows with zero columns); above 256, flash_wgmma_wide in bfloat16 and
 // float16 (scale > 0 only) and flash_tf32_wide in float32.  window <= 0
 // means no window.  q and out hold
-// bh * seq_len * ld elements, k and v bh / group times that.  A call runs
-// the smallest compiled width D >= ld: float32 flash_tf32 at every width
-// (32, 64, 80, 120, 128, 256); bfloat16 and float16 flash_tf32 at 32 and
-// flash_wgmma at 64, 80, 120, 128 and 256.  flash_wgmma at 64 and 256
-// takes only scale > 0 (cudaErrorInvalidValue otherwise; the wrapper
-// rewrites the others).
+// bh * seq_len * ld elements, k and v bh / group times that.  float32 runs
+// flash_tf32 at the smallest compiled width D >= ld (32, 64, 80, 120, 128,
+// 256); bfloat16 and float16 flash_tf32 at 32, flash_wgmma at 64, 80, 120,
+// 128 and 256 and flash_wgmma_any at ld rounded up to a multiple of 32 for
+// other rows.  flash_wgmma at 64 and above 128 takes only scale > 0
+// (cudaErrorInvalidValue otherwise; the wrapper rewrites the others).
 extern "C" int flash_attention_launch(int device, int dtype, int head_dim,
                                       const void* q, const void* k,
                                       const void* v, void* out, int bh,
@@ -2454,7 +2954,8 @@ extern "C" int flash_attention_launch(int device, int dtype, int head_dim,
   cudaGetLastError();  // clear a stale error from an earlier call
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int elem = dtype == 0 ? 4 : 2;
-  if (dtype < 0 || dtype > 2 || head_dim < 1 || head_dim * elem % 16 != 0)
+  const bool narrow = dtype != 0 && head_dim > 32 && head_dim <= 192;
+  if (dtype < 0 || dtype > 2 || head_dim < 1 || (head_dim * elem % 16 != 0 && !narrow))
     return (int)cudaErrorInvalidValue;
   auto go = dtype == 0   ? launch_f32
             : dtype == 1 ? launch_16bit<__nv_bfloat16>

@@ -29,8 +29,12 @@ HEAD_DIMS = (32, 64, 80, 120, 128, 256)
 
 #: widths of the ``_any`` kernels, which take rows of any length up to the
 #: width (the columns past it zeros): a row that is none of HEAD_DIMS runs
-#: the smallest of them at or above it (``width``)
-ANY_WIDTHS = (32, 64, 128, 256)
+#: the smallest of them at or above it (``width``).  bfloat16 and float16
+#: rows above 32 run ``flash_wgmma_any`` at every multiple of 32, so that a
+#: row does its own width of work rounded up to 32 columns; float32 rows and
+#: 16-bit rows of at most 32 run ``flash_tf32_any`` at TF32_ANY_WIDTHS
+ANY_WIDTHS = (32, 64, 96, 128, 160, 192, 224, 256)
+TF32_ANY_WIDTHS = (32, 64, 128, 256)
 
 #: rows wider than this (head dims above 256) run the wide kernels:
 #: ``flash_wgmma_wide`` in bfloat16 and float16, ``flash_tf32_wide`` in
@@ -45,9 +49,10 @@ WIDE_PIECE = 64
 WIDE_GROUP = 512
 WIDE_ROWS = 64
 
-#: bfloat16 and float16 widths that run ``flash_wgmma`` (wgmma + TMA; at 64
-#: the softmax overlaps the tensor cores, at 256 the key tiles are 64
-#: rows); float32 at every width and bf16 and float16 at 32 run
+#: bfloat16 and float16 compiled widths that run ``flash_wgmma`` (wgmma +
+#: TMA; at 64 the softmax overlaps the tensor cores, at 256 the key tiles
+#: are 64 rows; every 16-bit width above 32 runs it, off these widths as
+#: ``flash_wgmma_any``); float32 at every width and bf16 and float16 at 32 run
 #: ``flash_tf32`` (mma.sync on TF32 tensor cores, float32 operands split
 #: into hi + lo).  ``launch_f32`` and ``launch_16bit`` in the source
 #: dispatch the same way.
@@ -55,9 +60,16 @@ WGMMA_HEAD_DIMS = (64, 80, 120, 128, 256)
 
 #: bf16 and float16 widths whose kernel takes its softmax maxima over the
 #: unscaled scores, so computes only scale > 0 (the wrapper rewrites the
-#: others, ``positive_scale``): flash_wgmma at 64 and 256, and
-#: flash_wgmma_wide at every row above WIDE_ABOVE (``positive_only``)
-POSITIVE_SCALE_DIMS = (64, 256)
+#: others, ``positive_scale``): flash_wgmma and flash_wgmma_any at 64, 96
+#: and above 128, and flash_wgmma_wide at every row above WIDE_ABOVE
+#: (``positive_only``)
+POSITIVE_SCALE_DIMS = (64, 96, 160, 192, 224, 256)
+
+#: the widest bf16 and float16 row the narrow loader reads as it is
+#: (``narrow_row``); wider rows whose bytes are not a multiple of 16 are
+#: padded: beside the 224- and 256-column layouts one staging buffer fits,
+#: each refill waits for its copy, and that was slower than the padded copy
+NARROW_MOST = 192
 
 #: kernel launches made through this wrapper (CUDA tensors only)
 LAUNCHES = 0
@@ -93,10 +105,20 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def narrow_row(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether ``flash_wgmma_any`` takes rows of ``head_dim`` as they are
+    though their bytes are not a multiple of 16 (its narrow loader): bf16
+    and float16 rows of 33 to NARROW_MOST elements."""
+    return dtype != torch.float32 and 32 < head_dim <= NARROW_MOST
+
+
 def row_elems(dtype: torch.dtype, head_dim: int) -> int:
-    """The row the kernel reads at ``head_dim``: a whole number of 16-byte
-    pieces (TMA and the 16-byte copies), ``head_dim`` itself where it is
-    one already, else ``head_dim`` padded with zero columns."""
+    """The row the kernel reads at ``head_dim``: ``head_dim`` itself where
+    its bytes are a whole number of 16-byte pieces (TMA and the 16-byte
+    copies) or the row is narrow (``narrow_row``), else ``head_dim`` padded
+    with zero columns."""
+    if narrow_row(dtype, head_dim):
+        return head_dim
     per = 16 // dtype.itemsize
     return -(-head_dim // per) * per
 
@@ -104,19 +126,21 @@ def row_elems(dtype: torch.dtype, head_dim: int) -> int:
 def width(dtype: torch.dtype, head_dim: int) -> int:
     """The compiled width a call at ``head_dim`` runs: its row
     (``row_elems``) where that is one of HEAD_DIMS, else the smallest of
-    ANY_WIDTHS at or above it; a row wider than WIDE_ABOVE is its own
-    width (the wide kernels take any)."""
+    ANY_WIDTHS (TF32_ANY_WIDTHS on ``flash_tf32_any``) at or above it; a
+    row wider than WIDE_ABOVE is its own width (the wide kernels take
+    any)."""
     ld = row_elems(dtype, head_dim)
     if ld in HEAD_DIMS or ld > WIDE_ABOVE:
         return ld
-    return next(w for w in ANY_WIDTHS if w >= ld)
+    widths = TF32_ANY_WIDTHS if dtype == torch.float32 or ld <= 32 else ANY_WIDTHS
+    return next(w for w in widths if w >= ld)
 
 
 def kernel_name(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernel a launch at ``dtype`` and ``head_dim`` runs."""
     if row_elems(dtype, head_dim) > WIDE_ABOVE:
         return "flash_tf32_wide" if dtype == torch.float32 else "flash_wgmma_wide"
-    if dtype != torch.float32 and width(dtype, head_dim) in WGMMA_HEAD_DIMS:
+    if dtype != torch.float32 and width(dtype, head_dim) > 32:
         return "flash_wgmma"
     return "flash_tf32"
 
@@ -230,7 +254,8 @@ def flash_attention(
     (``flash_wgmma_wide``, ``flash_tf32_wide`` above 256).  CUDA tensors
     launch the kernel on the current stream without synchronising (rows
     whose bytes are not a multiple of 16 are padded with zero columns
-    first, ``row_elems``); CPU tensors take the plain version.  ``scale`` defaults to ``1 / sqrt(D)``
+    first, except bf16 and float16 rows of 33 to 192, ``row_elems``); CPU
+    tensors take the plain version.  ``scale`` defaults to ``1 / sqrt(D)``
     of the unpadded D."""
     b, h, s, d = q.shape
     hkv = k.shape[1]
@@ -256,7 +281,9 @@ def flash_attention(
 
 def _launch(lib, q, k, v, *, causal, scale, window, device, stream):
     """Pad rows to ``row_elems`` where needed, allocate the output and
-    launch on ``stream``; the output is (B, H, S, D), its padding cut off."""
+    launch on ``stream``; the output is (B, H, S, D), its padding cut off.
+    Narrow rows (``narrow_row``) go as they are, from any element address:
+    the kernel copies them by 16-byte-aligned windows."""
     b, h, s, d = q.shape
     hkv = k.shape[1]
     ld = row_elems(q.dtype, d)
@@ -266,7 +293,8 @@ def _launch(lib, q, k, v, *, causal, scale, window, device, stream):
     if ld != d:  # zero columns add exact zeros to q.k and are cut from out
         qf, kf, vf = (torch.nn.functional.pad(t, (0, ld - d)) for t in (qf, kf, vf))
     qf, kf, vf = qf.contiguous(), kf.contiguous(), vf.contiguous()
-    if (qf.data_ptr() | kf.data_ptr() | vf.data_ptr()) % 16:
+    tma = (ld * q.dtype.itemsize) % 16 == 0
+    if tma and (qf.data_ptr() | kf.data_ptr() | vf.data_ptr()) % 16:
         raise ValueError("q, k and v must start on a 16-byte boundary")
     out = torch.empty_like(qf)
     code = lib.flash_attention_launch(

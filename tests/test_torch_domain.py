@@ -4,7 +4,7 @@ number of aggregation groups.
 
 * float16 flash and decode: the port's plain versions (what the wrappers
   take on CPU tensors) against the Pallas kernels in interpret mode at
-  head dims 1, 33 and 96, and decode at MQA groups 71/1 (Falcon-7B's) and
+  head dims 1, 33, 96, 150 and 200, and decode at MQA groups 71/1 (Falcon-7B's) and
   128/1, at small S: within one float16 ulp plus 1e-5 (both compute in
   float32 and round once); bfloat16 and float32 at the same odd head dims.
 * fused_filter_agg at 1,500 and 4,096 groups against the Pallas kernel in
@@ -16,8 +16,10 @@ number of aggregation groups.
   tests/test_torch_models.py (float16 rounds at other places in the two
   frameworks too).
 * The wrappers' launch arguments through stand-in libraries: the float16
-  dtype code, the row and compiled width each head dim runs (rows padded
-  only where their bytes are not a multiple of 16, in flash alone), the
+  dtype code, the row and compiled width each head dim runs (flash pads
+  rows whose bytes are not a multiple of 16 only in float32 and in 16-bit
+  types at most 32 or above 192 elements; it passes the caller's tensors
+  and the library's output otherwise), the
   group slices and the plan above 64 q heads, the caches passed as they
   are, and the many-group variant's plan and partials.
 * Head dims above 256 taken by both wrappers in every dtype, and 0
@@ -49,7 +51,7 @@ from repro_torch.models import params_from_numpy
 torch.set_num_threads(1)  # small tensors: extra threads only contend
 
 H100_SMS = 132
-ODD_DIMS = (1, 33, 96)
+ODD_DIMS = (1, 33, 96, 150, 200)
 #: torch dtype, the JAX dtype, mantissa bits (None: float32's 1e-5 rule)
 DTYPES = {"float16": (torch.float16, jnp.float16, 10),
           "bfloat16": (torch.bfloat16, jnp.bfloat16, 7),
@@ -203,21 +205,40 @@ class FakeDecodeLib:
 @pytest.mark.parametrize("dtype,d,row,width,kernel", [
     (torch.float16, 128, 128, 128, "flash_wgmma<f16, 128>"),
     (torch.float16, 32, 32, 32, "flash_tf32<f16, 32>"),
-    (torch.bfloat16, 96, 96, 128, "flash_wgmma_any<bf16, 128>"),
-    (torch.bfloat16, 33, 40, 64, "flash_wgmma_any<bf16, 64>"),
+    (torch.bfloat16, 96, 96, 96, "flash_wgmma_any<bf16, 96>"),
+    (torch.bfloat16, 33, 33, 64, "flash_wgmma_any<bf16, 64>"),
     (torch.float16, 1, 8, 32, "flash_tf32_any<f16, 32>"),
     (torch.float32, 33, 36, 64, "flash_tf32_any<f32, 64>"),
     (torch.float32, 100, 100, 128, "flash_tf32_any<f32, 128>"),
     (torch.bfloat16, 250, 256, 256, "flash_wgmma<bf16, 256>"),
     (torch.float32, 250, 252, 256, "flash_tf32_any<f32, 256>"),
-    (torch.float16, 80, 80, 80, "flash_wgmma<f16, 80>")])
+    (torch.float16, 80, 80, 80, "flash_wgmma<f16, 80>"),
+    (torch.bfloat16, 100, 100, 128, "flash_wgmma_any<bf16, 128>"),
+    (torch.float16, 100, 100, 128, "flash_wgmma_any<f16, 128>"),
+    (torch.bfloat16, 150, 150, 160, "flash_wgmma_any<bf16, 160>"),
+    (torch.float16, 150, 150, 160, "flash_wgmma_any<f16, 160>"),
+    (torch.bfloat16, 160, 160, 160, "flash_wgmma_any<bf16, 160>"),
+    (torch.float16, 160, 160, 160, "flash_wgmma_any<f16, 160>"),
+    (torch.bfloat16, 192, 192, 192, "flash_wgmma_any<bf16, 192>"),
+    (torch.float16, 192, 192, 192, "flash_wgmma_any<f16, 192>"),
+    (torch.bfloat16, 200, 200, 224, "flash_wgmma_any<bf16, 224>"),
+    (torch.float16, 200, 200, 224, "flash_wgmma_any<f16, 224>"),
+    (torch.bfloat16, 224, 224, 224, "flash_wgmma_any<bf16, 224>"),
+    (torch.float16, 224, 224, 224, "flash_wgmma_any<f16, 224>"),
+    (torch.float32, 150, 152, 256, "flash_tf32_any<f32, 256>"),
+    (torch.float16, 90, 90, 96, "flash_wgmma_any<f16, 96>"),
+    (torch.bfloat16, 170, 170, 192, "flash_wgmma_any<bf16, 192>"),
+    (torch.bfloat16, 210, 216, 224, "flash_wgmma_any<bf16, 224>"),
+    (torch.float16, 250, 256, 256, "flash_wgmma<f16, 256>")])
 def test_flash_wrapper_rows_widths_and_dtype_codes(dtype, d, row, width, kernel):
     """The library gets the dtype code (float16: 2) and the row it reads:
-    the head dim itself where its bytes are a multiple of 16 (the caller's
-    tensors, no copy), else padded with zero columns; the kernel is the
-    one of the row's width where the row is a compiled width, else the
-    ``_any`` kernel of the smallest width above it, and the output keeps
-    D."""
+    the head dim itself where its bytes are a multiple of 16 or it is a
+    bf16 or float16 row of 33 to 192 (the caller's tensors, no copy, and
+    the library's output returned as it is), else padded with zero
+    columns (float32, and 16-bit rows above 192, still pad); the kernel is the one of the row's width
+    where the row is a compiled width, else the ``_any`` kernel of the
+    smallest width above it (flash_wgmma_any: every multiple of 32), and
+    the output keeps D."""
     b, h, hkv, s = 1, 4, 2, 16
     q = torch.randn(b, h, s, d).to(dtype)
     k, v = torch.randn(b, hkv, s, d).to(dtype), torch.randn(b, hkv, s, d).to(dtype)
@@ -231,6 +252,8 @@ def test_flash_wrapper_rows_widths_and_dtype_codes(dtype, d, row, width, kernel)
     assert args[2] == row and args[7:10] == (b * h, s, h // hkv)
     assert args[10] == 1 and args[11] == pytest.approx(d ** -0.5)  # the unpadded D's scale
     assert (args[3] == q.data_ptr()) == (row == d)  # padded only where needed
+    assert (args[4], args[5]) == (k.data_ptr(), v.data_ptr()) or row != d
+    assert (out.data_ptr() == args[6]) == (row == d)  # nor is the output copied back
     assert out.shape == (b, h, s, d) and out.dtype == dtype and out.is_contiguous()
 
 

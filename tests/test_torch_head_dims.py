@@ -112,13 +112,15 @@ def test_the_new_head_dims_are_those_of_qwen3_and_danube():
 @pytest.mark.parametrize("d", [96, 112])
 def test_a_head_dim_no_config_needs_is_refused(d):
     """Head dims 96 and 112 (no compiled width) are in the kernels' domain
-    now: both wrappers take them, on the ``_any`` kernels of width 128.
-    So is d + 256, on the wide kernels (q.k across D in pieces); a head
-    dim of 0 is the one refused."""
+    now: both wrappers take them, on the ``_any`` kernels: decode's of width
+    128, bf16 flash's at the row rounded up to a multiple of 32 (96 and
+    128).  So is d + 256, on the wide kernels (q.k across D in pieces); a
+    head dim of 0 is the one refused."""
     q = torch.zeros((1, 2, 4, d))
     flash_ops._check_cuda(q, q, q, None)
     decode_ops._check_cuda(q[:, :, 0], q, q, torch.ones((1,), dtype=torch.int32))
-    assert flash_ops.width(torch.bfloat16, d) == decode_ops.width(d) == 128
+    assert decode_ops.width(d) == 128
+    assert flash_ops.width(torch.bfloat16, d) == -(-d // 32) * 32
     wide = torch.zeros((1, 2, 4, d + 256))
     flash_ops._check_cuda(wide, wide, wide, None)
     decode_ops._check_cuda(wide[:, :, 0], wide, wide, torch.ones((1,), dtype=torch.int32))
@@ -384,9 +386,9 @@ FLASH_CU = flash_ops.SOURCE.read_text()
 SMEM_LIMIT = 232_448
 #: flash_attention.cu's choices by head dim: p.v's columns, the block's
 #: shared memory
-PV_COLS = "return D <= kHalf ? kHalf : D <= 80 ? 80 : D <= kWCols ? kWCols : D;"
-SMEM_PICK = ("static constexpr int smem = D <= kHalf ? kNarrowSmem : D > kWCols ? kWideSmem "
-             ": kWSmem;")
+PV_COLS = "return D <= kHalf ? kHalf : D <= 80 ? 80 : D <= 96 ? 96 : D <= kWCols ? kWCols : D;"
+SMEM_PICK = ("static constexpr int smem =\n      1024 + qtile + 2 * ring * tile + 8 * (1 + 3 * ring) + "
+             "(self_load ? 4 * ring : 0);")
 
 
 def cu_consts():
@@ -604,7 +606,8 @@ def test_flash_wgmma_geometry_at_256():
     assert budget(12) == budget(9) == 168 < pv // 2 + keys // 2 + keys // 4
     assert c["kWideThreads"] == 2 * 128 and budget(c["kWideThreads"] // 32) == 255
     assert pv // 2 + keys // 2 + keys // 4 < 255
-    assert "static constexpr int threads = D > kWCols ? kWideThreads : kWThreads;" in FLASH_CU
+    assert "static constexpr int threads = self_load ? kWideThreads : kWThreads;" in FLASH_CU
+    assert "static constexpr bool self_load = D > kWCols || D == 96;" in FLASH_CU
     assert "__launch_bounds__(WGeo<D>::threads, 1)" in FLASH_CU
     # key tiles a q tile sees, at the tile height: the causal bound reaches
     # the tile of the q tile's last row, the window's its first row's window
@@ -773,8 +776,9 @@ def test_wide_refills_load_every_tile_once(n_iter):
     for line in ("const bool k_next = kt >= 0 && kt + R < n_iter, v_next = vt >= 0 && vt + R < n_iter;",
                  "(atom_add_shared(cnt + 4 * s, 1u) & 1u)) {",
                  "mbar_wait(read + 8 * s, (j / R) & 1);",
-                 "refill<D>(bar_read, cnt, sK, sV, bar_k, bar_v, tm_k, tm_v, it, it, it - 1, n_iter, lo,",
-                 "refill<D>(bar_read, cnt, sK, sV, bar_k, bar_v, tm_k, tm_v, 0, 0, -1, n_iter, lo, kvh);",
+                 "refill<D>(bar_read, cnt, sK, sV, bar_k, bar_v, tm_k, tm_v, j, kt, vt, n_iter, lo, kvh);",
+                 "release(it, it, it - 1);",
+                 "release(0, 0, -1);",
                  "for (int it = 0; it < R && it < n_iter; ++it) {"):
         assert line in FLASH_CU, line
     body = cu_function("consume_wide")

@@ -9,15 +9,23 @@ CUDA toolkit::
 It builds ``flash_attention.cu`` and ``decode_attention.cu`` of DIR's
 ``src/repro_torch`` (default: the checkout that holds this script) with the
 port's nvcc flags, prints their ptxas registers and spill bytes and the
-SASS counts of flash_wgmma<256>, of every flash_tf32 instance and of the
-wide kernels (wgmma instructions, the waits on them, TF32 mma.sync
+SASS counts of flash_wgmma<256>, of every flash_wgmma_any and flash_tf32
+instance and of the wide kernels (wgmma instructions, the waits on them:
+one after every HGMMA means ptxas serialised them, TF32 mma.sync
 instructions, spill loads and stores, the highest register), then one JSON
 line per row: decode at full length and flash on one causal prompt for
 every config of ``chip_smoke.ATTENTION_ROWS`` in bf16, the recurrent
 hybrid's decode at its serve's length and its flash at its forward's
 length, where the window masks; then the same decode and flash rows in
 float32 at the configs of ``chip_smoke.FLOAT32_ARCHS``, and flash at head
-dim 32 (heads ``chip_smoke.D32_HEADS``) in float32 and bf16; then the wide
+dim 32 (heads ``chip_smoke.D32_HEADS``) in float32 and bf16; then the rows
+off the compiled widths in bf16 (``--only any`` keeps only them):
+Phi-3-mini's ``chip_smoke.PHI3_HEADS``, head dim ``chip_smoke.NARROW_DIM``
+(33, rows that are not whole 16-byte pieces) at 32/4,
+``chip_smoke.ANY_TIMED_HEADS`` (32/4 x 160), and 32/4 at 100, 150, 90, 170,
+210 and 250 (rows that are not whole 16-byte pieces; the wrapper pads
+the last two), S = ``chip_smoke.FORWARD_LEN``,
+causal; then the wide
 rows, flash at head dim ``chip_smoke.WIDE_TIMED_DIM`` (S =
 ``chip_smoke.FORWARD_LEN``, causal) at the heads of
 ``chip_smoke.WIDE_TIMED_FLASH`` in bf16, float16 and float32 (``--only
@@ -102,7 +110,8 @@ def main() -> int:
     label = args.label or str(root)
     print(f"time_attention: {label}: torch {torch.__version__} on [{smi}]", flush=True)
     cs.build_kernels((fops, dops))
-    stats = sass_stats(build.built_path(fops.SOURCE), r"flash_wgmmaI\w+Li256E|flash_tf32|_wide")
+    stats = sass_stats(build.built_path(fops.SOURCE),
+                       r"flash_wgmmaI\w+Li256E|flash_wgmma_any|flash_tf32|_wide")
     print(f"time_attention: {label}: SASS flash_attention: {json.dumps(stats)}", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -190,6 +199,27 @@ def main() -> int:
                            & (pos[None, :] > pos[:, None] - window), enable_gqa=True)
         report("flash_attention", row, kernel, lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw), ok,
                fops.kernel_name(dtype, d))
+
+    # the rows off the compiled widths (flash_wgmma_any), on no path:
+    # Phi-3-mini's heads, head dim 33 (no padded copy) and 160;
+    # then rows that are not whole 16-byte pieces at the narrow loader's
+    # other geometries (100: a producer, 128-key tiles; 150 and 170: no
+    # producer, 64-key tiles; 90: no producer, 128-key tiles) and above 192,
+    # where the wrapper pads them (210, 250)
+    for name, (h, hkv, d) in (("phi-3-mini", cs.PHI3_HEADS), ("head dim 33", (32, 4, cs.NARROW_DIM)),
+                              ("head dim 160", cs.ANY_TIMED_HEADS),
+                              *((f"head dim {n}", (32, 4, n)) for n in (100, 150, 250, 90, 170, 210))):
+        row = f"any {name} {h}/{hkv} x {d}, bf16, S={cs.FORWARD_LEN}"
+        if args.only not in row:
+            continue
+        q = randn(1, h, cs.FORWARD_LEN, d)
+        k, v = randn(1, hkv, cs.FORWARD_LEN, d), randn(1, hkv, cs.FORWARD_LEN, d)
+        kernel = lambda: fops.flash_attention(q, k, v, causal=True)  # noqa: E731
+        ok = cs.flash_bf16_close(torch, kernel(), fref.attention_ref(q, k, v, causal=True),
+                                 cs.flash_yardstick(q, k, v, causal=True, window=None))[0]
+        report("flash_attention", row, kernel,
+               lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+               ok, fops.kernel_label(bf16, d))
 
     # the wide rows: above head dim 256, on no path
     d, fs = cs.WIDE_TIMED_DIM, cs.FORWARD_LEN
