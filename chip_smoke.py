@@ -148,7 +148,14 @@ Phases, each of which fails the script (non-zero exit) on any error:
    three dtypes, flash at 32/4 and 16/1, S in {512, 200}, causal, non-causal, window 256 and window 64 at S = 200,
    decode at 32/4, 16/1 and 71/1, B = 4, S = 1024 (and 32/4 at S = 64,
    one chunk), lengths 1, S-1, S, 0 and the chunk edges, under float32's
-   1e-5 + 1e-5 |plain| or one 16-bit ulp + 1e-5;
+   1e-5 + 1e-5 |plain| or one 16-bit ulp + 1e-5; then (SEED + 5)
+   ``decode_wide`` at every geometry of its plan: head dims WIDE_DIMS and
+   WIDE_ODD_DIM (16-bit rows that are not whole 16-byte pieces) at groups
+   9, 16 and 71 (``WIDE_DECODE_GROUPS``), B = 4, S = 4096 (chunks of 512
+   rows), lengths 0, 1, a k tile's edge +- 1, a v tile's edge + 1, the
+   chunk's edge + 1, S - 1 and S, under the same rules, and each (dtype,
+   head dim)'s decode kernel read back from torch.profiler against
+   ``decode_wide`` (a profile with none fails);
 6. serve Yi-6B at full width and depth on ``cuda`` (random weights from
    a seeded generator, TF32 off): ``ServeEngine.generate`` on 6 requests
    over 4 slots of 4096 positions, 16 new tokens each, through the
@@ -264,8 +271,9 @@ Phases, each of which fails the script (non-zero exit) on any error:
    (``flash_wgmma_any<bf16, 160>``), and
    flash at 16/1 and 32/4 x 512 (S = 2048, causal) in bf16 and float32
    and at 16/1 x 512 in float16, and decode at B = 4, 32/4 x 512 (S =
-   4096, full length) in bf16 and float32 (the wide kernels; no path; each
-   with SDPA on k and v expanded to the q heads beside), and
+   4096, full length) in bf16, float32 and float16 and at 16/1 x 576 in
+   bf16 (the wide kernels; no path; each with SDPA on k and v expanded to
+   the q heads beside), and
    ``fused_filter_agg`` at 1025, 4096, 65536 and 262144 groups over Q2's
    rows (``many_groups``: the partition, bin and
    merge launches; no path).  Lines before it give phase 6e's
@@ -1786,11 +1794,25 @@ MANY_GROUPS = (1025, 4096, 65536, 262144)
 WIDE_DIMS = (257, 320, 512, 576, 1024)
 WIDE_FLASH_HEADS = ((32, 4), (16, 1))
 WIDE_DECODE_HEADS = ((32, 4), (16, 1), (71, 1))
+#: and decode_wide at every geometry of its plan (a generator of its own,
+#: SEED + 5): WIDE_DIMS and a 16-bit row that is not whole 16-byte pieces,
+#: at groups 9, 16 and 71, B = 4, S = DECODE_LEN (the plan's chunks: 512
+#: rows, each several k and v tiles)
+WIDE_ODD_DIM = 515
+WIDE_DECODE_GROUPS = ((36, 4), (64, 4), (71, 1))
 #: phase 7's rows for them: flash (H, Hkv) at head dim WIDE_TIMED_DIM, and
 #: decode 32/4 at it, in bf16 and float32; flash at the first heads in
 #: float16 too
 WIDE_TIMED_DIM = 512
 WIDE_TIMED_FLASH = ((16, 1), (32, 4))
+#: decode_wide's timed rows (H, Hkv, D, dtype), B = 4, S = DECODE_LEN, full
+#: length: 32/4 x WIDE_TIMED_DIM in each dtype, a slice tail (16/1 x 576:
+#: 64 columns of its last slice of 256) and rows that are not whole 16-byte
+#: pieces (32/4 x 515); phase 7 times the float16 and 576 rows beside the
+#: bf16 and float32 ones above (tools/time_attention.py all five)
+WIDE_TIMED_DECODE = ((32, 4, 512, "bfloat16"), (32, 4, 512, "float16"),
+                     (32, 4, 512, "float32"), (16, 1, 576, "bfloat16"),
+                     (32, 4, 515, "bfloat16"))
 #: their cache and prompt lengths (S = 200: one full and one ragged tile)
 ODD_DECODE_LEN = 1024
 ODD_FLASH_LENS = (512, 200)
@@ -1823,23 +1845,29 @@ def profiled_label(name: str) -> str:
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
-def check_launched(torch, launched, failures):
-    """Phase 5: one launch of each (kernel label, call) of ``launched``
-    under torch.profiler; each call's flash kernel, in launch order, must
-    be the one the wrapper names, and a profile with no flash kernel in it
-    is a failure too."""
+def check_launched(torch, launched, failures, kind="flash_"):
+    """Phase 5: the calls of ``launched`` (kernel label, call) under
+    torch.profiler, twice in order; in the second round each call's kernel
+    whose name holds ``kind`` (``flash_``, or ``decode_wide``, which
+    ``decode_combine_wide`` does not hold) must be the one the wrapper
+    names, and a profile with no such kernel in it is a failure too.  The
+    first round is not read: the profiler has been seen to record none of
+    the first one or two kernels of a window (of decode_wide's, in the
+    whole script, though a host pause and a sleep kernel opened it)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _, fn in launched:
-            fn()
+        for _ in range(2):
+            for _, fn in launched:
+                fn()
         torch.cuda.synchronize()
     ran = [profiled_label(e.name) for e in sorted(
-        (e for e in prof.events() if e.device_type.name == "CUDA" and "flash_" in e.name),
+        (e for e in prof.events() if e.device_type.name == "CUDA" and kind in e.name),
         key=lambda e: e.time_range.start)]
     want = [label for label, _ in launched]
-    if ran != want:
-        failures.append(f"the kernels launched {ran} are not the wrapper's {want}")
+    if not ran or ran[-len(want):] != want:
+        failures.append(f"the kernels launched {ran} (second round last) are not the "
+                        f"wrapper's {want}")
     else:
         print(f"domain vs plain: each of {len(want)} (dtype, head dim) launched the kernel the "
               f"wrapper names: " + ", ".join(sorted(set(want))))
@@ -1862,8 +1890,11 @@ def domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ffa_ops
     sum|v| of a float64 oracle, integer sums exact, repeat launches bitwise
     equal; and head dims WIDE_DIMS in all three dtypes in both kernels
     (flash at WIDE_FLASH_HEADS, decode at WIDE_DECODE_HEADS) under the
-    rules of the non-wgmma kernels.  Every case runs; the failures are
-    listed together."""
+    rules of the non-wgmma kernels; then (SEED + 5) decode_wide at
+    WIDE_DIMS and WIDE_ODD_DIM, groups WIDE_DECODE_GROUPS, S = DECODE_LEN,
+    lengths about its tiles' and chunks' edges, each (dtype, head dim)'s
+    decode kernel read back from torch.profiler.  Every case runs; the
+    failures are listed together."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     before = flash_ops.LAUNCHES, decode_ops.LAUNCHES, ffa_ops.LAUNCHES
@@ -1928,7 +1959,9 @@ def domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ffa_ops
                 lambda: flash_ref.attention_ref(q, k, v, **kw),
                 (lambda: flash_yardstick(q, k, v, **kw)) if wgmma else None)
 
-    def decode(dtype, d, h, hkv, s, b=4, tag="", generator=gen):
+    def decode(dtype, d, h, hkv, s, b=4, tag="", generator=gen, lens_of=None):
+        """``lens_of(chunk)``: the cases' lengths (default: 1, S - 1, S, 0
+        and the chunk's edges)."""
         q = randn(b, h, d, dtype=dtype, generator=generator)
         k = randn(b, hkv, s, d, dtype=dtype, generator=generator)
         v = randn(b, hkv, s, d, dtype=dtype, generator=generator)
@@ -1936,7 +1969,9 @@ def domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ffa_ops
         label = decode_ops.decode_kernel(dtype, h // hkv, d)
         rules[label] = ("1e-5 + 1e-5|plain|" if dtype == torch.float32
                         else f"1e-5 + one {name_of(dtype)} ulp")
-        for lens in ([1, s - 1, s, 0][:b], [chunk - 1, chunk, chunk + 1, s][:b]):
+        sets = (([1, s - 1, s, 0][:b], [chunk - 1, chunk, chunk + 1, s][:b])
+                if lens_of is None else lens_of(chunk))
+        for lens in sets:
             lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
             one(f"decode{tag}", f"decode {dtype} D={d} ({label}) B={b} H={h}/{hkv} S={s} "
                 f"chunk={chunk} lengths={lens}",
@@ -1992,8 +2027,27 @@ def domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ffa_ops
             for h, hkv in WIDE_DECODE_HEADS:
                 decode(dtype, d, h, hkv, ODD_DECODE_LEN, tag=" wide D", generator=wide)
             decode(dtype, d, 32, 4, 64, tag=" wide D", generator=wide)  # one chunk
+    # decode_wide at every geometry of its plan (a generator of its own,
+    # SEED + 5): chunks of 512 rows, lengths about its k and v tiles' and
+    # the chunk's edges
+    wide_geo = torch.Generator(device=dev).manual_seed(SEED + 5)
+    wide_kernels = []  # (the kernel the wrapper names, a launch of it) a (dtype, D)
+    for dtype in (torch.float32, torch.bfloat16, f16):
+        kr, vr = decode_ops.wide_tile_rows(dtype)
+        for d in WIDE_DIMS + (WIDE_ODD_DIM,):
+            for h, hkv in WIDE_DECODE_GROUPS:
+                decode(dtype, d, h, hkv, DECODE_LEN, tag=" wide D geometry", generator=wide_geo,
+                       lens_of=lambda chunk: ([0, 1, kr - 1, kr + 1],
+                                              [vr + 1, chunk + 1, DECODE_LEN - 1, DECODE_LEN]))
+            q = randn(4, 32, d, dtype=dtype, generator=wide_geo)
+            k, v = (randn(4, 4, 256, d, dtype=dtype, generator=wide_geo) for _ in range(2))
+            lens = torch.full((4,), 256, dtype=torch.int32, device=dev)
+            wide_kernels.append((decode_ops.decode_kernel(dtype, 8, d),
+                                 lambda q=q, k=k, v=v, lens=lens:
+                                 decode_ops.decode_attention(q, k, v, lens)))
     check(flash_ops.LAUNCHES + decode_ops.LAUNCHES - sum(launched) == 2 * (n - n_before),
           "a case above head dim 256 did not launch its kernel twice")
+    check_launched(torch, wide_kernels, failures, kind="decode_wide")
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before[:2]
 
     # fused_filter_agg above 1024 groups over Q2's rows
@@ -4250,6 +4304,13 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
     # above keep their inputs)
     wh, whkv = WIDE_TIMED_FLASH[0]
     domain[f"{wh}/{whkv} x {wd} float16 flash"] = wide_flash(wh, whkv, torch.float16)
+    # decode_wide in float16 and at a slice tail (WIDE_TIMED_DECODE's second
+    # and fourth rows: 32/4 x 512 float16, 16/1 x 576 bf16), drawn last too
+    for wh, whkv, wdd, name in (WIDE_TIMED_DECODE[1], WIDE_TIMED_DECODE[3]):
+        domain[f"{wh}/{whkv} x {wdd} {name} decode, full length"] = {
+            **decode_case(wh, whkv, wdd, [s] * 4, dtype=getattr(torch, name), expanded=True),
+            "launches": 0, "launches_by_path": {},
+            "shape": f"B=4 H={wh} Hkv={whkv} S={s} D={wdd} {name} full length"}
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # timing is not the main path
     print("timing: kernels device-only (queued behind a sleep kernel); plain versions and "
           "SDPA queued the same way")

@@ -25,7 +25,7 @@
 // `n_splits` chunks of `chunk` rows, chosen on the host from shapes only
 // (ops.split_plan; reading the lengths would synchronise); every chunk
 // writes a float32 partial (m, l, acc) for each of its q heads and
-// decode_combine merges them.  Two kernels walk a chunk:
+// decode_combine merges them.  Three kernels walk a chunk:
 //
 // * decode_split, for float32 and for groups of at most 8 q heads a kv
 //   head in bf16 or float16 (the plan: about two blocks an SM).  One block of 256 threads per
@@ -62,6 +62,22 @@
 //   several steps, and a ring of cp.async stages (three, two at D = 256)
 //   keeps the next steps' rows in flight.
 //
+// * decode_wide, for head dims above 256 in every dtype (no shipped config
+//   has one; B = 4, 32/4 x 512, S = 4096 in bf16 reads 134 MB, 0.0401 ms at
+//   3.35 TB/s): a block a batch of 8 q heads and a chunk of at most 512
+//   rows.  k, then v, stream through a ring of four cp.async stages of 16
+//   KB tiles with one block barrier a tile: q.k summed over 64-column
+//   pieces of a row tile (each k stage carries q's piece), the chunk's
+//   scores and p in shared memory, p.v an output slice of 512 bytes a row
+//   at a time.  So a block's shared memory (106,816 B in bf16 and f16,
+//   90,176 B in float32) does not grow with D, and two blocks fit an SM.
+//   bf16 and f16 run both products on the tensor cores (mma.m16n8k16, the
+//   8 heads in N; p as a hi + lo pair, as decode_group's), float32
+//   register-blocked FMAs.  Rows that are not whole 16-byte chunks run
+//   decode_wide_narrow, the same block reading element by element.  The
+//   chunks' merge, decode_combine_wide, takes a column a thread.  Its block
+//   comment has the rest.
+//
 // A chunk that starts at or past the sequence's length writes an empty
 // partial (m = -inf, l = 0) and exits.  Length 0 keeps the Pallas result,
 // the mean of all S rows: every chunk then runs over its rows with scores
@@ -71,7 +87,9 @@
 //
 // Registers (ptxas, sm_90a): decode_group 80-185 a thread, no spills
 // (114 at 128 x 3 m-tiles, 96 at 256 x 1, 185 at 256 x 4); decode_split
-// as before (8 B of spills at bf16 x 120).
+// as before (8 B of spills at bf16 x 120); decode_wide 80 (bf16, f16) and
+// 111 (float32), decode_wide_narrow 127-128 (at the bound of two blocks an
+// SM), no spills.
 //
 // Head dims.  Each kernel is compiled at the widths 32, 64, 80, 120, 128
 // and 256 (the ported configs' and 32) for rows of exactly D elements, the
@@ -1101,41 +1119,184 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }
 
 // ------------------------------ decode_wide (head dims above 256, any dtype)
-constexpr int kWideHeads = 8;     // q heads a block (a batch of the group)
-constexpr int kWidePiece = 256;   // columns of q staged at a time
-constexpr int kWideChunk = 1024;  // most cache rows a block (ops.py WIDE_CHUNK)
+constexpr int kWideHeads = 8;      // q heads a block: the n8 of every product
+constexpr int kWidePiece = 64;     // columns of a k tile: q.k's piece
+constexpr int kWideSliceBytes = 512;  // bytes of a v tile row: p.v's output slice
+constexpr int kWideTile = 16384;   // bytes of a k or a v tile
+constexpr int kWideQBytes = 2048;  // a k stage's q piece (8 heads x 64 columns)
+constexpr int kWideStages = 4;     // the cp.async ring
+constexpr int kWideChunk = 512;    // most cache rows a block (ops.py WIDE_CHUNK)
+constexpr int kWideStage = kWideTile + kWideQBytes;
+
+// decode_wide<T>'s geometry.  A k tile is KR rows x kWidePiece columns and
+// a v tile VR rows x SL columns (kWideSliceBytes), 16 KB either way (bf16
+// and f16: 128 x 64 and 32 x 256; float32: 64 x 64 and 32 x 128), each 1,024
+// 16-byte chunks, four a thread.  Scores [row][head] in float32; in bf16
+// and f16 p's halves [head][row] in T, rows padded by 8 elements so a
+// fragment load's eight heads fall on eight bank groups.  A block's
+// dynamic shared memory (ops.py wide_smem_bytes): 106,816 B in bf16 and
+// f16 (the ring 73,728, scores 16,384, p 16,640, (m, l) 64), 90,176 B in
+// float32 (p overwrites the scores), so two blocks fit an SM.
+template <typename T>
+struct WideGeo {
+  static constexpr int E = 16 / sizeof(T);  // elements a chunk
+  static constexpr int KR = kWideTile / (kWidePiece * (int)sizeof(T));
+  static constexpr int KC = kWidePiece / E;  // chunks a k row
+  static constexpr int SL = kWideSliceBytes / (int)sizeof(T);  // p.v's slice
+  static constexpr int VR = kWideTile / kWideSliceBytes;
+  static constexpr int VC = kWideSliceBytes / 16;  // chunks a v row
+  static constexpr int PS = kWideChunk + 8;  // p elements a head (16-bit)
+  static constexpr int kScoreBytes = kWideChunk * kWideHeads * 4;
+  static constexpr int kPBytes = sizeof(T) == 2 ? 2 * kWideHeads * PS * 2 : 0;
+  static constexpr int kBytes =
+      kWideStages * kWideStage + kScoreBytes + kPBytes + 2 * kWideHeads * 4;
+  static_assert(KR * KC == 4 * kThreads && VR * VC == 4 * kThreads, "four chunks a thread");
+  static_assert(kWideHeads * kWidePiece * 4 <= kWideQBytes, "a q piece fits its stage");
+  static_assert(kWideChunk % KR == 0 && kWideChunk % VR == 0, "whole tiles a chunk");
+};
+
+// Byte offsets in a stage of chunk c of k row r, of v row r and of q head
+// h.  bf16, f16: the chunk XORs the row's (the head's) low three bits, so
+// the eight rows an ldmatrix reads fall on eight bank groups.  float32: a
+// quarter warp reads eight chunks of one k row, or four chunks of two v
+// rows, whose second row's chunks the XOR moves to the other 64 bytes.
+template <typename T>
+__device__ __forceinline__ int wide_k_off(int r, int c) {
+  if constexpr (sizeof(T) == 2) return r * 128 + (c ^ (r & 7)) * 16;
+  return r * 256 + c * 16;
+}
+template <typename T>
+__device__ __forceinline__ int wide_v_off(int r, int c) {
+  if constexpr (sizeof(T) == 2) return r * 512 + (c ^ (r & 7)) * 16;
+  return r * 512 + (c ^ ((r & 1) << 2)) * 16;
+}
+template <typename T>
+__device__ __forceinline__ int wide_q_off(int h, int c) {
+  if constexpr (sizeof(T) == 2) return h * 128 + (c ^ (h & 7)) * 16;
+  return h * 256 + c * 16;
+}
+
+// four 8 x 8 matrices of 16-bit elements, lanes 8j .. 8j + 7 addressing
+// matrix j's rows; .trans delivers them transposed
+__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                              uint32_t& r3, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// x[0 .. N) summed over the lanes that differ in the bits kMask, kMask / 2,
+// .. kStop of the lane index: a reduce-scatter.  At each bit a lane keeps
+// the half of its values that its bit names (the upper half where it is
+// set) and adds its partner's copy of that half, so x[0 .. N >> levels)
+// ends as the group's sums of values base .. base + (N >> levels) - 1,
+// base = N / 2 bit_kMask + N / 4 bit_(kMask / 2) + ..., in a fixed order.
+template <int M, int N, int kMask, int kStop>
+__device__ __forceinline__ void reduce_scatter(float (&x)[M], int lane) {
+  if constexpr (kMask >= kStop) {
+    constexpr int H = N / 2;
+    const bool up = lane & kMask;
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      const float send = up ? x[j] : x[j + H];
+      const float keep = up ? x[j + H] : x[j];
+      x[j] = keep + __shfl_xor_sync(0xffffffffu, send, kMask);
+    }
+    reduce_scatter<M, H, kMask / 2, kStop>(x, lane);
+  }
+}
+
+// decode_wide's narrow path, for rows that are not whole 16-byte chunks: a
+// tile of kRows rows x kCols columns, rows r0 .. and columns col0 .. of src
+// (a row every hd elements; rows at or past r1, and columns past hd, zero),
+// element by element through registers, each where the 16-byte path puts
+// it (kWhat: 0 a k tile, 1 a v tile, 2 q's piece, the heads its rows).  A
+// thread takes one column and every (256 / kCols)-th row, 16 loads in
+// flight at a time (32 spilled in 16-bit), neighbouring threads on
+// neighbouring columns, and none needs a division.
+template <typename T, int kRows, int kCols, int kWhat>
+__device__ __forceinline__ void wide_load_narrow(uint8_t* buf, const T* src, int r0, int col0,
+                                                 int r1, int hd, int tid) {
+  using B = typename BitsOf<sizeof(T)>::type;
+  constexpr int E = 16 / sizeof(T), kStep = kThreads / kCols;
+  constexpr int kN = kRows * kCols / kThreads;  // elements a thread
+  constexpr int kBatch = kN < 16 ? kN : 16;     // loads in flight
+  static_assert(kN * kThreads == kRows * kCols && kN % kBatch == 0, "whole rows a step");
+  const int e = tid % kCols, rr0 = tid / kCols, col = col0 + e;
+  const int c = e / E, sub = e % E * (int)sizeof(T);
+  const B* p = reinterpret_cast<const B*>(src) + (size_t)(r0 + rr0) * hd + col;
+#pragma unroll
+  for (int j0 = 0; j0 < kN; j0 += kBatch) {
+    B x[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      x[j] = col < hd && r0 + rr0 + kStep * (j0 + j) < r1 ? p[(size_t)(kStep * (j0 + j)) * hd]
+                                                          : B(0);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int rr = rr0 + kStep * (j0 + j);
+      const int off = kWhat == 0   ? wide_k_off<T>(rr, c)
+                      : kWhat == 1 ? wide_v_off<T>(rr, c)
+                                   : wide_q_off<T>(rr, c);
+      *reinterpret_cast<B*>(buf + off + sub) = x[j];
+    }
+  }
+}
 
 // Head dims above 256, in float32, bfloat16 and float16, any group and
-// ragged lengths.  Block (sequence and kv head, batch of up to 8 q heads of
-// the group, chunk) walks its chunk of at most 1,024 cache rows three times
-// over shared memory, so its shared memory does not depend on the head
-// dim: (1) the scores, a thread a cache row, q.k as a sum over pieces of
-// 256 columns (the batch's q piece staged in float32, 8 KB; the row's k
-// read as it is stored, 16 bytes at a time where rows are whole 16-byte
-// pieces, else element by element), accumulated piece by piece into the
-// chunk's scores (1,024 x 8 floats, 32 KB); (2) a warp a head: the scale,
-// -1e30 past the length (only at length 0, which walks every row), the
-// chunk's maximum m and p = exp(s - m) in place, and l = sum p; (3) p.v in
-// output slices of 256 columns, a thread a column, every row of the chunk
-// in order (v read once, coalesced across the threads).  Every product is
-// a float32 FMA (the cache element converted exactly), so the result keeps
-// float32 accuracy in every dtype.  A single chunk writes the output; more
-// write their partials (m, l, acc) and decode_combine_wide (a thread per
-// column, 256 columns at a time) merges them as decode_combine does.  The
-// cache is read as it is stored, each row's k and v once; q.k is on the
-// CUDA cores, which a long cache in bf16 does not notice (the bytes bound
-// it).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    decode_wide(const T* __restrict__ q, const T* __restrict__ k_cache,
-                const T* __restrict__ v_cache, const int* __restrict__ lengths,
-                T* __restrict__ out, float* __restrict__ part_acc,
-                float* __restrict__ part_ml, int n_kv_heads, int group,
-                int seq_len, int chunk, float scale, int hd) {
-  constexpr int H = kWideHeads, E = 16 / (int)sizeof(T);
-  __shared__ __align__(16) float sQ[H * kWidePiece];  // the batch's q piece
-  __shared__ __align__(16) float sS[kWideChunk * H];  // scores, then p
-  __shared__ float sM[H], sL[H];
+// ragged lengths.  Block (sequence and kv head, batch of up to 8 q heads
+// of the group, chunk of at most 512 cache rows) streams its chunk's k,
+// then its v, through a ring of kWideStages cp.async stages of 16 KB
+// tiles, with one block barrier a tile; its shared memory does not depend
+// on the head dim.  Tiles in order: k by row tile and, inside a row tile,
+// by 64-column piece (each k stage carries the batch's q piece, from L2),
+// so a row tile's scores are whole after its last piece; then v by output
+// slice of 512 bytes a row (256 columns in bf16 and f16, 128 in float32)
+// and, inside a slice, by row tile.  The first v tiles are in flight while
+// the softmax runs.  bf16, f16: q.k is mma.m16n8k16 in the operands' own
+// type with the tile's rows in M and the 8 heads in N (warp w: rows 16w ..
+// 16w + 15 of a 128-row tile, k by ldmatrix, q's fragments by ldmatrix
+// from the stage); p.v is mma.m16n8k16 with the slice's columns in M (warp
+// w: 32 of them, two m-tiles, v by ldmatrix.trans) and the heads in N, p
+// as the pair hi + lo in T (float16: p 2^15, scaled back after), two
+// products into float32 accumulators.  With the heads in N, GQA's group of
+// 8 fills each product, where 16 heads in M would have padded half of
+// every product and doubled the scores and p in shared memory.  float32:
+// FMAs, register-blocked.  q.k: a lane takes 4 rows x 4 columns of the
+// tile, so each q load (one LDS.128: 4 columns of a head) serves 4 rows;
+// 16 lanes share a row's piece, and their 32 partial scores (4 rows x 8
+// heads) add up across the pieces of the row tile and then across the
+// lanes (reduce_scatter).  p.v: a lane takes 4 rows x 4 columns, so one v
+// load and two p loads (8 heads) serve 32 FMAs; 8 lanes share a column
+// set, summed at the slice's end.  Between the passes a warp a head: the
+// scale, -1e30 past the length (only at length 0, which walks every row),
+// the chunk's maximum, p = exp(s - m) and l.  A single chunk writes the
+// output; more write their partials and decode_combine_wide merges them.
+// kVec: rows of whole 16-byte chunks, by cp.async; else wide_load_narrow.
+template <typename T, bool kVec>
+__device__ __forceinline__ void decode_wide_block(
+    const T* __restrict__ q, const T* __restrict__ k_cache, const T* __restrict__ v_cache,
+    const int* __restrict__ lengths, T* __restrict__ out, float* __restrict__ part_acc,
+    float* __restrict__ part_ml, int n_kv_heads, int group, int seq_len, int chunk,
+    float scale, int hd) {
+  using G = WideGeo<T>;
+  constexpr int H = kWideHeads, E = G::E;
+  constexpr bool kMma = sizeof(T) == 2;
+  // float16: p is split at 2^15 times itself, o scaled back (decode_group's)
+  constexpr float kPScale = kIsHalf<T> ? 32768.0f : 1.0f;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* sS = reinterpret_cast<float*>(smem + kWideStages * kWideStage);  // [row][head]
+  T* sPh = reinterpret_cast<T*>(reinterpret_cast<uint8_t*>(sS) + G::kScoreBytes);
+  T* sPl = sPh + H * G::PS;
+  float* sM = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(sPh) + G::kPBytes);
+  float* sL = sM + H;
+
   const int batches = (group + H - 1) / H;
   const int bk = blockIdx.x / batches, hb = blockIdx.x % batches;
   const int hn = min(H, group - hb * H);  // this block's heads
@@ -1152,113 +1313,301 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
   const int rows = c1 - c0;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
   const T* kp = k_cache + (size_t)bk * seq_len * hd;
   const T* vp = v_cache + (size_t)bk * seq_len * hd;
-  const bool vec = hd * (int)sizeof(T) % 16 == 0;
+  const T* qp = q + (size_t)head0 * hd;
+  const uint32_t smem_s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n_pieces = (hd + kWidePiece - 1) / kWidePiece;
+  const int n_slices = (hd + G::SL - 1) / G::SL;
+  const int k_tiles = (rows + G::KR - 1) / G::KR;
+  const int v_tiles = (rows + G::VR - 1) / G::VR;
+  const int tiles_k = k_tiles * n_pieces;  // the k pass; then the v pass
+  const int tiles = tiles_k + n_slices * v_tiles;
 
-  // (1) scores, piece by piece
-  for (int i = threadIdx.x; i < rows * H; i += kThreads) sS[i] = 0.0f;
-  for (int col0 = 0; col0 < hd; col0 += kWidePiece) {
-    const int cn = min(kWidePiece, hd - col0);
-    __syncthreads();  // the last piece is used (and the scores zeroed)
-    for (int i = threadIdx.x; i < H * kWidePiece; i += kThreads) {
-      const int h = i / kWidePiece, c = i % kWidePiece;
-      sQ[i] = h < hn && c < cn ? to_f32(q[(size_t)(head0 + h) * hd + col0 + c]) : 0.0f;
+  // tile i into stage st: rows at or past c1, and columns past hd, zero
+  auto load_tile = [&](int i, int st) {
+    const bool kpass = i < tiles_k;
+    const int rt = kpass ? i / n_pieces : (i - tiles_k) % v_tiles;
+    const int col0 = kpass ? (i % n_pieces) * kWidePiece : (i - tiles_k) / v_tiles * G::SL;
+    const int r0 = c0 + rt * (kpass ? G::KR : G::VR);
+    const T* src = kpass ? kp : vp;
+    if constexpr (kVec) {
+      const int cpr = kpass ? G::KC : G::VC;  // chunks a row
+      const uint32_t buf_s = smem_s + st * kWideStage;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int x = tid + j * kThreads, rr = x / cpr, c = x % cpr;
+        const int row = r0 + rr, col = col0 + c * E;
+        const bool valid = row < c1 && col < hd;
+        cp_async16(buf_s + (kpass ? wide_k_off<T>(rr, c) : wide_v_off<T>(rr, c)),
+                   valid ? src + (size_t)row * hd + col : src, valid);
+      }
+      if (kpass && tid < H * G::KC) {
+        const int h = tid / G::KC, c = tid % G::KC, col = col0 + c * E;
+        const bool valid = h < hn && col < hd;
+        cp_async16(buf_s + kWideTile + wide_q_off<T>(h, c),
+                   valid ? qp + (size_t)h * hd + col : qp, valid);
+      }
+    } else {
+      uint8_t* buf = smem + st * kWideStage;
+      if (kpass) {
+        wide_load_narrow<T, G::KR, kWidePiece, 0>(buf, src, r0, col0, c1, hd, tid);
+        wide_load_narrow<T, H, kWidePiece, 2>(buf + kWideTile, qp, 0, col0, hn, hd, tid);
+      } else {
+        wide_load_narrow<T, G::VR, G::SL, 1>(buf, src, r0, col0, c1, hd, tid);
+      }
     }
+  };
+
+  // wait for tile i, then issue tile i + kWideStages - 1 into the stage
+  // tile i - 1 used (the barrier frees it); returns tile i's stage offset
+  auto next = [&](int i) {
+    asm volatile("cp.async.wait_group %0;" ::"n"(kWideStages - 2) : "memory");
     __syncthreads();
-    for (int r = threadIdx.x; r < rows; r += kThreads) {
-      const T* kr = kp + (size_t)(c0 + r) * hd + col0;
-      float acc[H];
+    if (i + kWideStages - 1 < tiles)
+      load_tile(i + kWideStages - 1, (i + kWideStages - 1) % kWideStages);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    return (i % kWideStages) * kWideStage;
+  };
 #pragma unroll
-      for (int h = 0; h < H; ++h) acc[h] = 0.0f;
-      if (vec) {  // cn is a multiple of E: the row and the piece are whole 16-byte pieces
-        for (int c = 0; c < cn; c += E) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(kr + c);
-          const T* e = reinterpret_cast<const T*>(&raw);
+  for (int s = 0; s < kWideStages - 1; ++s) {
+    if (s < tiles) load_tile(s, s);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+
+  // ------------------------------------------------------------ q.k
+  {
+    // bf16, f16: this warp's m16n8 tile of scores; float32: 4 rows x 8
+    // heads over this lane's columns
+    float sc[kMma ? 4 : 32];
+    for (int i = 0; i < tiles_k; ++i) {
+      const int off = next(i);
+      const int rt = i / n_pieces, piece = i % n_pieces;
+      if (piece == 0) {
 #pragma unroll
-          for (int x = 0; x < E; ++x) {
-            const float kx = to_f32(e[x]);
+        for (int e = 0; e < (kMma ? 4 : 32); ++e) sc[e] = 0.0f;
+      }
+      if constexpr (kMma) {
+        const uint32_t buf_s = smem_s + off;
+        // q's B fragments for the piece's 4 k-steps: heads 0-7 x 8 columns
+        uint32_t qf[8];
+        {
+          const int j = lane / 8, h = lane % 8;
+          ldsm_x4(qf[0], qf[1], qf[2], qf[3], buf_s + kWideTile + wide_q_off<T>(h, j));
+          ldsm_x4(qf[4], qf[5], qf[6], qf[7], buf_s + kWideTile + wide_q_off<T>(h, 4 + j));
+        }
+        const int kr = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);  // this lane's k row
 #pragma unroll
-            for (int h = 0; h < H; ++h) acc[h] = fmaf(sQ[h * kWidePiece + c + x], kx, acc[h]);
+        for (int ks = 0; ks < 4; ++ks) {
+          uint32_t a[4];
+          ldsm_x4(a[0], a[1], a[2], a[3], buf_s + wide_k_off<T>(kr, 2 * ks + (lane >> 4)));
+          mma_16816<T>(sc, a[0], a[1], a[2], a[3], qf[2 * ks], qf[2 * ks + 1]);
+        }
+        if (piece == n_pieces - 1) {  // the row tile's scores, scaled and masked
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int r = rt * G::KR + 16 * warp + g + 8 * hh;
+            if (r < rows) {
+              const bool pad = c0 + r >= len;  // only at length 0
+              *reinterpret_cast<float2*>(sS + r * H + 2 * t) =
+                  make_float2(pad ? kNegInf : sc[2 * hh] * scale,
+                              pad ? kNegInf : sc[2 * hh + 1] * scale);
+            }
           }
         }
       } else {
-        for (int c = 0; c < cn; ++c) {
-          const float kx = to_f32(kr[c]);
+        // float32: rows 8w + 4 (lane / 16) + 0..3, columns 4 (lane % 16) + 0..3
+        const uint8_t* buf = smem + off;
+        const int cp = lane % 16, r0 = 8 * warp + 4 * (lane / 16);
+        float4 kv[4];
 #pragma unroll
-          for (int h = 0; h < H; ++h) acc[h] = fmaf(sQ[h * kWidePiece + c], kx, acc[h]);
+        for (int x = 0; x < 4; ++x)
+          kv[x] = *reinterpret_cast<const float4*>(buf + wide_k_off<T>(r0 + x, cp));
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(buf + kWideTile + wide_q_off<T>(h, cp));
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            float d = sc[x * H + h];
+            d = fmaf(qv.x, kv[x].x, d);
+            d = fmaf(qv.y, kv[x].y, d);
+            d = fmaf(qv.z, kv[x].z, d);
+            d = fmaf(qv.w, kv[x].w, d);
+            sc[x * H + h] = d;
+          }
+        }
+        if (piece == n_pieces - 1) {
+          // summed over the row's 16 lanes: lane cp keeps row cp / 4 of its
+          // four, heads 2 (cp % 4) and 2 (cp % 4) + 1
+          reduce_scatter<32, 32, 8, 1>(sc, lane);
+          const int r = rt * G::KR + r0 + cp / 4;
+          if (r < rows) {
+            const bool pad = c0 + r >= len;  // only at length 0
+            *reinterpret_cast<float2*>(sS + r * H + 2 * (cp % 4)) =
+                make_float2(pad ? kNegInf : sc[0] * scale, pad ? kNegInf : sc[1] * scale);
+          }
+        }
+      }
+    }
+  }
+
+  // ------------------------------------------------------------ p.v
+  // bf16, f16: 32 columns x 8 heads of the slice (two m16n8 C tiles);
+  // float32: 4 columns x 8 heads over this lane's rows
+  float acc[kMma ? 8 : 32];
+  for (int i = tiles_k; i < tiles; ++i) {
+    const int off = next(i);
+    if (i == tiles_k) {
+      // the chunk's scores are in (and the first v tiles in flight): a
+      // warp a head takes the softmax
+      const int h = warp;
+      float m = -INFINITY;
+      for (int r = lane; r < rows; r += 32) m = fmaxf(m, sS[r * H + h]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      float l = 0.0f;
+      for (int r = lane; r < v_tiles * G::VR; r += 32) {
+        const float p = r < rows ? expf(sS[r * H + h] - m) : 0.0f;  // 0 past the chunk
+        l += p;
+        if constexpr (kMma) {
+          const float ps = p * kPScale;  // exact: a power of two
+          const T hi = round_to<T>(ps);
+          sPh[h * G::PS + r] = hi;
+          sPl[h * G::PS + r] = round_to<T>(ps - to_f32(hi));
+        } else {
+          sS[r * H + h] = p;
         }
       }
 #pragma unroll
-      for (int h = 0; h < H; ++h) sS[r * H + h] += acc[h];
+      for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+      if (lane == 0) {
+        sM[h] = m;
+        sL[h] = l;
+      }
+      __syncthreads();
+    }
+    const int slice = (i - tiles_k) / v_tiles, rt = (i - tiles_k) % v_tiles;
+    const int col0 = slice * G::SL;
+    if (rt == 0) {
+#pragma unroll
+      for (int e = 0; e < (kMma ? 8 : 32); ++e) acc[e] = 0.0f;
+    }
+    int col[4];  // this lane's output columns (float32: one)
+    int hcol;    // and the first of its heads at each
+    if constexpr (kMma) {
+      const uint32_t buf_s = smem_s + off;
+      const int j = lane / 8, x = lane % 8;
+      const uint32_t ph = static_cast<uint32_t>(__cvta_generic_to_shared(sPh));
+      const uint32_t pl = static_cast<uint32_t>(__cvta_generic_to_shared(sPl));
+#pragma unroll
+      for (int ks = 0; ks < G::VR / 16; ++ks) {
+        // p (16 rows x 8 heads) as B, hi and lo
+        uint32_t b[4];
+        const int pr = rt * G::VR + 16 * ks + 8 * (j & 1);  // the matrix's first cache row
+        ldsm_x4(b[0], b[1], b[2], b[3], ((j >> 1) ? pl : ph) + (x * G::PS + pr) * 2);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          // v^T (16 columns x 16 rows) as A: columns 32 w + 16 mt ..
+          uint32_t a[4];
+          ldsm_x4_trans(a[0], a[1], a[2], a[3],
+                        buf_s + wide_v_off<T>(16 * ks + x + 8 * (j >> 1),
+                                              4 * warp + 2 * mt + (j & 1)));
+          float (&d)[4] = *reinterpret_cast<float(*)[4]>(acc + 4 * mt);
+          mma_16816<T>(d, a[0], a[1], a[2], a[3], b[0], b[1]);  // hi . v
+          mma_16816<T>(d, a[0], a[1], a[2], a[3], b[2], b[3]);  // lo . v
+        }
+      }
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) col[cc] = col0 + 32 * warp + 8 * cc + g;
+      hcol = 2 * t;
+    } else {
+      // float32: rows rs + 8 x of the tile, columns 16 w + 4 cg + 0..3
+      const uint8_t* buf = smem + off;
+      const int cg = lane % 4, rs = lane / 4;
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int rr = rs + 8 * x;
+        const float4 vv =
+            *reinterpret_cast<const float4*>(buf + wide_v_off<T>(rr, 4 * warp + cg));
+        const float* prow = sS + (rt * G::VR + rr) * H;
+        const float4 pa = *reinterpret_cast<const float4*>(prow);
+        const float4 pb = *reinterpret_cast<const float4*>(prow + 4);
+        const float pr[H] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+        const float vc[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int h = 0; h < H; ++h) acc[c * H + h] = fmaf(pr[h], vc[c], acc[c * H + h]);
+      }
+      // after the sum over the column's 8 lanes: column 4 cg + rs / 2 of
+      // the warp's 16, heads 4 (rs % 2) .. + 3
+      col[0] = col[1] = col0 + 16 * warp + 4 * cg + rs / 2;
+      hcol = 4 * (rs % 2);
+    }
+    if (rt == v_tiles - 1) {  // the slice's last row tile: write it out
+      if constexpr (!kMma) reduce_scatter<32, 32, 16, 4>(acc, lane);
+      constexpr int kPer = kMma ? 2 : 4;  // heads a column a lane
+#pragma unroll
+      for (int cc = 0; cc < (kMma ? 4 : 1); ++cc) {
+        if (col[cc] >= hd) continue;
+#pragma unroll
+        for (int e = 0; e < kPer; ++e) {
+          const int h = hcol + e;
+          if (h >= hn) continue;
+          const float a = acc[cc * kPer + e] * (1.0f / kPScale);  // exact
+          const size_t qh = (size_t)(head0 + h);
+          if (n_splits == 1)
+            store(out + qh * hd + col[cc], a / fmaxf(sL[h], 1e-30f));
+          else
+            part_acc[(qh * n_splits + split) * hd + col[cc]] = a;
+        }
+      }
     }
   }
-  __syncthreads();
-
-  // (2) a warp a head: scale, mask, maximum, p and l
-  {
-    const int h = warp;
-    float m = -INFINITY;
-    for (int r = lane; r < rows; r += 32) {
-      const float x = c0 + r >= len ? kNegInf : sS[r * H + h] * scale;  // only at length 0
-      sS[r * H + h] = x;
-      m = fmaxf(m, x);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float l = 0.0f;
-    for (int r = lane; r < rows; r += 32) {
-      const float p = expf(sS[r * H + h] - m);
-      sS[r * H + h] = p;
-      l += p;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
-    if (lane == 0) {
-      sM[h] = m;
-      sL[h] = l;
-    }
-  }
-  __syncthreads();
-
-  // (3) p.v, a thread a column of a 256-column slice
-  for (int c = threadIdx.x; c < hd; c += kThreads) {
-    float acc[H];
-#pragma unroll
-    for (int h = 0; h < H; ++h) acc[h] = 0.0f;
-    const T* vc = vp + (size_t)c0 * hd + c;
-#pragma unroll 4
-    for (int r = 0; r < rows; ++r) {
-      const float vx = to_f32(vc[(size_t)r * hd]);
-      const float4 pa = *reinterpret_cast<const float4*>(sS + r * H);
-      const float4 pb = *reinterpret_cast<const float4*>(sS + r * H + 4);
-      const float pr[H] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
-#pragma unroll
-      for (int h = 0; h < H; ++h) acc[h] = fmaf(pr[h], vx, acc[h]);
-    }
-#pragma unroll
-    for (int h = 0; h < H; ++h) {
-      if (h >= hn) break;
-      const size_t qh = (size_t)(head0 + h);
-      if (n_splits == 1)
-        store(out + qh * hd + c, acc[h] / fmaxf(sL[h], 1e-30f));
-      else
-        part_acc[(qh * n_splits + split) * hd + c] = acc[h];
-    }
-  }
-  if (n_splits > 1 && threadIdx.x < hn) {
-    const size_t qh = (size_t)(head0 + threadIdx.x);
-    part_ml[(qh * n_splits + split) * 2] = sM[threadIdx.x];
-    part_ml[(qh * n_splits + split) * 2 + 1] = sL[threadIdx.x];
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  if (n_splits > 1 && tid < hn) {
+    const size_t qh = (size_t)(head0 + tid);
+    part_ml[(qh * n_splits + split) * 2] = sM[tid];
+    part_ml[(qh * n_splits + split) * 2 + 1] = sL[tid];
   }
 }
 
-// decode_combine for head dims above 256: a block a q head, its first warp
-// reads every chunk's (m, l) as decode_combine's does, then a thread a
-// column, 256 columns at a time, sums the chunks in order.
+// rows of whole 16-byte chunks (hd a multiple of 16 / sizeof(T)): cp.async
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
+    decode_wide(const T* __restrict__ q, const T* __restrict__ k_cache,
+                const T* __restrict__ v_cache, const int* __restrict__ lengths,
+                T* __restrict__ out, float* __restrict__ part_acc,
+                float* __restrict__ part_ml, int n_kv_heads, int group,
+                int seq_len, int chunk, float scale, int hd) {
+  decode_wide_block<T, true>(q, k_cache, v_cache, lengths, out, part_acc, part_ml, n_kv_heads,
+                             group, seq_len, chunk, scale, hd);
+}
+
+// other rows: the narrow path (a kernel of its own, so that its registers
+// do not raise decode_wide's)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    decode_wide_narrow(const T* __restrict__ q, const T* __restrict__ k_cache,
+                       const T* __restrict__ v_cache, const int* __restrict__ lengths,
+                       T* __restrict__ out, float* __restrict__ part_acc,
+                       float* __restrict__ part_ml, int n_kv_heads, int group,
+                       int seq_len, int chunk, float scale, int hd) {
+  decode_wide_block<T, false>(q, k_cache, v_cache, lengths, out, part_acc, part_ml, n_kv_heads,
+                              group, seq_len, chunk, scale, hd);
+}
+
+// decode_combine for head dims above 256: a block a q head and
+// kCombineCols of its columns, so that every column's chunks are summed by
+// a thread of its own with all of its loads in flight; its first warp
+// reads every chunk's (m, l) as decode_combine's does, then each thread
+// sums its column's chunks in order.
+constexpr int kCombineCols = 128;
+template <typename T>
+__global__ void __launch_bounds__(kCombineCols)
     decode_combine_wide(const float* __restrict__ part_acc,
                         const float* __restrict__ part_ml, T* __restrict__ out,
                         int n_splits, int hd) {
@@ -1277,19 +1626,19 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < hd; c += kThreads) {
-    const float* acc = part_acc + qh * n_splits * hd + c;
-    float num = 0.0f, den = 0.0f;
-#pragma unroll 8
-    for (int s = 0; s < n_splits; ++s) {
-      const float w = sW[s], a = acc[(size_t)s * hd];
-      if (w != 0.0f) {
-        den = fmaf(w, sW[n_splits + s], den);
-        num = fmaf(w, a, num);
-      }
+  const int c = blockIdx.y * kCombineCols + threadIdx.x;
+  if (c >= hd) return;
+  const float* acc = part_acc + qh * n_splits * hd + c;
+  float num = 0.0f, den = 0.0f;
+#pragma unroll 16
+  for (int s = 0; s < n_splits; ++s) {
+    const float w = sW[s], a = acc[(size_t)s * hd];
+    if (w != 0.0f) {
+      den = fmaf(w, sW[n_splits + s], den);
+      num = fmaf(w, a, num);
     }
-    store(out + qh * hd + c, num / fmaxf(den, 1e-30f));
   }
+  store(out + qh * hd + c, num / fmaxf(den, 1e-30f));
 }
 
 template <typename T>
@@ -1299,15 +1648,26 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v,
                         int seq_len, int n_splits, int chunk, float scale, int hd,
                         cudaStream_t stream) {
   if (chunk > kWideChunk) return cudaErrorInvalidValue;
+  static bool configured = false;  // the attribute is per function
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        decode_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, WideGeo<T>::kBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(decode_wide_narrow<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, WideGeo<T>::kBytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
   const dim3 grid(n_seqs * n_kv_heads * ((group + kWideHeads - 1) / kWideHeads), n_splits);
-  decode_wide<T><<<grid, kThreads, 0, stream>>>(
+  auto kernel = hd % (16 / (int)sizeof(T)) == 0 ? decode_wide<T> : decode_wide_narrow<T>;
+  kernel<<<grid, kThreads, WideGeo<T>::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(out), part_acc,
       part_ml, n_kv_heads, group, seq_len, chunk, scale, hd);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 1) return err;
-  decode_combine_wide<T><<<n_seqs * n_kv_heads * group, kThreads,
-                           2 * n_splits * sizeof(float), stream>>>(
+  const dim3 merge(n_seqs * n_kv_heads * group, (hd + kCombineCols - 1) / kCombineCols);
+  decode_combine_wide<T><<<merge, kCombineCols, 2 * n_splits * sizeof(float), stream>>>(
       part_acc, part_ml, static_cast<T*>(out), n_splits, hd);
   return cudaGetLastError();
 }
@@ -1341,7 +1701,8 @@ cudaError_t launch_d(int hd, const void* q, const void* k, const void* v,
 // and float16 groups above 8, then decode_combine when n_splits > 1) and
 // returns cudaGetLastError() (0 on success).  Does not synchronise.
 // dtype: 0 float32, 1 bfloat16, 2 float16; any other code is refused.
-// head_dim: any >= 1 (decode_wide above 256, chunk at most 1,024 rows);
+// head_dim: any >= 1 (decode_wide or decode_wide_narrow above 256, then
+// decode_combine_wide; chunk at most 512 rows);
 // any group >= 1.  q and out hold n_seqs * n_kv_heads
 // * group rows of head_dim, lengths one int32 per sequence, the caches
 // n_seqs * n_kv_heads * seq_len rows.

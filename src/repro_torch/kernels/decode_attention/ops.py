@@ -28,12 +28,20 @@ HEAD_DIMS = (32, 64, 80, 120, 128, 256)
 ANY_WIDTHS = (32, 64, 128, 256)
 
 #: head dims above this run ``decode_wide``: a block a batch of at most
-#: WIDE_HEADS q heads and a chunk of at most WIDE_CHUNK cache rows, q.k as
-#: a sum over pieces of WIDE_PIECE columns, p.v a thread a column
+#: WIDE_HEADS q heads (the n8 of its products) and a chunk of at most
+#: WIDE_CHUNK cache rows, streamed through a ring of WIDE_STAGES cp.async
+#: stages of WIDE_TILE-byte tiles: k tiles of WIDE_PIECE columns (q.k summed
+#: over the pieces), then v tiles of WIDE_SLICE_BYTES a row (p.v's output
+#: slices, ``wide_slice``); each k stage also holds the batch's q piece
+#: (WIDE_Q_BYTES)
 WIDE_ABOVE = 256
 WIDE_HEADS = 8
-WIDE_CHUNK = 1024
-WIDE_PIECE = 256
+WIDE_CHUNK = 512
+WIDE_PIECE = 64
+WIDE_SLICE_BYTES = 512
+WIDE_TILE = 16384
+WIDE_Q_BYTES = 2048
+WIDE_STAGES = 4
 
 #: cache rows a chunk is a multiple of (the kernel's bf16 tile)
 CHUNK_ALIGN = 64
@@ -109,9 +117,11 @@ def decode_kernel(dtype: torch.dtype, group: int, head_dim: int) -> str:
     MT m-tiles of 16 heads of a slice), else ``decode_split<T, D>``; D is
     the compiled width (``width``), and a head dim that is not one of
     HEAD_DIMS runs the ``_any`` kernel (``decode_split_any<T, D>``); a head
-    dim above WIDE_ABOVE runs ``decode_wide<T>``."""
+    dim above WIDE_ABOVE runs ``decode_wide<T>``, or ``decode_wide_narrow<T>``
+    where a row's bytes are not a multiple of 16."""
     if head_dim > WIDE_ABOVE:
-        return f"decode_wide<{_SHORT[dtype]}>"
+        narrow = "_narrow" if head_dim * dtype.itemsize % 16 else ""
+        return f"decode_wide{narrow}<{_SHORT[dtype]}>"
     w = width(head_dim)
     any_ = "" if head_dim in HEAD_DIMS else "_any"
     if dtype != torch.float32 and group > NARROW_GROUP:
@@ -133,8 +143,9 @@ def split_plan(s: int, n_blocks: int, sms: int, group: int = 1, head_dim: int = 
     no second), chunks a multiple of GROUP_ROWS rows, and the float32
     partials of all heads, written and read, at most the cache's bytes.
     decode_wide (head dims above WIDE_ABOVE): a block a batch of
-    WIDE_HEADS q heads, about two blocks an SM, chunks a multiple of
-    CHUNK_ALIGN rows and at most WIDE_CHUNK (its scores stay in shared
+    WIDE_HEADS q heads, about two blocks an SM (its shared memory,
+    ``wide_smem_bytes``, allows two), chunks a multiple of CHUNK_ALIGN rows
+    and at most WIDE_CHUNK (the chunk's scores and p stay in shared
     memory)."""
     if head_dim > WIDE_ABOVE:
         n_blocks *= -(-group // WIDE_HEADS)
@@ -162,11 +173,30 @@ def partial_bytes(b: int, h: int, head_dim: int, n_splits: int) -> int:
     return b * h * n_splits * (head_dim + 2) * 4 if n_splits > 1 else 0
 
 
-def wide_smem_bytes() -> int:
-    """The shared memory of a ``decode_wide`` block, at every head dim: the
-    batch's q piece in float32, the chunk's scores (WIDE_CHUNK rows x
-    WIDE_HEADS) and each head's (m, l)."""
-    return (WIDE_HEADS * WIDE_PIECE + WIDE_CHUNK * WIDE_HEADS + 2 * WIDE_HEADS) * 4
+def wide_slice(dtype: torch.dtype) -> int:
+    """The output columns of a ``decode_wide`` p.v slice in ``dtype``, a v
+    tile's width: WIDE_SLICE_BYTES of a row (bf16 and float16 256, float32
+    128)."""
+    return WIDE_SLICE_BYTES // dtype.itemsize
+
+
+def wide_tile_rows(dtype: torch.dtype) -> Tuple[int, int]:
+    """The cache rows of a ``decode_wide`` k tile and of a v tile in
+    ``dtype``: WIDE_TILE bytes of WIDE_PIECE columns and of
+    WIDE_SLICE_BYTES (bf16 and float16 128 and 32, float32 64 and 32)."""
+    return WIDE_TILE // (WIDE_PIECE * dtype.itemsize), WIDE_TILE // WIDE_SLICE_BYTES
+
+
+def wide_smem_bytes(dtype: torch.dtype) -> int:
+    """The dynamic shared memory of a ``decode_wide`` block in ``dtype``,
+    at every head dim: the ring (WIDE_STAGES stages of a tile and a q
+    piece), the chunk's float32 scores (WIDE_CHUNK rows x WIDE_HEADS; in
+    float32 p overwrites them), in bf16 and float16 p's hi and lo halves
+    (WIDE_HEADS rows of WIDE_CHUNK + 8 elements each), and each head's
+    (m, l)."""
+    ring = WIDE_STAGES * (WIDE_TILE + WIDE_Q_BYTES)
+    p = 2 * WIDE_HEADS * (WIDE_CHUNK + 8) * 2 if dtype != torch.float32 else 0
+    return ring + WIDE_CHUNK * WIDE_HEADS * 4 + p + 2 * WIDE_HEADS * 4
 
 
 def _check_cuda(q, k_cache, v_cache, lengths) -> None:

@@ -47,3 +47,20 @@ def test_the_float32_rows_are_chip_smokes():
     for name in ("cs.FLOAT32_ARCHS", "cs.D32_HEADS", "fops.kernel_name(dtype, d)",
                  "dops.decode_kernel(dtype, h // hkv, d)"):
         assert name in text
+
+
+def test_the_wide_decode_rows_are_chip_smokes():
+    """decode_wide's timed rows: 32/4 x WIDE_TIMED_DIM in all three dtypes,
+    one whose last 128-column slice is partial (576) and one whose rows are
+    not whole 16-byte pieces (515 bf16 elements), every one above head dim
+    256 at B = 4; the script reads them from chip_smoke, keeps them under
+    ``--only wide`` and prints decode_wide's SASS counts (HMMA among them)."""
+    rows = chip_smoke.WIDE_TIMED_DECODE
+    assert {name for h, hkv, d, name in rows if (h, hkv, d) == (32, 4, chip_smoke.WIDE_TIMED_DIM)} \
+        == {"bfloat16", "float16", "float32"}
+    assert all(d > 256 and h % hkv == 0 for h, hkv, d, _ in rows)
+    assert any(d % 128 for _, _, d, name in rows if d * 2 % 16 == 0)
+    assert any(d * 2 % 16 for _, _, d, name in rows if name != "float32")
+    text = (ROOT / "tools" / "time_attention.py").read_text()
+    for name in ("cs.WIDE_TIMED_DECODE", 'f"wide decode', 'r"decode_wide"', '"HMMA"'):
+        assert name in text

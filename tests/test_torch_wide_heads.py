@@ -16,8 +16,10 @@ card).  Here:
   and summed, on wgmma in bf16 and float16 (64-key tiles, the lazy
   maximum, p as a hi + lo pair) and split-TF32 in float32 (32-key tiles,
   16-row warps, three products a pair); decode's chunks of
-  ``split_plan``, q.k summed over 256-column pieces, a softmax a chunk and
-  the combine, at lengths 0, 1, a chunk edge and S;
+  ``split_plan`` (at most 512 rows), q.k summed over 64-column pieces, a
+  softmax a chunk, p.v in slices of 512 bytes a row (bf16 and float16: p
+  as a hi + lo pair, float16 at 2^15) and the combine, at lengths 0, 1,
+  tile and chunk edges and S;
 * the plans without a card: both wide kernels' shared memory within the
   227 KB a block may use at every head dim from 257 to 1,024 (it does not
   depend on the head dim), every output column in exactly one group, and
@@ -48,6 +50,8 @@ torch.set_num_threads(1)  # small tensors: extra threads only contend
 H100_SMS = 132
 #: shared memory a block may use on the H100 (232,448 of the SM's 256 KB)
 SMEM_LIMIT = 232_448
+#: and an SM's blocks together (228 KB)
+SM_SMEM = 233_472
 WIDE_DIMS = (257, 320, 576)
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16),
@@ -224,18 +228,28 @@ def test_flash_wide_plan_meets_the_rules(name, d, s, causal, window, rng):
     assert within_rule(got, as_torch(want, qt.dtype))
 
 
-def emulate_decode_wide(q, k_cache, v_cache, lengths, sms=H100_SMS):
+def emulate_decode_wide(q, k_cache, v_cache, lengths, sms=H100_SMS, split_p=True):
     """decode_wide's plan and arithmetic on the CPU: the chunks of
-    split_plan; in each, the scores summed over 256-column pieces, the
-    scale, -1e30 past the length (only at length 0, which walks every
-    row), the chunk's maximum, p and l, and p.v in float32; the chunks
-    combined as decode_combine_wide does (a single chunk is the output)."""
+    split_plan (at most 512 rows); in each, the batch's scores summed over
+    the 64-column pieces of each k row tile, the scale, -1e30 past the
+    length (only at length 0, which walks every row), the chunk's maximum,
+    p and l in float32; p.v a slice at a time (``wide_slice``: 256 columns
+    in bf16 and float16, 128 in float32) over the v row tiles: float32 p
+    and v in float32, bf16 and float16 p as the pair
+    hi = round(p s) + lo = round(p s - hi) in q's dtype (s = 2^15 in
+    float16, 1 in bf16) against v, both products into float32 and scaled
+    back by 1 / s; the chunks combined as decode_combine_wide does (a
+    single chunk is the output).  ``split_p=False``: p rounded once to q's
+    dtype instead (the negative control)."""
     b, h, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     group = h // hkv
     n_splits, chunk = decode_ops.split_plan(s, b * hkv, sms, group, d, q.dtype)
     assert chunk <= cu_int(DECODE_CU, "kWideChunk") and chunk % 64 == 0
-    piece = cu_int(DECODE_CU, "kWidePiece")
+    piece, cols = cu_int(DECODE_CU, "kWidePiece"), decode_ops.wide_slice(q.dtype)
+    kr, vr = decode_ops.wide_tile_rows(q.dtype)
+    f32 = q.dtype == torch.float32
+    pscale = 32768.0 if q.dtype == torch.float16 else 1.0
     scale = 1.0 / d ** 0.5
     qf = q.to(torch.float32).reshape(b, hkv, group, d)
     kf, vf = k_cache.to(torch.float32), v_cache.to(torch.float32)
@@ -249,15 +263,32 @@ def emulate_decode_wide(q, k_cache, v_cache, lengths, sms=H100_SMS):
                 continue  # an empty partial: weight 0
             c1 = min(c0 + chunk, n)
             sc = torch.zeros(hkv, group, c1 - c0)
-            for p0 in range(0, d, piece):
-                sc = sc + qf[bi, :, :, p0:p0 + piece] @ kf[bi, :, c0:c1, p0:p0 + piece].transpose(1, 2)
+            for r0 in range(c0, c1, kr):  # a k row tile, its pieces in order
+                r1 = min(r0 + kr, c1)
+                for p0 in range(0, d, piece):
+                    sc[..., r0 - c0:r1 - c0] += (qf[bi, :, :, p0:p0 + piece]
+                                                 @ kf[bi, :, r0:r1, p0:p0 + piece].transpose(1, 2))
             rows = torch.arange(c0, c1)
             sc = torch.where(rows >= ln, torch.tensor(-1e30), sc * scale)
             m = sc.amax(dim=-1, keepdim=True)
             p = torch.exp(sc - m)
             ms.append(m)
             ls.append(p.sum(dim=-1, keepdim=True))
-            accs.append(p @ vf[bi, :, c0:c1])
+            if f32:
+                pairs = (p,)
+            elif not split_p:
+                pairs = ((p * pscale).to(q.dtype).to(torch.float32),)
+            else:
+                hi = (p * pscale).to(q.dtype).to(torch.float32)
+                pairs = (hi, (p * pscale - hi).to(q.dtype).to(torch.float32))
+            acc = torch.zeros(hkv, group, d)
+            for col0 in range(0, d, cols):  # an output slice, its v row tiles in order
+                for r0 in range(c0, c1, vr):
+                    r1 = min(r0 + vr, c1)
+                    vt = vf[bi, :, r0:r1, col0:col0 + cols]
+                    for part in pairs:
+                        acc[..., col0:col0 + cols] += part[..., r0 - c0:r1 - c0] @ vt
+            accs.append(acc / pscale)
         if len(ms) == 1 and n_splits == 1:
             out[bi] = accs[0] / ls[0].clamp_min(1e-30)
             continue
@@ -269,19 +300,45 @@ def emulate_decode_wide(q, k_cache, v_cache, lengths, sms=H100_SMS):
 
 
 @pytest.mark.parametrize("name", list(DTYPES))
-@pytest.mark.parametrize("d,group,s", [(320, 4, 256), (576, 9, 128), (257, 16, 64)])
-def test_decode_wide_plan_meets_the_rules(name, d, group, s, rng):
-    """Several chunks (and one, at S = 64), a head batch of 8 and a
-    ragged one (9 and 16 q heads a kv head), lengths 0, 1, a chunk edge
-    and S."""
+@pytest.mark.parametrize("d,group,s,edges", [
+    (320, 4, 256, False), (576, 9, 128, False), (257, 16, 64, False),
+    (515, 16, 384, True), (384, 8, 1024, True)])
+def test_decode_wide_plan_meets_the_rules(name, d, group, s, edges, rng):
+    """Several chunks (and one, at S = 64), ragged head batches (4 q heads
+    a kv head; 9: 8 and 1) and full ones (16: two of 8; 8), piece and slice
+    tails (257 and 515: 64-column pieces and slices of 256 or 128 columns
+    with 1 and 3 columns; 320 and 576 a 64-column slice), lengths 0, 1, a
+    chunk edge and S; and, where ``edges``, the plan of a card of 4 SMs
+    (one chunk of 384 rows; two of 512), so that a chunk holds several
+    tiles, and lengths one row either side of a k row tile's edge (128 rows
+    in 16-bit, 64 in float32), one past a v row tile's (32 rows) and one
+    past the chunk's edge or one short of S."""
     b, hkv = 4, 1
+    sms = 4 if edges else H100_SMS
     (qt, qj), (kt, kj), (vt, vj) = (both(x, name) for x in (
         normal(rng, b, group * hkv, d), normal(rng, b, hkv, s, d), normal(rng, b, hkv, s, d)))
-    _, chunk = decode_ops.split_plan(s, b * hkv, H100_SMS, group, d, qt.dtype)
-    lengths = np.array([0, 1, min(chunk + 1, s), s], np.int32)
-    got = emulate_decode_wide(qt, kt, vt, lengths)
+    _, chunk = decode_ops.split_plan(s, b * hkv, sms, group, d, qt.dtype)
+    kr, vr = decode_ops.wide_tile_rows(qt.dtype)
+    lengths = np.array([kr - 1, kr + 1, vr + 1, min(chunk + 1, s) if s > chunk else s - 1]
+                       if edges else [0, 1, min(chunk + 1, s), s], np.int32)
+    got = emulate_decode_wide(qt, kt, vt, lengths, sms)
     want = jax_decode(qj, kj, vj, jnp.asarray(lengths), interpret=True, block_s=64)
     assert within_rule(got, as_torch(want, qt.dtype))
+
+
+@pytest.mark.parametrize("name", ["bfloat16", "float16"])
+def test_decode_wide_needs_p_as_a_pair(name, rng):
+    """The negative control: p rounded once to the 16-bit type before p.v
+    (one product, not the hi + lo pair) misses the rule, where the pair
+    meets it, at a chunk of 512 rows, 8 q heads and lengths 0, 1, 200, S."""
+    b, group, s, d = 4, 8, 1024, 384
+    (qt, qj), (kt, kj), (vt, vj) = (both(x, name) for x in (
+        normal(rng, b, group, d), normal(rng, b, 1, s, d), normal(rng, b, 1, s, d)))
+    lengths = np.array([0, 1, 200, s], np.int32)
+    want = as_torch(jax_decode(qj, kj, vj, jnp.asarray(lengths), interpret=True, block_s=64),
+                    qt.dtype)
+    assert within_rule(emulate_decode_wide(qt, kt, vt, lengths, 4), want)
+    assert not within_rule(emulate_decode_wide(qt, kt, vt, lengths, 4, split_p=False), want)
 
 
 def test_wide_shared_memory_and_slices_at_every_head_dim():
@@ -301,9 +358,11 @@ def test_wide_shared_memory_and_slices_at_every_head_dim():
             name = "flash_tf32_wide" if dtype == torch.float32 else "flash_wgmma_wide"
             assert flash_ops.kernel_label(dtype, d) == f"{name}<{flash_ops._SHORT[dtype]}>"
             assert flash_ops.positive_only(dtype, d) == (dtype != torch.float32)
+            narrow = "_narrow" if d * dtype.itemsize % 16 else ""  # rows not whole 16-byte pieces
             assert decode_ops.decode_kernel(dtype, 4, d) == (
-                f"decode_wide<{decode_ops._SHORT[dtype]}>")
-    assert decode_ops.wide_smem_bytes() <= 48 * 1024  # static shared memory
+                f"decode_wide{narrow}<{decode_ops._SHORT[dtype]}>")
+    for dtype, _ in DTYPES.values():  # two decode_wide blocks an SM, 1 KB each reserved
+        assert 2 * (decode_ops.wide_smem_bytes(dtype) + 1024) <= SM_SMEM
 
 
 def test_wide_geometry_matches_the_sources():
@@ -326,10 +385,28 @@ def test_wide_geometry_matches_the_sources():
     assert flash_ops.wide_smem_bytes(torch.bfloat16) == 214_096
     assert flash_ops.wide_smem_bytes(torch.float16) == 214_096
     assert "214,096 B" in FLASH_CU and "214,528 B" in FLASH_CU  # the comments agree
-    assert cu_int(DECODE_CU, "kWideChunk") == decode_ops.WIDE_CHUNK
-    assert cu_int(DECODE_CU, "kWidePiece") == decode_ops.WIDE_PIECE
-    assert cu_int(DECODE_CU, "kWideHeads") == decode_ops.WIDE_HEADS
-    assert decode_ops.wide_smem_bytes() == 41_024
+    assert cu_int(DECODE_CU, "kWideChunk") == decode_ops.WIDE_CHUNK == 512
+    assert cu_int(DECODE_CU, "kWidePiece") == decode_ops.WIDE_PIECE == 64
+    assert cu_int(DECODE_CU, "kWideSliceBytes") == decode_ops.WIDE_SLICE_BYTES == 512
+    assert cu_int(DECODE_CU, "kWideHeads") == decode_ops.WIDE_HEADS == 8
+    assert cu_int(DECODE_CU, "kWideTile") == decode_ops.WIDE_TILE == 16384
+    assert cu_int(DECODE_CU, "kWideQBytes") == decode_ops.WIDE_Q_BYTES == 2048
+    assert cu_int(DECODE_CU, "kWideStages") == decode_ops.WIDE_STAGES == 4
+    # WideGeo: every tile 1,024 16-byte chunks (four a thread), whole tiles a chunk
+    for dtype, _ in DTYPES.values():
+        esz = torch.empty((), dtype=dtype).element_size()
+        kr, vr = decode_ops.wide_tile_rows(dtype)
+        assert kr * decode_ops.WIDE_PIECE * esz == vr * decode_ops.wide_slice(dtype) * esz \
+            == 4 * 256 * 16
+        assert decode_ops.WIDE_CHUNK % kr == decode_ops.WIDE_CHUNK % vr == 0
+        assert decode_ops.WIDE_HEADS * decode_ops.WIDE_PIECE * esz <= decode_ops.WIDE_Q_BYTES
+    assert decode_ops.wide_tile_rows(torch.bfloat16) == (128, 32)
+    assert decode_ops.wide_slice(torch.bfloat16) == 256 and decode_ops.wide_slice(torch.float32) == 128
+    assert decode_ops.wide_tile_rows(torch.float32) == (64, 32)
+    assert decode_ops.wide_smem_bytes(torch.bfloat16) == 106_816
+    assert decode_ops.wide_smem_bytes(torch.float16) == 106_816
+    assert decode_ops.wide_smem_bytes(torch.float32) == 90_176
+    assert "106,816 B" in DECODE_CU and "90,176 B" in DECODE_CU  # the comments agree
     # no refusal of wide rows is left in either C entry point
     assert "head_dim > 256" not in FLASH_CU and "head_dim > 256" not in DECODE_CU
 
@@ -392,7 +469,7 @@ def test_decode_wrapper_above_256(dtype, group, d, plan):
     copy), and split_plan's decode_wide plan: about two blocks an SM,
     counting a block per batch of 8 q heads (4 sequences x 9 batches at
     71 heads: 8 chunks of 512 rows), chunks a multiple of 64 and at most
-    1,024 rows; the partials sized for every q head and chunk."""
+    512 rows; the partials sized for every q head and chunk."""
     b, s = 4, 4096
     q = torch.zeros((b, group, d), dtype=dtype)
     k = torch.zeros((b, 1, s, d), dtype=dtype)

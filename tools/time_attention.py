@@ -10,9 +10,10 @@ It builds ``flash_attention.cu`` and ``decode_attention.cu`` of DIR's
 ``src/repro_torch`` (default: the checkout that holds this script) with the
 port's nvcc flags, prints their ptxas registers and spill bytes and the
 SASS counts of flash_wgmma<256>, of every flash_wgmma_any and flash_tf32
-instance and of the wide kernels (wgmma instructions, the waits on them:
-one after every HGMMA means ptxas serialised them, TF32 mma.sync
-instructions, spill loads and stores, the highest register), then one JSON
+instance and of the wide kernels, decode_wide's included (wgmma
+instructions, the waits on them: one after every HGMMA means ptxas
+serialised them, mma.sync instructions and those in TF32, spill loads
+and stores, the highest register), then one JSON
 line per row: decode at full length and flash on one causal prompt for
 every config of ``chip_smoke.ATTENTION_ROWS`` in bf16, the recurrent
 hybrid's decode at its serve's length and its flash at its forward's
@@ -28,8 +29,12 @@ the last two), S = ``chip_smoke.FORWARD_LEN``,
 causal; then the wide
 rows, flash at head dim ``chip_smoke.WIDE_TIMED_DIM`` (S =
 ``chip_smoke.FORWARD_LEN``, causal) at the heads of
-``chip_smoke.WIDE_TIMED_FLASH`` in bf16, float16 and float32 (``--only
-wide`` keeps only them). Each row names the kernel DIR's wrapper launches
+``chip_smoke.WIDE_TIMED_FLASH`` in bf16, float16 and float32, and decode
+above 256 (``chip_smoke.WIDE_TIMED_DECODE``: 32/4 x 512, B = 4, S =
+``chip_smoke.DECODE_LEN``, full length, in bf16, float16 and float32;
+bf16 16/1 x 576, a slice tail; bf16 32/4 x 515, rows that are not whole
+16-byte pieces) (``--only wide`` keeps only them). Each row names the
+kernel DIR's wrapper launches
 (``runs``) and has the device time (CUDA events, L2 flushed, median of
 ``chip_smoke.TIMING_REPS``, launches queued behind a sleep kernel), SDPA's
 time on the same inputs (the wide rows add ``sdpa_expanded_ms``: SDPA on k
@@ -66,7 +71,8 @@ def sass_stats(so: Path, pattern: str) -> dict:
     """For each kernel of the library ``so`` whose mangled name matches
     ``pattern``: its wgmma instructions (HGMMA), the waits on them
     (WARPGROUP.DEPBAR; one after every HGMMA means ptxas serialised them),
-    its local-memory loads and stores (LDL/STL: spills) and the highest
+    its mma.sync instructions (HMMA, and HMMA.TF32 those in TF32), its
+    local-memory loads and stores (LDL/STL: spills) and the highest
     register it names, from ``cuobjdump -sass``."""
     from repro_torch.kernels import build
 
@@ -78,6 +84,7 @@ def sass_stats(so: Path, pattern: str) -> dict:
         if re.search(pattern, name):
             regs = [int(r) for r in re.findall(r"\bR(\d+)\b", body)]
             out[name] = {"HGMMA": len(re.findall(r"\bHGMMA\b", body)),
+                         "HMMA": len(re.findall(r"\bHMMA\b", body)),
                          "HMMA.TF32": len(re.findall(r"\bHMMA\S*TF32", body)),
                          "WARPGROUP.DEPBAR": len(re.findall(r"WARPGROUP\.DEPBAR", body)),
                          "LDL/STL": len(re.findall(r"\b(?:LDL|STL)\b", body)),
@@ -113,6 +120,8 @@ def main() -> int:
     stats = sass_stats(build.built_path(fops.SOURCE),
                        r"flash_wgmmaI\w+Li256E|flash_wgmma_any|flash_tf32|_wide")
     print(f"time_attention: {label}: SASS flash_attention: {json.dumps(stats)}", flush=True)
+    stats = sass_stats(build.built_path(dops.SOURCE), r"decode_wide")
+    print(f"time_attention: {label}: SASS decode_attention: {json.dumps(stats)}", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -238,6 +247,24 @@ def main() -> int:
                    ok, fops.kernel_label(dtype, d),
                    expanded=lambda: F.scaled_dot_product_attention(q, ek, ev, is_causal=True))
             del ek, ev
+    # decode above head dim 256 (decode_wide), on no path: drawn after the
+    # flash rows, so theirs keep their inputs
+    for h, hkv, d, name in cs.WIDE_TIMED_DECODE:
+        dtype = getattr(torch, name)
+        row = f"wide decode {h}/{hkv} x {d}, B=4, {name}, S={s}, full length"
+        if args.only not in row:
+            continue
+        q = randn(4, h, d, dtype=dtype)
+        k, v = randn(4, hkv, s, d, dtype=dtype), randn(4, hkv, s, d, dtype=dtype)
+        lengths = torch.full((4,), s, dtype=torch.int32, device=dev)
+        kernel = lambda: dops.decode_attention(q, k, v, lengths)  # noqa: E731
+        ok = cs.close_enough(torch, kernel(), dref.decode_attention_ref(q, k, v, lengths))
+        ek, ev = k.repeat_interleave(h // hkv, dim=1), v.repeat_interleave(h // hkv, dim=1)
+        report("decode_attention", row, kernel,
+               lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, enable_gqa=True),
+               ok, dops.decode_kernel(dtype, h // hkv, d),
+               expanded=lambda: F.scaled_dot_product_attention(q[:, :, None], ek, ev))
+        del ek, ev
     return 0
 
 
