@@ -11,10 +11,12 @@ Phases, each of which fails the script (non-zero exit) on any error:
    three CUDA kernels from ``src/`` (one nvcc each, all started together),
    print each build time and ptxas's report, one ``ptxas:`` line with
    every kernel's registers and spill bytes (each ``flash_tf32<f32, D>``
-   and ``flash_tf32<bf16, 32>`` instance among them), and count the wgmma
-   (HGMMA) instructions and the TF32 tensor-core instructions (HMMA or
-   HGMMA with TF32: ``flash_tf32``'s mma.sync) in the flash library's SASS
-   (there must be some of each);
+   and ``flash_wgmma<T, 32>`` / ``flash_wgmma_any<T, 32>`` instance among
+   them), and count the wgmma (HGMMA) instructions and the TF32
+   tensor-core instructions (HMMA or HGMMA with TF32: ``flash_tf32``'s
+   mma.sync) in the flash library's SASS (there must be some of each),
+   and each head-dim-32 kernel's HGMMA, waits and spills
+   (``sass_counts``: it must have HGMMA and no LDL/STL);
 2. hold ``fused_filter_agg`` against its plain PyTorch version at n in
    {0, 1, 4095, 2^23, 2^23 + 3, 2^23 + 1000} rows, for 1, 63, 64, 65,
    265 and 1024 groups and all six predicate ops, on views that start 1,
@@ -80,7 +82,8 @@ Phases, each of which fails the script (non-zero exit) on any error:
    chunk + 1; flash at S in {512, 2048} (and a ragged 200), causal,
    non-causal and window 256, GQA 32/4, at head dim 128, and at S = 512
    causal, with and without window 256, at head dim 32 (``flash_tf32`` in
-   both dtypes); at head dim 64, GQA 32/4 and MHA 24/24
+   float32, ``flash_wgmma<bf16, 32>`` in bf16); at head dim 64, GQA 32/4
+   and MHA 24/24
    (musicgen-medium), flash at S in {512, 2048, 200} causal, non-causal
    and window 256, at S = 200 with window 64, and mask probes at S in
    {512, 2048}; at head dims 80 (64/8 heads) and 120
@@ -107,15 +110,19 @@ Phases, each of which fails the script (non-zero exit) on any error:
    diagonal or outside the window carry large scores and v = +-64, so a
    leak moves outputs by whole units) at S in {512, 2048}; float32 and
    bfloat16; then, drawn from a generator of their own (seed SEED + 1, so
-   the cases above keep their inputs), ``flash_tf32`` at head dim 32
-   (32/4) in both dtypes and at 256 (16/1) in float32 on what head dim 64
-   has: S in
-   {512, 2048, 200}, causal, non-causal, window 256, window 64 at S = 200,
-   and mask probes at S in {512, 2048}.  Decode and float32 flash
-   (``flash_tf32``: three TF32 products a pair) within 1e-5 + 1e-5 |plain|
-   (sums in another order); bfloat16 decode and bfloat16 flash at head dim
-   32 (``flash_tf32``) within one bf16 ulp of the output (both round once
-   from float32) plus that 1e-5; bf16 flash at head dims 64, 80, 120 and
+   the cases above keep their inputs), head dim 32 (32/4) in both dtypes
+   and ``flash_tf32`` at 256 (16/1) in float32 on what head dim 64 has: S
+   in {512, 2048, 200}, causal, non-causal, window 256, window 64 at S =
+   200, and mask probes at S in {512, 2048}; then (SEED + 6) bf16 and
+   float16 at head dims D32_DIMS (``flash_wgmma<T, 32>`` and
+   ``flash_wgmma_any<T, 32>``) at 32/4, 24/24 and 48/1 on the same S and
+   masks, the scales D32_SCALES at S = 512 and mask probes, each (dtype,
+   head dim)'s kernel read back from torch.profiler.  Decode and float32
+   flash (``flash_tf32``: three TF32 products a pair) within 1e-5 + 1e-5
+   |plain| (sums in another order); bfloat16 decode and 16-bit flash at
+   head dims up to 32 (p.v with p as a hi + lo pair) within one ulp of the
+   type (both round once from float32) plus that 1e-5; bf16 flash at head
+   dims 64, 80, 120 and
    128 (``flash_wgmma``) by ``flash_bf16_close``: its largest and mean
    |kernel - plain| at most twice those of the reference's chunked bf16
    route (``flash_yardstick``) plus 1e-5, since the kernel's tensor-core
@@ -124,8 +131,8 @@ Phases, each of which fails the script (non-zero exit) on any error:
    chunked route's own error is exactly 0 (scale 0), the bf16 flash rule is
    one bf16 ulp plus 1e-5, the rule of the exact kernels.  Then
    (``domain_vs_plain``, a generator of its own, SEED + 2) the rest of the
-   domain: float16 flash at every compiled width (32 on ``flash_tf32``,
-   64-256 on ``flash_wgmma``) at S in {512, 200}, causal, non-causal,
+   domain: float16 flash at every compiled width (``flash_wgmma``) at S in
+   {512, 200}, causal, non-causal,
    window 256 and window 64 at S = 200, and mask probes at S = 512, under
    the float16 form of the bf16 flash rule (the chunked route in float16
    as the yardstick) or, at 32, one float16 ulp + 1e-5; float16 decode at
@@ -248,10 +255,13 @@ Phases, each of which fails the script (non-zero exit) on any error:
    (``FLOAT32_ARCHS``: flash on one 2048-token causal prompt and decode at
    full length at the heads of Yi-6B, danube, qwen3, musicgen and
    recurrentgemma, B = 1 for the last; Yi's decode also at phase 6h's
-   lengths) and flash at head dim 32 (``D32_HEADS``) in float32 and bf16
+   lengths) and flash at head dim 32 (``D32_HEADS``) in float32 and bf16,
+   and (drawn last) float16 at 32 and bf16 at 16 (``D32_TIMED``)
    (float32 flash bounds count three TF32 products a pair at TF32_FLOPS,
    and a line before the ``kernels`` line gives the CUDA cores' ceiling,
-   one float32 product a pair at FP32_FLOPS, computed; float32 decode
+   one float32 product a pair at FP32_FLOPS, computed, and another the
+   floor the exponentials put under each 16-bit row up to 32, one a
+   visible pair and q head at EX2_RATE, computed; float32 decode
    bounds count 4-byte elements at the memory rate; the float32 and
    head-dim-32 rows add SDPA on k and v expanded to the q heads,
    ``library_expanded_ms``, since ``enable_gqa`` sends float32 to SDPA's
@@ -271,9 +281,9 @@ Phases, each of which fails the script (non-zero exit) on any error:
    (``flash_wgmma_any<bf16, 160>``), and
    flash at 16/1 and 32/4 x 512 (S = 2048, causal) in bf16 and float32
    and at 16/1 x 512 in float16, and decode at B = 4, 32/4 x 512 (S =
-   4096, full length) in bf16, float32 and float16 and at 16/1 x 576 in
-   bf16 (the wide kernels; no path; each with SDPA on k and v expanded to
-   the q heads beside), and
+   4096, full length) in bf16, float32 and float16 and at 16/1 x 576 and
+   32/4 x 515 (``decode_wide_narrow``) in bf16 (the wide kernels; no path;
+   each with SDPA on k and v expanded to the q heads beside), and
    ``fused_filter_agg`` at 1025, 4096, 65536 and 262144 groups over Q2's
    rows (``many_groups``: the partition, bin and
    merge launches; no path).  Lines before it give phase 6e's
@@ -431,6 +441,23 @@ DECODE_LEN = 4096
 #: dim 32 with these heads, in float32 and bf16
 FLOAT32_ARCHS = ("yi-6b", "h2o-danube-3-4b", "qwen3-32b", "musicgen-medium", HYBRID_ARCH)
 D32_HEADS = (32, 4)
+#: phase 5: bf16 and float16 flash at head dims up to 32
+#: (``flash_wgmma<T, 32>``, ``flash_wgmma_any<T, 32>``) from a generator
+#: of their own (SEED + 6): D32_DIMS at heads D32_CASE_HEADS, S in {512,
+#: 2048, 200}, FLASH_MASKS (and window 64 at S = 200), the scales
+#: D32_SCALES (which the wrapper rewrites) and mask probes, all under
+#: ``close_enough`` (p.v takes p as a hi + lo pair)
+D32_DIMS = (32, 16, 8, 31)
+D32_CASE_HEADS = ((32, 4), (24, 24), (48, 1))
+D32_SCALES = (-0.177, 0.0)
+#: phase 7's rows beside bf16 at D32_HEADS x 32 (head dim, dtype): float16
+#: at 32 and bf16 at 16 (``flash_wgmma_any<bf16, 32>``), drawn last
+D32_TIMED = ((32, "float16"), (16, "bfloat16"))
+#: exponentials a second on an H100 SXM's MUFU lanes (ex2), about 3.9 T
+#: (Shah et al. 2024, FlashAttention-3): phase 7's rows at head dims up to
+#: 32 give the floor it puts under the softmax (printed on a line of its
+#: own before the ``kernels`` line, computed, not measured)
+EX2_RATE = 3.9e12
 #: phase 6g: xlstm-350m at full width and depth, deepseek-v3-671b at full
 #: width and MLA_LAYERS (mla_dense, mla_moe) of 61 layers
 XLSTM_ARCH = "xlstm-350m"
@@ -506,7 +533,33 @@ def build_kernels(mods):
                for line in sass.splitlines())
     print(f"build: {lib.name}: {hgmma} HGMMA (wgmma) instructions and {tf32} TF32 "
           f"tensor-core instructions (HMMA or HGMMA with TF32: flash_tf32) in the SASS")
-    return {"HGMMA": hgmma, "TF32": tf32}
+    d32 = {kernel_label(name): counts for name, counts in
+           sass_counts(sass, r"flash_wgmma(_any)?I\w+Li32E").items()}
+    print(f"build: {lib.name}: SASS of the head-dim-32 kernels: {json.dumps(d32)}")
+    return {"HGMMA": hgmma, "TF32": tf32, "d32": d32}
+
+
+def sass_counts(sass: str, pattern: str) -> dict:
+    """For each kernel in ``cuobjdump -sass`` output whose mangled name
+    matches ``pattern``: its wgmma instructions (HGMMA), the waits on them
+    (WARPGROUP.DEPBAR; one after every HGMMA means ptxas serialised them),
+    its mma.sync instructions (HMMA, and HMMA.TF32 those in TF32), its
+    local-memory loads and stores (LDL/STL: spills) and the highest
+    register it names."""
+    import re
+
+    out = {}
+    for body in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if re.search(pattern, name):
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", body)]
+            out[name] = {"HGMMA": len(re.findall(r"\bHGMMA\b", body)),
+                         "HMMA": len(re.findall(r"\bHMMA\b", body)),
+                         "HMMA.TF32": len(re.findall(r"\bHMMA\S*TF32", body)),
+                         "WARPGROUP.DEPBAR": len(re.findall(r"WARPGROUP\.DEPBAR", body)),
+                         "LDL/STL": len(re.findall(r"\b(?:LDL|STL)\b", body)),
+                         "highest register": max(regs, default=-1)}
+    return out
 
 
 #: registers and spill bytes by kernel, from phase 1's build
@@ -514,7 +567,7 @@ PTXAS: dict = {}
 
 
 def kernel_label(mangled: str) -> str:
-    """``flash_wgmma<bf16, 256>``, ``flash_tf32<f16, 32>``,
+    """``flash_wgmma<bf16, 256>``, ``flash_tf32<f32, 32>``,
     ``decode_group<bf16, 128, 3>``, ``decode_split<f32, 128>`` from a
     mangled kernel name, read as
     the Itanium grammar reads it: after ``_ZN``, the nested name's
@@ -1442,6 +1495,21 @@ def flash_bf16_close(torch, got, want, yard):
     return ok, stats
 
 
+#: the bf16 and float16 head dims whose flash kernel (flash_wgmma) feeds p.v
+#: p rounded once to q's dtype, so that it is held to the 16-bit flash rule
+#: (``flash_bf16_close``): 33 to 256.  At 32 and below (flash_wgmma<T, 32>)
+#: and above 256 (flash_wgmma_wide) p goes in as a hi + lo pair, and float32
+#: is split into TF32 hi + lo: those keep ``close_enough``.  The rule is
+#: chosen here, by dtype and head dim, not by the code under test.
+P_ROUNDED_DIMS = range(33, 257)
+
+
+def p_rounded(dtype, head_dim: int) -> bool:
+    """Whether flash at ``dtype`` and ``head_dim`` is held to the 16-bit
+    flash rule (``P_ROUNDED_DIMS``) rather than to ``close_enough``."""
+    return dtype.itemsize == 2 and head_dim in P_ROUNDED_DIMS
+
+
 def mask_probe(torch, s, *, window, h=32, hkv=4, d=128, dtype, generator):
     """q, k, v at which a masked key that leaks moves the output by whole
     units.  Every q row points along one unit vector u (scores q.k * scale
@@ -1496,7 +1564,7 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
             rules[(out.dtype, out.shape[-1])] = (
                 "the bf16 flash rule" if yard is not None
                 else "1e-5 + 1e-5|plain|" if out.dtype == torch.float32
-                else "1e-5 + one bf16 ulp")
+                else f"1e-5 + one {str(out.dtype).split('.')[-1]} ulp")
         if yard is None:
             check(close_enough(torch, out, want), f"{name}: kernel vs plain max |diff| {diff!r}")
         else:
@@ -1536,8 +1604,9 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                     lambda: flash_ops.flash_attention(q, k, v, **kw),
                     lambda: flash_ref.attention_ref(q, k, v, **kw),
                     (lambda: flash_yardstick(q, k, v, **kw)) if bf16 else None)
-        # head dim 32 runs flash_tf32 in both dtypes (split-TF32 products,
-        # float32 sums); more D = 32 cases follow the loop
+        # head dim 32: flash_tf32 in float32 (split-TF32 products, float32
+        # sums), flash_wgmma<bf16, 32> in bf16 (p.v with p as a hi + lo
+        # pair), both under close_enough; more D = 32 cases follow the loop
         q = randn(1, 32, 512, 32, dtype=dtype)
         k, v = randn(1, 4, 512, 32, dtype=dtype), randn(1, 4, 512, 32, dtype=dtype)
         for window in (None, 256):
@@ -1625,7 +1694,7 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                     f"chunk={chunk} lengths={lens}",
                     lambda: decode_ops.decode_attention(q, k, v, lengths),
                     lambda: decode_ref.decode_attention_ref(q, k, v, lengths))
-            wgmma = flash_ops.kernel_name(dtype, d) == "flash_wgmma"
+            wgmma = p_rounded(dtype, d)
             for s in (512, 2048):
                 q = randn(1, h, s, d, dtype=dtype)
                 k, v = randn(1, hkv, s, d, dtype=dtype), randn(1, hkv, s, d, dtype=dtype)
@@ -1727,13 +1796,13 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                     f"({decode_ops.decode_kernel(dtype, h, d)})",
                     lambda: decode_ops.decode_attention(q, k, v, lengths),
                     lambda: decode_ref.decode_attention_ref(q, k, v, lengths))
-    # flash_tf32 at head dim 32 in both dtypes and at 256 in float32, the
-    # cases D = 64 has: S = 512, 2048 and the ragged 200 (a window of 64
-    # masks inside both of its tiles), causal, non-causal and window 256, and
-    # mask probes.  They draw from a generator of their own, so the cases
-    # above keep their inputs whatever is added here (ROADMAP section 3
-    # records a bf16 case at scale 0 that fails the bf16 flash rule at other
-    # inputs; tools/flash_scale0_probe.py finds such inputs).
+    # head dim 32 in both dtypes (flash_tf32 in float32, flash_wgmma<bf16, 32> in bf16) and
+    # flash_tf32 at 256 in float32, the cases D = 64 has: S = 512, 2048 and the ragged 200 (a
+    # window of 64 masks inside both of its tiles), causal, non-causal and window 256, and
+    # mask probes.  They draw from a generator of their own, so the cases above keep their
+    # inputs whatever is added here (ROADMAP section 3 records a bf16 case at scale 0 that
+    # fails the bf16 flash rule at other inputs; tools/flash_scale0_probe.py finds such
+    # inputs).
     tf32_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     for dtype in (torch.float32, torch.bfloat16):
         for d, h, hkv in ((32, 32, 4),) + (((256, 16, 1),) if dtype == torch.float32 else ()):
@@ -1757,6 +1826,44 @@ def attention_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref):
                         f"H={h}/{hkv} S={s} {kw}",
                         lambda: flash_ops.flash_attention(q, k, v, **kw),
                         lambda: flash_ref.attention_ref(q, k, v, **kw))
+    # bf16 and float16 at head dims up to 32 (flash_wgmma<T, 32>,
+    # flash_wgmma_any<T, 32>), a generator of their own (SEED + 6): D32_DIMS
+    # at D32_CASE_HEADS, S = 512, 2048 and the ragged 200, the scales the
+    # wrapper rewrites, mask probes, and each (dtype, head dim)'s kernel read
+    # back from the profiler; all under close_enough
+    d32_gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    d32_kernels, d32_failures = [], []
+    for dtype in (torch.bfloat16, torch.float16):
+        for d in D32_DIMS:
+            label = flash_ops.kernel_label(dtype, d)
+            for h, hkv in D32_CASE_HEADS:
+                for s, cases in ((512, FLASH_MASKS), (2048, FLASH_MASKS),
+                                 (200, FLASH_MASKS + ((True, 64),))):
+                    q = randn(1, h, s, d, dtype=dtype, generator=d32_gen)
+                    k = randn(1, hkv, s, d, dtype=dtype, generator=d32_gen)
+                    v = randn(1, hkv, s, d, dtype=dtype, generator=d32_gen)
+                    kws = [dict(causal=c, window=w) for c, w in cases]
+                    if s == 512:
+                        kws += [dict(causal=True, window=None, scale=x) for x in D32_SCALES]
+                    for kw in kws:
+                        one("flash D<=32", f"flash {dtype} D={d} ({label}) H={h}/{hkv} S={s} "
+                            f"{kw}",
+                            lambda: flash_ops.flash_attention(q, k, v, **kw),
+                            lambda: flash_ref.attention_ref(q, k, v, **kw))
+                    del q, k, v
+            for s in (512, 2048):
+                for window in (None, 256):
+                    q, k, v = mask_probe(torch, s, window=window, d=d, dtype=dtype,
+                                         generator=d32_gen)
+                    kw = dict(causal=True, window=window)
+                    one("flash probe D<=32", f"flash mask probe {dtype} D={d} ({label}) S={s} "
+                        f"{kw}",
+                        lambda: flash_ops.flash_attention(q, k, v, **kw),
+                        lambda: flash_ref.attention_ref(q, k, v, **kw))
+            q, k, v = (randn(1, n_, 200, d, dtype=dtype, generator=d32_gen) for n_ in (32, 4, 4))
+            d32_kernels.append((label, lambda q=q, k=k, v=v: flash_ops.flash_attention(q, k, v)))
+    check_launched(torch, d32_kernels, d32_failures)
+    check(not d32_failures, "; ".join(d32_failures))
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # comparisons are not the main path
     by_rule = "; ".join(
         f"{str(dt).split('.')[-1]} D={d} ({flash_ops.kernel_name(dt, d)}) {rule}"
@@ -1808,8 +1915,8 @@ WIDE_TIMED_FLASH = ((16, 1), (32, 4))
 #: decode_wide's timed rows (H, Hkv, D, dtype), B = 4, S = DECODE_LEN, full
 #: length: 32/4 x WIDE_TIMED_DIM in each dtype, a slice tail (16/1 x 576:
 #: 64 columns of its last slice of 256) and rows that are not whole 16-byte
-#: pieces (32/4 x 515); phase 7 times the float16 and 576 rows beside the
-#: bf16 and float32 ones above (tools/time_attention.py all five)
+#: pieces (32/4 x 515); phase 7 times the float16, 576 and 515 rows beside
+#: the bf16 and float32 ones above (tools/time_attention.py all five)
 WIDE_TIMED_DECODE = ((32, 4, 512, "bfloat16"), (32, 4, 512, "float16"),
                      (32, 4, 512, "float32"), (16, 1, 576, "bfloat16"),
                      (32, 4, 515, "bfloat16"))
@@ -1880,7 +1987,7 @@ def domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ffa_ops
     above 256 from another, SEED + 3), so the cases before keep their
     inputs: float16 flash at every compiled width (causal,
     non-causal, window 256, window 64 at the ragged S = 200, mask probes)
-    under the 16-bit flash rule (``flash_tf32<f16, 32>`` under one float16
+    under the 16-bit flash rule (``flash_wgmma<f16, 32>`` under one float16
     ulp + 1e-5); float16 decode at narrow (32/4) and wide groups (48/1 at
     128, 16/1 at 256); head dims ODD_DIMS in all three dtypes in both
     kernels; decode groups WIDE_GROUPS at WIDE_GROUP_DIMS in all three
@@ -1933,7 +2040,7 @@ def domain_vs_plain(torch, flash_ops, flash_ref, decode_ops, decode_ref, ffa_ops
 
     def flash(dtype, d, h, hkv, s, cases, probes=(), tag="", generator=gen, offsets=None):
         label = flash_ops.kernel_label(dtype, d)
-        wgmma = flash_ops.kernel_name(dtype, d) == "flash_wgmma"
+        wgmma = p_rounded(dtype, d)  # p.v on p rounded once to q's dtype
         rules[label] = ("the 16-bit flash rule" if wgmma else "1e-5 + 1e-5|plain|"
                         if dtype == torch.float32 else f"1e-5 + one {name_of(dtype)} ulp")
         q = randn(1, h, s, d, dtype=dtype, generator=generator)
@@ -4003,6 +4110,7 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     before = flash_ops.LAUNCHES, decode_ops.LAUNCHES
     ceilings = {}  # float32 flash: the CUDA cores' ceiling by heads, ms
+    floors = {}  # 16-bit flash up to 32: the exponentials' floor by row, ms
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
@@ -4085,13 +4193,16 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
         at the bf16 tensor-core rate; float32: three TF32 products a pair
         (the least the card can take for float32 accuracy); the CUDA cores'
         ceiling for one float32 product a pair goes to ``ceilings``, not
-        to the row.  expanded: SDPA on k and v expanded beside."""
+        to the row.  At 16-bit head dims up to 32 the floor the exponentials
+        put under it at EX2_RATE (one a visible pair and q head, computed)
+        goes to ``floors``.  expanded: SDPA on k and v expanded beside."""
         esz = dtype.itemsize
         fq = randn(1, h, fs, d, dtype=dtype)
         fk, fv = randn(1, hkv, fs, d, dtype=dtype), randn(1, hkv, fs, d, dtype=dtype)
         if window is None or window >= fs:
             sdpa = dict(is_causal=True, enable_gqa=True)
             flops = 2 * h * fs * fs * d  # q.k and p.v over the causal half
+            pairs = fs * (fs + 1) // 2
         else:
             pos = torch.arange(fs, device=dev)
             mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
@@ -4106,12 +4217,14 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
             nbytes=(2 * fq.numel() + fk.numel() + fv.numel()) * esz,
             flops=flops if esz == 2 else 3 * flops,
             yard=(lambda: flash_yardstick(fq, fk, fv, causal=True, window=window))
-            if kernel == "flash_wgmma" else None,
+            if p_rounded(dtype, d) else None,
             rate=PEAK_FLOPS if esz == 2 else TF32_FLOPS,
         )
         label = flash_ops.kernel_label(dtype, d)
         if esz == 4:
             ceilings[f"{h}/{hkv} x {d}"] = flops / FP32_FLOPS * 1e3
+        elif flash_ops.width(dtype, d) == 32:
+            floors[f"{h}/{hkv} x {d} {str(dtype).split('.')[-1]}"] = h * pairs / EX2_RATE * 1e3
         if expanded:
             row.update(expanded_sdpa(fq, fk, fv, **{k: w for k, w in sdpa.items()
                                                     if k != "enable_gqa"}))
@@ -4304,19 +4417,30 @@ def measure_attention(torch, flash_ops, flash_ref, decode_ops, decode_ref, serve
     # above keep their inputs)
     wh, whkv = WIDE_TIMED_FLASH[0]
     domain[f"{wh}/{whkv} x {wd} float16 flash"] = wide_flash(wh, whkv, torch.float16)
-    # decode_wide in float16 and at a slice tail (WIDE_TIMED_DECODE's second
-    # and fourth rows: 32/4 x 512 float16, 16/1 x 576 bf16), drawn last too
-    for wh, whkv, wdd, name in (WIDE_TIMED_DECODE[1], WIDE_TIMED_DECODE[3]):
+    # decode_wide in float16, at a slice tail and on rows that are not whole
+    # 16-byte pieces (WIDE_TIMED_DECODE's second, fourth and fifth rows: 32/4
+    # x 512 float16, 16/1 x 576 bf16, 32/4 x 515 bf16: decode_wide_narrow),
+    # drawn last too
+    for wh, whkv, wdd, name in WIDE_TIMED_DECODE[1::2] + WIDE_TIMED_DECODE[4:]:
         domain[f"{wh}/{whkv} x {wdd} {name} decode, full length"] = {
             **decode_case(wh, whkv, wdd, [s] * 4, dtype=getattr(torch, name), expanded=True),
             "launches": 0, "launches_by_path": {},
             "shape": f"B=4 H={wh} Hkv={whkv} S={s} D={wdd} {name} full length"}
+    # float16 at 32 and bf16 at 16 (flash_wgmma_any<bf16, 32>) beside bf16
+    # at 32, drawn last
+    for dd, name in D32_TIMED:
+        flash_f32[f"{dh}/{dhkv} x {dd} {name}"] = {
+            **flash_case(dh, dhkv, dd, dtype=getattr(torch, name), expanded=True),
+            "launches": 0, "launches_by_path": {},
+            "shape": f"B=1 H={dh} Hkv={dhkv} S={FORWARD_LEN} D={dd} {name} causal"}
     flash_ops.LAUNCHES, decode_ops.LAUNCHES = before  # timing is not the main path
     print("timing: kernels device-only (queued behind a sleep kernel); plain versions and "
           "SDPA queued the same way")
     print("float32 flash, the CUDA cores' ceiling (one float32 product a pair at FP32_FLOPS, "
           "computed, not measured; the rows' bound_ms counts three TF32 products a pair): "
           + json.dumps({shape: ms for shape, ms in ceilings.items()}))
+    print("16-bit flash up to head dim 32, the exponentials' floor (one ex2 a visible pair "
+          "and q head at EX2_RATE, computed, not measured): " + json.dumps(floors))
     rows = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -4568,6 +4692,10 @@ def main() -> int:
     sass = build_kernels((ops, flash_ops, decode_ops))
     check(sass["HGMMA"] > 0, "the flash library has no wgmma instruction")
     check(sass["TF32"] > 0, "the flash library has no TF32 tensor-core instruction")
+    want32 = {f"flash_wgmma{a}<{t}, 32>" for a in ("", "_any") for t in ("bf16", "f16")}
+    check(set(sass["d32"]) == want32 and all(
+        c["HGMMA"] > 0 and c["LDL/STL"] == 0 for c in sass["d32"].values()),
+        f"the head-dim-32 kernels' SASS: {sass['d32']}")
     kernel_vs_plain(torch, ops, ref)
     from repro_torch.examples_data import make_taxi_data
 

@@ -9,9 +9,9 @@
 // and 256 (the stride a constant); any other row runs flash_wgmma_any /
 // flash_tf32_any, the same blocks with d a runtime argument (the columns
 // past d are zeros in shared memory, so they add exact zeros, and are not
-// stored): flash_tf32_any at the smallest of 32, 64, 128 and 256 above d,
-// flash_wgmma_any (bf16 and float16 rows of 33 to 255) at d rounded up to
-// a multiple of 32, so that it does the row's own width of work.  A
+// stored): flash_tf32_any (float32) at the smallest of 32, 64, 128 and 256
+// above d, flash_wgmma_any (bf16 and float16 rows of 1 to 255) at d rounded
+// up to a multiple of 32, so that it does the row's own width of work.  A
 // float32 row, or a 16-bit row of at most 32 or above 256 elements, whose
 // bytes are not a multiple of 16 is padded with zero columns by the
 // wrapper (ops.py), as TMA and the 16-byte copies need; flash_wgmma_any
@@ -31,16 +31,18 @@
 // heads of 256, S = 4096 with a window of 2048 (6,292,480 visible pairs a
 // head), 103.1 GFLOP, 0.1042 ms.  Each k/v tile is read once
 // per q tile, and the q heads of one kv head run side by side, so the
-// repeated reads hit L2.
+// repeated reads hit L2.  At D = 32 neither bound sets the pace but the
+// instructions each score takes between the two products (consume32).
 //
 // Four kernels, chosen by dtype and head dim in flash_attention_launch:
 //
-// * flash_wgmma<T, D>: bfloat16 and float16 at D = 64, 80, 120, 128 and
+// * flash_wgmma<T, D>: bfloat16 and float16 at D = 32, 64, 80, 120, 128 and
 //   256 (musicgen-medium, qwen3-32b, h2o-danube-3-4b, Yi-6B and
 //   recurrentgemma-9b compute in bf16; Llama-2's published checkpoints are
-//   float16).  The two types share every instruction but the wgmma's
-//   operand type (.f32.f16.f16 or .f32.bf16.bf16), the TMA map's element
-//   type and the rounding of p and of the output.  One block of
+//   float16; no shipped config computes at 32).  The two types share every
+//   instruction but the wgmma's operand type (.f32.f16.f16 or
+//   .f32.bf16.bf16), the TMA map's element type and the rounding of p and
+//   of the output.  One block of
 //   384 threads per (batch-head, 128-row q tile): two consumer warpgroups
 //   of 64 q rows each and a producer warpgroup, which hands its registers
 //   to the consumers (setmaxnreg 24 / 240).  One producer thread loads the
@@ -108,9 +110,17 @@
 //   serial softmax, with k refilled with v, with 32 or 48 keys a tile, or
 //   with q in registers, it measured slower (PERF.md).
 //
+//   D = 32 (consume32) is D = 256's block (two consumer warpgroups, no
+//   producer) on rows of 64 bytes: q, k and v come by TMA in the 64-byte
+//   swizzle (no padding to 128-byte spans), 64-key tiles, two blocks an SM,
+//   each warpgroup running q.k^T (m64n64k16), its softmax and p.v in turn;
+//   p.v is m64n40k16 with p as a hi + lo pair against v and a tile of ones,
+//   so the output keeps one 16-bit ulp of the plain version and the same
+//   products give l.
+//
 // * flash_wgmma_any<T, D>: the same blocks for rows of ld <= D elements, at
-//   D = 64, 96, 128, 160, 192, 224 and 256 (ld rounded up to a multiple of
-//   32): q.k^T runs D / 16 k-steps and p.v D output columns (m64n96k16 at
+//   D = 32, 64, 96, 128, 160, 192, 224 and 256 (ld rounded up to a multiple
+//   of 32): q.k^T runs D / 16 k-steps and p.v D output columns (m64n96k16 at
 //   96; m64n160k16 .. m64n224k16 at 160 .. 224), each a fixed instantiation
 //   (a product whose issue hangs on a runtime count makes ptxas serialise
 //   every wgmma).  64 is flash_wgmma<64>'s geometry and schedule, 128 the
@@ -145,9 +155,9 @@
 //   The output is written row by row at ld (pairs where ld is even,
 //   elements where it is odd).
 //
-// * flash_tf32<T, D>: float32 at every head dim, and bfloat16 and
-//   float16 at D = 32 (no shipped config computes at either; an LMConfig with
-//   compute_dtype=float32 sends both kernels float32).  The TPU kernel
+// * flash_tf32<T, D>: float32 at every head dim (no shipped config
+//   computes in it; an LMConfig with compute_dtype=float32 sends both
+//   kernels float32).  The TPU kernel
 //   multiplies in float32 (kernel.py:49, 66-67), and a float32 output is
 //   held to 1e-5 + 1e-5 |plain|.  One TF32 product rounds each operand to
 //   10 mantissa bits and misses that by about 60x, so every float32 operand
@@ -155,12 +165,7 @@
 //   product is the three TF32 products lo.hi + hi.lo + hi.hi
 //   (mma.sync.m16n8k8, float32 accumulators; lo.lo, about 2^-22 of the
 //   product, is left out).  The split operands are q * scale (rounded to
-//   float32 once, as the plain version does), k, p and v; bf16 k and v are
-//   exact in TF32 and go in whole (two products).  A float16 value is exact
-//   in TF32 too (10 mantissa bits), so in float16 q.k is one product of q
-//   and k as they are, scaled in float32 after, and p.v two (p split, v
-//   whole): the float32 sums keep float32 accuracy, and the output is held
-//   to one float16 ulp of the plain version.  What bounds it:
+//   float32 once, as the plain version does), k, p and v.  What bounds it:
 //   operations, three TF32 products a pair at the H100's 494.7 TFLOP/s dense
 //   TF32 rate, 2.5x the 67 TFLOP/s of any kernel on the CUDA cores (at Yi's
 //   32/4 x 128, S = 2048, causal: 34.4 GFLOP, 0.209 ms; 0.513 ms on the
@@ -252,30 +257,47 @@ constexpr int kWideThreads = kConsumers * 128;
 constexpr float kLog2e = 1.4426950408889634f;
 // dynamic shared memory a block may use on the H100 (227 KB)
 constexpr int kSmemLimit = 232448;
+// D = 32 (bf16 and float16 rows of 1 to 32; consume32): a row is 64 bytes,
+// one span of the 64-byte swizzle, so q is 8 KB and a k or v tile of
+// k32Keys keys 4 KB, in a ring of k32Ring stages
+constexpr int k32Cols = 32;
+constexpr int k32RowBytes = k32Cols * 2;
+constexpr int k32Keys = 64;
+constexpr int k32Ring = 4;
 
 // flash_wgmma<D>'s shared-memory geometry: 64-column TMA boxes a tile row,
 // keys a k or v tile, bytes of a k/v tile's 64-column span and of the whole
 // tile, bytes of the 128-row q tile, stages in the k/v ring, dynamic shared
-// memory.
+// memory.  At D = 32 (r64) a span is the tile's 64-byte rows.
 template <int D>
 struct WGeo {
+  static constexpr bool r64 = D == k32Cols;
   static constexpr int boxes = (D + kHalf - 1) / kHalf;
-  static constexpr int keys = D > kWCols ? kWideKeys : kWBK;
-  static constexpr int span = keys * kHalf * 2;
+  static constexpr int keys = r64 ? k32Keys : D > kWCols ? kWideKeys : kWBK;
+  static constexpr int span = keys * (r64 ? k32RowBytes : kHalf * 2);
   static constexpr int tile = boxes * span;
-  static constexpr int qtile = boxes * kHalfBytes;
-  static constexpr int ring = D <= kHalf ? kNarrowStages : D > kWCols ? kWideStages : kStages;
+  static constexpr int qtile = r64 ? kWBQ * k32RowBytes : boxes * kHalfBytes;
+  static constexpr int ring =
+      r64 ? k32Ring : D <= kHalf ? kNarrowStages : D > kWCols ? kWideStages : kStages;
   // no producer warpgroup: the consumers load k and v themselves
   // (consume_wide) above D = 128 and in flash_wgmma_any<96>, whose 128-key
   // tiles' scores, p and o (144 floats a thread) want the 255 registers of
-  // an 8-warp block (with a producer, 12 warps, ptxas gives 168)
-  static constexpr bool self_load = D > kWCols || D == 96;
+  // an 8-warp block (with a producer, 12 warps, ptxas gives 168), and at
+  // D = 32 (consume32), whose blocks keep to 128 registers, two an SM
+  static constexpr bool self_load = r64 || D > kWCols || D == 96;
   // threads a block: a producer warpgroup, or none
   static constexpr int threads = self_load ? kWideThreads : kWThreads;
-  // dynamic shared memory: 1 KB of slack, q, the ring, the mbarriers and,
-  // without a producer, a refill counter a stage
+  // blocks an SM: two at D = 32, whose 64-key tiles keep a thread within
+  // 128 registers, else one
+  static constexpr int blocks = r64 ? 2 : 1;
+  static_assert(k32Keys == 64, "two blocks an SM need D = 32's 64-key tiles");
+  // D = 32: a tile of ones after the v ring, which p.v's last 8 columns
+  // read (so they sum p)
+  static constexpr int ones = r64 ? tile : 0;
+  // dynamic shared memory: 1 KB of slack, q, the ring, the ones, the
+  // mbarriers and, without a producer, a refill counter a stage
   static constexpr int smem =
-      1024 + qtile + 2 * ring * tile + 8 * (1 + 3 * ring) + (self_load ? 4 * ring : 0);
+      1024 + qtile + 2 * ring * tile + ones + 8 * (1 + 3 * ring) + (self_load ? 4 * ring : 0);
   // flash_wgmma_any's narrow loader (rows whose bytes are not a multiple of
   // 16): staging buffers after the layout (stage_at bytes from its 1 KB
   // aligned base), each the raw rows of a k or v tile (keys rows of at most
@@ -284,12 +306,13 @@ struct WGeo {
   // producer (4 at 64, 2 at 96 and 128) and 2 without (2 at 160 and 192),
   // then their mbarriers, two start-up mbarriers and two refill flags.  The
   // loader runs where at least two fit (narrow): at 224 and 256 one does,
-  // and those rows are padded by the wrapper instead.
+  // and those rows are padded by the wrapper instead; rows of at most 32
+  // are padded too (whole 16-byte pieces: TMA).
   static constexpr int stage_at = (smem - 1024 + 127) / 128 * 128;
   static constexpr int xbytes = (keys * (D - 1) * 2 + 48 + 127) / 128 * 128;
   static constexpr int fit = (kSmemLimit - 1024 - stage_at - 24) / (xbytes + 8);
   static constexpr int nx = fit > (self_load ? 2 : 4) ? (self_load ? 2 : 4) : fit;
-  static constexpr bool narrow = nx >= 2;
+  static constexpr bool narrow = !r64 && nx >= 2;
   static constexpr int narrow_smem = narrow ? 1024 + stage_at + nx * (xbytes + 8) + 24 : smem;
 };
 static_assert(WGeo<64>::smem == kNarrowSmem && WGeo<80>::smem == kWSmem &&
@@ -376,6 +399,13 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+// The same in the 64-byte swizzle (layout type 2; D = 32): rows of 64 B,
+// 8-row groups 512 B apart (SBO), K-major (q, k; LBO unused) or MN-major
+// (v: 32-column atoms, the next one LBO away).
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -628,6 +658,35 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
 #undef WG_RS
 }
 
+#define WG_D20                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "            \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "       \
+  "%16, %17, %18, %19}"
+#define R20 R8(0), R8(8), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+
+// d += A . B, m64n40k16: B is a 32-column atom of the 64-byte swizzle and
+// 8 columns of a second one LBO apart (D = 32: v, then the ones that sum p)
+template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[20], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t db) {
+#define WG_RS(TY)                                                          \
+  asm volatile(                                                            \
+      "{\n"                                                                \
+      ".reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %25, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n40k16" WG_TY(TY) WG_D20            \
+      ", {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n"                         \
+      "}\n"                                                                \
+      : R20                                                                \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1))
+  if constexpr (kIsHalf<T>)
+    WG_RS("f16");
+  else
+    WG_RS("bf16");
+#undef WG_RS
+}
+
 #define WG_D128 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, " \
   "%8, %9, %10, %11, %12, %13, %14, %15, " \
@@ -681,6 +740,15 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
     __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
     return *reinterpret_cast<uint32_t*>(&h);
   }
+}
+
+// two T as floats (the inverse of pack2)
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+  if constexpr (kIsHalf<T>)
+    return __half22float2(*reinterpret_cast<__half2*>(&u));
+  else
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
 }
 
 // out columns col and col + 1 (col even, below ld) of the row at p: one
@@ -873,7 +941,12 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x, subnormals flushed
 // moves only when the tile's exceeds it by more than 8 in log2 units of the
 // scaled scores (p then stays below 2^8, exact in float32 and as relatively
 // precise in bf16), so corr is exactly 1 on most tiles and the caller skips
-// o's rescale; o / l is the same function.  kExact (float16): each exponent
+// o's rescale; o / l is the same function.  kShift (consume32 in
+// float16): every p, and so l, is scaled by 2^kShift, the shift added to
+// the exponent in its FMA (o / l is the same function; the maximum's p is
+// exactly 2^kShift).  kSums = false (consume32, whose l comes from its p.v
+// products): l0 and l1 are left as they are and no sums are taken.  kExact
+// (float16): each exponent
 // is (s - m) * scale_log2 instead, an FADD and an FMUL.  The FMA's
 // -m * scale_log2 is rounded, so its p carry a common factor 2^delta
 // (|delta| up to half a float32 ulp of m * scale_log2) that o / l cancels,
@@ -883,7 +956,7 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x, subnormals flushed
 // rounding, but as large as the float16 chunked route's own error where the
 // scale is a power of two (D = 64 and 256).  With s - m the maximum's p is
 // exactly 1.
-template <int KB, bool kLazy, bool kExact>
+template <int KB, bool kLazy, bool kExact, int kShift = 0, bool kSums = true>
 __device__ __forceinline__ void online_softmax_fma(
     float (&sc)[KB / 2], int k0, int wrow, int row0, int row1, int c2, int seq_len,
     int causal, int window, float scale_log2, float& m0, float& m1, float& l0,
@@ -942,25 +1015,34 @@ __device__ __forceinline__ void online_softmax_fma(
   corr1 = ex2((m1 - mn1) * scale_log2);
   m0 = mn0;
   m1 = mn1;
-  const float b0 = -mn0 * scale_log2, b1 = -mn1 * scale_log2;
+  constexpr float kS = kShift;
+  const float b0 = kShift ? fmaf(-mn0, scale_log2, kS) : -mn0 * scale_log2;
+  const float b1 = kShift ? fmaf(-mn1, scale_log2, kS) : -mn1 * scale_log2;
   float s0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int j = 0; j < KB / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int t = 2 * (j % 2) + e;
-      const float p0 = kExact ? ex2((sc[4 * j + e] - mn0) * scale_log2)
-                              : ex2(fmaf(sc[4 * j + e], scale_log2, b0));
-      const float p1 = kExact ? ex2((sc[4 * j + 2 + e] - mn1) * scale_log2)
-                              : ex2(fmaf(sc[4 * j + 2 + e], scale_log2, b1));
+      const float d0 = sc[4 * j + e] - mn0, d1 = sc[4 * j + 2 + e] - mn1;
+      const float x0 = kExact ? (kShift ? fmaf(d0, scale_log2, kS) : d0 * scale_log2)
+                              : fmaf(sc[4 * j + e], scale_log2, b0);
+      const float x1 = kExact ? (kShift ? fmaf(d1, scale_log2, kS) : d1 * scale_log2)
+                              : fmaf(sc[4 * j + 2 + e], scale_log2, b1);
+      const float p0 = ex2(x0);
+      const float p1 = ex2(x1);
       sc[4 * j + e] = p0;
       sc[4 * j + 2 + e] = p1;
-      s0[t] += p0;
-      s1[t] += p1;
+      if constexpr (kSums) {
+        s0[t] += p0;
+        s1[t] += p1;
+      }
     }
   }
-  l0 = l0 * corr0 + ((s0[0] + s0[1]) + (s0[2] + s0[3]));
-  l1 = l1 * corr1 + ((s1[0] + s1[1]) + (s1[2] + s1[3]));
+  if constexpr (kSums) {
+    l0 = l0 * corr0 + ((s0[0] + s0[1]) + (s0[2] + s0[3]));
+    l1 = l1 * corr1 + ((s1[0] + s1[1]) + (s1[2] + s1[3]));
+  }
 }
 
 // o *= corr by row (accumulator layout of m64nN, N = 8 * (NO / 4)).
@@ -1010,18 +1092,21 @@ __device__ __forceinline__ void mma_pv(float (&o)[NO], const uint32_t (&pa)[32],
              sw128_desc(tV + kk * 16 * 128, kHalfBytes, 1024));
 }
 
-// out = o / l for rows row0 and row1 of this thread, rows of ld elements;
-// col is even, so a pair straddles column ld only where ld is odd
-// (store_pair).
-template <typename Elt, int NO>
+// out = o / l for rows row0 and row1 of this thread, rows of ld elements,
+// l summed over the four threads of a row unless each holds it whole
+// (kQuadSum); col is even, so a pair straddles column ld only where ld is
+// odd (store_pair).
+template <typename Elt, int NO, bool kQuadSum = true>
 __device__ __forceinline__ void store_rows(const float (&o)[NO], float l0, float l1,
                                            int row0, int row1, int c2,
                                            Elt* __restrict__ op, int ld,
                                            int seq_len) {
+  if constexpr (kQuadSum) {  // else each thread holds its rows' whole l
 #pragma unroll
-  for (int o_ = 1; o_ < 4; o_ <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+    }
   }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
 #pragma unroll
@@ -1579,6 +1664,141 @@ __device__ __forceinline__ void consume_wide(
   store_rows(o, l0, l1, row0, row1, c2, op, ld, seq_len);
 }
 
+// One consumer warpgroup at D = 32 (flash_wgmma<T, 32> and
+// flash_wgmma_any<T, 32>, rows of 1 to 32 elements).  At 32/4 x 32, S =
+// 2048, causal, the products are 8.6 GFLOP (0.0087 ms at 989 TFLOP/s) and
+// the 67 M exponentials about 0.017 ms on the SMs' MUFU lanes, but what
+// sets the pace is the instructions a score takes on the way from q.k to
+// p.v (a maximum, an FMA, ex2, p's split) and the latency between the
+// tile's steps, which more warps hide.  So: (1) rows of 64 bytes in the
+// 64-byte swizzle (TMA and the sw64_desc descriptors, no padding to
+// 128-byte spans), q 8 KB, k and v tiles of k32Keys keys (4 KB) in a ring
+// of k32Ring stages, no producer (the consumers refill, as consume_wide
+// does), so that a block keeps to 128 registers a thread and two blocks,
+// 16 warps, share an SM (WGeo<32>::blocks; 64-key tiles); (2) each
+// warpgroup runs q.k^T (two k-steps of m64n64k16 on q and k as they are:
+// exact products, float32 sums, the scale applied after), its softmax and
+// p.v in turn, and the warps of the four warpgroups on an SM overlap one
+// another (taking turns at the tensor cores, overlapping q.k^T of tile j
+// with p.v of tile j - 1, 128- or 256-key tiles, or some exponentials on
+// the FMA pipes each measured slower: PERF.md); (3) the softmax is
+// online_softmax_fma's (maxima over the unscaled scores, scale > 0, the
+// lazy maximum; in float16 (s - m) * scale_log2 + 7, so p and l carry 2^7
+// and p's pair clears float16's subnormals: the lazy maximum keeps p below
+// 2^15); (4) the output keeps one 16-bit ulp of the plain version: p.v
+// takes p as a pair, hi (bf16: p truncated, the top half of its bits;
+// float16: p rounded) and lo = p - hi rounded, m64n40k16 for each, and the
+// 8 columns past v's 32 read a tile of ones, so the same products give l
+// = sum of hi + lo in float32 (each thread holds its rows' whole l; the
+// softmax takes no sums of its own: kSums = false).  p rounded once misses that rule
+// (tests/test_torch_head_dim32.py).  A warpgroup skips the block's last
+// tile where the causal mask hides it from all its rows.
+template <typename Elt>
+__device__ __forceinline__ void consume32(
+    uint32_t sQ, uint32_t sK, uint32_t sV, uint32_t bar_q, uint32_t bar_k,
+    uint32_t bar_v, uint32_t bar_read, uint32_t cnt, int wg, int q0, int lo,
+    int n_iter, Elt* __restrict__ op, int ld, int seq_len, int causal,
+    float scale_log2, int window, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    int kvh) {
+  using G = WGeo<k32Cols>;
+  constexpr int R = G::ring, T = G::tile, KB = G::keys;
+  constexpr int kShift = kIsHalf<Elt> ? 7 : 0;  // float16: p and l carry 2^7
+  const uint32_t sOnes = sV + R * T;            // the ones tile after the v ring
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int c2 = 2 * (lane % 4);
+  const int wrow = q0 + 64 * wg;  // first q row of this warpgroup
+  const int row0 = wrow + 16 * warp + lane / 4, row1 = row0 + 8;
+
+  // o: v's 32 columns, then 8 of l (o[16] row0's, o[18] row1's)
+  float o[k32Cols / 2 + 4];
+#pragma unroll
+  for (int i = 0; i < k32Cols / 2 + 4; ++i) o[i] = 0.0f;
+  // no_l0, no_l1: online_softmax_fma's sums, which it leaves as they are
+  // (kSums = false: l is o[16] and o[18], from p.v)
+  float m0 = kNegInf, m1 = kNegInf, no_l0 = 0.0f, no_l1 = 0.0f, corr0, corr1;
+  float sc[KB / 2];
+  uint32_t ph[KB / 4], pl[KB / 4];
+
+  // q.k^T of tile `it` into sc: two k-steps of 16 columns, 32 bytes apart
+  // in the 64-byte rows
+  auto qk = [&](int it) {
+    const uint32_t tK = sK + (it % R) * T;
+#pragma unroll
+    for (int kk = 0; kk < k32Cols / 16; ++kk)
+      wgmma_ss<Elt>(sc, sw64_desc(sQ + wg * 64 * k32RowBytes + kk * 32, 16, 512),
+                    sw64_desc(tK + kk * 32, 16, 512), kk > 0);
+  };
+  // [o | l] += p . [v | ones] of tile `it`: KB / 16 k-steps of 16 keys,
+  // hi and lo each; the ones' rows for the step lie LBO past v's
+  auto pv = [&](int it) {
+    const uint32_t tV = sV + (it % R) * T;
+#pragma unroll
+    for (int kk = 0; kk < KB / 16; ++kk) {
+      const uint64_t dv = sw64_desc(tV + kk * 16 * k32RowBytes, sOnes - tV, 512);
+      wgmma_rs<Elt>(o, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], dv);
+      wgmma_rs<Elt>(o, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], dv);
+    }
+  };
+  auto softmax = [&](int k0) {
+    online_softmax_fma<KB, true, kIsHalf<Elt>, kShift, false>(
+        sc, k0, wrow, row0, row1, c2, seq_len, causal, window, scale_log2, m0, m1, no_l0, no_l1,
+        corr0, corr1);
+  };
+  // p as the pair hi + lo, the A operand of p.v.  bf16: hi is p truncated
+  // (its bits' top half: one LOP3 and half a PRMT an element, no unpack),
+  // lo = p - hi exact in float32, rounded once; float16: hi = round(p)
+  auto split = [&]() {
+#pragma unroll
+    for (int i = 0; i < KB / 4; ++i) {
+      const float a = sc[2 * i], b = sc[2 * i + 1];
+      if constexpr (kIsHalf<Elt>) {
+        ph[i] = pack2<Elt>(a, b);
+        const float2 h = unpack2<Elt>(ph[i]);
+        pl[i] = pack2<Elt>(a - h.x, b - h.y);
+      } else {
+        const uint32_t ha = __float_as_uint(a) & 0xFFFF0000u;
+        const uint32_t hb = __float_as_uint(b) & 0xFFFF0000u;
+        ph[i] = __byte_perm(ha, hb, 0x7632);
+        pl[i] = pack2<Elt>(a - __uint_as_float(ha), b - __uint_as_float(hb));
+      }
+      asm volatile("" : "+r"(ph[i]), "+r"(pl[i])::"memory");
+    }
+  };
+  // release k tile kt and v tile vt and refill their stages
+  auto release = [&](int j, int kt, int vt) {
+    refill<k32Cols>(bar_read, cnt, sK, sV, bar_k, bar_v, tm_k, tm_v, j, kt, vt, n_iter, lo,
+                    kvh);
+  };
+
+  mbar_wait(bar_q, 0);
+  // the block's last tile, where it lies wholly past this warpgroup's
+  // causal diagonal (warpgroup 0's at 64-key tiles), is skipped: its p
+  // would all be 0, and its release would refill nothing (tile n_iter - 1
+  // + R is past the range)
+  const int n_mine = causal && (lo + n_iter - 1) * KB > wrow + 63 ? n_iter - 1 : n_iter;
+  for (int it = 0; it < n_mine; ++it) {
+    mbar_wait(bar_k + 8 * (it % R), (it / R) & 1);
+    wg_fence();
+    qk(it);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(sc);
+    softmax((lo + it) * KB);
+    if (corr0 != 1.0f || corr1 != 1.0f) rescale(o, corr0, corr1);
+    split();
+    mbar_wait(bar_v + 8 * (it % R), (it / R) & 1);
+    fence_regs(o);
+    wg_fence();
+    pv(it);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(o);
+    release(it, it, it);
+  }
+  store_rows<Elt, k32Cols / 2 + 4, false>(o, o[16], o[18], row0, row1, c2, op, ld, seq_len);
+}
+
 // The block of flash_wgmma and flash_wgmma_any.  kAny: rows of ld <= D
 // elements (a runtime argument), by TMA where their bytes are whole 16-byte
 // pieces and else by the narrow loader from qp, kp and vp; else rows of
@@ -1598,7 +1818,7 @@ __device__ __forceinline__ void flash_wgmma_block(
   const uint32_t sQ = base;
   const uint32_t sK = sQ + QT;
   const uint32_t sV = sK + R * T;
-  const uint32_t bar_q = sV + R * T;
+  const uint32_t bar_q = sV + R * T + WGeo<D>::ones;
   const uint32_t bar_k = bar_q + 8;          // k landed, a stage each
   const uint32_t bar_v = bar_k + 8 * R;      // v landed
   const uint32_t bar_empty = bar_v + 8 * R;  // both read
@@ -1631,6 +1851,14 @@ __device__ __forceinline__ void flash_wgmma_block(
       for (int b = 0; b < WGeo<D>::nx + 2; ++b) mbar_init(bar_x + 8 * b, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  if constexpr (WGeo<D>::r64) {  // the ones tile (consume32's row sums)
+    const uint32_t one = kIsHalf<Elt> ? 0x3C003C00u : 0x3F803F80u;
+    for (int i = threadIdx.x; i < WGeo<D>::ones / 16; i += blockDim.x)
+      asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};" ::"r"(sV + R * T + 16 * i),
+                   "r"(one)
+                   : "memory");
+    fence_proxy_async();
+  }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
@@ -1654,10 +1882,15 @@ __device__ __forceinline__ void flash_wgmma_block(
         load_tile<D>(sV, bar_v, tm_v, it, lo, kvh);
       }
     }
-    consume_wide<Elt, D, kAny>(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, bar_empty + 8 * R,
-                               wg, q0, lo, n_iter, out + (size_t)bh * seq_len * ld, ld,
-                               seq_len, causal, scale_log2, window, tm_k, tm_v, kvh, narrow,
-                               nw);
+    if constexpr (WGeo<D>::r64)
+      consume32<Elt>(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty, bar_empty + 8 * R, wg, q0, lo,
+                     n_iter, out + (size_t)bh * seq_len * ld, ld, seq_len, causal, scale_log2,
+                     window, tm_k, tm_v, kvh);
+    else
+      consume_wide<Elt, D, kAny>(sQ, sK, sV, bar_q, bar_k, bar_v, bar_empty,
+                                 bar_empty + 8 * R, wg, q0, lo, n_iter,
+                                 out + (size_t)bh * seq_len * ld, ld, seq_len, causal,
+                                 scale_log2, window, tm_k, tm_v, kvh, narrow, nw);
   } else if (wg == kConsumers) {
     // producer warpgroup: gives its registers to the consumers; one thread
     // starts every load, B boxes of 64 columns a tile (the _any kernels keep
@@ -1697,7 +1930,7 @@ __device__ __forceinline__ void flash_wgmma_block(
 
 // bf16 or float16 (Elt) rows of exactly D elements: the compiled widths
 template <typename Elt, int D>
-__global__ void __launch_bounds__(WGeo<D>::threads, 1)
+__global__ void __launch_bounds__(WGeo<D>::threads, WGeo<D>::blocks)
     flash_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
@@ -1711,7 +1944,7 @@ __global__ void __launch_bounds__(WGeo<D>::threads, 1)
 // columns past ld with zeros), any other from q, k and v (the narrow
 // loader; the tensor maps unused)
 template <typename Elt, int D>
-__global__ void __launch_bounds__(WGeo<D>::threads, 1)
+__global__ void __launch_bounds__(WGeo<D>::threads, WGeo<D>::blocks)
     flash_wgmma_any(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, const Elt* q, const Elt* k,
@@ -1722,16 +1955,18 @@ __global__ void __launch_bounds__(WGeo<D>::threads, 1)
 }
 
 // A (rows, S, d) bf16 or float16 array (`type`) as a 3-D tensor map with
-// boxes of 64 columns x box_rows in the 128-byte swizzle; rows past S and
+// boxes of box_cols columns x box_rows in `swizzle` (64 columns in the
+// 128-byte swizzle; 32 in the 64-byte one at D = 32); rows past S and
 // columns past d read as zeros.  The row stride, d * 2 bytes, must be a
 // multiple of 16 (d a multiple of 8; the wrapper pads other rows).
-CUresult make_map(CUtensorMap* map, const void* ptr, int rows, int seq_len,
-                  int d, int box_rows, CUtensorMapDataType type) {
+CUresult make_map(CUtensorMap* map, const void* ptr, int rows, int seq_len, int d,
+                  int box_rows, CUtensorMapDataType type, int box_cols = kHalf,
+                  CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)seq_len,
                               (cuuint64_t)rows};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
                                  (cuuint64_t)seq_len * d * 2};
-  const cuuint32_t box[3] = {kHalf, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   // libcuda's encoder, looked up at run time: nothing links against libcuda
   typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1748,8 +1983,8 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int rows, int seq_len,
   }
   return encode(
       map, type, 3, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
@@ -1771,15 +2006,6 @@ constexpr int kGSmem = 1024 + kConsumers * kGRing * kGStageBytes + kGVBytes + kG
 
 __device__ __forceinline__ void bar_sync_n(int id, int n) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
-
-// two T as floats (the inverse of pack2)
-template <typename T>
-__device__ __forceinline__ float2 unpack2(uint32_t u) {
-  if constexpr (kIsHalf<T>)
-    return __half22float2(*reinterpret_cast<__half2*>(&u));
-  else
-    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
 }
 
 // Head dims above 256 in bfloat16 and float16 (rows of ld > 256 elements,
@@ -2061,55 +2287,37 @@ constexpr int kTKeys = 64;      // keys a k/v tile, D <= 128
 constexpr int kTWideKeys = 32;  // keys a k/v tile at D = 256
 constexpr int kTStages = 2;     // the cp.async ring of k/v tiles
 
-// flash_tf32<T, D>'s geometry: warps, threads and q rows a block, keys a
-// k/v tile, the row strides of q (float32), k and v (T) in shared memory,
-// in elements, and the block's dynamic shared memory.  The strides are
-// padded so that the fragment loads of a warp hit 32 distinct banks: q and
-// float32 k are read as 8-byte pairs at row g, word 2t (a stride of 8 mod 16
-// words); float32 v as words at row 2t, column g (a stride of 4 mod 16);
-// bf16 k and v rows are 20 words, so pairs at (g, t) and halves at (2t, g)
-// fall on distinct banks too.  Every row is a multiple of 16 bytes for
-// cp.async.
+// flash_tf32<T, D>'s geometry (T is float: bf16 and float16 run
+// flash_wgmma at every width): warps, threads and q rows a block, keys a
+// k/v tile, the row strides of q, k and v in shared memory, in elements,
+// and the block's dynamic shared memory.  The strides are padded so that
+// the fragment loads of a warp hit 32 distinct banks: q and k are read as
+// 8-byte pairs at row g, word 2t (a stride of 8 mod 16 words); v as words
+// at row 2t, column g (a stride of 4 mod 16).  Every row is a multiple of
+// 16 bytes for cp.async.
 template <typename T, int D>
 struct TGeo {
+  static_assert(sizeof(T) == 4, "float32 only");
   static constexpr bool wide = D > 128;
   static constexpr int warps = wide ? kTWideWarps : kTWarps;
   static constexpr int threads = 32 * warps;
   static constexpr int rows = kTRows * warps;
   static constexpr int keys = wide ? kTWideKeys : kTKeys;
   static constexpr int qs = (D + 15) / 16 * 16 + 8;
-  static constexpr int ks = sizeof(T) == 4 ? qs : D + 8;
-  static constexpr int vs = sizeof(T) == 4 ? D + 4 : D + 8;
-  static constexpr int smem =
-      rows * qs * 4 + kTStages * keys * (ks + vs) * (int)sizeof(T);
+  static constexpr int ks = qs;
+  static constexpr int vs = D + 4;
+  static constexpr int smem = rows * qs * 4 + kTStages * keys * (ks + vs) * 4;
   // two blocks an SM up to D = 64 (at most 128 registers a thread)
   static constexpr int min_blocks = D <= 64 ? 2 : 1;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-// two neighbouring elements of a row as float32 (exact for bf16)
+// two neighbouring elements of a row
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float2 load2(const __half* p) {
-  return __half22float2(*reinterpret_cast<const __half2*>(p));
-}
-// two neighbouring outputs, rounded once to T (to nearest even, as torch's .to())
+// two neighbouring outputs
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-__device__ __forceinline__ void store2(__half* p, float x, float y) {
-  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
@@ -2146,24 +2354,16 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 
 // c += a . b to float32 accuracy, a given as its hi and lo halves: the
 // products lo . hi, hi . lo and hi . hi (lo . lo, about 2^-22 of a product,
-// is left out).  A b that came from bf16 or float16 is exact in TF32:
-// hi . b and lo . b.
-template <typename T>
+// is left out).
 __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
                                      const uint32_t (&al)[4], float b0,
                                      float b1) {
-  if constexpr (sizeof(T) == 4) {
-    uint32_t h0, l0, h1, l1;
-    split(b0, h0, l0);
-    split(b1, h1, l1);
-    mma_tf32(c, al, h0, h1);
-    mma_tf32(c, ah, l0, l1);
-    mma_tf32(c, ah, h0, h1);
-  } else {
-    const uint32_t e0 = __float_as_uint(b0), e1 = __float_as_uint(b1);
-    mma_tf32(c, al, e0, e1);
-    mma_tf32(c, ah, e0, e1);
-  }
+  uint32_t h0, l0, h1, l1;
+  split(b0, h0, l0);
+  split(b1, h1, l1);
+  mma_tf32(c, al, h0, h1);
+  mma_tf32(c, ah, l0, l1);
+  mma_tf32(c, ah, h0, h1);
 }
 
 // The block of flash_tf32 and flash_tf32_any; kAny as flash_wgmma_block's.
@@ -2196,10 +2396,6 @@ __device__ __forceinline__ void flash_tf32_block(const T* __restrict__ q,
   const T* qp = q + (size_t)bh * seq_len * ld;
   const T* kp = k + (size_t)(bh / group) * seq_len * ld;
   const T* vp = v + (size_t)(bh / group) * seq_len * ld;
-  // float16: q and k are exact in TF32, so q.k is one product a pair and
-  // the scale is applied to the float32 score; float32 and bf16 take
-  // q * scale, rounded to float32 once as the plain version does, split
-  constexpr bool kOne = kIsHalf<T>;
 
   // key tiles the block can see (kernel.py:54-62; C division truncates like
   // lax.div, and a negative lo is clamped to 0)
@@ -2225,10 +2421,8 @@ __device__ __forceinline__ void flash_tf32_block(const T* __restrict__ q,
   };
   load_kv(lo);
 
-  // q * scale in float32 (rounded once, as the plain version; float16: q
-  // as it is), rows past S and columns past ld zero; the first barrier of
-  // the loop publishes it
-  const float qscale = kOne ? 1.0f : scale;
+  // q * scale (rounded once, as the plain version), rows past S and
+  // columns past ld zero; the first barrier of the loop publishes it
   for (int i = threadIdx.x; i < BQ * (D / C); i += G::threads) {
     const int r = i / (D / C), c = (i % (D / C)) * C;
     float* dst = sQ + r * G::qs + c;
@@ -2237,7 +2431,7 @@ __device__ __forceinline__ void flash_tf32_block(const T* __restrict__ q,
           *reinterpret_cast<const uint4*>(qp + (size_t)(q0 + r) * ld + c);
       const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-      for (int u = 0; u < C; ++u) dst[u] = to_f32(e[u]) * qscale;
+      for (int u = 0; u < C; ++u) dst[u] = e[u] * scale;
     } else {
 #pragma unroll
       for (int u = 0; u < C; ++u) dst[u] = 0.0f;
@@ -2285,32 +2479,16 @@ __device__ __forceinline__ void flash_tf32_block(const T* __restrict__ q,
       for (int kk = 0; kk < ND; ++kk) {
         const float2 x0 = *reinterpret_cast<const float2*>(qr0 + 8 * kk);
         const float2 x1 = *reinterpret_cast<const float2*>(qr1 + 8 * kk);
-        if constexpr (kOne) {  // float16: q and k whole, one product
-          const uint32_t a[4] = {__float_as_uint(x0.x), __float_as_uint(x1.x),
-                                 __float_as_uint(x0.y), __float_as_uint(x1.y)};
+        uint32_t ah[4], al[4];
+        split(x0.x, ah[0], al[0]);  // (g, 2t)
+        split(x1.x, ah[1], al[1]);  // (g + 8, 2t)
+        split(x0.y, ah[2], al[2]);  // (g, 2t + 1)
+        split(x1.y, ah[3], al[3]);  // (g + 8, 2t + 1)
 #pragma unroll
-          for (int n = 0; n < NK; ++n) {
-            const float2 y = load2(tk + (8 * n + g) * G::ks + 8 * kk + 2 * t);
-            mma_tf32(s[n], a, __float_as_uint(y.x), __float_as_uint(y.y));
-          }
-        } else {
-          uint32_t ah[4], al[4];
-          split(x0.x, ah[0], al[0]);  // (g, 2t)
-          split(x1.x, ah[1], al[1]);  // (g + 8, 2t)
-          split(x0.y, ah[2], al[2]);  // (g, 2t + 1)
-          split(x1.y, ah[3], al[3]);  // (g + 8, 2t + 1)
-#pragma unroll
-          for (int n = 0; n < NK; ++n) {
-            const float2 y = load2(tk + (8 * n + g) * G::ks + 8 * kk + 2 * t);
-            mma3<T>(s[n], ah, al, y.x, y.y);
-          }
+        for (int n = 0; n < NK; ++n) {
+          const float2 y = load2(tk + (8 * n + g) * G::ks + 8 * kk + 2 * t);
+          mma3(s[n], ah, al, y.x, y.y);
         }
-      }
-      if constexpr (kOne) {
-#pragma unroll
-        for (int n = 0; n < NK; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] *= scale;
       }
 
       // masks, only on tiles that cross the causal diagonal, the window's
@@ -2387,7 +2565,7 @@ __device__ __forceinline__ void flash_tf32_block(const T* __restrict__ q,
         const T* vr = tv + (8 * n + 2 * t) * G::vs + g;
 #pragma unroll
         for (int jd = 0; jd < ND; ++jd)
-          mma3<T>(o[jd], ah, al, to_f32(vr[8 * jd]), to_f32(vr[G::vs + 8 * jd]));
+          mma3(o[jd], ah, al, vr[8 * jd], vr[G::vs + 8 * jd]);
       }
     }
     __syncthreads();  // every warp is done with this stage before its refill
@@ -2412,7 +2590,7 @@ __device__ __forceinline__ void flash_tf32_block(const T* __restrict__ q,
   }
 }
 
-// float32, bf16 or float16 (T) rows of exactly D elements
+// float32 (T) rows of exactly D elements
 template <typename T, int D>
 __global__ void __launch_bounds__(TGeo<T, D>::threads, TGeo<T, D>::min_blocks)
     flash_tf32(const T* __restrict__ q, const T* __restrict__ k,
@@ -2497,7 +2675,7 @@ struct XGeo {
 };
 
 // c += a . b to float32 accuracy from both operands' halves (bh, bl: b's
-// hi and lo, split once a block): lo . hi, hi . lo, hi . hi, as mma3<float>
+// hi and lo, split once a block): lo . hi, hi . lo, hi . hi, as mma3
 __device__ __forceinline__ void mma3s(float (&c)[4], const uint32_t (&ah)[4],
                                       const uint32_t (&al)[4], float bh0, float bh1,
                                       float bl0, float bl1) {
@@ -2820,11 +2998,11 @@ cudaError_t launch_f32(int ld, const void* q, const void* k, const void* v,
 }
 
 // flash_wgmma<T, D>: the overlapped schedule at D = 64, the one within a
-// warpgroup above 128 and at 96 (consume_wide), the serial one at 80, 120
-// and 128 (see consume).  The D = 64, 96 and D > 128 softmaxes take their
-// maxima over
-// the unscaled scores, so there only scale > 0 is computed and any other
-// scale is refused here (NaN included).  The wrapper
+// warpgroup above 128 and at 96 (consume_wide) and at 32 (consume32, rows
+// of 64 bytes in the 64-byte swizzle), the serial one at 80, 120 and 128
+// (see consume).  The D = 32, 64, 96 and D > 128 softmaxes take their
+// maxima over the unscaled scores, so there only scale > 0 is computed and
+// any other scale is refused here (NaN included).  The wrapper
 // handles the sign (flash_attention/ops.py, positive_scale): it launches
 // a negative scale as -q with |scale|, and scale 0 as a zero q with scale
 // 1, which give the same scaled scores.  Rows are ld <= D elements, exactly
@@ -2836,7 +3014,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
                          int ld, int bh, int seq_len, int group, int causal,
                          float scale, int window, cudaStream_t stream) {
   static_assert(D % 32 == 0 || (!kAny && D % 8 == 0), "rows of 16-byte multiples");
-  static_assert(D >= kHalf && D <= kWideCols && (kAny || D <= kWCols || D == kWideCols),
+  static_assert((D >= kHalf || D == k32Cols) && D <= kWideCols &&
+                    (kAny || D <= kWCols || D == kWideCols),
                 "widths that fill at least one span");
   static_assert(WGeo<D>::narrow_smem <= kSmemLimit, "the narrow loader's buffers fit");
   if constexpr (D == kHalf || WGeo<D>::self_load)
@@ -2853,12 +3032,17 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const bool narrow = kAny && WGeo<D>::narrow && ld % 8 != 0;
   const CUtensorMapDataType type =
       kIsHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // boxes of a span's columns: 32 in the 64-byte swizzle at D = 32
+  constexpr int box = WGeo<D>::r64 ? k32Cols : kHalf;
+  const CUtensorMapSwizzle sw =
+      WGeo<D>::r64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  constexpr int keys = WGeo<D>::keys;
   CUtensorMap tq = {}, tk = {}, tv = {};
   if (ld < 1 || ld > D || (!kAny && ld != D) || (ld % 8 != 0 && !narrow) ||
       (!narrow &&
-       (make_map(&tq, q, bh, seq_len, ld, kWBQ, type) != CUDA_SUCCESS ||
-        make_map(&tk, k, bh / group, seq_len, ld, WGeo<D>::keys, type) != CUDA_SUCCESS ||
-        make_map(&tv, v, bh / group, seq_len, ld, WGeo<D>::keys, type) != CUDA_SUCCESS)))
+       (make_map(&tq, q, bh, seq_len, ld, kWBQ, type, box, sw) != CUDA_SUCCESS ||
+        make_map(&tk, k, bh / group, seq_len, ld, keys, type, box, sw) != CUDA_SUCCESS ||
+        make_map(&tv, v, bh / group, seq_len, ld, keys, type, box, sw) != CUDA_SUCCESS)))
     return cudaErrorInvalidValue;
   const dim3 grid(bh, (seq_len + kWBQ - 1) / kWBQ);
   if constexpr (kAny)
@@ -2902,22 +3086,21 @@ cudaError_t launch_wgmma_wide(const void* q, const void* k, const void* v, void*
   return cudaGetLastError();
 }
 
-// bfloat16 and float16: flash_tf32 up to 32 columns, flash_wgmma above;
-// at a compiled width the kernel of that width, else flash_wgmma_any at ld
-// rounded up to a multiple of 32 (flash_tf32_any below 32; ops.py width);
-// above 256 flash_wgmma_wide
+// bfloat16 and float16: flash_wgmma at a compiled width, else
+// flash_wgmma_any at ld rounded up to a multiple of 32 (ops.py width); above
+// 256 flash_wgmma_wide
 template <typename T>
 cudaError_t launch_16bit(int ld, const void* q, const void* k, const void* v,
                          void* out, int bh, int seq_len, int group, int causal,
                          float scale, int window, cudaStream_t stream) {
   auto go = ld > 256    ? launch_wgmma_wide<T>
-            : ld == 32  ? launch_tf32<T, 32, false>
+            : ld == 32  ? launch_wgmma<T, 32, false>
             : ld == 64  ? launch_wgmma<T, 64, false>
             : ld == 80  ? launch_wgmma<T, 80, false>
             : ld == 120 ? launch_wgmma<T, 120, false>
             : ld == 128 ? launch_wgmma<T, 128, false>
             : ld == 256 ? launch_wgmma<T, 256, false>
-            : ld < 32   ? launch_tf32<T, 32, true>
+            : ld < 32   ? launch_wgmma<T, 32, true>
             : ld < 64   ? launch_wgmma<T, 64, true>
             : ld <= 96  ? launch_wgmma<T, 96, true>
             : ld < 128  ? launch_wgmma<T, 128, true>
@@ -2940,10 +3123,11 @@ cudaError_t launch_16bit(int ld, const void* q, const void* k, const void* v,
 // means no window.  q and out hold
 // bh * seq_len * ld elements, k and v bh / group times that.  float32 runs
 // flash_tf32 at the smallest compiled width D >= ld (32, 64, 80, 120, 128,
-// 256); bfloat16 and float16 flash_tf32 at 32, flash_wgmma at 64, 80, 120,
-// 128 and 256 and flash_wgmma_any at ld rounded up to a multiple of 32 for
-// other rows.  flash_wgmma at 64 and above 128 takes only scale > 0
-// (cudaErrorInvalidValue otherwise; the wrapper rewrites the others).
+// 256); bfloat16 and float16 flash_wgmma at 32, 64, 80, 120, 128 and 256
+// and flash_wgmma_any at ld rounded up to a multiple of 32 for other rows
+// (rows of at most 32 at 32).  flash_wgmma at 32, 64 and above 128 takes
+// only scale > 0 (cudaErrorInvalidValue otherwise; the wrapper rewrites the
+// others).
 extern "C" int flash_attention_launch(int device, int dtype, int head_dim,
                                       const void* q, const void* k,
                                       const void* v, void* out, int bh,

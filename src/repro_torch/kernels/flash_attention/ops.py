@@ -16,9 +16,9 @@ SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 
 #: the JAX wrapper's block sizes; they fix the ``S % block`` contract only,
 #: since the CUDA kernels tile by their own (bf16 on ``flash_wgmma``: 128 x
-#: 128 at head dims 64, 80, 120 and 128, 128 x 64 at 256; ``flash_tf32``:
-#: 128 x 64, and 64 x 32 at 256; the result does not depend on the block:
-#: masked keys contribute exactly 0)
+#: 128 at head dims 32, 64, 80, 120 and 128, 128 x 64 at 256;
+#: ``flash_tf32``: 128 x 64, and 64 x 32 at 256; the result does not depend
+#: on the block: masked keys contribute exactly 0)
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
 
@@ -30,9 +30,9 @@ HEAD_DIMS = (32, 64, 80, 120, 128, 256)
 #: widths of the ``_any`` kernels, which take rows of any length up to the
 #: width (the columns past it zeros): a row that is none of HEAD_DIMS runs
 #: the smallest of them at or above it (``width``).  bfloat16 and float16
-#: rows above 32 run ``flash_wgmma_any`` at every multiple of 32, so that a
-#: row does its own width of work rounded up to 32 columns; float32 rows and
-#: 16-bit rows of at most 32 run ``flash_tf32_any`` at TF32_ANY_WIDTHS
+#: rows run ``flash_wgmma_any`` at every multiple of 32, so that a row does
+#: its own width of work rounded up to 32 columns; float32 rows run
+#: ``flash_tf32_any`` at TF32_ANY_WIDTHS
 ANY_WIDTHS = (32, 64, 96, 128, 160, 192, 224, 256)
 TF32_ANY_WIDTHS = (32, 64, 128, 256)
 
@@ -50,20 +50,27 @@ WIDE_GROUP = 512
 WIDE_ROWS = 64
 
 #: bfloat16 and float16 compiled widths that run ``flash_wgmma`` (wgmma +
-#: TMA; at 64 the softmax overlaps the tensor cores, at 256 the key tiles
-#: are 64 rows; every 16-bit width above 32 runs it, off these widths as
-#: ``flash_wgmma_any``); float32 at every width and bf16 and float16 at 32 run
-#: ``flash_tf32`` (mma.sync on TF32 tensor cores, float32 operands split
-#: into hi + lo).  ``launch_f32`` and ``launch_16bit`` in the source
-#: dispatch the same way.
-WGMMA_HEAD_DIMS = (64, 80, 120, 128, 256)
+#: TMA; at 32 rows of 64 bytes in the 64-byte swizzle, 64-key tiles, two
+#: blocks an SM and p.v with p as a hi + lo pair, at 64 the softmax
+#: overlaps the tensor cores, at 256 the key tiles are 64 rows;
+#: every 16-bit width runs it, off these widths as ``flash_wgmma_any``);
+#: float32 at every width runs ``flash_tf32`` (mma.sync on TF32 tensor
+#: cores, float32 operands split into hi + lo).  ``launch_f32`` and
+#: ``launch_16bit`` in the source dispatch the same way.
+WGMMA_HEAD_DIMS = (32, 64, 80, 120, 128, 256)
 
 #: bf16 and float16 widths whose kernel takes its softmax maxima over the
 #: unscaled scores, so computes only scale > 0 (the wrapper rewrites the
-#: others, ``positive_scale``): flash_wgmma and flash_wgmma_any at 64, 96
-#: and above 128, and flash_wgmma_wide at every row above WIDE_ABOVE
+#: others, ``positive_scale``): flash_wgmma and flash_wgmma_any at 32, 64,
+#: 96 and above 128, and flash_wgmma_wide at every row above WIDE_ABOVE
 #: (``positive_only``)
-POSITIVE_SCALE_DIMS = (64, 96, 160, 192, 224, 256)
+POSITIVE_SCALE_DIMS = (32, 64, 96, 160, 192, 224, 256)
+
+#: flash_wgmma at width 32 (the source's k32Keys, k32Ring): 128 q rows a
+#: block, key tiles of K32_KEYS keys in a ring of K32_RING stages, rows of
+#: 64 bytes, two blocks an SM (``smem32_bytes``)
+K32_KEYS = 64
+K32_RING = 4
 
 #: the widest bf16 and float16 row the narrow loader reads as it is
 #: (``narrow_row``); wider rows whose bytes are not a multiple of 16 are
@@ -132,7 +139,7 @@ def width(dtype: torch.dtype, head_dim: int) -> int:
     ld = row_elems(dtype, head_dim)
     if ld in HEAD_DIMS or ld > WIDE_ABOVE:
         return ld
-    widths = TF32_ANY_WIDTHS if dtype == torch.float32 or ld <= 32 else ANY_WIDTHS
+    widths = TF32_ANY_WIDTHS if dtype == torch.float32 else ANY_WIDTHS
     return next(w for w in widths if w >= ld)
 
 
@@ -140,14 +147,12 @@ def kernel_name(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernel a launch at ``dtype`` and ``head_dim`` runs."""
     if row_elems(dtype, head_dim) > WIDE_ABOVE:
         return "flash_tf32_wide" if dtype == torch.float32 else "flash_wgmma_wide"
-    if dtype != torch.float32 and width(dtype, head_dim) > 32:
-        return "flash_wgmma"
-    return "flash_tf32"
+    return "flash_tf32" if dtype == torch.float32 else "flash_wgmma"
 
 
 def kernel_label(dtype: torch.dtype, head_dim: int) -> str:
     """The instantiation a launch runs, named as ptxas's report names it
-    (``flash_wgmma<bf16, 128>``, ``flash_tf32<f16, 32>``,
+    (``flash_wgmma<bf16, 128>``, ``flash_tf32<f32, 32>``,
     ``flash_wgmma_any<bf16, 128>`` at head dim 96, ``flash_wgmma_wide<bf16>``
     and ``flash_tf32_wide<f32>`` above 256)."""
     name = kernel_name(dtype, head_dim)
@@ -203,6 +208,17 @@ def wide_smem_bytes(dtype: torch.dtype) -> int:
     span = keys * WIDE_PIECE * 2
     return (1024 + 2 * 4 * 2 * span + (WIDE_GROUP // WIDE_PIECE) * span
             + WIDE_ROWS * keys * 4 + 8 * 2 * 5)
+
+
+def smem32_bytes() -> int:
+    """The dynamic shared memory of a flash_wgmma<T, 32> block (its WGeo<32>):
+    1 KB of alignment slack, q (128 rows of 64 bytes), the ring of K32_RING
+    stages of a k and a v tile (K32_KEYS rows of 64 bytes each), the tile of
+    ones p.v's row sums read, the mbarriers (q; k landed, v landed, read a
+    stage) and a refill counter a stage."""
+    tile = K32_KEYS * 64
+    return (1024 + 128 * 64 + 2 * K32_RING * tile + tile + 8 * (1 + 3 * K32_RING)
+            + 4 * K32_RING)
 
 
 def positive_scale(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:

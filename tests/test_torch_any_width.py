@@ -88,9 +88,11 @@ def test_float32_and_short_rows_still_pad():
     for d in (1, 7, 33, 100, 150, 250):
         assert flash_ops.row_elems(torch.float32, d) == -(-d // 4) * 4
         assert flash_ops.width(torch.float32, d) in flash_ops.TF32_ANY_WIDTHS + flash_ops.HEAD_DIMS
-    for d in (1, 9, 31):
+    for d in (1, 9, 31):  # flash_wgmma_any at 32 loads them by TMA
         assert flash_ops.row_elems(torch.bfloat16, d) == -(-d // 8) * 8
-        assert flash_ops.kernel_name(torch.bfloat16, d) == "flash_tf32"
+        assert flash_ops.kernel_name(torch.bfloat16, d) == "flash_wgmma"
+        any_ = "" if d > 24 else "_any"  # 31 pads to the compiled width
+        assert flash_ops.kernel_label(torch.bfloat16, d) == f"flash_wgmma{any_}<bf16, 32>"
     for d in (257, 300):  # the wide kernels load by TMA
         assert flash_ops.row_elems(torch.bfloat16, d) == -(-d // 8) * 8
     # one staging buffer at 224 and 256: those rows come padded, by TMA
@@ -217,7 +219,7 @@ def test_the_staging_buffers_fit_beside_each_layout():
                  "static constexpr int xbytes = (keys * (D - 1) * 2 + 48 + 127) / 128 * 128;",
                  "static constexpr int fit = (kSmemLimit - 1024 - stage_at - 24) / (xbytes + 8);",
                  "static constexpr int nx = fit > (self_load ? 2 : 4) ? (self_load ? 2 : 4) : fit;",
-                 "static constexpr bool narrow = nx >= 2;",
+                 "static constexpr bool narrow = !r64 && nx >= 2;",
                  "static constexpr int narrow_smem = narrow ? 1024 + stage_at + nx * (xbytes + 8) "
                  "+ 24 : smem;"):
         assert line in FLASH_CU, line

@@ -204,10 +204,10 @@ class FakeDecodeLib:
 
 @pytest.mark.parametrize("dtype,d,row,width,kernel", [
     (torch.float16, 128, 128, 128, "flash_wgmma<f16, 128>"),
-    (torch.float16, 32, 32, 32, "flash_tf32<f16, 32>"),
+    (torch.float16, 32, 32, 32, "flash_wgmma<f16, 32>"),
     (torch.bfloat16, 96, 96, 96, "flash_wgmma_any<bf16, 96>"),
     (torch.bfloat16, 33, 33, 64, "flash_wgmma_any<bf16, 64>"),
-    (torch.float16, 1, 8, 32, "flash_tf32_any<f16, 32>"),
+    (torch.float16, 1, 8, 32, "flash_wgmma_any<f16, 32>"),
     (torch.float32, 33, 36, 64, "flash_tf32_any<f32, 64>"),
     (torch.float32, 100, 100, 128, "flash_tf32_any<f32, 128>"),
     (torch.bfloat16, 250, 256, 256, "flash_wgmma<bf16, 256>"),

@@ -1,5 +1,6 @@
-"""``flash_tf32``, the float32 (and bf16 head dim 32) flash kernel on the
-TF32 tensor cores, checked on the CPU.
+"""``flash_tf32``, the float32 flash kernel on the TF32 tensor cores,
+checked on the CPU (bf16 and float16 at head dim 32 run ``flash_wgmma``:
+``tests/test_torch_head_dim32.py``).
 
 The kernel itself runs only on the card (``chip_smoke.py`` phase 5 holds
 it to its plain version there).  Here an emulation of its arithmetic is
@@ -9,12 +10,12 @@ held to the JAX package's Pallas kernel in interpret mode:
   lo = tf32(x - hi), tf32 being ``cvt.rna.tf32.f32``: add 0x1000 to the
   bits and clear the low 13;
 * each product as three float32 matmuls of the rounded operands, lo.hi +
-  hi.lo + hi.hi (bf16 k and v are exact in TF32: hi.x + lo.x);
+  hi.lo + hi.hi;
 * the online softmax in float32 over the kernel's key tiles, each warp of
   16 q rows walking the tiles its rows see, as ``flash_attention.cu`` does.
 
-It must meet phase 5's rules (float32: 1e-5 + 1e-5 |ref|; bf16: one bf16
-ulp + 1e-5) at every head dim, causal, non-causal and windowed, with GQA
+It must meet phase 5's rule (1e-5 + 1e-5 |ref|) at every head dim,
+causal, non-causal and windowed, with GQA
 4/2, and a negative control (one TF32 product a pair) must miss the
 float32 rule at every head dim, so the test tells the two apart.  The
 kernel's geometry (shared memory, bank-free fragment loads, 16-byte rows)
@@ -31,6 +32,7 @@ import torch
 import chip_smoke
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from _flash_emulation import emulate32
 
 torch.set_num_threads(1)  # small tensors: extra threads only contend
 
@@ -47,16 +49,15 @@ def cu_int(name: str) -> int:
     return int(re.search(rf"constexpr int {name} = (\d+);", FLASH_CU).group(1))
 
 
-def geometry(d: int, esz: int = 4) -> dict:
-    """TGeo<T, D> of flash_attention.cu, for T of ``esz`` bytes."""
+def geometry(d: int) -> dict:
+    """TGeo<float, D> of flash_attention.cu."""
     wide = d > 128
     warps = cu_int("kTWideWarps") if wide else cu_int("kTWarps")
     rows = cu_int("kTRows") * warps
     keys = cu_int("kTWideKeys") if wide else cu_int("kTKeys")
     qs = (d + 15) // 16 * 16 + 8
-    ks = qs if esz == 4 else d + 8
-    vs = d + 4 if esz == 4 else d + 8
-    smem = rows * qs * 4 + cu_int("kTStages") * keys * (ks + vs) * esz
+    ks, vs = qs, d + 4
+    smem = rows * qs * 4 + cu_int("kTStages") * keys * (ks + vs) * 4
     return dict(warps=warps, rows=rows, keys=keys, qs=qs, ks=ks, vs=vs, smem=smem)
 
 
@@ -72,26 +73,22 @@ def split(x: torch.Tensor):
     return hi, tf32(x - hi)
 
 
-def product(a: torch.Tensor, b: torch.Tensor, products: int, b_exact: bool) -> torch.Tensor:
+def product(a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tensor:
     """a @ b as the kernel's TF32 products, float32 sums: three (lo.hi +
-    hi.lo + hi.hi), two where b is exact in TF32 (came from bf16), or one
-    (the negative control)."""
+    hi.lo + hi.hi), or one (the negative control)."""
     if products == 1:
         return tf32(a) @ tf32(b)
     ah, al = split(a)
-    if b_exact:
-        return al @ b + ah @ b
     bh, bl = split(b)
     return al @ bh + ah @ bl + ah @ bh
 
 
 def emulate(q, k, v, *, causal, window, products=3):
-    """flash_tf32's arithmetic on the CPU: (B, H, S, D) in, q's dtype out."""
+    """flash_tf32's arithmetic on the CPU: (B, H, S, D) float32 in and out."""
     b, h, s, d = q.shape
     group = h // k.shape[1]
-    geo = geometry(d, q.element_size())
+    geo = geometry(d)
     bq, bk = geo["rows"], geo["keys"]
-    exact = q.dtype == torch.bfloat16
     scale = 1.0 / d ** 0.5
     qs = (q.to(torch.float32) * scale).reshape(b * h, s, d)
     kf = k.to(torch.float32).repeat_interleave(group, dim=1).reshape(b * h, s, d)
@@ -117,7 +114,7 @@ def emulate(q, k, v, *, causal, window, products=3):
                 valid = min(bk, s - j * bk)
                 kt[:, :valid] = kf[:, j * bk:j * bk + valid]
                 vt[:, :valid] = vf[:, j * bk:j * bk + valid]
-                sc = product(qw, kt.transpose(1, 2), products, exact)
+                sc = product(qw, kt.transpose(1, 2), products)
                 keep = torch.ones(16, bk, dtype=torch.bool)
                 if causal:
                     keep &= cols[None, :] <= rows[:, None]
@@ -129,7 +126,7 @@ def emulate(q, k, v, *, causal, window, products=3):
                 corr = torch.exp(m - mx)
                 p = torch.exp(sc - mx)
                 l = l * corr + p.sum(dim=-1, keepdim=True)
-                o = o * corr + product(p, vt, products, exact)
+                o = o * corr + product(p, vt, products)
                 m = mx
             n = min(16, s - r0)
             out[:, r0:r0 + n] = (o / l.clamp_min(1e-30))[:, :n]
@@ -182,10 +179,13 @@ def test_ragged_end_meets_the_float32_rule(d):
 
 @pytest.mark.parametrize("causal,window", MASKS)
 def test_bf16_at_32_meets_the_one_ulp_rule(causal, window):
-    """bf16 k and v go in whole (exact in TF32); q * scale and p are
-    split: two products a pair, the output rounded once to bf16."""
+    """bf16 at head dim 32 runs flash_wgmma<bf16, 32>: exact
+    q.k products with float32 sums, p.v with p as a bf16 hi + lo pair,
+    the output rounded once to bf16 (that kernel's emulation,
+    ``_flash_emulation.emulate32``)."""
     q, k, v, ref = case(32, causal, window, "bfloat16")
-    got = emulate(q, k, v, causal=causal, window=window)
+    assert flash_ops.kernel_label(torch.bfloat16, 32) == "flash_wgmma<bf16, 32>"
+    got = emulate32(q, k, v, causal=causal, window=window)
     assert got.dtype == torch.bfloat16
     assert within_rule(got, ref), float((got.float() - ref.float()).abs().max())
 
@@ -216,58 +216,44 @@ def test_tf32_rounds_to_nearest_ties_away():
 
 @pytest.mark.parametrize("d", flash_ops.HEAD_DIMS)
 def test_flash_tf32_geometry(d):
-    """TGeo<float, D> (and <bf16, 32>): the block's shared memory fits,
-    every row is a whole number of 16-byte cp.async copies, and a warp's
-    fragment loads hit 32 distinct banks: q and float32 k as 8-byte pairs
-    at (row g, word 2t) by half-warps, float32 v as words at (row 2t,
-    column g), bf16 k pairs at (g, t) and bf16 v halves at (2t, g)."""
-    for esz in ((4, 2) if d == 32 else (4,)):
-        geo = geometry(d, esz)
-        assert geo["smem"] <= SMEM_LIMIT
-        assert (geo["rows"], geo["keys"]) == ((64, 32) if d == 256 else (128, 64))
-        assert (geo["qs"] * 4) % 16 == 0 and (d * esz) % 16 == 0
-        assert (geo["ks"] * esz) % 16 == 0 and (geo["vs"] * esz) % 16 == 0
-        assert d % 8 == 0 and d <= geo["qs"] and d <= geo["ks"] and d <= geo["vs"]
-        # q, and float32 k: a half-warp (g 0..3 or 4..7, t 0..3) reads two
-        # words each
-        half = [{(g * geo["qs"] + 2 * t + w) % 32 for g in gs for t in range(4) for w in (0, 1)}
+    """TGeo<float, D>: the block's shared memory fits, every row is a whole
+    number of 16-byte cp.async copies, and a warp's fragment loads hit 32
+    distinct banks: q and k as 8-byte pairs at (row g, word 2t) by
+    half-warps, v as words at (row 2t, column g)."""
+    geo = geometry(d)
+    assert geo["smem"] <= SMEM_LIMIT
+    assert (geo["rows"], geo["keys"]) == ((64, 32) if d == 256 else (128, 64))
+    assert (geo["qs"] * 4) % 16 == 0 and (d * 4) % 16 == 0
+    assert (geo["ks"] * 4) % 16 == 0 and (geo["vs"] * 4) % 16 == 0
+    assert d % 8 == 0 and d <= geo["qs"] and d <= geo["ks"] and d <= geo["vs"]
+    # q and k: a half-warp (g 0..3 or 4..7, t 0..3) reads two words each
+    for stride in (geo["qs"], geo["ks"]):
+        half = [{(g * stride + 2 * t + w) % 32 for g in gs for t in range(4) for w in (0, 1)}
                 for gs in (range(4), range(4, 8))]
         assert all(len(banks) == 32 for banks in half)
-        if esz == 4:
-            half = [{(g * geo["ks"] + 2 * t + w) % 32 for g in gs for t in range(4)
-                     for w in (0, 1)} for gs in (range(4), range(4, 8))]
-            assert all(len(banks) == 32 for banks in half)
-            for e in (0, 1):  # b0 (key 2t) and b1 (key 2t + 1)
-                banks = {((2 * t + e) * geo["vs"] + g) % 32 for g in range(8) for t in range(4)}
-                assert len(banks) == 32
-        else:
-            words = geo["ks"] // 2
-            assert len({(g * words + t) % 32 for g in range(8) for t in range(4)}) == 32
-            for e in (0, 1):  # two halves of a word are one read
-                banks = {((2 * t + e) * geo["vs"] + g) // 2 % 32 for g in range(8)
-                         for t in range(4)}
-                assert len(banks) == 16
-                words_read = {((2 * t + e) * geo["vs"] + g) // 2 for g in range(8)
-                              for t in range(4)}
-                assert len(words_read) == len(banks)
+    for e in (0, 1):  # b0 (key 2t) and b1 (key 2t + 1)
+        banks = {((2 * t + e) * geo["vs"] + g) % 32 for g in range(8) for t in range(4)}
+        assert len(banks) == 32
     assert f"launch_tf32<T, {d}, false>" in FLASH_CU
     assert flash_ops.kernel_name(torch.float32, d) == "flash_tf32"
 
 
 def test_flash_tf32_dispatch_and_launch_bounds():
-    """flash_tf32 runs float32 at every head dim and bf16 at 32; two
-    blocks an SM (128 registers a thread) up to D = 64, one above; 8 warps
-    below D = 256 and 4 at 256; three mma.sync products a float32 pair,
-    two where b came from bf16."""
-    assert flash_ops.kernel_name(torch.bfloat16, 32) == "flash_tf32"
-    assert "? launch_tf32<T, 32, false>" in FLASH_CU.split("cudaError_t launch_16bit")[1]
+    """flash_tf32 runs float32 at every head dim and nothing else (bf16 and
+    float16 at 32 run flash_wgmma); two blocks an SM (128
+    registers a thread) up to D = 64, one above; 8 warps below D = 256 and
+    4 at 256; three mma.sync products a float32 pair."""
+    assert flash_ops.kernel_name(torch.bfloat16, 32) == "flash_wgmma"
+    assert flash_ops.kernel_name(torch.float32, 32) == "flash_tf32"
+    launch_16bit = FLASH_CU.split("cudaError_t launch_16bit")[1].split("\n}\n")[0]
+    assert "? launch_wgmma<T, 32, false>" in launch_16bit and "launch_tf32" not in launch_16bit
     assert "static constexpr int min_blocks = D <= 64 ? 2 : 1;" in FLASH_CU
     assert "__launch_bounds__(TGeo<T, D>::threads, TGeo<T, D>::min_blocks)" in FLASH_CU
     assert (cu_int("kTWarps"), cu_int("kTWideWarps"), cu_int("kTStages")) == (8, 4, 2)
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in FLASH_CU
     assert 'asm("cvt.rna.tf32.f32 %0, %1;"' in FLASH_CU
     body = re.search(r"__device__ __forceinline__ void mma3\(.*?\n}\n", FLASH_CU, re.S).group(0)
-    assert body.count("mma_tf32(") == 5  # 3 for float32 b, 2 for bf16 b
+    assert body.count("mma_tf32(") == 3  # lo.hi, hi.lo, hi.hi
 
 
 @pytest.mark.parametrize("mangled,name", [

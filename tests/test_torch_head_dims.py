@@ -387,8 +387,10 @@ SMEM_LIMIT = 232_448
 #: flash_attention.cu's choices by head dim: p.v's columns, the block's
 #: shared memory
 PV_COLS = "return D <= kHalf ? kHalf : D <= 80 ? 80 : D <= 96 ? 96 : D <= kWCols ? kWCols : D;"
-SMEM_PICK = ("static constexpr int smem =\n      1024 + qtile + 2 * ring * tile + 8 * (1 + 3 * ring) + "
+SMEM_PICK = ("static constexpr int smem =\n      1024 + qtile + 2 * ring * tile + ones + 8 * (1 + 3 * ring) + "
              "(self_load ? 4 * ring : 0);")
+#: ones is D = 32's tile of ones (0 at every other width)
+ONES_PICK = "static constexpr int ones = r64 ? tile : 0;"
 
 
 def cu_consts():
@@ -429,12 +431,13 @@ def test_flash_route_table_is_the_sources():
         want = "flash_wgmma" if d in flash_ops.WGMMA_HEAD_DIMS else "flash_tf32"
         assert flash_ops.kernel_name(torch.bfloat16, d) == want
         assert flash_ops.kernel_name(torch.float16, d) == want
-    # bf16 at 64 (musicgen-medium) is on wgmma; bf16 at 32 and float32 at
-    # every head dim run the split-TF32 mma.sync kernel; the CUDA-core
-    # flash_fwd is gone
+    # bf16 at 64 (musicgen-medium) and at 32 are on wgmma; float32 at every
+    # head dim runs the split-TF32 mma.sync kernel; the CUDA-core flash_fwd
+    # is gone
     assert flash_ops.kernel_name(torch.bfloat16, 64) == "flash_wgmma"
     assert "launch_wgmma<T, 64, false>" in bf16 and "launch_tf32<T, 64, " not in bf16
-    assert flash_ops.kernel_name(torch.bfloat16, 32) == "flash_tf32"
+    assert flash_ops.kernel_name(torch.bfloat16, 32) == "flash_wgmma"
+    assert "launch_wgmma<T, 32, false>" in bf16 and "launch_tf32" not in bf16
     assert "flash_fwd" not in FLASH_CU
     # every ported config that calls the kernels computes in bf16, on the
     # tensor cores
@@ -499,10 +502,13 @@ def test_flash_wgmma_geometry_at_64():
     # a row of the tensor map is one 128-byte swizzle span and one box
     assert d * 2 == half * 2 == 128
     assert "static constexpr int boxes = (D + kHalf - 1) / kHalf;" in FLASH_CU
-    assert "static constexpr int keys = D > kWCols ? kWideKeys : kWBK;" in FLASH_CU
-    assert "static constexpr int span = keys * kHalf * 2;" in FLASH_CU
+    # (r64: D = 32's rows of 64 bytes)
+    assert "static constexpr int keys = r64 ? k32Keys : D > kWCols ? kWideKeys : kWBK;" \
+        in FLASH_CU
+    assert "static constexpr int span = keys * (r64 ? k32RowBytes : kHalf * 2);" in FLASH_CU
     assert "static constexpr int tile = boxes * span;" in FLASH_CU
-    assert "static constexpr int qtile = boxes * kHalfBytes;" in FLASH_CU
+    assert "static constexpr int qtile = r64 ? kWBQ * k32RowBytes : boxes * kHalfBytes;" \
+        in FLASH_CU
     boxes = -(-d // half)
     tile = boxes * bk * half * 2
     assert boxes == 1 and tile == 16 * 1024
@@ -535,7 +541,7 @@ def test_flash_wgmma_geometry_at_64():
     assert c["kNarrowSmem"] == (1024 + c["kHalfBytes"] * (1 + 2 * c["kNarrowStages"])
                                 + 8 * (1 + 3 * c["kNarrowStages"]))
     assert c["kNarrowSmem"] <= SMEM_LIMIT
-    assert SMEM_PICK in FLASH_CU
+    assert SMEM_PICK in FLASH_CU and ONES_PICK in FLASH_CU
     # registers a consumer thread holds across the overlapped loop: the
     # scores (64), o (pv / 2) and the bf16 p of the last tile (32), under
     # the 240 that setmaxnreg gives a consumer
@@ -562,8 +568,9 @@ def test_flash_wgmma_geometry_at_256():
     assert span == keys * half * 2 == 8 * 1024
     assert c["kWideTileBytes"] == boxes * span == 32 * 1024
     assert c["kWideQBytes"] == boxes * c["kHalfBytes"] == 64 * 1024
-    assert "make_map(&tk, k, bh / group, seq_len, ld, WGeo<D>::keys, type)" in FLASH_CU
-    assert "make_map(&tq, q, bh, seq_len, ld, kWBQ, type)" in FLASH_CU
+    assert "make_map(&tk, k, bh / group, seq_len, ld, keys, type, box, sw)" in FLASH_CU
+    assert "make_map(&tq, q, bh, seq_len, ld, kWBQ, type, box, sw)" in FLASH_CU
+    assert "constexpr int keys = WGeo<D>::keys;" in FLASH_CU
     assert "tma_load(ring + s * T + h * SP, map, full + 8 * s, h * kHalf, (lo + it) * KB, kvh);" \
         in FLASH_CU
     assert "tma_load(sQ + h * kHalfBytes, tm_q" in FLASH_CU
@@ -576,7 +583,7 @@ def test_flash_wgmma_geometry_at_256():
     assert c["kWideSmem"] == 197_696 <= SMEM_LIMIT
     assert 1024 + c["kWideQBytes"] + 2 * 3 * c["kWideTileBytes"] > SMEM_LIMIT
     assert "st_shared(bar_empty + 8 * R + 4 * s, 0u);" in FLASH_CU
-    assert SMEM_PICK in FLASH_CU
+    assert SMEM_PICK in FLASH_CU and ONES_PICK in FLASH_CU
     # q.k^T: 16 k-steps of m64n64k16; step kk reads span kk / 4 of q (128
     # rows, kHalfBytes apart) and of k (64 rows, kWideSpanBytes apart), 32 B
     # into the 128-byte row, every column of D exactly once
@@ -607,8 +614,10 @@ def test_flash_wgmma_geometry_at_256():
     assert c["kWideThreads"] == 2 * 128 and budget(c["kWideThreads"] // 32) == 255
     assert pv // 2 + keys // 2 + keys // 4 < 255
     assert "static constexpr int threads = self_load ? kWideThreads : kWThreads;" in FLASH_CU
-    assert "static constexpr bool self_load = D > kWCols || D == 96;" in FLASH_CU
-    assert "__launch_bounds__(WGeo<D>::threads, 1)" in FLASH_CU
+    assert "static constexpr bool self_load = r64 || D > kWCols || D == 96;" in FLASH_CU
+    # one block an SM at 256 (two only at D = 32's 64-key tiles)
+    assert "__launch_bounds__(WGeo<D>::threads, WGeo<D>::blocks)" in FLASH_CU
+    assert "static constexpr int blocks = r64 ? 2 : 1;" in FLASH_CU
     # key tiles a q tile sees, at the tile height: the causal bound reaches
     # the tile of the q tile's last row, the window's its first row's window
     assert "const int hi = causal ? min((q0 + kWBQ - 1) / KB + 1, n_kt) : n_kt;" in FLASH_CU
@@ -635,9 +644,9 @@ def test_flash_tf32_float32_shared_memory_at_256():
     # q's split halves beside the ring would not fit
     assert 2 * rows * qs * 4 + stages * keys * (ks + vs) * 4 > SMEM_LIMIT
     for line in ("static constexpr int qs = (D + 15) / 16 * 16 + 8;",
-                 "static constexpr int ks = sizeof(T) == 4 ? qs : D + 8;",
-                 "static constexpr int vs = sizeof(T) == 4 ? D + 4 : D + 8;",
-                 "rows * qs * 4 + kTStages * keys * (ks + vs) * (int)sizeof(T);",
+                 "static constexpr int ks = qs;",
+                 "static constexpr int vs = D + 4;",
+                 "static constexpr int smem = rows * qs * 4 + kTStages * keys * (ks + vs) * 4;",
                  "static constexpr int keys = wide ? kTWideKeys : kTKeys;"):
         assert line in FLASH_CU
     assert "launch_tf32<T, 256, false>" in cu_function("launch_f32")

@@ -62,5 +62,7 @@ def test_the_wide_decode_rows_are_chip_smokes():
     assert any(d % 128 for _, _, d, name in rows if d * 2 % 16 == 0)
     assert any(d * 2 % 16 for _, _, d, name in rows if name != "float32")
     text = (ROOT / "tools" / "time_attention.py").read_text()
-    for name in ("cs.WIDE_TIMED_DECODE", 'f"wide decode', 'r"decode_wide"', '"HMMA"'):
+    for name in ("cs.WIDE_TIMED_DECODE", 'f"wide decode', 'r"decode_wide"', "cs.sass_counts"):
         assert name in text
+    # the counts are chip_smoke's (HMMA among them)
+    assert '"HMMA"' in (ROOT / "chip_smoke.py").read_text()

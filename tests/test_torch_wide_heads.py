@@ -184,7 +184,7 @@ def emulate_flash_wide(q, k, v, *, causal, window):
                             qp = qw[..., p0:p0 + piece]
                             kp = kt[..., p0:p0 + piece].transpose(1, 2)
                             # float32: each piece in accumulators of its own
-                            part = part + (product(qp, kp, 3, False) if f32 else qp @ kp)
+                            part = part + (product(qp, kp, 3) if f32 else qp @ kp)
                         halves.append(part)
                     sc = halves[0] + halves[1]
                     keep = torch.ones(n_r, bk, dtype=torch.bool)
@@ -197,7 +197,7 @@ def emulate_flash_wide(q, k, v, *, causal, window):
                     if f32:
                         mx = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
                         corr, p = torch.exp(m - mx), torch.exp(sc - mx)
-                        pv = product(p, vt, 3, False)
+                        pv = product(p, vt, 3)
                     else:
                         mx = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
                         mx = torch.where((mx - m) * c <= 8.0, m, mx)  # the lazy maximum

@@ -19,7 +19,8 @@ every config of ``chip_smoke.ATTENTION_ROWS`` in bf16, the recurrent
 hybrid's decode at its serve's length and its flash at its forward's
 length, where the window masks; then the same decode and flash rows in
 float32 at the configs of ``chip_smoke.FLOAT32_ARCHS``, and flash at head
-dim 32 (heads ``chip_smoke.D32_HEADS``) in float32 and bf16; then the rows
+dim 32 (heads ``chip_smoke.D32_HEADS``) in float32 and bf16, then float16
+at 32 and bf16 at 16 (``chip_smoke.D32_TIMED``); then the rows
 off the compiled widths in bf16 (``--only any`` keeps only them):
 Phi-3-mini's ``chip_smoke.PHI3_HEADS``, head dim ``chip_smoke.NARROW_DIM``
 (33, rows that are not whole 16-byte pieces) at 32/4,
@@ -42,9 +43,11 @@ and v expanded to the q heads, which takes ``EFFICIENT_ATTENTION`` where
 ``enable_gqa`` falls back to ``MATH``), whether the host queued both ahead
 of the card (``ahead``; where not, the times hold host gaps), and whether
 the result held to the plain version (``close_enough`` for decode and for
-flash in float32 or at head dim 32, ``flash_bf16_close`` for bf16 flash on
-wgmma). ``--only TEXT`` keeps the rows whose name holds TEXT (their inputs
-then differ from a full run's: the rows draw from one generator in turn).
+flash in float32 or at head dims up to 32 or above 256, ``flash_bf16_close``
+for bf16 and float16 flash at head dims 33 to 256: ``chip_smoke.p_rounded``).
+``--only TEXT`` keeps the rows whose name matches the regular expression TEXT (a plain word matches
+where the name holds it; the rows' inputs then differ from a full run's:
+they draw from one generator in turn).
 
 The rows, the timing, the rules and the ptxas parser are those of the
 ``chip_smoke.py`` beside this script; only the kernels come from DIR, so
@@ -67,29 +70,16 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 
 
-def sass_stats(so: Path, pattern: str) -> dict:
-    """For each kernel of the library ``so`` whose mangled name matches
-    ``pattern``: its wgmma instructions (HGMMA), the waits on them
-    (WARPGROUP.DEPBAR; one after every HGMMA means ptxas serialised them),
-    its mma.sync instructions (HMMA, and HMMA.TF32 those in TF32), its
-    local-memory loads and stores (LDL/STL: spills) and the highest
-    register it names, from ``cuobjdump -sass``."""
+def sass_stats(cs, so: Path, pattern: str) -> dict:
+    """``chip_smoke.sass_counts`` (wgmma instructions and the waits on them,
+    mma.sync and its TF32 form, spills, the highest register) for each
+    kernel of the library ``so`` whose mangled name matches ``pattern``,
+    from ``cuobjdump -sass``."""
     from repro_torch.kernels import build
 
     sass = subprocess.run([str(Path(build.nvcc()).parent / "cuobjdump"), "-sass", str(so)],
                           capture_output=True, text=True, check=True).stdout
-    out = {}
-    for body in re.split(r"\n\s+Function : ", sass)[1:]:
-        name = body.split("\n", 1)[0].strip()
-        if re.search(pattern, name):
-            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", body)]
-            out[name] = {"HGMMA": len(re.findall(r"\bHGMMA\b", body)),
-                         "HMMA": len(re.findall(r"\bHMMA\b", body)),
-                         "HMMA.TF32": len(re.findall(r"\bHMMA\S*TF32", body)),
-                         "WARPGROUP.DEPBAR": len(re.findall(r"WARPGROUP\.DEPBAR", body)),
-                         "LDL/STL": len(re.findall(r"\b(?:LDL|STL)\b", body)),
-                         "highest register": max(regs, default=-1)}
-    return out
+    return cs.sass_counts(sass, pattern)
 
 
 def main() -> int:
@@ -117,10 +107,10 @@ def main() -> int:
     label = args.label or str(root)
     print(f"time_attention: {label}: torch {torch.__version__} on [{smi}]", flush=True)
     cs.build_kernels((fops, dops))
-    stats = sass_stats(build.built_path(fops.SOURCE),
-                       r"flash_wgmmaI\w+Li256E|flash_wgmma_any|flash_tf32|_wide")
+    stats = sass_stats(cs, build.built_path(fops.SOURCE),
+                       r"flash_wgmmaI\w+Li(256|32)E|flash_wgmma_any|flash_tf32|_wide")
     print(f"time_attention: {label}: SASS flash_attention: {json.dumps(stats)}", flush=True)
-    stats = sass_stats(build.built_path(dops.SOURCE), r"decode_wide")
+    stats = sass_stats(cs, build.built_path(dops.SOURCE), r"decode_wide")
     print(f"time_attention: {label}: SASS decode_attention: {json.dumps(stats)}", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -166,7 +156,7 @@ def main() -> int:
         b = len(lens)
         row = (f"{arch} {h}/{hkv} x {d}, B={b}, {str(dtype).split('.')[-1]}, "
                + ("full length" if lens[0] == s else f"length {lens[0]}"))
-        if args.only not in row:
+        if not re.search(args.only, row):
             continue
         q = randn(b, h, d, dtype=dtype)
         k, v = randn(b, hkv, s, d, dtype=dtype), randn(b, hkv, s, d, dtype=dtype)
@@ -186,17 +176,19 @@ def main() -> int:
                    in ((a, cs.ATTENTION_ROWS[a]) for a in cs.FLOAT32_ARCHS)]
     h, hkv = cs.D32_HEADS
     flash_rows += [("head dim 32", h, hkv, 32, cs.FORWARD_LEN, None, dt) for dt in (f32, bf16)]
+    flash_rows += [(f"head dim {d}", h, hkv, d, cs.FORWARD_LEN, None, getattr(torch, name))
+                   for d, name in cs.D32_TIMED]
     for arch, h, hkv, d, fs, window, dtype in flash_rows:
         row = (f"{arch} {h}/{hkv} x {d}, {str(dtype).split('.')[-1]}, S={fs}"
                + (f", window {window}" if window is not None and window < fs else ""))
-        if args.only not in row:
+        if not re.search(args.only, row):
             continue
         q = randn(1, h, fs, d, dtype=dtype)
         k, v = randn(1, hkv, fs, d, dtype=dtype), randn(1, hkv, fs, d, dtype=dtype)
         kw = dict(causal=True, window=window)
         kernel = lambda: fops.flash_attention(q, k, v, **kw)  # noqa: E731
         want = fref.attention_ref(q, k, v, **kw)
-        wgmma = dtype == bf16 and d in fops.WGMMA_HEAD_DIMS
+        wgmma = cs.p_rounded(dtype, d)
         ok = (cs.flash_bf16_close(torch, kernel(), want, cs.flash_yardstick(q, k, v, **kw))[0]
               if wgmma else cs.close_enough(torch, kernel(), want))
         del want
@@ -219,7 +211,7 @@ def main() -> int:
                               ("head dim 160", cs.ANY_TIMED_HEADS),
                               *((f"head dim {n}", (32, 4, n)) for n in (100, 150, 250, 90, 170, 210))):
         row = f"any {name} {h}/{hkv} x {d}, bf16, S={cs.FORWARD_LEN}"
-        if args.only not in row:
+        if not re.search(args.only, row):
             continue
         q = randn(1, h, cs.FORWARD_LEN, d)
         k, v = randn(1, hkv, cs.FORWARD_LEN, d), randn(1, hkv, cs.FORWARD_LEN, d)
@@ -235,7 +227,7 @@ def main() -> int:
     for dtype in (bf16, torch.float16, f32):
         for h, hkv in cs.WIDE_TIMED_FLASH:
             row = f"wide {h}/{hkv} x {d}, {str(dtype).split('.')[-1]}, S={fs}"
-            if args.only not in row:
+            if not re.search(args.only, row):
                 continue
             q = randn(1, h, fs, d, dtype=dtype)
             k, v = randn(1, hkv, fs, d, dtype=dtype), randn(1, hkv, fs, d, dtype=dtype)
@@ -252,7 +244,7 @@ def main() -> int:
     for h, hkv, d, name in cs.WIDE_TIMED_DECODE:
         dtype = getattr(torch, name)
         row = f"wide decode {h}/{hkv} x {d}, B=4, {name}, S={s}, full length"
-        if args.only not in row:
+        if not re.search(args.only, row):
             continue
         q = randn(4, h, d, dtype=dtype)
         k, v = randn(4, hkv, s, d, dtype=dtype), randn(4, hkv, s, d, dtype=dtype)
