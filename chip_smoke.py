@@ -903,6 +903,15 @@ def scan_span(events, run_id):
     return {sid: hi - lo for sid, (lo, hi) in spans.items()}
 
 
+def device_rows(prof):
+    """The device's operations in a finished profile, by name
+    (``key_averages``): kernels, copies and fills.  The program's spans
+    (``lm.*``) appear on the device's timeline too, as user annotations
+    that hold no work; they are left out."""
+    return [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)]
+
+
 def profile_run(torch, runner, smi):
     """torch.profiler over one cold run: wall time, device busy time (sum
     of the device's kernel and copy times; every stage issues its work on
@@ -916,7 +925,7 @@ def profile_run(torch, runner, smi):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     check(res.ok, "the profiled run did not merge")
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    kernels = device_rows(prof)
     if not kernels:
         print(f"pipeline profile: cold run wall {wall!r} s; the profiler recorded no device "
               f"time (device busy share not measured) [{smi}]")
@@ -2224,7 +2233,7 @@ def profile_decode(torch, model, lengths, max_len, what=""):
             model.decode_step(state, toks, lens)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) / PROFILE_STEPS
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    kernels = device_rows(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6 / PROFILE_STEPS
     launches = sum(e.count for e in kernels) / PROFILE_STEPS
     if not kernels:
@@ -2254,7 +2263,7 @@ def profile_forward(torch, model, tokens, patches, what):
         model(tokens, patch_embeds=patches)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    kernels = device_rows(prof)
     if not kernels:
         print(f"{what}profile: forward wall {wall!r} s; the profiler recorded no device time "
               f"(device busy share not measured)")
@@ -2964,7 +2973,7 @@ def train_serve(np, torch, flash_ops, decode_ops, smi):
               f"profiled ones (first step {steps[0]!r} s; all {steps!r}); {tokens / step_s!r} "
               f"tokens/s; peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
         wall = sum(steps[TRAIN_PROFILE_FIRST:TRAIN_PROFILE_FIRST + TRAIN_PROFILE_STEPS])
-        kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        kernels = device_rows(prof)
         if kernels:
             busy = sum(e.self_device_time_total for e in kernels) / 1e6
             print(f"train: profile of steps {TRAIN_PROFILE_FIRST + 1}-"
@@ -3645,7 +3654,7 @@ def device_profile(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    kernels = device_rows(prof)
     if not kernels:
         return wall, None, 0, []
     busy = sum(e.self_device_time_total for e in kernels) / 1e6

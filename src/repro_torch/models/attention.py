@@ -37,6 +37,7 @@ from repro_torch.models.common import (
     linear,
     rmsnorm,
 )
+from repro_torch.telemetry.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,9 +72,10 @@ def init_attention(generator, cfg: AttentionConfig, *, dtype=torch.float32) -> P
     return p
 
 
-def _project_qkv(
-    p: Params, cfg: AttentionConfig, x: torch.Tensor, positions: torch.Tensor
+def _project(
+    p: Params, cfg: AttentionConfig, x: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The q, k and v projections (B, S, H, D), q and k normed with qk_norm."""
     b, s, _ = x.shape
     cd = cfg.compute_dtype
     q = linear(p["wq"], x, compute_dtype=cd).reshape(b, s, cfg.n_heads, cfg.d_head)
@@ -82,10 +84,22 @@ def _project_qkv(
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
-    q = apply_rope(q.transpose(1, 2), positions, theta=cfg.rope_theta)  # (B,H,S,D)
-    k = apply_rope(k.transpose(1, 2), positions, theta=cfg.rope_theta)
-    v = v.transpose(1, 2)
     return q, k, v
+
+
+def _rope(cfg: AttentionConfig, q, k, positions) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RoPE on q and k, each to (B, H, S, D)."""
+    q = apply_rope(q.transpose(1, 2), positions, theta=cfg.rope_theta)
+    k = apply_rope(k.transpose(1, 2), positions, theta=cfg.rope_theta)
+    return q, k
+
+
+def _project_qkv(
+    p: Params, cfg: AttentionConfig, x: torch.Tensor, positions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    q, k, v = _project(p, cfg, x)
+    q, k = _rope(cfg, q, k, positions)
+    return q, k, v.transpose(1, 2)  # (B,H,S,D)
 
 
 def _mask(s: int, t: int, *, causal: bool, window: Optional[int], q_offset, device):
@@ -205,9 +219,16 @@ def _out_proj(p: Params, cfg: AttentionConfig, out: torch.Tensor) -> torch.Tenso
 def attend_train(
     p: Params, cfg: AttentionConfig, x: torch.Tensor, positions: torch.Tensor
 ) -> torch.Tensor:
-    """Causal self-attention over the full sequence."""
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    return _out_proj(p, cfg, _attend(q, k, v, cfg))
+    """Causal self-attention over the full sequence.  Its pieces are the
+    ``lm.attention.*`` spans; ``prefill`` and ``decode_step`` enter none."""
+    with span("lm.attention.qkv"):
+        q, k, v = _project(p, cfg, x)
+    with span("lm.attention.rope"):
+        q, k = _rope(cfg, q, k, positions)
+    with span("lm.attention.kernel"):
+        out = _attend(q, k, v.transpose(1, 2), cfg)
+    with span("lm.attention.out"):
+        return _out_proj(p, cfg, out)
 
 
 # ------------------------------------------------------------------ serving

@@ -48,6 +48,12 @@ and the checkpoints in the same layout.  The serving module stays as it
 is, cast and without gradients, so serving neither slows down nor grows;
 a trained tree becomes a served model through
 ``models.weights.params_from_numpy``.
+
+``forward`` marks its pieces for a running profiler with the spans of
+``repro_torch.telemetry.spans`` (``lm.embed``, ``lm.norm``,
+``lm.attention`` and its parts, ``lm.mlp``, ``lm.head``); the blocks'
+spans mark the training stack's layers too; ``decode_step``, and so
+serving, enters none.  With no profiler they cost a flag check each.
 """
 from __future__ import annotations
 
@@ -83,6 +89,7 @@ from repro_torch.models.common import (
     rmsnorm,
     swiglu,
 )
+from repro_torch.telemetry.spans import span
 from repro_torch.utils.tree import flatten_with_paths, tree_map, unflatten_like
 
 #: block kinds this port serves: every kind of the JAX package
@@ -410,7 +417,8 @@ class LM(nn.Module):
         module or of a params tree (they index alike).  Returns (h, the
         block's aux loss or None)."""
         cfg = self.cfg
-        x = rmsnorm(p["norm1"], h, eps=cfg.norm_eps)
+        with span("lm.norm"):
+            x = rmsnorm(p["norm1"], h, eps=cfg.norm_eps)
         if kind == "mlstm":
             return h + xlstm_mod.mlstm_block(p["mix"], cfg.xlstm_config(), x), None
         if kind == "slstm":
@@ -420,9 +428,13 @@ class LM(nn.Module):
         elif kind in MLA_KINDS:
             h = h + mla_mod.mla_train(p["attn"], cfg.mla_config(), x, positions)
         else:
-            h = h + attn_mod.attend_train(p["attn"], cfg.attention_config(), x, positions)
-        y = rmsnorm(p["norm2"], h, eps=cfg.norm_eps)
-        out, aux = self._ffn(kind, p, y, losses=losses)
+            with span("lm.attention"):
+                a = attn_mod.attend_train(p["attn"], cfg.attention_config(), x, positions)
+            h = h + a
+        with span("lm.norm"):
+            y = rmsnorm(p["norm2"], h, eps=cfg.norm_eps)
+        with span("lm.mlp"):
+            out, aux = self._ffn(kind, p, y, losses=losses)
         return h + out, aux
 
     # ---------------------------------------------------------- forward
@@ -433,7 +445,8 @@ class LM(nn.Module):
         (B, S, K) with codebooks.  With ``num_patches``, ``patch_embeds``
         (B, P, d) go before the text and the logits cover the text only."""
         cfg = self.cfg
-        h = constrain_batch(self._embed_tokens(self._modules, tokens))
+        with span("lm.embed"):
+            h = constrain_batch(self._embed_tokens(self._modules, tokens))
         n_prefix = 0
         if cfg.num_patches and patch_embeds is not None:
             h = torch.cat([patch_embeds.to(h.dtype), h], dim=1)
@@ -443,10 +456,12 @@ class LM(nn.Module):
             h, _ = self._apply_block(kind, p, constrain_batch(h), positions)
             if i == len(cfg.segments[si][0]) - 1:  # a unit's end, as the JAX scan's
                 h = constrain_batch(h)
-        h = rmsnorm(self.final_norm, h, eps=cfg.norm_eps)
+        with span("lm.norm"):
+            h = rmsnorm(self.final_norm, h, eps=cfg.norm_eps)
         if n_prefix:
             h = h[:, n_prefix:]
-        return constrain_logits(self._read_out(self._modules, h))
+        with span("lm.head"):
+            return constrain_logits(self._read_out(self._modules, h))
 
     # --------------------------------------------------------- training
     def init_params(self, generator: Optional[torch.Generator]) -> Params:

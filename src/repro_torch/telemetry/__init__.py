@@ -12,7 +12,10 @@
 * ``repro_torch.telemetry.metrics`` — counters/gauges/histograms behind one
   registry (absorbs ``StoreStats`` bumps + executor latencies);
 * ``repro_torch.telemetry.runlog``  — a run's events persisted to the lake
-  as a GC-able artifact under the ``runlog`` namespace.
+  as a GC-able artifact under the ``runlog`` namespace;
+* ``repro_torch.telemetry.spans``   — the model path's spans (``lm.*``):
+  ``torch.profiler.record_function`` while a profiler records, a flag
+  check otherwise.
 """
 from repro_torch.telemetry.bus import EventBus, Subscription, follow_spool, read_spool
 from repro_torch.telemetry.events import (
