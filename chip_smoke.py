@@ -168,7 +168,9 @@ Phases, each of which fails the script (non-zero exit) on any error:
    over 4 slots of 4096 positions, 16 new tokens each, through the
    kernels (``use_flash_kernel=True``), then ``LM.forward`` on one
    2048-token prompt.  The launch counts, set to 0 just before, must grow
-   by 32 a decode step and 32 a forward.  The same requests and prompt
+   by 32 a decode step and 32 a forward, and the forward must rotate q and
+   k once a layer on ``attention._rope``'s no-grad path (its
+   ``ROPE_CALLS``, printed beside the launches).  The same requests and prompt
    then go through the reference route (``use_flash_kernel=False``), and
    the two routes must agree: teacher-forced decode logits and forward
    logits within LOGIT_TOL (largest) and LOGIT_MEAN_TOL (mean), the
@@ -2405,7 +2407,7 @@ def serve_both_routes(np, torch, flash_ops, decode_ops, model, prompts, long_pro
     flash_attention n_layers times in one forward.  ``what`` prefixes the
     printed lines; ``profile`` adds a profile of PROFILE_STEPS decode
     steps."""
-    from repro_torch.models import LM
+    from repro_torch.models import LM, attention
     from repro_torch.serve import ServeConfig
 
     cfg = model.cfg
@@ -2439,13 +2441,18 @@ def serve_both_routes(np, torch, flash_ops, decode_ops, model, prompts, long_pro
     check(flash_ops.LAUNCHES == 0, f"{what}generate launched flash_attention")
     final_lengths = engine.lengths.copy()
     del engine
+    rope_before = dict(attention.ROPE_CALLS)
     logits_k, fwd_k = forward(model)
     flash_launches = flash_ops.LAUNCHES
+    rope_calls = {path: n - rope_before[path] for path, n in attention.ROPE_CALLS.items()}
     check(flash_launches == cfg.n_layers,
           f"{what}flash_attention launched {flash_launches} times")
     check(decode_ops.LAUNCHES == decode_launches, f"{what}forward launched decode_attention")
+    check(rope_calls == {"three_pass": cfg.n_layers, "autograd": 0},
+          f"{what}the forward's RoPE calls by path: {rope_calls}")
     print(f"{what}main path: decode_attention launches {decode_launches} "
-          f"({cfg.n_layers} x {len(steps_k)} steps), flash_attention launches {flash_launches}")
+          f"({cfg.n_layers} x {len(steps_k)} steps), flash_attention launches {flash_launches}, "
+          f"RoPE calls by path {rope_calls}")
     _, fwd_k2 = forward(model)
     if profile:
         profile_decode(torch, model, final_lengths, scfg.max_len)

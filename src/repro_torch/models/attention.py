@@ -30,12 +30,15 @@ import torch
 from repro_torch.distribution.sharding import constrain_heads
 from repro_torch.models.common import (
     Params,
-    apply_rope,
     device_of,
     init_linear,
     init_rmsnorm,
     linear,
     rmsnorm,
+    rope_mix_table,
+    rope_rotate,
+    rope_rotate_out,
+    rope_tables,
 )
 from repro_torch.telemetry.spans import span
 
@@ -87,11 +90,24 @@ def _project(
     return q, k, v
 
 
+#: ``_rope``'s calls by path since import (read by tests and chip_smoke.py)
+ROPE_CALLS = {"three_pass": 0, "autograd": 0}
+
+
 def _rope(cfg: AttentionConfig, q, k, positions) -> Tuple[torch.Tensor, torch.Tensor]:
-    """RoPE on q and k, each to (B, H, S, D)."""
-    q = apply_rope(q.transpose(1, 2), positions, theta=cfg.rope_theta)
-    k = apply_rope(k.transpose(1, 2), positions, theta=cfg.rope_theta)
-    return q, k
+    """RoPE on q and k (B, S, H, D), each to a contiguous (B, H, S, D),
+    from one set of tables.  Where autograd records q or k, the rotation
+    it differentiates (``rope_rotate``); elsewhere the same numbers in three
+    float32 passes (``rope_rotate_out``, whose ``out=`` writes autograd
+    cannot record)."""
+    q, k = q.transpose(1, 2), k.transpose(1, 2)
+    cos, sin = rope_tables(positions, q.shape[-1], theta=cfg.rope_theta, device=q.device)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
+        ROPE_CALLS["autograd"] += 1
+        return rope_rotate(q, cos, sin), rope_rotate(k, cos, sin)
+    ROPE_CALLS["three_pass"] += 1
+    mix = rope_mix_table(cos, sin)
+    return rope_rotate_out(q, mix), rope_rotate_out(k, mix)
 
 
 def _project_qkv(

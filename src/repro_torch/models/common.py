@@ -19,7 +19,7 @@ stores its matmul weights so, see ``lm.py``) costs no cast.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -85,24 +85,66 @@ def rope_frequencies(d_head: int, *, theta: float = 10000.0, device=None) -> tor
     return 1.0 / (theta**exps)
 
 
+def rope_tables(
+    positions: torch.Tensor,  # (S,) shared, or (B, S) per-sequence (decode)
+    d_head: int,
+    *,
+    theta: float = 10000.0,
+    device=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin of the rotation angles in float32: (S, D/2) for shared
+    positions, (B, 1, S, D/2) for per-sequence ones (broadcast over heads)."""
+    freqs = rope_frequencies(d_head, theta=theta, device=device)  # (D/2,)
+    angles = positions[..., :, None].to(torch.float32) * freqs  # (..., S, D/2)
+    if angles.dim() == 3:  # (B, S, D/2) → broadcast over the head axis
+        angles = angles[:, None]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def rope_rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotates the first half of the head dim against the second half
+    (``x[..., :D/2]`` with ``x[..., D/2:]``), as the JAX code does: each
+    product rounded to float32, their sums rounded to x's dtype."""
+    d = x.shape[-1]
+    x1 = x[..., : d // 2].to(torch.float32)
+    x2 = x[..., d // 2:].to(torch.float32)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope_mix_table(cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """``rope_rotate_out``'s table from ``rope_tables``: (..., S, 2, 2, D/2),
+    indexed [half of x read, half of the output written]: [[cos, sin],
+    [-sin, cos]]."""
+    return torch.stack([cos, sin, -sin, cos], dim=-2).unflatten(-2, (2, 2))
+
+
+def rope_rotate_out(x: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
+    """``rope_rotate``'s result bit for bit, into a fresh contiguous tensor
+    of x's dtype, in three float32 passes and no autograd (``out=``): x to
+    float32 in its own layout; the products p[i, j] = x_i · mix[i, j], one
+    launch a half of x, each rounded to float32; then p[0, j] + p[1, j]
+    rounded once.  x1·cos + x2·(-sin) is x1·cos - x2·sin exactly, and
+    x1·sin + x2·cos is the same sum."""
+    b, h, s, d = x.shape
+    half = d // 2
+    xf = x.to(torch.float32).unflatten(-1, (2, 1, half))  # (B, H, S, 2, 1, D/2)
+    p = torch.empty((2, b, h, s, 2, half), dtype=torch.float32, device=x.device)
+    for i in range(2):
+        torch.mul(xf[..., i, :, :], mix[..., i, :, :], out=p[i])
+    out = torch.empty((b, h, s, d), dtype=x.dtype, device=x.device)
+    torch.add(p[0], p[1], out=out.view(b, h, s, 2, half))
+    return out
+
+
 def apply_rope(
     x: torch.Tensor,          # (B, H, S, D)
     positions: torch.Tensor,  # (S,) shared, or (B, S) per-sequence (decode)
     *,
     theta: float = 10000.0,
 ) -> torch.Tensor:
-    """Rotates the first half of the head dim against the second half
-    (``x[..., :D/2]`` with ``x[..., D/2:]``), as the JAX code does."""
-    d = x.shape[-1]
-    freqs = rope_frequencies(d, theta=theta, device=x.device)  # (D/2,)
-    angles = positions[..., :, None].to(torch.float32) * freqs  # (..., S, D/2)
-    if angles.dim() == 3:  # (B, S, D/2) → broadcast over the head axis
-        angles = angles[:, None]
-    cos, sin = torch.cos(angles), torch.sin(angles)
-    x1 = x[..., : d // 2].to(torch.float32)
-    x2 = x[..., d // 2:].to(torch.float32)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    """RoPE on x at ``positions``: ``rope_rotate`` with its ``rope_tables``."""
+    return rope_rotate(x, *rope_tables(positions, x.shape[-1], theta=theta, device=x.device))
 
 
 # ------------------------------------------------------------------- MLPs
