@@ -8,9 +8,9 @@ drives the program through a short closed loop at the cell's own load
 not say), draws the batches to check from the seed as a run does, and
 compares the program's scores with the reference's.  For each seed of
 ``--control`` it puts the control in the program's place: the reference
-with every product's operands rounded to float8 e4m3
-(``reference.Float8``), the nearest precision below the bf16 the
-configurations state, on the same rows.  One JSON line a reading; the
+with every product's operands in the precision below the one the
+configuration states (the model module's ``control()``: float8 e4m3 below
+bf16 for the Llama cells), on the same rows.  One JSON line a reading; the
 benchmark's own runs never run this.  It needs the card, as a run does.
 """
 import argparse
@@ -42,10 +42,9 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from perfbench import check, job, program, spec
-    from perfbench.reference import lm as reference
+    from perfbench import check, job, spec
     from perfbench.run import BUILD
-    from perfbench.weights import make_tokens, make_weights
+    from perfbench.weights import make_tokens
 
     import repro_torch.kernels.build as kernel_build
 
@@ -55,19 +54,19 @@ def main(argv=None) -> int:
     kernel_build.BUILD_DIR = BUILD / "kernels"
     device = torch.device("cuda", 0)
     cell = spec.load_cell(args.workload)
-    cfg = program.port_config(cell.config)
-    shape = spec.ref_shape(cell.config)
+    cfg = cell.model.port_config(cell.config)
+    shape = cell.model.ref_shape(cell.config)
     traffic = cell.traffic
     n = int(traffic.get("calibrate_batches", 8))
     control = set(seed_list(args.control))
     for seed in sorted(set(seed_list(args.seeds)) | control):
-        weights = make_weights(shape, cfg.n_layers, seed, device)
+        weights = cell.model.make_weights(cell.config, seed, device)
         pool = make_tokens(shape.vocab, n, cell.rows, cell.seq_len, seed, device)
         picked = check.sample(seed, n, int(traffic["check_batches"]))
         rows = torch.cat([pool[i] for i in picked])
         lines = []
         if seed in set(seed_list(args.seeds)):
-            model = program.build(cfg, weights)
+            model = cell.model.build(cfg, weights)
             loop = job.closed_loop(model.forward, pool, clients=int(traffic["clients"]),
                                    batches=n)
             got = np.concatenate([loop.answers[i] for i in picked])
@@ -75,11 +74,11 @@ def main(argv=None) -> int:
             lines.append(("program", got))
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        want = reference.score_rows(weights, rows, shape).cpu().numpy()
+        want = cell.model.score_rows(weights, rows, shape).cpu().numpy()
         ref_s = time.perf_counter() - t
         if seed in control:
-            lines.append(("control", reference.score_rows(weights, rows, shape,
-                                                          reference.Float8()).cpu().numpy()))
+            lines.append(("control", cell.model.score_rows(weights, rows, shape,
+                                                           cell.model.control()).cpu().numpy()))
         for side, got in lines:
             print(json.dumps({"workload": cell.name, "seed": seed, "side": side,
                               "reference_s": ref_s, **check.readings(got, want)}), flush=True)

@@ -1,10 +1,10 @@
 """The comparison that decides ``correct``.
 
 Once the window has closed, ``check_batches`` batches of those it scored
-are drawn from the seed, every row of each: the reference
-(``perfbench/reference/lm.py``) scores the same token ids from the same
-weights in float32, and the program's scores, as they reached the host in
-the window, are held to it.  Two numbers are compared, each with the limit
+are drawn from the seed, every row of each: the plain reference of the
+cell's model (its module's ``score_rows``) scores the same token ids from
+the same weights in float32, and the program's scores, as they reached the
+host in the window, are held to it.  Two numbers are compared, each with the limit
 of ``perfbench/limits/<workload>.json``:
 
 * ``max_gap``: the widest gap |program - reference| over every score of the

@@ -14,9 +14,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from perfbench import check, job, program, roofline, spec, tracing
-from perfbench.reference import lm as reference
-from perfbench.weights import make_tokens, make_weights
+from perfbench import check, job, spec, tracing
+from perfbench.weights import make_tokens
 
 GIB = 2.0 ** 30
 
@@ -37,22 +36,26 @@ def end_to_end(cell: spec.Cell, loop: job.LoopResult, setup_s: float,
     return {m["name"]: values[m["name"]] for m in cell.end_to_end}
 
 
+def work(cell: spec.Cell) -> tracing.Work:
+    """What one of the cell's batches asks of the card, by its model."""
+    return tracing.Work(
+        batch_flops=cell.model.batch_flops(cell.config, cell.rows, cell.seq_len),
+        flash_launch_bound_s=cell.model.flash_launch_bound_s(cell.config, cell.rows,
+                                                             cell.seq_len),
+    )
+
+
 def traced(cell: spec.Cell, forward: Callable, pool, clients: int):
     """The closed loop under torch.profiler for one warm-up step and
     ``trace_batches`` active ones: (loop, window)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     active = int(cell.traffic["trace_batches"])
-    shape = spec.work_shape(cell.config)
-    work = tracing.Work(
-        batch_flops=roofline.batch_flops(shape, cell.rows, cell.seq_len),
-        flash_launch_bound_s=roofline.flash_launch_bound_s(shape, cell.rows, cell.seq_len),
-    )
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=active, repeat=1)) as prof:
         loop = job.closed_loop(forward, pool, clients=clients, batches=active + 1,
                                on_done=prof.step)
-    return loop, tracing.from_profile(prof.events(), active, work)
+    return loop, tracing.from_profile(prof.events(), active, work(cell))
 
 
 def run_cell(cell: spec.Cell, *, seed: int, seconds: float, traced_run: bool,
@@ -62,13 +65,13 @@ def run_cell(cell: spec.Cell, *, seed: int, seconds: float, traced_run: bool,
     dict.  ``make_forward(model, weights)`` gives the timed entry point
     (``model.forward`` when None)."""
     stamps = [("imports", time.perf_counter())]
-    cfg = program.port_config(cell.config)
-    shape = spec.ref_shape(cell.config)
+    cfg = cell.model.port_config(cell.config)
+    shape = cell.model.ref_shape(cell.config)
     traffic = cell.traffic
     clients = int(traffic["clients"])
-    weights = make_weights(shape, cfg.n_layers, seed, device)
+    weights = cell.model.make_weights(cell.config, seed, device)
     stamps.append(("weights", time.perf_counter()))
-    model = program.build(cfg, weights)
+    model = cell.model.build(cfg, weights)
     forward = make_forward(model, weights) if make_forward else model.forward
     pool = make_tokens(shape.vocab, int(traffic["pool_batches"]), cell.rows, cell.seq_len,
                        seed, device)
@@ -99,7 +102,7 @@ def run_cell(cell: spec.Cell, *, seed: int, seconds: float, traced_run: bool,
     if cuda:
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    want = reference.score_rows(weights, rows, shape).cpu().numpy()
+    want = cell.model.score_rows(weights, rows, shape).cpu().numpy()
     log(f"reference: {rows.shape[0]} rows of batches {picked} in "
         f"{time.perf_counter() - t:.3f} s")
     within, checks = check.judge(check.readings(got, want), cell.limits)

@@ -73,7 +73,7 @@ def test_the_float8_control_is_not_correct(workload, seed, small_cell, unguarded
     """The reference in the program's place, its products' operands in
     float8 e4m3 (the precision below the bf16 the configurations state)."""
     cell = small_cell(workload, **CONTROL_SIZE)
-    shape = spec.ref_shape(cell.config)
+    shape = cell.model.ref_shape(cell.config)
 
     def control(model, weights):
         return lambda tokens: reference.logits_rows(weights, tokens, shape, reference.Float8())

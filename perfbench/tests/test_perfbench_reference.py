@@ -17,9 +17,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from perfbench import job, program, spec
+from perfbench import job
 from perfbench.reference import lm as reference
-from perfbench.weights import make_tokens, make_weights
+from perfbench.weights import make_tokens
 from repro_torch.models.lm import LM
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -29,13 +29,13 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
 def small(workload, small_cell):
     cell = small_cell(workload)
-    return cell, spec.ref_shape(cell.config)
+    return cell, cell.model.ref_shape(cell.config)
 
 
 def port_model(cell, weights, dtype):
-    cfg = dataclasses.replace(program.lm_config(cell.config), compute_dtype=dtype)
+    cfg = dataclasses.replace(cell.model.lm_config(cell.config), compute_dtype=dtype)
     model = LM(cfg)
-    sd = program.state_dict(weights, cfg.n_layers)
+    sd = cell.model.state_dict(weights)
     model.load_state_dict({k: v.to(dtype) if v.dim() == 2 else v for k, v in sd.items()},
                           assign=True, strict=True)
     return model
@@ -44,7 +44,7 @@ def port_model(cell, weights, dtype):
 @pytest.mark.parametrize("workload", ["yi-6b.score-4k", "h2o-danube-3-4b.score-4k"])
 def test_the_reference_is_the_port_in_float32(workload, small_cell):
     cell, shape = small(workload, small_cell)
-    weights = make_weights(shape, cell.config["num_hidden_layers"], 5, "cpu")
+    weights = cell.model.make_weights(cell.config, 5, "cpu")
     tokens = make_tokens(shape.vocab, 1, cell.rows, cell.seq_len, 5, "cpu")[0]
     want = reference.logits_rows(weights, tokens, shape)
     got = port_model(cell, weights, torch.float32).forward(tokens)
@@ -55,7 +55,7 @@ def test_the_reference_is_the_port_in_float32(workload, small_cell):
 @pytest.mark.parametrize("workload", ["yi-6b.score-4k", "h2o-danube-3-4b.score-4k"])
 def test_the_port_in_bf16_scores_within_reach_of_the_reference(workload, small_cell):
     cell, shape = small(workload, small_cell)
-    weights = make_weights(shape, cell.config["num_hidden_layers"], 6, "cpu")
+    weights = cell.model.make_weights(cell.config, 6, "cpu")
     tokens = make_tokens(shape.vocab, 1, cell.rows, cell.seq_len, 6, "cpu")[0]
     want = reference.score_rows(weights, tokens, shape)
     got = job.score_batch(port_model(cell, weights, torch.bfloat16).forward, tokens)
@@ -70,7 +70,7 @@ def test_the_window_masks_what_it_should(small_cell):
     reference without it differs, with it matches the port."""
     cell, shape = small("h2o-danube-3-4b.score-4k", small_cell)
     assert shape.window == 16 < cell.seq_len
-    weights = make_weights(shape, cell.config["num_hidden_layers"], 7, "cpu")
+    weights = cell.model.make_weights(cell.config, 7, "cpu")
     tokens = make_tokens(shape.vocab, 1, cell.rows, cell.seq_len, 7, "cpu")[0]
     port = port_model(cell, weights, torch.float32).forward(tokens)
     full = reference.logits_rows(weights, tokens, dataclasses.replace(shape, window=None))

@@ -55,4 +55,5 @@ def test_flash_launch_bound():
 def test_the_config_files_give_these_shapes(name, shape):
     bench = spec.benchmark()
     file = {c["name"]: c["file"] for c in bench["configs"]}[name]
-    assert spec.work_shape(spec.read_json(spec.ROOT / file)) == shape
+    config = spec.read_json(spec.ROOT / file)
+    assert spec.model_module(config).work_shape(config) == shape

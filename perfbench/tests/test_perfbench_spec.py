@@ -68,7 +68,7 @@ def test_each_limit_lies_between_its_readings(workload):
 @pytest.mark.parametrize("workload", CELLS)
 def test_the_port_has_the_widths_of_the_file(workload):
     cell = spec.load_cell(workload)
-    cfg = program.port_config(cell.config)
+    cfg = cell.model.port_config(cell.config)
     assert cfg.use_flash_kernel and cfg.rope_theta == cell.config["rope_theta"]
 
 
@@ -77,13 +77,14 @@ def test_the_port_has_the_widths_of_the_file(workload):
 def test_a_cell_whose_port_config_differs_in_a_width_is_refused(key, value):
     config = dict(spec.load_cell("yi-6b.score-4k").config, **{key: value})
     with pytest.raises(program.ConfigMismatch, match="differs from the cell's file"):
-        program.port_config(config)
+        spec.model_module(config).port_config(config)
 
 
 def test_scalars_that_move_no_work_are_not_widths():
     """Yi-6B's published rope_theta (5e6) and rms_norm_eps (1e-5) differ from
     the port's registry (1e4, 1e-6): the cell runs the published ones."""
-    cfg = program.port_config(spec.load_cell("yi-6b.score-4k").config)
+    cell = spec.load_cell("yi-6b.score-4k")
+    cfg = cell.model.port_config(cell.config)
     assert (cfg.rope_theta, cfg.norm_eps) == (5_000_000.0, 1e-05)
 
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 import bisect
 import re
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from perfbench import roofline
 
@@ -36,9 +36,10 @@ class Op:
 
 @dataclass
 class Work:
-    """What one batch asks of the card (``perfbench/roofline.py``)."""
+    """What one batch asks of the card, as the cell's model module counts
+    it; ``flash_launch_bound_s`` is None for a model with no flash launch."""
     batch_flops: float
-    flash_launch_bound_s: float
+    flash_launch_bound_s: Optional[float]
     peak_flops: float = roofline.PEAK_BF16_FLOPS
 
 
